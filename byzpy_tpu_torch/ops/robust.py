@@ -1,0 +1,183 @@
+"""Byzantine-robust aggregation of an ``(n, d)`` gradient matrix.
+
+Counterpart of ``byzpy_tpu/ops/robust.py`` (main-path subset). Every
+function takes the stacked matrix ``x`` (n nodes, d coordinates) and
+static hyper-parameters. Where the JAX package dispatches to a Pallas
+kernel, this module calls the matching wrapper in :mod:`.kernels`:
+
+* a CUDA tensor with ``n <= 128`` launches the hand-written kernel; a
+  CUDA tensor with ``n > 128`` raises ``NotImplementedError`` (no
+  ``d`` floor: on the card the kernel runs or the call raises);
+* a CPU tensor takes the kernel's plain PyTorch version.
+
+Functions the JAX package leaves to plain XLA (``sort_rows``,
+``krum_scores``, ``ranked_mean``) are plain PyTorch here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from . import kernels
+
+
+def _check_matrix(x: torch.Tensor) -> None:
+    if x.ndim != 2:
+        raise ValueError(f"x must be a 2-D (n, d) matrix, got shape {tuple(x.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# Pairwise geometry
+# ---------------------------------------------------------------------------
+
+
+def gram_matrix(x: torch.Tensor) -> torch.Tensor:
+    """``(n, n)`` Gram matrix ``x @ x.T`` in f32 (the B3 kernel on the card)."""
+    _check_matrix(x)
+    return kernels.gram(x[None])[0]
+
+
+def sort_rows(x: torch.Tensor) -> torch.Tensor:
+    """Columns of ``x`` sorted ascending along axis 0, through the int32
+    total-order key for f32 (and, by an exact f32 round-trip, 16-bit)
+    floats: -inf < finite < +inf < NaN, -0.0 before +0.0, NaN
+    canonicalized. Other dtypes sort as they are."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return kernels.canonical_nan(sort_rows(x.float()).to(x.dtype))
+    if x.dtype == torch.float32:
+        keys = torch.sort(kernels.float_sort_keys(x), dim=0).values
+        return kernels.keys_to_float(keys)
+    return torch.sort(x, dim=0).values
+
+
+def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
+    """``(n, n)`` squared Euclidean distances via the Gram trick, clamped
+    at 0."""
+    g = gram_matrix(x)
+    norms = torch.diagonal(g)
+    d2 = (norms[:, None] + norms[None, :]) - 2.0 * g
+    return torch.where(d2 < 0, torch.zeros_like(d2), d2)  # NaN stays NaN
+
+
+# ---------------------------------------------------------------------------
+# Coordinate-wise aggregators (B1)
+# ---------------------------------------------------------------------------
+
+
+def coordinate_median(x: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median (``jnp.median(x, axis=0)`` semantics: the
+    midpoint of the middle rows in ``x``'s dtype, NaN where a column holds
+    a NaN)."""
+    _check_matrix(x)
+    return kernels.sorted_reduce_stream(x[None], mode="median")[0]
+
+
+def coordinate_median_stream(xs: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over ``K`` stacked rounds ``(K, n, d)``."""
+    return kernels.sorted_reduce_stream(xs, mode="median")
+
+
+def trimmed_mean(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Coordinate-wise trimmed mean: drop the ``f`` smallest and ``f``
+    largest values of each coordinate, average the middle ``n - 2f``."""
+    _check_matrix(x)
+    n = x.shape[0]
+    if not 0 <= 2 * f < n:
+        raise ValueError(f"trim parameter f must satisfy 0 <= 2f < n (got n={n}, f={f})")
+    return kernels.sorted_reduce_stream(x[None], mode="trimmed", f=f)[0]
+
+
+def trimmed_mean_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
+    """f-trimmed coordinate mean over ``K`` stacked rounds ``(K, n, d)``."""
+    return kernels.sorted_reduce_stream(xs, mode="trimmed", f=f)
+
+
+# ---------------------------------------------------------------------------
+# Geometric aggregators (B3 + B4)
+# ---------------------------------------------------------------------------
+
+
+def krum_scores(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Krum score per node: the sum of squared distances to its
+    ``n - f - 1`` nearest neighbours, self excluded (the sorted row's first
+    entry is the self-distance 0)."""
+    _check_matrix(x)
+    n = x.shape[0]
+    if not 0 <= f < n - 1:
+        raise ValueError(f"f must satisfy 0 <= f < n-1 (got n={n}, f={f})")
+    row_sorted = torch.sort(pairwise_sq_dists(x), dim=1).values
+    return row_sorted[:, 1:n - f].sum(dim=1)
+
+
+def _nan_last_ranks(scores: torch.Tensor) -> torch.Tensor:
+    """Rank of each row under the order every selection shares: ascending
+    score, ties by row index, NaN scores last (a NaN-score row must never
+    rank first)."""
+    n = scores.shape[0]
+    isnan = torch.isnan(scores)
+    s = torch.where(isnan, torch.zeros_like(scores), scores)
+    s = torch.where(s == 0, torch.zeros_like(s), s)  # -0.0 ties +0.0
+    order = torch.argsort(s, stable=True)
+    order = order[torch.argsort(isnan[order].to(torch.int8), stable=True)]
+    ranks = torch.empty(n, dtype=torch.int64, device=scores.device)
+    ranks[order] = torch.arange(n, device=scores.device)
+    return ranks
+
+
+def ranked_mean(x: torch.Tensor, scores: torch.Tensor, q: int) -> torch.Tensor:
+    """Mean of the ``q`` lowest-score rows of ``x`` (ties by index, NaN
+    scores last). Rows not selected are zeroed before the contraction, so
+    a non-finite row that is not chosen cannot leak in."""
+    selected = _nan_last_ranks(scores) < q
+    w = torch.where(selected, 1.0 / q, 0.0).to(torch.float32)
+    xm = torch.where(selected[:, None], x.float(), torch.zeros((), device=x.device))
+    return (w @ xm).to(x.dtype)
+
+
+def multi_krum(x: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
+    """Multi-Krum: the mean of the ``q`` rows with the lowest Krum score
+    (the fused B3 + B4 kernels on the card)."""
+    _check_matrix(x)
+    n = x.shape[0]
+    if not 1 <= q <= n - f:
+        raise ValueError(f"q must satisfy 1 <= q <= n - f (got n={n}, f={f}, q={q})")
+    return kernels.selection_mean_stream(x[None], f=f, q=q, mode="krum")[0]
+
+
+def multi_krum_stream(xs: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
+    """Multi-Krum over ``K`` stacked rounds ``(K, n, d)``."""
+    return kernels.selection_mean_stream(xs, f=f, q=q, mode="krum")
+
+
+def krum(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Classic Krum = Multi-Krum with ``q=1``."""
+    return multi_krum(x, f=f, q=1)
+
+
+def aggregate_stream(
+    agg_fn: Callable[[torch.Tensor], torch.Tensor], xs: torch.Tensor
+) -> torch.Tensor:
+    """Apply ``agg_fn`` to each of ``K`` stacked matrices ``(K, n, d)`` and
+    stack the ``(K, d)`` results."""
+    if xs.ndim != 3:
+        raise ValueError(f"xs must be (K, n, d), got shape {tuple(xs.shape)}")
+    return torch.stack([agg_fn(xs[k]) for k in range(xs.shape[0])])
+
+
+__all__ = [
+    "aggregate_stream",
+    "coordinate_median",
+    "coordinate_median_stream",
+    "gram_matrix",
+    "krum",
+    "krum_scores",
+    "multi_krum",
+    "multi_krum_stream",
+    "pairwise_sq_dists",
+    "ranked_mean",
+    "sort_rows",
+    "trimmed_mean",
+    "trimmed_mean_stream",
+]

@@ -1,0 +1,133 @@
+"""Parameter-server training round, single-device form.
+
+Counterpart of ``byzpy_tpu/parallel/ps.py:build_ps_train_step`` with no
+mesh, ``comm_precision`` off and the sharded update off. One step:
+
+1. per-node gradients of every node's batch, ``torch.func.vmap`` over
+   ``torch.func.grad_and_value`` of the loss (the JAX ``vmap`` at :403);
+2. the byzantine rows: the attack's output replaces the last
+   ``n_byzantine`` rows of the ``(n, d)`` gradient matrix (:345);
+3. the optional ``pre_aggregate`` hook, then ``aggregate(matrix)`` (:441);
+   on the card this is where the hand-written kernels run;
+4. SGD with momentum (:75, :479-481), exactly ``optax.sgd(lr, momentum)``.
+
+The step is a pure function of its inputs, like the JAX one: parameters
+and optimizer state are returned anew, never updated in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from ..models.bundle import ModelBundle, Params
+from ..utils.trees import ravel_fn
+
+AggFn = Callable[[torch.Tensor], torch.Tensor]      # (n, d) -> (d,)
+PreAggFn = Callable[[torch.Tensor], torch.Tensor]   # (n, d) -> (m, d)
+# attack: (honest (h, d), generator) -> (n_byz, d) or (d,)
+AttackFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
+OptState = Dict[str, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class PSStepConfig:
+    n_nodes: int
+    n_byzantine: int = 0
+    learning_rate: float = 0.05
+    momentum: float = 0.9
+
+    @property
+    def n_honest(self) -> int:
+        return self.n_nodes - self.n_byzantine
+
+
+class SGD:
+    """SGD with heavy-ball momentum on a flat parameter vector, equal to
+    ``optax.sgd(learning_rate, momentum)``: the trace starts at zero and
+    becomes ``g + momentum * trace``, the update is ``-lr * trace`` (so
+    step 1's trace is ``g``: torch's SGD with dampening 0)."""
+
+    def __init__(self, learning_rate: float, momentum: Optional[float] = None):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+
+    def init(self, flat_params: torch.Tensor) -> OptState:
+        return {"trace": torch.zeros_like(flat_params)} if self.momentum else {}
+
+    def step(
+        self, flat_params: torch.Tensor, grad: torch.Tensor, state: OptState
+    ) -> Tuple[torch.Tensor, OptState]:
+        if self.momentum:
+            trace = grad + self.momentum * state["trace"]
+            state = {"trace": trace}
+        else:
+            trace = grad
+        return flat_params + trace * (-self.learning_rate), state
+
+
+def default_optimizer(cfg: PSStepConfig) -> SGD:
+    """SGD + momentum, matching the reference examples' torch SGD."""
+    return SGD(cfg.learning_rate, momentum=cfg.momentum)
+
+
+def build_ps_train_step(
+    bundle: ModelBundle,
+    aggregate: AggFn,
+    cfg: PSStepConfig,
+    *,
+    attack: Optional[AttackFn] = None,
+    pre_aggregate: Optional[PreAggFn] = None,
+) -> Tuple[Callable, OptState]:
+    """Build ``(train_step, opt_state0)``.
+
+    ``train_step(params, opt_state, xs, ys, generator=None)`` takes
+    per-node batches stacked on a leading node axis (``xs: (n_nodes, B,
+    28, 28, 1)``, ``ys: (n_nodes, B)``) and returns ``(params, opt_state,
+    metrics)``; metrics are the mean honest loss and the aggregated
+    gradient's norm. ``generator`` feeds a randomized attack. With
+    ``n_byzantine > 0`` and no attack, byzantine rows echo honest rows."""
+    opt = default_optimizer(cfg)
+    ravel, unravel = ravel_fn(bundle.params)
+    names = list(bundle.params)
+    h, b = cfg.n_honest, cfg.n_byzantine
+    if not 0 <= b < cfg.n_nodes:
+        raise ValueError(f"need 0 <= n_byzantine < n_nodes (got {b}/{cfg.n_nodes})")
+    per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+    opt_state0 = opt.init(ravel(bundle.params))
+
+    def build_matrix(grads_n: torch.Tensor, generator) -> torch.Tensor:
+        honest = grads_n[:h]
+        if not b:
+            return honest
+        if attack is not None:
+            byz = attack(honest, generator)
+        else:
+            byz = honest.repeat((b + h - 1) // h, 1)[:b]
+        byz = byz.expand(b, honest.shape[1]).to(honest.dtype)
+        return torch.cat([honest, byz], dim=0)
+
+    def train_step(params: Params, opt_state: OptState, xs, ys, generator=None):
+        if xs.shape[0] != cfg.n_nodes or ys.shape[0] != cfg.n_nodes:
+            raise ValueError(
+                f"expected {cfg.n_nodes} node batches, got {xs.shape[0]} and {ys.shape[0]}"
+            )
+        grads, losses = per_node(params, xs, ys)
+        flat = torch.cat([grads[k].reshape(cfg.n_nodes, -1) for k in names], dim=1)
+        matrix = build_matrix(flat, generator)
+        if pre_aggregate is not None:
+            matrix = pre_aggregate(matrix)
+        flat_params = ravel(params)
+        agg = aggregate(matrix).to(flat_params.dtype)
+        agg_norm = torch.sqrt(torch.sum(agg * agg))
+        new_flat, opt_state = opt.step(flat_params, agg, opt_state)
+        metrics = {"honest_loss": losses[:h].mean(), "agg_grad_norm": agg_norm}
+        return unravel(new_flat), opt_state, metrics
+
+    return train_step, opt_state0
+
+
+__all__ = ["AggFn", "AttackFn", "PSStepConfig", "SGD", "build_ps_train_step", "default_optimizer"]
