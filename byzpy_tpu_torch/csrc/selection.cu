@@ -14,70 +14,37 @@
 //      not special-cased, the sort drops it; cge scores are the norms,
 //      monna scores d2[ref]. Ranks put NaN last, pads after NaN, ties by
 //      index; the q lowest get weight 1/q in f32 (:862-883).
-//   3. byz_weighted_rows: out = sum_i (w_i > 0 ? x_i : 0) * w_i in f32,
+//   3. byz_weighted_rows: out = sum_i (w_i != 0 ? x_i : 0) * w_i in f32,
 //      rows ascending, cast to the input dtype (:967-971).
 //
 // Bound: memory. The Gram reads x once and the sweep reads the q selected
 // rows once; phase 2 touches only (n, n) data. Design: the sweep is one
 // thread per column with coalesced row loads and rows of weight 0 skipped,
 // so it reads q / n of x instead of all of it.
+//
+// The sweep also serves B9 and B10 (nnm.cu, clip_selection.cu), whose
+// weights are NaN everywhere when the selection took a non-finite row
+// (pallas_kernels.py:1454, :1543). It therefore reads every row whose
+// weight is not 0, NaN included, so such a weight poisons every column as
+// the reference's sum does. B4's weights are 1/q or 0, so its output is
+// the one the w > 0 rule gave. Rows the reference zeroes as tainted carry
+// weight 0 or sit in an all-NaN weight vector, so the sweep needs no taint
+// argument: skipping a weight-0 row drops a term that is exactly +-0.
 
-#include "common.cuh"
+#include "selection.cuh"
 
 namespace {
 
-enum SelectionMode { kKrum = 0, kCge = 1, kMonna = 2 };
-
 constexpr int kRowThreads = 256;
-
-// max(n_i + n_j - 2 g, 0), NaN kept (jnp.maximum propagates NaN).
-__device__ __forceinline__ float sq_dist(float ni, float nj, float g) {
-  const float v = __fsub_rn(__fadd_rn(ni, nj), __fmul_rn(2.0f, g));
-  return (v < 0.0f) ? 0.0f : v;
-}
 
 template <int NPAD>
 __global__ void __launch_bounds__(NPAD)
 selection_weights_kernel(const float* __restrict__ gram, float* __restrict__ w,
                          int n, int f, int q, int mode, int ref) {
-  __shared__ float norms[NPAD];
-  __shared__ float score_s[NPAD];
-  __shared__ int bad_s[NPAD];
   const int k = blockIdx.x, j = threadIdx.x;
-  const float* g = gram + (long long)k * n * n;
-  norms[j] = (j < n) ? g[j * n + j] : 0.0f;
-  __syncthreads();
-  float score = 0.0f;
-  if (j < n) {
-    if (mode == kCge) {
-      score = norms[j];
-    } else if (mode == kMonna) {
-      score = sq_dist(norms[ref], norms[j], g[ref * n + j]);
-    } else {
-      int32_t keys[NPAD];
-#pragma unroll
-      for (int i = 0; i < NPAD; ++i) {
-        keys[i] = PAD_KEY;
-        if (i < n) keys[i] = float_sort_key(sq_dist(norms[i], norms[j], g[i * n + j]));
-      }
-      batcher_sort<NPAD>(keys);
-      score = sum_sorted_range(keys, 1, n - f);
-    }
-  }
-  const int bad = (j >= n || isnan(score)) ? 1 : 0;
-  score_s[j] = bad ? 0.0f : score;
-  bad_s[j] = bad;
-  __syncthreads();
-  if (j >= n) return;
-  const float sj = score_s[j];
-  int rank = 0;
-  for (int c = 0; c < NPAD; ++c) {
-    const int bc = bad_s[c];
-    const float sc = score_s[c];
-    const bool before = (!bc && bad) || (bc == bad && (sc < sj || (sc == sj && c < j)));
-    rank += before ? 1 : 0;
-  }
-  w[(long long)k * n + j] = (rank < q) ? 1.0f / (float)q : 0.0f;
+  const float wj = selection_weight<NPAD>(DenseGram{gram + (long long)k * n * n, n}, n, f, q,
+                                          mode, ref);
+  if (j < n) w[(long long)k * n + j] = wj;
 }
 
 template <typename T>
@@ -94,8 +61,8 @@ weighted_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
   float acc = 0.0f;
   for (int i = 0; i < n; ++i) {
     const float wi = ws[i];
-    // a weight-0 row adds exactly +0 in the reference: skip its read
-    if (wi > 0.0f) acc = __fadd_rn(acc, __fmul_rn(to_f32(xk[(long long)i * d]), wi));
+    // a weight-0 row adds exactly +-0 in the reference: skip its read
+    if (wi != 0.0f) acc = __fadd_rn(acc, __fmul_rn(to_f32(xk[(long long)i * d]), wi));
   }
   out[(long long)k * d + c] = from_f32<T>(acc);
 }

@@ -26,13 +26,14 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("sorted_reduce", "gram", "selection")
+SOURCES = ("sorted_reduce", "gram", "selection", "nnm", "clip_selection")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_c_float = ctypes.c_float
 # C signature of every exported function: (library, argtypes)
 SIGNATURES = {
     "byz_sorted_reduce": ("sorted_reduce", [
@@ -47,6 +48,21 @@ SIGNATURES = {
     ]),
     "byz_weighted_rows": ("selection", [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_void_p,
+    ]),
+    "byz_nnm_weights": ("nnm", [
+        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
+    ]),
+    "byz_mix_rows": ("nnm", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_ll, _c_int,
+        _c_int, _c_void_p,
+    ]),
+    "byz_nnm_selection_weights": ("nnm", [
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_void_p,
+    ]),
+    "byz_clip_selection_weights": ("clip_selection", [
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
+        _c_int, _c_int, _c_void_p,
     ]),
 }
 

@@ -17,7 +17,14 @@ Kernels (TPU kernel they replace -> CUDA source):
 * B3 ``gram``: ``_gram_kernel`` (:289) and the Gram phase of the fused
   selection kernel (:820) -> ``csrc/gram.cu``;
 * B4 ``selection_mean_stream``: ``_selection_mean_stream_kernel`` (:928)
-  -> ``csrc/gram.cu`` + ``csrc/selection.cu``.
+  -> ``csrc/gram.cu`` + ``csrc/selection.cu``;
+* B8 ``nnm_stream``: ``_nnm_stream_kernel`` (:1245) -> ``csrc/gram.cu`` +
+  ``csrc/nnm.cu``;
+* B9 ``nnm_selection_mean_stream``: ``_nnm_selection_stream_kernel``
+  (:1380) -> ``csrc/gram.cu`` + ``csrc/nnm.cu`` + B4's row sweep;
+* B10 ``clip_selection_mean_stream`` / ``arc_selection_mean_stream``:
+  ``_clip_selection_stream_kernel`` (:1466) -> ``csrc/gram.cu`` +
+  ``csrc/clip_selection.cu`` + B4's row sweep.
 
 Dtypes are f32, bf16 and f16, accumulated in f32. A network holds at most
 ``MAX_NETWORK_ROWS`` rows: a larger ``n`` on the card raises
@@ -36,11 +43,14 @@ _INF_KEY = 0x7F800000  # sort key of +inf; canonical NaN keys upper-bound it
 _CANONICAL_NAN_BITS = 0x7FC00000
 _SORT_MODES = {"median": 0, "trimmed": 1}
 _SELECTION_MODES = {"krum": 0, "cge": 1, "monna": 2}
+_CLIP_MODES = {"clip": 0, "arc": 1}
 # split-K Gram: aim for this many blocks per SM of the card, with chunks of
 # at least _GRAM_MIN_CHUNK columns (16 shared-memory tiles) each
 _GRAM_BLOCKS_PER_SM = 4
 _GRAM_TK = 32
 _GRAM_MIN_CHUNK = 16 * _GRAM_TK
+# B8's mixing sweep: blocks per SM that stride over the 32-column tiles
+_MIX_BLOCKS_PER_SM = 8
 
 # Launches of each kernel since the last reset, keyed "kernel" or
 # "kernel:mode". Only a wrapper's CUDA branch adds to it, right after its
@@ -53,6 +63,13 @@ launch_counts = {
     "selection_weights:cge": 0,
     "selection_weights:monna": 0,
     "weighted_rows": 0,
+    "nnm_weights": 0,
+    "mix_rows": 0,
+    "nnm_selection_weights:krum": 0,
+    "nnm_selection_weights:cge": 0,
+    "nnm_selection_weights:monna": 0,
+    "clip_selection_weights:clip": 0,
+    "clip_selection_weights:arc": 0,
 }
 
 
@@ -149,6 +166,15 @@ def _check_cuda_input(x: torch.Tensor, n: int) -> None:
         )
     if not x.is_contiguous():
         raise ValueError("CUDA kernels take contiguous tensors")
+
+
+def _check_gram(g: torch.Tensor) -> tuple:
+    """``(K, n)`` of a ``(K, n, n)`` float32 Gram stack; raises otherwise."""
+    _check_ndim(g, 3, "gram")
+    K, n, n2 = g.shape
+    if n != n2 or g.dtype != torch.float32:
+        raise ValueError(f"gram must be (K, n, n) float32, got {tuple(g.shape)} {g.dtype}")
+    return K, n
 
 
 def _call(fn: str, *args) -> None:
@@ -339,10 +365,7 @@ def selection_weights(
 ) -> torch.Tensor:
     """``(K, n)`` f32 weights from ``(K, n, n)`` Gram matrices: ``1/q`` on
     the ``q`` lowest-score rows, else 0 (B4 phase 2)."""
-    _check_ndim(g, 3, "gram")
-    K, n, n2 = g.shape
-    if n != n2 or g.dtype != torch.float32:
-        raise ValueError(f"gram must be (K, n, n) float32, got {tuple(g.shape)} {g.dtype}")
+    K, n = _check_gram(g)
     check_selection_args(n, f=f, q=q, mode=mode, reference_index=reference_index)
     if _on_cpu(g):
         return selection_weights_plain(g, f=f, q=q, mode=mode, reference_index=reference_index)
@@ -359,14 +382,21 @@ def selection_weights(
     return w
 
 
+def _sq_dists(g: torch.Tensor) -> torch.Tensor:
+    """``d2[:, i, j] = max(G_ii + G_jj - 2 G_ij, 0)`` of a Gram stack, NaN
+    kept (the kernels' ``sq_dist``)."""
+    norms = torch.diagonal(g, dim1=1, dim2=2)
+    d2 = (norms[:, :, None] + norms[:, None, :]) - 2.0 * g
+    return torch.where(d2 < 0, torch.zeros_like(d2), d2)
+
+
 def selection_weights_plain(
     g: torch.Tensor, *, f: int, q: int, mode: str, reference_index: int = 0
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`selection_weights`."""
     n = g.shape[1]
     norms = torch.diagonal(g, dim1=1, dim2=2)
-    d2 = (norms[:, :, None] + norms[:, None, :]) - 2.0 * g
-    d2 = torch.where(d2 < 0, torch.zeros_like(d2), d2)  # NaN stays NaN
+    d2 = _sq_dists(g)
     if mode == "cge":
         scores = norms
     elif mode == "monna":
@@ -391,8 +421,11 @@ def selection_weights_plain(
 
 
 def weighted_rows(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``(K, d)`` sums ``sum_i (w_i > 0 ? x_i : 0) * w_i`` in f32, rows
-    ascending, cast to ``xs``'s dtype (B4 phase 3)."""
+    """``(K, d)`` sums ``sum_i (w_i != 0 ? x_i : 0) * w_i`` in f32, rows
+    ascending, cast to ``xs``'s dtype (B4 phase 3, and the sweep of B9 and
+    B10). A NaN weight is read, so the all-NaN weights of a selection that
+    took a non-finite row give an all-NaN output, as in the reference; a
+    row of weight 0 is never read."""
     _check_ndim(xs, 3, "xs")
     _check_float(xs)
     K, n, d = xs.shape
@@ -416,22 +449,386 @@ def weighted_rows(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def weighted_rows_plain(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`weighted_rows`."""
-    sel = w > 0
+    sel = w != 0
     rows = torch.where(sel[:, :, None], xs.float(), torch.zeros((), device=xs.device)) * w[:, :, None]
     return canonical_nan(_sequential_row_sum(rows).to(xs.dtype))
 
 
+# ---------------------------------------------------------------------------
+# B8: Nearest-Neighbour Mixing
+# ---------------------------------------------------------------------------
+
+
+def nnm_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Nearest-Neighbour Mixing of ``K`` stacked rounds ``xs: (K, n, d)``
+    (B8; ref ``pallas_kernels.nnm_stream_pallas``): each row becomes the
+    mean of its ``k = n - f`` nearest rows, self included, ties by row
+    index, NaN distances last; a row that selected a row whose squared norm
+    is not finite becomes NaN. Returns ``(K, n, d)`` in ``xs``'s dtype.
+
+    A composition of :func:`gram`, :func:`nnm_weights` and
+    :func:`mix_rows`, which count their own launches; an empty input
+    launches nothing."""
+    _check_ndim(xs, 3, "xs")
+    K, n, d = xs.shape
+    if not 0 <= f < n:
+        raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+    _check_float(xs)
+    if K == 0 or d == 0:
+        return xs.new_empty((K, n, d))
+    mask, sel_taint = nnm_weights(gram(xs), k=n - f)
+    return mix_rows(xs, mask, sel_taint, k=n - f)
+
+
+def nnm_weights(g: torch.Tensor, *, k: int) -> tuple:
+    """NNM's selection state from ``(K, n, n)`` Gram matrices (B8 phase
+    2): ``mask (K, n, n)`` f32, 1 at ``[:, j, i]`` iff row ``i`` mixes row
+    ``j`` (one of its ``k`` nearest) and row ``j``'s squared norm is
+    finite; ``sel_taint (K, n)`` f32, 1 where row ``i`` selected a row
+    whose squared norm is not finite."""
+    K, n = _check_gram(g)
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, n] (got k={k}, n={n})")
+    if _on_cpu(g):
+        return nnm_weights_plain(g, k=k)
+    _check_cuda_input(g, n)
+    mask = torch.empty((K, n, n), dtype=torch.float32, device=g.device)
+    sel_taint = torch.empty((K, n), dtype=torch.float32, device=g.device)
+    if K == 0:
+        return mask, sel_taint
+    with torch.cuda.device(g.device):
+        _call("byz_nnm_weights", g.data_ptr(), mask.data_ptr(), sel_taint.data_ptr(), K, n, k,
+              _stream(g))
+    launch_counts["nnm_weights"] += 1
+    return mask, sel_taint
+
+
+def nnm_weights_plain(g: torch.Tensor, *, k: int) -> tuple:
+    """Plain PyTorch version of :func:`nnm_weights`: per column, the keys
+    below the ``k``-th smallest plus keys equal to it in row order until
+    ``k`` are taken (ref ``_stable_k_select_mask``)."""
+    keys = float_sort_keys(_sq_dists(g).contiguous())  # keys[:, j, i]: row j, mixer i
+    cut = torch.sort(keys, dim=1).values[:, k - 1:k, :]
+    below = keys < cut
+    at = keys == cut
+    quota = k - below.sum(dim=1, keepdim=True)
+    sel = below | (at & (torch.cumsum(at, dim=1) <= quota))
+    taint = ~torch.isfinite(torch.diagonal(g, dim1=1, dim2=2))[:, :, None]
+    return (sel & ~taint).float(), (sel & taint).any(dim=1).float()
+
+
+def mix_rows(
+    xs: torch.Tensor, mask: torch.Tensor, sel_taint: torch.Tensor, *, k: int
+) -> torch.Tensor:
+    """``(K, n, d)`` mixed rows ``out[:, i] = (sum_j mask[:, j, i] x_j) / k``
+    in f32, rows ``j`` ascending, NaN where ``sel_taint``, cast to ``xs``'s
+    dtype (B8 phase 3). ``mask`` is 0/1 and clear on rows that are not
+    finite, as :func:`nnm_weights` makes it; only selected rows are
+    added."""
+    _check_ndim(xs, 3, "xs")
+    _check_float(xs)
+    K, n, d = xs.shape
+    if mask.shape != (K, n, n) or mask.dtype != torch.float32:
+        raise ValueError(f"mask must be ({K}, {n}, {n}) float32, got {tuple(mask.shape)} {mask.dtype}")
+    if sel_taint.shape != (K, n) or sel_taint.dtype != torch.float32:
+        raise ValueError(
+            f"sel_taint must be ({K}, {n}) float32, got {tuple(sel_taint.shape)} {sel_taint.dtype}"
+        )
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, n] (got k={k}, n={n})")
+    if _on_cpu(xs, mask, sel_taint):
+        return mix_rows_plain(xs, mask, sel_taint, k=k)
+    for t in (xs, mask, sel_taint):
+        _check_cuda_input(t, n)
+    out = torch.empty_like(xs)
+    if out.numel() == 0:
+        return out
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    with torch.cuda.device(xs.device):
+        _call(
+            "byz_mix_rows", xs.data_ptr(), mask.data_ptr(), sel_taint.data_ptr(), out.data_ptr(),
+            K, n, k, d, _MIX_BLOCKS_PER_SM * sms, _DTYPE_CODES[xs.dtype], _stream(xs),
+        )
+    launch_counts["mix_rows"] += 1
+    return out
+
+
+def mix_rows_plain(
+    xs: torch.Tensor, mask: torch.Tensor, sel_taint: torch.Tensor, *, k: int
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`mix_rows` (an unselected row adds
+    +0, which leaves every sum as it is)."""
+    x = xs.float()
+    acc = torch.zeros_like(x)
+    for j in range(xs.shape[1]):
+        acc = acc + torch.where(mask[:, j, :, None] != 0, x[:, j, None, :], 0.0)
+    out = torch.where(sel_taint[:, :, None] != 0, float("nan"), _true_div(acc, k))
+    return canonical_nan(out.to(xs.dtype))
+
+
+# ---------------------------------------------------------------------------
+# B9: NNM -> selection mean through the collapsed Gram
+# ---------------------------------------------------------------------------
+
+
+def nnm_selection_mean_stream(
+    xs: torch.Tensor,
+    *,
+    f_nnm: int,
+    f: int,
+    q: int,
+    mode: str = "krum",
+    reference_index: int = 0,
+) -> torch.Tensor:
+    """Selection mean of the NNM-mixed rows of ``K`` stacked rounds
+    ``xs: (K, n, d)``, returning ``(K, d)`` in ``xs``'s dtype, with the
+    mixed matrix never built (B9; ref
+    ``pallas_kernels.nnm_selection_mean_stream_pallas``): the mixed rows'
+    Gram is ``A^T G~ A / k^2`` and their selected mean the source-row
+    weights ``A w_sel / k``, NaN when a mixed row that selected a
+    non-finite row is chosen.
+
+    A composition of :func:`gram`, :func:`nnm_selection_weights` and
+    :func:`weighted_rows`; an empty input launches nothing."""
+    if mode not in _SELECTION_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_ndim(xs, 3, "xs")
+    K, n, d = xs.shape
+    if not 0 <= f_nnm < n:
+        raise ValueError(f"f_nnm must satisfy 0 <= f_nnm < n (got {f_nnm})")
+    check_selection_args(n, f=f, q=q, mode=mode, reference_index=reference_index)
+    _check_float(xs)
+    if K == 0 or d == 0:
+        return xs.new_empty((K, d))
+    w = nnm_selection_weights(
+        gram(xs), k=n - f_nnm, f=f, q=q, mode=mode, reference_index=reference_index
+    )
+    return weighted_rows(xs, w)
+
+
+def nnm_selection_weights(
+    g: torch.Tensor, *, k: int, f: int, q: int, mode: str = "krum", reference_index: int = 0
+) -> torch.Tensor:
+    """``(K, n)`` f32 source-row weights ``w_eff`` of B9 from ``(K, n, n)``
+    Gram matrices, ``k = n - f_nnm`` (B9 phase 2)."""
+    K, n = _check_gram(g)
+    if not 1 <= k <= n:
+        raise ValueError(f"k must be in [1, n] (got k={k}, n={n})")
+    check_selection_args(n, f=f, q=q, mode=mode, reference_index=reference_index)
+    if _on_cpu(g):
+        return nnm_selection_weights_plain(
+            g, k=k, f=f, q=q, mode=mode, reference_index=reference_index
+        )
+    _check_cuda_input(g, n)
+    w = torch.empty((K, n), dtype=torch.float32, device=g.device)
+    if K == 0:
+        return w
+    with torch.cuda.device(g.device):
+        _call(
+            "byz_nnm_selection_weights", g.data_ptr(), w.data_ptr(), K, n, k, f, q,
+            _SELECTION_MODES[mode], reference_index, _stream(g),
+        )
+    launch_counts[f"nnm_selection_weights:{mode}"] += 1
+    return w
+
+
+def _ordered_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` in f32 with each sum taken in ascending index
+    order, one rounding per add; one factor is 0/1, so every product is
+    exact and this is the kernels' order of adds."""
+    acc = torch.zeros((a.shape[0], a.shape[1], b.shape[2]), dtype=torch.float32, device=a.device)
+    for j in range(a.shape[2]):
+        acc = acc + a[:, :, j, None] * b[:, None, j, :]
+    return acc
+
+
+def nnm_selection_weights_plain(
+    g: torch.Tensor, *, k: int, f: int, q: int, mode: str, reference_index: int = 0
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`nnm_selection_weights`."""
+    mask, sel_taint = nnm_weights_plain(g, k=k)
+    taint = ~torch.isfinite(torch.diagonal(g, dim1=1, dim2=2))
+    g_clean = torch.where(taint[:, :, None] | taint[:, None, :], 0.0, g)
+    ga = _ordered_products(g_clean, mask)
+    gm = _true_div(_ordered_products(mask.transpose(1, 2), ga), k * k)
+    bad = sel_taint != 0
+    gm = torch.where(bad[:, :, None] | bad[:, None, :], float("nan"), gm)
+    w_sel = selection_weights_plain(gm, f=f, q=q, mode=mode, reference_index=reference_index)
+    picked_bad = ((w_sel > 0) & bad).any(dim=1, keepdim=True)
+    w_eff = _true_div(_ordered_products(mask, w_sel[:, :, None])[:, :, 0], k)
+    return torch.where(picked_bad, float("nan"), w_eff)
+
+
+# ---------------------------------------------------------------------------
+# B10: static clipping or ARC -> selection mean through the clipped Gram
+# ---------------------------------------------------------------------------
+
+
+def clip_selection_mean_stream(
+    xs: torch.Tensor,
+    *,
+    tau: float,
+    f: int,
+    q: int,
+    mode: str = "krum",
+    reference_index: int = 0,
+) -> torch.Tensor:
+    """Selection mean of ``K`` stacked rounds ``xs: (K, n, d)`` after each
+    row is clipped to L2 norm ``tau``, returning ``(K, d)`` in ``xs``'s
+    dtype (B10, ``pre="clip"``; ref
+    ``pallas_kernels.clip_selection_mean_stream_pallas``). A row whose
+    squared norm is not finite clips to factor 0 and is excluded, also
+    when only the square overflows f32 (the reference's documented
+    deviation). A composition of :func:`gram`,
+    :func:`clip_selection_weights` and :func:`weighted_rows`."""
+    if mode not in _SELECTION_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_ndim(xs, 3, "xs")
+    K, n, d = xs.shape
+    if not tau > 0:
+        raise ValueError(f"tau must be positive (got {tau})")
+    check_selection_args(n, f=f, q=q, mode=mode, reference_index=reference_index)
+    _check_float(xs)
+    if K == 0 or d == 0:
+        return xs.new_empty((K, d))
+    w = clip_selection_weights(
+        gram(xs), pre="clip", tau=tau, f=f, q=q, mode=mode, reference_index=reference_index
+    )
+    return weighted_rows(xs, w)
+
+
+def arc_selection_mean_stream(
+    xs: torch.Tensor,
+    *,
+    f_arc: int,
+    f: int,
+    q: int,
+    mode: str = "krum",
+    reference_index: int = 0,
+) -> torch.Tensor:
+    """Selection mean of ``K`` stacked rounds after Adaptive Robust
+    Clipping: the ``n - cut_off`` largest-norm rows clip to the
+    ``cut_off``-th smallest norm, ``cut_off = preagg.arc_cut_off(n,
+    f_arc)`` (B10, ``pre="arc"``; ref
+    ``pallas_kernels.arc_selection_mean_stream_pallas``)."""
+    from .preagg import arc_cut_off  # preagg imports this module
+
+    if mode not in _SELECTION_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_ndim(xs, 3, "xs")
+    K, n, d = xs.shape
+    if not 0 <= f_arc <= n:
+        raise ValueError(f"f_arc must satisfy 0 <= f_arc <= n (got {f_arc})")
+    check_selection_args(n, f=f, q=q, mode=mode, reference_index=reference_index)
+    _check_float(xs)
+    if K == 0 or d == 0:
+        return xs.new_empty((K, d))
+    w = clip_selection_weights(
+        gram(xs), pre="arc", cut_off=arc_cut_off(n, f_arc), f=f, q=q, mode=mode,
+        reference_index=reference_index,
+    )
+    return weighted_rows(xs, w)
+
+
+def clip_selection_weights(
+    g: torch.Tensor,
+    *,
+    pre: str,
+    f: int,
+    q: int,
+    mode: str = "krum",
+    reference_index: int = 0,
+    tau: float = 0.0,
+    cut_off: int = 0,
+) -> torch.Tensor:
+    """``(K, n)`` f32 source-row weights ``w_eff`` of B10 from ``(K, n,
+    n)`` Gram matrices (B10 phase 2): clip factors ``c = min(1, threshold /
+    max(norm, 1e-12))`` with the threshold ``tau`` (``pre="clip"``) or the
+    norm at rank ``cut_off - 1`` (``pre="arc"``), the selection weights
+    ``w_sel`` of the clipped Gram ``c_i c_j G_ij``, then ``w_sel * c``, 0 on
+    rows with a non-finite norm, all NaN if such a row was selected."""
+    if pre not in _CLIP_MODES:
+        raise ValueError(f"unknown pre-aggregation {pre!r}")
+    K, n = _check_gram(g)
+    if pre == "clip" and not tau > 0:
+        raise ValueError(f"tau must be positive (got {tau})")
+    if pre == "arc" and not 1 <= cut_off <= n:
+        raise ValueError(f"cut_off must be in [1, n] (got cut_off={cut_off}, n={n})")
+    check_selection_args(n, f=f, q=q, mode=mode, reference_index=reference_index)
+    if _on_cpu(g):
+        return clip_selection_weights_plain(
+            g, pre=pre, tau=tau, cut_off=cut_off, f=f, q=q, mode=mode,
+            reference_index=reference_index,
+        )
+    _check_cuda_input(g, n)
+    w = torch.empty((K, n), dtype=torch.float32, device=g.device)
+    if K == 0:
+        return w
+    with torch.cuda.device(g.device):
+        _call(
+            "byz_clip_selection_weights", g.data_ptr(), w.data_ptr(), K, n, _CLIP_MODES[pre],
+            tau, cut_off, f, q, _SELECTION_MODES[mode], reference_index, _stream(g),
+        )
+    launch_counts[f"clip_selection_weights:{pre}"] += 1
+    return w
+
+
+def clip_selection_weights_plain(
+    g: torch.Tensor,
+    *,
+    pre: str,
+    f: int,
+    q: int,
+    mode: str,
+    reference_index: int = 0,
+    tau: float = 0.0,
+    cut_off: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`clip_selection_weights` (the ARC
+    threshold is the sorted key at ``cut_off - 1``: the row of that stable
+    rank)."""
+    sq = torch.diagonal(g, dim1=1, dim2=2)
+    norms = torch.sqrt(torch.where(sq < 0, torch.zeros_like(sq), sq))  # NaN stays NaN
+    if pre == "clip":
+        threshold = torch.full((g.shape[0], 1), tau, dtype=torch.float32, device=g.device)
+    else:
+        keys = torch.sort(float_sort_keys(norms), dim=1).values
+        threshold = keys_to_float(keys[:, cut_off - 1:cut_off])
+    # torch.maximum / torch.minimum propagate NaN, as jnp's do
+    den = torch.maximum(norms, torch.full((), 1e-12, dtype=torch.float32, device=g.device))
+    c = torch.minimum(torch.ones((), dtype=torch.float32, device=g.device), threshold / den)
+    w_sel = selection_weights_plain(
+        (c[:, :, None] * c[:, None, :]) * g, f=f, q=q, mode=mode, reference_index=reference_index
+    )
+    bad = ~torch.isfinite(norms)
+    picked_bad = ((w_sel > 0) & bad).any(dim=1, keepdim=True)
+    w_eff = torch.where(bad, 0.0, w_sel * c)
+    return torch.where(picked_bad, float("nan"), w_eff)
+
+
 __all__ = [
     "MAX_NETWORK_ROWS",
+    "arc_selection_mean_stream",
     "batcher_pairs",
     "canonical_nan",
     "check_selection_args",
+    "clip_selection_mean_stream",
+    "clip_selection_weights",
+    "clip_selection_weights_plain",
     "float_sort_keys",
     "gram",
     "gram_plain",
     "keys_to_float",
     "launch_counts",
+    "mix_rows",
+    "mix_rows_plain",
     "network_width",
+    "nnm_selection_mean_stream",
+    "nnm_selection_weights",
+    "nnm_selection_weights_plain",
+    "nnm_stream",
+    "nnm_weights",
+    "nnm_weights_plain",
     "reset_launch_counts",
     "selection_mean_stream",
     "selection_weights",

@@ -10,6 +10,13 @@ kernel, this module calls the matching wrapper in :mod:`.kernels`:
   ``d`` floor: on the card the kernel runs or the call raises);
 * a CPU tensor takes the kernel's plain PyTorch version.
 
+The fused pre-aggregated pipelines (``nnm_multi_krum``,
+``clipped_multi_krum``, ``arc_multi_krum`` and their streams) always take
+the fused kernels' path, where the JAX package takes it at large ``d`` on
+the TPU and the two-step composition elsewhere; the two agree within f32
+rounding on finite inputs, and the fused path's documented deviations on
+non-finite ones are the port's.
+
 Functions the JAX package leaves to plain XLA (``sort_rows``,
 ``krum_scores``, ``ranked_mean``) are plain PyTorch here.
 """
@@ -156,6 +163,66 @@ def krum(x: torch.Tensor, *, f: int) -> torch.Tensor:
     return multi_krum(x, f=f, q=1)
 
 
+# ---------------------------------------------------------------------------
+# Pre-aggregation fused into Multi-Krum (B3 + B9, B3 + B10)
+# ---------------------------------------------------------------------------
+
+
+def nnm_multi_krum(x: torch.Tensor, *, f_nnm: int, f: int, q: int) -> torch.Tensor:
+    """Nearest-Neighbour Mixing feeding Multi-Krum (ref:
+    ``byzpy/pre_aggregators/nnm.py`` composed with
+    ``aggregators/geometric_wise/krum.py``), with the mixed matrix never
+    built: the mixed rows' Gram comes from the raw one and the mean
+    collapses to source-row weights (the B3 + B9 kernels on the card)."""
+    _check_matrix(x)
+    return kernels.nnm_selection_mean_stream(x[None], f_nnm=f_nnm, f=f, q=q, mode="krum")[0]
+
+
+def nnm_multi_krum_stream(xs: torch.Tensor, *, f_nnm: int, f: int, q: int) -> torch.Tensor:
+    """``nnm_multi_krum`` over ``K`` stacked rounds ``(K, n, d)``."""
+    return kernels.nnm_selection_mean_stream(xs, f_nnm=f_nnm, f=f, q=q, mode="krum")
+
+
+def clipped_multi_krum(x: torch.Tensor, *, tau: float, f: int, q: int) -> torch.Tensor:
+    """Static L2 clipping to ``tau`` feeding Multi-Krum: the clip factors
+    come off the Gram diagonal, the clipped Gram is ``c_i c_j G_ij`` and the
+    mean's weights ``w_sel * c`` (the B3 + B10 kernels on the card)."""
+    if not tau > 0:
+        # checked before the kernel: a clip at tau <= 0 would sign-flip or
+        # zero every row
+        raise ValueError(f"tau must be positive (got {tau})")
+    _check_matrix(x)
+    return kernels.clip_selection_mean_stream(x[None], tau=tau, f=f, q=q, mode="krum")[0]
+
+
+def clipped_multi_krum_stream(xs: torch.Tensor, *, tau: float, f: int, q: int) -> torch.Tensor:
+    """``clipped_multi_krum`` over ``K`` stacked rounds ``(K, n, d)``."""
+    return kernels.clip_selection_mean_stream(xs, tau=tau, f=f, q=q, mode="krum")
+
+
+def arc_multi_krum(x: torch.Tensor, *, f_arc: int, f: int, q: int) -> torch.Tensor:
+    """Adaptive Robust Clipping feeding Multi-Krum: ARC's threshold is the
+    ``preagg.arc_cut_off``-th smallest norm, rank-counted from the Gram
+    diagonal (the B3 + B10 kernels on the card)."""
+    if not 0 <= f_arc <= x.shape[0]:
+        # checked before the kernel, as the JAX package does: a negative
+        # f_arc would otherwise clip nothing without a word
+        raise ValueError(
+            f"f_arc must satisfy 0 <= f_arc <= n (got {f_arc}, n={x.shape[0]})"
+        )
+    _check_matrix(x)
+    return kernels.arc_selection_mean_stream(x[None], f_arc=f_arc, f=f, q=q, mode="krum")[0]
+
+
+def arc_multi_krum_stream(xs: torch.Tensor, *, f_arc: int, f: int, q: int) -> torch.Tensor:
+    """``arc_multi_krum`` over ``K`` stacked rounds ``(K, n, d)``."""
+    if not 0 <= f_arc <= xs.shape[-2]:
+        raise ValueError(
+            f"f_arc must satisfy 0 <= f_arc <= n (got {f_arc}, n={xs.shape[-2]})"
+        )
+    return kernels.arc_selection_mean_stream(xs, f_arc=f_arc, f=f, q=q, mode="krum")
+
+
 def aggregate_stream(
     agg_fn: Callable[[torch.Tensor], torch.Tensor], xs: torch.Tensor
 ) -> torch.Tensor:
@@ -168,6 +235,10 @@ def aggregate_stream(
 
 __all__ = [
     "aggregate_stream",
+    "arc_multi_krum",
+    "arc_multi_krum_stream",
+    "clipped_multi_krum",
+    "clipped_multi_krum_stream",
     "coordinate_median",
     "coordinate_median_stream",
     "gram_matrix",
@@ -175,6 +246,8 @@ __all__ = [
     "krum_scores",
     "multi_krum",
     "multi_krum_stream",
+    "nnm_multi_krum",
+    "nnm_multi_krum_stream",
     "pairwise_sq_dists",
     "ranked_mean",
     "sort_rows",

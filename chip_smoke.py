@@ -9,15 +9,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device probe: the card's name and power limit (``nvidia-smi``);
 2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed);
-3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean) against its
-   plain PyTorch version on the card, at the main path's shapes and at the
-   64 x 1,048,576 headline;
+3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean, B8 NNM,
+   B9 NNM -> selection mean, B10 clip / ARC -> selection mean) against its
+   plain PyTorch version on the card, at the main path's shapes, at the
+   64 x 1,048,576 headline and, for B8-B10, on rows holding NaN and inf;
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
-   each of coordinate median, trimmed mean (f=2) and Multi-Krum (f=2,
-   q=4); each aggregator's kernels must launch, losses stay finite, and
-   the first 2 steps match the same round on the CPU; 3 more steps run
-   under torch.profiler for the device's busy share and kernel breakdown;
+   each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
+   (f=2, q=4), and the pre-aggregated ones (a) static clipping + trimmed
+   mean, (b) NNM + coordinate median, (c) NNM + Multi-Krum, (d) clipping
+   + Multi-Krum, (e) ARC + Multi-Krum; each configuration's kernels must
+   launch, its clip must engage at step 1, losses stay finite, and the
+   first 2 steps match the same round on the CPU; 3 more steps run under
+   torch.profiler for the device's busy share and kernel breakdown;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
    exists, a single PyTorch call.
@@ -33,6 +37,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +51,14 @@ PEAK_F32_OPS_PER_S = 67e12  # non-tensor-core f32; int32 min/max counted at this
 HEADLINE = (64, 1_048_576)
 MAIN_N, MAIN_BYZ, MAIN_BATCH, MAIN_STEPS, CPU_STEPS = 8, 2, 64, 5, 2
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5  # the CPU tests' tolerance for PS steps
+# the main path's static clip threshold: SmallCNN's per-node gradient norms
+# at step 1 are 10.0-11.9 on the H100 (torch 2.11), so 11.0 clips some rows
+# and leaves others; phase 4 fails if it clips none or all
+MAIN_TAU = 11.0
+# pre-aggregated kernel checks and timings: (f of the pre-aggregator, f, q,
+# tau) by n; every third row is scaled x3, so norms sit at ~sqrt(d) and
+# ~3 sqrt(d) and tau between them clips a third of the rows
+PRE_ARGS = {8: (2, 2, 4, 1000.0), 13: (3, 3, 4, 300.0), 64: (8, 8, 12, 1500.0)}
 
 
 class SmokeFailure(AssertionError):
@@ -232,6 +245,97 @@ def check_gram_and_selection(errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def pre_rows(shape, seed: int, *, nonfinite: bool = False):
+    """Normal rows on the card, every third x3; with ``nonfinite``, round 0
+    holds an all-inf row and round 1 a NaN entry (rows 7 and 4)."""
+    x = random_rounds(shape, seed=seed)
+    x[:, ::3] *= 3.0
+    if nonfinite:
+        x[0, 7] = float("inf")
+        x[-1, 4, 10] = float("nan")
+    return x
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def nan_is_canonical(t) -> bool:
+    import torch
+
+    nan = torch.isnan(t)
+    return bool(torch.equal(t[nan].float().view(torch.int32),
+                            torch.full_like(t[nan].float(), float("nan")).view(torch.int32)))
+
+
+def check_pre_aggregation(errs: dict) -> None:
+    """B8, B9, B10-clip and B10-arc against their plain versions: each
+    weights launch bitwise on the kernel Gram, each sweep bitwise (B8) or
+    within 2 ulp (B9/B10 through B4's sweep), and the whole call selects
+    the rows that the plain Gram selects."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    cases = [((1, MAIN_N, 421_642), False), ((1,) + HEADLINE, False), ((2, 13, 50_000), True)]
+    for shape, nonfinite in cases:
+        n = shape[1]
+        f_pre, f, q, tau = PRE_ARGS[n]
+        k = n - f_pre
+        x = pre_rows(shape, seed=300 + n, nonfinite=nonfinite)
+        g, g_ref = kernels.gram(x), kernels.gram_plain(x)
+        # B8
+        mask, st = kernels.nnm_weights(g, k=k)
+        mask_p, st_p = kernels.nnm_weights_plain(g, k=k)
+        check(torch.equal(mask, mask_p) and torch.equal(st, st_p), f"B8 selection differs at {shape}")
+        errs["nnm_weights"] = max(errs["nnm_weights"], float((mask - mask_p).abs().max()))
+        check(torch.equal(mask, kernels.nnm_weights_plain(g_ref, k=k)[0]),
+              f"B8 selects other rows than the plain Gram's at {shape}")
+        mixed = kernels.mix_rows(x, mask, st, k=k)
+        mixed_p = kernels.mix_rows_plain(x, mask, st, k=k)
+        check(bits_equal(mixed, mixed_p), f"B8 mixing sweep differs from plain at {shape}")
+        check(bits_equal(kernels.nnm_stream(x, f=f_pre), mixed), f"B8 call differs at {shape}")
+        errs["mix_rows"] = max(errs["mix_rows"], max_abs_err(mixed, mixed_p))
+        log(f"  B8 {shape}: selection equal ({int(st.sum())} mixed rows took a non-finite row), "
+            f"mixing bitwise equal")
+        del mixed, mixed_p
+        # B9, B10-clip, B10-arc: weights on the kernel Gram, then B4's sweep
+        sel = dict(f=f, q=q, mode="krum")
+        pipelines = {
+            "nnm_selection_weights:krum": (
+                kernels.nnm_selection_weights, kernels.nnm_selection_weights_plain, dict(k=k),
+                lambda: kernels.nnm_selection_mean_stream(x, f_nnm=f_pre, **sel)),
+            "clip_selection_weights:clip": (
+                kernels.clip_selection_weights, kernels.clip_selection_weights_plain,
+                dict(pre="clip", tau=tau), lambda: kernels.clip_selection_mean_stream(x, tau=tau, **sel)),
+            "clip_selection_weights:arc": (
+                kernels.clip_selection_weights, kernels.clip_selection_weights_plain,
+                dict(pre="arc", cut_off=arc_cut_off(n, f_pre)),
+                lambda: kernels.arc_selection_mean_stream(x, f_arc=f_pre, **sel)),
+        }
+        for key, (kernel, plain, kw, whole) in pipelines.items():
+            w = kernel(g, **kw, **sel)
+            w_plain = plain(g, **kw, **sel)
+            check(bits_equal(w, w_plain), f"{key} differs from plain at {shape}")
+            check(torch.equal(w != 0, plain(g_ref, **kw, **sel) != 0),
+                  f"{key} selects other rows than the plain Gram's at {shape}")
+            errs[key] = max(errs[key], max_abs_err(w, w_plain))
+            out = whole()
+            out_p = kernels.weighted_rows_plain(x, w)
+            ulps = ulp_diff(out, out_p)
+            check(ulps <= 2 and nan_is_canonical(out), f"{key} aggregate {ulps} ulp from plain at {shape}")
+            errs["weighted_rows"] = max(errs["weighted_rows"], max_abs_err(out, out_p))
+            nan_rounds = [int(torch.isnan(out[r]).all()) for r in range(shape[0])]
+            log(f"  {key} {shape}: weights bitwise, {int((w != 0).sum())} rows weighted, same rows "
+                f"as the plain Gram's, aggregate {ulps} ulp, all-NaN rounds {nan_rounds}")
+        del x, g, g_ref
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -241,17 +345,43 @@ def main_path(counts: dict) -> dict:
     import torch
 
     from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
-    from byzpy_tpu_torch.ops import attack_ops, kernels, robust
+    from byzpy_tpu_torch.ops import attack_ops, kernels, preagg, robust
     from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step
 
     n, b, batch = MAIN_N, MAIN_BYZ, MAIN_BATCH
     cfg = PSStepConfig(n_nodes=n, n_byzantine=b)
+    # name -> (pre_aggregate, aggregate, kernels that must launch, the
+    # threshold rule whose clipped rows at step 1 are counted)
+    sweep = "weighted_rows"
     aggregators = {
-        "coordinate_median": (robust.coordinate_median, ["sorted_reduce:median"]),
-        "trimmed_mean": (lambda m: robust.trimmed_mean(m, f=b), ["sorted_reduce:trimmed"]),
-        "multi_krum": (lambda m: robust.multi_krum(m, f=b, q=4),
-                       ["gram", "selection_weights:krum", "weighted_rows"]),
+        "coordinate_median": (None, robust.coordinate_median, ["sorted_reduce:median"], None),
+        "trimmed_mean": (None, lambda m: robust.trimmed_mean(m, f=b), ["sorted_reduce:trimmed"],
+                         None),
+        "multi_krum": (None, lambda m: robust.multi_krum(m, f=b, q=4),
+                       ["gram", "selection_weights:krum", sweep], None),
+        "a_clip_trimmed_mean": (lambda m: preagg.clip_rows(m, threshold=MAIN_TAU),
+                                lambda m: robust.trimmed_mean(m, f=b),
+                                ["sorted_reduce:trimmed"], "clip"),
+        "b_nnm_coordinate_median": (lambda m: preagg.nnm(m, f=b), robust.coordinate_median,
+                                    ["gram", "nnm_weights", "mix_rows", "sorted_reduce:median"],
+                                    None),
+        "c_nnm_multi_krum": (None, lambda m: robust.nnm_multi_krum(m, f_nnm=b, f=b, q=4),
+                             ["gram", "nnm_selection_weights:krum", sweep], None),
+        "d_clipped_multi_krum": (None, lambda m: robust.clipped_multi_krum(m, tau=MAIN_TAU, f=b, q=4),
+                                 ["gram", "clip_selection_weights:clip", sweep], "clip"),
+        "e_arc_multi_krum": (None, lambda m: robust.arc_multi_krum(m, f_arc=b, f=b, q=4),
+                             ["gram", "clip_selection_weights:arc", sweep], "arc"),
     }
+    first_norms = {}
+
+    def recording(name, fn):
+        """``fn`` that keeps the row norms of the first CUDA matrix it sees
+        (a host copy at step 1, outside the steps the median is taken of)."""
+        def call(m):
+            if m.is_cuda and name not in first_norms:
+                first_norms[name] = torch.linalg.vector_norm(m.float(), dim=1).cpu()
+            return fn(m)
+        return call
 
     def attack(honest, generator):
         return attack_ops.sign_flip(honest.mean(dim=0))
@@ -260,13 +390,17 @@ def main_path(counts: dict) -> dict:
     d = sum(int(v.numel()) for v in cpu_bundle.params.values())
     check(d == 421_642, f"SmallCNN has d={d}")
     results = {}
-    for name, (agg, kernel_keys) in aggregators.items():
+    for name, (pre, agg, kernel_keys, clip_rule) in aggregators.items():
+        if pre is not None:
+            pre = recording(name, pre)
+        else:
+            agg = recording(name, agg)
         data = {}
         for dev in ("cuda", "cpu"):
             x, y = synthetic_classification(n_samples=n * batch, seed=3, device=dev)
             xs, ys = x.reshape(n, batch, 28, 28, 1), y.reshape(n, batch)
             bundle = make_bundle(SmallCNN(), seed=0, device=dev)
-            step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack)
+            step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack, pre_aggregate=pre)
             params = bundle.params
             snaps, losses, times = [], [], []
             steps = MAIN_STEPS if dev == "cuda" else CPU_STEPS
@@ -300,22 +434,33 @@ def main_path(counts: dict) -> dict:
                 )
                 worst = max(worst, float((g_snap[k] - c_snap[k]).abs().max()))
         ms_step = sorted(times[1:])[len(times[1:]) // 2]
+        clipped = None
+        if clip_rule is not None:
+            norms = first_norms[name]
+            threshold = (MAIN_TAU if clip_rule == "clip"
+                         else float(torch.sort(norms).values[preagg.arc_cut_off(n, b) - 1]))
+            clipped = int((norms > threshold).sum())
+            check(0 < clipped < n, f"{name}: the clip took {clipped} of {n} rows at step 1")
         results[name] = {
             "ms_per_step": ms_step, "first_step_ms": times[0], "losses": losses,
             "cpu_max_abs_param_diff": worst, "launches": {k: run_counts[k] for k in kernel_keys},
             "profile": profile,
             "device_busy_share": profile["device_ms_per_step"] / ms_step,
+            "clipped_rows_step1": clipped,
+            "row_norms_step1": [round(float(v), 4) for v in first_norms[name]],
         }
         log(f"  {name}: {ms_step:.3f} ms/step (median of steps 2-{MAIN_STEPS}; first "
             f"{times[0]:.1f} ms), losses {[round(v, 4) for v in losses]}, "
             f"params vs CPU max |diff| {worst:.3g}, launches {results[name]['launches']}, "
-            f"device busy {results[name]['device_busy_share']:.3f}")
+            f"device busy {results[name]['device_busy_share']:.3f}, rows clipped at step 1 "
+            f"{clipped} (norms {results[name]['row_norms_step1']})")
         log(f"    profile: {json.dumps(profile)}")
     return results
 
 
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
-                "selection_weights_kernel", "weighted_rows_kernel")
+                "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
+                "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel")
 
 
 def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
@@ -347,7 +492,7 @@ def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
     ours = {}
     for key, (ms, count) in by_kernel.items():
         for p in PORT_KERNELS:
-            if p in key:
+            if re.search(rf"\b{p}\b", key):  # selection_weights_kernel is in nnm_selection_...
                 ms0, count0 = ours.get(p, (0.0, 0.0))
                 ours[p] = (ms0 + ms, count0 + count)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
@@ -441,6 +586,113 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
     return out
 
 
+def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
+    """B8's, B9's and B10's launches on one (1, n, d) f32 round (every third
+    row x3, so the clip engages) beside their bounds, plain versions and,
+    where one exists, a single PyTorch call; and B4's sweep under B9's and
+    B10's weights (entry ``weighted_rows``)."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    f_pre, f, q, tau = PRE_ARGS[n]
+    k = n - f_pre
+    x = pre_rows((1, n, d), seed=seed)
+    isz = x.element_size()
+    g = kernels.gram(x)
+    gram_bytes = n * n * 4
+    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
+    # a column sort per node, d2 (add, mul, sub, clamp) and the rank compares
+    select_ops = 2 * pairs * n + 5 * n * n
+    krum_ops = select_ops + (n - f - 1) * n
+    out = {}
+
+    mask, st = kernels.nnm_weights(g, k=k)
+    b_ms, b_by = bound_ms(2 * gram_bytes + n * 4, select_ops)
+
+    def nnm_plain():
+        mask_p, st_p = kernels.nnm_weights_plain(kernels.gram_plain(x), k=k)
+        return kernels.mix_rows_plain(x, mask_p, st_p, k=k)
+
+    out["nnm_weights"] = {
+        "ms": cuda_time_ms(lambda: kernels.nnm_weights(g, k=k)),
+        "plain_ms": cuda_time_ms(lambda: kernels.nnm_weights_plain(g, k=k)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+        # the whole B8 call (B3's Gram, selection, mixing) beside the plain pipeline
+        "nnm_stream_ms": cuda_time_ms(lambda: kernels.nnm_stream(x, f=f_pre)),
+        "nnm_stream_plain_ms": cuda_time_ms(nnm_plain, iters=3),
+    }
+    b_ms, b_by = bound_ms(2 * n * d * isz + gram_bytes + n * 4, n * k * d)
+    out["mix_rows"] = {
+        "ms": cuda_time_ms(lambda: kernels.mix_rows(x, mask, st, k=k)),
+        "plain_ms": cuda_time_ms(lambda: kernels.mix_rows_plain(x, mask, st, k=k), iters=3),
+        # (mask^T x) / k: the same function on these finite inputs
+        "library_ms": cuda_time_ms(lambda: (mask[0].T @ x[0]) / k),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+    }
+
+    sel = dict(f=f, q=q, mode="krum")
+    w_nnm = kernels.nnm_selection_weights(g, k=k, **sel)
+    # GA and Gm add k selected terms per entry, w_eff k per row
+    b_ms, b_by = bound_ms(gram_bytes + n * 4, krum_ops + 2 * n * n * k + n * k)
+
+    def nnm_selection_plain():
+        wp = kernels.nnm_selection_weights_plain(kernels.gram_plain(x), k=k, **sel)
+        return kernels.weighted_rows_plain(x, wp)
+
+    out["nnm_selection_weights:krum"] = {
+        "ms": cuda_time_ms(lambda: kernels.nnm_selection_weights(g, k=k, **sel)),
+        "plain_ms": cuda_time_ms(lambda: kernels.nnm_selection_weights_plain(g, k=k, **sel)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+        "nnm_selection_mean_ms": cuda_time_ms(
+            lambda: kernels.nnm_selection_mean_stream(x, f_nnm=f_pre, **sel)),
+        "nnm_selection_mean_plain_ms": cuda_time_ms(nnm_selection_plain, iters=3),
+    }
+    cut_off = arc_cut_off(n, f_pre)
+    clip_kw = {"clip": dict(pre="clip", tau=tau), "arc": dict(pre="arc", cut_off=cut_off)}
+    whole = {"clip": lambda: kernels.clip_selection_mean_stream(x, tau=tau, **sel),
+             "arc": lambda: kernels.arc_selection_mean_stream(x, f_arc=f_pre, **sel)}
+    for pre, kw in clip_kw.items():
+        # the clipped Gram (2 muls an entry), the ARC rank compares
+        ops = krum_ops + 2 * n * n + (n * n if pre == "arc" else 0)
+        b_ms, b_by = bound_ms(gram_bytes + n * 4, ops)
+
+        def clip_plain(kw=kw):
+            wp = kernels.clip_selection_weights_plain(kernels.gram_plain(x), **kw, **sel)
+            return kernels.weighted_rows_plain(x, wp)
+
+        out[f"clip_selection_weights:{pre}"] = {
+            "ms": cuda_time_ms(lambda kw=kw: kernels.clip_selection_weights(g, **kw, **sel)),
+            "plain_ms": cuda_time_ms(lambda kw=kw: kernels.clip_selection_weights_plain(g, **kw, **sel)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+            f"{pre}_selection_mean_ms": cuda_time_ms(whole[pre]),
+            f"{pre}_selection_mean_plain_ms": cuda_time_ms(clip_plain, iters=3),
+        }
+    w_clip = kernels.clip_selection_weights(g, **clip_kw["clip"], **sel)
+    sweeps = {}
+    for label, w in (("with_nnm_weights", w_nnm), ("with_clip_weights", w_clip)):
+        rows = int((w != 0).sum())  # the sweep reads these rows only
+        b_ms, b_by = bound_ms(rows * d * isz + n * 4 + d * isz, 2 * rows * d)
+        sweeps[label] = {
+            "rows_read": rows,
+            "ms": cuda_time_ms(lambda w=w: kernels.weighted_rows(x, w)),
+            "plain_ms": cuda_time_ms(lambda w=w: kernels.weighted_rows_plain(x, w), iters=3),
+            "library_ms": cuda_time_ms(lambda w=w: w[0] @ x[0]),  # reads all n rows
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    for key, v in list(out.items()) + [(f"weighted_rows {k_}", v_) for k_, v_ in sweeps.items()]:
+        log(f"  {key} {[1, n, d]}: {v['ms']:.4f} ms, bound {v['bound_ms']:.6f} ms "
+            f"({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library {v['library_ms']}")
+    for key in ("nnm_weights", "nnm_selection_weights:krum", "clip_selection_weights:clip",
+                "clip_selection_weights:arc"):
+        log(f"    whole call: {json.dumps({k_: v_ for k_, v_ in out[key].items() if k_.endswith('_ms')})}")
+    out["weighted_rows"] = sweeps
+    del x, g
+    torch.cuda.empty_cache()
+    return out
+
+
 def timing() -> dict:
     """Kernel times at the headline 64 x 1,048,576 (the JSON line's
     numbers) and at the main path's 8 x 421,642. ``torch.median`` returns
@@ -453,8 +705,14 @@ def timing() -> dict:
     odd = kernel_times(n - 1, d, f_trim=8, f_krum=8, q=12, seed=8)["sorted_reduce:median"]
     out["sorted_reduce:median"] = dict(odd, at_headline=out["sorted_reduce:median"])
     main = kernel_times(MAIN_N, 421_642, f_trim=MAIN_BYZ, f_krum=MAIN_BYZ, q=4, seed=9)
+    for times, shape, seed in ((out, HEADLINE, 17), (main, (MAIN_N, 421_642), 19)):
+        pre = pre_kernel_times(*shape, seed=seed)
+        times["weighted_rows"].update(pre.pop("weighted_rows"))
+        times.update(pre)
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "with_nnm_weights",
+            "with_clip_weights")
     for k, v in out.items():
-        v["main_path_shape"] = {key: main[k][key] for key in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+        v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
     return out
 
 
@@ -465,6 +723,13 @@ KERNELS = [
     ("gram", "byzpy_tpu_torch/csrc/gram.cu", "byzpy_tpu/ops/pallas_kernels.py:289"),
     ("selection_weights:krum", "byzpy_tpu_torch/csrc/selection.cu", "byzpy_tpu/ops/pallas_kernels.py:928"),
     ("weighted_rows", "byzpy_tpu_torch/csrc/selection.cu", "byzpy_tpu/ops/pallas_kernels.py:928"),
+    ("nnm_weights", "byzpy_tpu_torch/csrc/nnm.cu", "byzpy_tpu/ops/pallas_kernels.py:1245"),
+    ("mix_rows", "byzpy_tpu_torch/csrc/nnm.cu", "byzpy_tpu/ops/pallas_kernels.py:1245"),
+    ("nnm_selection_weights:krum", "byzpy_tpu_torch/csrc/nnm.cu", "byzpy_tpu/ops/pallas_kernels.py:1380"),
+    ("clip_selection_weights:clip", "byzpy_tpu_torch/csrc/clip_selection.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:1466"),
+    ("clip_selection_weights:arc", "byzpy_tpu_torch/csrc/clip_selection.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:1466"),
 ]
 
 
@@ -507,8 +772,9 @@ def main() -> int:
     errs.update({"selection_weights:cge": 0.0, "selection_weights:monna": 0.0})
     check_sorted_reduce(errs)
     check_gram_and_selection(errs)
+    check_pre_aggregation(errs)
 
-    log("== 4. main path: SmallCNN PS round")
+    log("== 4. main path: SmallCNN PS round, plain and pre-aggregated configurations")
     counts = {k: 0 for k in kernels.launch_counts}
     results = main_path(counts)
     log("MAIN_PATH " + json.dumps(results))

@@ -26,7 +26,28 @@ def _matrix(rng, shape, *, specials=True):
     return x
 
 
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+CANONICAL_NAN = {torch.float32: (torch.int32, 0x7FC00000), torch.bfloat16: (torch.int16, 0x7FC0),
+                 torch.float16: (torch.int16, 0x7E00)}
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality, NaN payloads included."""
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def _all_canonical_nan(t: torch.Tensor) -> bool:
+    ints, bits = CANONICAL_NAN[t.dtype]
+    return bool((t.view(ints) == torch.tensor(bits, dtype=torch.int64).to(ints)).all())
+
+
+def _pre_rows(seed, K, n, d, device, dtype=torch.float32):
+    """Normal rows, every third x5 so clipping engages (norms ~sqrt(d) and
+    ~5 sqrt(d))."""
+    x = _matrix(np.random.default_rng(seed), (K, n, d), specials=False)
+    x[:, ::3] *= 5.0
+    return torch.from_numpy(x).to(device, dtype)
 
 
 @pytest.fixture
@@ -136,3 +157,164 @@ def test_cuda_selection_never_picks_a_nan_row(cuda_device, mode):
     assert float(w[0, 4]) == 0.0
     assert torch.equal(w, kernels.selection_weights_plain(g, f=3, q=5, mode=mode, reference_index=1))
     assert bool(torch.isfinite(kernels.selection_mean_stream(x, f=3, q=5, mode=mode, reference_index=1)).all())
+
+
+# ---------------------------------------------------------------------------
+# B8 NNM, B9 NNM -> selection mean, B10 clip / ARC -> selection mean
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+def test_cuda_nnm_matches_plain(cuda_device, n, dt):
+    """B8: the selection state equal to the plain version's on the same
+    Gram; the mixing sweep bitwise equal to its plain version, alone and
+    in the whole call."""
+    x = _pre_rows(n, 2, n, 3000, cuda_device, DTYPES[dt])
+    f = n // 4
+    g = kernels.gram(x)
+    mask, st = kernels.nnm_weights(g, k=n - f)
+    mask_p, st_p = kernels.nnm_weights_plain(g, k=n - f)
+    assert torch.equal(mask, mask_p) and torch.equal(st, st_p)
+    assert torch.all(mask.sum(dim=1) == n - f)
+    out = kernels.mix_rows(x, mask, st, k=n - f)
+    assert _bits_equal(out, kernels.mix_rows_plain(x, mask, st, k=n - f))
+    assert _bits_equal(kernels.nnm_stream(x, f=f), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["krum", "cge", "monna"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+def test_cuda_nnm_selection_matches_plain(cuda_device, n, mode):
+    """B9: weights bitwise equal to the plain version on the same Gram (the
+    (n, n) products add 0/1-selected terms in the same order); n = 128
+    needs the shared-memory opt-in; the sweep and the whole call."""
+    x = _pre_rows(100 + n, 2, n, 3000, cuda_device)
+    f_nnm, f, q = n // 4, max(0, (n - 3) // 4), max(1, n // 3)
+    g = kernels.gram(x)
+    kw = dict(k=n - f_nnm, f=f, q=q, mode=mode, reference_index=n // 2)
+    w = kernels.nnm_selection_weights(g, **kw)
+    assert _bits_equal(w, kernels.nnm_selection_weights_plain(g, **kw))
+    assert torch.isfinite(w).all() and bool((w != 0).any())
+    out = kernels.nnm_selection_mean_stream(x, f_nnm=f_nnm, f=f, q=q, mode=mode, reference_index=n // 2)
+    assert _bits_equal(out, kernels.weighted_rows_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", ["clip", "arc"])
+@pytest.mark.parametrize("mode", ["krum", "cge", "monna"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+def test_cuda_clip_selection_matches_plain(cuda_device, n, mode, pre):
+    """B10: weights bitwise equal to the plain version on the same Gram, in
+    both modes; tau = 60 sits between the two row scales (~55 and ~274)."""
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    x = _pre_rows(200 + n, 2, n, 3000, cuda_device)
+    f, q = max(0, (n - 3) // 4), max(1, n // 3)
+    f_arc = n // 4
+    g = kernels.gram(x)
+    kw = dict(pre=pre, f=f, q=q, mode=mode, reference_index=n // 2)
+    if pre == "clip":
+        kw["tau"] = 60.0
+    else:
+        kw["cut_off"] = arc_cut_off(n, f_arc)
+    w = kernels.clip_selection_weights(g, **kw)
+    assert _bits_equal(w, kernels.clip_selection_weights_plain(g, **kw))
+    assert torch.isfinite(w).all()
+    sel = dict(f=f, q=q, mode=mode, reference_index=n // 2)
+    if pre == "clip":
+        out = kernels.clip_selection_mean_stream(x, tau=60.0, **sel)
+    else:
+        out = kernels.arc_selection_mean_stream(x, f_arc=f_arc, **sel)
+    assert _bits_equal(out, kernels.weighted_rows_plain(x, w))
+
+
+@pytest.mark.cuda
+def test_cuda_b4_sweep_unchanged_by_the_nan_weight_rule(cuda_device):
+    """The sweep now reads rows with w != 0 (NaN included); B4's weights are
+    1/q or 0, so its output is the one the w > 0 rule gives."""
+    x = _pre_rows(7, 2, 16, 5000, cuda_device, torch.bfloat16)
+    w = kernels.selection_weights(kernels.gram(x), f=3, q=5)
+    out = kernels.weighted_rows(x, w)
+    acc = torch.zeros((2, 5000), device=cuda_device)
+    for i in range(16):
+        acc = acc + torch.where(w[:, i, None] > 0, x[:, i].float(), 0.0) * w[:, i, None]
+    assert _bits_equal(out, kernels.canonical_nan(acc.to(torch.bfloat16)))
+
+
+@pytest.mark.cuda
+def test_cuda_picked_nonfinite_rows_give_canonical_nan(cuda_device):
+    """A selection that takes a non-finite row writes NaN, as the positive
+    quiet NaN of the dtype: B8 rows that mixed an inf row (f = 0: every row
+    mixes every row), B9 and B10 weights and outputs when q takes the NaN
+    row too."""
+    for dtype in DTYPES.values():
+        x = _pre_rows(3, 1, 6, 500, cuda_device, dtype)
+        x[0, 1] = float("inf")
+        assert _all_canonical_nan(kernels.nnm_stream(x, f=0))
+        x[0, 1] = float("nan")
+        for call in (
+            lambda: kernels.nnm_selection_mean_stream(x, f_nnm=0, f=0, q=6, mode="cge"),
+            lambda: kernels.clip_selection_mean_stream(x, tau=5.0, f=0, q=6, mode="cge"),
+            lambda: kernels.arc_selection_mean_stream(x, f_arc=1, f=0, q=6, mode="cge"),
+        ):
+            assert _all_canonical_nan(call())
+    g = kernels.gram(x.float())
+    w = kernels.clip_selection_weights(g, pre="clip", tau=5.0, f=0, q=6, mode="cge")
+    assert _all_canonical_nan(w)
+    # a NaN row that is not selected leaves the output finite
+    assert torch.isfinite(kernels.clip_selection_mean_stream(x.float(), tau=5.0, f=0, q=5, mode="cge")).all()
+
+
+@pytest.mark.cuda
+def test_cuda_pre_aggregated_launch_counts(cuda_device):
+    """Each wrapper that launches counts one; the compositions count
+    nothing themselves."""
+    x = torch.randn((2, 8, 300), device=cuda_device)
+    kernels.reset_launch_counts()
+    kernels.nnm_stream(x, f=2)
+    kernels.nnm_selection_mean_stream(x, f_nnm=2, f=2, q=3)
+    kernels.clip_selection_mean_stream(x, tau=10.0, f=2, q=3)
+    kernels.arc_selection_mean_stream(x, f_arc=2, f=2, q=3)
+    expected = dict.fromkeys(kernels.launch_counts, 0)
+    expected.update({"gram": 4, "nnm_weights": 1, "mix_rows": 1, "nnm_selection_weights:krum": 1,
+                     "clip_selection_weights:clip": 1, "clip_selection_weights:arc": 1,
+                     "weighted_rows": 3})
+    assert kernels.launch_counts == expected
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 8, 300), (2, 8, 0)], ids=["K0", "d0"])
+def test_cuda_pre_aggregated_empty_inputs_launch_nothing(cuda_device, shape):
+    x = torch.zeros(shape, device=cuda_device)
+    kernels.reset_launch_counts()
+    assert kernels.nnm_stream(x, f=2).shape == shape
+    for call in (
+        lambda: kernels.nnm_selection_mean_stream(x, f_nnm=2, f=2, q=3),
+        lambda: kernels.clip_selection_mean_stream(x, tau=1.0, f=2, q=3),
+        lambda: kernels.arc_selection_mean_stream(x, f_arc=2, f=2, q=3),
+    ):
+        assert call().shape == (shape[0], shape[2])
+    mask = torch.zeros((shape[0], 8, 8), device=cuda_device)
+    st = torch.zeros((shape[0], 8), device=cuda_device)
+    assert kernels.mix_rows(x, mask, st, k=6).shape == shape
+    if shape[0] == 0:
+        g = torch.zeros((0, 8, 8), device=cuda_device)
+        assert kernels.nnm_weights(g, k=6)[0].shape == (0, 8, 8)
+        assert kernels.nnm_selection_weights(g, k=6, f=2, q=3).shape == (0, 8)
+        assert kernels.clip_selection_weights(g, pre="arc", cut_off=6, f=2, q=3).shape == (0, 8)
+    assert all(v == 0 for v in kernels.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_cuda_pre_aggregated_reject_wide_n(cuda_device):
+    wide = torch.zeros((1, 129, 64), device=cuda_device)
+    for call in (
+        lambda: kernels.nnm_stream(wide, f=1),
+        lambda: kernels.nnm_selection_mean_stream(wide, f_nnm=1, f=1, q=2),
+        lambda: kernels.clip_selection_mean_stream(wide, tau=1.0, f=1, q=2),
+        lambda: kernels.arc_selection_mean_stream(wide, f_arc=1, f=1, q=2),
+    ):
+        with pytest.raises(NotImplementedError):
+            call()

@@ -16,8 +16,8 @@ from byzpy_tpu.ops import pallas_kernels as pk
 from byzpy_tpu.ops import robust as jrobust
 from byzpy_tpu_torch.ops import _build, kernels
 
-TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
+JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
 
 
 def _matrix(rng, shape, *, specials=True):
@@ -193,6 +193,174 @@ def test_selection_mean_bf16_within_1_ulp():
 
 
 # ---------------------------------------------------------------------------
+# B8 NNM, B9 NNM -> selection mean, B10 clip / ARC -> selection mean
+# ---------------------------------------------------------------------------
+
+# n -> (f of the pre-aggregator, f of Multi-Krum, q)
+PRE_PARAMS = {3: (1, 0, 2), 8: (2, 2, 3), 13: (3, 3, 4)}
+CLIP_TAU = 17.0  # near the median row norm of the data below: some rows clip
+MANTISSA_BITS = {"bf16": 7, "f16": 10}
+
+
+def _pre_rows(seed, n, dt, case="normal"):
+    """(2, n, 300) rows with spread norms (every third row x5); ``case``
+    adds a non-finite row: ``nan`` (one NaN entry), ``inf`` (an all-inf
+    row) or ``overflow`` (a finite row whose squared norm overflows f32)."""
+    x = _matrix(np.random.default_rng(seed), (2, n, 300), specials=False)
+    x[:, ::3] *= 5.0
+    if case == "nan":
+        x[:, 1, 5] = np.nan
+    elif case == "inf":
+        x[:, 2] = np.inf
+    elif case == "overflow":
+        x[:, 2] = 1e20
+    return x
+
+
+def _assert_matches_pallas(ours: torch.Tensor, ref, dt: str) -> None:
+    """Same NaN and inf places; finite values within rtol 1e-5, atol 1e-6
+    in f32 (the reference's dots sum in another order), and in a 16-bit
+    dtype within one of its ulps (one rounding of an f32 sum that may
+    differ in its last bits) plus the same atol 1e-6 (a sum that cancels
+    to near 0 keeps the f32 order's error)."""
+    o = ours.float().numpy()
+    r = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_array_equal(np.isnan(o), np.isnan(r))
+    np.testing.assert_array_equal(o[np.isinf(r)], r[np.isinf(r)])
+    fin = np.isfinite(r)
+    if dt == "f32":
+        np.testing.assert_allclose(o[fin], r[fin], rtol=1e-5, atol=1e-6)
+        return
+    m = np.maximum(np.abs(o[fin]), np.abs(r[fin])).astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(m, 1e-30))) - MANTISSA_BITS[dt])
+    assert np.all(np.abs(o[fin] - r[fin]) <= ulp + 1e-6)
+
+
+def _run_pre_kernel(name, x, dt, n, mode="krum", tau=CLIP_TAU):
+    """The port's composed wrapper and the Pallas kernel (interpret mode)
+    on the same rows."""
+    f_pre, f, q = PRE_PARAMS[n]
+    xt, xj = _to_torch(x, dt), _to_jax(x, dt)
+    sel = dict(f=f, q=q, mode=mode, reference_index=1)
+    if name == "nnm":
+        return (kernels.nnm_stream(xt, f=f_pre),
+                pk.nnm_stream_pallas(xj, f=f_pre, tile=128, interpret=True))
+    if name == "nnm_selection":
+        return (kernels.nnm_selection_mean_stream(xt, f_nnm=f_pre, **sel),
+                pk.nnm_selection_mean_stream_pallas(xj, f_nnm=f_pre, tile=128, interpret=True, **sel))
+    if name == "clip":
+        return (kernels.clip_selection_mean_stream(xt, tau=tau, **sel),
+                pk.clip_selection_mean_stream_pallas(xj, tau=tau, tile=128, interpret=True, **sel))
+    return (kernels.arc_selection_mean_stream(xt, f_arc=f_pre, **sel),
+            pk.arc_selection_mean_stream_pallas(xj, f_arc=f_pre, tile=128, interpret=True, **sel))
+
+
+PRE_KERNELS = ["nnm", "nnm_selection", "clip", "arc"]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13])
+@pytest.mark.parametrize("name", PRE_KERNELS)
+def test_pre_aggregated_plain_matches_pallas(name, n, dt):
+    """B8, B9, B10-clip and B10-arc: the plain versions against the Pallas
+    kernels in interpret mode, in the input dtype."""
+    ours, ref = _run_pre_kernel(name, _pre_rows(n, n, dt), dt, n)
+    assert ours.dtype == TORCH_DTYPES[dt]
+    _assert_matches_pallas(ours, ref, dt)
+
+
+@pytest.mark.parametrize("case", ["nan", "inf", "overflow"])
+@pytest.mark.parametrize("name", PRE_KERNELS)
+def test_pre_aggregated_nonfinite_rows_match_pallas(name, case):
+    """The reference's non-finite rules, reproduced: a NaN or inf row, and
+    a finite row whose squared norm overflows f32 (B10 excludes it, the
+    documented deviation)."""
+    ours, ref = _run_pre_kernel(name, _pre_rows(21, 13, "f32", case), "f32", 13)
+    _assert_matches_pallas(ours, ref, "f32")
+
+
+@pytest.mark.parametrize("mode", ["cge", "monna"])
+@pytest.mark.parametrize("name", ["nnm_selection", "clip", "arc"])
+def test_pre_aggregated_selection_modes_match_pallas(name, mode):
+    """CGE and MoNNA scores behind each pre-aggregator. tau = 40 clips only
+    the x5 rows: rows clipped to one norm tie in CGE up to rounding, and the
+    q lowest must be rows that no clip touched."""
+    ours, ref = _run_pre_kernel(name, _pre_rows(5, 13, "f32"), "f32", 13, mode=mode, tau=40.0)
+    _assert_matches_pallas(ours, ref, "f32")
+
+
+def _padded_gram(x: np.ndarray) -> np.ndarray:
+    """The f32 Gram of one round, zero-padded to the Pallas kernels' row
+    count (a multiple of 8)."""
+    n = x.shape[0]
+    n_pad = max(8, -(-n // 8) * 8)
+    g = np.zeros((n_pad, n_pad), np.float32)
+    with np.errstate(all="ignore"):
+        g[:n, :n] = x.astype(np.float32) @ x.astype(np.float32).T
+    return g
+
+
+def _tie_rows(kind: str) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(13, 40)).astype(np.float32)
+    if kind == "duplicates":
+        x[5] = x[2]
+        x[7] = x[2]
+        x[9] = x[4]
+    elif kind == "zeros":
+        x[[1, 3, 8, 12]] = 0.0
+    elif kind == "nonfinite":
+        x[4, 0] = np.nan
+        x[6] = np.inf
+    elif kind == "all_equal":
+        x[:] = x[0]
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 6, 10, 13])
+@pytest.mark.parametrize("kind", ["normal", "duplicates", "zeros", "nonfinite", "all_equal"])
+def test_nnm_weights_equal_jax_selection_state(kind, k):
+    """B8's selection state, exactly: the 0/1 mask and the taint flags of
+    the JAX kernel's ``_nnm_weights`` from the same Gram, on inputs full
+    of ties (duplicated and zero rows: stable ties in row order; NaN
+    distances after every finite one)."""
+    x = _tie_rows(kind)
+    n = x.shape[0]
+    g = _padded_gram(x)
+    ref_mask, _, ref_st = pk._nnm_weights(jnp.asarray(g), n_pad=g.shape[0], n_real=n, k=k)
+    mask, sel_taint = kernels.nnm_weights(torch.from_numpy(g[:n, :n].copy())[None], k=k)
+    np.testing.assert_array_equal(mask[0].numpy(), np.asarray(ref_mask)[:n, :n])
+    np.testing.assert_array_equal(sel_taint[0].numpy(), np.asarray(ref_st)[:n])
+    assert torch.all(mask.sum(dim=1) <= k)
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "zeros", "all_equal"])
+def test_pre_aggregated_ties_match_pallas(kind):
+    """Tie-heavy rows through every fused pipeline: the stable tie rules
+    pick the same rows as the Pallas kernels (ARC's threshold among equal
+    norms included)."""
+    x = np.stack([_tie_rows(kind)] * 2)
+    for name in PRE_KERNELS:
+        ours, ref = _run_pre_kernel(name, x, "f32", 13)
+        _assert_matches_pallas(ours, ref, "f32")
+
+
+def test_weighted_rows_reads_nan_weights():
+    """The sweep reads every row whose weight is not 0: a NaN weight
+    poisons every column (B9 and B10 write all-NaN weights when a
+    non-finite row was selected); 0-weight rows, NaN data included, are
+    never read."""
+    x = torch.from_numpy(_matrix(np.random.default_rng(2), (1, 5, 64), specials=False))
+    x[0, 3] = float("nan")
+    w = torch.tensor([[0.5, 0.0, 0.5, 0.0, 0.0]])
+    assert torch.isfinite(kernels.weighted_rows(x, w)).all()
+    w_nan = torch.full((1, 5), float("nan"))
+    out = kernels.weighted_rows(x, w_nan)
+    assert torch.isnan(out).all()
+    assert np.all(out.numpy().view(np.uint32) == 0x7FC00000)
+
+
+# ---------------------------------------------------------------------------
 # input checks
 # ---------------------------------------------------------------------------
 
@@ -210,6 +378,40 @@ SELECT_BAD = [
     dict(f=0, q=1, mode="monna", reference_index=4),
     dict(f=0, q=1, mode="monna", reference_index=-1),
 ]
+
+
+PRE_BAD = [
+    ("nnm", dict(f=4)),
+    ("nnm", dict(f=-1)),
+    ("nnm_selection", dict(f_nnm=4, f=1, q=2)),
+    ("nnm_selection", dict(f_nnm=1, f=3, q=1)),
+    ("nnm_selection", dict(f_nnm=1, f=1, q=2, mode="mean")),
+    ("nnm_selection", dict(f_nnm=1, f=0, q=1, mode="monna", reference_index=4)),
+    ("clip", dict(tau=0.0, f=1, q=2)),
+    ("clip", dict(tau=-1.0, f=1, q=2)),
+    ("clip", dict(tau=1.0, f=1, q=4)),
+    ("clip", dict(tau=1.0, f=0, q=0, mode="cge")),
+    ("arc", dict(f_arc=5, f=1, q=2)),
+    ("arc", dict(f_arc=-1, f=1, q=2)),
+    ("arc", dict(f_arc=1, f=3, q=1)),
+]
+PRE_CALLS = {
+    "nnm": (kernels.nnm_stream, pk.nnm_stream_pallas),
+    "nnm_selection": (kernels.nnm_selection_mean_stream, pk.nnm_selection_mean_stream_pallas),
+    "clip": (kernels.clip_selection_mean_stream, pk.clip_selection_mean_stream_pallas),
+    "arc": (kernels.arc_selection_mean_stream, pk.arc_selection_mean_stream_pallas),
+}
+
+
+@pytest.mark.parametrize("name,kw", PRE_BAD)
+def test_pre_aggregated_errors_match_jax(name, kw):
+    x = np.zeros((1, 4, 16), np.float32)
+    ours_fn, ref_fn = PRE_CALLS[name]
+    with pytest.raises(ValueError) as ours:
+        ours_fn(torch.from_numpy(x), **kw)
+    with pytest.raises(ValueError) as ref:
+        ref_fn(jnp.asarray(x), interpret=True, **kw)
+    assert str(ours.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("kw", SORT_BAD)
@@ -271,6 +473,10 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     for mode in ("krum", "cge", "monna"):
         kernels.selection_mean_stream(x, f=2, q=3, mode=mode)
     kernels.weighted_rows(x, kernels.selection_weights(g, f=2, q=3))
+    kernels.nnm_stream(x, f=2)
+    kernels.nnm_selection_mean_stream(x, f_nnm=2, f=2, q=3)
+    kernels.clip_selection_mean_stream(x, tau=5.0, f=2, q=3)
+    kernels.arc_selection_mean_stream(x, f_arc=2, f=2, q=3)
     assert all(v == 0 for v in kernels.launch_counts.values())
 
 

@@ -18,6 +18,7 @@ import torch
 from byzpy_tpu.models import data as jdata
 from byzpy_tpu.models import nets as jnets
 from byzpy_tpu.ops import attack_ops as jattack
+from byzpy_tpu.ops import preagg as jpreagg
 from byzpy_tpu.ops import robust as jrobust
 from byzpy_tpu.parallel import ps as jps
 from byzpy_tpu_torch.models import (
@@ -27,7 +28,7 @@ from byzpy_tpu_torch.models import (
     to_flax,
 )
 from byzpy_tpu_torch.models import nets
-from byzpy_tpu_torch.ops import attack_ops, robust
+from byzpy_tpu_torch.ops import attack_ops, preagg, robust
 from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step
 from byzpy_tpu_torch.utils import device as device_mod
 
@@ -145,6 +146,77 @@ def test_ps_steps_match_jax(agg):
             np.testing.assert_allclose(float(metrics[m]), float(jmetrics[m]), rtol=1e-4)
 
 
+# The pre-aggregated configurations, as (pre_aggregate, aggregate) pairs of
+# the port and of the JAX package, at n = 4 nodes of which 1 byzantine.
+# TAU = 10.0 is the JAX entry point's clip (__graft_entry__.py); it clips
+# 1-3 of the 4 rows at these models' first steps.
+TAU = 10.0
+PRE_CONFIGS = {
+    "clip+trimmed": (
+        (lambda m: preagg.clip_rows(m, threshold=TAU), lambda m: robust.trimmed_mean(m, f=1)),
+        (lambda m: jpreagg.clip_rows(m, threshold=TAU), lambda m: jrobust.trimmed_mean(m, f=1)),
+    ),
+    "nnm+median": (
+        (lambda m: preagg.nnm(m, f=1), robust.coordinate_median),
+        (lambda m: jpreagg.nnm(m, f=1), jrobust.coordinate_median),
+    ),
+    "nnm_multi_krum": (
+        (None, lambda m: robust.nnm_multi_krum(m, f_nnm=1, f=1, q=2)),
+        (None, lambda m: jrobust.nnm_multi_krum(m, f_nnm=1, f=1, q=2)),
+    ),
+    "clipped_multi_krum": (
+        (None, lambda m: robust.clipped_multi_krum(m, tau=TAU, f=1, q=2)),
+        (None, lambda m: jrobust.clipped_multi_krum(m, tau=TAU, f=1, q=2)),
+    ),
+    "arc_multi_krum": (
+        (None, lambda m: robust.arc_multi_krum(m, f_arc=1, f=1, q=2)),
+        (None, lambda m: jrobust.arc_multi_krum(m, f_arc=1, f=1, q=2)),
+    ),
+}
+
+
+@pytest.mark.parametrize("which", ["cnn", "mlp"])
+@pytest.mark.parametrize("config", sorted(PRE_CONFIGS))
+def test_pre_aggregated_ps_steps_match_jax(config, which):
+    """2 PS steps of SmallCNN and of the MLP with each pre-aggregated
+    configuration (n=4 nodes, 1 byzantine sign-flipping the honest mean,
+    batch 8): parameters within rtol 1e-4, atol 1e-5 of the JAX round
+    after every step, as for the plain aggregators. The JAX package takes
+    its two-step path on the CPU and the port its fused one."""
+    n, n_byz, batch = 4, 1, 8
+    (pre, agg), (jpre, jagg) = PRE_CONFIGS[config]
+    jb = jnets.mnist_cnn(seed=0) if which == "cnn" else jnets.mnist_mlp(seed=0)
+    bundle = _port_bundle(jb, nets.SmallCNN() if which == "cnn" else nets.MLP())
+    jx, jy = jdata.synthetic_classification(n_samples=2 * n * batch, seed=3)
+    x, y = synthetic_classification(n_samples=2 * n * batch, seed=3, device="cpu")
+    step, opt = build_ps_train_step(
+        bundle, agg, PSStepConfig(n_nodes=n, n_byzantine=n_byz), pre_aggregate=pre,
+        attack=lambda h, g: attack_ops.sign_flip(h.mean(0)),
+    )
+    jstep, jopt = jps.build_ps_train_step(
+        jb, jagg, jps.PSStepConfig(n_nodes=n, n_byzantine=n_byz), pre_aggregate=jpre,
+        attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)),
+    )
+    jstep = jax.jit(jstep)
+    params, jparams = bundle.params, jb.params
+    key = jax.random.PRNGKey(0)
+    for s in range(2):
+        sl = slice(s * n * batch, (s + 1) * n * batch)
+        params, opt, metrics = step(
+            params, opt, x[sl].reshape(n, batch, 28, 28, 1), y[sl].reshape(n, batch)
+        )
+        jparams, jopt, jmetrics = jstep(
+            jparams, jopt, jx[sl].reshape(n, batch, 28, 28, 1), jy[sl].reshape(n, batch), key
+        )
+        ref = from_flax(_np_tree(jparams), device="cpu")
+        for k, v in params.items():
+            np.testing.assert_allclose(
+                v.numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-5, err_msg=f"step {s} {k}"
+            )
+        for m in ("honest_loss", "agg_grad_norm"):
+            np.testing.assert_allclose(float(metrics[m]), float(jmetrics[m]), rtol=1e-4)
+
+
 def test_ps_rejects_bad_config():
     bundle = nets.mnist_mlp(device="cpu")
     with pytest.raises(ValueError, match="n_byzantine"):
@@ -189,6 +261,7 @@ def test_port_imports_no_jax():
     optax or the JAX package."""
     files = _port_sources()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
+    assert REPO / "byzpy_tpu_torch" / "ops" / "preagg.py" in files
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from byzpy_tpu.ops import attack_ops as jattack
+from byzpy_tpu.ops import pallas_kernels as pk
+from byzpy_tpu.ops import preagg as jpreagg
 from byzpy_tpu.ops import robust as jrobust
-from byzpy_tpu_torch.ops import attack_ops, robust
+from byzpy_tpu_torch.ops import attack_ops, kernels, robust
 
 
 def _x(seed, shape=(11, 257)):
@@ -126,6 +128,123 @@ def test_errors_match_jax(call):
     with pytest.raises(ValueError) as ref:
         getattr(jrobust, name)(jnp.asarray(x), **kw)
     assert str(ours.value) == str(ref.value)
+
+
+# ---------------------------------------------------------------------------
+# pre-aggregation fused into Multi-Krum (B9, B10)
+# ---------------------------------------------------------------------------
+
+PIPELINES = {
+    "nnm": ("nnm_multi_krum", dict(f_nnm=3)),
+    "clip": ("clipped_multi_krum", dict(tau=25.0)),
+    "arc": ("arc_multi_krum", dict(f_arc=3)),
+}
+
+
+def _pipeline_rows(seed, n=12, d=400):
+    x = _x(seed, (n, d))
+    x[::3] *= 3.0  # norms ~20 and ~60: the clip and ARC engage
+    x[5] *= 25.0  # an outlier row
+    return x
+
+
+def _jax_selected(pre: str, x: np.ndarray, f: int, q: int) -> np.ndarray:
+    """Rows whose weight in the final mean is not 0, from the JAX package's
+    two-step composition: the pre-aggregator, then Multi-Krum's selection
+    (``_nan_last_ranks`` of Krum scores); NNM maps the selected mixed rows
+    back to the source rows it mixed (its 0/1 mask)."""
+    xj = jnp.asarray(x)
+    if pre == "nnm":
+        mixed = jpreagg.nnm(xj, f=3)
+        sel = np.asarray(jrobust._nan_last_ranks(jrobust.krum_scores(mixed, f=f)) < q)
+        g = np.zeros((16, 16), np.float32)
+        g[:12, :12] = np.asarray(jrobust.gram_matrix(xj))
+        mask = np.asarray(pk._nnm_weights(jnp.asarray(g), n_pad=16, n_real=12, k=9)[0])[:12, :12]
+        return mask @ sel.astype(np.float32) > 0
+    clipped = jpreagg.clip_rows(xj, threshold=25.0) if pre == "clip" else jpreagg.arc_clip(xj, f=3)
+    return np.asarray(jrobust._nan_last_ranks(jrobust.krum_scores(clipped, f=f)) < q)
+
+
+@pytest.mark.parametrize("q", [1, 4])
+@pytest.mark.parametrize("pre", sorted(PIPELINES))
+def test_fused_pipelines_match_jax(pre, q):
+    """Against the JAX package's two-step path (its choice on the CPU):
+    the rows that carry weight are the same, exactly, and the mean is
+    within rtol 1e-5, atol 1e-6 (the fused path sums the derived Gram and
+    the weights in another order)."""
+    name, kw = PIPELINES[pre]
+    x = _pipeline_rows(20 + q)
+    ours = getattr(robust, name)(torch.from_numpy(x), f=2, q=q, **kw)
+    ref = getattr(jrobust, name)(jnp.asarray(x), f=2, q=q, **kw)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    g = kernels.gram(torch.from_numpy(x)[None])
+    if pre == "nnm":
+        w = kernels.nnm_selection_weights(g, k=9, f=2, q=q)
+    elif pre == "clip":
+        w = kernels.clip_selection_weights(g, pre="clip", tau=25.0, f=2, q=q)
+    else:
+        w = kernels.clip_selection_weights(g, pre="arc", cut_off=jpreagg.arc_cut_off(12, 3), f=2, q=q)
+    np.testing.assert_array_equal((w[0] != 0).numpy(), _jax_selected(pre, x, 2, q))
+
+
+@pytest.mark.parametrize("pre", sorted(PIPELINES))
+def test_fused_pipelines_match_jax_fused_path(pre, monkeypatch):
+    """Against the JAX package's fused path (forced on, Pallas interpret
+    mode), streams included: within rtol 1e-5, atol 1e-6."""
+    monkeypatch.setenv("BYZPY_TPU_PALLAS", "1")
+    name, kw = PIPELINES[pre]
+    xs = np.stack([_pipeline_rows(30 + k) for k in range(3)])
+    ours = getattr(robust, f"{name}_stream")(torch.from_numpy(xs), f=2, q=4, **kw)
+    ref = getattr(jrobust, f"{name}_stream")(jnp.asarray(xs), f=2, q=4, **kw)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    one = getattr(robust, name)(torch.from_numpy(xs[1]), f=2, q=4, **kw)
+    assert torch.equal(one, ours[1])
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        ("clipped_multi_krum", dict(tau=0.0, f=1, q=2)),
+        ("clipped_multi_krum", dict(tau=-1.0, f=1, q=2)),
+        ("clipped_multi_krum_stream", dict(tau=0.0, f=1, q=2)),
+        ("arc_multi_krum", dict(f_arc=-1, f=1, q=2)),
+        ("arc_multi_krum", dict(f_arc=9, f=1, q=2)),
+        ("arc_multi_krum_stream", dict(f_arc=9, f=1, q=2)),
+        ("nnm_multi_krum", dict(f_nnm=8, f=1, q=2)),
+        ("nnm_multi_krum", dict(f_nnm=1, f=7, q=1)),
+        ("clipped_multi_krum", dict(tau=1.0, f=1, q=8)),
+        ("arc_multi_krum", dict(f_arc=1, f=7, q=1)),
+    ],
+)
+def test_fused_pipeline_errors_match_jax(call, monkeypatch):
+    """The same ValueError as the JAX package on its fused path; tau and
+    f_arc are checked before any dispatch, on both of its paths."""
+    monkeypatch.setenv("BYZPY_TPU_PALLAS", "1")
+    name, kw = call
+    x = np.zeros((8, 256), np.float32)
+    if name.endswith("_stream"):
+        x = x[None]
+    with pytest.raises(ValueError) as ours:
+        getattr(robust, name)(torch.from_numpy(x), **kw)
+    with pytest.raises(ValueError) as ref:
+        getattr(jrobust, name)(jnp.asarray(x), **kw)
+    assert str(ours.value) == str(ref.value)
+
+
+def test_clipped_multi_krum_finite_overflow_documented_divergence():
+    """The JAX package's pinned deviation, reproduced: a finite row whose
+    squared norm overflows f32 is excluded by the fused path (the two-step
+    path clips it to the zero vector). Both outputs are finite and stay at
+    the honest rows' scale."""
+    x = _x(40, (10, 512))
+    x[3] = 1e18
+    ours = robust.clipped_multi_krum(torch.from_numpy(x), tau=3.0, f=2, q=4)
+    ref = np.asarray(pk.clip_selection_mean_stream_pallas(
+        jnp.asarray(x)[None], tau=3.0, f=2, q=4, interpret=True
+    ))[0]
+    assert torch.isfinite(ours).all()
+    assert float(ours.abs().max()) < 10.0
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
 def test_aggregators_reject_non_matrix():
