@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("sorted_reduce", "gram", "selection", "nnm", "clip_selection")
+SOURCES = ("sorted_reduce", "gram", "selection", "nnm", "clip_selection", "meamed", "center_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -63,6 +63,16 @@ SIGNATURES = {
     "byz_clip_selection_weights": ("clip_selection", [
         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
         _c_int, _c_int, _c_void_p,
+    ]),
+    "byz_meamed": ("meamed", [
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int, _c_void_p,
+    ]),
+    "byz_center_weights": ("center_step", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_ll, _c_int, _c_int,
+        _c_float, _c_float, _c_int, _c_void_p,
+    ]),
+    "byz_center_sweep": ("center_step", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,
     ]),
 }
 

@@ -18,6 +18,10 @@ Kernels (TPU kernel they replace -> CUDA source):
   selection kernel (:820) -> ``csrc/gram.cu``;
 * B4 ``selection_mean_stream``: ``_selection_mean_stream_kernel`` (:928)
   -> ``csrc/gram.cu`` + ``csrc/selection.cu``;
+* B6 ``meamed_stream``: ``_meamed_stream_kernel`` (:619) ->
+  ``csrc/meamed.cu``;
+* B7 ``weighted_center_step``: ``_weighted_center_step_kernel`` (:470),
+  modes ``weiszfeld`` and ``clip`` -> ``csrc/center_step.cu``;
 * B8 ``nnm_stream``: ``_nnm_stream_kernel`` (:1245) -> ``csrc/gram.cu`` +
   ``csrc/nnm.cu``;
 * B9 ``nnm_selection_mean_stream``: ``_nnm_selection_stream_kernel``
@@ -44,6 +48,7 @@ _CANONICAL_NAN_BITS = 0x7FC00000
 _SORT_MODES = {"median": 0, "trimmed": 1}
 _SELECTION_MODES = {"krum": 0, "cge": 1, "monna": 2}
 _CLIP_MODES = {"clip": 0, "arc": 1}
+_CENTER_MODES = {"weiszfeld": 0, "clip": 1}
 # split-K Gram: aim for this many blocks per SM of the card, with chunks of
 # at least _GRAM_MIN_CHUNK columns (16 shared-memory tiles) each
 _GRAM_BLOCKS_PER_SM = 4
@@ -51,6 +56,10 @@ _GRAM_TK = 32
 _GRAM_MIN_CHUNK = 16 * _GRAM_TK
 # B8's mixing sweep: blocks per SM that stride over the 32-column tiles
 _MIX_BLOCKS_PER_SM = 8
+# B7's distance partials: this many blocks per SM, at least
+# _CENTER_MIN_CHUNK columns each
+_CENTER_BLOCKS_PER_SM = 4
+_CENTER_MIN_CHUNK = 1024
 
 # Launches of each kernel since the last reset, keyed "kernel" or
 # "kernel:mode". Only a wrapper's CUDA branch adds to it, right after its
@@ -63,6 +72,10 @@ launch_counts = {
     "selection_weights:cge": 0,
     "selection_weights:monna": 0,
     "weighted_rows": 0,
+    "meamed": 0,
+    "center_weights:weiszfeld": 0,
+    "center_weights:clip": 0,
+    "center_sweep": 0,
     "nnm_weights": 0,
     "mix_rows": 0,
     "nnm_selection_weights:krum": 0,
@@ -252,6 +265,13 @@ def _true_div(x: torch.Tensor, denom: int) -> torch.Tensor:
     # a device tensor divisor: PyTorch turns division by a host scalar into
     # a multiply by its reciprocal, which is not the kernels' IEEE divide
     return x / torch.full((), float(denom), dtype=x.dtype, device=x.device)
+
+
+def _recip(k: int, like: torch.Tensor) -> torch.Tensor:
+    """The f32 reciprocal of ``k``, rounded once, on ``like``'s device: the
+    reference's division by a constant count compiles to a multiply by it
+    (B6, B7)."""
+    return torch.reciprocal(torch.full((), float(k), dtype=torch.float32, device=like.device))
 
 
 def sorted_reduce_stream_plain(xs: torch.Tensor, *, mode: str, f: int = 0) -> torch.Tensor:
@@ -452,6 +472,213 @@ def weighted_rows_plain(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     sel = w != 0
     rows = torch.where(sel[:, :, None], xs.float(), torch.zeros((), device=xs.device)) * w[:, :, None]
     return canonical_nan(_sequential_row_sum(rows).to(xs.dtype))
+
+
+# ---------------------------------------------------------------------------
+# B6: MeaMed (mean around the median)
+# ---------------------------------------------------------------------------
+
+
+def meamed_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
+    """MeaMed of ``K`` stacked rounds ``xs: (K, n, d)``, returning ``(K,
+    d)`` in ``xs``'s dtype (B6; ref ``pallas_kernels.meamed_stream_pallas``):
+    per column, in f32, the mean of the ``k = n - f`` values closest to the
+    median, ties at the cut taken in node order. The median is the middle
+    value or ``0.5 a + 0.5 b`` of the middle two, NaN iff the column holds a
+    NaN; the output is NaN where the median or the cut is."""
+    _check_ndim(xs, 3, "xs")
+    K, n, d = xs.shape
+    if not 0 <= f < n:
+        raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+    _check_float(xs)
+    if _on_cpu(xs):
+        return meamed_stream_plain(xs, f=f)
+    _check_cuda_input(xs, n)
+    out = torch.empty((K, d), dtype=xs.dtype, device=xs.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(xs.device):
+        _call("byz_meamed", xs.data_ptr(), out.data_ptr(), K, n, d, f, _DTYPE_CODES[xs.dtype],
+              _stream(xs))
+    launch_counts["meamed"] += 1
+    return out
+
+
+def meamed_stream_plain(xs: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`meamed_stream`: one key sort gives the
+    median and the window-minimum cut (the ``k`` values closest to the
+    median are a window of the sorted column); the select runs on the
+    original column and its sum adds the selected rows in node order."""
+    n = xs.shape[1]
+    k = n - f
+    x = xs.float()
+    keys = torch.sort(float_sort_keys(x), dim=1).values
+    srt = keys_to_float(keys)
+    lo, hi = (n - 1) // 2, n // 2
+    med = srt[:, lo] if lo == hi else srt[:, lo] * 0.5 + srt[:, hi] * 0.5
+    med = torch.where(keys[:, n - 1] > _INF_KEY, float("nan"), med)
+    # torch.maximum and amin keep NaN, as jnp's do
+    radius = torch.maximum(med[:, None] - srt[:, :f + 1], srt[:, k - 1:] - med[:, None])
+    dev = (x - med[:, None]).abs()
+    enough = (~torch.isnan(dev)).sum(dim=1) >= k
+    cut = torch.where(
+        torch.isfinite(med),
+        radius.amin(dim=1),
+        torch.where(enough, float("inf"), float("nan")),
+    )
+    below = dev < cut[:, None]
+    at = dev == cut[:, None]
+    quota = k - below.sum(dim=1, keepdim=True)
+    sel = below | (at & (torch.cumsum(at, dim=1) <= quota))
+    total = _sequential_row_sum(torch.where(sel, x, 0.0))
+    out = torch.where(torch.isnan(cut) | torch.isnan(med), float("nan"), total * _recip(k, x))
+    return canonical_nan(out.to(xs.dtype))
+
+
+# ---------------------------------------------------------------------------
+# B7: one Weiszfeld / centred-clipping step
+# ---------------------------------------------------------------------------
+
+
+def _check_center(x: torch.Tensor, z: torch.Tensor, mode: str = "weiszfeld") -> tuple:
+    """``(n, d)`` of a centre step's inputs (ref
+    ``weighted_center_step_pallas``'s checks); raises otherwise."""
+    if mode not in _CENTER_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_ndim(x, 2, "x")
+    n, d = x.shape
+    if tuple(z.shape) != (d,):
+        raise ValueError(f"z must have shape ({d},), got {tuple(z.shape)}")
+    _check_float(x)
+    if z.dtype != x.dtype:
+        raise ValueError(f"z must have x's dtype {x.dtype}, got {z.dtype}")
+    return n, d
+
+
+def weighted_center_step(
+    x: torch.Tensor,
+    z: torch.Tensor,
+    *,
+    mode: str = "weiszfeld",
+    eps: float = 1e-12,
+    c_tau: float = 1.0,
+) -> torch.Tensor:
+    """One step of a centre-seeking aggregator on ``x: (n, d)`` and the
+    centre ``z: (d,)`` (B7; ref ``pallas_kernels.weighted_center_step_pallas``),
+    returning the new centre ``alpha z + sum_i w_i x_i`` in ``x``'s dtype,
+    computed in f32. ``weiszfeld``: ``w_i = (1/max(dist_i, eps)) / sum_j
+    (...)``, ``alpha = 0``; ``clip``: ``w_i = min(1, c_tau/max(dist_i,
+    eps)) / n``, ``alpha = 1 - sum_i w_i``, with ``dist_i = |x_i - z|``.
+    Every row enters the sum, so an inf row (``w = 0``) or a NaN one makes
+    the step NaN, as in the reference.
+
+    A composition of :func:`center_weights` and :func:`center_sweep`, which
+    count their own launches; ``d = 0`` launches nothing."""
+    n, d = _check_center(x, z, mode)
+    if d == 0:
+        return x.new_empty((0,))
+    w, alpha = center_weights(x, z, mode=mode, eps=eps, c_tau=c_tau)
+    return center_sweep(x, z, w, alpha)
+
+
+def weighted_center_step_plain(
+    x: torch.Tensor,
+    z: torch.Tensor,
+    *,
+    mode: str = "weiszfeld",
+    eps: float = 1e-12,
+    c_tau: float = 1.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`weighted_center_step`."""
+    w, alpha = center_weights_plain(x, z, mode=mode, eps=eps, c_tau=c_tau)
+    return center_sweep_plain(x, z, w, alpha)
+
+
+def center_weights(
+    x: torch.Tensor, z: torch.Tensor, *, mode: str, eps: float = 1e-12, c_tau: float = 1.0
+) -> tuple:
+    """``(w (n,), alpha (1,))`` f32 of one centre step (B7's distance
+    phase and the weights between its phases). On the card: per-chunk
+    partial sums of ``(x_ic - z_c)^2``, then one block that adds them in a
+    fixed order and forms the weights; no float atomics."""
+    n, d = _check_center(x, z, mode)
+    if n < 1 or d < 1:
+        raise ValueError(f"x must have at least one row and one column, got {(n, d)}")
+    if _on_cpu(x, z):
+        return center_weights_plain(x, z, mode=mode, eps=eps, c_tau=c_tau)
+    _check_cuda_input(x, n)
+    _check_cuda_input(z, n)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    chunk = max(_CENTER_MIN_CHUNK, _ceil_div(d, _CENTER_BLOCKS_PER_SM * sms))
+    nchunks = _ceil_div(d, chunk)
+    partial = torch.empty(nchunks * n, dtype=torch.float32, device=x.device)
+    wa = torch.empty(n + 1, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _call(
+            "byz_center_weights", x.data_ptr(), z.data_ptr(), partial.data_ptr(), wa.data_ptr(),
+            n, d, chunk, nchunks, _CENTER_MODES[mode], eps, c_tau, _DTYPE_CODES[x.dtype],
+            _stream(x),
+        )
+    launch_counts[f"center_weights:{mode}"] += 1
+    return wa[:n], wa[n:]
+
+
+def center_weights_plain(
+    x: torch.Tensor, z: torch.Tensor, *, mode: str, eps: float = 1e-12, c_tau: float = 1.0
+) -> tuple:
+    """Plain PyTorch version of :func:`center_weights` (the distances sum
+    in PyTorch's order; the weights' sum runs in row order, as the
+    kernel's)."""
+    n = x.shape[0]
+    diff = x.float() - z.float()
+    dist = torch.sqrt((diff * diff).sum(dim=1))
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    # torch.maximum / torch.minimum keep NaN, as jnp's do
+    den = torch.maximum(dist, torch.full_like(one, eps))
+    if mode == "weiszfeld":
+        raw = one / den
+    else:
+        raw = torch.minimum(one, torch.full_like(den, c_tau) / den) * _recip(n, x)
+    total = _sequential_row_sum(raw[None, :, None])[0]
+    if mode == "weiszfeld":
+        return raw / total, torch.zeros_like(total)
+    return raw, one - total
+
+
+def center_sweep(
+    x: torch.Tensor, z: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    """``alpha z + sum_i w_i x_i`` in f32, rows ascending, cast to ``x``'s
+    dtype (B7's sweep). Every row is read, ``w = 0`` ones included, so that
+    ``0 * inf`` poisons the output as in the reference (B4's
+    :func:`weighted_rows` skips them)."""
+    n, d = _check_center(x, z)
+    if w.shape != (n,) or w.dtype != torch.float32:
+        raise ValueError(f"w must be ({n},) float32, got {tuple(w.shape)} {w.dtype}")
+    if alpha.shape != (1,) or alpha.dtype != torch.float32:
+        raise ValueError(f"alpha must be (1,) float32, got {tuple(alpha.shape)} {alpha.dtype}")
+    if _on_cpu(x, z, w, alpha):
+        return center_sweep_plain(x, z, w, alpha)
+    for t in (x, z, w, alpha):
+        _check_cuda_input(t, n)
+    out = torch.empty((d,), dtype=x.dtype, device=x.device)
+    if d == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _call(
+            "byz_center_sweep", x.data_ptr(), z.data_ptr(), w.data_ptr(), alpha.data_ptr(),
+            out.data_ptr(), n, d, _DTYPE_CODES[x.dtype], _stream(x),
+        )
+    launch_counts["center_sweep"] += 1
+    return out
+
+
+def center_sweep_plain(
+    x: torch.Tensor, z: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`center_sweep`."""
+    acc = _sequential_row_sum((x.float() * w[:, None])[None])[0]
+    return canonical_nan((alpha * z.float() + acc).to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -811,6 +1038,10 @@ __all__ = [
     "arc_selection_mean_stream",
     "batcher_pairs",
     "canonical_nan",
+    "center_sweep",
+    "center_sweep_plain",
+    "center_weights",
+    "center_weights_plain",
     "check_selection_args",
     "clip_selection_mean_stream",
     "clip_selection_weights",
@@ -820,6 +1051,8 @@ __all__ = [
     "gram_plain",
     "keys_to_float",
     "launch_counts",
+    "meamed_stream",
+    "meamed_stream_plain",
     "mix_rows",
     "mix_rows_plain",
     "network_width",
@@ -835,6 +1068,8 @@ __all__ = [
     "selection_weights_plain",
     "sorted_reduce_stream",
     "sorted_reduce_stream_plain",
+    "weighted_center_step",
+    "weighted_center_step_plain",
     "weighted_rows",
     "weighted_rows_plain",
 ]

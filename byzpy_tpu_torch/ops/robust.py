@@ -18,16 +18,25 @@ rounding on finite inputs, and the fused path's documented deviations on
 non-finite ones are the port's.
 
 Functions the JAX package leaves to plain XLA (``sort_rows``,
-``krum_scores``, ``ranked_mean``) are plain PyTorch here.
+``krum_scores``, ``ranked_mean``, ``caf``) are plain PyTorch here.
+
+The iterative aggregators run their loops on the host: each Weiszfeld
+iteration of ``geometric_median`` reads its step length once, and each
+CAF pass its stopping test. :data:`last_iterations` keeps the last call's
+count of each.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from . import kernels
+
+# iterations the last call of each loop took: Weiszfeld steps of
+# geometric_median, filter passes of caf
+last_iterations = {"geometric_median": 0, "caf": 0}
 
 
 def _check_matrix(x: torch.Tensor) -> None:
@@ -101,6 +110,21 @@ def trimmed_mean_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
     return kernels.sorted_reduce_stream(xs, mode="trimmed", f=f)
 
 
+def mean_of_medians(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """MeaMed: per coordinate, the mean of the ``n - f`` values closest to
+    the median, ties at the cut taken in node order (ref:
+    ``aggregators/coordinate_wise/mean_of_medians.py:28-82``). One key sort
+    gives both the median and the cut, computed in f32 (the B6 kernel on
+    the card, at every ``d``)."""
+    _check_matrix(x)
+    return kernels.meamed_stream(x[None], f=f)[0]
+
+
+def mean_of_medians_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
+    """MeaMed over ``K`` stacked rounds ``(K, n, d)``."""
+    return kernels.meamed_stream(xs, f=f)
+
+
 # ---------------------------------------------------------------------------
 # Geometric aggregators (B3 + B4)
 # ---------------------------------------------------------------------------
@@ -161,6 +185,184 @@ def multi_krum_stream(xs: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
 def krum(x: torch.Tensor, *, f: int) -> torch.Tensor:
     """Classic Krum = Multi-Krum with ``q=1``."""
     return multi_krum(x, f=f, q=1)
+
+
+def cge(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Comparative gradient elimination: drop the ``f`` largest-L2-norm
+    rows, average the rest (ref:
+    ``aggregators/norm_wise/comparative_gradient_elimination.py``). The
+    selection kernel in its ``cge`` mode (B3 + B4 on the card)."""
+    _check_matrix(x)
+    return cge_stream(x[None], f=f)[0]
+
+
+def cge_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
+    """CGE over ``K`` stacked rounds ``(K, n, d)``."""
+    n = xs.shape[-2]
+    if not 0 <= f < n:
+        raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+    return kernels.selection_mean_stream(xs, f=0, q=n - f, mode="cge")
+
+
+def monna(x: torch.Tensor, *, f: int, reference_index: int = 0) -> torch.Tensor:
+    """MoNNA: the mean of the ``n - f`` nearest rows (squared distance, self
+    included) of the trusted row ``reference_index`` (ref:
+    ``aggregators/geometric_wise/monna.py:36-83``). The selection kernel in
+    its ``monna`` mode (B3 + B4 on the card)."""
+    _check_matrix(x)
+    return monna_stream(x[None], f=f, reference_index=reference_index)[0]
+
+
+def monna_stream(xs: torch.Tensor, *, f: int, reference_index: int = 0) -> torch.Tensor:
+    """MoNNA over ``K`` stacked rounds ``(K, n, d)``."""
+    n = xs.shape[-2]
+    if 2 * f >= n:
+        raise ValueError(f"Cannot tolerate 2f >= n (got n={n}, f={f})")
+    if not 0 <= reference_index < n:
+        raise ValueError(f"reference_index must be in [0, {n}) (got {reference_index})")
+    return kernels.selection_mean_stream(
+        xs, f=0, q=n - f, mode="monna", reference_index=reference_index
+    )
+
+
+# ---------------------------------------------------------------------------
+# Centre-seeking aggregators (B7) and CAF
+# ---------------------------------------------------------------------------
+
+
+def _row_mean(x: torch.Tensor) -> torch.Tensor:
+    """``mean(x, axis=0)`` in ``x``'s dtype, summed in f32."""
+    return torch.mean(x.float(), dim=0).to(x.dtype)
+
+
+def geometric_median(
+    x: torch.Tensor,
+    *,
+    tol: float = 1e-6,
+    max_iter: int = 256,
+    eps: float = 1e-12,
+    init: str = "median",
+) -> torch.Tensor:
+    """Geometric median by Weiszfeld iterations (ref:
+    ``aggregators/geometric_wise/geometric_median.py:69-104``), each one
+    the B7 step in ``weiszfeld`` mode. The loop is the JAX package's: the
+    centre and the previous centre are carried, and it steps while
+    ``(it == 0 or delta > tol) and it < max_iter``, ``delta`` the L2 step
+    length in ``x``'s dtype, read on the host once per iteration.
+    ``init="median"`` starts from :func:`coordinate_median` (the midpoint
+    at even ``n``, as ``jnp.median``), ``"mean"`` from the row mean."""
+    if init not in {"median", "mean"}:
+        raise ValueError("init must be 'median' or 'mean'")
+    _check_matrix(x)
+    z = coordinate_median(x) if init == "median" else _row_mean(x)
+    zprev = z
+    tol_t = torch.tensor(tol, dtype=x.dtype)  # the comparison runs in x's dtype
+    it = 0
+    while it < max_iter:
+        if it > 0:
+            delta = torch.sqrt(torch.sum((z - zprev) ** 2))
+            if not bool(delta.cpu() > tol_t):
+                break
+        z, zprev = kernels.weighted_center_step(x, z, mode="weiszfeld", eps=eps), z
+        it += 1
+    last_iterations["geometric_median"] = it
+    return z
+
+
+def centered_clipping(
+    x: torch.Tensor,
+    *,
+    c_tau: float,
+    M: int = 10,
+    eps: float = 1e-12,
+    init: str = "mean",
+) -> torch.Tensor:
+    """Centred clipping (Karimireddy et al. 2021): ``M`` steps of ``v <- v
+    + mean_i clip(x_i - v, c_tau)`` (ref:
+    ``aggregators/norm_wise/center_clipping.py:29-120``), each the B7 step
+    in ``clip`` mode, which computes ``alpha v + sum_i w_i x_i`` with ``w_i
+    = min(1, c_tau / |x_i - v|) / n`` and ``alpha = 1 - sum_i w_i`` (the
+    JAX package's kernel formula, equal in algebra to its XLA one)."""
+    if init not in {"mean", "median", "zero"}:
+        raise ValueError("init must be one of {'mean','median','zero'}")
+    _check_matrix(x)
+    if init == "mean":
+        v = _row_mean(x)
+    elif init == "median":
+        v = coordinate_median(x)
+    else:
+        v = x.new_zeros((x.shape[1],))
+    for _ in range(M):
+        v = kernels.weighted_center_step(x, v, mode="clip", eps=eps, c_tau=c_tau)
+    return v
+
+
+def caf(
+    x: torch.Tensor,
+    *,
+    f: int,
+    power_iters: int = 3,
+    v_init: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Covariance-bound-agnostic filter: down-weight rows along the dominant
+    residual direction until at most ``n - 2f`` weight remains; return the
+    mean seen at the smallest dominant eigenvalue (ref:
+    ``aggregators/norm_wise/caf.py:140-185``). Plain PyTorch, as the JAX
+    package leaves it to XLA; the pass loop runs on the host, at most
+    ``4n`` passes.
+
+    The power iteration starts from ``v_init``, a raw ``(d,)`` draw that
+    is normalized here. The JAX package draws it with
+    ``jax.random.normal(PRNGKey(seed), (d,))``, which PyTorch cannot
+    reproduce: pass that draw to get the JAX result, or leave ``v_init``
+    out to draw it with ``torch.randn`` from ``generator``."""
+    _check_matrix(x)
+    n, d = x.shape
+    if 2 * f >= n:
+        raise ValueError(f"Cannot tolerate 2f >= n (got n={n}, f={f})")
+    if v_init is None:
+        v_init = torch.randn((d,), generator=generator, dtype=x.dtype, device=x.device)
+    elif tuple(v_init.shape) != (d,):
+        raise ValueError(f"v_init must have shape ({d},), got {tuple(v_init.shape)}")
+    v_init = v_init.to(x.dtype)
+    # torch.clamp keeps NaN, as jnp.maximum / jnp.clip do; scalar bounds
+    # need no host-to-device copy
+    v_init = v_init / torch.linalg.vector_norm(v_init).clamp(min=1e-12)
+
+    def dominant_eigenpair(diffs, w):
+        vec = v_init
+        for _ in range(power_iters):
+            nxt = torch.sum((w * (diffs @ vec))[:, None] * diffs, dim=0)
+            nn = torch.linalg.vector_norm(nxt)
+            vec = torch.where(nn > 1e-12, nxt / nn.clamp(min=1e-30), vec)
+        proj = diffs @ vec
+        eig = torch.sum(w * proj * proj) / torch.sum(w).clamp(min=1e-12)
+        return eig, vec
+
+    w = torch.ones((n,), dtype=x.dtype, device=x.device)
+    best_mu = torch.mean(x, dim=0)
+    best_lam = torch.full((), torch.finfo(torch.float32).max, dtype=x.dtype, device=x.device)
+    stop = torch.zeros((), dtype=torch.bool, device=x.device)
+    it = 0
+    while it < 4 * n and bool(((~stop) & (torch.sum(w) > n - 2 * f)).cpu()):
+        mu = torch.sum(w[:, None] * x, dim=0) / torch.sum(w)
+        diffs = x - mu[None, :]
+        lam, vec = dominant_eigenpair(diffs, w)
+        better = lam < best_lam
+        best_lam = torch.where(better, lam, best_lam)
+        best_mu = torch.where(better, mu, best_mu)
+        proj = diffs @ vec
+        tau = proj * proj
+        # leverage among surviving rows only (see the JAX package's note)
+        tau_max = torch.max(torch.where(w > 0.0, tau, -float("inf")))
+        degenerate = tau_max <= 1e-12
+        w_new = torch.clamp(w * (1.0 - tau / tau_max.clamp(min=1e-30)), min=0.0)
+        w = torch.where(degenerate, w, w_new)
+        stop = degenerate | (torch.sum(w) <= 0.0)
+        it += 1
+    last_iterations["caf"] = it
+    return best_mu
 
 
 # ---------------------------------------------------------------------------
@@ -237,13 +439,23 @@ __all__ = [
     "aggregate_stream",
     "arc_multi_krum",
     "arc_multi_krum_stream",
+    "caf",
+    "centered_clipping",
+    "cge",
+    "cge_stream",
     "clipped_multi_krum",
     "clipped_multi_krum_stream",
     "coordinate_median",
     "coordinate_median_stream",
+    "geometric_median",
     "gram_matrix",
     "krum",
     "krum_scores",
+    "last_iterations",
+    "mean_of_medians",
+    "mean_of_medians_stream",
+    "monna",
+    "monna_stream",
     "multi_krum",
     "multi_krum_stream",
     "nnm_multi_krum",

@@ -9,22 +9,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device probe: the card's name and power limit (``nvidia-smi``);
 2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed);
-3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean, B8 NNM,
-   B9 NNM -> selection mean, B10 clip / ARC -> selection mean) against its
-   plain PyTorch version on the card, at the main path's shapes, at the
-   64 x 1,048,576 headline and, for B8-B10, on rows holding NaN and inf;
+3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean in its
+   krum / cge / monna modes, B6 MeaMed, B7 centre step in its weiszfeld /
+   clip modes, B8 NNM, B9 NNM -> selection mean, B10 clip / ARC ->
+   selection mean) against its plain PyTorch version on the card, at the
+   main path's shapes, at the 64 x 1,048,576 headline and, for B6-B10, on
+   rows holding NaN and inf (B6 and B7 also at ByzPy's 64 x 65,536, at
+   n = 128 and 13, in f32, bf16 and f16);
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
    each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
-   (f=2, q=4), and the pre-aggregated ones (a) static clipping + trimmed
-   mean, (b) NNM + coordinate median, (c) NNM + Multi-Krum, (d) clipping
-   + Multi-Krum, (e) ARC + Multi-Krum; each configuration's kernels must
-   launch, its clip must engage at step 1, losses stay finite, and the
-   first 2 steps match the same round on the CPU; 3 more steps run under
-   torch.profiler for the device's busy share and kernel breakdown;
+   (f=2, q=4), the pre-aggregated ones (a) static clipping + trimmed mean,
+   (b) NNM + coordinate median, (c) NNM + Multi-Krum, (d) clipping +
+   Multi-Krum, (e) ARC + Multi-Krum, and MeaMed (f=2), the geometric
+   median, centred clipping (M=10), CGE (f=2), MoNNA (f=2) and CAF (f=2);
+   each configuration's kernels must launch, its clip must engage at step
+   1, losses stay finite, and the first 2 steps match the same round on
+   the CPU; 3 more steps run under torch.profiler for the device's busy
+   share and kernel breakdown;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
-   exists, a single PyTorch call.
+   exists, a single PyTorch call; then the six aggregators above, whole,
+   at ByzPy's grid shapes (64 x 65,536).
 
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
@@ -59,6 +65,12 @@ MAIN_TAU = 11.0
 # tau) by n; every third row is scaled x3, so norms sit at ~sqrt(d) and
 # ~3 sqrt(d) and tau between them clips a third of the rows
 PRE_ARGS = {8: (2, 2, 4, 1000.0), 13: (3, 3, 4, 300.0), 64: (8, 8, 12, 1500.0)}
+# centred clipping's threshold on the main path: at step 1 the honest rows
+# sit 6.0-8.0 from the row mean and the two byzantine rows 15.0 on the H100
+# (torch 2.11); phase 4 fails if the first iteration clips none or all
+MAIN_CTAU = 10.0
+# ByzPy's grid shape for the whole-aggregator times (benchmarks/full_grid.py)
+GRID = (64, 65_536)
 
 
 class SmokeFailure(AssertionError):
@@ -190,7 +202,7 @@ def check_gram_and_selection(errs: dict) -> None:
     from byzpy_tpu_torch.ops import kernels
 
     cases = [
-        ((1, MAIN_N, 421_642), 2, 4, ("krum",)),
+        ((1, MAIN_N, 421_642), 2, 4, ("krum", "cge", "monna")),
         ((2, 13, 50_000), 3, 5, ("krum", "cge", "monna")),
         ((4,) + HEADLINE, 8, 12, ("krum",)),
     ]
@@ -264,11 +276,13 @@ def bits_equal(a, b) -> bool:
 
 
 def nan_is_canonical(t) -> bool:
+    """Every NaN of ``t`` is the positive quiet NaN of its dtype, read in
+    the dtype's own bits."""
     import torch
 
-    nan = torch.isnan(t)
-    return bool(torch.equal(t[nan].float().view(torch.int32),
-                            torch.full_like(t[nan].float(), float("nan")).view(torch.int32)))
+    ints, bits = {torch.float32: (torch.int32, 0x7FC00000), torch.bfloat16: (torch.int16, 0x7FC0),
+                  torch.float16: (torch.int16, 0x7E00)}[t.dtype]
+    return bool((t[torch.isnan(t)].view(ints) == bits).all())
 
 
 def check_pre_aggregation(errs: dict) -> None:
@@ -336,6 +350,111 @@ def check_pre_aggregation(errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+DTYPES = ("float32", "bfloat16", "float16")
+
+
+def check_meamed(errs: dict) -> None:
+    """B6 against its plain version, bitwise (both add the selected values
+    in node order and multiply by the f32 reciprocal of k), NaN canonical:
+    on rows holding NaN, +-inf and -0.0, and on values quantized to halves,
+    whose deviations tie at the cut (filled in node order)."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    cases = [((1, MAIN_N, 421_642), MAIN_BYZ), ((1,) + HEADLINE, 8), ((2,) + GRID, 8),
+             ((2, 128, 50_000), 40), ((2, 13, 50_000), 3), ((2, 13, 50_000), 0),
+             ((2, 13, 50_000), 12)]
+    for shape, f in cases:
+        for quantized in (False, True):
+            base = random_rounds(shape, seed=400 + shape[1] + f, specials=True)
+            if quantized:
+                base = torch.round(base * 2.0) / 2.0
+            for name in DTYPES:
+                x = base.to(getattr(torch, name))
+                out = kernels.meamed_stream(x, f=f)
+                ref = kernels.meamed_stream_plain(x, f=f)
+                check(bits_equal(out, ref) and nan_is_canonical(out),
+                      f"B6 differs from plain at {shape} f={f} {name} quantized={quantized}")
+                check(bool(torch.isnan(out[:, 1]).all()), f"B6 NaN column not NaN at {shape}")
+                errs["meamed"] = max(errs["meamed"], max_abs_err(out, ref))
+            log(f"  B6 {shape} f={f} {'halves' if quantized else 'normal'}: bitwise equal in "
+                f"{', '.join(DTYPES)}; NaN columns {int(torch.isnan(out[0]).sum())} of {shape[2]}")
+            del base, x, out, ref
+        torch.cuda.empty_cache()
+
+
+def centre_inputs(n: int, d: int, seed: int, dtype):
+    """``(x, z, c_tau)``: rows every third x3, their coordinate median as
+    the centre, and a clip threshold between the two scales' distances."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    x = pre_rows((1, n, d), seed=seed)[0].to(dtype)
+    z = kernels.sorted_reduce_stream(x[None], mode="median")[0]
+    return x, z, 2.0 * math.sqrt(d)
+
+
+def check_center_step(errs: dict) -> None:
+    """B7's two C calls against their plain versions: the weights within
+    rtol 1e-5 (the distances sum in another order) and alpha within 1e-5,
+    the sweep bitwise on the same weights, the whole step within 1e-5 of
+    its terms' magnitude plus one unit in the last place of a 16-bit dtype;
+    an all-inf row or one NaN entry makes the whole step NaN in both."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+    shapes = [(MAIN_N, 421_642), HEADLINE, GRID, (128, 50_000), (13, 50_000)]
+    for n, d in shapes:
+        for name in DTYPES:
+            dtype = getattr(torch, name)
+            x, z, c_tau = centre_inputs(n, d, 500 + n, dtype)
+            for mode in ("weiszfeld", "clip"):
+                kw = dict(mode=mode, c_tau=c_tau)
+                w, alpha = kernels.center_weights(x, z, **kw)
+                w_p, alpha_p = kernels.center_weights_plain(x, z, **kw)
+                rel = float(((w - w_p).abs() / w_p.abs()).max())
+                check(rel <= 1e-5 and abs(float(alpha - alpha_p)) <= 1e-5,
+                      f"B7 {mode} weights off plain at {(n, d)} {name}: rtol {rel:.3g}")
+                clipped = int((w_p < w_p.max()).sum())
+                if mode == "clip":
+                    check(0 < clipped < n, f"B7 clip took {clipped} of {n} rows at {(n, d)}")
+                sweep = kernels.center_sweep(x, z, w, alpha)
+                sweep_p = kernels.center_sweep_plain(x, z, w, alpha)
+                check(bits_equal(sweep, sweep_p), f"B7 sweep differs from plain at {(n, d)} {name}")
+                out = kernels.weighted_center_step(x, z, **kw)
+                ref = kernels.weighted_center_step_plain(x, z, **kw)
+                scale = alpha_p.abs() * z.float().abs() + (w_p.abs()[:, None] * x.float().abs()).sum(0)
+                excess = float(((out.float() - ref.float()).abs()
+                                / (1e-5 * scale + ulp[dtype] * ref.float().abs() + 1e-30)).max())
+                check(excess <= 1.0, f"B7 {mode} step off plain at {(n, d)} {name}: {excess:.3g}")
+                errs[f"center_weights:{mode}"] = max(errs[f"center_weights:{mode}"],
+                                                     float((w - w_p).abs().max()))
+                errs["center_sweep"] = max(errs["center_sweep"], max_abs_err(sweep, sweep_p))
+                log(f"  B7 {mode} {(n, d)} {name}: weights rtol {rel:.2g}, alpha "
+                    f"{float(alpha):.6f}, {clipped if mode == 'clip' else '-'} rows clipped, sweep "
+                    f"bitwise, step max |diff| {max_abs_err(out, ref):.3g}, within {excess:.2f} x "
+                    f"its tolerance")
+            del x, z
+        torch.cuda.empty_cache()
+    for name in DTYPES:
+        for case in ("inf_row", "nan_entry"):
+            x, z, c_tau = centre_inputs(13, 50_000, 9, getattr(torch, name))
+            if case == "inf_row":
+                x[5] = float("inf")
+            else:
+                x[5, 17] = float("nan")
+            for mode in ("weiszfeld", "clip"):
+                out = kernels.weighted_center_step(x, z, mode=mode, c_tau=c_tau)
+                ref = kernels.weighted_center_step_plain(x, z, mode=mode, c_tau=c_tau)
+                check(bool(torch.isnan(out).all()) and nan_is_canonical(out) and bits_equal(out, ref),
+                      f"B7 {mode} with an {case} is not all canonical NaN in {name}")
+        log(f"  B7 {name}: an inf row or a NaN entry makes the whole step canonical NaN, both modes")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -350,9 +469,13 @@ def main_path(counts: dict) -> dict:
 
     n, b, batch = MAIN_N, MAIN_BYZ, MAIN_BATCH
     cfg = PSStepConfig(n_nodes=n, n_byzantine=b)
+    # CAF's start vector, one draw on the host for both devices' rounds
+    caf_start = torch.randn((421_642,), generator=torch.Generator().manual_seed(0))
+    caf_starts = {"cpu": caf_start, "cuda": caf_start.cuda()}
     # name -> (pre_aggregate, aggregate, kernels that must launch, the
     # threshold rule whose clipped rows at step 1 are counted)
     sweep = "weighted_rows"
+    centre = ["center_weights:weiszfeld", "center_sweep"]
     aggregators = {
         "coordinate_median": (None, robust.coordinate_median, ["sorted_reduce:median"], None),
         "trimmed_mean": (None, lambda m: robust.trimmed_mean(m, f=b), ["sorted_reduce:trimmed"],
@@ -371,15 +494,29 @@ def main_path(counts: dict) -> dict:
                                  ["gram", "clip_selection_weights:clip", sweep], "clip"),
         "e_arc_multi_krum": (None, lambda m: robust.arc_multi_krum(m, f_arc=b, f=b, q=4),
                              ["gram", "clip_selection_weights:arc", sweep], "arc"),
+        "meamed": (None, lambda m: robust.mean_of_medians(m, f=b), ["meamed"], None),
+        "geometric_median": (None, robust.geometric_median, ["sorted_reduce:median"] + centre, None),
+        "centered_clipping": (None, lambda m: robust.centered_clipping(m, c_tau=MAIN_CTAU, M=10),
+                              ["center_weights:clip", "center_sweep"], "centre"),
+        "cge": (None, lambda m: robust.cge(m, f=b), ["gram", "selection_weights:cge", sweep], None),
+        "monna": (None, lambda m: robust.monna(m, f=b, reference_index=0),
+                  ["gram", "selection_weights:monna", sweep], None),
+        "caf": (None, lambda m: robust.caf(m, f=b, v_init=caf_starts[m.device.type]), [], None),
     }
-    first_norms = {}
+    # the loops whose iterations each step reports (robust.last_iterations)
+    loops = {"geometric_median": "geometric_median", "caf": "caf"}
+    first_norms, first_centre_dists = {}, {}
 
     def recording(name, fn):
         """``fn`` that keeps the row norms of the first CUDA matrix it sees
-        (a host copy at step 1, outside the steps the median is taken of)."""
+        and the rows' distances to their mean (centred clipping's first
+        centre): host copies at step 1, outside the steps the median is
+        taken of."""
         def call(m):
             if m.is_cuda and name not in first_norms:
                 first_norms[name] = torch.linalg.vector_norm(m.float(), dim=1).cpu()
+                first_centre_dists[name] = torch.linalg.vector_norm(
+                    m.float() - m.float().mean(dim=0), dim=1).cpu()
             return fn(m)
         return call
 
@@ -402,7 +539,7 @@ def main_path(counts: dict) -> dict:
             bundle = make_bundle(SmallCNN(), seed=0, device=dev)
             step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack, pre_aggregate=pre)
             params = bundle.params
-            snaps, losses, times = [], [], []
+            snaps, losses, times, iters = [], [], [], []
             steps = MAIN_STEPS if dev == "cuda" else CPU_STEPS
             if dev == "cuda":
                 torch.cuda.synchronize()
@@ -414,6 +551,8 @@ def main_path(counts: dict) -> dict:
                     torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
                 losses.append(float(metrics["honest_loss"]))
+                if name in loops:
+                    iters.append(robust.last_iterations[loops[name]])
                 if s < CPU_STEPS:
                     snaps.append({k: v.detach().cpu().clone() for k, v in params.items()})
             if dev == "cuda":
@@ -422,8 +561,8 @@ def main_path(counts: dict) -> dict:
                     check(run_counts[k] > 0, f"{name}: kernel {k} never launched on the main path")
                     counts[k] += run_counts[k]
                 profile = profile_steps(step, params, opt, xs, ys)
-            data[dev] = (snaps, losses, times)
-        snaps, losses, times = data["cuda"]
+            data[dev] = (snaps, losses, times, iters)
+        snaps, losses, times, iters = data["cuda"]
         check(all(map(math.isfinite, losses)), f"{name}: loss not finite {losses}")
         worst = 0.0
         for s, (g_snap, c_snap) in enumerate(zip(snaps, data["cpu"][0])):
@@ -436,9 +575,10 @@ def main_path(counts: dict) -> dict:
         ms_step = sorted(times[1:])[len(times[1:]) // 2]
         clipped = None
         if clip_rule is not None:
-            norms = first_norms[name]
-            threshold = (MAIN_TAU if clip_rule == "clip"
-                         else float(torch.sort(norms).values[preagg.arc_cut_off(n, b) - 1]))
+            norms = first_centre_dists[name] if clip_rule == "centre" else first_norms[name]
+            threshold = {"clip": MAIN_TAU, "centre": MAIN_CTAU}.get(clip_rule)
+            if clip_rule == "arc":
+                threshold = float(torch.sort(norms).values[preagg.arc_cut_off(n, b) - 1])
             clipped = int((norms > threshold).sum())
             check(0 < clipped < n, f"{name}: the clip took {clipped} of {n} rows at step 1")
         results[name] = {
@@ -448,19 +588,27 @@ def main_path(counts: dict) -> dict:
             "device_busy_share": profile["device_ms_per_step"] / ms_step,
             "clipped_rows_step1": clipped,
             "row_norms_step1": [round(float(v), 4) for v in first_norms[name]],
+            "row_dists_to_mean_step1": [round(float(v), 4) for v in first_centre_dists[name]],
+            "iterations_per_step": iters or None,
+            "cpu_iterations_per_step": data["cpu"][3] or None,
         }
         log(f"  {name}: {ms_step:.3f} ms/step (median of steps 2-{MAIN_STEPS}; first "
             f"{times[0]:.1f} ms), losses {[round(v, 4) for v in losses]}, "
             f"params vs CPU max |diff| {worst:.3g}, launches {results[name]['launches']}, "
             f"device busy {results[name]['device_busy_share']:.3f}, rows clipped at step 1 "
-            f"{clipped} (norms {results[name]['row_norms_step1']})")
+            f"{clipped} (norms {results[name]['row_norms_step1']}, distances to the row mean "
+            f"{results[name]['row_dists_to_mean_step1']})"
+            + (f", {loops[name]} iterations per step {iters} (CPU {data['cpu'][3]})"
+               if name in loops else ""))
         log(f"    profile: {json.dumps(profile)}")
     return results
 
 
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
                 "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
-                "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel")
+                "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
+                "meamed_kernel", "center_dist_partial_kernel", "center_weights_kernel",
+                "center_sweep_kernel")
 
 
 def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
@@ -521,7 +669,7 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
     plain version and, where one exists, a single PyTorch call."""
     import torch
 
-    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.ops import kernels, robust
 
     x = random_rounds((1, n, d), seed=seed)
     isz = x.element_size()
@@ -568,6 +716,20 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
             lambda: kernels.selection_mean_stream(x, f=f_krum, q=q, mode="krum")),
         "selection_mean_plain_ms": cuda_time_ms(plain_pipeline, iters=3),
     }
+    # CGE's and MoNNA's weights (f = 0, q = n - f, as robust.cge / monna
+    # call them): the scores read the Gram's diagonal (and MoNNA the
+    # reference row), then n^2 rank compares
+    for mode, score_reads, score_ops in (("cge", n, 0), ("monna", 2 * n, 3 * n)):
+        sel = dict(f=0, q=n - f_krum, mode=mode)
+        b_ms, b_by = bound_ms(score_reads * 4 + n * 4, score_ops + n * n)
+        whole = {"cge": lambda: robust.cge(x[0], f=f_krum),
+                 "monna": lambda: robust.monna(x[0], f=f_krum)}[mode]
+        out[f"selection_weights:{mode}"] = {
+            "ms": cuda_time_ms(lambda sel=sel: kernels.selection_weights(g, **sel)),
+            "plain_ms": cuda_time_ms(lambda sel=sel: kernels.selection_weights_plain(g, **sel)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+            f"{mode}_ms": cuda_time_ms(whole),
+        }
     b_ms, b_by = bound_ms(q * d * isz + n * 4 + d * isz, 2 * q * d)
     out["weighted_rows"] = {
         "ms": cuda_time_ms(lambda: kernels.weighted_rows(x, w)),
@@ -693,6 +855,96 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
     return out
 
 
+def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
+    """B6's launch and B7's two C calls on one (n, d) f32 round (every
+    third row x3; B7 about the coordinate median, c_tau between the two
+    scales) beside their bounds, plain versions and, where one exists, a
+    single PyTorch call: ``torch.cdist`` for B7's distances (the weights
+    are n more scalars), ``torch.addmv`` for its sweep. No single PyTorch
+    call computes MeaMed."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    x, z, c_tau = centre_inputs(n, d, seed, torch.float32)
+    isz = x.element_size()
+    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
+    out = {}
+    # the key sort, the window cut (2 subs, a max, a min per start), the
+    # select's two passes (a sub, an abs, a compare each) and the k adds
+    b_ms, b_by = bound_ms(n * d * isz + d * isz, (2 * pairs + 4 * (f + 1) + 6 * n + (n - f)) * d)
+    out["meamed"] = {
+        "ms": cuda_time_ms(lambda: kernels.meamed_stream(x[None], f=f)),
+        "plain_ms": cuda_time_ms(lambda: kernels.meamed_stream_plain(x[None], f=f), iters=3),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d], "f": f,
+    }
+    for mode in ("weiszfeld", "clip"):
+        kw = dict(mode=mode, c_tau=c_tau)
+        # read x and z, write n weights and alpha; a sub, a mul, an add per entry
+        b_ms, b_by = bound_ms(n * d * isz + d * isz + (n + 1) * 4, 3 * n * d)
+        out[f"center_weights:{mode}"] = {
+            "ms": cuda_time_ms(lambda kw=kw: kernels.center_weights(x, z, **kw)),
+            "plain_ms": cuda_time_ms(lambda kw=kw: kernels.center_weights_plain(x, z, **kw)),
+            "library_ms": cuda_time_ms(lambda: torch.cdist(
+                x, z[None], compute_mode="donot_use_mm_for_euclid_dist")),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+            # the whole step: distances, weights and the sweep
+            "step_ms": cuda_time_ms(lambda kw=kw: kernels.weighted_center_step(x, z, **kw)),
+            "step_plain_ms": cuda_time_ms(lambda kw=kw: kernels.weighted_center_step_plain(x, z, **kw)),
+        }
+    w, alpha = kernels.center_weights(x, z, mode="clip", c_tau=c_tau)
+    beta = float(alpha)
+    # read x, z, n weights and alpha, write the centre; a mul and an add per entry
+    b_ms, b_by = bound_ms(n * d * isz + 2 * d * isz + (n + 1) * 4, 2 * n * d + 2 * d)
+    out["center_sweep"] = {
+        "ms": cuda_time_ms(lambda: kernels.center_sweep(x, z, w, alpha)),
+        "plain_ms": cuda_time_ms(lambda: kernels.center_sweep_plain(x, z, w, alpha), iters=3),
+        "library_ms": cuda_time_ms(lambda: torch.addmv(z, x.t(), w, beta=beta)),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+    }
+    for key, v in out.items():
+        log(f"  {key} {v['shape']}: {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library {v['library_ms']}"
+            + (f", whole step {v['step_ms']:.4f} ms (plain {v['step_plain_ms']:.4f})"
+               if "step_ms" in v else ""))
+    del x, z
+    torch.cuda.empty_cache()
+    return out
+
+
+def aggregator_times() -> dict:
+    """The six aggregators of this slice, whole, on one ByzPy grid input
+    (64 x 65,536 f32 normal, benchmarks/full_grid.py), by CUDA events
+    around each call (the loops' host reads included), with the loops'
+    iteration counts."""
+    import torch
+
+    from byzpy_tpu_torch.ops import robust
+
+    n, d = GRID
+    x = random_rounds((1, n, d), seed=23)[0]
+    v = torch.randn((d,), generator=torch.Generator().manual_seed(0)).cuda()
+    calls = {
+        "meamed_64x65536_f8": (lambda: robust.mean_of_medians(x, f=8), None),
+        "geometric_median_64x65536": (lambda: robust.geometric_median(x), "geometric_median"),
+        "centered_clipping_64x65536_M10": (lambda: robust.centered_clipping(x, c_tau=10.0, M=10), None),
+        "cge_64x65536_f8": (lambda: robust.cge(x, f=8), None),
+        "monna_64x65536_f8": (lambda: robust.monna(x, f=8), None),
+        "caf_64x65536_f8": (lambda: robust.caf(x, f=8, v_init=v), "caf"),
+    }
+    out = {}
+    for name, (fn, loop) in calls.items():
+        res = fn()
+        check(bool(torch.isfinite(res).all()), f"{name}: result not finite")
+        out[name] = {"ms": cuda_time_ms(fn, iters=5, warmup=1)}
+        if loop is not None:
+            out[name]["iterations"] = robust.last_iterations[loop]
+        log(f"  {name}: {json.dumps(out[name])}")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def timing() -> dict:
     """Kernel times at the headline 64 x 1,048,576 (the JSON line's
     numbers) and at the main path's 8 x 421,642. ``torch.median`` returns
@@ -705,12 +957,13 @@ def timing() -> dict:
     odd = kernel_times(n - 1, d, f_trim=8, f_krum=8, q=12, seed=8)["sorted_reduce:median"]
     out["sorted_reduce:median"] = dict(odd, at_headline=out["sorted_reduce:median"])
     main = kernel_times(MAIN_N, 421_642, f_trim=MAIN_BYZ, f_krum=MAIN_BYZ, q=4, seed=9)
-    for times, shape, seed in ((out, HEADLINE, 17), (main, (MAIN_N, 421_642), 19)):
+    for times, shape, seed, f in ((out, HEADLINE, 17, 8), (main, (MAIN_N, 421_642), 19, MAIN_BYZ)):
         pre = pre_kernel_times(*shape, seed=seed)
         times["weighted_rows"].update(pre.pop("weighted_rows"))
         times.update(pre)
+        times.update(centre_kernel_times(*shape, f=f, seed=seed + 10))
     keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "with_nnm_weights",
-            "with_clip_weights")
+            "with_clip_weights", "step_ms", "step_plain_ms")
     for k, v in out.items():
         v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
     return out
@@ -730,6 +983,13 @@ KERNELS = [
      "byzpy_tpu/ops/pallas_kernels.py:1466"),
     ("clip_selection_weights:arc", "byzpy_tpu_torch/csrc/clip_selection.cu",
      "byzpy_tpu/ops/pallas_kernels.py:1466"),
+    ("selection_weights:cge", "byzpy_tpu_torch/csrc/selection.cu", "byzpy_tpu/ops/pallas_kernels.py:928"),
+    ("selection_weights:monna", "byzpy_tpu_torch/csrc/selection.cu", "byzpy_tpu/ops/pallas_kernels.py:928"),
+    ("meamed", "byzpy_tpu_torch/csrc/meamed.cu", "byzpy_tpu/ops/pallas_kernels.py:619"),
+    ("center_weights:weiszfeld", "byzpy_tpu_torch/csrc/center_step.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:470"),
+    ("center_weights:clip", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
+    ("center_sweep", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
 ]
 
 
@@ -769,18 +1029,20 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}
-    errs.update({"selection_weights:cge": 0.0, "selection_weights:monna": 0.0})
     check_sorted_reduce(errs)
     check_gram_and_selection(errs)
     check_pre_aggregation(errs)
+    check_meamed(errs)
+    check_center_step(errs)
 
-    log("== 4. main path: SmallCNN PS round, plain and pre-aggregated configurations")
+    log("== 4. main path: SmallCNN PS round, plain, pre-aggregated and centre-seeking configurations")
     counts = {k: 0 for k in kernels.launch_counts}
     results = main_path(counts)
     log("MAIN_PATH " + json.dumps(results))
 
     log("== 5. kernel timing at 64 x 1,048,576 and 8 x 421,642 f32")
     times = timing()
+    log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
 
     entries = []
     for key, source, replaces in KERNELS:

@@ -318,3 +318,145 @@ def test_cuda_pre_aggregated_reject_wide_n(cuda_device):
     ):
         with pytest.raises(NotImplementedError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# B6 MeaMed, B7 centre step
+# ---------------------------------------------------------------------------
+
+
+def _meamed_rows(seed, K, n, d, device, dtype):
+    """Normal rows with NaN / +-inf / -0 columns; columns from 8 on are
+    quantized to halves, so many deviations tie at the cut."""
+    x = _matrix(np.random.default_rng(seed), (K, n, d))
+    x[..., 8:] = np.round(x[..., 8:] * 2.0) / 2.0
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+def test_cuda_meamed_matches_plain(cuda_device, n, dt):
+    """B6 bitwise equal to its plain version (the same selection, the
+    selected values added in node order) at f = 0, n // 4 and n - 1, NaN
+    canonical."""
+    x = _meamed_rows(300 + n, 2, n, 3000, cuda_device, DTYPES[dt])
+    for f in sorted({0, n // 4, n - 1}):
+        out = kernels.meamed_stream(x, f=f)
+        ref = kernels.meamed_stream_plain(x, f=f)
+        assert _bits_equal(out, ref), (n, dt, f)
+        assert bool(torch.isnan(out[:, 1]).all()) and _all_canonical_nan(out[torch.isnan(out)])
+
+
+def _center_rows(seed, n, d, device, dtype):
+    """Rows at two scales (every third x5) and a centre between them, so
+    the clip takes some rows and not others."""
+    x = _pre_rows(seed, 1, n, d, device, dtype)[0]
+    z = kernels.sorted_reduce_stream_plain(x[None], mode="median")[0]
+    return x, z
+
+
+def _assert_center_close(out, ref, w, alpha, x, z):
+    """Kernel and plain centres agree within 1e-5 of the terms' magnitude
+    (the distances sum in another order) plus one unit in the last place of
+    a 16-bit dtype; NaN at the same places."""
+    o, r = out.float(), ref.float()
+    assert torch.equal(torch.isnan(o), torch.isnan(r))
+    scale = (alpha.abs() * z.float().abs() + (w.abs()[:, None] * x.float().abs()).sum(0))
+    ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[out.dtype]
+    fin = torch.isfinite(r)
+    assert torch.all((o - r).abs()[fin] <= (1e-5 * scale + ulp * r.abs() + 1e-30)[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+@pytest.mark.parametrize("mode", ["weiszfeld", "clip"])
+def test_cuda_center_step_matches_plain(cuda_device, mode, n, dt):
+    """B7: the weights within rtol 1e-5 of the plain version (alpha within
+    1e-5), the sweep bitwise equal to its plain version on the same weights,
+    the whole step within the terms' 1e-5."""
+    x, z = _center_rows(400 + n, n, 5000, cuda_device, DTYPES[dt])
+    kw = dict(mode=mode, c_tau=160.0)
+    w, alpha = kernels.center_weights(x, z, **kw)
+    w_p, alpha_p = kernels.center_weights_plain(x, z, **kw)
+    torch.testing.assert_close(w, w_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(alpha, alpha_p, rtol=0, atol=1e-5)
+    if mode == "clip" and n >= 8:
+        assert 0 < int((w_p < w_p.max()).sum()) < n  # some rows clipped, not all
+    assert _bits_equal(kernels.center_sweep(x, z, w, alpha), kernels.center_sweep_plain(x, z, w, alpha))
+    out = kernels.weighted_center_step(x, z, **kw)
+    _assert_center_close(out, kernels.weighted_center_step_plain(x, z, **kw), w_p, alpha_p, x, z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inf_row", "nan_entry"])
+@pytest.mark.parametrize("mode", ["weiszfeld", "clip"])
+def test_cuda_center_step_nonfinite_rows_poison_the_step(cuda_device, mode, case):
+    """An all-inf row (weight 0, and 0 * inf = NaN) or one NaN entry makes
+    the whole step NaN, canonical, in both modes and every dtype, as the
+    reference's step does."""
+    for dtype in DTYPES.values():
+        x, z = _center_rows(9, 13, 700, cuda_device, dtype)
+        if case == "inf_row":
+            x[5] = float("inf")
+        else:
+            x[5, 17] = float("nan")
+        out = kernels.weighted_center_step(x, z, mode=mode, c_tau=160.0)
+        assert _all_canonical_nan(out)
+        assert _bits_equal(out, kernels.weighted_center_step_plain(x, z, mode=mode, c_tau=160.0))
+
+
+@pytest.mark.cuda
+def test_cuda_centre_and_meamed_launch_counts(cuda_device):
+    """Each launching wrapper counts one; the compositions and the robust
+    entry points count nothing themselves; CGE and MoNNA reach B4's cge and
+    monna modes."""
+    from byzpy_tpu_torch.ops import robust
+
+    x = torch.randn((8, 300), device=cuda_device)
+    kernels.reset_launch_counts()
+    robust.mean_of_medians(x, f=2)
+    robust.mean_of_medians_stream(x[None], f=2)
+    kernels.weighted_center_step(x, x[0].contiguous(), mode="weiszfeld")
+    robust.centered_clipping(x, c_tau=5.0, M=3)
+    robust.cge(x, f=2)
+    robust.monna_stream(x[None], f=2, reference_index=3)
+    expected = dict.fromkeys(kernels.launch_counts, 0)
+    expected.update({"meamed": 2, "center_weights:weiszfeld": 1, "center_weights:clip": 3,
+                     "center_sweep": 4, "gram": 2, "selection_weights:cge": 1,
+                     "selection_weights:monna": 1, "weighted_rows": 2})
+    assert kernels.launch_counts == expected
+    kernels.reset_launch_counts()
+    robust.geometric_median(x)
+    iters = robust.last_iterations["geometric_median"]
+    assert 1 <= iters <= 256
+    assert kernels.launch_counts["sorted_reduce:median"] == 1
+    assert kernels.launch_counts["center_weights:weiszfeld"] == iters == kernels.launch_counts["center_sweep"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(0, 8, 300), (2, 8, 0)], ids=["K0", "d0"])
+def test_cuda_meamed_and_centre_empty_inputs_launch_nothing(cuda_device, shape):
+    x = torch.zeros(shape, device=cuda_device)
+    kernels.reset_launch_counts()
+    assert kernels.meamed_stream(x, f=2).shape == (shape[0], shape[2])
+    if shape[0]:
+        assert kernels.weighted_center_step(x[0], x[0, 0], mode="clip").shape == (0,)
+        w, alpha = torch.zeros(8, device=cuda_device), torch.zeros(1, device=cuda_device)
+        assert kernels.center_sweep(x[0], x[0, 0], w, alpha).shape == (0,)
+    assert all(v == 0 for v in kernels.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_cuda_meamed_and_centre_reject_wide_n(cuda_device):
+    wide = torch.zeros((129, 64), device=cuda_device)
+    for call in (
+        lambda: kernels.meamed_stream(wide[None], f=1),
+        lambda: kernels.weighted_center_step(wide, wide[0].contiguous(), mode="weiszfeld"),
+        lambda: kernels.center_weights(wide, wide[0].contiguous(), mode="clip"),
+        lambda: kernels.center_sweep(wide, wide[0].contiguous(), torch.zeros(129, device=cuda_device),
+                                     torch.zeros(1, device=cuda_device)),
+    ):
+        with pytest.raises(NotImplementedError):
+            call()

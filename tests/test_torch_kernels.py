@@ -361,6 +361,173 @@ def test_weighted_rows_reads_nan_weights():
 
 
 # ---------------------------------------------------------------------------
+# B6 MeaMed
+# ---------------------------------------------------------------------------
+
+
+def _meamed_inputs(seed, n, K=2, d=300):
+    """Normal columns with NaN / +-inf / -0 specials; columns from 8 on are
+    quantized to halves, so deviations tie at the cut (equal deviations
+    with different values among them: med - r and med + r)."""
+    x = _matrix(np.random.default_rng(seed), (K, n, d))
+    x[..., 8:] = np.round(x[..., 8:] * 2.0) / 2.0
+    return x
+
+
+CANONICAL_NAN = {torch.float32: (torch.int32, 0x7FC00000), torch.bfloat16: (torch.int16, 0x7FC0),
+                 torch.float16: (torch.int16, 0x7E00)}
+
+
+def _nan_is_canonical(t: torch.Tensor) -> bool:
+    """Every NaN of ``t`` is the positive quiet NaN of its dtype (read in
+    the dtype: PyTorch's CPU f16 -> f32 cast changes NaN bits)."""
+    ints, bits = CANONICAL_NAN[t.dtype]
+    return bool((t[torch.isnan(t)].view(ints) == bits).all())
+
+
+def _assert_bitwise(ours: torch.Tensor, ref) -> None:
+    """NaN at the same places, the same f32 bits everywhere else. The port
+    writes every NaN as the canonical quiet NaN; the reference keeps what
+    its arithmetic gave (``inf + -inf`` in a sum is a negative NaN)."""
+    o = ours.float().numpy()
+    r = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_array_equal(np.isnan(o), np.isnan(r))
+    assert _nan_is_canonical(ours)
+    keep = ~np.isnan(r)
+    np.testing.assert_array_equal(o[keep].view(np.uint32), r[keep].view(np.uint32))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13])
+def test_meamed_plain_bitwise_equals_pallas(n, dt):
+    """B6's plain version against the Pallas kernel in interpret mode,
+    bitwise, at f = 0, n // 4 and n - 1 on K = 2 rounds: the same key sort,
+    median, window cut and node-order tie fill, the selected values added
+    in node order and multiplied by the f32 reciprocal of k (the
+    reference's division by a constant compiles to that)."""
+    x = _meamed_inputs(500 + n, n)
+    for f in sorted({0, n // 4, n - 1}):
+        ours = kernels.meamed_stream(_to_torch(x, dt), f=f)
+        ref = pk.meamed_stream_pallas(_to_jax(x, dt), f=f, tile=128, interpret=True)
+        assert ours.dtype == TORCH_DTYPES[dt]
+        _assert_bitwise(ours, ref)
+
+
+def test_meamed_plain_stable_ties_match_pallas():
+    """The reference's own tie test inputs (test_pallas_kernels.py): random
+    n and f, values quantized to halves; bitwise."""
+    rng = np.random.default_rng(11)
+    for _ in range(10):
+        n = int(rng.integers(5, 14))
+        f = int(rng.integers(0, n))
+        x = (np.round(rng.normal(size=(n, 256)) * 2) / 2).astype(np.float32)
+        ours = kernels.meamed_stream(torch.from_numpy(x)[None], f=f)
+        _assert_bitwise(ours, pk.meamed_stream_pallas(jnp.asarray(x)[None], f=f, tile=128, interpret=True))
+
+
+def _nonfinite_median_columns():
+    """(12, 8) columns whose median is not finite or whose deviations are
+    NaN: a majority of +inf, -inf and +inf in the middle (NaN median),
+    inf rows with finite ones, a NaN entry, all -inf."""
+    x = np.random.default_rng(3).normal(size=(12, 8)).astype(np.float32)
+    x[:7, 0] = np.inf
+    x[:6, 1] = -np.inf
+    x[6:, 1] = np.inf
+    x[[2, 9], 2] = np.inf
+    x[4, 3] = np.nan
+    x[:, 4] = -np.inf
+    x[:11, 5] = np.inf
+    x[3, 6] = -np.inf
+    x[::2, 7] = 3e38
+    return x
+
+
+@pytest.mark.parametrize("f", [0, 3, 5, 11])
+def test_meamed_plain_nonfinite_medians_match_pallas(f):
+    """Non-finite medians (the cut is inf when at least k deviations are
+    not NaN, NaN otherwise), NaN columns, and a median of 3e38 and a
+    normal value, bitwise."""
+    x = _nonfinite_median_columns()[None]
+    _assert_bitwise(kernels.meamed_stream(torch.from_numpy(x), f=f),
+                    pk.meamed_stream_pallas(jnp.asarray(x), f=f, tile=128, interpret=True))
+
+
+def test_meamed_median_near_flt_max_keeps_the_halves():
+    """At even n the median is 0.5 a + 0.5 b, so two near-FLT_MAX middle
+    values give a finite median (pallas_kernels.py:649-653). The
+    reference's intent, computed in numpy: median 3.1e38, the k = 1
+    closest value 3e38 (ties at the cut in node order). Under jit, XLA on
+    the CPU rewrites the reference's 0.5 a + 0.5 b into 0.5 (a + b), which
+    overflows to inf and selects 2e38 instead; the port keeps the halves
+    (ROADMAP.md section C)."""
+    big = np.array([[2e38], [3e38], [3.2e38], [3.3e38]], np.float32)
+    med = np.float32(0.5) * big[1, 0] + np.float32(0.5) * big[2, 0]
+    assert np.isfinite(med)
+    ours = kernels.meamed_stream(torch.from_numpy(big)[None], f=3)
+    np.testing.assert_array_equal(ours.numpy(), np.full((1, 1), 3e38, np.float32))
+    odd = np.full((3, 4), 3e38, np.float32)
+    np.testing.assert_array_equal(kernels.meamed_stream(torch.from_numpy(odd)[None], f=2).numpy(),
+                                  np.full((1, 4), 3e38, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# B7 weighted centre step
+# ---------------------------------------------------------------------------
+
+
+def _center_inputs(seed, n, case="normal", d=300):
+    """Rows at two scales (every third x5) and their coordinate median as
+    the centre; ``case`` adds an all-inf row or one NaN entry."""
+    x = _matrix(np.random.default_rng(seed), (n, d), specials=False)
+    x[::3] *= 5.0
+    z = np.median(x, axis=0).astype(np.float32)
+    if case == "inf":
+        x[2] = np.inf
+    elif case == "nan":
+        x[1, 7] = np.nan
+    return x, z
+
+
+@pytest.mark.parametrize("case", ["normal", "inf", "nan"])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("mode", ["weiszfeld", "clip"])
+def test_center_step_plain_matches_pallas(mode, dt, case):
+    """B7's plain step against the Pallas kernel in interpret mode: finite
+    values within f32 rounding (rtol 1e-5, atol 1e-6; one ulp in a 16-bit
+    dtype); an all-inf row (weight 0, 0 * inf) or a NaN entry makes the
+    whole step NaN in both. c_tau = 30 clips the x5 rows only."""
+    x, z = _center_inputs(600 + len(case), 13, case)
+    kw = dict(mode=mode, c_tau=30.0)
+    ours = kernels.weighted_center_step(_to_torch(x, dt), _to_torch(z, dt), **kw)
+    ref = pk.weighted_center_step_pallas(_to_jax(x, dt), _to_jax(z, dt), interpret=True, **kw)
+    assert ours.dtype == TORCH_DTYPES[dt]
+    if case != "normal":
+        assert torch.isnan(ours).all() and _nan_is_canonical(ours)
+    _assert_matches_pallas(ours, ref, dt)
+
+
+def test_center_weights_clip_some_rows():
+    """The clip weights are min(1, c_tau / dist) / n and alpha = 1 - sum w:
+    at c_tau = 30 the x5 rows clip and the others keep 1/n."""
+    x, z = _center_inputs(7, 13)
+    w, alpha = kernels.center_weights(torch.from_numpy(x), torch.from_numpy(z), mode="clip", c_tau=30.0)
+    full = w == w.max()
+    assert int(full.sum()) == 8 and float(w.max()) == float(np.float32(1.0) * np.float32(1 / 13))
+    assert abs(float(alpha) - (1.0 - float(w.double().sum()))) < 1e-6
+
+
+def test_center_sweep_reads_zero_weight_rows():
+    """Every row enters the sweep: a weight-0 inf row gives 0 * inf = NaN
+    (B4's sweep skips it)."""
+    x = np.ones((4, 6), np.float32)
+    x[2] = np.inf
+    w = torch.tensor([0.5, 0.5, 0.0, 0.0])
+    out = kernels.center_sweep(torch.from_numpy(x), torch.zeros(6), w, torch.zeros(1))
+    assert torch.isnan(out).all()
+    assert torch.isfinite(kernels.weighted_rows(torch.from_numpy(x)[None], w[None])).all()
+
+
+# ---------------------------------------------------------------------------
 # input checks
 # ---------------------------------------------------------------------------
 
@@ -414,6 +581,28 @@ def test_pre_aggregated_errors_match_jax(name, kw):
     assert str(ours.value) == str(ref.value)
 
 
+@pytest.mark.parametrize("f", [-1, 4, 7])
+def test_meamed_errors_match_jax(f):
+    x = np.zeros((1, 4, 16), np.float32)
+    with pytest.raises(ValueError) as ours:
+        kernels.meamed_stream(torch.from_numpy(x), f=f)
+    with pytest.raises(ValueError) as ref:
+        pk.meamed_stream_pallas(jnp.asarray(x), f=f, interpret=True)
+    assert str(ours.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("call", [dict(mode="median"), dict(z_len=15), dict(z_len=17)])
+def test_center_step_errors_match_jax(call):
+    x = np.zeros((4, 16), np.float32)
+    z = np.zeros((call.get("z_len", 16),), np.float32)
+    mode = call.get("mode", "clip")
+    with pytest.raises(ValueError) as ours:
+        kernels.weighted_center_step(torch.from_numpy(x), torch.from_numpy(z), mode=mode)
+    with pytest.raises(ValueError) as ref:
+        pk.weighted_center_step_pallas(jnp.asarray(x), jnp.asarray(z), mode=mode, interpret=True)
+    assert str(ours.value) == str(ref.value)
+
+
 @pytest.mark.parametrize("kw", SORT_BAD)
 def test_sorted_reduce_errors_match_jax(kw):
     x = np.zeros((1, 4, 16), np.float32)
@@ -444,6 +633,10 @@ def test_unsupported_dtype_raises_in_both():
         kernels.selection_mean_stream(torch.from_numpy(x), f=0, q=1)
     with pytest.raises(ValueError, match="unsupported dtype"):
         kernels.gram(torch.from_numpy(x))
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        kernels.meamed_stream(torch.from_numpy(x), f=1)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        kernels.weighted_center_step(torch.from_numpy(x[0]), torch.from_numpy(x[0, 0]))
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +670,9 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     kernels.nnm_selection_mean_stream(x, f_nnm=2, f=2, q=3)
     kernels.clip_selection_mean_stream(x, tau=5.0, f=2, q=3)
     kernels.arc_selection_mean_stream(x, f_arc=2, f=2, q=3)
+    kernels.meamed_stream(x, f=2)
+    for mode in ("weiszfeld", "clip"):
+        kernels.weighted_center_step(x[0], x[0, 0], mode=mode)
     assert all(v == 0 for v in kernels.launch_counts.values())
 
 

@@ -217,6 +217,77 @@ def test_pre_aggregated_ps_steps_match_jax(config, which):
             np.testing.assert_allclose(float(metrics[m]), float(jmetrics[m]), rtol=1e-4)
 
 
+def _caf_start(jb, bundle):
+    """The JAX package's CAF start vector (``caf(seed=0)``'s draw over the
+    JAX round's flat gradient) in the port's flat order: each package
+    ravels the parameters in its own order, so the draw is unraveled into
+    the flax tree, converted, and raveled as the port's round does."""
+    from byzpy_tpu.utils.trees import ravel_pytree_fn
+
+    ravel, unravel = ravel_pytree_fn(jb.params)
+    d = ravel(jb.params).shape[0]
+    v = jax.random.normal(jax.random.PRNGKey(0), (d,), dtype=jnp.float32)
+    tree = ordered_like(from_flax(_np_tree(unravel(v)), device="cpu"), bundle.params)
+    return torch.cat([t.reshape(-1) for t in tree.values()])
+
+
+# The centre-seeking and coordinate aggregators, as (port, JAX) pairs at
+# n = 4 nodes of which 1 byzantine; CAF's port entry takes its start vector.
+CENTRE_CONFIGS = {
+    "meamed": (lambda m: robust.mean_of_medians(m, f=1), lambda m: jrobust.mean_of_medians(m, f=1)),
+    "geometric_median": (robust.geometric_median, jrobust.geometric_median),
+    "centered_clipping": (lambda m: robust.centered_clipping(m, c_tau=TAU, M=10),
+                          lambda m: jrobust.centered_clipping(m, c_tau=TAU, M=10)),
+    "cge": (lambda m: robust.cge(m, f=1), lambda m: jrobust.cge(m, f=1)),
+    "monna": (lambda m: robust.monna(m, f=1, reference_index=0),
+              lambda m: jrobust.monna(m, f=1, reference_index=0)),
+    "caf": (lambda v: (lambda m: robust.caf(m, f=1, v_init=v)), lambda m: jrobust.caf(m, f=1)),
+}
+
+
+@pytest.mark.parametrize("agg", sorted(CENTRE_CONFIGS))
+def test_centre_ps_steps_match_jax(agg):
+    """2 PS steps of SmallCNN with each centre-seeking or coordinate
+    aggregator (n=4 nodes, 1 byzantine sign-flipping the honest mean, batch
+    8): parameters within rtol 1e-4, atol 1e-5 of the JAX round after every
+    step, as for the other aggregators. CAF's power iteration starts from
+    the JAX round's own draw, carried into the port's flat order."""
+    n, n_byz, batch = 4, 1, 8
+    ours_agg, ref_agg = CENTRE_CONFIGS[agg]
+    jb = jnets.mnist_cnn(seed=0)
+    bundle = _port_bundle(jb, nets.SmallCNN())
+    if agg == "caf":
+        ours_agg = ours_agg(_caf_start(jb, bundle))
+    jx, jy = jdata.synthetic_classification(n_samples=2 * n * batch, seed=3)
+    x, y = synthetic_classification(n_samples=2 * n * batch, seed=3, device="cpu")
+    step, opt = build_ps_train_step(
+        bundle, ours_agg, PSStepConfig(n_nodes=n, n_byzantine=n_byz),
+        attack=lambda h, g: attack_ops.sign_flip(h.mean(0)),
+    )
+    jstep, jopt = jps.build_ps_train_step(
+        jb, ref_agg, jps.PSStepConfig(n_nodes=n, n_byzantine=n_byz),
+        attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)),
+    )
+    jstep = jax.jit(jstep)
+    params, jparams = bundle.params, jb.params
+    key = jax.random.PRNGKey(0)
+    for s in range(2):
+        sl = slice(s * n * batch, (s + 1) * n * batch)
+        params, opt, metrics = step(
+            params, opt, x[sl].reshape(n, batch, 28, 28, 1), y[sl].reshape(n, batch)
+        )
+        jparams, jopt, jmetrics = jstep(
+            jparams, jopt, jx[sl].reshape(n, batch, 28, 28, 1), jy[sl].reshape(n, batch), key
+        )
+        ref = from_flax(_np_tree(jparams), device="cpu")
+        for k, v in params.items():
+            np.testing.assert_allclose(
+                v.numpy(), ref[k].numpy(), rtol=1e-4, atol=1e-5, err_msg=f"step {s} {k}"
+            )
+        for m in ("honest_loss", "agg_grad_norm"):
+            np.testing.assert_allclose(float(metrics[m]), float(jmetrics[m]), rtol=1e-4)
+
+
 def test_ps_rejects_bad_config():
     bundle = nets.mnist_mlp(device="cpu")
     with pytest.raises(ValueError, match="n_byzantine"):

@@ -253,6 +253,170 @@ def test_aggregators_reject_non_matrix():
 
 
 # ---------------------------------------------------------------------------
+# centre-seeking and coordinate aggregators (B6, B7, B4's cge / monna, CAF)
+# ---------------------------------------------------------------------------
+
+
+def _centre_rows(seed, n=11, d=300):
+    """Normal rows, every third x3 and row 7 x20: a spread the clip, the
+    norm elimination and the nearest-neighbour selection all act on."""
+    x = _x(seed, (n, d))
+    x[::3] *= 3.0
+    x[7] *= 20.0
+    return x
+
+
+def _jax_caf_draw(d, seed=0):
+    """The JAX package's CAF start vector, ``jax.random.normal(PRNGKey(seed),
+    (d,))``, before normalization."""
+    import jax
+
+    return np.array(jax.random.normal(jax.random.PRNGKey(seed), (d,), dtype=jnp.float32))
+
+
+# name -> (port call, JAX call, rtol, atol). The selections (MeaMed, CGE,
+# MoNNA) add the same selected values in the same order: rtol 1e-6. The
+# loops (geometric median, centred clipping, CAF) round each step
+# differently (the port's step is the kernel formula alpha z + sum w x, the
+# JAX XLA path's v + sum scale (x - v) / n): 1e-4, the JAX package's own
+# kernel-against-XLA tolerance (tests/test_pallas_kernels.py).
+CENTRE = {
+    "meamed": (lambda x: robust.mean_of_medians(x, f=3),
+               lambda x: jrobust.mean_of_medians(x, f=3), 1e-6, 1e-7),
+    "cge": (lambda x: robust.cge(x, f=3), lambda x: jrobust.cge(x, f=3), 1e-6, 1e-7),
+    "monna": (lambda x: robust.monna(x, f=3, reference_index=2),
+              lambda x: jrobust.monna(x, f=3, reference_index=2), 1e-6, 1e-7),
+    "geometric_median": (robust.geometric_median, jrobust.geometric_median, 1e-4, 1e-5),
+    "geometric_median_mean_init": (lambda x: robust.geometric_median(x, init="mean"),
+                                   lambda x: jrobust.geometric_median(x, init="mean"), 1e-4, 1e-5),
+    "centered_clipping": (lambda x: robust.centered_clipping(x, c_tau=5.0),
+                          lambda x: jrobust.centered_clipping(x, c_tau=5.0), 1e-4, 1e-5),
+    "centered_clipping_median_init": (
+        lambda x: robust.centered_clipping(x, c_tau=5.0, init="median", M=4),
+        lambda x: jrobust.centered_clipping(x, c_tau=5.0, init="median", M=4), 1e-4, 1e-5),
+    "centered_clipping_zero_init": (
+        lambda x: robust.centered_clipping(x, c_tau=5.0, init="zero", M=30),
+        lambda x: jrobust.centered_clipping(x, c_tau=5.0, init="zero", M=30), 1e-4, 1e-5),
+    "caf": (lambda x: robust.caf(x, f=3, v_init=torch.from_numpy(_jax_caf_draw(x.shape[1]))),
+            lambda x: jrobust.caf(x, f=3), 1e-4, 1e-5),
+}
+
+
+@pytest.mark.parametrize("pallas", ["auto", "1"], ids=["xla", "pallas"])
+@pytest.mark.parametrize("name", sorted(CENTRE))
+def test_centre_and_coordinate_aggregators_match_jax(name, pallas, monkeypatch):
+    """Each aggregator against the JAX package on both of its CPU paths:
+    its XLA path (the default here) and its kernel path forced on
+    (``BYZPY_TPU_PALLAS=1``, Pallas interpret mode), within the tolerance
+    of ``CENTRE``; CAF is fed the JAX package's own start vector."""
+    monkeypatch.setenv("BYZPY_TPU_PALLAS", pallas)
+    ours, ref, rtol, atol = CENTRE[name]
+    x = _centre_rows(50 + len(name))
+    out = ours(torch.from_numpy(x))
+    assert out.dtype == torch.float32 and out.shape == (x.shape[1],)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref(jnp.asarray(x))), rtol=rtol, atol=atol)
+
+
+def test_meamed_matches_jax_on_nonfinite_columns():
+    """NaN, +-inf and -0.0 columns: the same NaN places and the same bits
+    elsewhere as the JAX package's MeaMed (its XLA path on the CPU)."""
+    x = _with_specials(_x(60, (9, 200)))
+    for f in (0, 2, 8):
+        ours = robust.mean_of_medians(torch.from_numpy(x), f=f).numpy()
+        ref = np.asarray(jrobust.mean_of_medians(jnp.asarray(x), f=f))
+        np.testing.assert_array_equal(np.isnan(ours), np.isnan(ref))
+        keep = ~np.isnan(ref)
+        np.testing.assert_array_equal(ours[keep], ref[keep])
+
+
+STREAMS = {
+    "mean_of_medians": dict(f=2),
+    "cge": dict(f=2),
+    "monna": dict(f=2, reference_index=1),
+}
+
+
+@pytest.mark.parametrize("pallas", ["auto", "1"], ids=["xla", "pallas"])
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_centre_streams_match_jax(name, pallas, monkeypatch):
+    """The three streams against the JAX package's (rtol 1e-6, as the
+    single calls), and each round bitwise equal to the port's single call."""
+    monkeypatch.setenv("BYZPY_TPU_PALLAS", pallas)
+    kw = STREAMS[name]
+    xs = np.stack([_centre_rows(70 + k, n=9, d=200) for k in range(3)])
+    ours = getattr(robust, f"{name}_stream")(torch.from_numpy(xs), **kw)
+    ref = getattr(jrobust, f"{name}_stream")(jnp.asarray(xs), **kw)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
+    for k in range(3):
+        assert torch.equal(ours[k], getattr(robust, name)(torch.from_numpy(xs[k]), **kw))
+
+
+def test_geometric_median_counts_its_iterations():
+    """The loop steps at least once, stops when the step length is at most
+    tol, and never passes max_iter; the count is kept in last_iterations."""
+    x = torch.from_numpy(_centre_rows(80))
+    z1 = robust.geometric_median(x, max_iter=1)
+    assert robust.last_iterations["geometric_median"] == 1
+    np.testing.assert_allclose(
+        z1.numpy(),
+        kernels.weighted_center_step(x, robust.coordinate_median(x), mode="weiszfeld").numpy())
+    robust.geometric_median(x, tol=1e-3)
+    loose = robust.last_iterations["geometric_median"]
+    robust.geometric_median(x)
+    tight = robust.last_iterations["geometric_median"]
+    assert 1 < loose < tight < 256
+    robust.geometric_median(x, tol=0.0, max_iter=3)
+    assert robust.last_iterations["geometric_median"] == 3
+
+
+def test_caf_draws_its_start_from_the_generator():
+    """Without ``v_init``, CAF draws its start vector with ``torch.randn``
+    from ``generator``: the same seed gives the same result, and passing
+    that draw as ``v_init`` gives it too."""
+    x = torch.from_numpy(_centre_rows(90))
+    a = robust.caf(x, f=3, generator=torch.Generator().manual_seed(5))
+    passes = robust.last_iterations["caf"]
+    b = robust.caf(x, f=3, generator=torch.Generator().manual_seed(5))
+    v = torch.randn((x.shape[1],), generator=torch.Generator().manual_seed(5))
+    assert torch.equal(a, b) and torch.equal(a, robust.caf(x, f=3, v_init=v))
+    assert 1 <= passes <= 4 * x.shape[0]
+    with pytest.raises(ValueError, match="v_init must have shape"):
+        robust.caf(x, f=3, v_init=torch.zeros(5))
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        ("mean_of_medians", dict(f=-1)),
+        ("mean_of_medians", dict(f=5)),
+        ("cge", dict(f=5)),
+        ("cge", dict(f=-1)),
+        ("monna", dict(f=3)),
+        ("monna", dict(f=1, reference_index=5)),
+        ("monna", dict(f=1, reference_index=-1)),
+        ("geometric_median", dict(init="zero")),
+        ("centered_clipping", dict(c_tau=1.0, init="trimmed")),
+        ("caf", dict(f=3)),
+        ("mean_of_medians_stream", dict(f=5)),
+        ("cge_stream", dict(f=5)),
+        ("monna_stream", dict(f=3)),
+        ("monna_stream", dict(f=1, reference_index=5)),
+    ],
+)
+def test_centre_errors_match_jax(call):
+    """The JAX package's ValueError and message for each bad argument."""
+    name, kw = call
+    x = np.zeros((5, 8), np.float32)
+    if name.endswith("_stream"):
+        x = x[None]
+    with pytest.raises(ValueError) as ours:
+        getattr(robust, name)(torch.from_numpy(x), **kw)
+    with pytest.raises(ValueError) as ref:
+        getattr(jrobust, name)(jnp.asarray(x), **kw)
+    assert str(ours.value) == str(ref.value)
+
+
+# ---------------------------------------------------------------------------
 # attacks
 # ---------------------------------------------------------------------------
 
