@@ -1,0 +1,34 @@
+"""Coordinate-wise median aggregator.
+
+Counterpart of ``byzpy_tpu/aggregators/coordinate_wise/median.py``
+(behavioral parity: ``byzpy/aggregators/coordinate_wise/median.py:28-178``):
+``robust.coordinate_median``, B1 on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...ops import robust
+from ...utils.device import DeviceLike
+from ..base import Aggregator, check_chunk_size
+
+
+class CoordinateWiseMedian(Aggregator):
+    """Per-coordinate median over the node axis."""
+
+    name = "coordinate-wise-median"
+
+    def __init__(self, *, chunk_size: int = 8192, device: DeviceLike = None) -> None:
+        check_chunk_size(chunk_size, 8192)
+        # kept for the pool-chunked path of the engine slice
+        super().__init__(device=device)
+
+    def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
+        return robust.coordinate_median(x)
+
+    def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
+        return robust.coordinate_median_stream(xs)
+
+
+__all__ = ["CoordinateWiseMedian"]

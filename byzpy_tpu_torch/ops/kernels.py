@@ -18,6 +18,9 @@ Kernels (TPU kernel they replace -> CUDA source):
   selection kernel (:820) -> ``csrc/gram.cu``;
 * B4 ``selection_mean_stream``: ``_selection_mean_stream_kernel`` (:928)
   -> ``csrc/gram.cu`` + ``csrc/selection.cu``;
+* B5 ``selection_mean_from_gram``: ``_selection_from_gram_kernel``
+  (:1094) -> ``csrc/selection.cu`` (B4's weights and sweep on a given
+  Gram);
 * B6 ``meamed_stream``: ``_meamed_stream_kernel`` (:619) ->
   ``csrc/meamed.cu``;
 * B7 ``weighted_center_step``: ``_weighted_center_step_kernel`` (:470),
@@ -472,6 +475,70 @@ def weighted_rows_plain(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     sel = w != 0
     rows = torch.where(sel[:, :, None], xs.float(), torch.zeros((), device=xs.device)) * w[:, :, None]
     return canonical_nan(_sequential_row_sum(rows).to(xs.dtype))
+
+
+# ---------------------------------------------------------------------------
+# B5: selection mean from a precomputed Gram
+# ---------------------------------------------------------------------------
+
+
+def _check_from_gram(x: torch.Tensor, g: torch.Tensor, **sel) -> None:
+    """``selection_mean_from_gram_pallas``'s checks, in its order."""
+    if sel["mode"] not in _SELECTION_MODES:
+        raise ValueError(f"unknown mode {sel['mode']!r}")
+    _check_ndim(x, 2, "x")
+    n = x.shape[0]
+    if tuple(g.shape) != (n, n):
+        raise ValueError(f"gram must have shape ({n}, {n}), got {tuple(g.shape)}")
+    check_selection_args(n, **sel)
+    _check_float(x)
+
+
+def selection_mean_from_gram(
+    x: torch.Tensor,
+    gram: torch.Tensor,
+    *,
+    f: int,
+    q: int,
+    mode: str = "krum",
+    reference_index: int = 0,
+) -> torch.Tensor:
+    """Mean of the ``q`` lowest-score rows of ``x: (n, d)`` given its
+    precomputed ``(n, n)`` Gram (B5; ref
+    ``pallas_kernels.selection_mean_from_gram_pallas``), returning ``(d,)``
+    in ``x``'s dtype: the finalize of the streaming Multi-Krum fold, whose
+    Gram grew one row per arrival. Scores, ties and NaN order as in
+    :func:`selection_mean_stream`; the Gram is read as f32.
+
+    A composition of :func:`selection_weights` on ``gram[None]`` and
+    :func:`weighted_rows` on ``x[None]`` (no Gram launch): one read of the
+    Gram, one of the selected rows, a ``(d,)`` write, the TPU kernel's
+    traffic. The sweep reads rows with ``w != 0`` where the TPU kernel
+    reads ``w > 0``; B5's weights are ``1/q`` or 0, so the two give the
+    same bits. It counts nothing itself; ``d = 0`` launches nothing."""
+    sel = dict(f=f, q=q, mode=mode, reference_index=reference_index)
+    _check_from_gram(x, gram, **sel)
+    if x.shape[1] == 0:
+        return x.new_empty((0,))
+    w = selection_weights(gram.to(torch.float32)[None].contiguous(), **sel)
+    return weighted_rows(x[None], w)[0]
+
+
+def selection_mean_from_gram_plain(
+    x: torch.Tensor,
+    gram: torch.Tensor,
+    *,
+    f: int,
+    q: int,
+    mode: str = "krum",
+    reference_index: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`selection_mean_from_gram`: the two
+    plain versions composed."""
+    sel = dict(f=f, q=q, mode=mode, reference_index=reference_index)
+    _check_from_gram(x, gram, **sel)
+    w = selection_weights_plain(gram.to(torch.float32)[None], **sel)
+    return weighted_rows_plain(x[None], w)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1063,6 +1130,8 @@ __all__ = [
     "nnm_weights",
     "nnm_weights_plain",
     "reset_launch_counts",
+    "selection_mean_from_gram",
+    "selection_mean_from_gram_plain",
     "selection_mean_stream",
     "selection_weights",
     "selection_weights_plain",

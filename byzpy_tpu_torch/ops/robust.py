@@ -18,7 +18,10 @@ rounding on finite inputs, and the fused path's documented deviations on
 non-finite ones are the port's.
 
 Functions the JAX package leaves to plain XLA (``sort_rows``,
-``krum_scores``, ``ranked_mean``, ``caf``) are plain PyTorch here.
+``krum_scores``, ``ranked_mean``, ``caf``, and the arrival-order fold
+primitives but ``multi_krum_from_gram``, which is B5 on the card) are
+plain PyTorch here. The folds update their state in place where the JAX
+package donates it.
 
 The iterative aggregators run their loops on the host: each Weiszfeld
 iteration of ``geometric_median`` reads its step length once, and each
@@ -71,7 +74,10 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
 def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     """``(n, n)`` squared Euclidean distances via the Gram trick, clamped
     at 0."""
-    g = gram_matrix(x)
+    return _sq_dists_from_gram(gram_matrix(x))
+
+
+def _sq_dists_from_gram(g: torch.Tensor) -> torch.Tensor:
     norms = torch.diagonal(g)
     d2 = (norms[:, None] + norms[None, :]) - 2.0 * g
     return torch.where(d2 < 0, torch.zeros_like(d2), d2)  # NaN stays NaN
@@ -135,11 +141,7 @@ def krum_scores(x: torch.Tensor, *, f: int) -> torch.Tensor:
     ``n - f - 1`` nearest neighbours, self excluded (the sorted row's first
     entry is the self-distance 0)."""
     _check_matrix(x)
-    n = x.shape[0]
-    if not 0 <= f < n - 1:
-        raise ValueError(f"f must satisfy 0 <= f < n-1 (got n={n}, f={f})")
-    row_sorted = torch.sort(pairwise_sq_dists(x), dim=1).values
-    return row_sorted[:, 1:n - f].sum(dim=1)
+    return krum_scores_from_gram(gram_matrix(x), f=f)
 
 
 def _nan_last_ranks(scores: torch.Tensor) -> torch.Tensor:
@@ -425,6 +427,111 @@ def arc_multi_krum_stream(xs: torch.Tensor, *, f_arc: int, f: int, q: int) -> to
     return kernels.arc_selection_mean_stream(xs, f_arc=f_arc, f=f, q=q, mode="krum")
 
 
+# ---------------------------------------------------------------------------
+# Arrival-order fold primitives (the aggregator classes' ``fold`` hooks)
+# ---------------------------------------------------------------------------
+
+# columns of a 16-bit staging buffer upcast at a time by gram_fold_update
+_FOLD_CHUNK = 1 << 16
+
+
+def extremes_fold_update(buf: torch.Tensor, row: torch.Tensor, *, largest: bool) -> torch.Tensor:
+    """Fold ``row`` into ``buf: (f, d)``, the per-coordinate ``f`` smallest
+    (``largest=False``) or largest values seen so far, ascending (filler
+    rows of ``+inf`` / ``-inf`` to start), in place; returns ``buf``.
+
+    The JAX package sorts the ``(f + 1, d)`` rows per arrival; since
+    ``buf`` is already sorted, one insertion pass of elementwise min / max
+    per buffer row gives the same values (a ``torch.sort`` along the short
+    axis is a key-value sort of every column, 0.26 ms at (3, 421,642) on
+    an H100). Assumes finite inputs (a NaN would corrupt the buffer); the
+    trimmed-mean fold keeps raw rows and falls back to the exact path when
+    it saw one."""
+    carry = row.to(buf.dtype)
+    # the f smallest drop the largest value: walk up, keeping the minimum;
+    # the f largest drop the smallest: walk down, keeping the maximum
+    keep, drop = (torch.maximum, torch.minimum) if largest else (torch.minimum, torch.maximum)
+    order = range(buf.shape[0] - 1, -1, -1) if largest else range(buf.shape[0])
+    for k in order:
+        out = drop(buf[k], carry)
+        keep(buf[k], carry, out=buf[k])
+        carry = out
+    return buf
+
+
+def trimmed_mean_from_extremes(
+    total: torch.Tensor, low: torch.Tensor, high: torch.Tensor, n: int, *, f: int
+) -> torch.Tensor:
+    """f-trimmed coordinate mean from a running sum and the folded extreme
+    buffers, ``(sum x - sum low - sum high) / (n - 2f)`` in ``total``'s
+    dtype. The sum follows arrival order, so it meets
+    :func:`trimmed_mean` within rounding, not bitwise."""
+    if not 0 <= 2 * f < n:
+        raise ValueError(f"trim parameter f must satisfy 0 <= 2f < n (got n={n}, f={f})")
+    kept = total
+    if f > 0:
+        kept = kept - torch.sum(low, dim=0) - torch.sum(high, dim=0)
+    # a tensor divisor: jnp divides by the array, not by a reciprocal
+    return kept / torch.full((), n - 2 * f, dtype=total.dtype, device=total.device)
+
+
+def fold_add(total: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """``total += row`` in place (the JAX package donates ``total``);
+    returns ``total``."""
+    return total.add_(row)
+
+
+def gram_fold_update(
+    buffer: torch.Tensor, gram: torch.Tensor, row: torch.Tensor, index: int
+) -> tuple:
+    """Fold one arriving gradient into streaming-Gram state, in place: the
+    row lands in slot ``index`` of the ``(n, d)`` staging buffer (zero rows
+    for slots not yet arrived), one matvec gives its dot products with
+    every staged row, and row and column ``index`` of the ``(n, n)`` Gram
+    are set. Returns ``(buffer, gram)``.
+
+    The matvec accumulates in the Gram's dtype: a 16-bit buffer is upcast
+    to f32 a column chunk at a time (``preferred_element_type``; a 16-bit
+    ``torch.mv`` would round its output to 16 bits). The JAX package
+    leaves the matvec to XLA, so it is ``torch.mv`` here."""
+    rowc = row.to(buffer.dtype)
+    buffer[index] = rowc
+    if buffer.dtype == gram.dtype:
+        g = torch.mv(buffer, rowc)
+    else:
+        g = torch.zeros(buffer.shape[0], dtype=gram.dtype, device=buffer.device)
+        for c in range(0, buffer.shape[1], _FOLD_CHUNK):
+            cols = slice(c, c + _FOLD_CHUNK)
+            g += torch.mv(buffer[:, cols].to(gram.dtype), rowc[cols].to(gram.dtype))
+    gram[index, :] = g
+    gram[:, index] = g
+    return buffer, gram
+
+
+def krum_scores_from_gram(gram: torch.Tensor, *, f: int) -> torch.Tensor:
+    """Krum score per node from a precomputed ``(n, n)`` Gram (the
+    streaming fold's): the sum of the ``n - f - 1`` smallest squared
+    distances to other rows (the sorted row's first entry is the
+    self-distance 0)."""
+    n = gram.shape[0]
+    if not 0 <= f < n - 1:
+        raise ValueError(f"f must satisfy 0 <= f < n-1 (got n={n}, f={f})")
+    return torch.sort(_sq_dists_from_gram(gram), dim=1).values[:, 1:n - f].sum(dim=1)
+
+
+def multi_krum_from_gram(
+    x: torch.Tensor, gram: torch.Tensor, *, f: int, q: int
+) -> torch.Tensor:
+    """Multi-Krum given the stacked matrix and its Gram (built by the
+    streaming fold): scores from the Gram, mean of the ``q`` best rows,
+    with no Gram recompute (B5 on the card)."""
+    n = x.shape[0]
+    if not 1 <= q <= n - f:
+        raise ValueError(f"q must satisfy 1 <= q <= n - f (got n={n}, f={f}, q={q})")
+    _check_matrix(x)
+    return kernels.selection_mean_from_gram(x, gram, f=f, q=q, mode="krum")
+
+
 def aggregate_stream(
     agg_fn: Callable[[torch.Tensor], torch.Tensor], xs: torch.Tensor
 ) -> torch.Tensor:
@@ -447,16 +554,21 @@ __all__ = [
     "clipped_multi_krum_stream",
     "coordinate_median",
     "coordinate_median_stream",
+    "extremes_fold_update",
+    "fold_add",
     "geometric_median",
+    "gram_fold_update",
     "gram_matrix",
     "krum",
     "krum_scores",
+    "krum_scores_from_gram",
     "last_iterations",
     "mean_of_medians",
     "mean_of_medians_stream",
     "monna",
     "monna_stream",
     "multi_krum",
+    "multi_krum_from_gram",
     "multi_krum_stream",
     "nnm_multi_krum",
     "nnm_multi_krum_stream",
@@ -464,5 +576,6 @@ __all__ = [
     "ranked_mean",
     "sort_rows",
     "trimmed_mean",
+    "trimmed_mean_from_extremes",
     "trimmed_mean_stream",
 ]

@@ -1,6 +1,6 @@
-"""Device resolution and flat-parameter helpers."""
+"""Device resolution and gradient-structure helpers."""
 
 from .device import resolve_device
-from .trees import ravel_fn, stack_gradients
+from .trees import ravel_fn, ravel_pytree, stack_gradients, unstack_rows
 
-__all__ = ["resolve_device", "ravel_fn", "stack_gradients"]
+__all__ = ["resolve_device", "ravel_fn", "ravel_pytree", "stack_gradients", "unstack_rows"]

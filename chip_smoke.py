@@ -10,12 +10,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
 1. device probe: the card's name and power limit (``nvidia-smi``);
 2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed);
 3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean in its
-   krum / cge / monna modes, B6 MeaMed, B7 centre step in its weiszfeld /
-   clip modes, B8 NNM, B9 NNM -> selection mean, B10 clip / ARC ->
-   selection mean) against its plain PyTorch version on the card, at the
-   main path's shapes, at the 64 x 1,048,576 headline and, for B6-B10, on
-   rows holding NaN and inf (B6 and B7 also at ByzPy's 64 x 65,536, at
-   n = 128 and 13, in f32, bf16 and f16);
+   krum / cge / monna modes, B5 selection mean from a given Gram, B6
+   MeaMed, B7 centre step in its weiszfeld / clip modes, B8 NNM, B9 NNM ->
+   selection mean, B10 clip / ARC -> selection mean) against its plain
+   PyTorch version on the card, at the main path's shapes, at the 64 x
+   1,048,576 headline and, for B5-B10, on rows holding NaN and inf (B5,
+   B6 and B7 also in f32, bf16 and f16; B5 on a B3 Gram and on one folded
+   row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13);
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
    each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
@@ -23,14 +24,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (b) NNM + coordinate median, (c) NNM + Multi-Krum, (d) clipping +
    Multi-Krum, (e) ARC + Multi-Krum, and MeaMed (f=2), the geometric
    median, centred clipping (M=10), CGE (f=2), MoNNA (f=2) and CAF (f=2);
-   each configuration's kernels must launch, its clip must engage at step
-   1, losses stay finite, and the first 2 steps match the same round on
-   the CPU; 3 more steps run under torch.profiler for the device's busy
-   share and kernel breakdown;
+   then through the operator classes: Multi-Krum, trimmed mean and CGE
+   folded gradient by gradient in a seeded arrival order (the Multi-Krum
+   finalize runs B5 and no Gram), ``CoordinateWiseMedian().aggregate`` of
+   per-node dictionaries, and the fused NNM + Multi-Krum callable of
+   ``fused_pipeline_matrix_fn``; each configuration's kernels must launch
+   (and those a fold bypasses must not), its clip must engage at step 1,
+   losses stay finite, and the first 2 steps match the same round on the
+   CPU; 3 more steps run under torch.profiler for the device's busy share
+   and kernel breakdown;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
-   exists, a single PyTorch call; then the six aggregators above, whole,
-   at ByzPy's grid shapes (64 x 65,536).
+   exists, a single PyTorch call, with a whole Multi-Krum fold round beside
+   the barrier Multi-Krum; then the six centre-seeking and coordinate
+   aggregators, whole, at ByzPy's grid shapes (64 x 65,536).
 
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
@@ -138,9 +145,10 @@ def random_rounds(shape, seed: int, *, specials: bool = False, dtype=None):
 
 
 def ulp_diff(a, b) -> int:
-    """Largest distance in ulps of ``a``'s dtype (f32 or bf16) over entries
-    finite in both; NaN and +-inf must sit at the same places (NaN payloads
-    may differ: the card's f32 -> bf16 conversion has its own NaN)."""
+    """Largest distance in ulps of ``a``'s dtype (f32, bf16 or f16, normal
+    range) over entries finite in both; NaN and +-inf must sit at the same
+    places (NaN payloads may differ: the card's f32 -> bf16 conversion has
+    its own NaN)."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
@@ -154,7 +162,7 @@ def ulp_diff(a, b) -> int:
         return 0
     ka = kernels.float_sort_keys(fa[fin].contiguous()).long()
     kb = kernels.float_sort_keys(fb[fin].contiguous()).long()
-    shift = 16 if a.dtype == torch.bfloat16 else 0
+    shift = {torch.bfloat16: 16, torch.float16: 13}.get(a.dtype, 0)
     return int(((ka - kb).abs() >> shift).max())
 
 
@@ -254,6 +262,53 @@ def check_gram_and_selection(errs: dict) -> None:
             log(f"  B3+B4 {shape} {mode}: Gram within 1e-5|xi||xj|, weights equal, same rows "
                 f"as the plain Gram's, sweep {rows_ulps} ulp, aggregate {ulps} ulp")
         del x, g, g_ref
+        torch.cuda.empty_cache()
+
+
+def check_selection_from_gram(errs: dict) -> None:
+    """B5 (B4's weights and sweep on a given Gram, no Gram launch) against
+    its plain version, K = 1, in f32, bf16 and f16, on a Gram from B3 and
+    on one folded by ``robust.gram_fold_update`` in a seeded arrival order
+    (16-bit rows into an f32 Gram): the weights equal to the plain
+    version's on the same Gram, the output within B4's sweep tolerance of
+    the plain sweep on those weights (2 ulp), on tie-heavy rows (duplicated
+    and zero rows) and on ``random_rounds(specials=True)``'s NaN and inf."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels, robust
+
+    cases = [((MAIN_N, 421_642), MAIN_BYZ, 4), ((13, 50_000), 3, 5), (HEADLINE, 8, 12)]
+    for (n, d), f, q in cases:
+        for name in DTYPES:
+            for specials in (False, True):
+                x = random_rounds((1, n, d), seed=600 + n, specials=specials,
+                                  dtype=getattr(torch, name))[0]
+                if not specials:
+                    x[5], x[7], x[1], x[3] = x[2], x[2], 0.0, 0.0
+                buf = torch.zeros_like(x)
+                folded = torch.zeros((n, n), device=x.device)
+                order = torch.randperm(n, generator=torch.Generator().manual_seed(n)).tolist()
+                for i in order:
+                    robust.gram_fold_update(buf, folded, x[i], i)
+                check(bits_equal(buf, x), f"B5: the fold staged other rows at {(n, d)} {name}")
+                for label, g in (("B3", kernels.gram(x[None])[0]), ("fold", folded)):
+                    w = kernels.selection_weights(g[None], f=f, q=q)
+                    w_plain = kernels.selection_weights_plain(g[None], f=f, q=q, mode="krum")
+                    check(torch.equal(w, w_plain),
+                          f"B5 weights differ from plain on the {label} Gram at {(n, d)} {name}")
+                    before = kernels.launch_counts["gram"]
+                    out = kernels.selection_mean_from_gram(x, g, f=f, q=q)
+                    check(kernels.launch_counts["gram"] == before, "B5 launched a Gram")
+                    ref = kernels.weighted_rows_plain(x[None], w_plain)[0]
+                    ulps = ulp_diff(out, ref)
+                    check(ulps <= 2 and nan_is_canonical(out),
+                          f"B5 {ulps} ulp from plain on the {label} Gram at {(n, d)} {name}")
+                    errs["selection_mean_from_gram"] = max(errs["selection_mean_from_gram"],
+                                                           max_abs_err(out, ref))
+                    log(f"  B5 {(n, d)} {name} {'specials' if specials else 'ties'} {label} Gram: "
+                        f"weights equal, rows {(w[0] != 0).nonzero().flatten().tolist()}, "
+                        f"{ulps} ulp, {int(torch.isnan(out).sum())} NaN")
+                del x, buf, folded
         torch.cuda.empty_cache()
 
 
@@ -460,6 +515,118 @@ def check_center_step(errs: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
+def class_api_configs(example_params: dict) -> tuple:
+    """Phase 4's class-API configurations, each an ``(n, d) -> (d,)``
+    aggregate for the PS round that goes through the operator classes:
+
+    - ``fold_multi_krum``, ``fold_trimmed_mean``, ``fold_cge``: each step
+      unravels the matrix into per-node gradient dictionaries, folds them
+      with ``fold`` in a seeded per-step permutation of the slots and
+      calls ``fold_finalize``;
+    - ``class_median``: ``CoordinateWiseMedian().aggregate`` of the list
+      of dictionaries;
+    - ``pipeline_nnm_multi_krum``: the callable that
+      ``fused_pipeline_matrix_fn(NearestNeighborMixing(2), MultiKrum(2, 4))``
+      returns.
+
+    On the card every class is built with ``device=None``. Returns
+    ``(configs, forbidden, checks, fold_flags)``: the main path's entries,
+    the kernels that must not launch, a check of each against its barrier
+    function on a step-1 matrix, and the trimmed-mean fold's non-finite
+    fallback flag per CUDA step."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import (
+        ComparativeGradientElimination,
+        CoordinateWiseMedian,
+        CoordinateWiseTrimmedMean,
+        MultiKrum,
+        fused_pipeline_matrix_fn,
+    )
+    from byzpy_tpu_torch.ops import preagg, robust
+    from byzpy_tpu_torch.pre_aggregators import NearestNeighborMixing
+    from byzpy_tpu_torch.utils import ravel_fn, unstack_rows
+
+    ravel, unravel = ravel_fn(example_params)
+    b = MAIN_BYZ
+    fold_flags: dict = {}
+
+    def device_arg(m):
+        return None if m.is_cuda else "cpu"
+
+    def folded(name, make):
+        made, steps = {}, {"cuda": 0, "cpu": 0}
+
+        def call(m):
+            dev = m.device.type
+            if dev not in made:
+                made[dev] = make(device_arg(m))
+            agg = made[dev]
+            perm = torch.randperm(m.shape[0], generator=torch.Generator().manual_seed(steps[dev]))
+            steps[dev] += 1
+            state = agg.fold_init(m.shape[0])
+            for i in perm.tolist():
+                agg.fold(state, i, unravel(m[i]))
+            out = ravel(agg.fold_finalize(state))
+            if m.is_cuda and hasattr(state, "nonfinite"):
+                fold_flags.setdefault(name, []).append(bool(state.nonfinite))
+            return out
+        return call
+
+    medians = {}
+
+    def class_median(m):
+        dev = m.device.type
+        if dev not in medians:
+            medians[dev] = CoordinateWiseMedian(device=device_arg(m))
+        return ravel(medians[dev].aggregate(unstack_rows(m, unravel)))
+
+    fused = fused_pipeline_matrix_fn(NearestNeighborMixing(b), MultiKrum(b, 4))
+    check(fused is not None, "fused_pipeline_matrix_fn(NNM, MultiKrum) gave no fused callable")
+    fold_mk = folded("fold_multi_krum", lambda dev: MultiKrum(b, 4, device=dev))
+    fold_tm = folded("fold_trimmed_mean", lambda dev: CoordinateWiseTrimmedMean(b, device=dev))
+    fold_cge = folded("fold_cge", lambda dev: ComparativeGradientElimination(b, device=dev))
+    sweep = "weighted_rows"
+    configs = {
+        "fold_multi_krum": (None, fold_mk, ["selection_weights:krum", sweep], None),
+        "fold_trimmed_mean": (None, fold_tm, [], None),
+        "fold_cge": (None, fold_cge, [], None),
+        "class_median": (None, class_median, ["sorted_reduce:median"], None),
+        "pipeline_nnm_multi_krum": (None, fused, ["gram", "nnm_selection_weights:krum", sweep],
+                                    None),
+    }
+    forbidden = {
+        "fold_multi_krum": ["gram"],  # the finalize is B5 on the folded Gram
+        "fold_trimmed_mean": ["sorted_reduce:trimmed"],  # the extremes path, no fallback
+        "fold_cge": ["gram", "selection_weights:cge"],
+    }
+
+    def near(name, fn, barrier):
+        def run(m):
+            out, ref = fn(m), barrier(m)
+            diff = float((out - ref).abs().max())
+            check(torch.allclose(out, ref, rtol=1e-5, atol=1e-6),
+                  f"{name}: max |diff| {diff:.3g} from its barrier function")
+            return {"max_abs_diff_vs_barrier": diff}
+        return run
+
+    def median_bitwise(m):
+        check(bits_equal(class_median(m), robust.coordinate_median(m)),
+              "class_median: not bitwise equal to robust.coordinate_median")
+        return {"bitwise_equal_to_coordinate_median": True}
+
+    checks = {
+        "fold_multi_krum": near("fold_multi_krum", fold_mk, lambda m: robust.multi_krum(m, f=b, q=4)),
+        "fold_trimmed_mean": near("fold_trimmed_mean", fold_tm, lambda m: robust.trimmed_mean(m, f=b)),
+        "fold_cge": near("fold_cge", fold_cge, lambda m: robust.cge(m, f=b)),
+        "class_median": median_bitwise,
+        "pipeline_nnm_multi_krum": near(
+            "pipeline_nnm_multi_krum", fused,
+            lambda m: robust.multi_krum(preagg.nnm(m, f=b), f=b, q=4)),
+    }
+    return configs, forbidden, checks, fold_flags
+
+
 def main_path(counts: dict) -> dict:
     import torch
 
@@ -505,18 +672,20 @@ def main_path(counts: dict) -> dict:
     }
     # the loops whose iterations each step reports (robust.last_iterations)
     loops = {"geometric_median": "geometric_median", "caf": "caf"}
-    first_norms, first_centre_dists = {}, {}
+    first_norms, first_centre_dists, first_matrix = {}, {}, {}
 
     def recording(name, fn):
         """``fn`` that keeps the row norms of the first CUDA matrix it sees
         and the rows' distances to their mean (centred clipping's first
-        centre): host copies at step 1, outside the steps the median is
-        taken of."""
+        centre), and the matrix itself for the class-API checks: copies at
+        step 1, outside the steps the median is taken of."""
         def call(m):
             if m.is_cuda and name not in first_norms:
                 first_norms[name] = torch.linalg.vector_norm(m.float(), dim=1).cpu()
                 first_centre_dists[name] = torch.linalg.vector_norm(
                     m.float() - m.float().mean(dim=0), dim=1).cpu()
+                if name in class_checks:
+                    first_matrix[name] = m.detach().clone()
             return fn(m)
         return call
 
@@ -526,6 +695,8 @@ def main_path(counts: dict) -> dict:
     cpu_bundle = make_bundle(SmallCNN(), seed=0, device="cpu")
     d = sum(int(v.numel()) for v in cpu_bundle.params.values())
     check(d == 421_642, f"SmallCNN has d={d}")
+    class_api, forbidden, class_checks, fold_flags = class_api_configs(cpu_bundle.params)
+    aggregators.update(class_api)
     results = {}
     for name, (pre, agg, kernel_keys, clip_rule) in aggregators.items():
         if pre is not None:
@@ -560,6 +731,18 @@ def main_path(counts: dict) -> dict:
                 for k in kernel_keys:
                     check(run_counts[k] > 0, f"{name}: kernel {k} never launched on the main path")
                     counts[k] += run_counts[k]
+                for k in forbidden.get(name, ()):
+                    check(run_counts[k] == 0, f"{name}: {k} launched {run_counts[k]} times")
+                if name == "fold_multi_krum":
+                    # no Gram launched: each krum weights launch is one B5
+                    # call's, as long as each has its one sweep and no other
+                    # selection ran in this configuration
+                    b5 = run_counts["selection_weights:krum"]
+                    check(b5 == run_counts["weighted_rows"] and all(
+                              v == 0 for k, v in run_counts.items()
+                              if k not in ("selection_weights:krum", "weighted_rows")),
+                          f"{name}: launches other than B5's {run_counts}")
+                    counts["selection_mean_from_gram"] += b5
                 profile = profile_steps(step, params, opt, xs, ys)
             data[dev] = (snaps, losses, times, iters)
         snaps, losses, times, iters = data["cuda"]
@@ -592,6 +775,13 @@ def main_path(counts: dict) -> dict:
             "iterations_per_step": iters or None,
             "cpu_iterations_per_step": data["cpu"][3] or None,
         }
+        if name in class_checks:
+            flags = list(fold_flags.get(name, []))
+            check(not any(flags), f"{name}: the fold fell back to the exact path {flags}")
+            results[name]["fold_nonfinite_fallbacks"] = flags or None
+            results[name]["class_check"] = class_checks[name](first_matrix.pop(name))
+            log(f"    class API check: {json.dumps(results[name]['class_check'])}"
+                + (f", non-finite fallbacks per step {flags}" if flags else ""))
         log(f"  {name}: {ms_step:.3f} ms/step (median of steps 2-{MAIN_STEPS}; first "
             f"{times[0]:.1f} ms), losses {[round(v, 4) for v in losses]}, "
             f"params vs CPU max |diff| {worst:.3g}, launches {results[name]['launches']}, "
@@ -611,13 +801,40 @@ PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kern
                 "center_sweep_kernel")
 
 
+def device_events(prof, calls: int) -> dict:
+    """``{kernel: (device ms, launches)}`` per call from a torch.profiler
+    profile of ``calls`` calls: device-side events only (an operator's row
+    repeats its kernels' time)."""
+    from torch.autograd import DeviceType
+
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        by_kernel[ev.key] = (dev_us / 1e3 / calls, ev.count / calls)
+    return by_kernel
+
+
+def port_part(by_kernel: dict) -> dict:
+    """The port's kernels among ``device_events``'s, summed by kernel."""
+    ours = {}
+    for key, (ms, count) in by_kernel.items():
+        for p in PORT_KERNELS:
+            if re.search(rf"\b{p}\b", key):  # selection_weights_kernel is in nnm_selection_...
+                ms0, count0 = ours.get(p, (0.0, 0.0))
+                ours[p] = (ms0 + ms, count0 + count)
+    return ours
+
+
 def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
     """Device time of ``steps`` PS steps by kernel (torch.profiler): the
     total, the port's kernels' part, the launches and the largest kernels.
     The profiler slows the host, so the busy share divides by the
     unprofiled step time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -627,31 +844,33 @@ def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
             params, opt, _ = step(params, opt, xs, ys)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
-    for ev in prof.key_averages():
-        # device-side events only: an operator's row repeats its kernels' time
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        by_kernel[ev.key] = (dev_us / 1e3 / steps, ev.count / steps)
-    device_ms = sum(v[0] for v in by_kernel.values())
-    ours = {}
-    for key, (ms, count) in by_kernel.items():
-        for p in PORT_KERNELS:
-            if re.search(rf"\b{p}\b", key):  # selection_weights_kernel is in nnm_selection_...
-                ms0, count0 = ours.get(p, (0.0, 0.0))
-                ours[p] = (ms0 + ms, count0 + count)
+    by_kernel = device_events(prof, steps)
+    ours = port_part(by_kernel)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
     return {
         "profiled_wall_ms_per_step": wall_ms / steps,
-        "device_ms_per_step": device_ms,
+        "device_ms_per_step": sum(v[0] for v in by_kernel.values()),
         "port_kernels_ms_per_step": sum(v[0] for v in ours.values()),
         "port_kernels": {p: [ms, count] for p, (ms, count) in ours.items()},
         "device_launches_per_step": sum(v[1] for v in by_kernel.values()),
         "top": [[k[:60], round(v[0], 4), v[1]] for k, v in top],
     }
+
+
+def port_device_ms(fn, calls: int = 10) -> dict:
+    """Device time per call of each port kernel that ``fn()`` launches
+    (torch.profiler): the card's time without the host's launch gaps,
+    which CUDA events of a short call include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {p: ms for p, (ms, _) in port_part(device_events(prof, calls)).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -912,6 +1131,67 @@ def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
     return out
 
 
+def from_gram_times(n: int, d: int, *, f: int, q: int, seed: int) -> dict:
+    """B5 on one (n, d) f32 round and its B3 Gram: the whole call, its
+    weights launch and its sweep apart (CUDA events), beside its bound
+    (the Gram and the q selected rows read once, the (d,) row written),
+    the plain version and ``w @ x`` for the sweep. Then what streaming
+    costs on one card: a whole Multi-Krum fold round (n
+    ``gram_fold_update`` calls in a seeded order, then
+    ``multi_krum_from_gram``) beside the barrier ``robust.multi_krum`` (B3
+    + B4) on the same rows. No single PyTorch call computes B5."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels, robust
+
+    x = random_rounds((1, n, d), seed=seed)[0]
+    isz = x.element_size()
+    g = kernels.gram(x[None])[0]
+    w = kernels.selection_weights(g[None], f=f, q=q)
+    npad = kernels.network_width(n)
+    weight_ops = 5 * n * n + 2 * len(kernels.batcher_pairs(npad)) * n + (n - f - 1) * n
+    b_ms, b_by = bound_ms(n * n * 4 + q * d * isz + d * isz, weight_ops + 2 * q * d)
+    out = {
+        "ms": cuda_time_ms(lambda: kernels.selection_mean_from_gram(x, g, f=f, q=q)),
+        "plain_ms": cuda_time_ms(lambda: kernels.selection_mean_from_gram_plain(x, g, f=f, q=q),
+                                 iters=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [n, d],
+        "weights_ms": cuda_time_ms(lambda: kernels.selection_weights(g[None], f=f, q=q)),
+        "sweep_ms": cuda_time_ms(lambda: kernels.weighted_rows(x[None], w)),
+        # w @ x: the sweep's function on these finite inputs (it reads all n rows)
+        "sweep_library_ms": cuda_time_ms(lambda: w[0] @ x),
+    }
+    # the same call's device time by kernel: the CUDA-event times above
+    # follow the host's launch rate where a launch is short
+    out["device_ms"] = port_device_ms(lambda: kernels.selection_mean_from_gram(x, g, f=f, q=q))
+    buf = torch.zeros_like(x)
+    gram = torch.zeros((n, n), device=x.device)
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).tolist()
+
+    def fold_round():
+        for i in order:
+            robust.gram_fold_update(buf, gram, x[i], i)
+        return robust.multi_krum_from_gram(buf, gram, f=f, q=q)
+
+    folded, barrier = fold_round(), robust.multi_krum(x, f=f, q=q)
+    check(torch.allclose(folded, barrier, rtol=1e-5, atol=1e-6),
+          f"fold round differs from the barrier Multi-Krum at {(n, d)}")
+    out["fold_round"] = {
+        "fold_round_ms": cuda_time_ms(fold_round, iters=3, warmup=1),
+        "gram_fold_update_ms": cuda_time_ms(lambda: robust.gram_fold_update(buf, gram, x[3], 3)),
+        "barrier_multi_krum_ms": cuda_time_ms(lambda: robust.multi_krum(x, f=f, q=q)),
+        "max_abs_diff_vs_barrier": max_abs_err(folded, barrier),
+    }
+    log(f"  selection_mean_from_gram {[n, d]}: {out['ms']:.4f} ms (weights {out['weights_ms']:.4f}, "
+        f"sweep {out['sweep_ms']:.4f}; w @ x {out['sweep_library_ms']:.4f}), bound "
+        f"{b_ms:.4f} ms ({b_by}), plain {out['plain_ms']:.4f} ms; device ms by kernel "
+        f"{json.dumps(out['device_ms'])}")
+    log(f"  Multi-Krum fold round at {[n, d]}: {json.dumps(out['fold_round'])}")
+    del x, g, buf
+    torch.cuda.empty_cache()
+    return out
+
+
 def aggregator_times() -> dict:
     """The six aggregators of this slice, whole, on one ByzPy grid input
     (64 x 65,536 f32 normal, benchmarks/full_grid.py), by CUDA events
@@ -957,13 +1237,16 @@ def timing() -> dict:
     odd = kernel_times(n - 1, d, f_trim=8, f_krum=8, q=12, seed=8)["sorted_reduce:median"]
     out["sorted_reduce:median"] = dict(odd, at_headline=out["sorted_reduce:median"])
     main = kernel_times(MAIN_N, 421_642, f_trim=MAIN_BYZ, f_krum=MAIN_BYZ, q=4, seed=9)
-    for times, shape, seed, f in ((out, HEADLINE, 17, 8), (main, (MAIN_N, 421_642), 19, MAIN_BYZ)):
+    for times, shape, seed, f, q in ((out, HEADLINE, 17, 8, 12),
+                                     (main, (MAIN_N, 421_642), 19, MAIN_BYZ, 4)):
         pre = pre_kernel_times(*shape, seed=seed)
         times["weighted_rows"].update(pre.pop("weighted_rows"))
         times.update(pre)
         times.update(centre_kernel_times(*shape, f=f, seed=seed + 10))
+        times["selection_mean_from_gram"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "with_nnm_weights",
-            "with_clip_weights", "step_ms", "step_plain_ms")
+            "with_clip_weights", "step_ms", "step_plain_ms", "weights_ms", "sweep_ms",
+            "sweep_library_ms", "device_ms", "fold_round")
     for k, v in out.items():
         v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
     return out
@@ -990,6 +1273,11 @@ KERNELS = [
      "byzpy_tpu/ops/pallas_kernels.py:470"),
     ("center_weights:clip", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
     ("center_sweep", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
+    # B5, a composition of B4's two kernels: launches counts its calls on the
+    # main path (fold_multi_krum), one selection_weights:krum and one
+    # weighted_rows launch each, no Gram
+    ("selection_mean_from_gram", "byzpy_tpu_torch/csrc/selection.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:1094"),
 ]
 
 
@@ -1031,12 +1319,15 @@ def main() -> int:
     errs = {key: 0.0 for key, _, _ in KERNELS}
     check_sorted_reduce(errs)
     check_gram_and_selection(errs)
+    check_selection_from_gram(errs)
     check_pre_aggregation(errs)
     check_meamed(errs)
     check_center_step(errs)
 
-    log("== 4. main path: SmallCNN PS round, plain, pre-aggregated and centre-seeking configurations")
+    log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
+        "configurations")
     counts = {k: 0 for k in kernels.launch_counts}
+    counts["selection_mean_from_gram"] = 0
     results = main_path(counts)
     log("MAIN_PATH " + json.dumps(results))
 

@@ -460,3 +460,110 @@ def test_cuda_meamed_and_centre_reject_wide_n(cuda_device):
     ):
         with pytest.raises(NotImplementedError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# B5 selection mean from a given Gram, and the operator classes on the card
+# ---------------------------------------------------------------------------
+
+
+def _tie_heavy(x):
+    """Duplicated and zero rows: scores that tie, broken by row index."""
+    x = x.clone()
+    x[:, 5] = x[:, 2]
+    x[:, 7] = x[:, 2]
+    x[:, [1, 3]] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [8, 13, 64, 128])
+@pytest.mark.parametrize("gram_from", ["b3", "fold"])
+def test_cuda_selection_mean_from_gram_matches_plain(cuda_device, gram_from, n, dt):
+    """B5 on a Gram from B3 or from the arrival-order fold (rows folded in
+    a seeded order; 16-bit rows into an f32 Gram): the weights equal to the
+    plain version's on the same Gram, the sweep bitwise equal to the plain
+    sweep on the same weights, with tie-heavy rows; one
+    ``selection_weights:krum`` and one ``weighted_rows`` launch, no Gram
+    launch."""
+    from byzpy_tpu_torch.ops import robust
+
+    x = _tie_heavy(_pre_rows(500 + n, 1, n, 3000, cuda_device, DTYPES[dt]))[0].contiguous()
+    if gram_from == "b3":
+        g = kernels.gram(x[None])[0]
+    else:
+        buf = torch.zeros_like(x)
+        g = torch.zeros((n, n), device=cuda_device)
+        for i in np.random.default_rng(n).permutation(n):
+            robust.gram_fold_update(buf, g, x[int(i)], int(i))
+        assert torch.equal(buf, x)
+    f, q = n // 4, max(1, n // 3)
+    kernels.reset_launch_counts()
+    out = kernels.selection_mean_from_gram(x, g, f=f, q=q)
+    expected = dict.fromkeys(kernels.launch_counts, 0)
+    expected.update({"selection_weights:krum": 1, "weighted_rows": 1})
+    assert kernels.launch_counts == expected
+    w = kernels.selection_weights(g[None], f=f, q=q)
+    assert torch.equal(w, kernels.selection_weights_plain(g[None], f=f, q=q, mode="krum"))
+    assert _bits_equal(out, kernels.weighted_rows_plain(x[None], w)[0])
+    assert _bits_equal(out, kernels.selection_mean_from_gram_plain(x, g, f=f, q=q))
+
+
+@pytest.mark.cuda
+def test_cuda_selection_mean_from_gram_nonfinite_and_wide(cuda_device):
+    """A selected inf row poisons the output (canonical NaN or inf, as the
+    plain version); n > 128 raises."""
+    x = _pre_rows(3, 1, 9, 500, cuda_device)[0].contiguous()
+    x[4] = float("inf")
+    g = kernels.gram(x[None])[0]
+    out = kernels.selection_mean_from_gram(x, g, f=0, q=9, mode="cge")
+    assert not torch.isfinite(out).any()
+    assert _bits_equal(out, kernels.selection_mean_from_gram_plain(x, g, f=0, q=9, mode="cge"))
+    wide = torch.zeros((129, 64), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        kernels.selection_mean_from_gram(wide, torch.zeros((129, 129), device=cuda_device), f=1, q=2)
+
+
+@pytest.mark.cuda
+def test_cuda_folded_multi_krum_runs_b5_not_the_gram(cuda_device):
+    """``MultiKrum.fold`` / ``fold_finalize`` on the card: the finalize
+    launches B5 (``selection_weights:krum`` and ``weighted_rows``) and no
+    Gram (the fold built it by matvecs); the result is within rtol 1e-5,
+    atol 1e-6 of ``aggregate`` (which launches B3 and B4)."""
+    from byzpy_tpu_torch.aggregators import MultiKrum
+
+    agg = MultiKrum(2, 4)
+    grads = [{"w": r[:2000].reshape(40, 50), "b": r[2000:]} for r in
+             _pre_rows(8, 1, 8, 3000, cuda_device)[0]]
+    state = agg.fold_init(8)
+    kernels.reset_launch_counts()
+    for i in (5, 0, 7, 2, 1, 6, 3, 4):
+        agg.fold(state, i, grads[i])
+    out = agg.fold_finalize(state)
+    assert kernels.launch_counts["gram"] == 0
+    assert kernels.launch_counts["selection_weights:krum"] == 1
+    assert kernels.launch_counts["weighted_rows"] == 1
+    ref = agg.aggregate(grads)
+    assert kernels.launch_counts["gram"] == 1
+    for k in ("w", "b"):
+        assert out[k].is_cuda
+        torch.testing.assert_close(out[k], ref[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_classes_default_to_the_card(cuda_device):
+    """A class built with ``device=None`` lands on CUDA: numpy inputs move
+    there, and so does the result."""
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.pre_aggregators import NearestNeighborMixing
+
+    rows = [np.random.default_rng(i).normal(size=300).astype(np.float32) for i in range(6)]
+    agg = CoordinateWiseMedian()
+    assert agg.device.type == "cuda"
+    kernels.reset_launch_counts()
+    out = agg.aggregate(rows)
+    assert out.is_cuda and kernels.launch_counts["sorted_reduce:median"] == 1
+    mixed = NearestNeighborMixing(1).pre_aggregate(rows)
+    assert len(mixed) == 6 and all(m.is_cuda for m in mixed)
+    assert kernels.launch_counts["mix_rows"] == 1

@@ -15,6 +15,7 @@ import torch
 from byzpy_tpu.ops import pallas_kernels as pk
 from byzpy_tpu.ops import robust as jrobust
 from byzpy_tpu_torch.ops import _build, kernels
+from byzpy_tpu_torch.ops import robust as trobust
 
 TORCH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}
 JAX_DTYPES = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}
@@ -345,6 +346,182 @@ def test_pre_aggregated_ties_match_pallas(kind):
         _assert_matches_pallas(ours, ref, "f32")
 
 
+# ---------------------------------------------------------------------------
+# B5 selection mean from a given Gram
+# ---------------------------------------------------------------------------
+
+
+def _b5_rows(kind: str, dt: str) -> np.ndarray:
+    """(13, 300) rows: normal, tie-heavy (duplicated, zero or all-equal
+    rows), an all-inf row, or one NaN entry."""
+    if kind in ("duplicates", "zeros", "all_equal"):
+        x = np.tile(_tie_rows(kind), (1, 8))[:, :300]
+    else:
+        x = _matrix(np.random.default_rng(40 + len(kind)), (13, 300), specials=False)
+        x[::3] *= 5.0
+    if kind == "inf":
+        x[6] = np.inf
+    elif kind == "nan":
+        x[4, 17] = np.nan
+    return np.asarray(_to_torch(x, dt).float())  # the dtype's values, in f32
+
+
+def _b5_args(mode: str) -> dict:
+    return {"krum": dict(f=3, q=5), "cge": dict(f=0, q=9), "monna": dict(f=0, q=9)}[mode]
+
+
+def _pallas_weights(g: np.ndarray, n: int, *, f, q, mode, reference_index) -> np.ndarray:
+    """The Pallas kernel's own first step (``_selection_scores`` then
+    ``_selection_weights``) on the zero-padded f32 Gram."""
+    gp = jnp.asarray(_padded_gram_of(g))
+    scores = pk._selection_scores(gp, mode=mode, n_pad=gp.shape[0], n_real=n, f=f,
+                                  reference_index=reference_index)
+    return np.asarray(pk._selection_weights(scores, n_pad=gp.shape[0], n_real=n, q=q))[:n, 0]
+
+
+def _padded_gram_of(g: np.ndarray) -> np.ndarray:
+    n = g.shape[0]
+    n_pad = max(8, -(-n // 8) * 8)
+    out = np.zeros((n_pad, n_pad), np.float32)
+    out[:n, :n] = g
+    return out
+
+
+B5_KINDS = ["normal", "duplicates", "zeros", "all_equal", "inf", "nan"]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("kind", B5_KINDS)
+@pytest.mark.parametrize("mode", ["krum", "cge", "monna"])
+def test_selection_mean_from_gram_plain_matches_pallas(mode, kind, dt):
+    """B5's plain version against ``selection_mean_from_gram_pallas`` in
+    interpret mode on the same rows and Gram: the weights exactly equal to
+    the Pallas kernel's first step (ties to the lower index, NaN scores
+    last), the output within B4's tolerance (``_assert_matches_pallas``).
+    A selected inf or NaN row (cge / monna take 9 of 13) poisons the output
+    in both: the port's sweep reads ``w != 0``, the kernel's ``w > 0``,
+    the same rows for weights of 1/q or 0."""
+    x = _b5_rows(kind, dt)
+    n = x.shape[0]
+    with np.errstate(all="ignore"):
+        g = (x @ x.T).astype(np.float32)
+    sel = dict(_b5_args(mode), mode=mode, reference_index=2)
+    w = kernels.selection_weights(torch.from_numpy(g)[None], **sel)[0]
+    np.testing.assert_array_equal(w.numpy(), _pallas_weights(g, n, **sel))
+    xt = _to_torch(x, dt)
+    ours = kernels.selection_mean_from_gram(xt, torch.from_numpy(g), **sel)
+    ref = pk.selection_mean_from_gram_pallas(_to_jax(x, dt), jnp.asarray(g), tile=128,
+                                             interpret=True, **sel)
+    assert ours.dtype == TORCH_DTYPES[dt] and ours.shape == (300,)
+    np.testing.assert_array_equal(
+        ours.float().numpy(), kernels.weighted_rows_plain(xt[None], w[None])[0].float().numpy())
+    _assert_matches_pallas(ours, ref, dt)
+
+
+def test_selection_mean_from_gram_takes_a_16_bit_gram_as_f32():
+    """The Gram is read as f32, whatever its dtype, as the TPU kernel casts
+    it."""
+    x = torch.from_numpy(_b5_rows("normal", "f32"))
+    g = x @ x.T
+    a = kernels.selection_mean_from_gram(x, g.to(torch.bfloat16), f=3, q=5)
+    b = kernels.selection_mean_from_gram(x, g.to(torch.bfloat16).float(), f=3, q=5)
+    assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the arrival-order fold primitives against the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def _fold_gram(x: np.ndarray, order, dt: str):
+    """The port's and the JAX package's Gram folds over the same rows in
+    the same arrival order."""
+    n, d = x.shape
+    buf = torch.zeros((n, d), dtype=TORCH_DTYPES[dt])
+    g = torch.zeros((n, n), dtype=torch.float32)
+    jbuf = jnp.zeros((n, d), JAX_DTYPES[dt])
+    jg = jnp.zeros((n, n), jnp.float32)
+    for i in order:
+        jbuf, jg = jrobust.gram_fold_update(jbuf, jg, _to_jax(x[i], dt), int(i))
+        trobust.gram_fold_update(buf, g, _to_torch(x[i], dt), int(i))
+    return buf, g, jbuf, jg
+
+
+@pytest.mark.parametrize("pallas", ["auto", "1"], ids=["xla", "pallas"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_gram_fold_and_multi_krum_from_gram_match_jax(dt, pallas, monkeypatch):
+    """``gram_fold_update`` folded in a seeded arrival order against the
+    JAX package's: the same staged rows, an f32 Gram (also for bf16 rows)
+    within 1e-5 |x_i| |x_j|; ``multi_krum_from_gram`` against the JAX
+    function on both of its CPU paths (XLA, and the Pallas kernel forced
+    with ``BYZPY_TPU_PALLAS=1``) and against the barrier ``multi_krum``,
+    within rtol 1e-5, atol 1e-6 (in bf16, one bf16 ulp more)."""
+    monkeypatch.setenv("BYZPY_TPU_PALLAS", pallas)
+    x = _matrix(np.random.default_rng(77), (11, 300), specials=False)
+    x[::4] *= 3.0
+    x = np.asarray(_to_torch(x, dt).float())
+    order = np.random.default_rng(5).permutation(11)
+    buf, g, jbuf, jg = _fold_gram(x, order, dt)
+    assert g.dtype == torch.float32 and buf.dtype == TORCH_DTYPES[dt]
+    np.testing.assert_array_equal(buf.float().numpy(), np.asarray(jbuf.astype(jnp.float32)))
+    norms = np.linalg.norm(x.astype(np.float64), axis=1)
+    bound = 1e-5 * np.outer(norms, norms)
+    assert np.all(np.abs(g.numpy() - np.asarray(jg)) <= bound)
+    assert np.all(np.abs(g.numpy() - x.astype(np.float64) @ x.T.astype(np.float64)) <= bound)
+    ours = trobust.multi_krum_from_gram(buf, g, f=2, q=4)
+    ref = jrobust.multi_krum_from_gram(jbuf, jg, f=2, q=4)
+    barrier = trobust.multi_krum(buf, f=2, q=4)
+    assert ours.dtype == TORCH_DTYPES[dt]
+    _assert_matches_pallas(ours, ref, dt)
+    _assert_matches_pallas(ours, jnp.asarray(barrier.float().numpy()), dt)
+
+
+def test_krum_scores_from_gram_match_jax():
+    """Within rtol 1e-5 of the JAX function (f32 sums in another order) and
+    of ``krum_scores`` on the rows themselves."""
+    x = _matrix(np.random.default_rng(78), (10, 200), specials=False)
+    g = x @ x.T
+    ours = trobust.krum_scores_from_gram(torch.from_numpy(g), f=3).numpy()
+    np.testing.assert_allclose(ours, np.asarray(jrobust.krum_scores_from_gram(jnp.asarray(g), f=3)),
+                               rtol=1e-5)
+    np.testing.assert_allclose(ours, trobust.krum_scores(torch.from_numpy(x), f=3).numpy(), rtol=1e-5)
+    with pytest.raises(ValueError) as a:
+        trobust.krum_scores_from_gram(torch.from_numpy(g), f=9)
+    with pytest.raises(ValueError) as b:
+        jrobust.krum_scores_from_gram(jnp.asarray(g), f=9)
+    assert str(a.value) == str(b.value)
+
+
+@pytest.mark.parametrize("f", [0, 1, 3])
+def test_extremes_fold_and_trimmed_mean_from_extremes_match_jax(f):
+    """The extreme buffers folded in place equal the JAX package's (the
+    same sort of f + 1 values per coordinate); the trimmed mean from them
+    within 4 ulp of the JAX function's."""
+    n = 2 * f + 3
+    x = _matrix(np.random.default_rng(79 + f), (n, 150), specials=False)
+    low = torch.full((f, 150), float("inf"))
+    high = torch.full((f, 150), float("-inf"))
+    jlow, jhigh = jnp.full((f, 150), jnp.inf), jnp.full((f, 150), -jnp.inf)
+    total = torch.from_numpy(x[0]).clone()
+    for i in range(n):
+        if i:
+            trobust.fold_add(total, torch.from_numpy(x[i]))
+        assert trobust.extremes_fold_update(low, torch.from_numpy(x[i]), largest=False) is low
+        trobust.extremes_fold_update(high, torch.from_numpy(x[i]), largest=True)
+        jlow = jrobust.extremes_fold_update(jlow, jnp.asarray(x[i]), largest=False)
+        jhigh = jrobust.extremes_fold_update(jhigh, jnp.asarray(x[i]), largest=True)
+    np.testing.assert_array_equal(low.numpy(), np.asarray(jlow))
+    np.testing.assert_array_equal(high.numpy(), np.asarray(jhigh))
+    ours = trobust.trimmed_mean_from_extremes(total, low, high, n, f=f)
+    jtotal = jnp.asarray(x[0])
+    for i in range(1, n):
+        jtotal = jtotal + jnp.asarray(x[i])
+    ref = np.asarray(jrobust.trimmed_mean_from_extremes(jtotal, jlow, jhigh, n, f=f))
+    assert _ulp_diff(ours, ref, "f32").max() <= 4
+    with pytest.raises(ValueError, match="0 <= 2f < n"):
+        trobust.trimmed_mean_from_extremes(total, low, high, 2 * f, f=f)
+
+
 def test_weighted_rows_reads_nan_weights():
     """The sweep reads every row whose weight is not 0: a NaN weight
     poisons every column (B9 and B10 write all-NaN weights when a
@@ -623,6 +800,24 @@ def test_selection_errors_match_jax(kw):
     assert str(ours.value) == str(ref.value)
 
 
+FROM_GRAM_BAD = SELECT_BAD + [dict(f=1, q=1, mode="krum", gram_n=5)]
+
+
+@pytest.mark.parametrize("kw", FROM_GRAM_BAD)
+def test_selection_from_gram_errors_match_jax(kw):
+    kw = dict(kw)
+    n = kw.pop("gram_n", 4)
+    x = np.zeros((4, 16), np.float32)
+    g = np.zeros((n, n), np.float32)
+    with pytest.raises(ValueError) as ours:
+        kernels.selection_mean_from_gram(torch.from_numpy(x), torch.from_numpy(g), **kw)
+    with pytest.raises(ValueError) as plain:
+        kernels.selection_mean_from_gram_plain(torch.from_numpy(x), torch.from_numpy(g), **kw)
+    with pytest.raises(ValueError) as ref:
+        pk.selection_mean_from_gram_pallas(jnp.asarray(x), jnp.asarray(g), interpret=True, **kw)
+    assert str(ours.value) == str(ref.value) == str(plain.value)
+
+
 def test_unsupported_dtype_raises_in_both():
     x = np.zeros((1, 4, 16), np.int32)
     with pytest.raises(ValueError, match="unsupported dtype"):
@@ -666,6 +861,7 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     for mode in ("krum", "cge", "monna"):
         kernels.selection_mean_stream(x, f=2, q=3, mode=mode)
     kernels.weighted_rows(x, kernels.selection_weights(g, f=2, q=3))
+    kernels.selection_mean_from_gram(x[0], g[0], f=2, q=3)
     kernels.nnm_stream(x, f=2)
     kernels.nnm_selection_mean_stream(x, f_nnm=2, f=2, q=3)
     kernels.clip_selection_mean_stream(x, tau=5.0, f=2, q=3)
