@@ -5,7 +5,9 @@ shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use, from the package's own sources, into
 ``byzpy_tpu_torch/_build/<hash>/`` (gitignored), where ``<hash>`` covers
 every source and the flags, so an edited source rebuilds. All sources
-compile in parallel, one ``nvcc`` process each.
+compile in parallel, one ``nvcc`` process each. The flags must never
+include ``--use_fast_math``: the codecs (``csrc/quantize.cu``) divide
+``1 / scale`` as one IEEE division, as the reference does.
 
 Nothing here runs at import time. Without ``nvcc`` the loader raises: a
 CUDA tensor launches its kernel or fails, it never falls back.
@@ -26,7 +28,10 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("sorted_reduce", "gram", "selection", "nnm", "clip_selection", "meamed", "center_step")
+SOURCES = (
+    "sorted_reduce", "gram", "selection", "nnm", "clip_selection", "meamed", "center_step",
+    "quantize",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +78,12 @@ SIGNATURES = {
     ]),
     "byz_center_sweep": ("center_step", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,
+    ]),
+    "byz_quantize": ("quantize", [
+        _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p,
+    ]),
+    "byz_dequantize": ("quantize", [
+        _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_ll, _c_int, _c_int, _c_void_p,
     ]),
 }
 

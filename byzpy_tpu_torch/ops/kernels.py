@@ -33,6 +33,10 @@ Kernels (TPU kernel they replace -> CUDA source):
   ``_clip_selection_stream_kernel`` (:1466) -> ``csrc/gram.cu`` +
   ``csrc/clip_selection.cu`` + B4's row sweep.
 
+The codec kernels B13-B15 (``parallel/quantization.py``) have their
+wrappers in ``ops/codec_kernels.py``; their launch counters live in this
+module's :data:`launch_counts` with the others.
+
 Dtypes are f32, bf16 and f16, accumulated in f32. A network holds at most
 ``MAX_NETWORK_ROWS`` rows: a larger ``n`` on the card raises
 ``NotImplementedError``.
@@ -86,6 +90,12 @@ launch_counts = {
     "nnm_selection_weights:monna": 0,
     "clip_selection_weights:clip": 0,
     "clip_selection_weights:arc": 0,
+    # the codecs' kernels, launched by ops/codec_kernels.py
+    "quantize:int8": 0,
+    "quantize:fp8": 0,
+    "quantize:fp8_e5m2": 0,
+    "dequantize:int8": 0,
+    "dequantize:fp8": 0,
 }
 
 

@@ -1,15 +1,21 @@
 """Parameter-server training round, single-device form.
 
-Counterpart of ``byzpy_tpu/parallel/ps.py:build_ps_train_step`` with no
-mesh, ``comm_precision`` off and the sharded update off. One step:
+Counterpart of ``byzpy_tpu/parallel/ps.py:build_ps_train_step`` on one
+device with the sharded update off: with ``comm_precision`` off, the
+reference's ``mesh=None`` round; with it on, the reference's round on a
+one-device mesh, whose gradient transpose moves nothing but still
+encodes and decodes. One step:
 
 1. per-node gradients of every node's batch, ``torch.func.vmap`` over
    ``torch.func.grad_and_value`` of the loss (the JAX ``vmap`` at :403);
-2. the byzantine rows: the attack's output replaces the last
-   ``n_byzantine`` rows of the ``(n, d)`` gradient matrix (:345);
-3. the optional ``pre_aggregate`` hook, then ``aggregate(matrix)`` (:441);
+2. with ``comm_precision`` on, every node's raw gradient row, byzantine
+   nodes' too, crosses the compressed wire hop (``collectives.reshard_q``,
+   :404-422): int8 through B13 + B14, fp8 through B15 + B14;
+3. the byzantine rows: the attack, run on the (decoded) honest rows,
+   replaces the last ``n_byzantine`` rows of the ``(n, d)`` matrix (:345);
+4. the optional ``pre_aggregate`` hook, then ``aggregate(matrix)`` (:441);
    on the card this is where the hand-written kernels run;
-4. SGD with momentum (:75, :479-481), exactly ``optax.sgd(lr, momentum)``.
+5. SGD with momentum (:75, :479-481), exactly ``optax.sgd(lr, momentum)``.
 
 The step is a pure function of its inputs, like the JAX one: parameters
 and optimizer state are returned anew, never updated in place.
@@ -18,13 +24,15 @@ and optimizer state are returned anew, never updated in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
 
 from ..models.bundle import ModelBundle, Params
 from ..utils.trees import ravel_fn
+from .collectives import reshard_q, reshard_q_ef
+from .quantization import _S4_MISSING, as_comm_precision
 
 AggFn = Callable[[torch.Tensor], torch.Tensor]      # (n, d) -> (d,)
 PreAggFn = Callable[[torch.Tensor], torch.Tensor]   # (n, d) -> (m, d)
@@ -81,7 +89,8 @@ def build_ps_train_step(
     *,
     attack: Optional[AttackFn] = None,
     pre_aggregate: Optional[PreAggFn] = None,
-) -> Tuple[Callable, OptState]:
+    comm_precision: Any = None,
+) -> Tuple[Callable, Any]:
     """Build ``(train_step, opt_state0)``.
 
     ``train_step(params, opt_state, xs, ys, generator=None)`` takes
@@ -89,15 +98,36 @@ def build_ps_train_step(
     28, 28, 1)``, ``ys: (n_nodes, B)``) and returns ``(params, opt_state,
     metrics)``; metrics are the mean honest loss and the aggregated
     gradient's norm. ``generator`` feeds a randomized attack. With
-    ``n_byzantine > 0`` and no attack, byzantine rows echo honest rows."""
+    ``n_byzantine > 0`` and no attack, byzantine rows echo honest rows.
+
+    ``comm_precision`` (``None``/``"off"``/``"bf16"``/``"int8"``/``"fp8"``/
+    ``"fp8_e5m2"`` or a :class:`~byzpy_tpu_torch.parallel.quantization.CommPrecision`)
+    compresses the gradient hop. This is the reference's round on a
+    one-device mesh: the node -> feature transpose moves nothing, but
+    every raw row is encoded and decoded, and the attack and the
+    aggregator see the decoded rows. ``None``/``"off"`` leaves the round
+    bit-identical to the uncompressed one. With ``error_feedback=True``
+    the round carries each node's quantization residual: ``opt_state0``
+    becomes ``(base_opt_state, {"transpose": zeros(n, d)})``, the step
+    returns the new residual in the same slot, and the metrics gain
+    ``ef_transpose_norm``. ``s4`` raises ``NotImplementedError`` here
+    (ROADMAP B16/B17). The reference's ``param_gather_precision``
+    and sharded update need a mesh (ROADMAP A.7)."""
     opt = default_optimizer(cfg)
+    comm = as_comm_precision(comm_precision)
+    if comm.mode == "s4":
+        raise NotImplementedError(_S4_MISSING)
+    ef = comm.enabled and comm.error_feedback
     ravel, unravel = ravel_fn(bundle.params)
     names = list(bundle.params)
     h, b = cfg.n_honest, cfg.n_byzantine
     if not 0 <= b < cfg.n_nodes:
         raise ValueError(f"need 0 <= n_byzantine < n_nodes (got {b}/{cfg.n_nodes})")
     per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
-    opt_state0 = opt.init(ravel(bundle.params))
+    flat0 = ravel(bundle.params)
+    opt_state0 = opt.init(flat0)
+    if ef:
+        opt_state0 = (opt_state0, {"transpose": flat0.new_zeros((cfg.n_nodes, flat0.shape[0]))})
 
     def build_matrix(grads_n: torch.Tensor, generator) -> torch.Tensor:
         honest = grads_n[:h]
@@ -110,13 +140,20 @@ def build_ps_train_step(
         byz = byz.expand(b, honest.shape[1]).to(honest.dtype)
         return torch.cat([honest, byz], dim=0)
 
-    def train_step(params: Params, opt_state: OptState, xs, ys, generator=None):
+    def train_step(params: Params, opt_state, xs, ys, generator=None):
         if xs.shape[0] != cfg.n_nodes or ys.shape[0] != cfg.n_nodes:
             raise ValueError(
                 f"expected {cfg.n_nodes} node batches, got {xs.shape[0]} and {ys.shape[0]}"
             )
+        if ef:
+            opt_state, ef_state = opt_state
         grads, losses = per_node(params, xs, ys)
         flat = torch.cat([grads[k].reshape(cfg.n_nodes, -1) for k in names], dim=1)
+        if ef:
+            flat, residual = reshard_q_ef(flat, ef_state["transpose"], precision=comm)
+            ef_state = {**ef_state, "transpose": residual}
+        elif comm.enabled:
+            flat = reshard_q(flat, precision=comm)
         matrix = build_matrix(flat, generator)
         if pre_aggregate is not None:
             matrix = pre_aggregate(matrix)
@@ -125,6 +162,10 @@ def build_ps_train_step(
         agg_norm = torch.sqrt(torch.sum(agg * agg))
         new_flat, opt_state = opt.step(flat_params, agg, opt_state)
         metrics = {"honest_loss": losses[:h].mean(), "agg_grad_norm": agg_norm}
+        if ef:
+            res = ef_state["transpose"].float()
+            metrics["ef_transpose_norm"] = torch.sqrt(torch.sum(res * res))
+            opt_state = (opt_state, ef_state)
         return unravel(new_flat), opt_state, metrics
 
     return train_step, opt_state0

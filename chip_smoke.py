@@ -16,7 +16,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    PyTorch version on the card, at the main path's shapes, at the 64 x
    1,048,576 headline and, for B5-B10, on rows holding NaN and inf (B5,
    B6 and B7 also in f32, bf16 and f16; B5 on a B3 Gram and on one folded
-   row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13);
+   row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13;
+   the codecs B13 int8 encode, B15 fp8 e4m3fn / e5m2 encode and B14
+   decode bitwise, in f32, bf16 and f16, at block 256 and 100, on rows
+   holding NaN, +-inf, zero blocks and a partial last block);
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
    each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
@@ -32,12 +35,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (and those a fold bypasses must not), its clip must engage at step 1,
    losses stay finite, and the first 2 steps match the same round on the
    CPU; 3 more steps run under torch.profiler for the device's busy share
-   and kernel breakdown;
+   and kernel breakdown; the same loop runs the compressed wire: the PS
+   round with its gradient hop in int8 (trimmed mean), fp8 (Multi-Krum)
+   and int8 with error feedback (median); then (4b) the gossip round on
+   the complete graph (trimmed mean, off and int8) and on ring(8, 2)
+   (median, int8). A compressed configuration makes exactly its listed
+   launches per step, its step-1 encode is checked bitwise, and its CPU
+   comparison allows each coordinate the code steps its wire rows may
+   flip, carried through the round;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
    exists, a single PyTorch call, with a whole Multi-Krum fold round beside
-   the barrier Multi-Krum; then the six centre-seeking and coordinate
-   aggregators, whole, at ByzPy's grid shapes (64 x 65,536).
+   the barrier Multi-Krum, and the codecs at block 256; then the six
+   centre-seeking and coordinate aggregators, whole, at ByzPy's grid
+   shapes (64 x 65,536).
 
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
@@ -510,6 +521,58 @@ def check_center_step(errs: dict) -> None:
         log(f"  B7 {name}: an inf row or a NaN entry makes the whole step canonical NaN, both modes")
 
 
+CODEC_MODES = ("int8", "fp8", "fp8_e5m2")
+
+
+def codec_rows(rows: int, d: int, seed: int, dtype):
+    """Codec inputs on the card: ``random_rounds(specials=True)``'s NaN,
+    +-inf, -0.0 and sprinkled NaN, an all-zero first 300 values in row 2
+    (whole blocks at block 100, and block 0 at block 256) and an all-zero
+    row 3."""
+    x = random_rounds((1, rows, d), seed=seed, specials=True)[0] * 3.0
+    x[2, :300] = 0.0
+    x[3] = 0.0
+    return x.to(dtype)
+
+
+def check_codecs(errs: dict) -> None:
+    """B13 (int8) and B15 (fp8 e4m3fn / e5m2) against their plain versions
+    on the card, codes and scales bitwise, and B14's decode of each into
+    f32 and the input dtype bitwise, in f32, bf16 and f16, at block 256 and
+    100, at the main path's 8 x 421,642 (a partial last block at both
+    blocks) and the headline 64 x 1,048,576 (partial at block 100). Every
+    step is one IEEE operation, so nothing may differ."""
+    import torch
+
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+
+    for rows, d in ((MAIN_N, 421_642), HEADLINE):
+        for name in DTYPES:
+            dtype = getattr(torch, name)
+            x = codec_rows(rows, d, 700 + rows, dtype)
+            for block in (256, 100):
+                for mode in CODEC_MODES:
+                    codes, scales = ck.encode_rows(x, block=block, mode=mode)
+                    pc, ps = ck.encode_rows_plain(x, block=block, mode=mode)
+                    check(torch.equal(codes.view(torch.uint8), pc.view(torch.uint8))
+                          and bits_equal(scales, ps),
+                          f"{mode} encode differs from plain at {(rows, d)} {name} block {block}")
+                    for out in {torch.float32, dtype}:
+                        dec = ck.decode_rows(codes, scales, block=block, dtype=out)
+                        ref = ck.decode_rows_plain(codes, scales, block=block, dtype=out)
+                        check(bits_equal(dec, ref) and bool(torch.isfinite(dec).all()),
+                              f"{mode} decode to {out} differs from plain at {(rows, d)} {name}")
+                        errs["dequantize"] = max(errs["dequantize"], max_abs_err(dec, ref))
+                    key = "quantize:int8" if mode == "int8" else "quantize:fp8"
+                    errs[key] = max(errs[key], float(
+                        (codes.float() - pc.float()).abs().max()))
+                    del codes, scales, pc, ps, dec, ref
+                log(f"  B13/B15/B14 {(rows, d)} {name} block {block}: int8, fp8, fp8_e5m2 codes "
+                    f"and scales bitwise, decodes bitwise, all finite")
+            del x
+            torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -627,12 +690,106 @@ def class_api_configs(example_params: dict) -> tuple:
     return configs, forbidden, checks, fold_flags
 
 
-def main_path(counts: dict) -> dict:
+def drive(name: str, build) -> dict:
+    """Drive one configuration's round on the card and on the CPU.
+
+    ``build(dev)`` makes the round on ``dev`` and returns ``(run,
+    snapshot)``: ``run()`` takes one step and returns its metrics,
+    ``snapshot()`` the flat parameters on the host. The card runs
+    ``MAIN_STEPS`` steps with the counts set to 0 just before and read just
+    after, then 3 more under torch.profiler; the CPU runs ``CPU_STEPS``.
+    Returns ``{dev: {"snaps", "losses", "times", "metrics"}}``, the card's
+    with its ``"counts"``, ``"profile"`` and ``"ms_per_step"`` (the median
+    of steps 2-MAIN_STEPS). Fails if a card loss is not finite."""
     import torch
 
+    from byzpy_tpu_torch.ops import kernels
+
+    data = {}
+    for dev in ("cuda", "cpu"):
+        run, snapshot = build(dev)
+        out = {"snaps": [], "losses": [], "times": [], "metrics": []}
+        steps = MAIN_STEPS if dev == "cuda" else CPU_STEPS
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        for s in range(steps):
+            t0 = time.perf_counter()
+            metrics = run()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out["times"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append(metrics)
+            out["losses"].append(float(metrics["honest_loss"]))
+            if s < CPU_STEPS:
+                out["snaps"].append(snapshot())
+        if dev == "cuda":
+            out["counts"] = dict(kernels.launch_counts)
+            out["profile"] = profile_steps(run)
+        data[dev] = out
+    card = data["cuda"]
+    check(all(map(math.isfinite, card["losses"])), f"{name}: loss not finite {card['losses']}")
+    later = sorted(card["times"][1:])
+    card["ms_per_step"] = later[len(later) // 2]
+    return data
+
+
+def compare_to_cpu(name: str, data: dict, slack=None):
+    """Hold the card's parameters after each of the first ``CPU_STEPS``
+    steps to the CPU's: within PARAM_RTOL / PARAM_ATOL, plus ``slack[s]``
+    (a per-coordinate tensor) after step s + 1 where given. Returns the
+    largest |diff| and the largest share of the tolerance used."""
+    worst, used = 0.0, 0.0
+    for s, (g, c) in enumerate(zip(data["cuda"]["snaps"], data["cpu"]["snaps"])):
+        diff = (g - c).abs()
+        tol = PARAM_ATOL + PARAM_RTOL * c.abs()
+        if slack is not None:
+            tol = tol + slack[s]
+        share = float((diff / tol).max())
+        check(share <= 1.0, f"{name}: step {s + 1} differs from the CPU port (max |diff| "
+              f"{float(diff.max()):.3g}, {share:.3g} x the tolerance)")
+        worst, used = max(worst, float(diff.max())), max(used, share)
+    return worst, used
+
+
+def code_steps(rows, comm):
+    """One code step of ``comm``'s codec at each coordinate, the largest over
+    ``rows`` (twice the round-to-nearest bound of each row's own block; the
+    1.001 covers the few ulp by which a decoded block's absmax can fall
+    short of the encoded one's), on the host."""
+    from byzpy_tpu_torch.parallel import quantization_error_bound
+
+    bound = quantization_error_bound(rows, block=comm.block, mode=comm.mode)
+    return (2.002 * bound).amax(dim=0).cpu()
+
+
+def ps_wire_slack(steps_c: list, cfg, error_feedback: bool) -> list:
+    """What the card's and the CPU's codes may differ by, run through the PS
+    round's optimizer, per coordinate after each step. A value at a
+    rounding boundary may flip one code where the two devices' gradients
+    differ in their last bits, so each decoded row, and with it the
+    coordinate-wise or selection aggregate, may move by one code step
+    ``c_t``; with error feedback the carried residual moves by the previous
+    step's too. The momentum trace and the parameters carry it on
+    (``trace = w + momentum * trace``, ``params += lr * trace``)."""
+    out, trace, moved = [], None, None
+    for t, c in enumerate(steps_c):
+        w = c + steps_c[t - 1] if error_feedback and t else c
+        trace = w if trace is None else w + cfg.momentum * trace
+        moved = cfg.learning_rate * trace if moved is None else moved + cfg.learning_rate * trace
+        out.append(moved)
+    return out
+
+
+def main_path(counts: dict) -> dict:
+    import torch
+    from torch.func import grad_and_value, vmap
+
     from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
-    from byzpy_tpu_torch.ops import attack_ops, kernels, preagg, robust
-    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step
+    from byzpy_tpu_torch.ops import attack_ops, preagg, robust
+    from byzpy_tpu_torch.parallel import (
+        CommPrecision, PSStepConfig, as_comm_precision, build_ps_train_step,
+    )
 
     n, b, batch = MAIN_N, MAIN_BYZ, MAIN_BATCH
     cfg = PSStepConfig(n_nodes=n, n_byzantine=b)
@@ -643,12 +800,12 @@ def main_path(counts: dict) -> dict:
     # threshold rule whose clipped rows at step 1 are counted)
     sweep = "weighted_rows"
     centre = ["center_weights:weiszfeld", "center_sweep"]
+    krum = {"gram": 1, "selection_weights:krum": 1, sweep: 1}
     aggregators = {
         "coordinate_median": (None, robust.coordinate_median, ["sorted_reduce:median"], None),
         "trimmed_mean": (None, lambda m: robust.trimmed_mean(m, f=b), ["sorted_reduce:trimmed"],
                          None),
-        "multi_krum": (None, lambda m: robust.multi_krum(m, f=b, q=4),
-                       ["gram", "selection_weights:krum", sweep], None),
+        "multi_krum": (None, lambda m: robust.multi_krum(m, f=b, q=4), list(krum), None),
         "a_clip_trimmed_mean": (lambda m: preagg.clip_rows(m, threshold=MAIN_TAU),
                                 lambda m: robust.trimmed_mean(m, f=b),
                                 ["sorted_reduce:trimmed"], "clip"),
@@ -670,6 +827,20 @@ def main_path(counts: dict) -> dict:
                   ["gram", "selection_weights:monna", sweep], None),
         "caf": (None, lambda m: robust.caf(m, f=b, v_init=caf_starts[m.device.type]), [], None),
     }
+    # the compressed gradient hop, name -> (comm_precision, the launches
+    # each step makes, every other counter staying 0)
+    wire = {
+        "f_ps_int8_trimmed": ("int8", {"quantize:int8": 1, "dequantize:int8": 1,
+                                       "sorted_reduce:trimmed": 1}),
+        "g_ps_fp8_multi_krum": ("fp8", {"quantize:fp8": 1, "dequantize:fp8": 1, **krum}),
+        "h_ps_int8_ef_median": (CommPrecision("int8", error_feedback=True),
+                                {"quantize:int8": 1, "dequantize:int8": 1,
+                                 "sorted_reduce:median": 1}),
+    }
+    for name, agg in (("f_ps_int8_trimmed", aggregators["trimmed_mean"][1]),
+                      ("g_ps_fp8_multi_krum", aggregators["multi_krum"][1]),
+                      ("h_ps_int8_ef_median", robust.coordinate_median)):
+        aggregators[name] = (None, agg, list(wire[name][1]), None)
     # the loops whose iterations each step reports (robust.last_iterations)
     loops = {"geometric_median": "geometric_median", "caf": "caf"}
     first_norms, first_centre_dists, first_matrix = {}, {}, {}
@@ -689,9 +860,6 @@ def main_path(counts: dict) -> dict:
             return fn(m)
         return call
 
-    def attack(honest, generator):
-        return attack_ops.sign_flip(honest.mean(dim=0))
-
     cpu_bundle = make_bundle(SmallCNN(), seed=0, device="cpu")
     d = sum(int(v.numel()) for v in cpu_bundle.params.values())
     check(d == 421_642, f"SmallCNN has d={d}")
@@ -703,59 +871,66 @@ def main_path(counts: dict) -> dict:
             pre = recording(name, pre)
         else:
             agg = recording(name, agg)
-        data = {}
-        for dev in ("cuda", "cpu"):
+        comm = as_comm_precision(wire[name][0] if name in wire else None)
+        # the code step of each compared step's decoded honest rows, by device
+        wire_steps = {"cuda": [], "cpu": []}
+        made = {}
+
+        def build(dev, name=name, pre=pre, agg=agg, comm=comm, wire_steps=wire_steps, made=made):
             x, y = synthetic_classification(n_samples=n * batch, seed=3, device=dev)
             xs, ys = x.reshape(n, batch, 28, 28, 1), y.reshape(n, batch)
             bundle = make_bundle(SmallCNN(), seed=0, device=dev)
-            step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack, pre_aggregate=pre)
-            params = bundle.params
-            snaps, losses, times, iters = [], [], [], []
-            steps = MAIN_STEPS if dev == "cuda" else CPU_STEPS
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                kernels.reset_launch_counts()
-            for s in range(steps):
-                t0 = time.perf_counter()
-                params, opt, metrics = step(params, opt, xs, ys)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                losses.append(float(metrics["honest_loss"]))
+
+            def attack(honest, generator):
+                if comm.enabled and len(wire_steps[dev]) < CPU_STEPS:
+                    wire_steps[dev].append(code_steps(honest, comm))
+                return attack_ops.sign_flip(honest.mean(dim=0))
+
+            step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack, pre_aggregate=pre,
+                                            comm_precision=comm)
+            state = [bundle.params, opt]
+            made[dev] = (bundle, xs, ys)
+
+            def run():
+                state[0], state[1], metrics = step(state[0], state[1], xs, ys)
                 if name in loops:
-                    iters.append(robust.last_iterations[loops[name]])
-                if s < CPU_STEPS:
-                    snaps.append({k: v.detach().cpu().clone() for k, v in params.items()})
-            if dev == "cuda":
-                run_counts = dict(kernels.launch_counts)
-                for k in kernel_keys:
-                    check(run_counts[k] > 0, f"{name}: kernel {k} never launched on the main path")
-                    counts[k] += run_counts[k]
-                for k in forbidden.get(name, ()):
-                    check(run_counts[k] == 0, f"{name}: {k} launched {run_counts[k]} times")
-                if name == "fold_multi_krum":
-                    # no Gram launched: each krum weights launch is one B5
-                    # call's, as long as each has its one sweep and no other
-                    # selection ran in this configuration
-                    b5 = run_counts["selection_weights:krum"]
-                    check(b5 == run_counts["weighted_rows"] and all(
-                              v == 0 for k, v in run_counts.items()
-                              if k not in ("selection_weights:krum", "weighted_rows")),
-                          f"{name}: launches other than B5's {run_counts}")
-                    counts["selection_mean_from_gram"] += b5
-                profile = profile_steps(step, params, opt, xs, ys)
-            data[dev] = (snaps, losses, times, iters)
-        snaps, losses, times, iters = data["cuda"]
-        check(all(map(math.isfinite, losses)), f"{name}: loss not finite {losses}")
-        worst = 0.0
-        for s, (g_snap, c_snap) in enumerate(zip(snaps, data["cpu"][0])):
-            for k in g_snap:
-                check(
-                    torch.allclose(g_snap[k], c_snap[k], rtol=PARAM_RTOL, atol=PARAM_ATOL),
-                    f"{name}: step {s + 1} {k} differs from the CPU port",
-                )
-                worst = max(worst, float((g_snap[k] - c_snap[k]).abs().max()))
-        ms_step = sorted(times[1:])[len(times[1:]) // 2]
+                    metrics["iterations"] = robust.last_iterations[loops[name]]
+                return metrics
+
+            def snapshot():
+                return torch.cat([v.detach().reshape(-1) for v in state[0].values()]).cpu()
+            return run, snapshot
+
+        data = drive(name, build)
+        card, run_counts = data["cuda"], data["cuda"]["counts"]
+        for k in kernel_keys:
+            check(run_counts[k] > 0, f"{name}: kernel {k} never launched on the main path")
+            counts[k] += run_counts[k]
+        for k in forbidden.get(name, ()):
+            check(run_counts[k] == 0, f"{name}: {k} launched {run_counts[k]} times")
+        if name in wire:
+            per_step = wire[name][1]
+            for k, v in run_counts.items():
+                want = per_step.get(k, 0) * MAIN_STEPS
+                check(v == want, f"{name}: {k} launched {v} times in {MAIN_STEPS} steps, not {want}")
+        if name == "fold_multi_krum":
+            # no Gram launched: each krum weights launch is one B5 call's, as
+            # long as each has its one sweep and no other selection ran in
+            # this configuration
+            b5 = run_counts["selection_weights:krum"]
+            check(b5 == run_counts["weighted_rows"] and all(
+                      v == 0 for k, v in run_counts.items()
+                      if k not in ("selection_weights:krum", "weighted_rows")),
+                  f"{name}: launches other than B5's {run_counts}")
+            counts["selection_mean_from_gram"] += b5
+        slack = None
+        if comm.enabled:
+            steps_c = [torch.maximum(a, c) for a, c in zip(wire_steps["cuda"], wire_steps["cpu"])]
+            slack = ps_wire_slack(steps_c, cfg, comm.error_feedback)
+        worst, used = compare_to_cpu(name, data, slack)
+        ms_step = card["ms_per_step"]
+        iters = [m["iterations"] for m in card["metrics"]] if name in loops else None
+        cpu_iters = [m["iterations"] for m in data["cpu"]["metrics"]] if name in loops else None
         clipped = None
         if clip_rule is not None:
             norms = first_centre_dists[name] if clip_rule == "centre" else first_norms[name]
@@ -764,16 +939,18 @@ def main_path(counts: dict) -> dict:
                 threshold = float(torch.sort(norms).values[preagg.arc_cut_off(n, b) - 1])
             clipped = int((norms > threshold).sum())
             check(0 < clipped < n, f"{name}: the clip took {clipped} of {n} rows at step 1")
+        profile = card["profile"]
         results[name] = {
-            "ms_per_step": ms_step, "first_step_ms": times[0], "losses": losses,
-            "cpu_max_abs_param_diff": worst, "launches": {k: run_counts[k] for k in kernel_keys},
+            "ms_per_step": ms_step, "first_step_ms": card["times"][0], "losses": card["losses"],
+            "cpu_max_abs_param_diff": worst, "cpu_tolerance_used": used,
+            "launches": {k: run_counts[k] for k in kernel_keys},
             "profile": profile,
             "device_busy_share": profile["device_ms_per_step"] / ms_step,
             "clipped_rows_step1": clipped,
             "row_norms_step1": [round(float(v), 4) for v in first_norms[name]],
             "row_dists_to_mean_step1": [round(float(v), 4) for v in first_centre_dists[name]],
-            "iterations_per_step": iters or None,
-            "cpu_iterations_per_step": data["cpu"][3] or None,
+            "iterations_per_step": iters,
+            "cpu_iterations_per_step": cpu_iters,
         }
         if name in class_checks:
             flags = list(fold_flags.get(name, []))
@@ -782,14 +959,153 @@ def main_path(counts: dict) -> dict:
             results[name]["class_check"] = class_checks[name](first_matrix.pop(name))
             log(f"    class API check: {json.dumps(results[name]['class_check'])}"
                 + (f", non-finite fallbacks per step {flags}" if flags else ""))
+        extra = ""
+        if comm.enabled:
+            ef_norms = [float(m["ef_transpose_norm"]) for m in card["metrics"]
+                        if "ef_transpose_norm" in m]
+            if comm.error_feedback:
+                check(len(ef_norms) == MAIN_STEPS and all(map(math.isfinite, ef_norms))
+                      and max(ef_norms) <= 4 * ef_norms[0],
+                      f"{name}: ef_transpose_norm not finite or drifting {ef_norms}")
+            # the exact check, outside the counted run: the card's encode of
+            # the card's step-1 raw gradient rows against the plain version's
+            bundle, xs, ys = made["cuda"]
+            grads, _ = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))(
+                bundle.params, xs, ys)
+            rows = torch.cat([grads[k].reshape(n, -1) for k in bundle.params], dim=1)
+            results[name].update(
+                comm_precision=comm.mode, error_feedback=comm.error_feedback,
+                launches_per_step=wire[name][1], ef_transpose_norms=ef_norms or None,
+                code_step_slack_step2_max=float(slack[-1].max()),
+                exact_step1=exact_encode(name, rows, comm))
+            extra = (f", comm {comm.mode}{' + EF' if comm.error_feedback else ''}, exactly "
+                     f"{wire[name][1]} a step, step-1 encode bitwise on {list(rows.shape)}"
+                     + (f", ef_transpose_norm {[round(v, 5) for v in ef_norms]}" if ef_norms else ""))
         log(f"  {name}: {ms_step:.3f} ms/step (median of steps 2-{MAIN_STEPS}; first "
-            f"{times[0]:.1f} ms), losses {[round(v, 4) for v in losses]}, "
-            f"params vs CPU max |diff| {worst:.3g}, launches {results[name]['launches']}, "
-            f"device busy {results[name]['device_busy_share']:.3f}, rows clipped at step 1 "
-            f"{clipped} (norms {results[name]['row_norms_step1']}, distances to the row mean "
-            f"{results[name]['row_dists_to_mean_step1']})"
-            + (f", {loops[name]} iterations per step {iters} (CPU {data['cpu'][3]})"
-               if name in loops else ""))
+            f"{card['times'][0]:.1f} ms), losses {[round(v, 4) for v in card['losses']]}, "
+            f"params vs CPU max |diff| {worst:.3g} ({used:.3g} x the tolerance), launches "
+            f"{results[name]['launches']}, device busy {results[name]['device_busy_share']:.3f}, "
+            f"rows clipped at step 1 {clipped} (norms {results[name]['row_norms_step1']}, "
+            f"distances to the row mean {results[name]['row_dists_to_mean_step1']})"
+            + (f", {loops[name]} iterations per step {iters} (CPU {cpu_iters})"
+               if name in loops else "") + extra)
+        log(f"    profile: {json.dumps(profile)}")
+    return results
+
+
+def exact_encode(name: str, rows, comm) -> dict:
+    """The card's encode of ``rows`` (a matrix the round encoded on the
+    card) and its decode equal the plain versions' bit for bit."""
+    import torch
+
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+
+    codes, scales = ck.encode_rows(rows, block=comm.block, mode=comm.mode)
+    pc, ps = ck.encode_rows_plain(rows, block=comm.block, mode=comm.mode)
+    dec = ck.decode_rows(codes, scales, block=comm.block)
+    check(torch.equal(codes.view(torch.uint8), pc.view(torch.uint8)) and bits_equal(scales, ps)
+          and bits_equal(dec, ck.decode_rows_plain(pc, ps, block=comm.block)),
+          f"{name}: the card's step-1 encode differs from the plain version's")
+    return {"rows": list(rows.shape), "codes_scales_decode_bitwise": True}
+
+
+def gossip_path(counts: dict) -> dict:
+    """The single-card gossip round on SmallCNN, 8 nodes, batch 64, the main
+    path's data and weights, through :func:`drive`: each configuration
+    makes exactly its listed launches a step, its losses stay finite and
+    it matches the same round on the CPU, uncompressed within PARAM_RTOL /
+    PARAM_ATOL, int8 within that plus, per coordinate, one code step of the
+    broadcast rows a step, carried on x 1.5 a step (the wire carries
+    parameters: a flipped code moves the aggregate by one code step, and
+    the next half-step carries it on through the gradient). At step 1 the
+    card's encode of its broadcast matrix equals the plain version's bit for
+    bit."""
+    import torch
+
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import GossipStepConfig, as_comm_precision, build_gossip_train_step
+
+    n, b, batch = MAIN_N, MAIN_BYZ, MAIN_BATCH
+
+    def trimmed(m):
+        return robust.trimmed_mean(m, f=b)
+
+    # name -> (comm_precision, aggregate, topology, byzantine nodes, the
+    # launches each step makes, every other counter staying 0)
+    configs = {
+        "i_gossip_complete_trimmed": ("off", trimmed, Topology.complete(n), b, {
+            "sorted_reduce:trimmed": n}),
+        "j_gossip_complete_trimmed_int8": ("int8", trimmed, Topology.complete(n), b, {
+            "quantize:int8": 1, "dequantize:int8": n, "sorted_reduce:trimmed": n}),
+        "k_gossip_ring_median_int8": ("int8", robust.coordinate_median, Topology.ring(n, 2), 1, {
+            "quantize:int8": 1, "dequantize:int8": n, "sorted_reduce:median": n}),
+    }
+    results = {}
+    for name, (precision, agg, topo, byz, per_step) in configs.items():
+        comm = as_comm_precision(precision)
+        # the code step of each compared step's broadcast rows, by device,
+        # and the card's step-1 broadcast
+        wire_steps, first_rows = {"cuda": [], "cpu": []}, []
+
+        def build(dev, agg=agg, topo=topo, byz=byz, comm=comm, wire_steps=wire_steps,
+                  first_rows=first_rows):
+            x, y = synthetic_classification(n_samples=n * batch, seed=3, device=dev)
+            xs, ys = x.reshape(n, batch, 28, 28, 1), y.reshape(n, batch)
+            bundle = make_bundle(SmallCNN(), seed=0, device=dev)
+
+            def attack(honest, generator):
+                out = attack_ops.sign_flip(honest.mean(dim=0))
+                if comm.enabled and len(wire_steps[dev]) < CPU_STEPS:
+                    rows = torch.cat([honest, out.expand(byz, -1)], dim=0)
+                    wire_steps[dev].append(code_steps(rows, comm))
+                    if dev == "cuda" and not first_rows:
+                        first_rows.append(rows.detach().clone())
+                return out
+
+            step, init = build_gossip_train_step(bundle, agg, topo, GossipStepConfig(n, byz),
+                                                 attack=attack, comm_precision=comm)
+            state = [init()]
+
+            def run():
+                state[0], metrics = step(state[0], xs, ys)
+                return metrics
+
+            def snapshot():
+                return state[0].detach().cpu().clone()
+            return run, snapshot
+
+        data = drive(name, build)
+        card, run_counts = data["cuda"], data["cuda"]["counts"]
+        for k, v in run_counts.items():
+            want = per_step.get(k, 0) * MAIN_STEPS
+            check(v == want, f"{name}: {k} launched {v} times in {MAIN_STEPS} steps, not {want}")
+        for k in per_step:
+            counts[k] += run_counts[k]
+        slack, exact = None, None
+        if comm.enabled:
+            slack, carried = [], 0.0
+            for a, c in zip(wire_steps["cuda"], wire_steps["cpu"]):
+                carried = 1.5 * carried + torch.maximum(a, c)[None, :]
+                slack.append(carried)
+            exact = exact_encode(name, first_rows[0], comm)
+        worst, used = compare_to_cpu(name, data, slack)
+        ms_step, profile = card["ms_per_step"], card["profile"]
+        results[name] = {
+            "comm_precision": comm.mode, "n_byzantine": byz,
+            "neighbourhood_sizes": [len(r) for r in topo.in_neighbor_lists(include_self=True)],
+            "ms_per_step": ms_step, "first_step_ms": card["times"][0], "losses": card["losses"],
+            "cpu_max_abs_param_diff": worst, "cpu_tolerance_used": used,
+            "code_step_slack_step2_max": float(slack[-1].max()) if slack else None,
+            "launches_per_step": per_step, "exact_step1": exact,
+            "profile": profile, "device_busy_share": profile["device_ms_per_step"] / ms_step,
+        }
+        log(f"  {name}: {ms_step:.3f} ms/step (median of steps 2-{MAIN_STEPS}; first "
+            f"{card['times'][0]:.1f} ms), losses {[round(v, 4) for v in card['losses']]}, params "
+            f"vs CPU max |diff| {worst:.3g} ({used:.3g} x the tolerance), launches per step "
+            f"{per_step}, device busy {results[name]['device_busy_share']:.3f}"
+            + (f", step-1 encode bitwise on {exact['rows']}" if exact else ""))
         log(f"    profile: {json.dumps(profile)}")
     return results
 
@@ -798,7 +1114,7 @@ PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kern
                 "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
                 "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
                 "meamed_kernel", "center_dist_partial_kernel", "center_weights_kernel",
-                "center_sweep_kernel")
+                "center_sweep_kernel", "quantize_kernel", "dequantize_kernel")
 
 
 def device_events(prof, calls: int) -> dict:
@@ -829,11 +1145,11 @@ def port_part(by_kernel: dict) -> dict:
     return ours
 
 
-def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
-    """Device time of ``steps`` PS steps by kernel (torch.profiler): the
-    total, the port's kernels' part, the launches and the largest kernels.
-    The profiler slows the host, so the busy share divides by the
-    unprofiled step time."""
+def profile_steps(run, steps: int = 3) -> dict:
+    """Device time of ``steps`` calls of ``run`` (one training step each)
+    by kernel (torch.profiler): the total, the port's kernels' part, the
+    launches and the largest kernels. The profiler slows the host, so the
+    busy share divides by the unprofiled step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -841,7 +1157,7 @@ def profile_steps(step, params, opt, xs, ys, steps: int = 3) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            params, opt, _ = step(params, opt, xs, ys)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = device_events(prof, steps)
@@ -1225,6 +1541,81 @@ def aggregator_times() -> dict:
     return out
 
 
+def codec_times() -> dict:
+    """B13, B15 (both formats) and B14 (int8 codes, both fp8 formats) at
+    block 256 on f32 rows at the headline 64 x 1,048,576 and the main
+    path's 8 x 421,642: CUDA events and torch.profiler device time per
+    call, beside the bound (an encode reads each f32 value once and writes
+    a byte of code and 4 / 256 bytes of scale per value; a decode the
+    reverse), the plain version and no library call (no single PyTorch
+    call computes a blockwise codec). Keyed ``"rows x d"`` then counter."""
+    import torch
+
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+
+    block = 256
+    out = {}
+    for rows, d in (HEADLINE, (MAIN_N, 421_642)):
+        x = random_rounds((1, rows, d), seed=31)[0]
+        nb = -(-d // block)
+        traffic = rows * d * 4 + rows * d + rows * nb * 4
+        # per value: an abs, a select, a max, a multiply, a rint or cast, two clamps
+        enc_ms, enc_by = bound_ms(traffic, 7 * rows * d)
+        # per value: a code conversion, a multiply
+        dec_ms, dec_by = bound_ms(traffic, 2 * rows * d)
+        shape = {}
+        for mode in CODEC_MODES:
+            def enc(mode=mode):
+                return ck.encode_rows(x, block=block, mode=mode)
+
+            codes, scales = enc()
+            shape[f"quantize:{mode}"] = {
+                "ms": cuda_time_ms(enc),
+                "plain_ms": cuda_time_ms(lambda mode=mode: ck.encode_rows_plain(
+                    x, block=block, mode=mode), iters=3),
+                "bound_ms": enc_ms, "bound_by": enc_by, "library_ms": None,
+                "device_ms": port_device_ms(enc), "shape": [rows, d], "block": block,
+            }
+
+            def dec(codes=codes, scales=scales):
+                return ck.decode_rows(codes, scales, block=block)
+
+            shape[f"dequantize:{mode}"] = {
+                "ms": cuda_time_ms(dec),
+                "plain_ms": cuda_time_ms(lambda codes=codes, scales=scales: ck.decode_rows_plain(
+                    codes, scales, block=block), iters=3),
+                "bound_ms": dec_ms, "bound_by": dec_by, "library_ms": None,
+                "device_ms": port_device_ms(dec), "shape": [rows, d], "block": block,
+            }
+            del codes, scales
+        for key, v in shape.items():
+            log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), "
+                f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms")
+        out[f"{rows}x{d}"] = shape
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def codec_entries(times: dict) -> dict:
+    """The three codec kernels' JSON entries' numbers: B13 ``quantize:int8``,
+    B15 ``quantize:fp8`` (e4m3fn; e5m2 beside it) and B14 ``dequantize``
+    (int8 codes; fp8 beside it), at the headline with the main path's shape
+    under ``main_path_shape``."""
+    head, main = times[f"{HEADLINE[0]}x{HEADLINE[1]}"], times[f"{MAIN_N}x421642"]
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "device_ms")
+
+    def entry(key, **extra):
+        return dict(head[key], main_path_shape={k: main[key][k] for k in keys}, **extra)
+
+    return {
+        "quantize:int8": entry("quantize:int8"),
+        "quantize:fp8": entry("quantize:fp8", fp8_e5m2=head["quantize:fp8_e5m2"]),
+        "dequantize": entry("dequantize:int8", fp8=head["dequantize:fp8"],
+                            fp8_e5m2=head["dequantize:fp8_e5m2"]),
+    }
+
+
 def timing() -> dict:
     """Kernel times at the headline 64 x 1,048,576 (the JSON line's
     numbers) and at the main path's 8 x 421,642. ``torch.median`` returns
@@ -1278,7 +1669,18 @@ KERNELS = [
     # weighted_rows launch each, no Gram
     ("selection_mean_from_gram", "byzpy_tpu_torch/csrc/selection.cu",
      "byzpy_tpu/ops/pallas_kernels.py:1094"),
+    # B13, B15 and B14; launches: quantize:fp8 counts both fp8 formats'
+    # encodes, dequantize both codes' decodes (their counters beside them)
+    ("quantize:int8", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:256"),
+    ("quantize:fp8", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:479"),
+    ("dequantize", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:279"),
 ]
+# the launch counters each codec entry sums
+CODEC_COUNTERS = {
+    "quantize:int8": ("quantize:int8",),
+    "quantize:fp8": ("quantize:fp8", "quantize:fp8_e5m2"),
+    "dequantize": ("dequantize:int8", "dequantize:fp8"),
+}
 
 
 def main() -> int:
@@ -1323,16 +1725,23 @@ def main() -> int:
     check_pre_aggregation(errs)
     check_meamed(errs)
     check_center_step(errs)
+    check_codecs(errs)
 
     log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
         "configurations")
     counts = {k: 0 for k in kernels.launch_counts}
     counts["selection_mean_from_gram"] = 0
-    results = main_path(counts)
-    log("MAIN_PATH " + json.dumps(results))
+    log("MAIN_PATH " + json.dumps(main_path(counts)))
+    log("== 4b. main path: the gossip round (SmallCNN)")
+    log("GOSSIP_PATH " + json.dumps(gossip_path(counts)))
+    for key, parts in CODEC_COUNTERS.items():
+        counts[key] = sum(counts[p] for p in parts)
 
     log("== 5. kernel timing at 64 x 1,048,576 and 8 x 421,642 f32")
     times = timing()
+    codec = codec_times()
+    log("CODECS " + json.dumps(codec))
+    times.update(codec_entries(codec))
     log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
 
     entries = []
@@ -1342,6 +1751,8 @@ def main() -> int:
             "name": key, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[key], "max_abs_err": errs[key],
         }
+        if key in CODEC_COUNTERS:
+            entry["launches_by_counter"] = {p: counts[p] for p in CODEC_COUNTERS[key]}
         entry.update(t)
         entries.append(entry)
     print(smi)

@@ -567,3 +567,108 @@ def test_cuda_classes_default_to_the_card(cuda_device):
     mixed = NearestNeighborMixing(1).pre_aggregate(rows)
     assert len(mixed) == 6 and all(m.is_cuda for m in mixed)
     assert kernels.launch_counts["mix_rows"] == 1
+
+
+# ---------------------------------------------------------------------------
+# B13 / B14 / B15: the blockwise codecs
+# ---------------------------------------------------------------------------
+
+
+def _codec_rows(seed, rows, d, device, dtype):
+    """Normal rows x3 holding NaN, +-inf, an all-zero first block and an
+    all-zero row; the last block is partial unless the block divides d."""
+    x = (np.random.default_rng(seed).normal(size=(rows, d)) * 3.0).astype(np.float32)
+    x[0, 5], x[1, 3], x[0, d - 1] = np.nan, np.inf, -np.inf
+    x[2, :100] = 0.0
+    x[3] = 0.0
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [256, 100, 128])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "fp8_e5m2"])
+def test_cuda_codecs_match_plain_bitwise(cuda_device, mode, dt, block):
+    """B13 (int8) / B15 (fp8) codes and scales, and B14's decode into each
+    dtype, equal their plain versions on the card bit for bit; each
+    wrapper counts exactly its own launch."""
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+
+    x = _codec_rows(block, 13, 5000, cuda_device, DTYPES[dt])
+    kernels.reset_launch_counts()
+    codes, scales = ck.encode_rows(x, block=block, mode=mode)
+    pc, ps = ck.encode_rows_plain(x, block=block, mode=mode)
+    assert codes.dtype == pc.dtype and torch.equal(codes.view(torch.uint8), pc.view(torch.uint8))
+    assert _bits_equal(scales, ps) and scales.shape == (13, -(-5000 // block))
+    for out_dt in DTYPES.values():
+        dec = ck.decode_rows(codes, scales, block=block, dtype=out_dt)
+        assert _bits_equal(dec, ck.decode_rows_plain(codes, scales, block=block, dtype=out_dt))
+        assert bool(torch.isfinite(dec).all())
+    dec_key = "dequantize:int8" if mode == "int8" else "dequantize:fp8"
+    expected = dict.fromkeys(kernels.launch_counts, 0)
+    expected.update({f"quantize:{mode}": 1, dec_key: 3})
+    assert kernels.launch_counts == expected
+
+
+@pytest.mark.cuda
+def test_cuda_codec_api_launches_and_empty_inputs(cuda_device):
+    """The public codec API on CUDA tensors: ``encode_blockwise`` launches
+    one encode, ``dequantize_blockwise`` one decode; an empty input, and
+    stochastic rounding (plain PyTorch, as in the reference), launch
+    nothing; s4 raises ``NotImplementedError`` on the card too."""
+    from byzpy_tpu_torch.parallel import quantization as q
+
+    x = _codec_rows(1, 4, 700, cuda_device, torch.float32)
+    kernels.reset_launch_counts()
+    for mode in ("int8", "fp8", "fp8_e5m2"):
+        qb = q.encode_blockwise(x.reshape(2, 2, 700), mode)
+        assert qb.values.is_cuda and qb.values.shape == (2, 2, 700)
+        assert q.dequantize_blockwise(qb).shape == (2, 2, 700)
+    assert kernels.launch_counts["quantize:int8"] == 1
+    assert kernels.launch_counts["quantize:fp8"] == 1
+    assert kernels.launch_counts["quantize:fp8_e5m2"] == 1
+    assert kernels.launch_counts["dequantize:int8"] == 1
+    assert kernels.launch_counts["dequantize:fp8"] == 2
+    kernels.reset_launch_counts()
+    for shape in ((3, 0), (0, 5)):
+        e = q.encode_blockwise(torch.zeros(shape, device=cuda_device), "int8")
+        assert q.dequantize_blockwise(e).shape == shape
+    s = q.quantize_blockwise(x, stochastic=True, generator=torch.Generator(device="cuda").manual_seed(0))
+    assert s.values.is_cuda
+    assert all(v == 0 for v in kernels.launch_counts.values())
+    with pytest.raises(NotImplementedError, match="B16/B17"):
+        q.encode_blockwise(x, "s4")
+    with pytest.raises(ValueError, match="contiguous"):
+        from byzpy_tpu_torch.ops import codec_kernels as ck
+
+        ck.encode_rows(torch.zeros((64, 8), device=cuda_device).t(), block=4, mode="int8")
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_rounds_launch_the_codecs(cuda_device):
+    """The PS round with int8 launches one B13 and one B14 per step (the
+    whole (n, d) matrix at once); the gossip round with int8 one B13 and
+    one B14 per node."""
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.models import mnist_mlp, synthetic_classification
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel import (
+        GossipStepConfig, PSStepConfig, build_gossip_train_step, build_ps_train_step,
+    )
+
+    bundle = mnist_mlp(hidden=16, device=cuda_device)
+    x, y = synthetic_classification(n_samples=8 * 16, seed=1, device=cuda_device)
+    xs, ys = x.reshape(8, 16, 28, 28, 1), y.reshape(8, 16)
+    step, opt = build_ps_train_step(bundle, lambda m: robust.trimmed_mean(m, f=2),
+                                    PSStepConfig(8, 2), comm_precision="int8")
+    kernels.reset_launch_counts()
+    params, opt, metrics = step(bundle.params, opt, xs, ys)
+    assert kernels.launch_counts["quantize:int8"] == 1 and kernels.launch_counts["dequantize:int8"] == 1
+    assert kernels.launch_counts["sorted_reduce:trimmed"] == 1
+    gstep, init = build_gossip_train_step(bundle, robust.coordinate_median, Topology.ring(8, 2),
+                                          GossipStepConfig(8, 1), comm_precision="int8")
+    kernels.reset_launch_counts()
+    theta, gm = gstep(init(), xs, ys)
+    assert theta.is_cuda and bool(torch.isfinite(theta).all())
+    assert kernels.launch_counts["quantize:int8"] == 1 and kernels.launch_counts["dequantize:int8"] == 8
+    assert kernels.launch_counts["sorted_reduce:median"] == 8

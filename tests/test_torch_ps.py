@@ -316,6 +316,223 @@ def test_sgd_momentum_matches_optax_trace():
 
 
 # ---------------------------------------------------------------------------
+# the compressed gradient hop (comm_precision)
+# ---------------------------------------------------------------------------
+
+# The single-leaf linear bundle of test_quantized_collectives.py:276 with
+# dyadic data (inputs in {-1, 0, 1}, weights and targets multiples of 1/64,
+# B * d_out = 128): every node's first gradient is exact in f32 in both
+# packages, so the step-1 gradient matrices, and so the codes, are equal
+# bit for bit. d = 100 x 8 = 800: three 256-blocks and a partial one.
+D_IN, D_OUT, LIN_N, LIN_B = 100, 8, 8, 16
+
+
+def _linear_bundles(seed=0):
+    from byzpy_tpu.models.bundle import ModelBundle as JBundle
+
+    from byzpy_tpu_torch.models import ModelBundle
+
+    rng = np.random.default_rng(seed)
+    w = (rng.integers(-32, 33, size=(D_IN, D_OUT)) / 64.0).astype(np.float32)
+    xs = rng.integers(-1, 2, size=(LIN_N, LIN_B, D_IN)).astype(np.float32)
+    ys = (rng.integers(-64, 65, size=(LIN_N, LIN_B, D_OUT)) / 64.0).astype(np.float32)
+    ours = ModelBundle(module=torch.nn.Module(), params={"w": torch.from_numpy(w)},
+                       loss_fn=lambda p, x, y: torch.mean((x @ p["w"] - y) ** 2))
+    ref = JBundle(apply_fn=lambda p, x: x @ p["w"], params={"w": jnp.asarray(w)},
+                  loss_fn=lambda p, x, y: jnp.mean((x @ p["w"] - y) ** 2))
+    return ours, ref, xs, ys
+
+
+def _one_device_mesh():
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:1]), ("nodes",))
+
+
+COMPRESSED_AGGS = {
+    "trimmed": (lambda m: robust.trimmed_mean(m, f=1), lambda m: jrobust.trimmed_mean(m, f=1)),
+    "multi_krum": (lambda m: robust.multi_krum(m, f=1, q=4), lambda m: jrobust.multi_krum(m, f=1, q=4)),
+}
+# one code step of each mode relative to its block's absmax (int8: absmax
+# / 127; fp8: the top binade's ulp, 32 / 448 and 8192 / 57344; bf16: the
+# value's own ulp, bounded by 2^-7 of the absmax)
+CODE_STEP = {"off": 0.0, "bf16": 2.0 ** -7, "int8": 1 / 127, "fp8": 32 / 448, "fp8_e5m2": 8192 / 57344}
+
+
+def _slack(bundle, params, xs, ys, cfg, mode):
+    """What one flipped code per coordinate at the next step can move the
+    parameters by, from then on: lr / (1 - momentum) x one code step of the
+    largest block (its absmax bounds every block's; the byzantine row, a
+    sign-flipped mean, is no larger)."""
+    from torch.func import grad, vmap
+
+    g = vmap(grad(bundle.loss_fn), in_dims=(None, 0, 0))(
+        params, torch.from_numpy(xs), torch.from_numpy(ys))["w"]
+    return cfg.learning_rate / (1 - cfg.momentum) * CODE_STEP[mode] * float(g.abs().max()) * 1.01
+
+
+def _comm_precisions(mode, ef=False):
+    from byzpy_tpu.parallel import quantization as jq
+
+    from byzpy_tpu_torch.parallel import CommPrecision
+
+    return CommPrecision(mode, error_feedback=ef), jq.CommPrecision(mode, error_feedback=ef)
+
+
+@pytest.mark.parametrize("mode", ["off", "bf16", "int8", "fp8", "fp8_e5m2"])
+@pytest.mark.parametrize("agg", sorted(COMPRESSED_AGGS))
+def test_ps_compressed_round_matches_jax_one_device_mesh(agg, mode):
+    """3 PS steps of the linear bundle (8 nodes, 1 byzantine sign-flipping
+    the mean of the decoded honest rows) against the JAX round on a
+    one-device mesh with the same ``comm_precision``. Step 1: parameters
+    within a few f32 ulp (rtol 1e-6, atol 1e-8; the codes are equal, the
+    aggregators sum in another order). Later steps: within that plus lr /
+    (1 - momentum) x one code step of the largest block per step (the
+    step-1 parameters differ in their last bits, so a later gradient
+    value can cross a rounding boundary and flip one code)."""
+    ours_b, ref_b, xs, ys = _linear_bundles()
+    ours_agg, ref_agg = COMPRESSED_AGGS[agg]
+    p, jp = _comm_precisions(mode)
+    cfg, jcfg = PSStepConfig(n_nodes=LIN_N, n_byzantine=1), jps.PSStepConfig(n_nodes=LIN_N, n_byzantine=1)
+    step, opt = build_ps_train_step(ours_b, ours_agg, cfg, comm_precision=p,
+                                    attack=lambda h, g: attack_ops.sign_flip(h.mean(0)))
+    jstep, jopt = jps.build_ps_train_step(
+        ref_b, ref_agg, jcfg, mesh=_one_device_mesh(), comm_precision=jp,
+        attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)))
+    jstep = jax.jit(jstep)
+    params, jparams = ours_b.params, ref_b.params
+    slack = 0.0
+    for s in range(3):
+        params, opt, metrics = step(params, opt, torch.from_numpy(xs), torch.from_numpy(ys))
+        jparams, jopt, jmetrics = jstep(jparams, jopt, jnp.asarray(xs), jnp.asarray(ys),
+                                        jax.random.PRNGKey(0))
+        want = np.asarray(jparams["w"])
+        np.testing.assert_allclose(params["w"].numpy(), want, rtol=1e-6, atol=1e-8 + slack,
+                                   err_msg=f"step {s + 1}")
+        for m in ("honest_loss", "agg_grad_norm"):
+            np.testing.assert_allclose(float(metrics[m]), float(jmetrics[m]),
+                                       rtol=1e-6 if s == 0 else 1e-4)
+        slack += _slack(ours_b, params, xs, ys, cfg, mode)
+
+
+def test_ps_error_feedback_matches_jax_one_device_mesh():
+    """int8 with error feedback for 3 steps: ``opt_state0`` is ``(base,
+    {"transpose": zeros(n, d)})`` as in the reference; the step-1 residual
+    rows equal the reference's within one ulp of the decoded values (the
+    jitted reference contracts ``xc - codes * scale`` into a fused
+    multiply-add), ``ef_transpose_norm`` within 1e-5, the parameters as in
+    the test above."""
+    from torch.func import grad, vmap
+
+    ours_b, ref_b, xs, ys = _linear_bundles(seed=1)
+    p, jp = _comm_precisions("int8", ef=True)
+    ours_agg, ref_agg = COMPRESSED_AGGS["trimmed"]
+    cfg, jcfg = PSStepConfig(n_nodes=LIN_N, n_byzantine=1), jps.PSStepConfig(n_nodes=LIN_N, n_byzantine=1)
+    step, opt = build_ps_train_step(ours_b, ours_agg, cfg, comm_precision=p,
+                                    attack=lambda h, g: attack_ops.sign_flip(h.mean(0)))
+    jstep, jopt = jps.build_ps_train_step(
+        ref_b, ref_agg, jcfg, mesh=_one_device_mesh(), comm_precision=jp,
+        attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)))
+    assert isinstance(opt, tuple) and set(opt[1]) == set(jopt[1]) == {"transpose"}
+    assert tuple(opt[1]["transpose"].shape) == jopt[1]["transpose"].shape == (LIN_N, D_IN * D_OUT)
+    assert not bool(opt[1]["transpose"].any())
+    jstep = jax.jit(jstep)
+    params, jparams = ours_b.params, ref_b.params
+    slack = 0.0
+    for s in range(3):
+        params, opt, metrics = step(params, opt, torch.from_numpy(xs), torch.from_numpy(ys))
+        jparams, jopt, jmetrics = jstep(jparams, jopt, jnp.asarray(xs), jnp.asarray(ys),
+                                        jax.random.PRNGKey(0))
+        np.testing.assert_allclose(params["w"].numpy(), np.asarray(jparams["w"]), rtol=1e-6,
+                                   atol=1e-8 + slack, err_msg=f"step {s + 1}")
+        res, jres = opt[1]["transpose"].numpy(), np.asarray(jopt[1]["transpose"])
+        if s == 0:
+            # one ulp of the decoded rows, which are within a code step of
+            # the raw gradients (exact in both packages at step 1)
+            g = vmap(grad(ours_b.loss_fn), in_dims=(None, 0, 0))(
+                ours_b.params, torch.from_numpy(xs), torch.from_numpy(ys))["w"].reshape(LIN_N, -1)
+            np.testing.assert_array_less(np.abs(res - jres), 2 * np.spacing(np.abs(g.numpy())) + 1e-30)
+        np.testing.assert_allclose(float(metrics["ef_transpose_norm"]),
+                                   float(jmetrics["ef_transpose_norm"]), rtol=1e-5 if s == 0 else 1e-3)
+        assert float(metrics["ef_transpose_norm"]) > 0.0
+        slack += _slack(ours_b, params, xs, ys, cfg, "int8")
+
+
+@pytest.mark.parametrize("which", ["linear", "mlp"])
+def test_ps_comm_off_is_bit_identical(which):
+    """``comm_precision`` None, ``"off"`` or ``CommPrecision()`` leave the
+    round bit-identical to the round built without it, parameters,
+    optimizer state and metrics, over 2 steps."""
+    from byzpy_tpu_torch.parallel import CommPrecision
+
+    if which == "linear":
+        bundle, _, xs, ys = _linear_bundles(seed=2)
+        xs, ys = torch.from_numpy(xs), torch.from_numpy(ys)
+    else:
+        bundle = nets.mnist_mlp(device="cpu")
+        x, y = synthetic_classification(n_samples=4 * 8, seed=3, device="cpu")
+        xs, ys = x.reshape(4, 8, 28, 28, 1), y.reshape(4, 8)
+    n = xs.shape[0]
+    runs = []
+    for kw in ({}, {"comm_precision": None}, {"comm_precision": "off"},
+               {"comm_precision": CommPrecision("off", error_feedback=True)}):
+        step, opt = build_ps_train_step(bundle, robust.coordinate_median,
+                                        PSStepConfig(n_nodes=n, n_byzantine=1), **kw)
+        params, out = bundle.params, []
+        for _ in range(2):
+            params, opt, metrics = step(params, opt, xs, ys)
+            out.append((params, opt, metrics))
+        runs.append(out)
+    for other in runs[1:]:
+        for (p0, o0, m0), (p1, o1, m1) in zip(runs[0], other):
+            assert all(torch.equal(p0[k], p1[k]) for k in p0)
+            assert all(torch.equal(o0[k], o1[k]) for k in o0)
+            assert set(m0) == set(m1) and all(torch.equal(m0[k], m1[k]) for k in m0)
+
+
+def test_ps_smallcnn_int8_within_codec_bound():
+    """SmallCNN ravels in another order in each package, so a 256-block
+    groups other coordinates and the codes differ (ROADMAP C): one int8
+    step (4 nodes, 1 byzantine, batch 8) is held within rtol 1e-4, atol
+    1e-5 plus lr x both packages' codec bounds (absmax / 254 each, absmax
+    the largest gradient value)."""
+    from torch.func import grad_and_value, vmap
+
+    n, batch = 4, 8
+    jb = jnets.mnist_cnn(seed=0)
+    bundle = _port_bundle(jb, nets.SmallCNN())
+    jx, jy = jdata.synthetic_classification(n_samples=n * batch, seed=3)
+    x, y = synthetic_classification(n_samples=n * batch, seed=3, device="cpu")
+    xs, ys = x.reshape(n, batch, 28, 28, 1), y.reshape(n, batch)
+    agg, jagg = AGGREGATORS["trimmed"]
+    step, opt = build_ps_train_step(bundle, agg, PSStepConfig(n_nodes=n, n_byzantine=1),
+                                    attack=lambda h, g: attack_ops.sign_flip(h.mean(0)),
+                                    comm_precision="int8")
+    jstep, jopt = jps.build_ps_train_step(
+        jb, jagg, jps.PSStepConfig(n_nodes=n, n_byzantine=1), mesh=_one_device_mesh(),
+        comm_precision="int8", attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)))
+    grads, _ = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))(bundle.params, xs, ys)
+    absmax = max(float(g.abs().max()) for g in grads.values())
+    params, _, metrics = step(bundle.params, opt, xs, ys)
+    jparams, _, jmetrics = jax.jit(jstep)(jb.params, jopt, jx.reshape(n, batch, 28, 28, 1),
+                                          jy.reshape(n, batch), jax.random.PRNGKey(0))
+    ref = from_flax(_np_tree(jparams), device="cpu")
+    bound = PSStepConfig(n_nodes=n).learning_rate * 2 * absmax / 254
+    for k, v in params.items():
+        excess = (v - ref[k]).abs() - (1e-5 + 1e-4 * ref[k].abs() + bound)
+        assert float(excess.max()) <= 0.0, k
+    np.testing.assert_allclose(float(metrics["honest_loss"]), float(jmetrics["honest_loss"]),
+                               rtol=1e-4)
+
+
+def test_ps_s4_raises_not_implemented():
+    bundle, _, _, _ = _linear_bundles()
+    with pytest.raises(NotImplementedError, match="B16/B17"):
+        build_ps_train_step(bundle, robust.coordinate_median, PSStepConfig(n_nodes=LIN_N),
+                            comm_precision="s4")
+
+
+# ---------------------------------------------------------------------------
 # package rules
 # ---------------------------------------------------------------------------
 
@@ -329,17 +546,20 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """No module of byzpy_tpu_torch, nor chip_smoke.py, imports JAX, flax,
-    optax or the JAX package; the scan covers the operator classes and the
-    engine."""
+    optax or the JAX package; the scan covers the operator classes, the
+    engine and the compressed wire fabric."""
     files = _port_sources()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
     assert REPO / "byzpy_tpu_torch" / "ops" / "preagg.py" in files
     for sub in ("aggregators", "aggregators/geometric_wise", "aggregators/coordinate_wise",
-                "aggregators/norm_wise", "pre_aggregators", "engine", "engine/graph"):
+                "aggregators/norm_wise", "pre_aggregators", "engine", "engine/graph",
+                "engine/peer_to_peer"):
         assert REPO / "byzpy_tpu_torch" / sub / "__init__.py" in files, sub
     for module in ("aggregators/base.py", "aggregators/geometric_wise/krum.py",
                    "aggregators/pipelines.py", "pre_aggregators/bucketing.py",
-                   "engine/graph/operator.py", "engine/graph/subtask.py"):
+                   "engine/graph/operator.py", "engine/graph/subtask.py",
+                   "engine/peer_to_peer/topology.py", "ops/codec_kernels.py",
+                   "parallel/quantization.py", "parallel/collectives.py", "parallel/gossip.py"):
         assert REPO / "byzpy_tpu_torch" / module in files, module
     bad = []
     for path in files:
