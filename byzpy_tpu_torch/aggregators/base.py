@@ -13,6 +13,15 @@ raising where there is none; ``"cpu"`` on request). Every input, numpy
 or tensor, is moved there, and results stay there. The JAX package's rule
 that small host-resident inputs run on the CPU (``utils/placement.py``)
 is not ported: it would hide the device.
+
+The masked finalize (``supports_masked_finalize``,
+``_aggregate_matrix_masked``, ``masked_matrix_fn``, ``_masked_view``,
+``aggregate_masked``, ``fold_finalize_masked``) aggregates a cohort of
+``m`` rows padded into a bucket of ``n`` through the class's masked
+program in :mod:`byzpy_tpu_torch.ops.robust`. The JAX package's jit
+caches of that program (``_masked_jitted``, ``_masked_jitted_donated``)
+have no counterpart: PyTorch runs eagerly, so the port calls the
+function.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 from typing import Any, Callable, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..engine.graph.operator import OpContext, Operator
@@ -195,6 +205,82 @@ class Aggregator(Operator, ABC):
         matrix, unravel = state.stacked()
         self.validate_n(matrix.shape[0])
         return unravel(self._aggregate_matrix(matrix))
+
+    # -- masked finalize (serving-tier bucketed cohorts) --------------------
+
+    #: True when the subclass has a masked matrix program
+    #: (``_aggregate_matrix_masked``): a fold declared for ``n`` slots, or a
+    #: padded ``(n, d)`` matrix, then finalizes a cohort of ``m <= n`` valid
+    #: rows at the bucket's shape. Without one (CAF), the exact subset path.
+    supports_masked_finalize: bool = False
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """Aggregate the valid rows of the padded ``(n, d)`` matrix to a
+        ``(d,)`` vector, with size-``m`` semantics at the bucket's shape
+        (:mod:`~byzpy_tpu_torch.ops.robust`'s masked section). Only called
+        when :attr:`supports_masked_finalize` is True."""
+        raise NotImplementedError(f"{type(self).__name__} has no masked matrix program")
+
+    def masked_matrix_fn(self) -> Optional[Callable]:
+        """The bare masked ``(matrix, valid) -> vector`` function, for the
+        serving step (``parallel.ps.build_serving_ps_step``), or ``None``
+        when the aggregator has no masked program."""
+        if not self.supports_masked_finalize:
+            return None
+        return self._aggregate_matrix_masked
+
+    def _masked_view(self, state: Any) -> Optional[tuple]:
+        """``(buffer, valid_rows, unravel)``: the fold state's padded ingest
+        buffer, a host list of booleans per slot and the unravel, or
+        ``None`` when the state has no buffer."""
+        if isinstance(state, SlotFoldState) and state.buffer is not None:
+            return state.buffer, list(state.present), state.unravel
+        return None
+
+    def aggregate_masked(self, matrix: Any, valid: Any) -> torch.Tensor:
+        """Aggregate of the valid rows of an already padded ``(n, d)``
+        matrix (numpy or tensor; ``valid`` a host or device mask, read on
+        the host), at the padded shape: finite cohorts run the masked
+        program on the aggregator's device; non-finite cohorts, and
+        aggregators without a masked program, take the exact subset path
+        (``aggregate`` on the valid rows). ``m == 0`` raises, as does an
+        ``m`` that ``validate_n`` refuses."""
+        mask = valid.cpu().numpy() if isinstance(valid, torch.Tensor) else np.asarray(valid)
+        valid_rows = [bool(v) for v in mask]
+        m = sum(valid_rows)
+        if m == 0:
+            # validate_n is a no-op for the median, and the masked gathers
+            # at (m - 1) // 2 would read a padding row on m = 0
+            raise ValueError("aggregate_masked requires at least one valid row")
+        self.validate_n(m)
+        x = torch.as_tensor(matrix, device=self.device)
+        if self.supports_masked_finalize and bool(torch.isfinite(x).all()):
+            return self._aggregate_matrix_masked(
+                x, torch.tensor(valid_rows, dtype=torch.bool, device=self.device))
+        return self.aggregate([x[i] for i, v in enumerate(valid_rows) if v])
+
+    def fold_finalize_masked(self, state: Any) -> Any:
+        """Finish a round at the bucket's shape: aggregate the ``m``
+        gradients folded into a state declared for ``n >= m`` slots through
+        the masked program, on the fold's padded buffer. Falls back to
+        :meth:`fold_finalize` when the class has no masked program, the
+        state has no padded buffer, or the cohort holds a non-finite value
+        (NaN and inf rows sort differently against the padding; the
+        fallback keeps the barrier path's semantics)."""
+        view = self._masked_view(state) if self.supports_masked_finalize else None
+        if view is None:
+            return self.fold_finalize(state)
+        buffer, valid_rows, unravel = view
+        m = sum(bool(v) for v in valid_rows)
+        if m == 0:
+            raise ValueError("fold_finalize before any gradient was folded")
+        self.validate_n(m)
+        # absent slots are zero in every fold buffer, so one reduction
+        # answers whether the cohort is finite
+        if not bool(torch.isfinite(buffer).all()):
+            return self.fold_finalize(state)
+        valid = torch.tensor(valid_rows, dtype=torch.bool, device=buffer.device)
+        return unravel(self._aggregate_matrix_masked(buffer, valid))
 
     def validate_n(self, n: int) -> None:
         """Hook for subclasses to validate hyperparameters against n."""

@@ -33,6 +33,11 @@ class MeanOfMedians(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.mean_of_medians(x, f=self.f)
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_mean_of_medians(x, valid, f=self.f)
+
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.mean_of_medians_stream(xs, f=self.f)
 

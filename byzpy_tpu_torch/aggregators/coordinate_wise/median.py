@@ -27,6 +27,11 @@ class CoordinateWiseMedian(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.coordinate_median(x)
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_coordinate_median(x, valid)
+
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.coordinate_median_stream(xs)
 

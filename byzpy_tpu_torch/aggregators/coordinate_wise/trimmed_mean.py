@@ -58,6 +58,16 @@ class CoordinateWiseTrimmedMean(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.trimmed_mean(x, f=self.f)
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_trimmed_mean(x, valid, f=self.f)
+
+    def _masked_view(self, state):
+        # the incremental fold keeps the raw rows in a slot buffer for its
+        # exact fallback; the masked finalize reads that buffer
+        return Aggregator._masked_view(self, state.slots)
+
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.trimmed_mean_stream(xs, f=self.f)
 

@@ -48,5 +48,12 @@ class GeometricMedian(Aggregator):
             x, tol=self.tol, max_iter=self.max_iter, eps=self.eps, init=self.init
         )
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_geometric_median(
+            x, valid, tol=self.tol, max_iter=self.max_iter, eps=self.eps, init=self.init
+        )
+
 
 __all__ = ["GeometricMedian"]

@@ -68,6 +68,18 @@ class MultiKrum(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.multi_krum(x, f=self.f, q=self.q)
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_multi_krum(x, valid, f=self.f, q=self.q)
+
+    def _masked_view(self, state):
+        # the Gram fold's staging buffer is a padded matrix (zero rows for
+        # absent slots); the masked program recomputes the Gram from it as
+        # the barrier path does, so the result is bitwise, not the
+        # incremental Gram's tolerance
+        return Aggregator._masked_view(self, state.slots)
+
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.multi_krum_stream(xs, f=self.f, q=self.q)
 

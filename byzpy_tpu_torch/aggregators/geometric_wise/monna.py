@@ -47,6 +47,11 @@ class MoNNA(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.monna(x, f=self.f, reference_index=self.reference_index)
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_monna(x, valid, f=self.f, reference_index=self.reference_index)
+
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.monna_stream(xs, f=self.f, reference_index=self.reference_index)
 

@@ -49,5 +49,12 @@ class CenteredClipping(Aggregator):
             x, c_tau=self.c_tau, M=self.M, eps=self.eps, init=self.init
         )
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_centered_clipping(
+            x, valid, c_tau=self.c_tau, M=self.M, eps=self.eps, init=self.init
+        )
+
 
 __all__ = ["CenteredClipping"]

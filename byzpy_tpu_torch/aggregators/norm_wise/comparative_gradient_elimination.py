@@ -53,6 +53,14 @@ class ComparativeGradientElimination(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.cge(x, f=self.f)
 
+    supports_masked_finalize = True
+
+    def _aggregate_matrix_masked(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        return robust.masked_cge(x, valid, f=self.f)
+
+    def _masked_view(self, state):
+        return Aggregator._masked_view(self, state.slots)
+
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.cge_stream(xs, f=self.f)
 

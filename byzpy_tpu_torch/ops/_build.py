@@ -30,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = (
     "sorted_reduce", "gram", "selection", "nnm", "clip_selection", "meamed", "center_step",
-    "quantize",
+    "quantize", "segment_sum", "sort_columns",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -84,6 +84,16 @@ SIGNATURES = {
     ]),
     "byz_dequantize": ("quantize", [
         _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_ll, _c_int, _c_int, _c_void_p,
+    ]),
+    "byz_segment_sum": ("segment_sum", [
+        _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_ll, _c_int,
+        _c_void_p,
+    ]),
+    "byz_row_sq_dists": ("segment_sum", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,
+    ]),
+    "byz_sort_columns": ("sort_columns", [
+        _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,
     ]),
 }
 

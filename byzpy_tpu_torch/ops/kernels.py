@@ -31,15 +31,21 @@ Kernels (TPU kernel they replace -> CUDA source):
   (:1380) -> ``csrc/gram.cu`` + ``csrc/nnm.cu`` + B4's row sweep;
 * B10 ``clip_selection_mean_stream`` / ``arc_selection_mean_stream``:
   ``_clip_selection_stream_kernel`` (:1466) -> ``csrc/gram.cu`` +
-  ``csrc/clip_selection.cu`` + B4's row sweep.
+  ``csrc/clip_selection.cu`` + B4's row sweep;
+* B2 ``sort_columns``: ``_sort_columns_kernel`` (:155) ->
+  ``csrc/sort_columns.cu``;
+* B11 ``segment_sum``: ``_ragged_segment_sum_kernel`` (:1840) ->
+  ``csrc/segment_sum.cu``, beside ``row_sq_dists``, the masked family's
+  per-row reduction (no Pallas kernel: it stands in for a plain XLA
+  reduce whose bits must not depend on the number of rows).
 
 The codec kernels B13-B15 (``parallel/quantization.py``) have their
 wrappers in ``ops/codec_kernels.py``; their launch counters live in this
 module's :data:`launch_counts` with the others.
 
-Dtypes are f32, bf16 and f16, accumulated in f32. A network holds at most
-``MAX_NETWORK_ROWS`` rows: a larger ``n`` on the card raises
-``NotImplementedError``.
+Dtypes are f32, bf16 and f16, accumulated in f32. A network (B1, B2, B6
+and the selection kernels) holds at most ``MAX_NETWORK_ROWS`` rows: a
+larger ``n`` on the card raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,6 +73,8 @@ _MIX_BLOCKS_PER_SM = 8
 # _CENTER_MIN_CHUNK columns each
 _CENTER_BLOCKS_PER_SM = 4
 _CENTER_MIN_CHUNK = 1024
+# row_sq_dists: stage-1 lanes per row (csrc/segment_sum.cu kLanes)
+_ROW_LANES = 4096
 
 # Launches of each kernel since the last reset, keyed "kernel" or
 # "kernel:mode". Only a wrapper's CUDA branch adds to it, right after its
@@ -96,6 +104,10 @@ launch_counts = {
     "quantize:fp8_e5m2": 0,
     "dequantize:int8": 0,
     "dequantize:fp8": 0,
+    # the masked family's kernels
+    "sort_columns": 0,
+    "segment_sum": 0,
+    "row_sq_dists": 0,
 }
 
 
@@ -1110,6 +1122,171 @@ def clip_selection_weights_plain(
     return torch.where(picked_bad, float("nan"), w_eff)
 
 
+# ---------------------------------------------------------------------------
+# B2: full column sort
+# ---------------------------------------------------------------------------
+
+
+def sort_columns(x: torch.Tensor) -> torch.Tensor:
+    """Columns of ``x: (n, d)`` sorted ascending, in ``x``'s dtype (B2; ref
+    ``pallas_kernels.sort_columns``): the int32 total-order key sort,
+    -inf < finite < +inf < NaN, -0.0 before +0.0, NaN canonical; 16-bit
+    floats through the exact f32 round trip."""
+    _check_ndim(x, 2, "x")
+    _check_float(x)
+    n, d = x.shape
+    if _on_cpu(x):
+        return sort_columns_plain(x)
+    _check_cuda_input(x, n)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _call("byz_sort_columns", x.data_ptr(), out.data_ptr(), n, d, _DTYPE_CODES[x.dtype],
+              _stream(x))
+    launch_counts["sort_columns"] += 1
+    return out
+
+
+def sort_columns_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sort_columns` (the same keys,
+    ``torch.sort`` along the rows)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return canonical_nan(sort_columns_plain(x.float()).to(x.dtype))
+    return keys_to_float(torch.sort(float_sort_keys(x), dim=0).values)
+
+
+# ---------------------------------------------------------------------------
+# B11: row-ordered segment sum, and the row reduction beside it
+# ---------------------------------------------------------------------------
+
+
+def _check_segment(x: torch.Tensor, w: torch.Tensor, fill) -> None:
+    _check_ndim(x, 2, "x")
+    _check_float(x)
+    _check_ndim(w, 2, "w")
+    if w.shape[1] != x.shape[0] or w.dtype != torch.float32:
+        raise ValueError(
+            f"w must be (C, {x.shape[0]}) float32, got {tuple(w.shape)} {w.dtype}"
+        )
+    if isinstance(fill, torch.Tensor) and (fill.numel() != 1 or fill.dtype != torch.int32):
+        raise ValueError(f"fill must be one int32, got {tuple(fill.shape)} {fill.dtype}")
+
+
+def segment_sum(x: torch.Tensor, w: torch.Tensor, *, fill=None) -> torch.Tensor:
+    """``out[c] = sum_r w[c, r] x[r]`` for ``x: (R, d)`` and ``w: (C, R)``
+    float32, returning ``(C, d)`` in ``x``'s dtype (B11; ref
+    ``pallas_kernels.ragged_segment_sum_pallas``). Each output is one
+    fused multiply-add chain over rows ``0 .. fill - 1`` in index order,
+    from +0.0, each step rounded once: the order of XLA:CPU's row einsum,
+    so appended zero rows leave every partial sum as it was. ``fill`` (an
+    int, or one int32 on ``x``'s device; default ``R``) bounds the rows
+    read: callers keep ``w`` and ``x`` zero past it, as the Pallas kernel
+    skips whole row tiles. A device ``fill`` is never read on the host."""
+    _check_segment(x, w, fill)
+    R, d = x.shape
+    C = w.shape[0]
+    fill_t = fill if isinstance(fill, torch.Tensor) else None
+    if _on_cpu(x, w, *(() if fill_t is None else (fill_t,))):
+        return segment_sum_plain(x, w, fill=fill)
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("CUDA kernels take contiguous tensors")
+    if C > 65535:
+        raise NotImplementedError(f"C={C} cohorts exceed the kernel's grid (65,535)")
+    out = torch.empty((C, d), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fill_host = R if fill is None else (0 if fill_t is not None else int(fill))
+    with torch.cuda.device(x.device):
+        _call(
+            "byz_segment_sum", x.data_ptr(), w.data_ptr(),
+            None if fill_t is None else fill_t.data_ptr(), fill_host, out.data_ptr(), C, R, d,
+            _DTYPE_CODES[x.dtype], _stream(x),
+        )
+    launch_counts["segment_sum"] += 1
+    return out
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on float32 tensors (broadcast) with one rounding, as
+    ``__fmaf_rn``: the product of two f32 values is exact in f64, the f64
+    sum's own rounding error is recovered (TwoSum), and where the f64 sum
+    sits exactly halfway between two f32 values that error picks the side
+    that a single rounding of the exact value takes."""
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    p = a64 * b64
+    s = c64 + p
+    bb = s - c64
+    err = (c64 - (s - bb)) + (p - bb)
+    r = s.float()
+    back = r.double()
+    other = torch.nextafter(r, torch.where(s > back, float("inf"), float("-inf")).float())
+    other64 = other.double()
+    tie = (s == (back + other64) * 0.5) & torch.isfinite(s) & (err != 0)
+    return torch.where(tie & ((err > 0) == (other64 > back)), other, r)
+
+
+def segment_sum_plain(x: torch.Tensor, w: torch.Tensor, *, fill=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_sum`: the same row-ordered
+    chain, each step :func:`fma_f32`."""
+    R, d = x.shape
+    rows = R if fill is None else max(0, min(int(fill), R))
+    acc = torch.zeros((w.shape[0], d), dtype=torch.float32, device=x.device)
+    for r in range(rows):
+        acc = fma_f32(w[:, r:r + 1], x[r:r + 1].float(), acc)
+    return canonical_nan(acc.to(x.dtype))
+
+
+def row_sq_dists(x: torch.Tensor, z=None) -> torch.Tensor:
+    """``(n,)`` float32 ``sum_c (x[i, c] - z[c])^2`` (``z=None``: the
+    squared norms) in an order fixed by ``d`` alone, so a row's value does
+    not depend on how many rows ``x`` has: lane ``l`` of ``_ROW_LANES``
+    adds columns ``l, l + _ROW_LANES, ...`` in order, then 32 lanes each
+    add every 32nd lane partial in order, and a butterfly adds the 32
+    (``csrc/segment_sum.cu``)."""
+    _check_ndim(x, 2, "x")
+    _check_float(x)
+    n, d = x.shape
+    if z is not None and (tuple(z.shape) != (d,) or z.dtype != x.dtype):
+        raise ValueError(f"z must be ({d},) {x.dtype}, got {tuple(z.shape)} {z.dtype}")
+    if _on_cpu(x, *(() if z is None else (z,))):
+        return row_sq_dists_plain(x, z)
+    if not (x.is_contiguous() and (z is None or z.is_contiguous())):
+        raise ValueError("CUDA kernels take contiguous tensors")
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    partial = torch.empty((n * _ROW_LANES,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _call(
+            "byz_row_sq_dists", x.data_ptr(), None if z is None else z.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), n, d, _DTYPE_CODES[x.dtype], _stream(x),
+        )
+    launch_counts["row_sq_dists"] += 1
+    return out
+
+
+def row_sq_dists_plain(x: torch.Tensor, z=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`row_sq_dists`: the same lanes and
+    the same order, each product and sum rounded once."""
+    n, d = x.shape
+    v = x.float() if z is None else x.float() - z.float()
+    sq = v * v
+    steps = _ceil_div(d, _ROW_LANES)
+    sq = torch.nn.functional.pad(sq, (0, steps * _ROW_LANES - d)).view(n, steps, _ROW_LANES)
+    acc = torch.zeros((n, _ROW_LANES), dtype=torch.float32, device=x.device)
+    for k in range(steps):
+        acc = acc + sq[:, k]
+    acc = acc.view(n, _ROW_LANES // 32, 32)
+    lanes = torch.zeros((n, 32), dtype=torch.float32, device=x.device)
+    for t in range(acc.shape[1]):
+        lanes = lanes + acc[:, t]
+    idx = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ o]
+    return canonical_nan(lanes[:, 0].contiguous())
+
+
 __all__ = [
     "MAX_NETWORK_ROWS",
     "arc_selection_mean_stream",
@@ -1124,6 +1301,7 @@ __all__ = [
     "clip_selection_weights",
     "clip_selection_weights_plain",
     "float_sort_keys",
+    "fma_f32",
     "gram",
     "gram_plain",
     "keys_to_float",
@@ -1140,11 +1318,17 @@ __all__ = [
     "nnm_weights",
     "nnm_weights_plain",
     "reset_launch_counts",
+    "row_sq_dists",
+    "row_sq_dists_plain",
+    "segment_sum",
+    "segment_sum_plain",
     "selection_mean_from_gram",
     "selection_mean_from_gram_plain",
     "selection_mean_stream",
     "selection_weights",
     "selection_weights_plain",
+    "sort_columns",
+    "sort_columns_plain",
     "sorted_reduce_stream",
     "sorted_reduce_stream_plain",
     "weighted_center_step",

@@ -23,6 +23,11 @@ primitives but ``multi_krum_from_gram``, which is B5 on the card) are
 plain PyTorch here. The folds update their state in place where the JAX
 package donates it.
 
+The masked family (``masked_*``, the serving tier's bucketed cohorts)
+aggregates the valid rows of a padded matrix with the cohort size on the
+device; its row contractions are B11, its column sorts B2 (see the
+section's notes).
+
 The iterative aggregators run their loops on the host: each Weiszfeld
 iteration of ``geometric_median`` reads its step length once, and each
 CAF pass its stopping test. :data:`last_iterations` keeps the last call's
@@ -62,12 +67,10 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
     """Columns of ``x`` sorted ascending along axis 0, through the int32
     total-order key for f32 (and, by an exact f32 round-trip, 16-bit)
     floats: -inf < finite < +inf < NaN, -0.0 before +0.0, NaN
-    canonicalized. Other dtypes sort as they are."""
-    if x.dtype in (torch.bfloat16, torch.float16):
-        return kernels.canonical_nan(sort_rows(x.float()).to(x.dtype))
-    if x.dtype == torch.float32:
-        keys = torch.sort(kernels.float_sort_keys(x), dim=0).values
-        return kernels.keys_to_float(keys)
+    canonicalized (B2, ``kernels.sort_columns``, on the card: ``n > 128``
+    raises there). Other dtypes sort as they are."""
+    if x.ndim >= 1 and x.dtype in (torch.float32, torch.bfloat16, torch.float16):
+        return kernels.sort_columns(x.reshape(x.shape[0], -1).contiguous()).reshape(x.shape)
     return torch.sort(x, dim=0).values
 
 
@@ -532,6 +535,343 @@ def multi_krum_from_gram(
     return kernels.selection_mean_from_gram(x, gram, f=f, q=q, mode="krum")
 
 
+# ---------------------------------------------------------------------------
+# Masked aggregators: the serving tier's bucketed cohorts (B2, B3, B11)
+# ---------------------------------------------------------------------------
+#
+# Counterpart of byzpy_tpu/ops/robust.py:1344-1656. Each function takes a
+# padded ``(bucket, d)`` matrix ``x`` and a ``(bucket,)`` bool ``valid``
+# and aggregates the valid rows as the unpadded function aggregates the
+# compacted matrix, with the cohort size ``m`` a device scalar: windows
+# and gathers are tensor comparisons and index tensors, so nothing but the
+# geometric median's loop reads a value on the host. A padded bucket gives
+# the bits of its compacted cohort because
+# * every row contraction (the reference's ``einsum("n,nd->d")``) is B11
+#   (``kernels.segment_sum``), one FMA chain over rows in index order, so
+#   appended zero rows keep every partial sum;
+# * every per-row reduction over ``d`` is ``kernels.row_sq_dists``, whose
+#   order depends on ``d`` alone;
+# * column sorts are B2 (:func:`sort_rows`), and Multi-Krum's Gram is B3,
+#   whose entries do not depend on the number of rows. (On the CPU the
+#   Gram is a BLAS product, whose last bits can move with the row count:
+#   there Multi-Krum's padded and compacted selections agree unless two
+#   scores tie within an ulp.)
+# Contract as in the reference: ``x`` floating, invalid rows finite (zero
+# in every caller), valid rows finite; ``Aggregator.aggregate_masked``
+# routes a non-finite cohort to the exact subset path, and
+# masked_coordinate_median alone keeps exact NaN column semantics. The
+# reference's selection mean copies the rows masked only when a score is
+# not finite (``lax.cond``); here the masked copy is always taken: on
+# finite rows both give the same bits (a zero row adds an exact zero to a
+# chain that starts at +0.0), and no host read picks the branch.
+
+
+def _masked_count(valid: torch.Tensor) -> torch.Tensor:
+    """Number of valid rows ``m`` as a device scalar (int64)."""
+    return torch.sum(valid.to(torch.int64))
+
+
+def _masked_recip(count: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``1 / count`` rounded once in ``dtype``: the reciprocal that the
+    reference's divide-by-constant rewrite multiplies the unpadded sum by."""
+    c = count.to(dtype)
+    return torch.ones((), dtype=dtype, device=c.device) / c
+
+
+def _contract_rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``einsum("n,nd->d", w, x)`` in ``x``'s dtype, accumulated in f32:
+    B11 with one cohort."""
+    return kernels.segment_sum(x.contiguous(), w.to(torch.float32).reshape(1, -1))[0]
+
+
+def _row_mean_einsum(x: torch.Tensor) -> torch.Tensor:
+    """``mean(x, axis=0)`` as a row contraction times the rounded
+    reciprocal of ``n``: the padding-stable mean that :func:`masked_mean`
+    reproduces at any bucket."""
+    total = _contract_rows(torch.ones(x.shape[0], device=x.device), x)
+    return total * _masked_recip(torch.full((), x.shape[0], device=x.device), total.dtype)
+
+
+def _windowed_row_mean(s: torch.Tensor, count, *, f: int) -> torch.Tensor:
+    """Mean of sorted rows ``[f, count - f)`` as a zero-masked row
+    contraction (``count`` an int or a device scalar), times the rounded
+    reciprocal of ``count - 2f``."""
+    if not isinstance(count, torch.Tensor):
+        count = torch.full((), count, device=s.device)
+    pos = torch.arange(s.shape[0], device=s.device)[:, None]
+    window = (pos >= f) & (pos < count - f)
+    kept = torch.where(window, s, torch.zeros((), dtype=s.dtype, device=s.device))
+    total = _contract_rows(torch.ones(s.shape[0], device=s.device), kept)
+    return total * _masked_recip(count - 2 * f, total.dtype)
+
+
+def masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean of the valid rows at the padded shape, bit for bit
+    :func:`_row_mean_einsum` of the compacted matrix."""
+    _check_matrix(x)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    s = _contract_rows(valid, torch.where(valid[:, None], x, zero))
+    return s * _masked_recip(_masked_count(valid), s.dtype)
+
+
+def _masked_sorted(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Columns sorted with invalid rows replaced by ``+inf`` (they land
+    after every finite valid value), by :func:`sort_rows` (B2 on the card):
+    the valid prefix holds the compacted matrix's sorted values."""
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    return sort_rows(torch.where(valid[:, None], x, inf))
+
+
+def _masked_rows_at(s: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Row ``pos`` (a device scalar) of the sorted matrix ``s``."""
+    return s.index_select(0, pos.reshape(1))[0]
+
+
+def _masked_mid_rows(s: torch.Tensor, m: torch.Tensor) -> tuple:
+    """``(s[(m - 1) // 2], s[m // 2], lo == hi)`` at the device count ``m``.
+    The midpoint rule stays with each caller: it must match that caller's
+    unpadded counterpart."""
+    lo, hi = torch.div(m - 1, 2, rounding_mode="floor"), torch.div(m, 2, rounding_mode="floor")
+    return _masked_rows_at(s, lo), _masked_rows_at(s, hi), lo == hi
+
+
+def _nan_columns(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    return torch.any(torch.isnan(x) & valid[:, None], dim=0)
+
+
+def masked_coordinate_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median of the valid rows (``coordinate_median``'s
+    semantics, column-wide NaN included) at the padded shape."""
+    _check_matrix(x)
+    s = _masked_sorted(x, valid)
+    s_lo, s_hi, single = _masked_mid_rows(s, _masked_count(valid))
+    med = torch.where(single, s_lo, (s_lo + s_hi) * 0.5)
+    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+    return torch.where(_nan_columns(x, valid), nan, med)
+
+
+def masked_trimmed_mean(x: torch.Tensor, valid: torch.Tensor, *, f: int) -> torch.Tensor:
+    """f-trimmed coordinate mean of the valid rows: the windowed row
+    contraction of the sorted matrix with the cohort size on the device
+    (callers guarantee ``2f < m``)."""
+    _check_matrix(x)
+    return _windowed_row_mean(_masked_sorted(x, valid), _masked_count(valid), f=f)
+
+
+def masked_mean_of_medians(x: torch.Tensor, valid: torch.Tensor, *, f: int) -> torch.Tensor:
+    """MeaMed over the valid rows (ref ``masked_mean_of_medians``): the
+    ``k = m - f`` values closest to the median form a contiguous window of
+    the sorted column, whose ``f + 1`` candidate starts do not depend on
+    ``m``; only the window's end moves with the cohort. Ties at the cut are
+    filled in node order."""
+    _check_matrix(x)
+    n, d = x.shape
+    m = _masked_count(valid)
+    k = m - f
+    s = _masked_sorted(x, valid)
+    s_lo, s_hi, single = _masked_mid_rows(s, m)
+    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    med = torch.where(single, s_lo, s_lo * 0.5 + s_hi * 0.5)
+    med = torch.where(_nan_columns(x, valid), nan, med)
+    starts = s[: f + 1]
+    end_pos = (torch.arange(f + 1, device=x.device)[:, None] + (k - 1)).expand(f + 1, d)
+    ends = torch.gather(s, 0, end_pos)
+    # torch.maximum / torch.amin keep NaN, as jnp.maximum / jnp.min do
+    radius = torch.maximum(med[None, :] - starts, ends - med[None, :])
+    dev = torch.abs(x - med[None, :])
+    finite_dev = (~torch.isnan(dev) & valid[:, None]).sum(dim=0)
+    cut_nonfinite = torch.where(finite_dev >= k, inf, nan)
+    cut = torch.where(torch.isfinite(med), torch.amin(radius, dim=0), cut_nonfinite)
+    below = (dev < cut[None, :]) & valid[:, None]
+    at = (dev == cut[None, :]) & valid[:, None]
+    quota = k - below.sum(dim=0)
+    take_at = at & (torch.cumsum(at.to(torch.int64), dim=0) <= quota[None, :])
+    sel = torch.where(below | take_at, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    out = _contract_rows(torch.ones(n, device=x.device), sel) * _masked_recip(k, x.dtype)
+    return torch.where(torch.isnan(cut), nan, out)
+
+
+def _masked_nan_last_ranks(scores: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Selection rank counting only valid competitors, under
+    :func:`_nan_last_ranks`'s order (ascending score, -0.0 tying +0.0, NaN
+    last, ties by index): a valid row gets its rank in the compacted
+    matrix; an invalid row ranks ``n`` and is never selected."""
+    n = scores.shape[0]
+    isnan = torch.isnan(scores)
+    s = torch.where(isnan, torch.zeros_like(scores), scores)
+    s = torch.where(s == 0, torch.zeros_like(s), s)
+    order = torch.argsort(s, stable=True)
+    order = order[torch.argsort(isnan[order].to(torch.int8), stable=True)]
+    order = order[torch.argsort((~valid[order]).to(torch.int8), stable=True)]
+    pos = torch.empty(n, dtype=torch.int64, device=scores.device)
+    pos[order] = torch.arange(n, device=scores.device)
+    return torch.where(valid, pos, torch.full_like(pos, n))
+
+
+def _selected_rows_mean(x: torch.Tensor, selected: torch.Tensor, q) -> torch.Tensor:
+    """``mean(x[selected])`` for exactly ``q`` selected rows (``q`` an int
+    or a device scalar): weight ``1/q`` rounded once in f32 on the selected
+    rows, unselected rows zeroed, one row contraction (B11)."""
+    # a fill, not a host-to-device copy of q
+    q = q if isinstance(q, torch.Tensor) else torch.full((), q, device=x.device)
+    w = torch.where(selected, _masked_recip(q, torch.float32), 0.0)
+    xm = torch.where(selected[:, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return _contract_rows(w, xm)
+
+
+def masked_selection_mean(
+    x: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, q
+) -> torch.Tensor:
+    """Mean of the ``q`` lowest-score valid rows (ties by index, NaN scores
+    last)."""
+    return _selected_rows_mean(x, _masked_nan_last_ranks(scores, valid) < q, q)
+
+
+def masked_krum_scores_from_gram(
+    gram: torch.Tensor, valid: torch.Tensor, *, f: int
+) -> torch.Tensor:
+    """Krum score per valid row from the padded Gram: invalid columns go
+    to ``+inf`` before the row sort (``torch.sort`` of the ``(n, n)``
+    distances, as the unmasked scores), so each valid row's sorted prefix
+    is the compacted one, and the sum of its ``m - f - 1`` nearest
+    squared distances reads a positional window as a row contraction over
+    the sorted positions (B11). Invalid rows score ``+inf``."""
+    n = gram.shape[0]
+    m = _masked_count(valid)
+    inf = torch.full((), float("inf"), dtype=gram.dtype, device=gram.device)
+    d2 = torch.where(valid[None, :], _sq_dists_from_gram(gram), inf)
+    row_sorted = torch.sort(d2, dim=1).values
+    pos = torch.arange(n, device=gram.device)[None, :]
+    window = (pos >= 1) & (pos < m - f)
+    kept = torch.where(window, row_sorted, torch.zeros((), dtype=d2.dtype, device=d2.device))
+    scores = _contract_rows(torch.ones(n, device=gram.device), kept.T)
+    return torch.where(valid, scores, inf)
+
+
+def masked_multi_krum(x: torch.Tensor, valid: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
+    """Multi-Krum over the valid rows at the padded shape, the Gram by B3
+    (callers guarantee ``f < m - 1`` and ``q <= m - f``)."""
+    _check_matrix(x)
+    scores = masked_krum_scores_from_gram(gram_matrix(x), valid, f=f)
+    return masked_selection_mean(x, scores, valid, q)
+
+
+def masked_cge(x: torch.Tensor, valid: torch.Tensor, *, f: int) -> torch.Tensor:
+    """CGE over the valid rows: the ``m - f`` smallest squared norms
+    (``kernels.row_sq_dists``), the keep count on the device."""
+    _check_matrix(x)
+    return masked_selection_mean(x, kernels.row_sq_dists(x.contiguous()), valid,
+                                 _masked_count(valid) - f)
+
+
+def masked_monna(
+    x: torch.Tensor, valid: torch.Tensor, *, f: int, reference_index: int = 0
+) -> torch.Tensor:
+    """MoNNA over the valid rows: the trusted row is the
+    ``reference_index``-th valid one (the compacted matrix's
+    ``reference_index``; callers guarantee ``reference_index < m``), the
+    ``m - f`` rows nearest to it by squared distance are averaged."""
+    _check_matrix(x)
+    x = x.contiguous()
+    count = torch.cumsum(valid.to(torch.int64), dim=0)
+    ref_slot = torch.argmax((count == reference_index + 1).to(torch.int8))
+    ref = x.index_select(0, ref_slot.reshape(1))[0]
+    dists = kernels.row_sq_dists(x, ref)
+    return masked_selection_mean(x, dists, valid, _masked_count(valid) - f)
+
+
+def _masked_median_rows(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """``median(compacted, axis=0)`` at the padded shape, the midpoint of
+    the middle rows with no NaN rewrite (the iterative aggregators'
+    ``init="median"``)."""
+    s = _masked_sorted(x, valid)
+    s_lo, s_hi, single = _masked_mid_rows(s, _masked_count(valid))
+    return torch.where(single, s_lo, (s_lo + s_hi) * 0.5)
+
+
+def _masked_weights(valid: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return torch.where(valid, w, torch.zeros((), dtype=w.dtype, device=w.device)).to(dtype)
+
+
+def masked_geometric_median(
+    x: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    tol: float = 1e-6,
+    max_iter: int = 256,
+    eps: float = 1e-12,
+    init: str = "median",
+) -> torch.Tensor:
+    """Geometric median of the valid rows at the padded shape (ref
+    ``masked_geometric_median``): Weiszfeld steps with every invalid row's
+    weight 0, the distances by ``kernels.row_sq_dists``, the numerator
+    ``sum_i w_i x_i`` and the denominator ``sum_i w_i`` row contractions
+    (B11), so each step and the trip count are the compacted cohort's. The
+    loop runs on the host, as :func:`geometric_median`'s: one read of the
+    step length per iteration (:data:`last_iterations`)."""
+    if init not in {"median", "mean"}:
+        raise ValueError("init must be 'median' or 'mean'")
+    _check_matrix(x)
+    x = x.contiguous()
+    z = _masked_median_rows(x, valid) if init == "median" else masked_mean(x, valid)
+    zprev = z
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    eps_t = torch.full((), eps, dtype=torch.float32, device=x.device)
+    ones_col = torch.ones(x.shape[0], device=x.device)
+    tol_t = torch.tensor(tol, dtype=x.dtype)
+    it = 0
+    while it < max_iter:
+        if it > 0:
+            delta = torch.sqrt(torch.sum((z - zprev) ** 2))
+            if not bool(delta.cpu() > tol_t):
+                break
+        dist = torch.sqrt(kernels.row_sq_dists(x, z))
+        w = _masked_weights(valid, one / torch.maximum(dist, eps_t), x.dtype)
+        num = _contract_rows(w, x)
+        den = _contract_rows(ones_col, w[:, None])[0]
+        z, zprev = num / den, z
+        it += 1
+    last_iterations["geometric_median"] = it
+    return z
+
+
+def masked_centered_clipping(
+    x: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    c_tau: float,
+    M: int = 10,
+    eps: float = 1e-12,
+    init: str = "mean",
+) -> torch.Tensor:
+    """Centred clipping of the valid rows at the padded shape (ref
+    ``masked_centered_clipping``): ``M`` steps ``v <- v + (sum_i w_i (x_i -
+    v)) / m`` with ``w_i = min(1, c_tau / max(|x_i - v|, eps))`` on valid
+    rows and 0 on the others, the distances by ``kernels.row_sq_dists``
+    and the step a row contraction (B11)."""
+    if init not in {"mean", "median", "zero"}:
+        raise ValueError("init must be one of {'mean','median','zero'}")
+    _check_matrix(x)
+    x = x.contiguous()
+    if init == "mean":
+        v = masked_mean(x, valid)
+    elif init == "median":
+        v = _masked_median_rows(x, valid)
+    else:
+        v = x.new_zeros((x.shape[1],))
+    inv = _masked_recip(_masked_count(valid), x.dtype)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    eps_t = torch.full((), eps, dtype=torch.float32, device=x.device)
+    c_tau_t = torch.full((), c_tau, dtype=torch.float32, device=x.device)
+    for _ in range(M):
+        dist = torch.sqrt(kernels.row_sq_dists(x, v))
+        w = _masked_weights(valid, torch.minimum(one, c_tau_t / torch.maximum(dist, eps_t)), x.dtype)
+        # invalid rows: diff = -v (finite), weight exactly 0
+        v = v + _contract_rows(w, x - v[None, :]) * inv
+    return v
+
+
 def aggregate_stream(
     agg_fn: Callable[[torch.Tensor], torch.Tensor], xs: torch.Tensor
 ) -> torch.Tensor:
@@ -563,6 +903,17 @@ __all__ = [
     "krum_scores",
     "krum_scores_from_gram",
     "last_iterations",
+    "masked_centered_clipping",
+    "masked_cge",
+    "masked_coordinate_median",
+    "masked_geometric_median",
+    "masked_krum_scores_from_gram",
+    "masked_mean",
+    "masked_mean_of_medians",
+    "masked_monna",
+    "masked_multi_krum",
+    "masked_selection_mean",
+    "masked_trimmed_mean",
     "mean_of_medians",
     "mean_of_medians_stream",
     "monna",

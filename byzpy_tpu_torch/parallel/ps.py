@@ -19,6 +19,9 @@ encodes and decodes. One step:
 
 The step is a pure function of its inputs, like the JAX one: parameters
 and optimizer state are returned anew, never updated in place.
+
+``build_serving_ps_step`` is the serving tier's bucketed update (ref
+``ps.py:504``): it takes a padded cohort instead of computing gradients.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
+from torch.profiler import record_function
 
 from ..models.bundle import ModelBundle, Params
 from ..utils.trees import ravel_fn
@@ -35,6 +39,8 @@ from .collectives import reshard_q, reshard_q_ef
 from .quantization import _S4_MISSING, as_comm_precision
 
 AggFn = Callable[[torch.Tensor], torch.Tensor]      # (n, d) -> (d,)
+# (bucket, d), (bucket,) bool -> (d,)
+MaskedAggFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 PreAggFn = Callable[[torch.Tensor], torch.Tensor]   # (n, d) -> (m, d)
 # attack: (honest (h, d), generator) -> (n_byz, d) or (d,)
 AttackFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
@@ -171,4 +177,69 @@ def build_ps_train_step(
     return train_step, opt_state0
 
 
-__all__ = ["AggFn", "AttackFn", "PSStepConfig", "SGD", "build_ps_train_step", "default_optimizer"]
+def build_serving_ps_step(
+    bundle: ModelBundle,
+    masked_aggregate: MaskedAggFn,
+    *,
+    optimizer: Any = None,
+    learning_rate: float = 0.05,
+    momentum: float = 0.9,
+    mesh: Any = None,
+) -> Tuple[Callable, Any]:
+    """The serving tier's bucketed update step (ref ``ps.py:504``).
+
+    ``step(params, opt_state, matrix, valid, weights) -> (params,
+    opt_state, metrics)`` consumes a cohort the front end assembled
+    (``serving.cohort.Cohort``): ``matrix`` the ``(bucket, d)`` zero-padded
+    gradient rows (in this package's ravel order of ``params``), ``valid``
+    the ``(bucket,)`` bool row mask, ``weights`` the ``(bucket,)`` float32
+    staleness discounts (1.0 fresh, 0 padding), all on the parameters'
+    device. It scales the rows by their weights, reduces the valid rows
+    with ``masked_aggregate`` (an ``Aggregator.masked_matrix_fn()``, whose
+    cohort size stays on the device) and steps SGD with momentum, equal to
+    ``optax.sgd(learning_rate, momentum)``. The metrics are
+    ``agg_grad_norm`` and ``cohort_m``, device scalars. The stages run
+    under the profiler ranges ``serving.staleness_scale``,
+    ``serving.masked_aggregate`` and ``serving.opt_update``, the
+    reference's named scopes.
+
+    Preconditions, as in the reference: the cohort is admissible for the
+    aggregator and its valid rows are finite (``Aggregator.aggregate_masked``
+    is the guarded door). ``optimizer=`` and ``mesh=`` raise
+    ``NotImplementedError``: only the built-in SGD and one device are
+    ported. Returns ``(step, opt_state0)``."""
+    if optimizer is not None:
+        raise NotImplementedError("optimizer=: only the built-in SGD with momentum is ported")
+    if mesh is not None:
+        raise NotImplementedError("mesh=: the feature-sharded serving step is not ported")
+    opt = SGD(learning_rate, momentum=momentum)
+    ravel, unravel = ravel_fn(bundle.params)
+    param_dtype = ravel(bundle.params).dtype
+
+    def step(params: Params, opt_state, matrix, valid, weights):
+        with record_function("serving.staleness_scale"):
+            # a weight of exactly 1.0 leaves a row's bits; padding stays zero
+            matrix = matrix * weights[:, None].to(matrix.dtype)
+        with record_function("serving.masked_aggregate"):
+            agg = masked_aggregate(matrix, valid).to(param_dtype)
+        with record_function("serving.opt_update"):
+            new_flat, opt_state = opt.step(ravel(params), agg, opt_state)
+        metrics = {
+            "agg_grad_norm": torch.sqrt(torch.sum(agg * agg)),
+            "cohort_m": torch.sum(valid.to(torch.int32)),
+        }
+        return unravel(new_flat), opt_state, metrics
+
+    return step, opt.init(ravel(bundle.params))
+
+
+__all__ = [
+    "AggFn",
+    "AttackFn",
+    "MaskedAggFn",
+    "PSStepConfig",
+    "SGD",
+    "build_ps_train_step",
+    "build_serving_ps_step",
+    "default_optimizer",
+]

@@ -19,7 +19,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13;
    the codecs B13 int8 encode, B15 fp8 e4m3fn / e5m2 encode and B14
    decode bitwise, in f32, bf16 and f16, at block 256 and 100, on rows
-   holding NaN, +-inf, zero blocks and a partial last block);
+   holding NaN, +-inf, zero blocks and a partial last block; B11 segment
+   sum, B2 column sort and the row reduction beside B11 bitwise, in f32,
+   bf16 and f16, on rows holding NaN and +-inf);
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
    each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
@@ -42,11 +44,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (median, int8). A compressed configuration makes exactly its listed
    launches per step, its step-1 encode is checked bitwise, and its CPU
    comparison allows each coordinate the code steps its wire rows may
-   flip, carried through the round;
+   flip, carried through the round; then (4c) the serving round: cohorts
+   of 6, 8, 13, 29 and 64 clients (buckets 8, 8, 16, 32, 64), every fourth
+   client one round stale and every fourth byzantine, padded by
+   ``build_cohort`` and stepped by ``build_serving_ps_step`` through the
+   masked trimmed mean, median, Multi-Krum, MeaMed, CGE, centred clipping
+   and geometric median: exactly their listed launches (B2, B3, B11 and
+   the row reduction; never B1, B4, B6 or B7), the padded step bit for bit
+   the compacted one, ``CohortAggregator`` the step's aggregate, host
+   reads per step counted;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
    exists, a single PyTorch call, with a whole Multi-Krum fold round beside
-   the barrier Multi-Krum, and the codecs at block 256; then the six
+   the barrier Multi-Krum, the codecs at block 256, and B2, B11 and the row
+   reduction at the headline and at 64 x 421,642; then the six
    centre-seeking and coordinate aggregators, whole, at ByzPy's grid
    shapes (64 x 65,536).
 
@@ -571,6 +582,94 @@ def check_codecs(errs: dict) -> None:
                     f"and scales bitwise, decodes bitwise, all finite")
             del x
             torch.cuda.empty_cache()
+
+
+def masked_rows(shape, seed: int, dtype, *, specials: bool = True):
+    """Rows for the masked family's kernels: normal data at per-row scales
+    0.1-50 (so sums cancel and round), with ``specials``, an all-NaN row,
+    an all-inf row and ``random_rounds``' NaN, +-inf and -0.0 columns."""
+    import torch
+
+    x = random_rounds((1,) + tuple(shape), seed=seed, specials=specials)[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x *= torch.rand((shape[0], 1), generator=gen, device="cuda") * 50.0 + 0.1
+    if specials and shape[0] > 7:
+        x[6] = float("nan")
+        x[7] = float("inf")
+    return x.to(dtype).contiguous()
+
+
+def check_masked_kernels(errs: dict) -> None:
+    """B11, B2 and the row reduction against their plain versions, bit for
+    bit, in f32, bf16 and f16, on rows holding NaN, +-inf and -0.0: B11 at
+    one cohort and at 8, fill = R and R / 2 (an int and a device int32,
+    the rows past the fill NaN, which must not be read), at the serving
+    path's 64 x 421,642, R = 8 and the headline; B2 at n = 8 ... 128
+    (and 13, 29) x 421,642 and the headline, n = 129 raising; the row
+    reduction with and without a centre."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    for (R, d) in ((64, 421_642), (8, 421_642), HEADLINE):
+        for name in DTYPES if (R, d) != HEADLINE else ("float32",):
+            x = masked_rows((R, d), 600 + R, getattr(torch, name))
+            for C in (1, 8):
+                gen = torch.Generator(device="cuda").manual_seed(C)
+                w = torch.randn((C, R), generator=gen, device="cuda")
+                out = kernels.segment_sum(x, w)
+                ref = kernels.segment_sum_plain(x, w)
+                check(bits_equal(out, ref) and nan_is_canonical(out),
+                      f"B11 differs from plain at C={C} {(R, d)} {name}")
+                errs["segment_sum"] = max(errs["segment_sum"], max_abs_err(out, ref))
+                fill = R // 2
+                xz, wz = x.clone(), w.clone()
+                xz[fill:], wz[:, fill:] = 0, 0
+                want = kernels.segment_sum_plain(xz, wz)
+                xg = x.clone()
+                xg[fill:] = float("nan")
+                for f in (fill, torch.tensor([fill], dtype=torch.int32, device="cuda")):
+                    check(bits_equal(kernels.segment_sum(xg, wz, fill=f), want),
+                          f"B11 fill={fill} ({type(f).__name__}) differs at C={C} {(R, d)} {name}")
+                del w, out, ref, xz, wz, want, xg
+            log(f"  B11 {(R, d)} {name}: C = 1 and 8 bitwise equal to plain, fill = R and R/2 "
+                f"(int and device int32) bitwise, NaN canonical")
+            del x
+            torch.cuda.empty_cache()
+    for n in (8, 13, 16, 29, 32, 64, 128):
+        for name in DTYPES:
+            x = masked_rows((n, 421_642), 700 + n, getattr(torch, name))
+            out = kernels.sort_columns(x)
+            ref = kernels.sort_columns_plain(x)
+            check(bits_equal(out, ref) and nan_is_canonical(out),
+                  f"B2 differs from plain at n={n} {name}")
+            errs["sort_columns"] = max(errs["sort_columns"], max_abs_err(out, ref))
+            del x, out, ref
+        torch.cuda.empty_cache()
+    x = masked_rows(HEADLINE, 7, torch.float32)
+    check(bits_equal(kernels.sort_columns(x), kernels.sort_columns_plain(x)), "B2 differs at the headline")
+    del x
+    try:
+        kernels.sort_columns(torch.zeros((129, 16), device="cuda"))
+        check(False, "B2 took n = 129")
+    except NotImplementedError:
+        pass
+    log(f"  B2 n in 8, 13, 16, 29, 32, 64, 128 x 421,642 in {', '.join(DTYPES)} and the "
+        f"headline: bitwise equal to plain, NaN canonical; n = 129 raises NotImplementedError")
+    for (n, d) in ((64, 421_642), (8, 421_642), HEADLINE):
+        for name in DTYPES if (n, d) != HEADLINE else ("float32",):
+            x = masked_rows((n, d), 800 + n, getattr(torch, name), specials=False)
+            x[3, 11] = float("nan")
+            x[4, 12] = float("inf")
+            for z in (None, x[n // 2].clone()):
+                out, ref = kernels.row_sq_dists(x, z), kernels.row_sq_dists_plain(x, z)
+                check(bits_equal(out, ref) and nan_is_canonical(out),
+                      f"row_sq_dists differs from plain at {(n, d)} {name}")
+                errs["row_sq_dists"] = max(errs["row_sq_dists"], max_abs_err(out, ref))
+            del x
+        torch.cuda.empty_cache()
+    log("  row_sq_dists at 64 and 8 x 421,642 and the headline, with and without a centre, "
+        f"in {', '.join(DTYPES)}: bitwise equal to plain")
 
 
 # ---------------------------------------------------------------------------
@@ -1110,11 +1209,267 @@ def gossip_path(counts: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: the serving round
+# ---------------------------------------------------------------------------
+
+# cohorts of the serving round, one per step (buckets 8, 8, 16, 32, 64 of
+# BucketLadder(64, min_bucket=8)), cycled by the profiled steps
+SERVE_COHORTS = (6, 8, 13, 29, 64)
+SERVE_CAP, SERVE_MIN_BUCKET = 64, 8
+
+
+def serving_configs() -> dict:
+    """name -> (class factory of ``device``, the launches one serving step
+    makes, a function of the step's Weiszfeld iterations)."""
+    from byzpy_tpu_torch.aggregators import (
+        CenteredClipping, ComparativeGradientElimination, CoordinateWiseMedian,
+        CoordinateWiseTrimmedMean, GeometricMedian, MeanOfMedians, MultiKrum,
+    )
+
+    b = MAIN_BYZ
+    return {
+        "serve_trimmed_mean": (lambda dev: CoordinateWiseTrimmedMean(b, device=dev),
+                               lambda it: {"sort_columns": 1, "segment_sum": 1}),
+        "serve_median": (lambda dev: CoordinateWiseMedian(device=dev),
+                         lambda it: {"sort_columns": 1}),
+        # the Gram (B3), the scores' window sum and the mean
+        "serve_multi_krum": (lambda dev: MultiKrum(b, 4, device=dev),
+                             lambda it: {"gram": 1, "segment_sum": 2}),
+        "serve_meamed": (lambda dev: MeanOfMedians(b, device=dev),
+                         lambda it: {"sort_columns": 1, "segment_sum": 1}),
+        "serve_cge": (lambda dev: ComparativeGradientElimination(b, device=dev),
+                      lambda it: {"row_sq_dists": 1, "segment_sum": 1}),
+        # the start (the masked mean), then per iteration the distances
+        # and the step
+        "serve_centered_clipping": (lambda dev: CenteredClipping(c_tau=MAIN_CTAU, M=10, device=dev),
+                                    lambda it: {"row_sq_dists": 10, "segment_sum": 11}),
+        # the start (the masked median), then per Weiszfeld iteration the
+        # distances, the numerator and the denominator
+        "serve_geometric_median": (lambda dev: GeometricMedian(device=dev),
+                                   lambda it: {"sort_columns": 1, "row_sq_dists": it,
+                                               "segment_sum": 2 * it}),
+    }
+
+
+def count_syncs(fn):
+    """``(fn(), host reads)``: the synchronizing CUDA operations ``fn`` made,
+    counted by PyTorch's sync debug mode (one warning each)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def serving_path(counts: dict) -> dict:
+    """The serving tier's bucketed round on SmallCNN (d = 421,642), for each
+    configuration: per step, a cohort of ``SERVE_COHORTS[s]`` clients, each
+    gradient the port's per-node ``vmap(grad)`` on its own batch of 64
+    (client i's fixed batch; every fourth client, i % 4 == 1, one round
+    stale: its gradient at the previous round's parameters, discounted by
+    ``StalenessPolicy("exponential", gamma=0.5)``; every fourth, i % 4 ==
+    3, byzantine: the sign-flipped mean of the honest rows), through
+    ``build_cohort`` (``BucketLadder(64, min_bucket=8)``) and
+    ``build_serving_ps_step`` with the class's ``masked_matrix_fn()``.
+
+    The card runs ``MAIN_STEPS`` steps with the counts set to 0 just before
+    and read just after: exactly the listed launches a step and no other
+    (so none of B1, B4, B6, B7); then 3 more under torch.profiler. After the counted run, on
+    each of the five cohorts: the padded step equals the compacted one bit
+    for bit (parameters, momentum, gradient norm), ``cohort_m`` is m, and
+    ``CohortAggregator.aggregate`` of the cohort, stepped by the same SGD,
+    gives the step's parameters bit for bit. The CPU port's serving step
+    on the card's inputs of steps 1-2 (copied to the CPU) gives the card's
+    parameters within PARAM_RTOL / PARAM_ATOL (bit for bit where its kernels'
+    plain versions are the kernels' bits; the CPU Gram and the Weiszfeld
+    step length sum in another order). The whole round is not compared
+    with a CPU round: the clients' convolution gradients differ between
+    the devices by up to ~1e-5 relative, and MeaMed's selection is not
+    continuous in its inputs (a swap at a near-tie moves a coordinate by
+    a quarter of the swapped values' gap). The serving step alone: host
+    ms per cohort size, host reads (sync debug mode) and, replayed on the
+    m = 64 cohort, device ms, launches and the busy share."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, kernels, robust
+    from byzpy_tpu_torch.parallel import SGD, build_serving_ps_step
+    from byzpy_tpu_torch.serving import (
+        BucketLadder, CohortAggregator, StalenessPolicy, Submission, build_cohort,
+    )
+    from byzpy_tpu_torch.utils import ravel_fn
+
+    ladder = BucketLadder(SERVE_CAP, min_bucket=SERVE_MIN_BUCKET)
+    policy = StalenessPolicy("exponential", gamma=0.5)
+    clients = max(SERVE_COHORTS)
+    x, y = synthetic_classification(n_samples=clients * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = x.reshape(clients, MAIN_BATCH, 28, 28, 1), y.reshape(clients, MAIN_BATCH)
+    cpu_bundle = make_bundle(SmallCNN(), seed=0, device="cpu")
+    results = {}
+    for name, (make, per_step) in serving_configs().items():
+        bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+        agg = make(None)
+        step, opt0 = build_serving_ps_step(bundle, agg.masked_matrix_fn())
+        per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+        ravel, _ = ravel_fn(bundle.params)
+        names = list(bundle.params)
+        d = sum(int(v.numel()) for v in bundle.params.values())
+        state = {"params": bundle.params, "prev": bundle.params, "opt": opt0, "s": 0}
+        record = []
+
+        def rows_at(params, idx):
+            grads, losses = per_node(params, xs[idx], ys[idx])
+            return torch.cat([grads[k].reshape(len(idx), -1) for k in names], dim=1), losses
+
+        def run():
+            s = state["s"]
+            m = SERVE_COHORTS[s % len(SERVE_COHORTS)]
+            fresh = [i for i in range(m) if i % 4 != 1]
+            stale = [i for i in range(m) if i % 4 == 1]
+            rows = torch.empty((m, d), device="cuda")
+            rows[fresh], losses = rows_at(state["params"], fresh)
+            if stale:
+                rows[stale] = rows_at(state["prev"], stale)[0]
+            honest = [i for i in range(m) if i % 4 != 3]
+            byz = [i for i in range(m) if i % 4 == 3]
+            if byz:
+                rows[byz] = attack_ops.sign_flip(rows[honest].mean(dim=0))
+            subs = [Submission(client=f"c{i}", round_submitted=s - (i % 4 == 1),
+                               gradient=rows[i], arrived_s=float(i)) for i in range(m)]
+            cohort = build_cohort(subs, s, ladder, policy)
+            inputs = (state["params"], state["opt"], cohort.matrix,
+                      torch.from_numpy(cohort.valid).cuda(), torch.from_numpy(cohort.weights).cuda())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (params, opt, metrics), reads = count_syncs(lambda: step(*inputs))
+            torch.cuda.synchronize()
+            metrics = dict(metrics, m=m, bucket=cohort.bucket, host_reads=reads,
+                           serve_ms=(time.perf_counter() - t0) * 1e3,
+                           honest_loss=float(losses[[j for j, i in enumerate(fresh) if i % 4 != 3]].mean()),
+                           iterations=robust.last_iterations["geometric_median"])
+            if len(record) < MAIN_STEPS:
+                record.append((inputs, cohort, params, opt, metrics))
+            state.update(prev=state["params"], params=params, opt=opt, s=s + 1)
+            return metrics
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        times, metrics = [], []
+        for _ in range(MAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(run())
+            times.append((time.perf_counter() - t0) * 1e3)
+        run_counts = dict(kernels.launch_counts)
+        round_profile = profile_steps(run)
+        losses = [mt["honest_loss"] for mt in metrics]
+        check(all(map(math.isfinite, losses)), f"{name}: loss not finite {losses}")
+        iters = [mt["iterations"] for mt in metrics] if name == "serve_geometric_median" else None
+        want = {}
+        for mt in metrics:
+            for k, v in per_step(mt["iterations"]).items():
+                want[k] = want.get(k, 0) + v
+        for k, v in run_counts.items():
+            check(v == want.get(k, 0),
+                  f"{name}: {k} launched {v} times in {MAIN_STEPS} steps, not {want.get(k, 0)}")
+        for k, v in want.items():
+            counts[k] += v
+        # the checks, outside the counted run
+        checks = []
+        for inputs, cohort, p_pad, o_pad, m_pad in record:
+            params, opt, matrix, valid, weights = inputs
+            m = cohort.m
+            check(int(m_pad["cohort_m"]) == m, f"{name}: cohort_m {int(m_pad['cohort_m'])} != {m}")
+            p_c, o_c, m_c = step(params, opt, matrix[:m].contiguous(), valid[:m].contiguous(),
+                                 weights[:m].contiguous())
+            same = (bits_equal(ravel(p_pad), ravel(p_c)) and bits_equal(o_pad["trace"], o_c["trace"])
+                    and bits_equal(m_pad["agg_grad_norm"], m_c["agg_grad_norm"]))
+            check(same, f"{name}: the padded step at m={m} (bucket {cohort.bucket}) differs from "
+                  f"the compacted one")
+            via_cohort = CohortAggregator(agg).aggregate(cohort)
+            p_ca, _ = SGD(0.05, momentum=0.9).step(ravel(params), via_cohort, opt)
+            check(bits_equal(p_ca, ravel(p_pad)),
+                  f"{name}: CohortAggregator.aggregate at m={m} does not give the step's parameters")
+            checks.append({"m": m, "bucket": cohort.bucket, "padded_equals_compacted": True,
+                           "cohort_aggregator_equals_step": True})
+        # the CPU port's serving step on the card's inputs of steps 1-2
+        cpu_step, _ = build_serving_ps_step(cpu_bundle, make("cpu").masked_matrix_fn())
+        worst, used, bitwise, cpu_iters = 0.0, 0.0, [], []
+        for inputs, cohort, p_pad, _, _ in record[:CPU_STEPS]:
+            params, opt, matrix, valid, weights = inputs
+            on_cpu = lambda t: {k: v.cpu() for k, v in t.items()}  # noqa: E731
+            p_cpu, _, _ = cpu_step(on_cpu(params), on_cpu(opt), matrix.cpu(), valid.cpu(),
+                                   weights.cpu())
+            cpu_iters.append(robust.last_iterations["geometric_median"])
+            g, c = ravel(p_pad).cpu(), ravel(p_cpu)
+            diff = (g - c).abs()
+            share = float((diff / (PARAM_ATOL + PARAM_RTOL * c.abs())).max())
+            check(share <= 1.0, f"{name}: the CPU port's step on the card's cohort at m={cohort.m} "
+                  f"differs (max |diff| {float(diff.max()):.3g}, {share:.3g} x the tolerance)")
+            worst, used = max(worst, float(diff.max())), max(used, share)
+            bitwise.append(bits_equal(g, c))
+        # the serving step alone, replayed on the m = 64 cohort
+        inputs = record[-1][0]
+        replay = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*inputs)
+            torch.cuda.synchronize()
+            replay.append((time.perf_counter() - t0) * 1e3)
+        replay_ms = sorted(replay)[2]
+        serve_profile = profile_steps(lambda: step(*inputs))
+        record.clear()
+        ms_step = sorted(times[1:])[len(times[1:]) // 2]
+        results[name] = {
+            "cohorts": [[mt["m"], mt["bucket"]] for mt in metrics],
+            "round_ms_per_step": ms_step,
+            "serving_step_ms": [round(mt["serve_ms"], 4) for mt in metrics],
+            "host_reads_per_step": [mt["host_reads"] for mt in metrics],
+            "iterations_per_step": iters,
+            "cpu_iterations_steps_1_2": cpu_iters if iters else None,
+            "losses": losses, "cpu_same_inputs_max_abs_param_diff": worst,
+            "cpu_tolerance_used": used, "cpu_same_inputs_bitwise": bitwise,
+            "launches": {k: v for k, v in run_counts.items() if v},
+            "checks": checks,
+            "round_profile": round_profile,
+            "round_device_busy_share": round_profile["device_ms_per_step"] / ms_step,
+            "serving_step_at_64": {
+                "ms": replay_ms, "profile": serve_profile,
+                "device_busy_share": serve_profile["device_ms_per_step"] / replay_ms,
+            },
+        }
+        log(f"  {name}: cohorts {results[name]['cohorts']}, serving step ms "
+            f"{results[name]['serving_step_ms']}, host reads per step "
+            f"{results[name]['host_reads_per_step']}, launches {results[name]['launches']}"
+            + (f", Weiszfeld iterations {iters} (CPU on steps 1-2 {cpu_iters})" if iters else "")
+            + f"; padded == compacted and CohortAggregator == step bitwise at every cohort; the "
+            f"CPU port on the card's inputs of steps 1-2: max |diff| {worst:.3g} ({used:.3g} x the "
+            f"tolerance), bitwise {bitwise}; round {ms_step:.3f} ms/step, losses "
+            f"{[round(v, 4) for v in losses]}; serving step at m = 64 {replay_ms:.3f} ms, device "
+            f"{serve_profile['device_ms_per_step']:.4f} ms, busy "
+            f"{results[name]['serving_step_at_64']['device_busy_share']:.3f}")
+        log(f"    serving step profile at m = 64: {json.dumps(serve_profile)}")
+        del bundle, agg, step, state
+        torch.cuda.empty_cache()
+    return results
+
+
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
                 "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
                 "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
                 "meamed_kernel", "center_dist_partial_kernel", "center_weights_kernel",
-                "center_sweep_kernel", "quantize_kernel", "dequantize_kernel")
+                "center_sweep_kernel", "quantize_kernel", "dequantize_kernel",
+                "sort_columns_kernel", "segment_sum_kernel", "row_sq_partial_kernel",
+                "row_sq_reduce_kernel")
 
 
 def device_events(prof, calls: int) -> dict:
@@ -1125,7 +1480,10 @@ def device_events(prof, calls: int) -> dict:
 
     by_kernel = {}
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a record_function range (the serving step's stages) shows on the
+        # device too: its time is its kernels', already counted
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False) \
+                or ev.key.startswith("serving."):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -1174,9 +1532,11 @@ def profile_steps(run, steps: int = 3) -> dict:
 
 
 def port_device_ms(fn, calls: int = 10) -> dict:
-    """Device time per call of each port kernel that ``fn()`` launches
-    (torch.profiler): the card's time without the host's launch gaps,
-    which CUDA events of a short call include."""
+    """Device time per launch of each port kernel that ``fn()`` launches
+    once a call (torch.profiler): the card's time without the host's
+    launch gaps, which CUDA events of a short call include. Divided by the
+    launches the profiler recorded, not by ``calls``: a profile can miss
+    some (one H100 run recorded 4 of 10 launches of one kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1186,7 +1546,8 @@ def port_device_ms(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {p: ms for p, (ms, _) in port_part(device_events(prof, calls)).items()}
+    return {p: ms / count for p, (ms, count) in port_part(device_events(prof, calls)).items()
+            if count}
 
 
 # ---------------------------------------------------------------------------
@@ -1508,6 +1869,61 @@ def from_gram_times(n: int, d: int, *, f: int, q: int, seed: int) -> dict:
     return out
 
 
+def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
+    """B11 (one cohort, fill = n), B2 and the row reduction on one (n, d)
+    f32 matrix beside their bounds, plain versions and, where one exists,
+    a single PyTorch call that computes the same function: ``w @ x`` for
+    B11, ``torch.sort(x, dim=0)`` for B2 (the same sorted values on these
+    finite inputs). No single call computes the row reduction; ``torch.cdist``
+    (the square roots of the same sums) is timed beside it as ``cdist_ms``."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    x = masked_rows((n, d), seed, torch.float32, specials=False)
+    isz = x.element_size()
+    w = torch.randn((1, n), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    z = x[n // 2].clone()
+    out = {}
+    # read x and w, write the (1, d) sum; one FMA (2 flops) per entry
+    b_ms, b_by = bound_ms(n * d * isz + n * 4 + d * isz, 2 * n * d)
+    out["segment_sum"] = {
+        "ms": cuda_time_ms(lambda: kernels.segment_sum(x, w)),
+        "plain_ms": cuda_time_ms(lambda: kernels.segment_sum_plain(x, w), iters=3),
+        "library_ms": cuda_time_ms(lambda: w @ x),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+        "device_ms": port_device_ms(lambda: kernels.segment_sum(x, w)),
+    }
+    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
+    # read and write the matrix; an int32 min and max per compare-exchange
+    b_ms, b_by = bound_ms(2 * n * d * isz, 2 * pairs * d)
+    out["sort_columns"] = {
+        "ms": cuda_time_ms(lambda: kernels.sort_columns(x)),
+        "plain_ms": cuda_time_ms(lambda: kernels.sort_columns_plain(x), iters=3),
+        "library_ms": cuda_time_ms(lambda: torch.sort(x, dim=0)),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+        "device_ms": port_device_ms(lambda: kernels.sort_columns(x)),
+    }
+    # read x and z, write n sums; a sub, a mul and an add per entry
+    b_ms, b_by = bound_ms(n * d * isz + d * isz + n * 4, 3 * n * d)
+    out["row_sq_dists"] = {
+        "ms": cuda_time_ms(lambda: kernels.row_sq_dists(x, z)),
+        "plain_ms": cuda_time_ms(lambda: kernels.row_sq_dists_plain(x, z), iters=3),
+        "library_ms": None,
+        "cdist_ms": cuda_time_ms(lambda: torch.cdist(
+            x, z[None], compute_mode="donot_use_mm_for_euclid_dist")),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+        "device_ms": port_device_ms(lambda: kernels.row_sq_dists(x, z)),
+    }
+    for key, v in out.items():
+        log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library "
+            f"{v['library_ms']}" + (f", cdist {v['cdist_ms']:.4f} ms" if "cdist_ms" in v else ""))
+    del x, w, z
+    torch.cuda.empty_cache()
+    return out
+
+
 def aggregator_times() -> dict:
     """The six aggregators of this slice, whole, on one ByzPy grid input
     (64 x 65,536 f32 normal, benchmarks/full_grid.py), by CUDA events
@@ -1640,6 +2056,13 @@ def timing() -> dict:
             "sweep_library_ms", "device_ms", "fold_round")
     for k, v in out.items():
         v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
+    # B2, B11 and the row reduction: the serving path's largest bucket,
+    # 64 x 421,642, is their main-path shape
+    masked = masked_kernel_times(*HEADLINE, seed=41)
+    serve = masked_kernel_times(SERVE_CAP, 421_642, seed=43)
+    for k, v in masked.items():
+        v["main_path_shape"] = {key: serve[k][key] for key in keys + ("cdist_ms",) if key in serve[k]}
+    out.update(masked)
     return out
 
 
@@ -1674,6 +2097,13 @@ KERNELS = [
     ("quantize:int8", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:256"),
     ("quantize:fp8", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:479"),
     ("dequantize", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:279"),
+    # B2 and B11, the serving path's (phase 4c); the row reduction beside
+    # B11 replaces no Pallas kernel: it stands in for the masked family's
+    # plain XLA row reduce
+    ("sort_columns", "byzpy_tpu_torch/csrc/sort_columns.cu", "byzpy_tpu/ops/pallas_kernels.py:155"),
+    ("segment_sum", "byzpy_tpu_torch/csrc/segment_sum.cu", "byzpy_tpu/ops/pallas_kernels.py:1840"),
+    ("row_sq_dists", "byzpy_tpu_torch/csrc/segment_sum.cu",
+     "byzpy_tpu/ops/robust.py:1542 (plain XLA reduce; no Pallas kernel)"),
 ]
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
@@ -1726,6 +2156,7 @@ def main() -> int:
     check_meamed(errs)
     check_center_step(errs)
     check_codecs(errs)
+    check_masked_kernels(errs)
 
     log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
         "configurations")
@@ -1734,6 +2165,8 @@ def main() -> int:
     log("MAIN_PATH " + json.dumps(main_path(counts)))
     log("== 4b. main path: the gossip round (SmallCNN)")
     log("GOSSIP_PATH " + json.dumps(gossip_path(counts)))
+    log("== 4c. main path: the serving round (SmallCNN, bucketed cohorts, masked aggregators)")
+    log("SERVING_PATH " + json.dumps(serving_path(counts)))
     for key, parts in CODEC_COUNTERS.items():
         counts[key] = sum(counts[p] for p in parts)
 

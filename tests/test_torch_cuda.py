@@ -672,3 +672,97 @@ def test_cuda_compressed_rounds_launch_the_codecs(cuda_device):
     assert theta.is_cuda and bool(torch.isfinite(theta).all())
     assert kernels.launch_counts["quantize:int8"] == 1 and kernels.launch_counts["dequantize:int8"] == 8
     assert kernels.launch_counts["sorted_reduce:median"] == 8
+
+
+# ---------------------------------------------------------------------------
+# B11 segment sum, B2 column sort, the row reduction and the masked family
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("C,R", [(1, 8), (1, 64), (3, 13), (8, 128), (2, 300)])
+def test_cuda_segment_sum_matches_plain_bitwise(cuda_device, C, R, dt):
+    """B11 equals its plain version bit for bit (one FMA chain per output
+    in row order), NaN and +-inf rows included, at fill = R and at a fill
+    below R given as an int and as a device int32."""
+    rng = np.random.default_rng(R + C)
+    x = torch.from_numpy(_matrix(rng, (R, 5000))).to(cuda_device, DTYPES[dt])
+    w = torch.from_numpy(rng.normal(size=(C, R)).astype(np.float32)).to(cuda_device)
+    before = kernels.launch_counts["segment_sum"]
+    out = kernels.segment_sum(x, w)
+    assert kernels.launch_counts["segment_sum"] == before + 1
+    assert _bits_equal(out, kernels.segment_sum_plain(x, w))
+    fill = R // 2
+    xz, wz = x.clone(), w.clone()
+    xz[fill:], wz[:, fill:] = 0, 0
+    ref = kernels.segment_sum_plain(xz, wz)
+    for f in (fill, torch.tensor([fill], dtype=torch.int32, device=cuda_device)):
+        assert _bits_equal(kernels.segment_sum(x, w, fill=f), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 5, 8, 13, 64, 128])
+def test_cuda_sort_columns_matches_plain_bitwise(cuda_device, n, dt):
+    x = torch.from_numpy(_matrix(np.random.default_rng(n), (max(n, 6), 3000))[:n]).to(
+        cuda_device, DTYPES[dt])
+    before = kernels.launch_counts["sort_columns"]
+    out = kernels.sort_columns(x)
+    assert kernels.launch_counts["sort_columns"] == before + 1
+    assert _bits_equal(out, kernels.sort_columns_plain(x))
+
+
+@pytest.mark.cuda
+def test_cuda_sort_columns_rejects_129_rows(cuda_device):
+    x = torch.zeros((129, 10), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        kernels.sort_columns(x)
+    from byzpy_tpu_torch.ops import robust
+
+    with pytest.raises(NotImplementedError):
+        robust.sort_rows(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,d", [(8, 421_642), (13, 5000), (64, 4097)])
+def test_cuda_row_sq_dists_matches_plain_bitwise(cuda_device, n, d, dt):
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(_matrix(rng, (n, d), specials=False)).to(cuda_device, DTYPES[dt])
+    z = x[n // 2].clone()
+    for zz in (None, z):
+        assert _bits_equal(kernels.row_sq_dists(x, zz), kernels.row_sq_dists_plain(x, zz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["median", "trimmed", "meamed", "multikrum", "cge", "monna",
+                                  "geomed", "clip"])
+def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
+    """A masked class's padded program on the card equals its compacted one
+    bit for bit, and launches B2 / B11 and none of B1, B4, B6, B7."""
+    from byzpy_tpu_torch import aggregators as A
+
+    make = {
+        "median": lambda: A.CoordinateWiseMedian(), "trimmed": lambda: A.CoordinateWiseTrimmedMean(2),
+        "meamed": lambda: A.MeanOfMedians(2), "multikrum": lambda: A.MultiKrum(2, 4),
+        "cge": lambda: A.ComparativeGradientElimination(2), "monna": lambda: A.MoNNA(2),
+        "geomed": lambda: A.GeometricMedian(), "clip": lambda: A.CenteredClipping(c_tau=50.0),
+    }[name]
+    agg = make()
+    rng = np.random.default_rng(3)
+    m, bucket, d = 13, 16, 20_000
+    x = (rng.normal(size=(m, d)) * rng.uniform(0.5, 3.0, size=(m, 1))).astype(np.float32)
+    padded = torch.zeros((bucket, d), device=cuda_device)
+    padded[:m] = torch.from_numpy(x).to(cuda_device)
+    valid = torch.zeros(bucket, dtype=torch.bool, device=cuda_device)
+    valid[:m] = True
+    kernels.reset_launch_counts()
+    out = agg.masked_matrix_fn()(padded, valid)
+    counts = dict(kernels.launch_counts)
+    ref = agg.masked_matrix_fn()(padded[:m].contiguous(), valid[:m].contiguous())
+    assert _bits_equal(out, ref)
+    assert counts["segment_sum"] > 0 or name == "median"
+    for k in ("sorted_reduce:median", "sorted_reduce:trimmed", "weighted_rows", "meamed",
+              "center_sweep", "center_weights:weiszfeld", "center_weights:clip"):
+        assert counts[k] == 0, (k, counts)

@@ -869,6 +869,9 @@ def test_cpu_tensors_never_reach_the_loader(monkeypatch):
     kernels.meamed_stream(x, f=2)
     for mode in ("weiszfeld", "clip"):
         kernels.weighted_center_step(x[0], x[0, 0], mode=mode)
+    kernels.sort_columns(x[0])
+    kernels.segment_sum(x[0], torch.ones((2, 9)), fill=torch.tensor([4], dtype=torch.int32))
+    kernels.row_sq_dists(x[0], x[0, 1])
     assert all(v == 0 for v in kernels.launch_counts.values())
 
 
@@ -876,3 +879,173 @@ def test_unknown_device_mix_raises():
     x = torch.zeros((1, 4, 8))
     with pytest.raises(ValueError, match="one CUDA device"):
         kernels.weighted_rows(x, torch.zeros((1, 4), device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# B11 segment sum, B2 column sort and the row reduction beside B11
+# ---------------------------------------------------------------------------
+
+
+def _assert_row_chain(out: np.ndarray, ref: np.ndarray) -> None:
+    """``out`` (the port's row chain) against an XLA:CPU row einsum of the
+    same inputs: bit for bit on the columns XLA vectorizes, 8 wide; within
+    2 ulp on the last ``d mod 8``, which XLA sums in a loop of its own."""
+    d = out.shape[-1]
+    cut = d - d % 8
+    np.testing.assert_array_equal(out[..., :cut].view(np.uint32), ref[..., :cut].view(np.uint32))
+    assert (np.abs(_bits(out[..., cut:]) - _bits(ref[..., cut:])) <= 2).all()
+
+
+def test_fma_f32_rounds_once():
+    """``fma_f32`` is ``a * b + c`` rounded once: exact against rational
+    arithmetic on random values and on three values whose f64 sum lands
+    exactly halfway between two f32 values (where a plain f64 emulation
+    rounds twice and misses by one ulp)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=2000).astype(np.float32)
+    b = rng.normal(size=2000).astype(np.float32)
+    c = (rng.normal(size=2000) * 1e-3).astype(np.float32)
+    e = 2.0 ** -20
+    a = np.concatenate([a, np.float32([1 + e, 1 + e, -(1 + e)])])
+    b = np.concatenate([b, np.float32([2 ** -24 - 2 ** -44, 2 ** -24 + 2 ** -44, 2 ** -24 - 2 ** -44])])
+    c = np.concatenate([c, np.float32([1 + 2 ** -23, 1 + 2 ** -23, -(1 + 2 ** -23)])])
+    out = kernels.fma_f32(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)).numpy()
+    for i in range(a.size):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + Fraction(float(c[i]))
+        got = Fraction(float(out[i]))
+        up, down = np.nextafter(out[i], np.float32(np.inf)), np.nextafter(out[i], np.float32(-np.inf))
+        # the nearest f32 to the exact value (ties to even never occur here)
+        assert abs(got - exact) <= abs(Fraction(float(up)) - exact), i
+        assert abs(got - exact) <= abs(Fraction(float(down)) - exact), i
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert not np.array_equal(out[-3:], naive[-3:])
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("R,d", [(8, 421), (13, 193), (16, 1000), (64, 4099)])
+def test_segment_sum_plain_matches_einsum_and_pallas_bitwise(R, d, C):
+    """The plain B11 (an FMA chain over rows in index order) equals, bit
+    for bit, the Pallas kernel in interpret mode (one row tile: R <= 256)
+    and each cohort's row einsum ``einsum("n,nd->d")``, the masked
+    family's form, on every column XLA:CPU vectorizes (the first 8 floor(d
+    / 8)); XLA computes the last d mod 8 columns in a loop of its own that
+    differs from the chain by an ulp now and then (``_assert_row_chain``).
+    XLA:CPU's ``einsum("cr,rd->cd")`` is the chain too at C = 1 and at
+    small sizes; as a matrix product at C > 1 and R x d >= 32 x 4099 it
+    sums in another order, so there it is held to the recursive-summation
+    bound R u sum_r |w_r x_r| (u = 2^-24)."""
+    rng = np.random.default_rng(R * 7 + C)
+    x = (rng.normal(size=(R, d)) * rng.uniform(0.1, 50.0, size=(R, 1))).astype(np.float32)
+    w = rng.normal(size=(C, R)).astype(np.float32)
+    out = kernels.segment_sum(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    pal = np.asarray(pk.ragged_segment_sum_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(out.view(np.uint32), pal.view(np.uint32))
+    for c in range(C):
+        _assert_row_chain(out[c], np.asarray(jnp.einsum("n,nd->d", jnp.asarray(w[c]), jnp.asarray(x))))
+    ref = np.asarray(jnp.einsum("cr,rd->cd", jnp.asarray(w), jnp.asarray(x)))
+    if C == 1 or R * d < 32 * 4099:
+        for c in range(C):
+            _assert_row_chain(out[c], ref[c])
+    bound = R * 2.0 ** -24 * (np.abs(w).astype(np.float64) @ np.abs(x))
+    assert (np.abs(out.astype(np.float64) - ref) <= bound).all()
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+@pytest.mark.parametrize("C", [1, 3])
+def test_segment_sum_fill_matches_pallas_bitwise(C, as_tensor):
+    """``fill`` < R with zero rows and zero weights past it: the rows past
+    the fill are not read (they hold NaN here), and the result equals the
+    Pallas kernel given the same fill, and the full sum, bit for bit. (The
+    Pallas kernel is one chain only within one row tile: it adds each
+    tile's sum to the output, so the comparison keeps its default single
+    tile.)"""
+    rng = np.random.default_rng(C)
+    R, d, fill = 24, 700, 11
+    x = rng.normal(size=(R, d)).astype(np.float32)
+    w = rng.normal(size=(C, R)).astype(np.float32)
+    x[fill:], w[:, fill:] = 0.0, 0.0
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    # garbage past the fill is never read
+    xg = xt.clone()
+    xg[fill:] = float("nan")
+    f = torch.tensor([fill], dtype=torch.int32) if as_tensor else fill
+    out = kernels.segment_sum(xg, wt, fill=f).numpy()
+    pal = np.asarray(pk.ragged_segment_sum_pallas(
+        jnp.asarray(x), jnp.asarray(w), fill=jnp.asarray([fill], jnp.int32), interpret=True))
+    np.testing.assert_array_equal(out.view(np.uint32), pal.view(np.uint32))
+    full = kernels.segment_sum(xt, wt).numpy()
+    np.testing.assert_array_equal(out.view(np.uint32), full.view(np.uint32))
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f16"])
+def test_segment_sum_16bit_matches_pallas_bitwise(dt):
+    """16-bit rows upcast exactly, accumulate in f32 and round once to the
+    row dtype, as the Pallas kernel does; NaN and inf rows included."""
+    rng = np.random.default_rng(5)
+    x = _matrix(rng, (12, 300))
+    w = rng.normal(size=(2, 12)).astype(np.float32)
+    out = kernels.segment_sum(_to_torch(x, dt), torch.from_numpy(w))
+    pal = pk.ragged_segment_sum_pallas(_to_jax(x, dt), jnp.asarray(w), interpret=True)
+    ref = np.asarray(pal.astype(jnp.float32))
+    got = out.float().numpy()
+    assert out.dtype == TORCH_DTYPES[dt]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    ok = ~np.isnan(ref)
+    np.testing.assert_array_equal(got[ok], ref[ok])
+
+
+def test_segment_sum_appended_zero_rows_keep_the_bits():
+    """The padding contract: zero rows (or zero weights) appended after the
+    last row leave every output bit as it was."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.normal(size=(13, 777)) * 30).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(2, 13)).astype(np.float32))
+    out = kernels.segment_sum(x, w)
+    xp = torch.cat([x, torch.zeros((51, 777))])
+    wp = torch.cat([w, torch.zeros((2, 51))], dim=1)
+    assert torch.equal(kernels.segment_sum(xp, wp).view(torch.int32), out.view(torch.int32))
+
+
+def test_segment_sum_checks_its_inputs():
+    x = torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="float32"):
+        kernels.segment_sum(x, torch.zeros((1, 4), dtype=torch.float64))
+    with pytest.raises(ValueError, match=r"\(C, 4\)"):
+        kernels.segment_sum(x, torch.zeros((1, 5)))
+    with pytest.raises(ValueError, match="int32"):
+        kernels.segment_sum(x, torch.zeros((1, 4)), fill=torch.tensor([2]))
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 5, 8, 13, 64, 128])
+def test_sort_columns_plain_matches_pallas_bitwise(n, dt):
+    """The plain B2 equals ``sort_columns(..., interpret=True)`` bit for
+    bit on columns holding NaN, +-inf and +-0 (the key sort: -0.0 before
+    +0.0, NaN canonical), and ``robust.sort_rows`` takes it."""
+    x = _matrix(np.random.default_rng(n), (max(n, 6), 257))[:n]
+    if n > 3:
+        x[2:4, 6] = [0.0, -0.0]
+    out = kernels.sort_columns(_to_torch(x, dt))
+    ref = pk.sort_columns(_to_jax(x, dt), interpret=True)
+    ints, np_ints = (torch.int32, np.int32) if dt == "f32" else (torch.int16, np.int16)
+    np.testing.assert_array_equal(out.view(ints).numpy(), np.asarray(ref).view(np_ints))
+    assert torch.equal(trobust.sort_rows(_to_torch(x, dt)).view(ints), out.view(ints))
+
+
+def test_row_sq_dists_is_padding_stable_and_close_to_f64():
+    """The row reduction: each row's value does not depend on how many rows
+    the matrix has (bit for bit), and it is the f64 sum within f32
+    rounding (rtol 1e-6)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.normal(size=(13, 9000)) * rng.uniform(0.1, 50, (13, 1))).astype(np.float32))
+    z = torch.from_numpy(rng.normal(size=9000).astype(np.float32))
+    for zz in (None, z):
+        out = kernels.row_sq_dists(x, zz)
+        padded = kernels.row_sq_dists(torch.cat([x, torch.zeros((19, 9000))]), zz)[:13]
+        assert torch.equal(out.view(torch.int32), padded.view(torch.int32))
+        v = x.double() - (0 if zz is None else zz.double())
+        np.testing.assert_allclose(out.numpy(), (v * v).sum(1).numpy(), rtol=1e-6)
+    with pytest.raises(ValueError, match="z must be"):
+        kernels.row_sq_dists(x, z[:10])

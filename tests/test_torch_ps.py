@@ -547,19 +547,21 @@ def _port_sources():
 def test_port_imports_no_jax():
     """No module of byzpy_tpu_torch, nor chip_smoke.py, imports JAX, flax,
     optax or the JAX package; the scan covers the operator classes, the
-    engine and the compressed wire fabric."""
+    engine, the compressed wire fabric and the serving tier."""
     files = _port_sources()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
     assert REPO / "byzpy_tpu_torch" / "ops" / "preagg.py" in files
     for sub in ("aggregators", "aggregators/geometric_wise", "aggregators/coordinate_wise",
                 "aggregators/norm_wise", "pre_aggregators", "engine", "engine/graph",
-                "engine/peer_to_peer"):
+                "engine/peer_to_peer", "serving"):
         assert REPO / "byzpy_tpu_torch" / sub / "__init__.py" in files, sub
     for module in ("aggregators/base.py", "aggregators/geometric_wise/krum.py",
                    "aggregators/pipelines.py", "pre_aggregators/bucketing.py",
                    "engine/graph/operator.py", "engine/graph/subtask.py",
                    "engine/peer_to_peer/topology.py", "ops/codec_kernels.py",
-                   "parallel/quantization.py", "parallel/collectives.py", "parallel/gossip.py"):
+                   "parallel/quantization.py", "parallel/collectives.py", "parallel/gossip.py",
+                   "parallel/ps.py", "ops/robust.py", "ops/kernels.py", "serving/buckets.py",
+                   "serving/staleness.py", "serving/queue.py", "serving/cohort.py"):
         assert REPO / "byzpy_tpu_torch" / module in files, module
     bad = []
     for path in files:
