@@ -22,6 +22,12 @@ program in :mod:`byzpy_tpu_torch.ops.robust`. The JAX package's jit
 caches of that program (``_masked_jitted``, ``_masked_jitted_donated``)
 have no counterpart: PyTorch runs eagerly, so the port calls the
 function.
+
+The ragged members (``ragged_score_kind``, ``ragged_coalesce``,
+``supports_ragged``, ``ragged_group_key``, ``ragged_matrix_fn``) hand the
+serving tier's flat-rows door (:mod:`byzpy_tpu_torch.serving.ragged`) a
+program that aggregates a batch of cohorts at once; the default runs the
+masked program per cohort (:func:`~byzpy_tpu_torch.ops.ragged.ragged_via_masked`).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from ..engine.graph.operator import OpContext, Operator
+from ..ops import ragged as ragged_ops
 from ..ops import robust
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.trees import ravel_pytree, stack_gradients
@@ -281,6 +288,55 @@ class Aggregator(Operator, ABC):
             return self.fold_finalize(state)
         valid = torch.tensor(valid_rows, dtype=torch.bool, device=buffer.device)
         return unravel(self._aggregate_matrix_masked(buffer, valid))
+
+    # -- ragged multi-cohort aggregation (serving-tier flat batches) --------
+
+    #: Score family published by :meth:`ragged_matrix_fn`'s fused evidence
+    #: outputs ("" = no per-row scores).
+    ragged_score_kind: str = ""
+
+    #: Whether several cohorts should share one ragged call for this
+    #: aggregator: True where the program shares work across the batch
+    #: (the selection families' one Gram or norm pass). Read by the
+    #: reference's cross-tenant batcher, which comes with the async
+    #: serving tier (ROADMAP A.6).
+    ragged_coalesce: bool = False
+
+    @property
+    def supports_ragged(self) -> bool:
+        """True when the aggregator can serve the flat-rows ragged door:
+        any aggregator with a masked program (the generic per-cohort loop
+        is always available)."""
+        return self.supports_masked_finalize
+
+    def ragged_group_key(self) -> tuple:
+        """Hashable key for batching tenants: two aggregators may share one
+        ragged call only when they run the same program (same class, same
+        scalar hyperparameters). The device and any generator are not
+        scalars and do not enter the key; the gradient dimension joins it
+        at the dispatcher."""
+        statics = tuple(sorted(
+            (k, v) for k, v in vars(self).items() if isinstance(v, (int, float, str, bool))
+        ))
+        return (type(self).__qualname__, statics)
+
+    def ragged_matrix_fn(self) -> Optional[Callable]:
+        """The ragged program ``(flat, seg, offsets, lengths, *, n_cohorts,
+        segment_sum=None) -> (aggregates, scores, keep)`` for one batch of
+        cohorts (:mod:`byzpy_tpu_torch.ops.ragged`'s layout), or ``None``
+        without a masked program. The default runs the masked program per
+        cohort (no shared work, no scores); classes with a specialized
+        program override it. Each cohort's result is bit for bit its
+        unpadded aggregate under the masked contract (finite rows, an
+        admissible ``m``: the serving door checks both)."""
+        if not self.supports_masked_finalize:
+            return None
+        masked = self._aggregate_matrix_masked
+
+        def generic(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+            return ragged_ops.ragged_via_masked(masked, flat, seg, n_cohorts=n_cohorts), None, None
+
+        return generic
 
     def validate_n(self, n: int) -> None:
         """Hook for subclasses to validate hyperparameters against n."""

@@ -14,6 +14,7 @@ from typing import Any, Optional
 
 import torch
 
+from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, SlotFoldState, check_chunk_size
@@ -82,6 +83,23 @@ class MultiKrum(Aggregator):
 
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.multi_krum_stream(xs, f=self.f, q=self.q)
+
+    ragged_score_kind = "krum_distance"
+    #: one shared Gram scores the whole batch
+    ragged_coalesce = True
+
+    def ragged_matrix_fn(self):
+        """The specialized ragged program on every device: one shared Gram
+        scores every cohort (``ops.ragged.ragged_multi_krum``); the Krum
+        scores and the lowest-``q`` keep set are the fused forensics
+        view."""
+        f, q = self.f, self.q
+
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+            return ragged_ops.ragged_multi_krum(flat, seg, lengths, f=f, q=q, n_cohorts=n_cohorts,
+                                                segment_sum=segment_sum)
+
+        return fn
 
     # -- arrival-order streaming fold ------------------------------------
 

@@ -16,6 +16,7 @@ from typing import Any
 
 import torch
 
+from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, SlotFoldState, check_chunk_size
@@ -63,6 +64,22 @@ class ComparativeGradientElimination(Aggregator):
 
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.cge_stream(xs, f=self.f)
+
+    ragged_score_kind = "norm"
+    #: one shared norm pass scores the whole batch
+    ragged_coalesce = True
+
+    def ragged_matrix_fn(self):
+        """The specialized ragged program on every device: one squared-norm
+        pass scores every cohort (``ops.ragged.ragged_cge``); the L2 norms
+        and the keep set are the fused forensics view."""
+        f = self.f
+
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+            return ragged_ops.ragged_cge(flat, seg, lengths, f=f, n_cohorts=n_cohorts,
+                                         segment_sum=segment_sum)
+
+        return fn
 
     # -- arrival-order streaming fold ------------------------------------
 

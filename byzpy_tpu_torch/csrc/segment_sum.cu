@@ -1,5 +1,6 @@
-// B11: the row-ordered segment sum out[c] = sum_r W[c, r] x[r], and the
-// masked family's per-row reduction sum_c (x[i, c] - z[c])^2 beside it.
+// B11: the row-ordered segment sum out[c] = sum_r W[c, r] x[r], its twin
+// over wire codes B12, and the masked family's per-row reduction
+// sum_c (x[i, c] - z[c])^2 beside them.
 //
 // segment_sum replaces byzpy_tpu/ops/pallas_kernels.py:1840
 // _ragged_segment_sum_kernel (pallas_call at :1964): x (R, d) in f32, bf16
@@ -25,6 +26,20 @@
 // read from device memory when the caller passes a device tensor, never
 // copied to the host.
 //
+// segment_sum_dequant (B12) replaces pallas_kernels.py:1973
+// _ragged_segment_sum_dequant_kernel (pallas_call at :2147): B11 over rows
+// that arrive as wire codes (int8 codes, fp8 e4m3fn / e5m2 bit patterns, or
+// packed s4 nibbles) with one f32 scale per `block` coordinates. The same
+// thread-per-output chain: acc = __fmaf_rn(W[c, r], x_r, acc) over rows
+// 0 .. fill-1 in index order from +0.0, with x_r = code * scale[r, col /
+// block] rounded once (codec.cuh's decode, B14's and B17's), so the (R, d)
+// f32 matrix never exists and the result is B11's on the decoded rows bit
+// for bit. An optional per-row factor omega (the staleness discount) is
+// applied as (code * scale) * omega_r, each product rounded once, before
+// the FMA: the order of decoding, then scaling the rows, then contracting
+// them. Output f32. Bound: memory, one read of the fill rows' codes (1 byte
+// a value, s4 half a byte) and scales, and a (C, d) f32 write.
+//
 // row_sq_dists: out[i] = sum_c (x[i, c] - z[c])^2 (z may be absent: the
 // squared norms), in f32. It stands in for the plain XLA row reduce
 // jnp.sum(diff * diff, axis=1) of the masked family (robust.py:1542,
@@ -39,7 +54,7 @@
 // __shfl_xor_sync adds the 32 lane sums. The plain version repeats these
 // steps. Bound: memory, one read of x and z.
 
-#include "common.cuh"
+#include "codec.cuh"
 
 namespace {
 
@@ -62,6 +77,47 @@ segment_sum_kernel(const T* __restrict__ x, const float* __restrict__ w,
 #pragma unroll 8
   for (int r = 0; r < fill; ++r) acc = __fmaf_rn(__ldg(wc + r), to_f32(xc[(long long)r * d]), acc);
   out[(long long)c * d + col] = from_f32<T>(acc);
+}
+
+template <int CODE, bool HasOmega>
+__global__ void __launch_bounds__(kThreads)
+segment_sum_dequant_kernel(const uint8_t* __restrict__ codes, const float* __restrict__ scales,
+                           const float* __restrict__ w, const float* __restrict__ omega,
+                           const int* __restrict__ fill_dev, int fill_host,
+                           float* __restrict__ out, int R, long long d, long long ncodes,
+                           int nb, int block) {
+  const long long col = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const int c = blockIdx.y;
+  if (col >= d) return;
+  int fill = fill_dev != nullptr ? __ldg(fill_dev) : fill_host;
+  fill = fill < 0 ? 0 : (fill > R ? R : fill);
+  const float* wc = w + (long long)c * R;
+  const float* sc = scales + col / block;
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int r = 0; r < fill; ++r) {
+    float v = __fmul_rn(wire_code<CODE>(codes + (long long)r * ncodes, col),
+                        __ldg(sc + (long long)r * nb));
+    if constexpr (HasOmega) v = __fmul_rn(v, __ldg(omega + r));
+    acc = __fmaf_rn(__ldg(wc + r), v, acc);
+  }
+  out[(long long)c * d + col] = from_f32<float>(acc);
+}
+
+template <int CODE>
+cudaError_t launch_segment_sum_dequant(const void* codes, const float* scales, const float* w,
+                                       const float* omega, const int* fill_dev, int fill_host,
+                                       float* out, int C, int R, long long d, long long ncodes,
+                                       int nb, int block, cudaStream_t s) {
+  const dim3 grid((unsigned)((d + kThreads - 1) / kThreads), (unsigned)C);
+  const uint8_t* cp = static_cast<const uint8_t*>(codes);
+  if (omega != nullptr)
+    segment_sum_dequant_kernel<CODE, true><<<grid, kThreads, 0, s>>>(
+        cp, scales, w, omega, fill_dev, fill_host, out, R, d, ncodes, nb, block);
+  else
+    segment_sum_dequant_kernel<CODE, false><<<grid, kThreads, 0, s>>>(
+        cp, scales, w, omega, fill_dev, fill_host, out, R, d, ncodes, nb, block);
+  return cudaGetLastError();
 }
 
 template <typename T, bool HasZ>
@@ -148,6 +204,30 @@ extern "C" int byz_row_sq_dists(const void* x, const void* z, float* partial, fl
     case kF32: return launch_row_sq<float>(x, z, partial, out, n, d, s);
     case kBF16: return launch_row_sq<__nv_bfloat16>(x, z, partial, out, n, d, s);
     case kF16: return launch_row_sq<__half>(x, z, partial, out, n, d, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// B12. codes: (R, ncodes) bytes (int8 codes or fp8 bit patterns, ncodes >= d;
+// packed s4 nibbles, 2 * ncodes >= d; code 0 = int8, 1 = e4m3fn, 2 = e5m2,
+// 3 = s4); scales: (R, nb) f32, nb * block >= d; w: (C, R) f32; omega: (R,)
+// f32 or null; fill as in byz_segment_sum; out: (C, d) f32. Returns the
+// launch's cudaError_t.
+extern "C" int byz_segment_sum_dequant(const void* codes, const float* scales, const float* w,
+                                       const float* omega, const int* fill_dev, int fill_host,
+                                       void* out, int C, int R, long long d, long long ncodes,
+                                       int nb, int block, int code, void* stream) {
+  if (C < 1 || C > 65535 || R < 0 || block <= 0) return cudaErrorInvalidValue;
+  if (d <= 0) return cudaSuccess;
+  if ((long long)nb * block < d || (code == kS4 ? 2 * ncodes : ncodes) < d)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* op = static_cast<float*>(out);
+  switch (code) {
+    case kInt8: return launch_segment_sum_dequant<kInt8>(codes, scales, w, omega, fill_dev, fill_host, op, C, R, d, ncodes, nb, block, s);
+    case kE4M3: return launch_segment_sum_dequant<kE4M3>(codes, scales, w, omega, fill_dev, fill_host, op, C, R, d, ncodes, nb, block, s);
+    case kE5M2: return launch_segment_sum_dequant<kE5M2>(codes, scales, w, omega, fill_dev, fill_host, op, C, R, d, ncodes, nb, block, s);
+    case kS4: return launch_segment_sum_dequant<kS4>(codes, scales, w, omega, fill_dev, fill_host, op, C, R, d, ncodes, nb, block, s);
     default: return cudaErrorInvalidValue;
   }
 }

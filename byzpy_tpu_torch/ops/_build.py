@@ -7,7 +7,8 @@ build happens at first use, from the package's own sources, into
 every source and the flags, so an edited source rebuilds. All sources
 compile in parallel, one ``nvcc`` process each. The flags must never
 include ``--use_fast_math``: the codecs (``csrc/quantize.cu``) divide
-``1 / scale`` as one IEEE division, as the reference does.
+``1 / scale`` as one IEEE division, as the reference does. A change to a
+shared header (``csrc/*.cuh``) changes the hash too.
 
 Nothing here runs at import time. Without ``nvcc`` the loader raises: a
 CUDA tensor launches its kernel or fails, it never falls back.
@@ -85,9 +86,19 @@ SIGNATURES = {
     "byz_dequantize": ("quantize", [
         _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_ll, _c_int, _c_int, _c_void_p,
     ]),
+    "byz_quantize_s4": ("quantize", [
+        _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_void_p,
+    ]),
+    "byz_dequantize_s4": ("quantize", [
+        _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_ll, _c_int, _c_ll, _c_int, _c_void_p,
+    ]),
     "byz_segment_sum": ("segment_sum", [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_ll, _c_int,
         _c_void_p,
+    ]),
+    "byz_segment_sum_dequant": ("segment_sum", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int, _c_int,
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_void_p,
     ]),
     "byz_row_sq_dists": ("segment_sum", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,

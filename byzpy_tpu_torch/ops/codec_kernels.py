@@ -18,14 +18,21 @@ Kernels (TPU kernel they replace -> launch counter):
   ``_quantize_fp8_kernel`` (:479) -> ``quantize:fp8`` /
   ``quantize:fp8_e5m2``;
 * B14 :func:`decode_rows`: ``_dequantize_kernel`` (:279), int8 codes or
-  fp8 values -> ``dequantize:int8`` / ``dequantize:fp8``.
+  fp8 values -> ``dequantize:int8`` / ``dequantize:fp8``;
+* B16 :func:`encode_rows_s4`: ``_quantize_s4_kernel`` (:504) ->
+  ``quantize:s4``;
+* B17 :func:`decode_rows_s4`: ``_dequantize_s4_kernel`` (:525) ->
+  ``dequantize:s4``.
 
 Per ``(row, block)``: ``absmax`` of the finite values, ``scale = absmax *
 (1 / qmax)`` or 1 for an all-zero (or all non-finite) block, ``y = x * (1 /
 scale)``, NaN -> 0, clip to ``+-qmax``; int8 rounds half to even, fp8 takes
 one direct round-to-nearest-even cast (the JAX package's f32 -> f8
-convert rounds directly too). Inputs are f32, bf16 or f16, read as f32;
-decoded values are written in f32, bf16 or f16 with NaN canonical.
+convert rounds directly too). s4 (``qmax = 7``) rounds as int8 and packs
+the nibbles ``q + 8`` two a byte, the even coordinate in the low nibble,
+over the zero-padded block grid: ``nb * block / 2`` bytes a row, the
+padding nibble 8. Inputs are f32, bf16 or f16, read as f32; decoded values
+are written in f32, bf16 or f16 with NaN canonical.
 """
 
 from __future__ import annotations
@@ -52,9 +59,10 @@ FP8_FORMATS = {
     "fp8": (torch.float8_e4m3fn, 448.0),
     "fp8_e5m2": (torch.float8_e5m2, 57344.0),
 }
-_QMAX = {"int8": 127.0, **{m: fmax for m, (_, fmax) in FP8_FORMATS.items()}}
-# code modes shared with csrc/quantize.cu (CodeMode)
+_QMAX = {"int8": 127.0, "s4": 7.0, **{m: fmax for m, (_, fmax) in FP8_FORMATS.items()}}
+# code modes shared with csrc/codec.cuh (CodeMode)
 _CODES = {"int8": 0, "fp8": 1, "fp8_e5m2": 2}
+WIRE_CODES = {**_CODES, "s4": 3}
 _CODE_OF_DTYPE = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.float8_e5m2: "fp8_e5m2"}
 
 
@@ -219,13 +227,144 @@ def decode_rows_plain(
 
 def from_wire(codes: torch.Tensor, mode: str) -> torch.Tensor:
     """``mode``'s codes from the bytes a wire carries them as: int8 codes as
-    they are, fp8 values as their dtype or as uint8 bit patterns."""
+    they are, fp8 values as their dtype or as uint8 bit patterns, s4's
+    packed nibbles as uint8."""
+    if mode == "s4":
+        if codes.dtype != torch.uint8:
+            raise ValueError(f"wire codes of mode 's4' must be uint8, got {codes.dtype}")
+        return codes
     want = code_dtype(mode)
     if codes.dtype == want:
         return codes
     if mode == "int8" or codes.dtype != torch.uint8:
         raise ValueError(f"wire codes of mode {mode!r} must be {want} or uint8, got {codes.dtype}")
     return codes.view(want)
+
+
+# ---------------------------------------------------------------------------
+# B16 / B17: the packed 4-bit codec
+# ---------------------------------------------------------------------------
+
+
+def _check_even_block(block: int) -> None:
+    _check_block(block)
+    if block % 2:
+        raise ValueError(f"s4 packs two codes per byte: block must be even, got {block}")
+
+
+def encode_rows_s4(x: torch.Tensor, *, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """s4 encode of ``x: (rows, d)`` (f32, bf16 or f16) along its trailing
+    axis (B16): ``(packed (rows, nb * block / 2) uint8, scales (rows, nb)
+    f32)`` with ``nb = ceil(d / block)`` and ``block`` even. An empty input
+    launches nothing."""
+    _check_even_block(block)
+    _check_ndim(x, 2, "x")
+    _check_float(x)
+    if _on_cpu(x):
+        return encode_rows_s4_plain(x, block=block)
+    if not x.is_contiguous():
+        raise ValueError("CUDA kernels take contiguous tensors")
+    rows, d = x.shape
+    nb = _ceil_div(d, block)
+    packed = torch.empty((rows, nb * block // 2), dtype=torch.uint8, device=x.device)
+    scales = torch.empty((rows, nb), dtype=torch.float32, device=x.device)
+    if rows == 0 or d == 0:
+        return packed, scales
+    with torch.cuda.device(x.device):
+        _call("byz_quantize_s4", x.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows, d,
+              block, nb, _DTYPE_CODES[x.dtype], _stream(x))
+    launch_counts["quantize:s4"] += 1
+    return packed, scales
+
+
+def pack_s4(q: torch.Tensor) -> torch.Tensor:
+    """Packed s4 codes ``(rows, nb * block / 2)`` uint8 from rounded ratios
+    ``(rows, nb, block)``: NaN -> 0, clip to +-7, nibble ``q + 8``, the even
+    coordinate in the low nibble (the reference's ``_quantize_s4_xla``
+    :448-457)."""
+    q = torch.where(torch.isnan(q), torch.zeros_like(q), torch.clamp(q, -7.0, 7.0))
+    nib = (q + 8.0).to(torch.uint8).reshape(q.shape[0], -1, 2)
+    return nib[..., 0] | (nib[..., 1] << 4)
+
+
+def encode_rows_s4_plain(x: torch.Tensor, *, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`encode_rows_s4` (the reference's
+    ``_quantize_s4_xla``, round to nearest)."""
+    y, scales = block_scales_and_ratios(x, block=block, mode="s4")
+    return pack_s4(torch.round(y)), scales
+
+
+def _check_decode_s4(packed: torch.Tensor, scales: torch.Tensor, block: int, d: int, dtype) -> None:
+    _check_even_block(block)
+    _check_ndim(packed, 2, "packed")
+    _check_ndim(scales, 2, "scales")
+    if packed.dtype != torch.uint8:
+        raise ValueError(f"packed s4 codes must be uint8, got {packed.dtype}")
+    if scales.dtype != torch.float32 or scales.shape[0] != packed.shape[0]:
+        raise ValueError(
+            f"scales must be float32 with one row per code row, got "
+            f"{tuple(scales.shape)} {scales.dtype} for codes {tuple(packed.shape)}"
+        )
+    if d < 0 or (d and (2 * packed.shape[1] < d or scales.shape[1] * block < d)):
+        raise ValueError(
+            f"{packed.shape[1]} packed bytes and {scales.shape[1]} scales of block {block} "
+            f"do not cover d={d}"
+        )
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtype}")
+
+
+def decode_rows_s4(
+    packed: torch.Tensor, scales: torch.Tensor, *, block: int, d: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Decode of packed s4 rows (B17): ``(nibble - 8) * scale`` per block of
+    ``block`` coordinates, the first ``d`` of each row, as ``(rows, d)`` in
+    ``dtype`` (f32, bf16 or f16): the f32 product rounded once, NaN
+    canonical. A capacity row (zero bytes, zero scales) decodes to -0.0. An
+    empty input launches nothing."""
+    _check_decode_s4(packed, scales, block, d, dtype)
+    if _on_cpu(packed, scales):
+        return decode_rows_s4_plain(packed, scales, block=block, d=d, dtype=dtype)
+    if not (packed.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("CUDA kernels take contiguous tensors")
+    rows = packed.shape[0]
+    out = torch.empty((rows, d), dtype=dtype, device=packed.device)
+    if rows == 0 or d == 0:
+        return out
+    with torch.cuda.device(packed.device):
+        _call("byz_dequantize_s4", packed.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, d,
+              packed.shape[1], block, scales.shape[1], _DTYPE_CODES[dtype], _stream(packed))
+    launch_counts["dequantize:s4"] += 1
+    return out
+
+
+def s4_values(packed: torch.Tensor) -> torch.Tensor:
+    """The code values ``nibble - 8`` of packed s4 rows, ``(rows, 2 *
+    ncodes)`` f32, before their scales."""
+    nib = torch.stack([packed & 0xF, packed >> 4], dim=-1).reshape(packed.shape[0], -1)
+    return nib.float() - 8.0
+
+
+def decode_rows_s4_plain(
+    packed: torch.Tensor, scales: torch.Tensor, *, block: int, d: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`decode_rows_s4` (the reference's
+    ``_dequantize_s4_xla``: the same one product a value)."""
+    vals = s4_values(packed)[:, :d]
+    scale = torch.repeat_interleave(scales, block, dim=1)[:, :d]
+    return canonical_nan((vals * scale).to(dtype))
+
+
+def decode_wire_rows_plain(
+    codes: torch.Tensor, scales: torch.Tensor, *, mode: str, block: int, d: int
+) -> torch.Tensor:
+    """Plain f32 decode of wire rows in any coded mode (B14's or B17's
+    plain version): the rows B12 contracts."""
+    if mode == "s4":
+        return decode_rows_s4_plain(codes, scales, block=block, d=d)
+    return decode_rows_plain(from_wire(codes, mode), scales, block=block)[:, :d]
 
 
 __all__ = [
@@ -235,7 +374,14 @@ __all__ = [
     "codes_from_ratios",
     "decode_rows",
     "decode_rows_plain",
+    "decode_rows_s4",
+    "decode_rows_s4_plain",
+    "decode_wire_rows_plain",
     "encode_rows",
     "encode_rows_plain",
+    "encode_rows_s4",
+    "encode_rows_s4_plain",
     "from_wire",
+    "pack_s4",
+    "s4_values",
 ]

@@ -37,9 +37,12 @@ Kernels (TPU kernel they replace -> CUDA source):
 * B11 ``segment_sum``: ``_ragged_segment_sum_kernel`` (:1840) ->
   ``csrc/segment_sum.cu``, beside ``row_sq_dists``, the masked family's
   per-row reduction (no Pallas kernel: it stands in for a plain XLA
-  reduce whose bits must not depend on the number of rows).
+  reduce whose bits must not depend on the number of rows);
+* B12 ``segment_sum_dequant``: ``_ragged_segment_sum_dequant_kernel``
+  (:1973) -> ``csrc/segment_sum.cu``: B11 over wire codes, decoded as
+  B14 and B17 decode them (``csrc/codec.cuh``).
 
-The codec kernels B13-B15 (``parallel/quantization.py``) have their
+The codec kernels B13-B17 (``parallel/quantization.py``) have their
 wrappers in ``ops/codec_kernels.py``; their launch counters live in this
 module's :data:`launch_counts` with the others.
 
@@ -104,10 +107,17 @@ launch_counts = {
     "quantize:fp8_e5m2": 0,
     "dequantize:int8": 0,
     "dequantize:fp8": 0,
+    "quantize:s4": 0,
+    "dequantize:s4": 0,
     # the masked family's kernels
     "sort_columns": 0,
     "segment_sum": 0,
     "row_sq_dists": 0,
+    # the ragged door's fused-dequant contraction, by wire mode
+    "segment_sum_dequant:int8": 0,
+    "segment_sum_dequant:fp8": 0,
+    "segment_sum_dequant:fp8_e5m2": 0,
+    "segment_sum_dequant:s4": 0,
 }
 
 
@@ -1169,6 +1179,10 @@ def _check_segment(x: torch.Tensor, w: torch.Tensor, fill) -> None:
         raise ValueError(
             f"w must be (C, {x.shape[0]}) float32, got {tuple(w.shape)} {w.dtype}"
         )
+    _check_fill(fill)
+
+
+def _check_fill(fill) -> None:
     if isinstance(fill, torch.Tensor) and (fill.numel() != 1 or fill.dtype != torch.int32):
         raise ValueError(f"fill must be one int32, got {tuple(fill.shape)} {fill.dtype}")
 
@@ -1235,6 +1249,97 @@ def segment_sum_plain(x: torch.Tensor, w: torch.Tensor, *, fill=None) -> torch.T
     for r in range(rows):
         acc = fma_f32(w[:, r:r + 1], x[r:r + 1].float(), acc)
     return canonical_nan(acc.to(x.dtype))
+
+
+def segment_sum_dequant(
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    mode: str,
+    block: int,
+    d: int,
+    fill=None,
+    row_weights=None,
+) -> torch.Tensor:
+    """:func:`segment_sum` over still-coded wire rows (B12; ref
+    ``pallas_kernels.ragged_segment_sum_dequant_pallas``): ``out[c] =
+    sum_r w[c, r] x_r`` as ``(C, d)`` float32, where ``x_r`` is row ``r`` of
+    ``codes: (R, ncodes)`` (int8 codes, fp8 bit patterns as uint8 or as
+    their dtype, or packed s4 nibbles) times its block's scale in
+    ``scales: (R, nb)`` float32, rounded once, then, with ``row_weights``
+    (an ``(R,)`` float32 staleness discount), times ``row_weights[r]``,
+    rounded once. One fused multiply-add chain per output over rows ``0 ..
+    fill - 1`` in index order from +0.0: B11 on the decoded (and scaled)
+    rows, bit for bit, without the ``(R, d)`` matrix. ``fill`` as in
+    :func:`segment_sum`."""
+    from . import codec_kernels as ck
+
+    if mode not in ck.WIRE_CODES:
+        raise ValueError(f"no wire row codec for mode {mode!r}")
+    codes = ck.from_wire(codes, mode)
+    _check_ndim(codes, 2, "codes")
+    _check_ndim(scales, 2, "scales")
+    _check_ndim(w, 2, "w")
+    R, ncodes = codes.shape
+    nb = scales.shape[1]
+    if scales.dtype != torch.float32 or scales.shape[0] != R:
+        raise ValueError(f"scales must be ({R}, nb) float32, got {tuple(scales.shape)} {scales.dtype}")
+    if w.dtype != torch.float32 or w.shape[1] != R:
+        raise ValueError(f"w must be (C, {R}) float32, got {tuple(w.shape)} {w.dtype}")
+    if row_weights is not None and (tuple(row_weights.shape) != (R,)
+                                    or row_weights.dtype != torch.float32):
+        raise ValueError(f"row_weights must be ({R},) float32, got {tuple(row_weights.shape)}")
+    if not isinstance(block, int) or block <= 0 or (mode == "s4" and block % 2):
+        raise ValueError(f"block must be a positive int (even for s4), got {block!r}")
+    if d and (nb * block < d or (2 * ncodes if mode == "s4" else ncodes) < d):
+        raise ValueError(f"codes ({ncodes}) and {nb} scales of block {block} do not cover d={d}")
+    _check_fill(fill)
+    fill_t = fill if isinstance(fill, torch.Tensor) else None
+    extra = tuple(t for t in (fill_t, row_weights) if t is not None)
+    if _on_cpu(codes, scales, w, *extra):
+        return segment_sum_dequant_plain(codes, scales, w, mode=mode, block=block, d=d, fill=fill,
+                                         row_weights=row_weights)
+    if not all(t.is_contiguous() for t in (codes, scales, w, *extra)):
+        raise ValueError("CUDA kernels take contiguous tensors")
+    C = w.shape[0]
+    if C > 65535:
+        raise NotImplementedError(f"C={C} cohorts exceed the kernel's grid (65,535)")
+    out = torch.empty((C, d), dtype=torch.float32, device=codes.device)
+    if out.numel() == 0:
+        return out
+    fill_host = R if fill is None else (0 if fill_t is not None else int(fill))
+    with torch.cuda.device(codes.device):
+        _call(
+            "byz_segment_sum_dequant", codes.data_ptr(), scales.data_ptr(), w.data_ptr(),
+            None if row_weights is None else row_weights.data_ptr(),
+            None if fill_t is None else fill_t.data_ptr(), fill_host, out.data_ptr(), C, R, d,
+            ncodes, nb, block, ck.WIRE_CODES[mode], _stream(codes),
+        )
+    launch_counts[f"segment_sum_dequant:{mode}"] += 1
+    return out
+
+
+def segment_sum_dequant_plain(
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    mode: str,
+    block: int,
+    d: int,
+    fill=None,
+    row_weights=None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_sum_dequant`: the plain
+    decode (B14's or B17's), the rows times ``row_weights``, then
+    :func:`segment_sum_plain`."""
+    from .codec_kernels import decode_wire_rows_plain
+
+    x = decode_wire_rows_plain(codes, scales, mode=mode, block=block, d=d)
+    if row_weights is not None:
+        x = x * row_weights[:, None]
+    return segment_sum_plain(x, w, fill=fill)
 
 
 def row_sq_dists(x: torch.Tensor, z=None) -> torch.Tensor:
@@ -1321,6 +1426,8 @@ __all__ = [
     "row_sq_dists",
     "row_sq_dists_plain",
     "segment_sum",
+    "segment_sum_dequant",
+    "segment_sum_dequant_plain",
     "segment_sum_plain",
     "selection_mean_from_gram",
     "selection_mean_from_gram_plain",

@@ -623,8 +623,11 @@ def _masked_sorted(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _masked_rows_at(s: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Row ``pos`` (a device scalar) of the sorted matrix ``s``."""
-    return s.index_select(0, pos.reshape(1))[0]
+    """Row ``pos`` (a device scalar) of the sorted matrix ``s``, the
+    position clamped into it as a JAX gather clamps: an empty cohort (a
+    ragged batch's padding cohort, whose output is discarded) reads row 0
+    instead of faulting."""
+    return s.index_select(0, torch.clamp(pos, 0, s.shape[0] - 1).reshape(1))[0]
 
 
 def _masked_mid_rows(s: torch.Tensor, m: torch.Tensor) -> tuple:
@@ -675,7 +678,9 @@ def masked_mean_of_medians(x: torch.Tensor, valid: torch.Tensor, *, f: int) -> t
     med = torch.where(single, s_lo, s_lo * 0.5 + s_hi * 0.5)
     med = torch.where(_nan_columns(x, valid), nan, med)
     starts = s[: f + 1]
-    end_pos = (torch.arange(f + 1, device=x.device)[:, None] + (k - 1)).expand(f + 1, d)
+    # clamped as a JAX gather clamps (an empty padding cohort has k < 1)
+    end_pos = torch.clamp(torch.arange(f + 1, device=x.device)[:, None] + (k - 1), 0, n - 1)
+    end_pos = end_pos.expand(f + 1, d)
     ends = torch.gather(s, 0, end_pos)
     # torch.maximum / torch.amin keep NaN, as jnp.maximum / jnp.min do
     radius = torch.maximum(med[None, :] - starts, ends - med[None, :])

@@ -2,7 +2,14 @@
 
 from .collectives import reshard_q, reshard_q_ef
 from .gossip import GossipStepConfig, build_gossip_train_step
-from .ps import PSStepConfig, SGD, build_ps_train_step, build_serving_ps_step, default_optimizer
+from .ps import (
+    PSStepConfig,
+    SGD,
+    build_ps_train_step,
+    build_ragged_serving_ps_step,
+    build_serving_ps_step,
+    default_optimizer,
+)
 from .quantization import (
     DEFAULT_BLOCK,
     SUB_INT8_MODES,
@@ -28,6 +35,7 @@ __all__ = [
     "as_comm_precision",
     "build_gossip_train_step",
     "build_ps_train_step",
+    "build_ragged_serving_ps_step",
     "build_serving_ps_step",
     "default_optimizer",
     "dequantize_blockwise",

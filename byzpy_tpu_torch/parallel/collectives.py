@@ -53,7 +53,7 @@ def reshard_q(
     """The compressed reshard on one card: ``x`` itself when ``precision``
     is off or ``None``, its bf16 round trip for ``bf16``, else
     ``decode(encode(x))`` of the blockwise codec (int8: B13 + B14; fp8:
-    B15 + B14), in ``x``'s dtype. ``src`` and ``dst`` must be ``None``."""
+    B15 + B14; s4: B16 + B17), in ``x``'s dtype. ``src`` and ``dst`` must be ``None``."""
     _single_card(src, dst)
     p = as_comm_precision(precision)
     if not p.enabled:

@@ -10,7 +10,8 @@ encodes and decodes. One step:
    ``torch.func.grad_and_value`` of the loss (the JAX ``vmap`` at :403);
 2. with ``comm_precision`` on, every node's raw gradient row, byzantine
    nodes' too, crosses the compressed wire hop (``collectives.reshard_q``,
-   :404-422): int8 through B13 + B14, fp8 through B15 + B14;
+   :404-422): int8 through B13 + B14, fp8 through B15 + B14, s4 through
+   B16 + B17;
 3. the byzantine rows: the attack, run on the (decoded) honest rows,
    replaces the last ``n_byzantine`` rows of the ``(n, d)`` matrix (:345);
 4. the optional ``pre_aggregate`` hook, then ``aggregate(matrix)`` (:441);
@@ -21,7 +22,9 @@ The step is a pure function of its inputs, like the JAX one: parameters
 and optimizer state are returned anew, never updated in place.
 
 ``build_serving_ps_step`` is the serving tier's bucketed update (ref
-``ps.py:504``): it takes a padded cohort instead of computing gradients.
+``ps.py:504``): it takes a padded cohort instead of computing gradients;
+``build_ragged_serving_ps_step`` (ref ``ps.py:585``) takes the same
+cohort in the ragged door's flat-rows layout.
 """
 
 from __future__ import annotations
@@ -34,13 +37,18 @@ from torch.func import grad_and_value, vmap
 from torch.profiler import record_function
 
 from ..models.bundle import ModelBundle, Params
+from ..ops import kernels
+from ..ops import ragged as ragged_ops
 from ..utils.trees import ravel_fn
 from .collectives import reshard_q, reshard_q_ef
-from .quantization import _S4_MISSING, as_comm_precision
+from .quantization import as_comm_precision
 
 AggFn = Callable[[torch.Tensor], torch.Tensor]      # (n, d) -> (d,)
 # (bucket, d), (bucket,) bool -> (d,)
 MaskedAggFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# (flat, seg, offsets, lengths, *, n_cohorts, segment_sum) -> (aggregates,
+# scores, keep): an Aggregator.ragged_matrix_fn()
+RaggedAggFn = Callable[..., Tuple[torch.Tensor, Any, Any]]
 PreAggFn = Callable[[torch.Tensor], torch.Tensor]   # (n, d) -> (m, d)
 # attack: (honest (h, d), generator) -> (n_byz, d) or (d,)
 AttackFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
@@ -107,7 +115,7 @@ def build_ps_train_step(
     ``n_byzantine > 0`` and no attack, byzantine rows echo honest rows.
 
     ``comm_precision`` (``None``/``"off"``/``"bf16"``/``"int8"``/``"fp8"``/
-    ``"fp8_e5m2"`` or a :class:`~byzpy_tpu_torch.parallel.quantization.CommPrecision`)
+    ``"fp8_e5m2"``/``"s4"`` or a :class:`~byzpy_tpu_torch.parallel.quantization.CommPrecision`)
     compresses the gradient hop. This is the reference's round on a
     one-device mesh: the node -> feature transpose moves nothing, but
     every raw row is encoded and decoded, and the attack and the
@@ -116,13 +124,10 @@ def build_ps_train_step(
     the round carries each node's quantization residual: ``opt_state0``
     becomes ``(base_opt_state, {"transpose": zeros(n, d)})``, the step
     returns the new residual in the same slot, and the metrics gain
-    ``ef_transpose_norm``. ``s4`` raises ``NotImplementedError`` here
-    (ROADMAP B16/B17). The reference's ``param_gather_precision``
+    ``ef_transpose_norm``. The reference's ``param_gather_precision``
     and sharded update need a mesh (ROADMAP A.7)."""
     opt = default_optimizer(cfg)
     comm = as_comm_precision(comm_precision)
-    if comm.mode == "s4":
-        raise NotImplementedError(_S4_MISSING)
     ef = comm.enabled and comm.error_feedback
     ravel, unravel = ravel_fn(bundle.params)
     names = list(bundle.params)
@@ -233,13 +238,80 @@ def build_serving_ps_step(
     return step, opt.init(ravel(bundle.params))
 
 
+def build_ragged_serving_ps_step(
+    bundle: ModelBundle,
+    ragged_aggregate: RaggedAggFn,
+    *,
+    row_capacity: int,
+    optimizer: Any = None,
+    learning_rate: float = 0.05,
+    momentum: float = 0.9,
+    mesh: Any = None,
+) -> Tuple[Callable, Any]:
+    """The serving update step over the ragged door's flat-rows layout (ref
+    ``ps.py:585``), the ladder-free twin of :func:`build_serving_ps_step`.
+
+    ``step(params, opt_state, flat, offsets, lengths, weights) -> (params,
+    opt_state, metrics)`` consumes one cohort as ``flat: (row_capacity,
+    d)`` float32 (the cohort's rows first, zero rows after), ``offsets`` /
+    ``lengths``: ``(1,)`` int32 (the cohort's placement, on the device, so
+    the cohort size is data) and ``weights``: ``(row_capacity,)`` float32
+    staleness discounts (0 for capacity rows), all on the parameters'
+    device. It scales the rows, derives the segment ids and the fill on the
+    device (``ops.ragged.segment_ids``), aggregates with
+    ``ragged_aggregate`` (an ``Aggregator.ragged_matrix_fn()``, its row
+    contractions B11 bounded by the fill) and steps SGD with momentum. No
+    value is read on the host (the geometric median's Weiszfeld loop
+    excepted). The per-cohort contract of the ragged programs makes the
+    step's parameters bit for bit :func:`build_serving_ps_step`'s on the
+    same cohort in its bucket. The metrics are ``agg_grad_norm`` and
+    ``cohort_m``, device scalars; the stages run under the profiler ranges
+    ``serving.ragged_scale``, ``serving.ragged_aggregate`` and
+    ``serving.opt_update``.
+
+    Preconditions as in the bucketed step: an admissible cohort of finite
+    rows. ``optimizer=`` and ``mesh=`` raise ``NotImplementedError``. The
+    reference's jitted wrapper (``jit_ragged_serving_ps_step``) has no
+    counterpart: PyTorch runs eagerly. Returns ``(step, opt_state0)``."""
+    if optimizer is not None:
+        raise NotImplementedError("optimizer=: only the built-in SGD with momentum is ported")
+    if mesh is not None:
+        raise NotImplementedError("mesh=: the feature-sharded serving step is not ported")
+    opt = SGD(learning_rate, momentum=momentum)
+    ravel, unravel = ravel_fn(bundle.params)
+    param_dtype = ravel(bundle.params).dtype
+    rows = int(row_capacity)
+
+    def step(params: Params, opt_state, flat, offsets, lengths, weights):
+        with record_function("serving.ragged_scale"):
+            flat = flat * weights[:, None].to(flat.dtype)
+        seg = ragged_ops.segment_ids(offsets, lengths, rows, 1)
+        fill = (offsets[:1] + lengths[:1]).to(torch.int32)
+
+        def segment_sum(x, w):
+            return kernels.segment_sum(x, w, fill=fill)
+
+        with record_function("serving.ragged_aggregate"):
+            aggs, _, _ = ragged_aggregate(flat, seg, offsets, lengths, n_cohorts=1,
+                                          segment_sum=segment_sum)
+            agg = aggs[0].to(param_dtype)
+        with record_function("serving.opt_update"):
+            new_flat, opt_state = opt.step(ravel(params), agg, opt_state)
+        metrics = {"agg_grad_norm": torch.sqrt(torch.sum(agg * agg)), "cohort_m": lengths[0]}
+        return unravel(new_flat), opt_state, metrics
+
+    return step, opt.init(ravel(bundle.params))
+
+
 __all__ = [
     "AggFn",
     "AttackFn",
     "MaskedAggFn",
     "PSStepConfig",
+    "RaggedAggFn",
     "SGD",
     "build_ps_train_step",
+    "build_ragged_serving_ps_step",
     "build_serving_ps_step",
     "default_optimizer",
 ]

@@ -7,22 +7,22 @@ defaults, error contract and error messages:
   wire-precision switch plus the ``error_feedback`` flag, threaded
   through the PS round (:mod:`.ps`) and the gossip round (:mod:`.gossip`);
 * :func:`quantize_blockwise` (int8, B13) and :func:`encode_blockwise`
-  (int8 -> B13, fp8 / fp8_e5m2 -> B15): one f32 scale per ``block``
-  trailing-axis values, the codes in the input's shape;
+  (int8 -> B13, fp8 / fp8_e5m2 -> B15, s4 -> B16): one f32 scale per
+  ``block`` trailing-axis values, the codes in the input's shape (s4: two
+  4-bit codes a byte over the block-padded trailing axis, ``orig_d`` the
+  unpacked length);
 * :func:`dequantize_blockwise` and :func:`dequantize_rows` (B14, int8
-  codes or fp8 values);
+  codes or fp8 values; B17, packed s4);
 * :func:`ef_encode` (error feedback) and :func:`quantization_error_bound`.
 
 Dispatch goes by device: a CUDA tensor launches the kernels of
 ``ops/codec_kernels.py``, a CPU tensor takes their plain versions. The
 reference's TPU knobs (``use_pallas``, ``tile``, ``interpret``, the
-autotuned tile) have no counterpart. Stochastic rounding is plain
-PyTorch on both devices, as it is XLA-only in the reference; its uniform
-draws come from a ``torch.Generator`` (``generator=``) or are passed in
-(``u=``), since a JAX ``key`` cannot be reproduced.
-
-The packed 4-bit mode ``s4`` has no kernel yet (ROADMAP B16/B17): every
-encode or decode of it raises ``NotImplementedError``, on both devices.
+autotuned tile) have no counterpart. Stochastic rounding (int8 and s4)
+is plain PyTorch on both devices, as it is XLA-only in the reference
+(``use_pallas and not p.stochastic``); its uniform draws come from a
+``torch.Generator`` (``generator=``) or are passed in (``u=``), since a
+JAX ``key`` cannot be reproduced.
 
 Error contract: round-to-nearest blockwise int8 reconstructs every value
 within ``absmax(block) / 254``; stochastic rounding is unbiased.
@@ -53,11 +53,6 @@ SUB_INT8_MODES = ("fp8", "fp8_e5m2", "s4")
 #: (the direct cast's bound, absmax / 28 and / 14, is tighter).
 _ERROR_DIVISOR = {"int8": 254.0, "s4": 14.0, "fp8": 27.7, "fp8_e5m2": 13.9}
 
-_S4_MISSING = (
-    "the s4 codec (4-bit codes, two a byte) has no CUDA kernel in "
-    "byzpy_tpu_torch yet: ROADMAP B16/B17"
-)
-
 
 @dataclass(frozen=True)
 class CommPrecision:
@@ -66,7 +61,7 @@ class CommPrecision:
     ``mode`` is ``"off"`` (f32 wire, bit-identical to the unquantized
     round), ``"bf16"`` (cast on send), ``"int8"`` (blockwise symmetric
     codes), ``"fp8"``/``"fp8_e5m2"`` (blockwise-scaled float8 e4m3fn /
-    e5m2) or ``"s4"`` (4-bit codes, two a byte; no kernel yet). ``block``
+    e5m2) or ``"s4"`` (4-bit codes, two a byte). ``block``
     is the trailing-axis quantization block; ``stochastic`` selects
     unbiased stochastic rounding (integer codes only; it needs a generator
     or explicit draws at the quantization site). ``error_feedback`` opts
@@ -137,20 +132,22 @@ def as_comm_precision(value: Union[CommPrecision, str, None]) -> CommPrecision:
 
 @dataclass(frozen=True)
 class QuantizedBlocks:
-    """A blockwise-quantized tensor: coded ``values`` (int8 codes, or fp8
-    values, in the source tensor's shape) plus one f32 scale per ``block``
-    trailing-axis values (``scales.shape == values.shape[:-1] +
-    (n_blocks,)``). ``orig_dtype`` names the source dtype as the reference
-    does (``"float32"``, ``"bfloat16"``, ``"float16"``); ``code`` is
-    ``"int8"``, ``"fp8"`` or ``"fp8_e5m2"``. The reference's ``orig_d``
-    (the unpacked length of packed s4 codes) comes with the s4 codec
-    (ROADMAP A.8)."""
+    """A blockwise-quantized tensor: coded ``values`` plus one f32 scale
+    per ``block`` trailing-axis values (``scales.shape ==
+    values.shape[:-1] + (n_blocks,)``). ``code`` is ``"int8"`` or
+    ``"fp8"``/``"fp8_e5m2"`` (codes or fp8 values in the source tensor's
+    shape) or ``"s4"`` (two 4-bit codes a uint8 byte: the trailing axis is
+    half the block-padded source length, and ``orig_d`` records the
+    unpacked trailing length so decode can trim the padding; ``-1`` for the
+    unpacked codes). ``orig_dtype`` names the source dtype as the reference
+    does (``"float32"``, ``"bfloat16"``, ``"float16"``)."""
 
     values: torch.Tensor
     scales: torch.Tensor
     block: int = DEFAULT_BLOCK
     orig_dtype: str = "float32"
     code: str = "int8"
+    orig_d: int = -1
 
     def dequantize(self, dtype=None) -> torch.Tensor:
         """Reconstruct the (lossy) tensor; see :func:`dequantize_blockwise`."""
@@ -180,7 +177,7 @@ def _rows_view(shape) -> Tuple[int, int]:
     return rows, d
 
 
-def _stochastic_codes(
+def _stochastic_ratios(
     x2d: torch.Tensor,
     *,
     block: int,
@@ -188,9 +185,9 @@ def _stochastic_codes(
     generator: Optional[torch.Generator],
     u: Optional[torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Unbiased stochastic rounding (reference :368-373): ``floor(y + u)``
-    with ``u`` uniform in [0, 1) over the padded ``(rows, nb, block)``
-    grid, plain PyTorch on either device."""
+    """Unbiased stochastic rounding (reference :368-373, :451-453):
+    ``(floor(y + u), scales)`` with ``u`` uniform in [0, 1) over the padded
+    ``(rows, nb, block)`` grid, plain PyTorch on either device."""
     y, scales = ck.block_scales_and_ratios(x2d, block=block, mode=mode)
     if u is None:
         u = torch.rand(y.shape, generator=generator, dtype=torch.float32,
@@ -200,8 +197,7 @@ def _stochastic_codes(
             f"u must hold one draw per padded block value ({tuple(y.shape)}), "
             f"got {tuple(u.shape)}"
         )
-    q = torch.floor(y + u.reshape(y.shape).to(device=y.device, dtype=torch.float32))
-    return ck.codes_from_ratios(q, mode=mode, d=x2d.shape[1], rounded=True), scales
+    return torch.floor(y + u.reshape(y.shape).to(device=y.device, dtype=torch.float32)), scales
 
 
 def quantize_blockwise(
@@ -238,7 +234,8 @@ def quantize_blockwise(
         )
     x2d = x.reshape(rows, d)
     if stochastic:
-        values, scales = _stochastic_codes(x2d, block=block, mode="int8", generator=generator, u=u)
+        q, scales = _stochastic_ratios(x2d, block=block, mode="int8", generator=generator, u=u)
+        values = ck.codes_from_ratios(q, mode="int8", d=d, rounded=True)
     else:
         values, scales = ck.encode_rows(x2d.contiguous(), block=block, mode="int8")
     nb = scales.shape[-1]
@@ -249,12 +246,12 @@ def quantize_blockwise(
 
 def dequantize_blockwise(q: QuantizedBlocks, *, dtype=None) -> torch.Tensor:
     """Reconstruct the tensor a :class:`QuantizedBlocks` approximates
-    (``values * scale`` per trailing-axis block, B14 on the card), in
-    ``dtype`` (default: the dtype recorded at quantization). int8 codes and
-    fp8 values share the kernel; s4 raises ``NotImplementedError``."""
-    if q.code == "s4":
-        raise NotImplementedError(_S4_MISSING)
+    (``values * scale`` per trailing-axis block, B14 on the card; packed s4
+    unpacks its nibbles first, B17), in ``dtype`` (default: the dtype
+    recorded at quantization)."""
     out_dtype = _as_dtype(dtype if dtype is not None else q.orig_dtype)
+    if q.code == "s4":
+        return _dequantize_s4(q, out_dtype)
     shape = tuple(q.values.shape)
     rows, d = _rows_view(shape)
     if d == 0 or rows == 0:
@@ -262,6 +259,20 @@ def dequantize_blockwise(q: QuantizedBlocks, *, dtype=None) -> torch.Tensor:
     v2d = q.values.reshape(rows, d).contiguous()
     s2d = q.scales.reshape(rows, -1).contiguous()
     return ck.decode_rows(v2d, s2d, block=q.block, dtype=out_dtype).reshape(shape)
+
+
+def _dequantize_s4(q: QuantizedBlocks, dtype: torch.dtype) -> torch.Tensor:
+    """Unpack and rescale an s4 :class:`QuantizedBlocks` (reference :780):
+    ``q.orig_d`` is the unpacked trailing length."""
+    lead = tuple(q.values.shape[:-1])
+    packed_d = q.values.shape[-1] if q.values.ndim else 0
+    d = q.orig_d if q.orig_d >= 0 else packed_d * 2
+    rows, _ = _rows_view((*lead, packed_d))
+    if d == 0 or rows == 0:
+        return torch.zeros((*lead, d), dtype=dtype, device=q.values.device)
+    v2d = q.values.reshape(rows, packed_d).contiguous()
+    s2d = q.scales.reshape(rows, -1).contiguous()
+    return ck.decode_rows_s4(v2d, s2d, block=q.block, d=d, dtype=dtype).reshape(*lead, d)
 
 
 def encode_blockwise(
@@ -273,8 +284,9 @@ def encode_blockwise(
 ) -> QuantizedBlocks:
     """Blockwise encode under any coded :class:`CommPrecision` mode:
     ``int8`` is :func:`quantize_blockwise` (B13), ``fp8``/``fp8_e5m2`` the
-    blockwise-scaled fp8 codec (B15), ``s4`` raises
-    ``NotImplementedError``. Same non-finite guards as int8."""
+    blockwise-scaled fp8 codec (B15), ``s4`` the packed 4-bit codec (B16;
+    a stochastic s4 encode is plain PyTorch on both devices, as in the
+    reference). Same non-finite guards as int8."""
     p = as_comm_precision(precision)
     if not p.blockwise:
         raise ValueError(
@@ -290,18 +302,31 @@ def encode_blockwise(
             "stochastic rounding is integer-code only (int8/s4); fp8 "
             "rounds to nearest in the format's own grid"
         )
-    if p.mode == "s4":
-        raise NotImplementedError(_S4_MISSING)
+    s4 = p.mode == "s4"
+    if p.stochastic and generator is None and u is None:
+        raise ValueError(
+            "stochastic rounding needs an explicit PRNG key: pass generator= or u="
+        )
     orig_shape = tuple(x.shape)
     orig_dtype = _dtype_name(x.dtype)
     rows, d = _rows_view(orig_shape)
+    orig_d = d if s4 else -1
     if d == 0 or rows == 0:
+        values = (torch.zeros((*orig_shape[:-1], 0), dtype=torch.uint8, device=x.device) if s4
+                  else torch.zeros(orig_shape, dtype=ck.code_dtype(p.mode), device=x.device))
         return QuantizedBlocks(
-            torch.zeros(orig_shape, dtype=ck.code_dtype(p.mode), device=x.device),
+            values,
             torch.zeros((*orig_shape[:-1], 0), dtype=torch.float32, device=x.device),
-            p.block, orig_dtype, p.mode,
+            p.block, orig_dtype, p.mode, orig_d,
         )
-    values, scales = ck.encode_rows(x.reshape(rows, d).contiguous(), block=p.block, mode=p.mode)
+    x2d = x.reshape(rows, d).contiguous()
+    if s4 and p.stochastic:
+        q, scales = _stochastic_ratios(x2d, block=p.block, mode="s4", generator=generator, u=u)
+        values = ck.pack_s4(q)
+    elif s4:
+        values, scales = ck.encode_rows_s4(x2d, block=p.block)
+    else:
+        values, scales = ck.encode_rows(x2d, block=p.block, mode=p.mode)
     # the reference's reshape (:904): a 0-d input keeps a trailing axis of 1
     return QuantizedBlocks(
         values.reshape(*orig_shape[:-1], values.shape[-1]),
@@ -309,6 +334,7 @@ def encode_blockwise(
         p.block,
         orig_dtype,
         p.mode,
+        orig_d,
     )
 
 
@@ -341,12 +367,13 @@ def dequantize_rows(
 ) -> torch.Tensor:
     """Row-batched dequantization of wire-layout codes: ``codes: (rows,
     ncodes)`` as the wire carries them (int8 codes for ``int8``, uint8 fp8
-    bit patterns for ``fp8``/``fp8_e5m2``) and ``scales: (rows, nb)`` f32,
-    through B14 on the card. ``d`` is the decoded trailing length (packed
-    s4 needs it; it equals ``ncodes`` otherwise); s4 raises
-    ``NotImplementedError``."""
+    bit patterns for ``fp8``/``fp8_e5m2``, packed nibbles, ``nb * block /
+    2`` bytes, for ``s4``) and ``scales: (rows, nb)`` f32, through B14 (B17
+    for s4) on the card. ``d`` is the decoded trailing length (packed s4
+    needs it; it equals ``ncodes`` otherwise)."""
     if mode == "s4":
-        raise NotImplementedError(_S4_MISSING)
+        return ck.decode_rows_s4(ck.from_wire(codes, mode), scales, block=block, d=d,
+                                 dtype=_as_dtype(dtype))
     if mode not in ("int8", *ck.FP8_FORMATS):
         raise ValueError(f"no wire row codec for mode {mode!r}")
     return ck.decode_rows(ck.from_wire(codes, mode), scales, block=block, dtype=_as_dtype(dtype))

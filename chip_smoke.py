@@ -21,7 +21,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    decode bitwise, in f32, bf16 and f16, at block 256 and 100, on rows
    holding NaN, +-inf, zero blocks and a partial last block; B11 segment
    sum, B2 column sort and the row reduction beside B11 bitwise, in f32,
-   bf16 and f16, on rows holding NaN and +-inf);
+   bf16 and f16, on rows holding NaN and +-inf; B16 s4 encode and B17 s4
+   decode bitwise in f32, bf16 and f16 at blocks 32-1024, odd d and d not
+   a block multiple, a capacity row decoding to -0.0; B12, the fused-dequant
+   segment sum, bitwise on int8, fp8, fp8_e5m2 and s4 wire rows at C = 1, 4
+   and 16, with and without staleness row weights and with a device fill);
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
    each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
@@ -39,7 +43,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    CPU; 3 more steps run under torch.profiler for the device's busy share
    and kernel breakdown; the same loop runs the compressed wire: the PS
    round with its gradient hop in int8 (trimmed mean), fp8 (Multi-Krum)
-   and int8 with error feedback (median); then (4b) the gossip round on
+   and int8 with error feedback (median), and (l) s4 with error feedback
+   (trimmed mean: exactly one B16, one B17 and one B1 a step); then (4b)
+   the gossip round on
    the complete graph (trimmed mean, off and int8) and on ring(8, 2)
    (median, int8). A compressed configuration makes exactly its listed
    launches per step, its step-1 encode is checked bitwise, and its CPU
@@ -52,12 +58,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and geometric median: exactly their listed launches (B2, B3, B11 and
    the row reduction; never B1, B4, B6 or B7), the padded step bit for bit
    the compacted one, ``CohortAggregator`` the step's aggregate, host
-   reads per step counted;
+   reads per step counted; then (4d) the ragged door: (m)
+   ``build_ragged_serving_ps_step`` on the same cohorts in a flat capacity
+   of 64 (trimmed mean, median and MeaMed through the generic door,
+   Multi-Krum and CGE on their own programs), bit for bit the bucketed step, exactly its launches and no host
+   read a step; (n) ``RaggedExecutor``: one dispatch of four cohorts (6, 13,
+   29, 64 rows in a capacity of 128) of dense, int8, fp8 and s4 client rows
+   (encoded on the card), through Multi-Krum, CGE, the trimmed mean and the
+   median, every cohort bit for bit ``CohortAggregator``'s, the dense
+   program's on the decoded rows and (s4) the CPU port's;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
    exists, a single PyTorch call, with a whole Multi-Krum fold round beside
-   the barrier Multi-Krum, the codecs at block 256, and B2, B11 and the row
-   reduction at the headline and at 64 x 421,642; then the six
+   the barrier Multi-Krum, the codecs at block 256, B2, B11 and the row
+   reduction at the headline and at 64 x 421,642, B16 and B17, B12 at 64 x
+   1,048,576 (C = 1) and 128 x 421,642 (C = 4) beside the unfused decode +
+   B11, and the ragged door's segmented sort beside B2; then the six
    centre-seeking and coordinate aggregators, whole, at ByzPy's grid
    shapes (64 x 65,536).
 
@@ -672,6 +688,108 @@ def check_masked_kernels(errs: dict) -> None:
         f"in {', '.join(DTYPES)}: bitwise equal to plain")
 
 
+# blocks of the s4 codec's checks: 100 is not a multiple of 8, so B16 writes
+# a byte a lane there and a 32-bit word of 4 packed bytes elsewhere
+S4_BLOCKS = (32, 100, 256, 1024)
+WIRE_MODES = ("int8", "fp8", "fp8_e5m2", "s4")
+
+
+def b12_key(mode: str) -> str:
+    """The JSON entry a B12 mode's numbers go to (fp8_e5m2 beside fp8)."""
+    return "segment_sum_dequant:fp8" if mode == "fp8_e5m2" else f"segment_sum_dequant:{mode}"
+
+
+def check_s4_codec(errs: dict) -> None:
+    """B16 (s4 encode) against its plain version, packed codes and scales
+    bitwise, and B17's decode into f32 and the input dtype bitwise, in f32,
+    bf16 and f16, on ``codec_rows``' NaN, +-inf, zero blocks and zero row:
+    at the main path's 8 x 421,642 and an odd 8 x 421,641 (blocks 32, 100,
+    256, 1024; d not a block multiple) and the headline 64 x 1,048,576
+    (block 256). A capacity row (zero bytes and scales) decodes to -0.0."""
+    import torch
+
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+
+    for rows, d, blocks in ((MAIN_N, 421_642, S4_BLOCKS), (MAIN_N, 421_641, S4_BLOCKS),
+                            (*HEADLINE, (256,))):
+        for name in DTYPES:
+            dtype = getattr(torch, name)
+            x = codec_rows(rows, d, 900 + d % 97, dtype)
+            for block in blocks:
+                packed, scales = ck.encode_rows_s4(x, block=block)
+                pp, ps = ck.encode_rows_s4_plain(x, block=block)
+                check(torch.equal(packed, pp) and bits_equal(scales, ps),
+                      f"B16 differs from plain at {(rows, d)} {name} block {block}")
+                errs["quantize:s4"] = max(errs["quantize:s4"], float(
+                    (ck.s4_values(packed) - ck.s4_values(pp)).abs().max()))
+                for out in {torch.float32, dtype}:
+                    dec = ck.decode_rows_s4(packed, scales, block=block, d=d, dtype=out)
+                    ref = ck.decode_rows_s4_plain(packed, scales, block=block, d=d, dtype=out)
+                    check(bits_equal(dec, ref) and bool(torch.isfinite(dec).all()),
+                          f"B17 decode to {out} differs from plain at {(rows, d)} {name} block {block}")
+                    errs["dequantize:s4"] = max(errs["dequantize:s4"], max_abs_err(dec, ref))
+                del packed, scales, pp, ps, dec, ref
+            log(f"  B16/B17 {(rows, d)} {name} blocks {blocks}: packed codes and scales bitwise, "
+                f"decodes bitwise, all finite")
+            del x
+            torch.cuda.empty_cache()
+    zero = ck.decode_rows_s4(torch.zeros((2, 128), dtype=torch.uint8, device="cuda"),
+                             torch.zeros((2, 1), device="cuda"), block=256, d=256)
+    check(bool(torch.signbit(zero).all()) and not bool(zero.any()),
+          "B17: a capacity row does not decode to -0.0")
+    log("  B17: a capacity row (zero bytes, zero scales) decodes to -0.0")
+
+
+def check_segment_sum_dequant(errs: dict) -> None:
+    """B12 against its plain version (the plain decode, the rows times the
+    row weights, B11's plain chain) bit for bit: int8, fp8, fp8_e5m2 and s4
+    wire rows (block 256) of 128 x 421,642 with C = 1, 4 and 16 cohorts,
+    row weights None and stale (every fourth 0.5), and a device fill of 96
+    (the rows past it NaN-scaled, which must not be read); and 64 x
+    1,048,576 at C = 1."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.parallel import CommPrecision, encode_blockwise
+
+    block = 256
+    for R, d, cohorts in ((128, 421_642, (1, 4, 16)), (*HEADLINE, (1,))):
+        x = masked_rows((R, d), 1000 + R, torch.float32, specials=False)
+        omega = torch.where(torch.arange(R, device="cuda") % 4 == 1, 0.5, 1.0)
+        fill = R * 3 // 4
+        for mode in WIRE_MODES:
+            enc = encode_blockwise(x, CommPrecision(mode, block=block))
+            codes = enc.values if mode in ("int8", "s4") else enc.values.view(torch.uint8)
+            bad = enc.scales.clone()
+            bad[fill:] = float("nan")
+            for C in cohorts:
+                w = torch.randn((C, R), generator=torch.Generator(device="cuda").manual_seed(C),
+                                device="cuda")
+                for rw in (None, omega):
+                    out = kernels.segment_sum_dequant(codes, enc.scales, w, mode=mode, block=block,
+                                                      d=d, row_weights=rw)
+                    ref = kernels.segment_sum_dequant_plain(codes, enc.scales, w, mode=mode,
+                                                            block=block, d=d, row_weights=rw)
+                    check(bits_equal(out, ref) and nan_is_canonical(out),
+                          f"B12 {mode} differs from plain at C={C} {(R, d)} row weights "
+                          f"{rw is not None}")
+                    errs[b12_key(mode)] = max(errs[b12_key(mode)], max_abs_err(out, ref))
+                wz = w.clone()
+                wz[:, fill:] = 0
+                want = kernels.segment_sum_dequant_plain(codes, enc.scales, wz, mode=mode,
+                                                         block=block, d=d, row_weights=omega)
+                got = kernels.segment_sum_dequant(
+                    codes, bad, w, mode=mode, block=block, d=d, row_weights=omega,
+                    fill=torch.tensor([fill], dtype=torch.int32, device="cuda"))
+                check(bits_equal(got, want), f"B12 {mode} with a device fill differs at C={C} {(R, d)}")
+                del w, out, ref, wz, want, got
+            del enc, codes, bad
+            torch.cuda.empty_cache()
+        log(f"  B12 {(R, d)}: {', '.join(WIRE_MODES)} at C in {cohorts}, row weights None and stale, "
+            f"bitwise equal to plain; a device fill of {fill} bitwise, the rows past it unread")
+        del x
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -935,10 +1053,13 @@ def main_path(counts: dict) -> dict:
         "h_ps_int8_ef_median": (CommPrecision("int8", error_feedback=True),
                                 {"quantize:int8": 1, "dequantize:int8": 1,
                                  "sorted_reduce:median": 1}),
+        "l_ps_s4_ef_trimmed": (CommPrecision("s4", error_feedback=True),
+                               {"quantize:s4": 1, "dequantize:s4": 1, "sorted_reduce:trimmed": 1}),
     }
     for name, agg in (("f_ps_int8_trimmed", aggregators["trimmed_mean"][1]),
                       ("g_ps_fp8_multi_krum", aggregators["multi_krum"][1]),
-                      ("h_ps_int8_ef_median", robust.coordinate_median)):
+                      ("h_ps_int8_ef_median", robust.coordinate_median),
+                      ("l_ps_s4_ef_trimmed", aggregators["trimmed_mean"][1])):
         aggregators[name] = (None, agg, list(wire[name][1]), None)
     # the loops whose iterations each step reports (robust.last_iterations)
     loops = {"geometric_median": "geometric_median", "caf": "caf"}
@@ -1099,11 +1220,19 @@ def exact_encode(name: str, rows, comm) -> dict:
 
     from byzpy_tpu_torch.ops import codec_kernels as ck
 
-    codes, scales = ck.encode_rows(rows, block=comm.block, mode=comm.mode)
-    pc, ps = ck.encode_rows_plain(rows, block=comm.block, mode=comm.mode)
-    dec = ck.decode_rows(codes, scales, block=comm.block)
+    if comm.mode == "s4":
+        d = rows.shape[1]
+        codes, scales = ck.encode_rows_s4(rows, block=comm.block)
+        pc, ps = ck.encode_rows_s4_plain(rows, block=comm.block)
+        dec = ck.decode_rows_s4(codes, scales, block=comm.block, d=d)
+        ref = ck.decode_rows_s4_plain(pc, ps, block=comm.block, d=d)
+    else:
+        codes, scales = ck.encode_rows(rows, block=comm.block, mode=comm.mode)
+        pc, ps = ck.encode_rows_plain(rows, block=comm.block, mode=comm.mode)
+        dec = ck.decode_rows(codes, scales, block=comm.block)
+        ref = ck.decode_rows_plain(pc, ps, block=comm.block)
     check(torch.equal(codes.view(torch.uint8), pc.view(torch.uint8)) and bits_equal(scales, ps)
-          and bits_equal(dec, ck.decode_rows_plain(pc, ps, block=comm.block)),
+          and bits_equal(dec, ref),
           f"{name}: the card's step-1 encode differs from the plain version's")
     return {"rows": list(rows.shape), "codes_scales_decode_bitwise": True}
 
@@ -1252,6 +1381,37 @@ def serving_configs() -> dict:
     }
 
 
+def cohort_submissions(per_node, names, params, prev, xs, ys, m: int, d: int, s: int):
+    """The serving round's cohort of ``m`` clients at step ``s``: client i's
+    gradient is the port's per-node ``vmap(grad)`` on its own batch; every
+    fourth client (i % 4 == 1) is one round stale (its gradient at the
+    previous round's parameters ``prev``, submitted at round s - 1); every
+    fourth (i % 4 == 3) is byzantine, the sign-flipped mean of the honest
+    rows. Returns ``(submissions, the fresh honest clients' mean loss)``."""
+    import torch
+
+    from byzpy_tpu_torch.ops import attack_ops
+    from byzpy_tpu_torch.serving import Submission
+
+    def rows_at(p, idx):
+        grads, losses = per_node(p, xs[idx], ys[idx])
+        return torch.cat([grads[k].reshape(len(idx), -1) for k in names], dim=1), losses
+
+    fresh = [i for i in range(m) if i % 4 != 1]
+    stale = [i for i in range(m) if i % 4 == 1]
+    rows = torch.empty((m, d), device="cuda")
+    rows[fresh], losses = rows_at(params, fresh)
+    if stale:
+        rows[stale] = rows_at(prev, stale)[0]
+    honest = [i for i in range(m) if i % 4 != 3]
+    byz = [i for i in range(m) if i % 4 == 3]
+    if byz:
+        rows[byz] = attack_ops.sign_flip(rows[honest].mean(dim=0))
+    subs = [Submission(client=f"c{i}", round_submitted=s - (i % 4 == 1), gradient=rows[i],
+                       arrived_s=float(i)) for i in range(m)]
+    return subs, float(losses[[j for j, i in enumerate(fresh) if i % 4 != 3]].mean())
+
+
 def count_syncs(fn):
     """``(fn(), host reads)``: the synchronizing CUDA operations ``fn`` made,
     counted by PyTorch's sync debug mode (one warning each)."""
@@ -1301,11 +1461,9 @@ def serving_path(counts: dict) -> dict:
     from torch.func import grad_and_value, vmap
 
     from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
-    from byzpy_tpu_torch.ops import attack_ops, kernels, robust
+    from byzpy_tpu_torch.ops import kernels, robust
     from byzpy_tpu_torch.parallel import SGD, build_serving_ps_step
-    from byzpy_tpu_torch.serving import (
-        BucketLadder, CohortAggregator, StalenessPolicy, Submission, build_cohort,
-    )
+    from byzpy_tpu_torch.serving import BucketLadder, CohortAggregator, StalenessPolicy, build_cohort
     from byzpy_tpu_torch.utils import ravel_fn
 
     ladder = BucketLadder(SERVE_CAP, min_bucket=SERVE_MIN_BUCKET)
@@ -1326,25 +1484,11 @@ def serving_path(counts: dict) -> dict:
         state = {"params": bundle.params, "prev": bundle.params, "opt": opt0, "s": 0}
         record = []
 
-        def rows_at(params, idx):
-            grads, losses = per_node(params, xs[idx], ys[idx])
-            return torch.cat([grads[k].reshape(len(idx), -1) for k in names], dim=1), losses
-
         def run():
             s = state["s"]
             m = SERVE_COHORTS[s % len(SERVE_COHORTS)]
-            fresh = [i for i in range(m) if i % 4 != 1]
-            stale = [i for i in range(m) if i % 4 == 1]
-            rows = torch.empty((m, d), device="cuda")
-            rows[fresh], losses = rows_at(state["params"], fresh)
-            if stale:
-                rows[stale] = rows_at(state["prev"], stale)[0]
-            honest = [i for i in range(m) if i % 4 != 3]
-            byz = [i for i in range(m) if i % 4 == 3]
-            if byz:
-                rows[byz] = attack_ops.sign_flip(rows[honest].mean(dim=0))
-            subs = [Submission(client=f"c{i}", round_submitted=s - (i % 4 == 1),
-                               gradient=rows[i], arrived_s=float(i)) for i in range(m)]
+            subs, loss = cohort_submissions(per_node, names, state["params"], state["prev"], xs, ys,
+                                            m, d, s)
             cohort = build_cohort(subs, s, ladder, policy)
             inputs = (state["params"], state["opt"], cohort.matrix,
                       torch.from_numpy(cohort.valid).cuda(), torch.from_numpy(cohort.weights).cuda())
@@ -1353,8 +1497,7 @@ def serving_path(counts: dict) -> dict:
             (params, opt, metrics), reads = count_syncs(lambda: step(*inputs))
             torch.cuda.synchronize()
             metrics = dict(metrics, m=m, bucket=cohort.bucket, host_reads=reads,
-                           serve_ms=(time.perf_counter() - t0) * 1e3,
-                           honest_loss=float(losses[[j for j, i in enumerate(fresh) if i % 4 != 3]].mean()),
+                           serve_ms=(time.perf_counter() - t0) * 1e3, honest_loss=loss,
                            iterations=robust.last_iterations["geometric_median"])
             if len(record) < MAIN_STEPS:
                 record.append((inputs, cohort, params, opt, metrics))
@@ -1463,13 +1606,318 @@ def serving_path(counts: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: the ragged door
+# ---------------------------------------------------------------------------
+
+# (m): one cohort a step in a flat capacity of 64 (SERVE_COHORTS' sizes)
+RAGGED_CAP = 64
+# (n): one dispatch of four tenants' cohorts, 112 rows in a capacity of 128
+EXEC_COHORTS = (6, 13, 29, 64)
+EXEC_CAP, EXEC_MAX_COHORTS = 128, 4
+INGRESS = ("dense", "int8", "fp8", "s4")
+DECODE_KEY = {"int8": "dequantize:int8", "fp8": "dequantize:fp8", "s4": "dequantize:s4"}
+
+
+def ragged_step_configs() -> dict:
+    """(m)'s configurations: name -> (class factory of ``device``, the
+    launches one ragged step makes). The sort family and MeaMed take the
+    generic door (the masked program of the one cohort: B2, then B11
+    under the trimmed mean's and MeaMed's windows; the median gathers)."""
+    from byzpy_tpu_torch.aggregators import (
+        ComparativeGradientElimination, CoordinateWiseMedian, CoordinateWiseTrimmedMean,
+        MeanOfMedians, MultiKrum,
+    )
+
+    b = MAIN_BYZ
+    return {
+        "ragged_trimmed_mean": (lambda dev: CoordinateWiseTrimmedMean(b, device=dev),
+                                {"sort_columns": 1, "segment_sum": 1}),
+        "ragged_median": (lambda dev: CoordinateWiseMedian(device=dev), {"sort_columns": 1}),
+        # the shared Gram, the scores' window sum and the mean
+        "ragged_multi_krum": (lambda dev: MultiKrum(b, 4, device=dev), {"gram": 1, "segment_sum": 2}),
+        "ragged_cge": (lambda dev: ComparativeGradientElimination(b, device=dev),
+                       {"row_sq_dists": 1, "segment_sum": 1}),
+        "ragged_meamed": (lambda dev: MeanOfMedians(b, device=dev), {"sort_columns": 1, "segment_sum": 1}),
+    }
+
+
+def ragged_step_path(counts: dict) -> dict:
+    """(m) ``build_ragged_serving_ps_step`` on SmallCNN (d = 421,642): per
+    step the serving round's cohort (``cohort_submissions``: 6, 8, 13, 29,
+    64 clients, every fourth stale, every fourth byzantine) in a flat
+    capacity of 64. Each step makes exactly its listed launches (counts set
+    to 0 just before the ragged step and read just after) and no host read
+    (sync debug mode); its parameters, momentum and gradient norm equal,
+    bit for bit, ``build_serving_ps_step``'s on the same cohort in its
+    bucket (``BucketLadder(64, min_bucket=8)``) from the same state. Then
+    the ragged step alone, replayed on the m = 64 cohort: host ms (median
+    of 5), device ms, launches and busy share (torch.profiler)."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.parallel import build_ragged_serving_ps_step, build_serving_ps_step
+    from byzpy_tpu_torch.serving import BucketLadder, StalenessPolicy, build_cohort
+    from byzpy_tpu_torch.utils import ravel_fn
+
+    ladder = BucketLadder(SERVE_CAP, min_bucket=SERVE_MIN_BUCKET)
+    policy = StalenessPolicy("exponential", gamma=0.5)
+    clients = max(SERVE_COHORTS)
+    x, y = synthetic_classification(n_samples=clients * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = x.reshape(clients, MAIN_BATCH, 28, 28, 1), y.reshape(clients, MAIN_BATCH)
+    results = {}
+    for name, (make, per_step) in ragged_step_configs().items():
+        bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+        agg = make(None)
+        rstep, opt = build_ragged_serving_ps_step(bundle, agg.ragged_matrix_fn(), row_capacity=RAGGED_CAP)
+        bstep, _ = build_serving_ps_step(bundle, agg.masked_matrix_fn())
+        per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+        ravel, _ = ravel_fn(bundle.params)
+        names = list(bundle.params)
+        d = sum(int(v.numel()) for v in bundle.params.values())
+        params = prev = bundle.params
+        steps, losses = [], []
+        for s in range(MAIN_STEPS):
+            m = SERVE_COHORTS[s % len(SERVE_COHORTS)]
+            subs, loss = cohort_submissions(per_node, names, params, prev, xs, ys, m, d, s)
+            cohort = build_cohort(subs, s, None, policy)
+            bucketed = build_cohort(subs, s, ladder, policy)
+            flat = torch.zeros((RAGGED_CAP, d), device="cuda")
+            flat[:m] = cohort.matrix
+            weights = torch.zeros(RAGGED_CAP, device="cuda")
+            weights[:m] = torch.from_numpy(cohort.weights).cuda()
+            inputs = (params, opt, flat, torch.zeros(1, dtype=torch.int32, device="cuda"),
+                      torch.tensor([m], dtype=torch.int32, device="cuda"), weights)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            (p_r, o_r, m_r), reads = count_syncs(lambda: rstep(*inputs))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            run_counts = dict(kernels.launch_counts)
+            for k, v in run_counts.items():
+                check(v == per_step.get(k, 0),
+                      f"{name}: {k} launched {v} times in the step at m={m}, not {per_step.get(k, 0)}")
+                counts[k] += v
+            check(reads == 0, f"{name}: {reads} host reads in the step at m={m}")
+            check(int(m_r["cohort_m"]) == m, f"{name}: cohort_m {int(m_r['cohort_m'])} != {m}")
+            p_b, o_b, m_b = bstep(params, opt, bucketed.matrix, torch.from_numpy(bucketed.valid).cuda(),
+                                  torch.from_numpy(bucketed.weights).cuda())
+            check(bits_equal(ravel(p_r), ravel(p_b)) and bits_equal(o_r["trace"], o_b["trace"])
+                  and bits_equal(m_r["agg_grad_norm"], m_b["agg_grad_norm"]),
+                  f"{name}: the ragged step at m={m} differs from the bucketed step in bucket "
+                  f"{bucketed.bucket}")
+            steps.append({"m": m, "bucket": bucketed.bucket, "ms": round(step_ms, 4), "host_reads": reads})
+            losses.append(loss)
+            prev, params, opt = params, p_r, o_r
+        check(all(map(math.isfinite, losses)), f"{name}: loss not finite {losses}")
+        replay = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rstep(*inputs)
+            torch.cuda.synchronize()
+            replay.append((time.perf_counter() - t0) * 1e3)
+        replay_ms = sorted(replay)[2]
+        profile = profile_steps(lambda: rstep(*inputs))
+        results[name] = {
+            "steps": steps, "launches_per_step": per_step, "losses": losses,
+            "ragged_equals_bucketed_bitwise": True,
+            "step_at_64": {"ms": replay_ms, "profile": profile,
+                           "device_busy_share": profile["device_ms_per_step"] / replay_ms},
+        }
+        log(f"  (m) {name}: steps {steps}, exactly {per_step} a step, 0 host reads, parameters == "
+            f"the bucketed step's bitwise at every cohort; losses {[round(v, 4) for v in losses]}; "
+            f"step at m = 64 {replay_ms:.3f} ms, device {profile['device_ms_per_step']:.4f} ms, busy "
+            f"{results[name]['step_at_64']['device_busy_share']:.3f}")
+        log(f"    profile at m = 64: {json.dumps(profile)}")
+        del bundle, agg, rstep, bstep, inputs, flat
+        torch.cuda.empty_cache()
+    return results
+
+
+def executor_configs() -> dict:
+    """(n)'s aggregators: name -> class factory of ``device``."""
+    from byzpy_tpu_torch.aggregators import (
+        ComparativeGradientElimination, CoordinateWiseMedian, CoordinateWiseTrimmedMean, MultiKrum,
+    )
+
+    b = MAIN_BYZ
+    return {
+        "multi_krum": lambda dev: MultiKrum(b, 4, device=dev),
+        "cge": lambda dev: ComparativeGradientElimination(b, device=dev),
+        "trimmed_mean": lambda dev: CoordinateWiseTrimmedMean(b, device=dev),
+        "median": lambda dev: CoordinateWiseMedian(device=dev),
+    }
+
+
+def executor_launches(name: str, mode: str) -> dict:
+    """The launches one (n) dispatch makes: the decode of a quantized batch,
+    the program's kernels (Multi-Krum's and CGE's contraction over the
+    scaled rows B12 for a quantized batch, else B11; the sort family's
+    generic door one masked program per cohort, B2 and the trimmed mean's
+    B11 each) and the evidence's two row reductions."""
+    q = mode != "dense"
+    final = {f"segment_sum_dequant:{mode}": 1} if q else {"segment_sum": 1}
+    c = len(EXEC_COHORTS)
+    out = {
+        "multi_krum": {"gram": 1, "segment_sum": 1, "row_sq_dists": 2},
+        "cge": {"row_sq_dists": 3},
+        "trimmed_mean": {"sort_columns": c, "segment_sum": c, "row_sq_dists": 2},
+        "median": {"sort_columns": c, "row_sq_dists": 2},
+    }[name]
+    if name in ("multi_krum", "cge"):
+        for k, v in final.items():
+            out[k] = out.get(k, 0) + v
+    if q:
+        out[DECODE_KEY[mode]] = 1
+    return out
+
+
+def ragged_executor_path(counts: dict) -> dict:
+    """(n) ``RaggedExecutor`` (capacity 128, 4 cohorts, evidence on): one
+    dispatch of four tenants' cohorts of 6, 13, 29 and 64 SmallCNN client
+    gradients (each client its own batch of 64 at the initial parameters;
+    every fourth one round stale, every fourth byzantine), for each ingress
+    (dense rows; int8, fp8 and s4 wire rows, each cohort encoded on the card
+    by ``encode_blockwise``, B13, B15, B16: one launch a cohort) and each of
+    Multi-Krum, CGE, the trimmed mean and the median. Each dispatch makes
+    exactly ``executor_launches`` (so a quantized Multi-Krum or CGE dispatch
+    one decode and one B12, and no B11 for its final contraction); every
+    cohort's vector equals, bit for bit, ``CohortAggregator.aggregate`` of
+    that cohort alone and, for a quantized batch, the dense program fed the
+    decoded rows; for s4, the CPU port's executor on the card's inputs gives
+    the same bits. Per configuration: host ms (median of 3 replays), the
+    synchronizing operations of a dispatch (sync debug mode), device ms,
+    launches and busy share (torch.profiler)."""
+    import dataclasses
+
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.engine.actor import wire
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, kernels
+    from byzpy_tpu_torch.parallel import CommPrecision, encode_blockwise
+    from byzpy_tpu_torch.serving import (
+        CohortAggregator, RaggedExecutor, StalenessPolicy, Submission, build_cohort,
+    )
+
+    policy = StalenessPolicy("exponential", gamma=0.5)
+    bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+    per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+    x, y = synthetic_classification(n_samples=sum(EXEC_COHORTS) * MAIN_BATCH, seed=5, device="cuda")
+    xs, ys = x.reshape(-1, MAIN_BATCH, 28, 28, 1), y.reshape(-1, MAIN_BATCH)
+    cohort_rows, first = [], 0
+    for m in EXEC_COHORTS:
+        grads, _ = per_node(bundle.params, xs[first:first + m], ys[first:first + m])
+        rows = torch.cat([grads[k].reshape(m, -1) for k in bundle.params], dim=1)
+        byz = [i for i in range(m) if i % 4 == 3]
+        rows[byz] = attack_ops.sign_flip(rows[[i for i in range(m) if i % 4 != 3]].mean(dim=0))
+        cohort_rows.append(rows)
+        first += m
+    del grads, x, y, xs, ys
+    d = cohort_rows[0].shape[1]
+    tenants = [f"t{k}" for k in range(len(EXEC_COHORTS))]
+    results = {}
+    for mode in INGRESS:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        cohorts = []
+        for k, rows in enumerate(cohort_rows):
+            if mode == "dense":
+                grads = [rows[i] for i in range(rows.shape[0])]
+            else:
+                enc = encode_blockwise(rows, CommPrecision(mode))
+                codes = enc.values if mode in ("int8", "s4") else enc.values.view(torch.uint8)
+                grads = [wire.QuantizedWireArray(mode, codes[i], enc.scales[i], enc.block, (d,), "float32")
+                         for i in range(rows.shape[0])]
+            subs = [Submission(f"{tenants[k]}/c{i}", 4 if i % 4 == 1 else 5, g, float(i))
+                    for i, g in enumerate(grads)]
+            cohorts.append(build_cohort(subs, 5, None, policy, quantized=True))
+        enc_counts = dict(kernels.launch_counts)
+        want = {} if mode == "dense" else {f"quantize:{mode}": len(EXEC_COHORTS)}
+        check(all(v == want.get(k, 0) for k, v in enc_counts.items()),
+              f"(n) {mode}: the clients' encodes launched {enc_counts}, not {want}")
+        check(all(c.quantized == (mode != "dense") for c in cohorts), f"(n) {mode}: cohort layout")
+        for k, v in enc_counts.items():
+            counts[k] += v
+        for name, make in executor_configs().items():
+            agg = make(None)
+            ex = RaggedExecutor(agg, d, EXEC_CAP, EXEC_MAX_COHORTS)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            views, syncs = count_syncs(lambda: ex.aggregate(cohorts, tenants))
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            run_counts = dict(kernels.launch_counts)
+            per = executor_launches(name, mode)
+            for k, v in run_counts.items():
+                check(v == per.get(k, 0), f"(n) {mode} {name}: {k} launched {v} times, not {per.get(k, 0)}")
+                counts[k] += v
+            check(ex.quantized_dispatches == (mode != "dense") and ex.dispatches == 1,
+                  f"(n) {mode} {name}: dispatch counters")
+            # the checks, outside the counted dispatch
+            for view, cohort in zip(views, cohorts):
+                check(bits_equal(view.vector, CohortAggregator(agg).aggregate(cohort)),
+                      f"(n) {mode} {name}: cohort of {cohort.m} differs from CohortAggregator")
+            if mode != "dense":
+                dense = [dataclasses.replace(c, dense=c.matrix, qcodes=None, qscales=None, qmode=None)
+                         for c in cohorts]
+                for view, dv in zip(views, ex.aggregate(dense, tenants)):
+                    check(bits_equal(view.vector, dv.vector),
+                          f"(n) {mode} {name}: differs from the dense program on the decoded rows")
+            cpu_bitwise = None
+            if mode == "s4":
+                on_cpu = [dataclasses.replace(c, dense=None, qcodes=c.qcodes.cpu(), qscales=c.qscales.cpu())
+                          for c in cohorts]
+                cpu_views = RaggedExecutor(make("cpu"), d, EXEC_CAP, EXEC_MAX_COHORTS).aggregate(on_cpu, tenants)
+                for view, cv in zip(views, cpu_views):
+                    check(bits_equal(view.vector.cpu(), cv.vector),
+                          f"(n) {mode} {name}: the CPU port differs on the card's inputs")
+                cpu_bitwise = True
+            replay = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.aggregate(cohorts, tenants)
+                torch.cuda.synchronize()
+                replay.append((time.perf_counter() - t0) * 1e3)
+            host_ms = sorted(replay)[1]
+            profile = profile_steps(lambda: ex.aggregate(cohorts, tenants))
+            key = f"{mode}_{name}"
+            results[key] = {
+                "cohorts": list(EXEC_COHORTS), "launches": per, "syncs_per_dispatch": syncs,
+                "first_dispatch_ms": first_ms, "host_ms": host_ms, "profile": profile,
+                "device_busy_share": profile["device_ms_per_step"] / host_ms,
+                "cohort_aggregator_bitwise": True,
+                "dense_program_on_decoded_rows_bitwise": mode != "dense" or None,
+                "cpu_port_bitwise": cpu_bitwise,
+            }
+            log(f"  (n) {key}: exactly {per}, {syncs} synchronizing operations, every cohort == "
+                f"CohortAggregator bitwise" + ("" if mode == "dense" else
+                                               ", == the dense program on the decoded rows bitwise")
+                + (", == the CPU port bitwise" if cpu_bitwise else "")
+                + f"; dispatch {host_ms:.3f} ms (first {first_ms:.1f}), device "
+                f"{profile['device_ms_per_step']:.4f} ms, busy {results[key]['device_busy_share']:.3f}")
+            log(f"    profile: {json.dumps(profile)}")
+            del views, ex, agg
+        del cohorts
+        torch.cuda.empty_cache()
+    return results
+
+
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
                 "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
                 "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
                 "meamed_kernel", "center_dist_partial_kernel", "center_weights_kernel",
                 "center_sweep_kernel", "quantize_kernel", "dequantize_kernel",
                 "sort_columns_kernel", "segment_sum_kernel", "row_sq_partial_kernel",
-                "row_sq_reduce_kernel")
+                "row_sq_reduce_kernel", "quantize_s4_kernel", "dequantize_s4_kernel",
+                "segment_sum_dequant_kernel")
 
 
 def device_events(prof, calls: int) -> dict:
@@ -2032,6 +2480,122 @@ def codec_entries(times: dict) -> dict:
     }
 
 
+def ragged_kernel_times() -> dict:
+    """B16 and B17 at block 256 on f32 rows at the headline 64 x 1,048,576
+    and the main path's 8 x 421,642; B12 on int8, fp8 and s4 wire rows at 64
+    x 1,048,576 with C = 1 and at 128 x 421,642 (the executor's capacity)
+    with C = 4: CUDA events and torch.profiler device time per call, beside
+    the bound, the plain version and, for B12, the unfused decode (B14 or
+    B17) + B11 that it replaces (no single PyTorch call computes a blockwise
+    codec or a decoding contraction: ``library_ms`` null). Then the ragged
+    door's segmented ``torch.sort`` of 128 x 421,642 (4 cohorts of 32 rows)
+    beside 4 launches of B2, on each cohort's rows and (the generic door's)
+    on the whole batch. Keyed by counter, then ``"rows x d"``."""
+    import torch
+
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+    from byzpy_tpu_torch.ops import kernels, ragged
+    from byzpy_tpu_torch.parallel import CommPrecision, encode_blockwise
+
+    block = 256
+    out = {"quantize:s4": {}, "dequantize:s4": {}}
+    for rows, d in (HEADLINE, (MAIN_N, 421_642)):
+        x = random_rounds((1, rows, d), seed=51)[0]
+        nb = -(-d // block)
+        # read each f32 value once, write half a byte of code and 4 / 256
+        # bytes of scale per value (a decode the reverse)
+        traffic = rows * d * 4 + rows * nb * block // 2 + rows * nb * 4
+        enc_ms, enc_by = bound_ms(traffic, 7 * rows * d)
+        dec_ms, dec_by = bound_ms(traffic, 3 * rows * d)  # unpack, subtract 8, multiply
+        packed, scales = ck.encode_rows_s4(x, block=block)
+        enc = lambda: ck.encode_rows_s4(x, block=block)  # noqa: E731
+        dec = lambda: ck.decode_rows_s4(packed, scales, block=block, d=d)  # noqa: E731
+        key = f"{rows}x{d}"
+        out["quantize:s4"][key] = {
+            "ms": cuda_time_ms(enc), "device_ms": port_device_ms(enc),
+            "plain_ms": cuda_time_ms(lambda: ck.encode_rows_s4_plain(x, block=block), iters=3),
+            "bound_ms": enc_ms, "bound_by": enc_by, "library_ms": None, "shape": [rows, d],
+            "block": block,
+        }
+        out["dequantize:s4"][key] = {
+            "ms": cuda_time_ms(dec), "device_ms": port_device_ms(dec),
+            "plain_ms": cuda_time_ms(lambda: ck.decode_rows_s4_plain(packed, scales, block=block, d=d),
+                                     iters=3),
+            "bound_ms": dec_ms, "bound_by": dec_by, "library_ms": None, "shape": [rows, d],
+            "block": block,
+        }
+        del x, packed, scales
+        torch.cuda.empty_cache()
+    for R, d, C in ((*HEADLINE, 1), (EXEC_CAP, 421_642, 4)):
+        x = masked_rows((R, d), 53, torch.float32, specials=False)
+        w = torch.randn((C, R), generator=torch.Generator(device="cuda").manual_seed(C), device="cuda")
+        for mode in ("int8", "fp8", "s4"):
+            enc = encode_blockwise(x, CommPrecision(mode, block=block))
+            codes = enc.values if mode in ("int8", "s4") else enc.values.view(torch.uint8)
+            scales = enc.scales
+            nb = scales.shape[1]
+            # read the codes, scales and weights once, write the (C, d) sums;
+            # a decode multiply per value and an FMA (2 flops) per (c, r, col)
+            b_ms, b_by = bound_ms(R * codes.shape[1] + R * nb * 4 + C * R * 4 + C * d * 4,
+                                  R * d + 2 * C * R * d)
+            fused = lambda: kernels.segment_sum_dequant(codes, scales, w, mode=mode,  # noqa: E731
+                                                        block=block, d=d)
+
+            def unfused(codes=codes, scales=scales, mode=mode):
+                if mode == "s4":
+                    rows = ck.decode_rows_s4(codes, scales, block=block, d=d)
+                else:
+                    rows = ck.decode_rows(ck.from_wire(codes, mode), scales, block=block)
+                return kernels.segment_sum(rows, w)
+
+            out.setdefault(f"segment_sum_dequant:{mode}", {})[f"{R}x{d}"] = {
+                "ms": cuda_time_ms(fused), "device_ms": port_device_ms(fused),
+                "plain_ms": cuda_time_ms(lambda: kernels.segment_sum_dequant_plain(
+                    codes, scales, w, mode=mode, block=block, d=d), iters=1, warmup=1),
+                "unfused_ms": cuda_time_ms(unfused), "unfused_device_ms": port_device_ms(unfused),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [C, R, d],
+                "block": block,
+            }
+            del enc, codes, scales
+        del x, w
+        torch.cuda.empty_cache()
+    flat = masked_rows((EXEC_CAP, 421_642), 55, torch.float32, specials=False)
+    cut = EXEC_CAP // EXEC_MAX_COHORTS
+    seg = (torch.arange(EXEC_CAP, device="cuda") // cut).to(torch.int32)
+    s = ragged.segmented_sort(flat, seg)
+    for c in range(EXEC_MAX_COHORTS):
+        check(bits_equal(s[c * cut:(c + 1) * cut], kernels.sort_columns(flat[c * cut:(c + 1) * cut])),
+              f"segmented sort of cohort {c} differs from B2")
+    out["segmented_sort"] = {
+        "shape": [EXEC_CAP, 421_642], "cohorts": EXEC_MAX_COHORTS,
+        "torch_sort_ms": cuda_time_ms(lambda: ragged.segmented_sort(flat, seg), iters=3),
+        "b2_per_cohort_rows_ms": cuda_time_ms(lambda: [kernels.sort_columns(
+            flat[c * cut:(c + 1) * cut]) for c in range(EXEC_MAX_COHORTS)]),
+        "b2_whole_batch_per_cohort_ms": cuda_time_ms(lambda: [kernels.sort_columns(flat)
+                                                              for _ in range(EXEC_MAX_COHORTS)]),
+    }
+    del flat, seg, s
+    torch.cuda.empty_cache()
+    for key, by_shape in out.items():
+        log(f"  {key}: {json.dumps(by_shape)}")
+    return out
+
+
+def ragged_entries(times: dict) -> dict:
+    """The JSON entries of B16 (``quantize:s4``), B17 (``dequantize:s4``) and
+    B12 (``segment_sum_dequant:<mode>``): the headline numbers (B12's at C
+    = 1), the main path's (8 x 421,642; B12's the executor's 128 x 421,642
+    at C = 4) under ``main_path_shape``."""
+    head = f"{HEADLINE[0]}x{HEADLINE[1]}"
+    out = {}
+    for key in ("quantize:s4", "dequantize:s4"):
+        out[key] = dict(times[key][head], main_path_shape=times[key][f"{MAIN_N}x{421_642}"])
+    for mode in ("int8", "fp8", "s4"):
+        key = f"segment_sum_dequant:{mode}"
+        out[key] = dict(times[key][head], main_path_shape=times[key][f"{EXEC_CAP}x{421_642}"])
+    return out
+
+
 def timing() -> dict:
     """Kernel times at the headline 64 x 1,048,576 (the JSON line's
     numbers) and at the main path's 8 x 421,642. ``torch.median`` returns
@@ -2104,7 +2668,22 @@ KERNELS = [
     ("segment_sum", "byzpy_tpu_torch/csrc/segment_sum.cu", "byzpy_tpu/ops/pallas_kernels.py:1840"),
     ("row_sq_dists", "byzpy_tpu_torch/csrc/segment_sum.cu",
      "byzpy_tpu/ops/robust.py:1542 (plain XLA reduce; no Pallas kernel)"),
+    # B16 and B17 (the PS round (l), the ragged door's s4 ingress) and B12,
+    # the ragged door's fused-dequant contraction, by wire mode (phase 4d);
+    # launches: segment_sum_dequant:fp8 counts e4m3fn codes (e5m2 is checked
+    # in phase 3 only)
+    ("quantize:s4", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:504"),
+    ("dequantize:s4", "byzpy_tpu_torch/csrc/quantize.cu", "byzpy_tpu/parallel/quantization.py:525"),
+    ("segment_sum_dequant:int8", "byzpy_tpu_torch/csrc/segment_sum.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:1973"),
+    ("segment_sum_dequant:fp8", "byzpy_tpu_torch/csrc/segment_sum.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:1973"),
+    ("segment_sum_dequant:s4", "byzpy_tpu_torch/csrc/segment_sum.cu",
+     "byzpy_tpu/ops/pallas_kernels.py:1973"),
 ]
+# this slice's kernels: each must launch on the main path
+NEW_KERNELS = ("quantize:s4", "dequantize:s4", "segment_sum_dequant:int8", "segment_sum_dequant:fp8",
+               "segment_sum_dequant:s4")
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
     "quantize:int8": ("quantize:int8",),
@@ -2157,6 +2736,8 @@ def main() -> int:
     check_center_step(errs)
     check_codecs(errs)
     check_masked_kernels(errs)
+    check_s4_codec(errs)
+    check_segment_sum_dequant(errs)
 
     log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
         "configurations")
@@ -2167,6 +2748,12 @@ def main() -> int:
     log("GOSSIP_PATH " + json.dumps(gossip_path(counts)))
     log("== 4c. main path: the serving round (SmallCNN, bucketed cohorts, masked aggregators)")
     log("SERVING_PATH " + json.dumps(serving_path(counts)))
+    log("== 4d. main path: the ragged door (SmallCNN: (m) the ragged serving step, (n) the "
+        "ragged executor with quantized ingress)")
+    log("RAGGED_PATH " + json.dumps({"m_ragged_serving_step": ragged_step_path(counts),
+                                     "n_ragged_executor": ragged_executor_path(counts)}))
+    for key in NEW_KERNELS:
+        check(counts[key] > 0, f"{key} never launched on the main path")
     for key, parts in CODEC_COUNTERS.items():
         counts[key] = sum(counts[p] for p in parts)
 
@@ -2175,6 +2762,9 @@ def main() -> int:
     codec = codec_times()
     log("CODECS " + json.dumps(codec))
     times.update(codec_entries(codec))
+    ragged_times = ragged_kernel_times()
+    log("RAGGED_KERNELS " + json.dumps(ragged_times))
+    times.update(ragged_entries(ragged_times))
     log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
 
     entries = []

@@ -615,7 +615,8 @@ def test_cuda_codec_api_launches_and_empty_inputs(cuda_device):
     """The public codec API on CUDA tensors: ``encode_blockwise`` launches
     one encode, ``dequantize_blockwise`` one decode; an empty input, and
     stochastic rounding (plain PyTorch, as in the reference), launch
-    nothing; s4 raises ``NotImplementedError`` on the card too."""
+    nothing; s4, which raised ``NotImplementedError`` until B16 / B17
+    came, launches one B16 and one B17."""
     from byzpy_tpu_torch.parallel import quantization as q
 
     x = _codec_rows(1, 4, 700, cuda_device, torch.float32)
@@ -636,8 +637,9 @@ def test_cuda_codec_api_launches_and_empty_inputs(cuda_device):
     s = q.quantize_blockwise(x, stochastic=True, generator=torch.Generator(device="cuda").manual_seed(0))
     assert s.values.is_cuda
     assert all(v == 0 for v in kernels.launch_counts.values())
-    with pytest.raises(NotImplementedError, match="B16/B17"):
-        q.encode_blockwise(x, "s4")
+    s4 = q.encode_blockwise(x, "s4")
+    assert s4.values.is_cuda and q.dequantize_blockwise(s4).shape == x.shape
+    assert kernels.launch_counts["quantize:s4"] == kernels.launch_counts["dequantize:s4"] == 1
     with pytest.raises(ValueError, match="contiguous"):
         from byzpy_tpu_torch.ops import codec_kernels as ck
 
@@ -766,3 +768,119 @@ def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
     for k in ("sorted_reduce:median", "sorted_reduce:trimmed", "weighted_rows", "meamed",
               "center_sweep", "center_weights:weiszfeld", "center_weights:clip"):
         assert counts[k] == 0, (k, counts)
+
+
+# ---------------------------------------------------------------------------
+# B16 / B17: the s4 codec; B12: the fused-dequant segment sum
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [5000, 4999])
+@pytest.mark.parametrize("block", [256, 100, 32, 1024, 2])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+def test_cuda_s4_codec_matches_plain_bitwise(cuda_device, dt, block, d):
+    """B16's packed codes and scales, and B17's decode into each dtype,
+    equal their plain versions bit for bit (NaN, +-inf, zero blocks, odd d,
+    d not a block multiple, word and byte stores); one launch each."""
+    from byzpy_tpu_torch.ops import codec_kernels as ck
+
+    x = _codec_rows(block, 13, d, cuda_device, DTYPES[dt])
+    kernels.reset_launch_counts()
+    packed, scales = ck.encode_rows_s4(x, block=block)
+    pp, ps = ck.encode_rows_s4_plain(x, block=block)
+    assert torch.equal(packed, pp) and _bits_equal(scales, ps)
+    assert packed.shape == (13, -(-d // block) * block // 2)
+    for out_dt in DTYPES.values():
+        dec = ck.decode_rows_s4(packed, scales, block=block, d=d, dtype=out_dt)
+        assert _bits_equal(dec, ck.decode_rows_s4_plain(packed, scales, block=block, d=d, dtype=out_dt))
+        assert bool(torch.isfinite(dec).all())
+    assert kernels.launch_counts["quantize:s4"] == 1 and kernels.launch_counts["dequantize:s4"] == 3
+    zeros = torch.zeros((2, packed.shape[1]), dtype=torch.uint8, device=cuda_device)
+    capacity = ck.decode_rows_s4(zeros, torch.zeros((2, scales.shape[1]), device=cuda_device),
+                                 block=block, d=d)
+    assert bool(torch.signbit(capacity).all()) and not capacity.any()
+
+
+def _wire(mode, rows, d, block, device):
+    from byzpy_tpu_torch.parallel import quantization as q
+
+    x = (np.random.default_rng(rows + d).normal(size=(rows, d))
+         * np.random.default_rng(1).uniform(0.1, 50.0, size=(rows, 1))).astype(np.float32)
+    enc = q.encode_blockwise(torch.from_numpy(x).to(device), q.CommPrecision(mode, block=block))
+    codes = enc.values if mode in ("int8", "s4") else enc.values.view(torch.uint8)
+    return codes.contiguous(), enc.scales.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize("mode", ["int8", "fp8", "fp8_e5m2", "s4"])
+def test_cuda_segment_sum_dequant_matches_plain_bitwise(cuda_device, mode, C):
+    """B12 equals its plain version (the plain decode, then B11's plain
+    chain) bit for bit, with and without staleness row weights, at fill = R
+    and at a device fill below R (rows past it NaN-scaled, never read);
+    one launch each, counted under its mode."""
+    R, d, block = 40, 5003, 256
+    codes, scales = _wire(mode, R, d, block, cuda_device)
+    gen = torch.Generator(device="cuda").manual_seed(C)
+    w = torch.randn((C, R), generator=gen, device=cuda_device)
+    omega = torch.where(torch.arange(R, device=cuda_device) % 4 == 1, 0.5, 1.0)
+    for rw in (None, omega):
+        before = kernels.launch_counts[f"segment_sum_dequant:{mode}"]
+        out = kernels.segment_sum_dequant(codes, scales, w, mode=mode, block=block, d=d, row_weights=rw)
+        assert kernels.launch_counts[f"segment_sum_dequant:{mode}"] == before + 1
+        assert _bits_equal(out, kernels.segment_sum_dequant_plain(codes, scales, w, mode=mode,
+                                                                  block=block, d=d, row_weights=rw))
+    fill = R // 2
+    wz = w.clone()
+    wz[:, fill:] = 0
+    want = kernels.segment_sum_dequant_plain(codes, scales, wz, mode=mode, block=block, d=d,
+                                             row_weights=omega)
+    bad = scales.clone()
+    bad[fill:] = float("nan")
+    got = kernels.segment_sum_dequant(codes, bad, w, mode=mode, block=block, d=d, row_weights=omega,
+                                      fill=torch.tensor([fill], dtype=torch.int32, device=cuda_device))
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "int8", "fp8", "s4"])
+@pytest.mark.parametrize("name", ["multikrum", "cge", "trimmed", "median"])
+def test_cuda_ragged_executor_dispatch(cuda_device, name, mode):
+    """One ragged dispatch of three cohorts (6, 13, 29 rows; every fourth
+    stale) on the card: each cohort's vector equals ``CohortAggregator``'s
+    bit for bit; a quantized Multi-Krum or CGE dispatch launches one decode
+    and one B12 and no B11 for its final contraction; the sort family takes
+    the generic masked door, one B2 for each of the four cohort slots."""
+    from byzpy_tpu_torch import aggregators as A
+    from byzpy_tpu_torch.engine.actor import wire
+    from byzpy_tpu_torch.serving import (
+        CohortAggregator, RaggedExecutor, StalenessPolicy, Submission, build_cohort,
+    )
+
+    agg = {"multikrum": lambda: A.MultiKrum(2, 4), "cge": lambda: A.ComparativeGradientElimination(2),
+           "trimmed": lambda: A.CoordinateWiseTrimmedMean(2), "median": lambda: A.CoordinateWiseMedian()}[name]()
+    d, block = 20_000, 256
+    cohorts = []
+    for k, m in enumerate((6, 13, 29)):
+        if mode == "dense":
+            x = torch.randn((m, d), generator=torch.Generator(device="cuda").manual_seed(k), device=cuda_device)
+            grads = [x[i] for i in range(m)]
+        else:
+            codes, scales = _wire(mode, m, d, block, cuda_device)
+            grads = [wire.QuantizedWireArray(mode, codes[i], scales[i], block, (d,), "float32")
+                     for i in range(m)]
+        subs = [Submission(f"c{i}", 4 if i % 4 == 1 else 5, g, float(i)) for i, g in enumerate(grads)]
+        cohorts.append(build_cohort(subs, 5, None, StalenessPolicy("exponential", gamma=0.5), quantized=True))
+    ex = RaggedExecutor(agg, d, row_capacity=64, max_cohorts=4, with_evidence=False)
+    kernels.reset_launch_counts()
+    views = ex.aggregate(cohorts, ["a", "b", "c"])
+    counts = dict(kernels.launch_counts)
+    for view, cohort in zip(views, cohorts):
+        assert _bits_equal(view.vector, CohortAggregator(agg).aggregate(cohort))
+    if mode != "dense" and name in ("multikrum", "cge"):
+        dec = "dequantize:s4" if mode == "s4" else f"dequantize:{'int8' if mode == 'int8' else 'fp8'}"
+        assert counts[dec] == 1 and counts[f"segment_sum_dequant:{mode}"] == 1
+        assert counts["segment_sum"] == (1 if name == "multikrum" else 0)
+    if name in ("trimmed", "median"):
+        assert counts["sort_columns"] == 4

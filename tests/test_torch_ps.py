@@ -354,9 +354,10 @@ COMPRESSED_AGGS = {
     "multi_krum": (lambda m: robust.multi_krum(m, f=1, q=4), lambda m: jrobust.multi_krum(m, f=1, q=4)),
 }
 # one code step of each mode relative to its block's absmax (int8: absmax
-# / 127; fp8: the top binade's ulp, 32 / 448 and 8192 / 57344; bf16: the
-# value's own ulp, bounded by 2^-7 of the absmax)
-CODE_STEP = {"off": 0.0, "bf16": 2.0 ** -7, "int8": 1 / 127, "fp8": 32 / 448, "fp8_e5m2": 8192 / 57344}
+# / 127; s4: absmax / 7; fp8: the top binade's ulp, 32 / 448 and 8192 /
+# 57344; bf16: the value's own ulp, bounded by 2^-7 of the absmax)
+CODE_STEP = {"off": 0.0, "bf16": 2.0 ** -7, "int8": 1 / 127, "s4": 1 / 7, "fp8": 32 / 448,
+             "fp8_e5m2": 8192 / 57344}
 
 
 def _slack(bundle, params, xs, ys, cfg, mode):
@@ -379,7 +380,7 @@ def _comm_precisions(mode, ef=False):
     return CommPrecision(mode, error_feedback=ef), jq.CommPrecision(mode, error_feedback=ef)
 
 
-@pytest.mark.parametrize("mode", ["off", "bf16", "int8", "fp8", "fp8_e5m2"])
+@pytest.mark.parametrize("mode", ["off", "bf16", "int8", "fp8", "fp8_e5m2", "s4"])
 @pytest.mark.parametrize("agg", sorted(COMPRESSED_AGGS))
 def test_ps_compressed_round_matches_jax_one_device_mesh(agg, mode):
     """3 PS steps of the linear bundle (8 nodes, 1 byzantine sign-flipping
@@ -415,8 +416,8 @@ def test_ps_compressed_round_matches_jax_one_device_mesh(agg, mode):
         slack += _slack(ours_b, params, xs, ys, cfg, mode)
 
 
-def test_ps_error_feedback_matches_jax_one_device_mesh():
-    """int8 with error feedback for 3 steps: ``opt_state0`` is ``(base,
+def _error_feedback_round(mode):
+    """``mode`` with error feedback for 3 steps: ``opt_state0`` is ``(base,
     {"transpose": zeros(n, d)})`` as in the reference; the step-1 residual
     rows equal the reference's within one ulp of the decoded values (the
     jitted reference contracts ``xc - codes * scale`` into a fused
@@ -425,7 +426,7 @@ def test_ps_error_feedback_matches_jax_one_device_mesh():
     from torch.func import grad, vmap
 
     ours_b, ref_b, xs, ys = _linear_bundles(seed=1)
-    p, jp = _comm_precisions("int8", ef=True)
+    p, jp = _comm_precisions(mode, ef=True)
     ours_agg, ref_agg = COMPRESSED_AGGS["trimmed"]
     cfg, jcfg = PSStepConfig(n_nodes=LIN_N, n_byzantine=1), jps.PSStepConfig(n_nodes=LIN_N, n_byzantine=1)
     step, opt = build_ps_train_step(ours_b, ours_agg, cfg, comm_precision=p,
@@ -455,7 +456,17 @@ def test_ps_error_feedback_matches_jax_one_device_mesh():
         np.testing.assert_allclose(float(metrics["ef_transpose_norm"]),
                                    float(jmetrics["ef_transpose_norm"]), rtol=1e-5 if s == 0 else 1e-3)
         assert float(metrics["ef_transpose_norm"]) > 0.0
-        slack += _slack(ours_b, params, xs, ys, cfg, "int8")
+        slack += _slack(ours_b, params, xs, ys, cfg, mode)
+
+
+def test_ps_error_feedback_matches_jax_one_device_mesh():
+    """int8 with error feedback (:func:`_error_feedback_round`)."""
+    _error_feedback_round("int8")
+
+
+def test_ps_s4_error_feedback_matches_jax_one_device_mesh():
+    """s4 with error feedback (B16 + B17 on the card), as int8's."""
+    _error_feedback_round("s4")
 
 
 @pytest.mark.parametrize("which", ["linear", "mlp"])
@@ -490,12 +501,12 @@ def test_ps_comm_off_is_bit_identical(which):
             assert set(m0) == set(m1) and all(torch.equal(m0[k], m1[k]) for k in m0)
 
 
-def test_ps_smallcnn_int8_within_codec_bound():
+def _smallcnn_within_codec_bound(mode):
     """SmallCNN ravels in another order in each package, so a 256-block
-    groups other coordinates and the codes differ (ROADMAP C): one int8
-    step (4 nodes, 1 byzantine, batch 8) is held within rtol 1e-4, atol
-    1e-5 plus lr x both packages' codec bounds (absmax / 254 each, absmax
-    the largest gradient value)."""
+    groups other coordinates and the codes differ (ROADMAP C): one step of
+    ``mode`` (4 nodes, 1 byzantine, batch 8) is held within rtol 1e-4,
+    atol 1e-5 plus lr x both packages' codec bounds (absmax / 254 each for
+    int8, / 14 for s4, absmax the largest gradient value)."""
     from torch.func import grad_and_value, vmap
 
     n, batch = 4, 8
@@ -507,17 +518,17 @@ def test_ps_smallcnn_int8_within_codec_bound():
     agg, jagg = AGGREGATORS["trimmed"]
     step, opt = build_ps_train_step(bundle, agg, PSStepConfig(n_nodes=n, n_byzantine=1),
                                     attack=lambda h, g: attack_ops.sign_flip(h.mean(0)),
-                                    comm_precision="int8")
+                                    comm_precision=mode)
     jstep, jopt = jps.build_ps_train_step(
         jb, jagg, jps.PSStepConfig(n_nodes=n, n_byzantine=1), mesh=_one_device_mesh(),
-        comm_precision="int8", attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)))
+        comm_precision=mode, attack=lambda h, key: jattack.sign_flip(jnp.mean(h, axis=0)))
     grads, _ = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))(bundle.params, xs, ys)
     absmax = max(float(g.abs().max()) for g in grads.values())
     params, _, metrics = step(bundle.params, opt, xs, ys)
     jparams, _, jmetrics = jax.jit(jstep)(jb.params, jopt, jx.reshape(n, batch, 28, 28, 1),
                                           jy.reshape(n, batch), jax.random.PRNGKey(0))
     ref = from_flax(_np_tree(jparams), device="cpu")
-    bound = PSStepConfig(n_nodes=n).learning_rate * 2 * absmax / 254
+    bound = PSStepConfig(n_nodes=n).learning_rate * 2 * absmax / {"int8": 254, "s4": 14}[mode]
     for k, v in params.items():
         excess = (v - ref[k]).abs() - (1e-5 + 1e-4 * ref[k].abs() + bound)
         assert float(excess.max()) <= 0.0, k
@@ -525,11 +536,29 @@ def test_ps_smallcnn_int8_within_codec_bound():
                                rtol=1e-4)
 
 
+def test_ps_smallcnn_int8_within_codec_bound():
+    _smallcnn_within_codec_bound("int8")
+
+
+def test_ps_smallcnn_s4_within_codec_bound():
+    _smallcnn_within_codec_bound("s4")
+
+
 def test_ps_s4_raises_not_implemented():
+    """s4 raised ``NotImplementedError`` until B16/B17 came; the round now
+    builds, with error feedback's residual slot, as int8 and fp8 do (its
+    bits are held by the ``s4`` cases of
+    ``test_ps_compressed_round_matches_jax_one_device_mesh`` and by
+    ``test_ps_s4_error_feedback_matches_jax_one_device_mesh``)."""
+    from byzpy_tpu_torch.parallel import CommPrecision
+
     bundle, _, _, _ = _linear_bundles()
-    with pytest.raises(NotImplementedError, match="B16/B17"):
-        build_ps_train_step(bundle, robust.coordinate_median, PSStepConfig(n_nodes=LIN_N),
-                            comm_precision="s4")
+    _, opt = build_ps_train_step(bundle, robust.coordinate_median, PSStepConfig(n_nodes=LIN_N),
+                                 comm_precision="s4")
+    assert isinstance(opt, dict)
+    _, opt = build_ps_train_step(bundle, robust.coordinate_median, PSStepConfig(n_nodes=LIN_N),
+                                 comm_precision=CommPrecision("s4", error_feedback=True))
+    assert tuple(opt[1]["transpose"].shape) == (LIN_N, sum(v.numel() for v in bundle.params.values()))
 
 
 # ---------------------------------------------------------------------------

@@ -325,19 +325,23 @@ def test_comm_precision_errors_match_jax():
 
 
 def test_s4_raises_not_implemented_naming_the_roadmap():
+    """s4 raised ``NotImplementedError`` (ROADMAP B16/B17) until its kernels
+    came; every door that raised now runs (their bits are held to the JAX
+    package in ``tests/test_torch_s4.py``): nibble 8 (code 0) decodes to 0
+    at any scale, and a QuantizedBlocks without ``orig_d`` decodes the whole
+    packed width."""
     x = torch.zeros(2, 512)
-    for call in (
-        lambda: q.encode_blockwise(x, "s4"),
-        lambda: q.encode_blockwise(torch.zeros(2, 0), "s4"),
-        lambda: q.ef_encode(x, None, "s4"),
-        lambda: q.dequantize_blockwise(q.QuantizedBlocks(torch.zeros(2, 256, dtype=torch.uint8),
-                                                         torch.ones(2, 2), 256, "float32", "s4")),
-        lambda: q.dequantize_rows(torch.zeros(2, 256, dtype=torch.uint8), torch.ones(2, 2),
-                                  mode="s4", block=256, d=512),
-        lambda: coll.reshard_q(x, precision="s4"),
-    ):
-        with pytest.raises(NotImplementedError, match="B16/B17"):
-            call()
+    zero_codes = torch.full((2, 256), 0x88, dtype=torch.uint8)
+    outs = [
+        q.dequantize_blockwise(q.encode_blockwise(x, "s4")),
+        q.dequantize_blockwise(q.encode_blockwise(torch.zeros(2, 0), "s4")),
+        q.dequantize_blockwise(q.ef_encode(x, None, "s4")[0]),
+        q.dequantize_blockwise(q.QuantizedBlocks(zero_codes, torch.ones(2, 2), 256, "float32", "s4")),
+        q.dequantize_rows(zero_codes, torch.ones(2, 2), mode="s4", block=256, d=512),
+        coll.reshard_q(x, precision="s4"),
+    ]
+    assert [tuple(o.shape) for o in outs] == [(2, 512), (2, 0), (2, 512), (2, 512), (2, 512), (2, 512)]
+    assert all(bool((o == 0).all()) for o in outs)
 
 
 def test_codec_kernel_wrappers_check_inputs_and_count_nothing_on_the_cpu():

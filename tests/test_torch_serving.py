@@ -120,9 +120,14 @@ def test_build_cohort_matches_jax(m, cap, ladder, as_tensor):
 
 
 def test_build_cohort_quantized_raises_and_bad_sizes_match():
-    subs = [Submission(client="a", round_submitted=0, gradient=np.zeros(4, np.float32), arrived_s=0.0)]
-    with pytest.raises(NotImplementedError):
-        build_cohort(subs, 0, BucketLadder(8), StalenessPolicy(), quantized=True, device="cpu")
+    """``quantized=True`` raised ``NotImplementedError`` until the quantized
+    layout came; on dense rows it now takes the dense layout, as the
+    reference's does (the quantized layout is held in
+    ``tests/test_torch_ragged.py``). Bad sizes raise as before."""
+    subs = [Submission(client="a", round_submitted=0, gradient=np.ones(4, np.float32), arrived_s=0.0)]
+    cohort = build_cohort(subs, 0, BucketLadder(8), StalenessPolicy(), quantized=True, device="cpu")
+    assert not cohort.quantized and cohort.bucket == BucketLadder(8).bucket_for(1)
+    assert torch.equal(cohort.matrix[0], torch.ones(4))
     with pytest.raises(ValueError, match="exceeds the bucket cap"):
         build_cohort(subs * 9, 0, BucketLadder(8), StalenessPolicy(), device="cpu")
 
