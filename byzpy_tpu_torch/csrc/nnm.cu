@@ -29,24 +29,108 @@
 // the reference is an exact add of a selected term (or of +-0), and the
 // kernels add the selected terms in index order.
 //
-// Bound: memory. The mixing sweep must read x (n x d) and write the mixed
-// (n, d) matrix once: 2 n d bytes of its dtype. Design: a block stages a
-// 32-column tile of all n rows in shared memory with coalesced row loads;
-// each warp forms output rows i = warp, warp + 8, ... for the 32 columns
-// from the tile, walking the list of row i's selected rows (built once per
-// block and round from mask_clean), so x is read from device memory once.
-// Blocks stride over the tiles. The weights blocks touch only (n, n) data;
-// B9's GA and Gm take 2 n^2 f32 of dynamic shared memory (128 KB at n =
-// 128), above the 48 KB a block gets without opting in, so the launcher
-// raises the block's limit with cudaFuncSetAttribute before the launch.
+// The mixing sweep is an (n x n)^T (n x d) product with 0/1 weights and n
+// <= 128: at 64 x 2^20 f32 it reads and writes 512 MB (0.16 ms at 3.35
+// TB/s; a plain copy of x takes 0.18 ms on the H100) and does 64 * 56 *
+// 2^20 = 3.8 G selected adds, 4.3 G issued with the unselected ones
+// predicated off, ~0.15 ms of the FP32 pipe's issue slots. Tensor cores
+// are not used: wgmma in TF32 truncates x to a 10-bit mantissa, and a
+// 3xTF32 split is not an ascending f32 chain (the reference asks for
+// HIGHEST precision on this dot for that reason, :1276-1287).
+// Design of mix_rows_kernel:
+//   - persistent blocks of 256 threads, kMixBlocksPerSm a SM, stride over
+//     (round, column tile); each tile of all n rows is staged by cp.async
+//     in a ring of kMixStages shared buffers, the next tile in flight
+//     while one is summed;
+//   - output-stationary register micro-tiles: a thread owns I output rows
+//     x C columns (8 x 4; 16 x 2 at NPAD 128); a warp's lanes share the
+//     rows and take the columns at a stride of 32, so shared loads are
+//     conflict-free and global stores coalesce; the block covers all NPAD
+//     output rows of its tile. A value of x_j loaded from shared memory
+//     into a register serves up to I adds;
+//   - the selection as bits: on entering a round the block builds the
+//     0/1 mask as a bit matrix, one word of I bits per (source row j, row
+//     group): bit ii says whether output row rg I + ii takes row j. The
+//     test is the same for every lane of a warp, so an unselected row is a
+//     predicated-off add and never enters a sum (an inf or NaN row that is
+//     not selected cannot poison one; 0 * inf would). Source-row-major
+//     words put the I predicates of one x_j in one word, which the card
+//     ran faster than one word per output row over the j (same bits);
+//   - alignment: row j of round r starts at byte (r n + j) d sizeof(T), so
+//     each row is copied in the widest of 16, 8 or 4-byte pieces that its
+//     start allows (a 16-bit row at an odd element offset is copied by
+//     plain loads); the last piece of a row zero-fills past d; outputs are
+//     scalar stores, masked at the ragged last tile.
+// What bounds it (chip_mix_ablation.py on the H100, 64 x 2^20 f32): the
+// adds' issue slots. Stripped to its copies and stores the sweep runs
+// within ~1.15x of a plain copy of x; stripped to its adds it takes ~0.9x
+// of the whole sweep (each j costs C shared loads and a few predicate
+// moves beside its I C adds, unselected adds issue too, and the IEEE
+// division adds ~6%). Wider micro-tiles (8 x 8, 3 stages, one block a
+// SM) hide less latency and run slower.
+// Bits: each output starts at +0.0 and adds the selected x_j in ascending
+// j, one __fadd_rn each (no --use_fast_math), then __fdiv_rn by k, and the
+// canonical NaN where sel_taint is set, cast to x's dtype: the plain
+// version's function, bit for bit.
+// The weights blocks touch only (n, n) data; B9's GA and Gm take 2 n^2 f32
+// of dynamic shared memory (128 KB at n = 128), above the 48 KB a block
+// gets without opting in, so the launcher raises the block's limit with
+// cudaFuncSetAttribute before the launch, as the sweep's launcher does for
+// its ring.
+
+#include <type_traits>
 
 #include "selection.cuh"
 
 namespace {
 
-constexpr int kMixCols = 32;
 constexpr int kMixThreads = 256;
 constexpr int kMixWarps = kMixThreads / 32;
+constexpr int kMixStages = 2;
+constexpr int kMixBlocksPerSm = 3;  // 2 stages of 32 KB (f32) a block
+
+// The sweep's micro-tile at network width NPAD: I output rows x C columns
+// a thread, 32 accumulators; row groups of I rows, each taken by
+// kMixWarps / RGS warps that split the tile's TW columns. A stage holds
+// NPAD x TW values: 32 KB of f32 at every width.
+template <int NPAD>
+struct MixShape {
+  static constexpr int I = NPAD == 128 ? 16 : 8;
+  static constexpr int C = 32 / I;
+  static constexpr int RGS = NPAD / I;
+  static constexpr int CGS = kMixWarps / RGS;
+  static constexpr int TW = CGS * 32 * C;
+  using Word = std::conditional_t<I == 8, unsigned char, unsigned short>;
+  static_assert(RGS * CGS == kMixWarps, "row groups must tile the warps");
+};
+
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(W),
+                 "r"(src_bytes) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One row's valid bytes of a tile into shared memory, in W-byte pieces by
+// the lanes of one warp; the last piece zero-fills past the row's end.
+template <int W>
+__device__ __forceinline__ void copy_row(char* dst, const char* src, int bytes, int lane) {
+  for (int p = lane * W; p < bytes; p += 32 * W) cp_async<W>(dst + p, src + p, min(W, bytes - p));
+}
 
 __device__ __forceinline__ float canonical_nan() { return __int_as_float(0x7FC00000); }
 
@@ -67,52 +151,147 @@ nnm_weights_kernel(const float* __restrict__ gram, float* __restrict__ mask,
   sel_taint[(long long)r * n + i] = st ? 1.0f : 0.0f;
 }
 
+// Stage tile t (its round's n rows x TW columns) into ring buffer `buf`.
+// Each warp copies whole rows, so a row's copy width is warp-uniform.
 template <typename T, int NPAD>
-__global__ void __launch_bounds__(kMixThreads)
+__device__ __forceinline__ void stage_tile(const T* __restrict__ x, T* buf, int n, long long d,
+                                           long long tiles_per_round, long long t) {
+  constexpr int TW = MixShape<NPAD>::TW;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long kr = t / tiles_per_round, c0 = (t % tiles_per_round) * TW;
+  const int valid = (int)min((long long)TW, d - c0);
+  const int bytes = valid * (int)sizeof(T);
+  const T* xk = x + kr * n * d + c0;
+  for (int j = warp; j < n; j += kMixWarps) {
+    const T* row = xk + (long long)j * d;
+    char* dst = reinterpret_cast<char*>(buf + j * TW);
+    const char* src = reinterpret_cast<const char*>(row);
+    const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(src));
+    if ((a & 15u) == 0) {
+      copy_row<16>(dst, src, bytes, lane);
+    } else if ((a & 7u) == 0) {
+      copy_row<8>(dst, src, bytes, lane);
+    } else if ((a & 3u) == 0) {
+      copy_row<4>(dst, src, bytes, lane);
+    } else {  // a 16-bit row at an odd element offset: below cp.async's 4 bytes
+      for (int e = lane; e < valid; e += 32) buf[j * TW + e] = row[e];
+    }
+  }
+}
+
+template <typename T, int NPAD>
+__global__ void __launch_bounds__(kMixThreads, kMixBlocksPerSm)
 mix_rows_kernel(const T* __restrict__ x, const float* __restrict__ mask,
                 const float* __restrict__ sel_taint, T* __restrict__ out, int n, int k,
                 long long d, long long tiles_per_round, long long total_tiles) {
-  __shared__ float tile[NPAD][kMixCols];
-  __shared__ unsigned char src[NPAD][NPAD];  // src[i][s]: row i's s-th selected row
-  __shared__ int count[NPAD];
+  using S = MixShape<NPAD>;
+  constexpr int I = S::I, C = S::C, TW = S::TW;
+  extern __shared__ __align__(16) unsigned char ring_raw[];  // kMixStages x NPAD x TW of T
+  T* ring = reinterpret_cast<T*>(ring_raw);
+  // sel[g][rg][u]: bit ii set iff output row rg I + ii selected source row
+  // 8 g + u (I bits a word)
+  __shared__ __align__(16) typename S::Word sel[NPAD / 8][S::RGS][8];
   __shared__ int poisoned[NPAD];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int cur_round = -1;
-  for (long long t = blockIdx.x; t < total_tiles; t += gridDim.x) {
-    const int kr = (int)(t / tiles_per_round);
-    const long long c0 = (t % tiles_per_round) * kMixCols;
-    if (kr != cur_round) {  // the same for the whole block
-      __syncthreads();  // the last round's lists are no longer read
-      if (tid < n) {
-        const float* m = mask + (long long)kr * n * n;
-        int c = 0;
-        for (int j = 0; j < n; ++j)
-          if (m[j * n + tid] != 0.0f) src[tid][c++] = (unsigned char)j;
-        count[tid] = c;
-        poisoned[tid] = sel_taint[(long long)kr * n + tid] != 0.0f;
-      }
-      cur_round = kr;
-    }
-    __syncthreads();  // lists ready; the last tile is no longer read
-    const T* xk = x + (long long)kr * n * d;
-    for (int e = tid; e < n * kMixCols; e += kMixThreads) {
-      const int row = e / kMixCols, cc = e % kMixCols;
-      const long long col = c0 + cc;
-      tile[row][cc] = (col < d) ? to_f32(xk[(long long)row * d + col]) : 0.0f;
-    }
-    __syncthreads();
-    const long long col = c0 + lane;
-    if (col < d) {
-      T* ok = out + (long long)kr * n * d + col;
-      for (int i = warp; i < n; i += kMixWarps) {
-        float acc = 0.0f;
-        const int ci = count[i];
-        for (int s = 0; s < ci; ++s) acc = __fadd_rn(acc, tile[src[i][s]][lane]);
-        const float v = poisoned[i] ? canonical_nan() : __fdiv_rn(acc, (float)k);
-        ok[(long long)i * d] = from_f32<T>(v);
-      }
-    }
+  const int rg = warp % S::RGS, cg = warp / S::RGS;
+  const int col_off = cg * 32 * C + lane;  // this thread's first column in the tile
+  const float kf = (float)k;
+  const long long step = gridDim.x;
+
+  // prologue: the first kMixStages - 1 tiles in flight, one group each
+#pragma unroll
+  for (int s = 0; s < kMixStages - 1; ++s) {
+    const long long t = blockIdx.x + s * step;
+    if (t < total_tiles) stage_tile<T, NPAD>(x, ring + s * NPAD * TW, n, d, tiles_per_round, t);
+    cp_async_commit();
   }
+  int cur_round = -1, buf = 0;
+  for (long long t = blockIdx.x; t < total_tiles; t += step) {
+    cp_async_wait<kMixStages - 2>();  // this thread's pieces of tile t have landed
+    __syncthreads();  // everyone's have; the buffer of the last tile is free
+    {
+      const long long tn = t + (kMixStages - 1) * step;
+      const int nb = (buf + kMixStages - 1) % kMixStages;
+      if (tn < total_tiles) stage_tile<T, NPAD>(x, ring + nb * NPAD * TW, n, d, tiles_per_round, tn);
+      cp_async_commit();
+    }
+    const int kr = (int)(t / tiles_per_round);
+    if (kr != cur_round) {  // the same for the whole block
+      const float* m = mask + (long long)kr * n * n;
+      for (int e = tid; e < NPAD * S::RGS; e += kMixThreads) {
+        const int j = e / S::RGS, r = e % S::RGS;
+        unsigned bits = 0;
+        if (j < n) {
+          for (int ii = 0; ii < I; ++ii) {
+            const int i = r * I + ii;
+            if (i < n && m[j * n + i] != 0.0f) bits |= 1u << ii;
+          }
+        }
+        sel[j >> 3][r][j & 7] = (typename S::Word)bits;
+      }
+      for (int i = tid; i < NPAD; i += kMixThreads)
+        poisoned[i] = i < n && sel_taint[(long long)kr * n + i] != 0.0f;
+      cur_round = kr;
+      __syncthreads();
+    }
+
+    float acc[I][C];
+#pragma unroll
+    for (int ii = 0; ii < I; ++ii)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[ii][c] = 0.0f;
+    const T* tile = ring + buf * NPAD * TW + col_off;
+    const int groups = (n + 7) >> 3;
+    constexpr int PER = 32 / I;  // bit words of 8 source rows, PER to a 32-bit word
+    for (int g = 0; g < groups; ++g) {
+      unsigned w[8 / PER];
+      if constexpr (I == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(&sel[g][rg][0]);
+        w[0] = v.x;
+        w[1] = v.y;
+      } else {
+        const uint4 v = *reinterpret_cast<const uint4*>(&sel[g][rg][0]);
+        w[0] = v.x;
+        w[1] = v.y;
+        w[2] = v.z;
+        w[3] = v.w;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const T* row = tile + (8 * g + u) * TW;
+        float xv[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) xv[c] = to_f32(row[c * 32]);
+#pragma unroll
+        for (int ii = 0; ii < I; ++ii) {
+          if ((w[u / PER] >> (I * (u % PER) + ii)) & 1u) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[ii][c] = __fadd_rn(acc[ii][c], xv[c]);
+          }
+        }
+      }
+    }
+
+    const long long c0 = (t % tiles_per_round) * TW;
+    const int valid = (int)min((long long)TW, d - c0);
+    T* ok = out + (long long)kr * n * d + c0 + col_off;
+#pragma unroll
+    for (int ii = 0; ii < I; ++ii) {
+      const int i = rg * I + ii;
+      if (i < n) {
+        const bool p = poisoned[i] != 0;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (col_off + c * 32 < valid) {
+            const float v = p ? canonical_nan() : __fdiv_rn(acc[ii][c], kf);
+            ok[(long long)i * d + c * 32] = from_f32<T>(v);
+          }
+        }
+      }
+    }
+    buf = (buf + 1) % kMixStages;
+  }
+  cp_async_wait<0>();  // no copy outlives the block
 }
 
 template <int NPAD>
@@ -168,21 +347,46 @@ nnm_selection_weights_kernel(const float* __restrict__ gram, float* __restrict__
   w[(long long)r * n + i] = picked_tainted ? canonical_nan() : __fdiv_rn(acc, (float)k);
 }
 
-template <typename T>
-bool launch_mix(const void* x, const float* mask, const float* sel_taint, void* out, int K,
-                int n, int k, long long d, int blocks, cudaStream_t s) {
-  const long long tiles = (d + kMixCols - 1) / kMixCols;
+// One launch of the sweep at width NPAD: the ring is dynamic shared
+// memory, opted in above 48 KB; at most `blocks` blocks, and no more than
+// fit on the card at once, since each strides over the tiles.
+template <typename T, int NPAD>
+cudaError_t launch_mix_width(const T* x, const float* mask, const float* sel_taint, T* out, int K,
+                             int n, int k, long long d, int blocks, cudaStream_t s) {
+  constexpr int TW = MixShape<NPAD>::TW;
+  const long long tiles = (d + TW - 1) / TW;
   const long long total = tiles * K;
-  const unsigned grid = (unsigned)(total < blocks ? total : blocks);
+  const int dyn = kMixStages * NPAD * TW * (int)sizeof(T);
+  const void* fn = reinterpret_cast<const void*>(&mix_rows_kernel<T, NPAD>);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kMixThreads, dyn)) !=
+      cudaSuccess)
+    return err;
+  long long grid = per_sm > 0 ? (long long)per_sm * sms : 1;
+  if (grid > blocks) grid = blocks;
+  if (grid > total) grid = total;
+  mix_rows_kernel<T, NPAD><<<(unsigned)grid, kMixThreads, dyn, s>>>(x, mask, sel_taint, out, n, k,
+                                                                   d, tiles, total);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mix(const void* x, const float* mask, const float* sel_taint, void* out, int K,
+                       int n, int k, long long d, int blocks, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   switch (network_width(n)) {
-    case 8: mix_rows_kernel<T, 8><<<grid, kMixThreads, 0, s>>>(xt, mask, sel_taint, ot, n, k, d, tiles, total); return true;
-    case 16: mix_rows_kernel<T, 16><<<grid, kMixThreads, 0, s>>>(xt, mask, sel_taint, ot, n, k, d, tiles, total); return true;
-    case 32: mix_rows_kernel<T, 32><<<grid, kMixThreads, 0, s>>>(xt, mask, sel_taint, ot, n, k, d, tiles, total); return true;
-    case 64: mix_rows_kernel<T, 64><<<grid, kMixThreads, 0, s>>>(xt, mask, sel_taint, ot, n, k, d, tiles, total); return true;
-    case 128: mix_rows_kernel<T, 128><<<grid, kMixThreads, 0, s>>>(xt, mask, sel_taint, ot, n, k, d, tiles, total); return true;
-    default: return false;
+    case 8: return launch_mix_width<T, 8>(xt, mask, sel_taint, ot, K, n, k, d, blocks, s);
+    case 16: return launch_mix_width<T, 16>(xt, mask, sel_taint, ot, K, n, k, d, blocks, s);
+    case 32: return launch_mix_width<T, 32>(xt, mask, sel_taint, ot, K, n, k, d, blocks, s);
+    case 64: return launch_mix_width<T, 64>(xt, mask, sel_taint, ot, K, n, k, d, blocks, s);
+    case 128: return launch_mix_width<T, 128>(xt, mask, sel_taint, ot, K, n, k, d, blocks, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -220,22 +424,22 @@ extern "C" int byz_nnm_weights(const float* gram, float* mask, float* sel_taint,
 }
 
 // x: (K, n, d) contiguous; mask: (K, n, n) f32; sel_taint: (K, n) f32; out:
-// (K, n, d) of x's dtype. blocks: how many blocks stride over the tiles.
+// (K, n, d) of x's dtype. blocks: at most this many blocks stride over the
+// tiles (the launcher also caps them at what fits on the card at once).
+// Returns the launch's cudaError_t (a refused shared-memory opt-in
+// included).
 extern "C" int byz_mix_rows(const void* x, const float* mask, const float* sel_taint, void* out,
                             int K, int n, int k, long long d, int blocks, int dtype,
                             void* stream) {
   if (K <= 0 || d <= 0) return cudaSuccess;
   if (k < 1 || k > n || blocks < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok = false;
   switch (dtype) {
-    case kF32: ok = launch_mix<float>(x, mask, sel_taint, out, K, n, k, d, blocks, s); break;
-    case kBF16: ok = launch_mix<__nv_bfloat16>(x, mask, sel_taint, out, K, n, k, d, blocks, s); break;
-    case kF16: ok = launch_mix<__half>(x, mask, sel_taint, out, K, n, k, d, blocks, s); break;
-    default: break;
+    case kF32: return launch_mix<float>(x, mask, sel_taint, out, K, n, k, d, blocks, s);
+    case kBF16: return launch_mix<__nv_bfloat16>(x, mask, sel_taint, out, K, n, k, d, blocks, s);
+    case kF16: return launch_mix<__half>(x, mask, sel_taint, out, K, n, k, d, blocks, s);
+    default: return cudaErrorInvalidValue;
   }
-  if (!ok) return cudaErrorInvalidValue;
-  return cudaGetLastError();
 }
 
 // gram: (K, n, n) f32; w: (K, n) f32 out, the source-row weights w_eff.

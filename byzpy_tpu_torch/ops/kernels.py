@@ -70,8 +70,9 @@ _CENTER_MODES = {"weiszfeld": 0, "clip": 1}
 _GRAM_BLOCKS_PER_SM = 4
 _GRAM_TK = 32
 _GRAM_MIN_CHUNK = 16 * _GRAM_TK
-# B8's mixing sweep: blocks per SM that stride over the 32-column tiles
-_MIX_BLOCKS_PER_SM = 8
+# B8's mixing sweep: at most this many persistent blocks per SM stride over
+# the column tiles (csrc/nnm.cu also caps them at what fits on the card)
+_MIX_BLOCKS_PER_SM = 4
 # B7's distance partials: this many blocks per SM, at least
 # _CENTER_MIN_CHUNK columns each
 _CENTER_BLOCKS_PER_SM = 4

@@ -14,7 +14,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    MeaMed, B7 centre step in its weiszfeld / clip modes, B8 NNM, B9 NNM ->
    selection mean, B10 clip / ARC -> selection mean) against its plain
    PyTorch version on the card, at the main path's shapes, at the 64 x
-   1,048,576 headline and, for B5-B10, on rows holding NaN and inf (B5,
+   1,048,576 headline and, for B5-B10, on rows holding NaN and inf (B8's
+   mixing sweep also bitwise where rows start off a 16-byte boundary, at
+   K = 3, n = 128, d below a tile, in bf16 and f16, and finite under a
+   mask that leaves the non-finite rows unselected; B5,
    B6 and B7 also in f32, bf16 and f16; B5 on a B3 Gram and on one folded
    row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13;
    the codecs B13 int8 encode, B15 fp8 e4m3fn / e5m2 encode and B14
@@ -69,7 +72,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    program's on the decoded rows and (s4) the CPU port's;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
-   exists, a single PyTorch call, with a whole Multi-Krum fold round beside
+   exists, a single PyTorch call (B8's mixing sweep also with its
+   torch.profiler device time and in bf16), with a whole Multi-Krum fold round beside
    the barrier Multi-Krum, the codecs at block 256, B2, B11 and the row
    reduction at the headline and at 64 x 421,642, B16 and B17, B12 at 64 x
    1,048,576 (C = 1) and 128 x 421,642 (C = 4) beside the unfused decode +
@@ -378,6 +382,55 @@ def nan_is_canonical(t) -> bool:
     return bool((t[torch.isnan(t)].view(ints) == bits).all())
 
 
+# B8's mixing sweep where its design has edges: rows that start off a
+# 16-byte boundary (d = 421,642 and 50,001), K = 3 rounds a block crosses,
+# a 16-bit dtype, n = 128, and d below one column tile
+MIX_EDGES = [((3, 13, 50_001), "float32"), ((3, MAIN_N, 421_642), "bfloat16"),
+             ((2, 64, 50_001), "float16"), ((2, 128, 421_642), "bfloat16"), ((3, 64, 37), "float32")]
+
+
+def check_mixing_edges(errs: dict) -> None:
+    """B8's mixing sweep bitwise against its plain version at ``MIX_EDGES``,
+    on rows holding inf and NaN (the selectors of a non-finite row give the
+    canonical NaN, the others stay finite), and under a hand-made 0/1 mask
+    that leaves a non-finite row unselected: every output stays finite."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    for shape, dt in MIX_EDGES:
+        K, n, d = shape
+        k = n - n // 4
+        x = pre_rows(shape, seed=500 + n, nonfinite=n > 7).to(getattr(torch, dt))
+        mask, st = kernels.nnm_weights(kernels.gram(x), k=k)
+        mixed, mixed_p = kernels.mix_rows(x, mask, st, k=k), kernels.mix_rows_plain(x, mask, st, k=k)
+        check(bits_equal(mixed, mixed_p), f"B8 mixing sweep differs from plain at {shape} {dt}")
+        check(bits_equal(kernels.nnm_stream(x, f=n - k), mixed), f"B8 call differs at {shape} {dt}")
+        poisoned = st[:, :, None].expand_as(mixed) != 0
+        check(nan_is_canonical(mixed) and bool(torch.isnan(mixed[poisoned]).all())
+              and bool(torch.isfinite(mixed[~poisoned]).all()),
+              f"B8 mixing sweep's non-finite outputs are not the poisoned rows at {shape} {dt}")
+        errs["mix_rows"] = max(errs["mix_rows"], max_abs_err(mixed, mixed_p))
+        # an arbitrary 0/1 mask: source rows 0 (all inf) and n - 1 (NaN
+        # entries) are selected by no output
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        hand = (torch.rand((K, n, n), generator=gen, device="cuda") < 0.6).float()
+        hand[:, 0, :] = 0.0
+        hand[:, n - 1, :] = 0.0
+        y = pre_rows(shape, seed=600 + n).to(x.dtype)
+        y[:, 0] = float("inf")
+        y[:, n - 1, ::7] = float("nan")
+        zero = torch.zeros((K, n), device="cuda")
+        out = kernels.mix_rows(y, hand, zero, k=k)
+        check(bits_equal(out, kernels.mix_rows_plain(y, hand, zero, k=k))
+              and bool(torch.isfinite(out).all()),
+              f"B8 mixing sweep added an unselected non-finite row at {shape} {dt}")
+        log(f"  B8 mixing sweep {shape} {dt}: bitwise equal ({int(st.sum())} poisoned mixers), "
+            f"finite under a mask that skips the non-finite rows")
+        del x, y, mixed, mixed_p, out
+    torch.cuda.empty_cache()
+
+
 def check_pre_aggregation(errs: dict) -> None:
     """B8, B9, B10-clip and B10-arc against their plain versions: each
     weights launch bitwise on the kernel Gram, each sweep bitwise (B8) or
@@ -388,6 +441,7 @@ def check_pre_aggregation(errs: dict) -> None:
     from byzpy_tpu_torch.ops import kernels
     from byzpy_tpu_torch.ops.preagg import arc_cut_off
 
+    check_mixing_edges(errs)
     cases = [((1, MAIN_N, 421_642), False), ((1,) + HEADLINE, False), ((2, 13, 50_000), True)]
     for shape, nonfinite in cases:
         n = shape[1]
@@ -2092,6 +2146,27 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
     return out
 
 
+def mix_rows_times(x, mask, st, k: int) -> dict:
+    """B8's mixing sweep on one ``(1, n, d)`` round: CUDA events, the
+    device time by torch.profiler, the plain version, ``(mask^T x) / k``
+    in ``x``'s dtype (the same function on these finite inputs; in bf16 a
+    tensor-core product with its own roundings) and the
+    bound (read x, the mask and the taint flags, write the mixed rows; n k
+    d selected adds)."""
+    from byzpy_tpu_torch.ops import kernels
+
+    _, n, d = x.shape
+    b_ms, b_by = bound_ms(2 * n * d * x.element_size() + n * n * 4 + n * 4, n * k * d)
+    m = mask[0].T.to(x.dtype)
+    return {
+        "ms": cuda_time_ms(lambda: kernels.mix_rows(x, mask, st, k=k)),
+        "device_ms": port_device_ms(lambda: kernels.mix_rows(x, mask, st, k=k))["mix_rows_kernel"],
+        "plain_ms": cuda_time_ms(lambda: kernels.mix_rows_plain(x, mask, st, k=k), iters=3),
+        "library_ms": cuda_time_ms(lambda: (m @ x[0]) / k),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d], "dtype": str(x.dtype).split(".")[-1],
+    }
+
+
 def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
     """B8's, B9's and B10's launches on one (1, n, d) f32 round (every third
     row x3, so the clip engages) beside their bounds, plain versions and,
@@ -2129,14 +2204,9 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
         "nnm_stream_ms": cuda_time_ms(lambda: kernels.nnm_stream(x, f=f_pre)),
         "nnm_stream_plain_ms": cuda_time_ms(nnm_plain, iters=3),
     }
-    b_ms, b_by = bound_ms(2 * n * d * isz + gram_bytes + n * 4, n * k * d)
-    out["mix_rows"] = {
-        "ms": cuda_time_ms(lambda: kernels.mix_rows(x, mask, st, k=k)),
-        "plain_ms": cuda_time_ms(lambda: kernels.mix_rows_plain(x, mask, st, k=k), iters=3),
-        # (mask^T x) / k: the same function on these finite inputs
-        "library_ms": cuda_time_ms(lambda: (mask[0].T @ x[0]) / k),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
-    }
+    out["mix_rows"] = mix_rows_times(x, mask, st, k)
+    if (n, d) == HEADLINE:  # the sweep in bf16, beside its own bound and library call
+        out["mix_rows"]["bf16"] = mix_rows_times(x.to(torch.bfloat16), mask, st, k)
 
     sel = dict(f=f, q=q, mode="krum")
     w_nnm = kernels.nnm_selection_weights(g, k=k, **sel)
@@ -2681,9 +2751,10 @@ KERNELS = [
     ("segment_sum_dequant:s4", "byzpy_tpu_torch/csrc/segment_sum.cu",
      "byzpy_tpu/ops/pallas_kernels.py:1973"),
 ]
-# this slice's kernels: each must launch on the main path
-NEW_KERNELS = ("quantize:s4", "dequantize:s4", "segment_sum_dequant:int8", "segment_sum_dequant:fp8",
-               "segment_sum_dequant:s4")
+# kernels that must launch on the main path beside each configuration's own
+# checks: B8's redesigned mixing sweep and the ragged door's kernels
+NEW_KERNELS = ("mix_rows", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
+               "segment_sum_dequant:fp8", "segment_sum_dequant:s4")
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
     "quantize:int8": ("quantize:int8",),

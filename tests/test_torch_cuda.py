@@ -184,6 +184,52 @@ def test_cuda_nnm_matches_plain(cuda_device, n, dt):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+@pytest.mark.parametrize(("K", "d"), [(3, 37), (3, 50_001), (2, 421_642)],
+                         ids=["below_a_tile", "odd_d", "main_path_d"])
+def test_cuda_mix_rows_edges_match_plain(cuda_device, K, d, n, dt):
+    """B8's mixing sweep bitwise against its plain version where its design
+    has edges: d below one column tile, rows that start off a 16-byte
+    boundary (d odd, or 2 mod 4), K = 3 rounds a block crosses, every
+    network width and dtype; an inf row and a NaN entry taint their
+    selectors, whose outputs are the canonical NaN while the others stay
+    finite."""
+    x = _pre_rows(1000 + n, K, n, d, cuda_device, DTYPES[dt])
+    x[0, n // 2] = float("inf")
+    x[-1, n - 1, d // 2] = float("nan")
+    k = n - n // 4
+    mask, st = kernels.nnm_weights(kernels.gram(x), k=k)
+    out = kernels.mix_rows(x, mask, st, k=k)
+    assert _bits_equal(out, kernels.mix_rows_plain(x, mask, st, k=k))
+    poisoned = st[:, :, None].expand_as(out) != 0
+    assert _all_canonical_nan(out[poisoned])
+    assert bool(torch.isfinite(out[~poisoned]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
+def test_cuda_mix_rows_never_adds_an_unselected_row(cuda_device, n, dt):
+    """Under a hand-made 0/1 mask that selects neither an all-inf row nor a
+    row holding NaN, every output stays finite: the sweep adds selected
+    rows only (a 0/1 weight times inf would be NaN)."""
+    K, d = 3, 50_001
+    x = _pre_rows(2000 + n, K, n, d, cuda_device, DTYPES[dt])
+    x[:, 0] = float("inf")
+    x[:, n - 1, ::7] = float("nan")
+    rng = np.random.default_rng(n)
+    mask = torch.from_numpy((rng.random((K, n, n)) < 0.6).astype(np.float32)).to(cuda_device)
+    mask[:, 0, :] = 0.0
+    mask[:, n - 1, :] = 0.0
+    st = torch.zeros((K, n), device=cuda_device)
+    k = max(1, n - 1)
+    out = kernels.mix_rows(x, mask, st, k=k)
+    assert bool(torch.isfinite(out).all())
+    assert _bits_equal(out, kernels.mix_rows_plain(x, mask, st, k=k))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["krum", "cge", "monna"])
 @pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
 def test_cuda_nnm_selection_matches_plain(cuda_device, n, mode):

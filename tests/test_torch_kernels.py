@@ -335,6 +335,57 @@ def test_nnm_weights_equal_jax_selection_state(kind, k):
     assert torch.all(mask.sum(dim=1) <= k)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["nan", "inf"])
+def test_mix_rows_plain_matches_the_reference_mixing(case, dt):
+    """B8's mixing step alone, on a round with a non-finite row: the plain
+    version, fed the reference's own selection state (``_nnm_weights`` of
+    the same Gram: the mask clean of the tainted row and the taint of its
+    selectors), against the Pallas kernel in interpret mode: NaN exactly
+    where a mixer took the non-finite row, finite values within the f32
+    rounding of the reference's HIGHEST dot (``_assert_matches_pallas``)."""
+    n, f = 13, 3
+    x = _pre_rows(31, n, dt, case)
+    xt = _to_torch(x, dt)
+    masks, taints = [], []
+    for r in range(x.shape[0]):
+        g = _padded_gram(xt[r].float().numpy())
+        m, _, st = pk._nnm_weights(jnp.asarray(g), n_pad=g.shape[0], n_real=n, k=n - f)
+        masks.append(np.asarray(m)[:n, :n])
+        taints.append(np.asarray(st)[:n])
+    mask, sel_taint = torch.from_numpy(np.stack(masks)), torch.from_numpy(np.stack(taints))
+    assert bool(sel_taint.any())  # some mixer took the non-finite row
+    ours = kernels.mix_rows_plain(xt, mask, sel_taint, k=n - f)
+    ref = pk.nnm_stream_pallas(_to_jax(x, dt), f=f, tile=128, interpret=True)
+    _assert_matches_pallas(ours, ref, dt)
+
+
+def test_mix_rows_plain_ignores_an_unselected_nonfinite_row():
+    """Under an arbitrary 0/1 mask that selects neither an all-inf row nor
+    a row holding NaN, those rows change nothing: every output is finite,
+    bit for bit the output with the two rows zeroed, and within f32
+    rounding of the reference's mixing (``where(taint, 0, x)``, then a
+    HIGHEST dot, / k)."""
+    rng = np.random.default_rng(17)
+    K, n, d, k = 2, 13, 300, 9
+    x = _matrix(rng, (K, n, d), specials=False)
+    clean = x.copy()
+    x[:, 0] = np.inf
+    x[:, 5, ::7] = np.nan
+    clean[:, [0, 5]] = 0.0
+    mask = (rng.random((K, n, n)) < 0.6).astype(np.float32)
+    mask[:, [0, 5], :] = 0.0
+    mt, st = torch.from_numpy(mask), torch.zeros((K, n))
+    ours = kernels.mix_rows_plain(torch.from_numpy(x), mt, st, k=k)
+    assert bool(torch.isfinite(ours).all())
+    zeroed = kernels.mix_rows_plain(torch.from_numpy(clean), mt, st, k=k)
+    assert torch.equal(ours.view(torch.int32), zeroed.view(torch.int32))
+    taint = ~np.isfinite(x).all(axis=2)
+    xz = jnp.where(jnp.asarray(taint)[:, :, None], 0.0, jnp.asarray(x))
+    ref = jnp.einsum("kji,kjd->kid", jnp.asarray(mask), xz, precision="highest") / k
+    _assert_matches_pallas(ours, ref, "f32")
+
+
 @pytest.mark.parametrize("kind", ["duplicates", "zeros", "all_equal"])
 def test_pre_aggregated_ties_match_pallas(kind):
     """Tie-heavy rows through every fused pipeline: the stable tie rules
