@@ -2,13 +2,15 @@
 
 Counterpart of ``byzpy_tpu/aggregators/coordinate_wise/median.py``
 (behavioral parity: ``byzpy/aggregators/coordinate_wise/median.py:28-178``):
-``robust.coordinate_median``, B1 on the card.
+``robust.coordinate_median``, B1 on the card; the ragged program is the
+segmented sort-reduce on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, check_chunk_size
@@ -34,6 +36,20 @@ class CoordinateWiseMedian(Aggregator):
 
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.coordinate_median_stream(xs)
+
+    def ragged_matrix_fn(self):
+        """The ragged program, chosen from the device (see
+        ``CoordinateWiseTrimmedMean.ragged_matrix_fn``): on the card the
+        segmented program (``ops.ragged.ragged_median``; finite rows: the
+        serving door sends a non-finite cohort to the exact path), on the
+        CPU the generic door."""
+        if self.device.type != "cuda":
+            return super().ragged_matrix_fn()
+
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+            return ragged_ops.ragged_median(flat, seg, offsets, lengths, n_cohorts=n_cohorts), None, None
+
+        return fn
 
 
 __all__ = ["CoordinateWiseMedian"]

@@ -4,7 +4,8 @@ Counterpart of ``byzpy_tpu/aggregators/coordinate_wise/trimmed_mean.py``
 (behavioral parity: ``byzpy/aggregators/coordinate_wise/trimmed_mean.py:27-211``).
 The barrier path is ``robust.trimmed_mean`` (B1 on the card); the
 streaming fold keeps a running sum and the extreme buffers in plain
-PyTorch, as the JAX package leaves them to XLA.
+PyTorch, as the JAX package leaves them to XLA; the ragged program is the
+segmented sort-reduce on the card.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Any
 
 import torch
 
+from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, SlotFoldState, check_chunk_size
@@ -70,6 +72,23 @@ class CoordinateWiseTrimmedMean(Aggregator):
 
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.trimmed_mean_stream(xs, f=self.f)
+
+    def ragged_matrix_fn(self):
+        """The ragged program, chosen here from the device, as the
+        reference chooses from ``_on_tpu()``: on the card the segmented
+        program (``ops.ragged.ragged_trimmed_mean``, one launch of the
+        segmented sort-reduce for the whole batch); on the CPU the
+        per-cohort masked program of the generic door."""
+        if self.device.type != "cuda":
+            return super().ragged_matrix_fn()
+        f = self.f
+
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+            aggs = ragged_ops.ragged_trimmed_mean(flat, seg, offsets, lengths, f=f,
+                                                  n_cohorts=n_cohorts)
+            return aggs, None, None
+
+        return fn
 
     # -- arrival-order streaming fold ------------------------------------
 

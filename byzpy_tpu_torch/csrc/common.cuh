@@ -1,7 +1,8 @@
 // Shared device helpers for the port's kernels: dtype conversion, the
 // int32 total-order sort key of byzpy_tpu/ops/pallas_kernels.py:130-141
-// (_float_sort_keys / _keys_to_float), and Batcher's merge-exchange
-// network (pallas_kernels.py:106 batcher_pairs) unrolled into registers.
+// (_float_sort_keys / _keys_to_float), Batcher's merge-exchange network
+// (pallas_kernels.py:106 batcher_pairs) unrolled into registers, and the
+// cp.async row copy that stages tiles in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -117,6 +118,36 @@ __device__ __forceinline__ float sum_sorted_range(const int32_t (&k)[N], int lo,
     if (i >= lo && i < hi) acc = __fadd_rn(acc, key_to_float(k[i]));
   }
   return acc;
+}
+
+// cp.async copies from global to shared memory (sm_80 and later), and the
+// row copy B8's sweep and the segmented sort-reduce stage their tiles with.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(src_bytes) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(W),
+                 "r"(src_bytes) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One row's valid bytes of a tile into shared memory, in W-byte pieces by
+// the lanes of one warp; the last piece zero-fills past the row's end.
+template <int W>
+__device__ __forceinline__ void copy_row(char* dst, const char* src, int bytes, int lane) {
+  for (int p = lane * W; p < bytes; p += 32 * W) cp_async<W>(dst + p, src + p, min(W, bytes - p));
 }
 
 // Smallest network width in {8, ..., 128} that holds n rows; 0 if none.

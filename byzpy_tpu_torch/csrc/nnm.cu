@@ -104,34 +104,6 @@ struct MixShape {
   static_assert(RGS * CGS == kMixWarps, "row groups must tile the warps");
 };
 
-template <int W>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (W == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-                 "r"(src_bytes) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(W),
-                 "r"(src_bytes) : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One row's valid bytes of a tile into shared memory, in W-byte pieces by
-// the lanes of one warp; the last piece zero-fills past the row's end.
-template <int W>
-__device__ __forceinline__ void copy_row(char* dst, const char* src, int bytes, int lane) {
-  for (int p = lane * W; p < bytes; p += 32 * W) cp_async<W>(dst + p, src + p, min(W, bytes - p));
-}
-
 __device__ __forceinline__ float canonical_nan() { return __int_as_float(0x7FC00000); }
 
 template <int NPAD>

@@ -31,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = (
     "sorted_reduce", "gram", "selection", "nnm", "clip_selection", "meamed", "center_step",
-    "quantize", "segment_sum", "sort_columns",
+    "quantize", "segment_sum", "sort_columns", "segmented_sort",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -105,6 +105,10 @@ SIGNATURES = {
     ]),
     "byz_sort_columns": ("sort_columns", [
         _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_void_p,
+    ]),
+    "byz_segmented_sort_reduce": ("segmented_sort", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int,
+        _c_void_p,
     ]),
 }
 

@@ -40,7 +40,11 @@ Kernels (TPU kernel they replace -> CUDA source):
   reduce whose bits must not depend on the number of rows);
 * B12 ``segment_sum_dequant``: ``_ragged_segment_sum_dequant_kernel``
   (:1973) -> ``csrc/segment_sum.cu``: B11 over wire codes, decoded as
-  B14 and B17 decode them (``csrc/codec.cuh``).
+  B14 and B17 decode them (``csrc/codec.cuh``);
+* ``segmented_sort_reduce`` (no Pallas kernel): the ragged door's sort
+  family, every cohort's trimmed mean or median in one launch, the
+  counterpart of the reference's two-key ``lax.sort`` and windowed
+  ``einsum`` (``byzpy_tpu/ops/ragged.py:96-192``) -> ``csrc/segmented_sort.cu``.
 
 The codec kernels B13-B17 (``parallel/quantization.py``) have their
 wrappers in ``ops/codec_kernels.py``; their launch counters live in this
@@ -119,6 +123,8 @@ launch_counts = {
     "segment_sum_dequant:fp8": 0,
     "segment_sum_dequant:fp8_e5m2": 0,
     "segment_sum_dequant:s4": 0,
+    # the ragged door's sort family
+    "segmented_sort_reduce": 0,
 }
 
 
@@ -1343,6 +1349,104 @@ def segment_sum_dequant_plain(
     return segment_sum_plain(x, w, fill=fill)
 
 
+# ---------------------------------------------------------------------------
+# The ragged door's segmented sort-reduce
+# ---------------------------------------------------------------------------
+
+
+def _check_layout(t: torch.Tensor, C: int, what: str) -> None:
+    if tuple(t.shape) != (C,) or t.dtype != torch.int32:
+        raise ValueError(f"{what} must be ({C},) int32, got {tuple(t.shape)} {t.dtype}")
+
+
+def segmented_sort_reduce(
+    flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor, *, mode: str, f: int = 0
+) -> torch.Tensor:
+    """Every cohort's f-trimmed coordinate mean (``mode='trimmed'``) or
+    coordinate median (``mode='median'``) of a ragged batch, ``(C, d)``
+    float32. ``flat: (R, d)`` float32 holds cohort ``c`` in rows
+    ``[offsets[c], offsets[c] + lengths[c])`` (``(C,)`` int32 on ``flat``'s
+    device, never read on the host). Each column of a cohort is sorted by
+    the int32 total-order key; the trimmed mean adds sorted positions ``[f,
+    m - f)`` in ascending order from +0.0 and multiplies by the rounded
+    reciprocal of ``m - 2f``; the median is the middle value, or ``(lo +
+    hi) * 0.5``. A slot of length 0 gives zeros, one whose rows leave
+    ``[0, R)`` NaN; NaN canonical. On finite rows, bit for bit the
+    reference's ``ragged_trimmed_mean`` / ``ragged_median`` and the masked
+    door's per-cohort programs."""
+    if mode not in _SORT_MODES:
+        raise ValueError(f"mode must be one of {sorted(_SORT_MODES)}, got {mode!r}")
+    _check_ndim(flat, 2, "flat")
+    if flat.dtype != torch.float32:
+        raise ValueError(f"flat must be float32, got {flat.dtype}")
+    if not isinstance(f, int) or f < 0:
+        raise ValueError(f"f must be a non-negative int, got {f!r}")
+    _check_ndim(offsets, 1, "offsets")
+    C = offsets.shape[0]
+    _check_layout(offsets, C, "offsets")
+    _check_layout(lengths, C, "lengths")
+    R, d = flat.shape
+    if _on_cpu(flat, offsets, lengths):
+        return segmented_sort_reduce_plain(flat, offsets, lengths, mode=mode, f=f)
+    _check_cuda_input(flat, R)
+    if not (offsets.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("CUDA kernels take contiguous tensors")
+    if C > 65535:
+        raise NotImplementedError(f"C={C} cohorts exceed the kernel's grid (65,535)")
+    out = torch.empty((C, d), dtype=torch.float32, device=flat.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(flat.device):
+        _call("byz_segmented_sort_reduce", flat.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
+              out.data_ptr(), R, C, d, _SORT_MODES[mode], f, _stream(flat))
+    launch_counts["segmented_sort_reduce"] += 1
+    return out
+
+
+def segmented_sort_reduce_plain(
+    flat: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor, *, mode: str, f: int = 0
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segmented_sort_reduce`: the
+    segmented programs' arithmetic (``ops.ragged.segmented_sort``, one
+    ``torch.sort`` of every cohort's columns, then the reference's
+    zero-masked window chain or the clamped midpoint gathers). Cohorts
+    are packed disjoint blocks, as ``RaggedExecutor`` lays them out."""
+    from .ragged import _segment_positions, segment_ids, segmented_sort
+    from .robust import _masked_rows_at
+
+    R, d = flat.shape
+    C = offsets.shape[0]
+    if C == 0:
+        return flat.new_zeros((0, d))
+    # a slot whose rows leave [0, R) takes none of them and gives NaN
+    bad = (lengths != 0) & ((offsets < 0) | (lengths < 0) | (offsets.long() + lengths.long() > R))
+    lengths = torch.where(bad, 0, lengths)
+    seg = segment_ids(offsets, lengths, R, C)
+    s = segmented_sort(flat, seg)
+    if mode == "trimmed":
+        rel = _segment_positions(seg, offsets, C)
+        windows = torch.stack([(seg == c) & (rel >= f) & (rel < lengths[c] - f) for c in range(C)])
+        # fma(1, x, acc) = RN(acc + x); a zero outside a window leaves acc
+        zero = torch.zeros((), dtype=torch.float32, device=flat.device)
+        acc = torch.zeros((C, d), dtype=torch.float32, device=flat.device)
+        for r in range(R):
+            acc = acc + torch.where(windows[:, r:r + 1], s[r:r + 1], zero)
+        recips = torch.ones((), device=flat.device) / (lengths - 2 * f).to(torch.float32)
+        out = acc * recips[:, None]
+    else:
+        outs = []
+        for c in range(C):
+            m = lengths[c]
+            lo = torch.div(m - 1, 2, rounding_mode="floor")
+            hi = torch.div(m, 2, rounding_mode="floor")
+            s_lo = _masked_rows_at(s, offsets[c] + lo)
+            s_hi = _masked_rows_at(s, offsets[c] + hi)
+            outs.append(torch.where(lo == hi, s_lo, (s_lo + s_hi) * 0.5))
+        out = torch.stack(outs)
+    out = torch.where(lengths[:, None] == 0, 0.0, out)
+    return canonical_nan(torch.where(bad[:, None], float("nan"), out))
+
+
 def row_sq_dists(x: torch.Tensor, z=None) -> torch.Tensor:
     """``(n,)`` float32 ``sum_c (x[i, c] - z[c])^2`` (``z=None``: the
     squared norms) in an order fixed by ``d`` alone, so a row's value does
@@ -1430,6 +1534,8 @@ __all__ = [
     "segment_sum_dequant",
     "segment_sum_dequant_plain",
     "segment_sum_plain",
+    "segmented_sort_reduce",
+    "segmented_sort_reduce_plain",
     "selection_mean_from_gram",
     "selection_mean_from_gram_plain",
     "selection_mean_stream",

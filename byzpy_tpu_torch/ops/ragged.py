@@ -24,14 +24,16 @@ the host: cohort sizes, windows and gathers stay on the device.
   a fill, or B12 for the rows that are still wire codes.
 * Every per-row sum over ``d`` (CGE's norms, the evidence norms) is
   ``kernels.row_sq_dists``, whose order depends on ``d`` alone.
-* :func:`segmented_sort` sorts every cohort's columns in one
-  ``torch.sort`` over an int64 key ``seg << 32 | (key + 2**31)``, ``key``
-  the int32 total-order key of ``kernels.float_sort_keys``: exact, where
-  the reference uses a two-key ``lax.sort`` (no Pallas kernel). The
-  classes do not route to the segmented programs (:func:`ragged_trimmed_mean`,
-  :func:`ragged_median`): on the card one segmented ``torch.sort`` costs
-  more than the generic masked door's per-cohort B2 sorts, so the sort
-  family takes that door on both devices.
+* The segmented programs (:func:`ragged_trimmed_mean`,
+  :func:`ragged_median`) are one ``kernels.segmented_sort_reduce``: one
+  launch sorts each cohort's own rows and reduces them, where the
+  reference makes one two-key ``lax.sort`` (no Pallas kernel) and a
+  windowed contraction. The classes route to them on the card and take the
+  generic masked door on the CPU, the reference's ``_on_tpu()`` split.
+  :func:`segmented_sort` (one ``torch.sort`` over an int64 key ``seg << 32
+  | (key + 2**31)``, ``key`` the int32 total-order key of
+  ``kernels.float_sort_keys``: exact) is the counterpart of that
+  ``lax.sort`` and the kernel's plain version's sort.
 
 The reference's ``flat_dequantize`` is ``parallel.quantization.dequantize_rows``
 here (B14, or B17 for s4, on the card), which the quantized door calls
@@ -97,13 +99,6 @@ def _segment_positions(seg: torch.Tensor, offsets: torch.Tensor, n_cohorts: int)
     return pos - off[_cohort_of(seg, n_cohorts)]
 
 
-def _cohort_row_at(s: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Row ``pos`` (a device scalar, clamped into the matrix as a JAX
-    gather clamps) of the segment-sorted matrix."""
-    pos = torch.clamp(pos, 0, s.shape[0] - 1).reshape(1).long()
-    return s.index_select(0, pos)[0]
-
-
 def ragged_trimmed_mean(
     flat: torch.Tensor,
     seg: torch.Tensor,
@@ -114,17 +109,15 @@ def ragged_trimmed_mean(
     n_cohorts: int,
     segment_sum: Optional[SegmentSum] = None,
 ) -> torch.Tensor:
-    """f-trimmed coordinate mean of every cohort: one segmented sort, then
-    one row contraction of the sorted rows under each cohort's window
-    ``[f, m_c - f)`` times the rounded reciprocal of ``m_c - 2f`` (callers
-    guarantee ``2f < m_c``). Returns ``(C, d)``."""
-    s = segmented_sort(flat, seg)
-    rel = _segment_positions(seg, offsets, n_cohorts)
-    windows = torch.stack([
-        (seg == c) & (rel >= f) & (rel < lengths[c] - f) for c in range(n_cohorts)
-    ]).to(torch.float32)
-    recips = torch.stack([_masked_recip(lengths[c] - 2 * f, s.dtype) for c in range(n_cohorts)])
-    return _segment_sum(segment_sum)(s, windows) * recips[:, None]
+    """f-trimmed coordinate mean of every cohort (callers guarantee ``2f <
+    m_c``): each cohort's columns sorted, the sorted window ``[f, m_c - f)``
+    added in ascending order from +0.0 (the reference's zero-masked window
+    contraction) times the rounded reciprocal of ``m_c - 2f``, in one
+    ``kernels.segmented_sort_reduce``. ``seg`` and ``segment_sum`` are
+    accepted for the ragged program's signature and not read: a sorted
+    operand is no wire row. Returns ``(n_cohorts, d)``: ``offsets`` and
+    ``lengths`` hold ``n_cohorts`` slots."""
+    return kernels.segmented_sort_reduce(flat, offsets, lengths, mode="trimmed", f=f)
 
 
 def ragged_median(
@@ -135,19 +128,11 @@ def ragged_median(
     *,
     n_cohorts: int,
 ) -> torch.Tensor:
-    """Coordinate-wise median of every cohort (finite rows): the two middle
-    rows of each cohort's sorted block, gathered at device positions, and
-    their midpoint ``(a + b) * 0.5`` as ``masked_coordinate_median``."""
-    s = segmented_sort(flat, seg)
-    outs = []
-    for c in range(n_cohorts):
-        m = lengths[c]
-        lo = torch.div(m - 1, 2, rounding_mode="floor")
-        hi = torch.div(m, 2, rounding_mode="floor")
-        s_lo = _cohort_row_at(s, offsets[c] + lo)
-        s_hi = _cohort_row_at(s, offsets[c] + hi)
-        outs.append(torch.where(lo == hi, s_lo, (s_lo + s_hi) * 0.5))
-    return torch.stack(outs)
+    """Coordinate-wise median of every cohort (finite rows): the middle
+    value of each cohort's sorted column, or the midpoint ``(a + b) * 0.5``
+    of the two middle ones as ``masked_coordinate_median``, in one
+    ``kernels.segmented_sort_reduce`` (``seg`` is not read)."""
+    return kernels.segmented_sort_reduce(flat, offsets, lengths, mode="median")
 
 
 def ragged_segment_ranks(scores: torch.Tensor, seg: torch.Tensor, n_cohorts: int) -> torch.Tensor:

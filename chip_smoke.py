@@ -28,7 +28,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
    decode bitwise in f32, bf16 and f16 at blocks 32-1024, odd d and d not
    a block multiple, a capacity row decoding to -0.0; B12, the fused-dequant
    segment sum, bitwise on int8, fp8, fp8_e5m2 and s4 wire rows at C = 1, 4
-   and 16, with and without staleness row weights and with a device fill);
+   and 16, with and without staleness row weights and with a device fill;
+   the segmented sort-reduce of the ragged sort family bitwise, trimmed
+   mean at f = 0, 2, 8 and median, at 128 x 421,642 (cohorts 6, 13, 29, 64
+   and a padding slot), 128 x 50,001 (1, 2, 5, 120) and 16 x 37, on finite
+   rows and on rows holding NaN and +-inf);
 4. the main path: the SmallCNN parameter-server round (d = 421,642, 8
    nodes of which 2 sign-flip the honest mean, batch 64) for 5 steps with
    each configuration: coordinate median, trimmed mean (f=2), Multi-Krum
@@ -63,12 +67,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the compacted one, ``CohortAggregator`` the step's aggregate, host
    reads per step counted; then (4d) the ragged door: (m)
    ``build_ragged_serving_ps_step`` on the same cohorts in a flat capacity
-   of 64 (trimmed mean, median and MeaMed through the generic door,
-   Multi-Krum and CGE on their own programs), bit for bit the bucketed step, exactly its launches and no host
-   read a step; (n) ``RaggedExecutor``: one dispatch of four cohorts (6, 13,
-   29, 64 rows in a capacity of 128) of dense, int8, fp8 and s4 client rows
-   (encoded on the card), through Multi-Krum, CGE, the trimmed mean and the
-   median, every cohort bit for bit ``CohortAggregator``'s, the dense
+   of 64 (trimmed mean and median through the segmented sort-reduce, one
+   launch a step, MeaMed through the generic door, Multi-Krum and CGE on
+   their own programs), bit for bit the bucketed step, exactly its
+   launches and no host read a step; (n) ``RaggedExecutor``: one dispatch
+   of four cohorts (6, 13, 29, 64 rows in a capacity of 128) of dense,
+   int8, fp8 and s4 client rows (encoded on the card), through Multi-Krum,
+   CGE, the trimmed mean and the median (one segmented sort-reduce a
+   dispatch), every cohort bit for bit ``CohortAggregator``'s, the dense
    program's on the decoded rows and (s4) the CPU port's;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
@@ -77,7 +83,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the barrier Multi-Krum, the codecs at block 256, B2, B11 and the row
    reduction at the headline and at 64 x 421,642, B16 and B17, B12 at 64 x
    1,048,576 (C = 1) and 128 x 421,642 (C = 4) beside the unfused decode +
-   B11, and the ragged door's segmented sort beside B2; then the six
+   B11, and the ragged door's segmented sort beside B2; the segmented
+   sort-reduce at the (n) batch, at 4 x 32 rows in 128 and at one cohort
+   of 64 in 64 x 1,048,576, beside its plain version, the generic door on
+   the same batch and (at the last) B1; then the six
    centre-seeking and coordinate aggregators, whole, at ByzPy's grid
    shapes (64 x 65,536).
 
@@ -842,6 +851,60 @@ def check_segment_sum_dequant(errs: dict) -> None:
         log(f"  B12 {(R, d)}: {', '.join(WIRE_MODES)} at C in {cohorts}, row weights None and stale, "
             f"bitwise equal to plain; a device fill of {fill} bitwise, the rows past it unread")
         del x
+
+
+# the segmented sort-reduce's shapes, as the card tests take them: (R, d,
+# cohort sizes, padding slots): the executor's batch (odd rows 8-byte
+# aligned), an odd d (rows at every alignment) with a one-row and a 120-row
+# cohort, and d below one column tile
+SEGMENTED_CASES = ((128, 421_642, (6, 13, 29, 64), 1), (128, 50_001, (1, 2, 5, 120), 0),
+                   (16, 37, (3, 8, 5), 1))
+SEGMENTED_MODES = (("trimmed", 0), ("trimmed", 2), ("trimmed", 8), ("median", 0))
+
+
+def ragged_layout(sizes, pad: int = 0) -> tuple:
+    """``(offsets, lengths)`` int32 on the card: cohorts packed from row 0
+    in order, then ``pad`` padding slots (offset the fill, length 0), as
+    ``RaggedExecutor.aggregate`` lays them out."""
+    import torch
+
+    offsets = [sum(sizes[:c]) for c in range(len(sizes))] + [sum(sizes)] * pad
+    lengths = list(sizes) + [0] * pad
+    return (torch.tensor(offsets, dtype=torch.int32, device="cuda"),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def check_segmented_sort(errs: dict) -> None:
+    """The segmented sort-reduce against its plain version, bit for bit, at
+    ``SEGMENTED_CASES`` in every mode of ``SEGMENTED_MODES``: on finite rows
+    and on ``masked_rows``' rows holding NaN and +-inf (an all-NaN and an
+    all-inf row at R > 7), NaN canonical; R = 129 raises."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    for R, d, sizes, pad in SEGMENTED_CASES:
+        offsets, lengths = ragged_layout(sizes, pad)
+        for specials in (False, True):
+            x = masked_rows((R, d), 1100 + R + d % 89, torch.float32, specials=specials)
+            for mode, f in SEGMENTED_MODES:
+                out = kernels.segmented_sort_reduce(x, offsets, lengths, mode=mode, f=f)
+                ref = kernels.segmented_sort_reduce_plain(x, offsets, lengths, mode=mode, f=f)
+                check(bits_equal(out, ref) and nan_is_canonical(out),
+                      f"segmented sort-reduce {mode} f={f} differs from plain at {(R, d)} "
+                      f"cohorts {sizes} (+{pad}), non-finite rows {specials}")
+                errs["segmented_sort_reduce"] = max(errs["segmented_sort_reduce"], max_abs_err(out, ref))
+                del out, ref
+            del x
+            torch.cuda.empty_cache()
+        log(f"  segmented sort-reduce {(R, d)} cohorts {list(sizes)} + {pad} padding: trimmed f = 0, 2, "
+            f"8 and median bitwise equal to plain, on finite rows and on rows holding NaN / +-inf")
+    try:
+        kernels.segmented_sort_reduce(torch.zeros((129, 16), device="cuda"), *ragged_layout((129,)),
+                                      mode="median")
+        check(False, "the segmented sort-reduce took R = 129")
+    except NotImplementedError:
+        pass
 
 
 # ---------------------------------------------------------------------------
@@ -1675,9 +1738,9 @@ DECODE_KEY = {"int8": "dequantize:int8", "fp8": "dequantize:fp8", "s4": "dequant
 
 def ragged_step_configs() -> dict:
     """(m)'s configurations: name -> (class factory of ``device``, the
-    launches one ragged step makes). The sort family and MeaMed take the
-    generic door (the masked program of the one cohort: B2, then B11
-    under the trimmed mean's and MeaMed's windows; the median gathers)."""
+    launches one ragged step makes). The sort family takes its segmented
+    program (one segmented sort-reduce, no B2 or B11); MeaMed the generic
+    door (its masked program: B2, then B11 under its window)."""
     from byzpy_tpu_torch.aggregators import (
         ComparativeGradientElimination, CoordinateWiseMedian, CoordinateWiseTrimmedMean,
         MeanOfMedians, MultiKrum,
@@ -1686,8 +1749,8 @@ def ragged_step_configs() -> dict:
     b = MAIN_BYZ
     return {
         "ragged_trimmed_mean": (lambda dev: CoordinateWiseTrimmedMean(b, device=dev),
-                                {"sort_columns": 1, "segment_sum": 1}),
-        "ragged_median": (lambda dev: CoordinateWiseMedian(device=dev), {"sort_columns": 1}),
+                                {"segmented_sort_reduce": 1}),
+        "ragged_median": (lambda dev: CoordinateWiseMedian(device=dev), {"segmented_sort_reduce": 1}),
         # the shared Gram, the scores' window sum and the mean
         "ragged_multi_krum": (lambda dev: MultiKrum(b, 4, device=dev), {"gram": 1, "segment_sum": 2}),
         "ragged_cge": (lambda dev: ComparativeGradientElimination(b, device=dev),
@@ -1811,16 +1874,15 @@ def executor_launches(name: str, mode: str) -> dict:
     """The launches one (n) dispatch makes: the decode of a quantized batch,
     the program's kernels (Multi-Krum's and CGE's contraction over the
     scaled rows B12 for a quantized batch, else B11; the sort family's
-    generic door one masked program per cohort, B2 and the trimmed mean's
-    B11 each) and the evidence's two row reductions."""
+    segmented program one segmented sort-reduce for all cohorts, no B2 or
+    B11) and the evidence's two row reductions."""
     q = mode != "dense"
     final = {f"segment_sum_dequant:{mode}": 1} if q else {"segment_sum": 1}
-    c = len(EXEC_COHORTS)
     out = {
         "multi_krum": {"gram": 1, "segment_sum": 1, "row_sq_dists": 2},
         "cge": {"row_sq_dists": 3},
-        "trimmed_mean": {"sort_columns": c, "segment_sum": c, "row_sq_dists": 2},
-        "median": {"sort_columns": c, "row_sq_dists": 2},
+        "trimmed_mean": {"segmented_sort_reduce": 1, "row_sq_dists": 2},
+        "median": {"segmented_sort_reduce": 1, "row_sq_dists": 2},
     }[name]
     if name in ("multi_krum", "cge"):
         for k, v in final.items():
@@ -1971,7 +2033,7 @@ PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kern
                 "center_sweep_kernel", "quantize_kernel", "dequantize_kernel",
                 "sort_columns_kernel", "segment_sum_kernel", "row_sq_partial_kernel",
                 "row_sq_reduce_kernel", "quantize_s4_kernel", "dequantize_s4_kernel",
-                "segment_sum_dequant_kernel")
+                "segment_sum_dequant_kernel", "segmented_sort_reduce_kernel")
 
 
 def device_events(prof, calls: int) -> dict:
@@ -2646,8 +2708,82 @@ def ragged_kernel_times() -> dict:
     }
     del flat, seg, s
     torch.cuda.empty_cache()
+    out["segmented_sort_reduce"] = segmented_times()
     for key, by_shape in out.items():
         log(f"  {key}: {json.dumps(by_shape)}")
+    return out
+
+
+def segmented_bound(sizes, d: int, mode: str, f: int) -> tuple:
+    """``bound_ms`` of one segmented sort-reduce: read each cohort's rows and
+    the layout once and write the ``(C, d)`` result; an int32 min and max a
+    compare-exchange of Batcher's network at each cohort's width (19, 63,
+    191 and 543 exchanges at 8-64 rows), then the window's adds
+    and a multiply (trimmed) or an add and a multiply (median) a column."""
+    from byzpy_tpu_torch.ops import kernels
+
+    C = len(sizes)
+    ops = 0
+    for m in sizes:
+        if m:
+            ops += 2 * len(kernels.batcher_pairs(kernels.network_width(m)))
+            ops += (m - 2 * f + 1) if mode == "trimmed" else 2
+    return bound_ms(sum(sizes) * d * 4 + 2 * C * 4 + C * d * 4, ops * d)
+
+
+def segmented_times() -> dict:
+    """The segmented sort-reduce (trimmed mean at f = 2, the main path's,
+    and median) at the (n) batch (cohorts 6, 13, 29, 64 and a padding slot
+    in 128 x 421,642) and at 4 x 32 rows in 128 x 421,642; the trimmed mean
+    at f = 8 and the median at one cohort of 64 in 64 x 1,048,576, beside
+    B1 on the same rows (the same function: B1 divides by n - 2f where the
+    ragged door multiplies by its rounded reciprocal). Each: CUDA events,
+    torch.profiler device ms, the bound, the plain version and the generic
+    door (one masked program a cohort slot: B2 over the whole batch, B11)
+    on the same batch. ``library_ms`` is null: no single PyTorch call
+    computes a segmented trimmed mean or median."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels, ragged, robust
+
+    out = {}
+    for label, (R, d), sizes, pad, modes in (
+            ("n_batch", (EXEC_CAP, 421_642), EXEC_COHORTS, 1, (("trimmed", MAIN_BYZ), ("median", 0))),
+            ("4x32", (EXEC_CAP, 421_642), (32,) * 4, 0, (("trimmed", MAIN_BYZ), ("median", 0))),
+            ("headline_64", HEADLINE, (HEADLINE[0],), 0, (("trimmed", 8), ("median", 0)))):
+        flat = masked_rows((R, d), 57, torch.float32, specials=False)
+        offsets, lengths = ragged_layout(sizes, pad)
+        C = len(sizes) + pad
+        seg = ragged.segment_ids(offsets, lengths, R, C)
+        for mode, f in modes:
+            def kern(mode=mode, f=f):
+                return kernels.segmented_sort_reduce(flat, offsets, lengths, mode=mode, f=f)
+
+            def door(f=f, mode=mode):
+                masked = ((lambda x, v: robust.masked_trimmed_mean(x, v, f=f)) if mode == "trimmed"
+                          else robust.masked_coordinate_median)
+                return ragged.ragged_via_masked(masked, flat, seg, n_cohorts=C)
+
+            b_ms, b_by = segmented_bound(list(sizes) + [0] * pad, d, mode, f)
+            entry = {
+                "ms": cuda_time_ms(kern), "device_ms": port_device_ms(kern),
+                "plain_ms": cuda_time_ms(lambda: kernels.segmented_sort_reduce_plain(
+                    flat, offsets, lengths, mode=mode, f=f), iters=3, warmup=1),
+                "door_ms": cuda_time_ms(door, iters=3), "door_device_ms": port_device_ms(door, calls=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [R, d],
+                "cohorts": list(sizes), "padding_slots": pad, "f": f,
+            }
+            if label == "headline_64":
+                b1 = lambda mode=mode, f=f: kernels.sorted_reduce_stream(flat[None], mode=mode, f=f)  # noqa: E731
+                entry["b1_ms"] = cuda_time_ms(b1)
+                entry["b1_device_ms"] = port_device_ms(b1)
+            out[f"{label}:{mode}"] = entry
+            log(f"  segmented_sort_reduce {label} {mode} (f = {f}): {entry['ms']:.4f} ms (device "
+                f"{json.dumps(entry['device_ms'])}), bound {b_ms:.4f} ms ({b_by}), plain "
+                f"{entry['plain_ms']:.4f} ms, door {entry['door_ms']:.4f} ms"
+                + (f", B1 {entry['b1_ms']:.4f} ms" if "b1_ms" in entry else ""))
+        del flat, seg
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2663,6 +2799,11 @@ def ragged_entries(times: dict) -> dict:
     for mode in ("int8", "fp8", "s4"):
         key = f"segment_sum_dequant:{mode}"
         out[key] = dict(times[key][head], main_path_shape=times[key][f"{EXEC_CAP}x{421_642}"])
+    # the segmented sort-reduce: the (n) batch's trimmed mean (the main path's
+    # shape) with the other shapes and modes beside it
+    seg = times["segmented_sort_reduce"]
+    out["segmented_sort_reduce"] = dict(seg["n_batch:trimmed"],
+                                        **{k: v for k, v in seg.items() if k != "n_batch:trimmed"})
     return out
 
 
@@ -2750,11 +2891,16 @@ KERNELS = [
      "byzpy_tpu/ops/pallas_kernels.py:1973"),
     ("segment_sum_dequant:s4", "byzpy_tpu_torch/csrc/segment_sum.cu",
      "byzpy_tpu/ops/pallas_kernels.py:1973"),
+    # the ragged door's sort family (phase 4d): one launch a (m) step and a
+    # (n) trimmed-mean or median dispatch; no Pallas kernel
+    ("segmented_sort_reduce", "byzpy_tpu_torch/csrc/segmented_sort.cu",
+     "byzpy_tpu/ops/ragged.py:96 (segmented lax.sort + windowed einsum; no Pallas kernel)"),
 ]
 # kernels that must launch on the main path beside each configuration's own
-# checks: B8's redesigned mixing sweep and the ragged door's kernels
+# checks: B8's redesigned mixing sweep and the ragged door's kernels (the
+# segmented sort-reduce among them)
 NEW_KERNELS = ("mix_rows", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
-               "segment_sum_dequant:fp8", "segment_sum_dequant:s4")
+               "segment_sum_dequant:fp8", "segment_sum_dequant:s4", "segmented_sort_reduce")
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
     "quantize:int8": ("quantize:int8",),
@@ -2809,6 +2955,7 @@ def main() -> int:
     check_masked_kernels(errs)
     check_s4_codec(errs)
     check_segment_sum_dequant(errs)
+    check_segmented_sort(errs)
 
     log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
         "configurations")

@@ -897,7 +897,8 @@ def test_cuda_ragged_executor_dispatch(cuda_device, name, mode):
     stale) on the card: each cohort's vector equals ``CohortAggregator``'s
     bit for bit; a quantized Multi-Krum or CGE dispatch launches one decode
     and one B12 and no B11 for its final contraction; the sort family takes
-    the generic masked door, one B2 for each of the four cohort slots."""
+    its segmented program, one segmented sort-reduce for the four cohort
+    slots and no B2 or B11."""
     from byzpy_tpu_torch import aggregators as A
     from byzpy_tpu_torch.engine.actor import wire
     from byzpy_tpu_torch.serving import (
@@ -929,4 +930,70 @@ def test_cuda_ragged_executor_dispatch(cuda_device, name, mode):
         assert counts[dec] == 1 and counts[f"segment_sum_dequant:{mode}"] == 1
         assert counts["segment_sum"] == (1 if name == "multikrum" else 0)
     if name in ("trimmed", "median"):
-        assert counts["sort_columns"] == 4
+        assert counts["segmented_sort_reduce"] == 1
+        assert counts["sort_columns"] == 0 and counts["segment_sum"] == 0
+
+
+# (R, d, cohort sizes, padding slots): the executor's batch at SmallCNN's
+# width (odd rows start 8-byte aligned), an odd d (rows at every alignment)
+# with a one-row and a 120-row cohort, and d below one column tile
+SEGMENTED = {
+    "n_batch": (128, 421_642, (6, 13, 29, 64), 1),
+    "odd_d": (128, 50_001, (1, 2, 5, 120), 0),
+    "small": (16, 37, (3, 8, 5), 1),
+}
+
+
+def _segmented_batch(name, device, *, specials=False):
+    R, d, sizes, pad = SEGMENTED[name]
+    flat = torch.from_numpy(_matrix(np.random.default_rng(R + d), (R, d), specials=specials)).to(device)
+    offsets = torch.full((len(sizes) + pad,), sum(sizes), dtype=torch.int32)
+    lengths = torch.zeros(len(sizes) + pad, dtype=torch.int32)
+    offsets[:len(sizes)] = torch.tensor(np.cumsum((0,) + sizes[:-1]), dtype=torch.int32)
+    lengths[:len(sizes)] = torch.tensor(sizes, dtype=torch.int32)
+    return flat, offsets.to(device), lengths.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,f", [("trimmed", 0), ("trimmed", 2), ("trimmed", 8), ("median", 0)])
+@pytest.mark.parametrize("name", sorted(SEGMENTED))
+def test_cuda_segmented_sort_reduce_matches_plain_bitwise(cuda_device, name, mode, f):
+    flat, offsets, lengths = _segmented_batch(name, cuda_device)
+    before = kernels.launch_counts["segmented_sort_reduce"]
+    out = kernels.segmented_sort_reduce(flat, offsets, lengths, mode=mode, f=f)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["segmented_sort_reduce"] == before + 1
+    assert _bits_equal(out, kernels.segmented_sort_reduce_plain(flat, offsets, lengths, mode=mode, f=f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,f", [("trimmed", 0), ("trimmed", 2), ("median", 0)])
+@pytest.mark.parametrize("name", ["odd_d", "small"])
+def test_cuda_segmented_sort_reduce_nonfinite_rows(cuda_device, name, mode, f):
+    """Rows holding NaN, +-inf and -0.0: NaN (canonical) where the plain
+    version has NaN, the same bits everywhere else, and no fault."""
+    flat, offsets, lengths = _segmented_batch(name, cuda_device, specials=True)
+    flat[:, 7:10] = float("inf")
+    flat[::3, 8] = float("nan")
+    flat[:, 10] = float("nan")
+    out = kernels.segmented_sort_reduce(flat, offsets, lengths, mode=mode, f=f)
+    torch.cuda.synchronize()
+    ref = kernels.segmented_sort_reduce_plain(flat, offsets, lengths, mode=mode, f=f)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref)) and bool(torch.isnan(ref).any())
+    assert _all_canonical_nan(out[torch.isnan(out)])
+    assert _bits_equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_segmented_sort_reduce_rejects(cuda_device):
+    offsets = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        kernels.segmented_sort_reduce(torch.zeros((129, 10), device=cuda_device), offsets, lengths,
+                                      mode="median")
+    with pytest.raises(ValueError):
+        kernels.segmented_sort_reduce(torch.zeros((8, 10), device=cuda_device, dtype=torch.bfloat16),
+                                      offsets, lengths, mode="median")
+    with pytest.raises(ValueError):
+        kernels.segmented_sort_reduce(torch.zeros((10, 8), device=cuda_device).T, offsets, lengths,
+                                      mode="trimmed")

@@ -586,9 +586,10 @@ def test_ragged_serving_step_rejects_what_is_not_ported():
 
 @pytest.mark.parametrize("batch", ["one", "three", "four"])
 def test_segmented_programs_equal_the_classes_masked_door(batch):
-    """The sort family takes the generic masked door on both devices; the
-    segmented programs (``ragged_trimmed_mean``, ``ragged_median``, one
-    sort of the whole batch) give the same bits on finite rows."""
+    """The sort family takes the generic masked door on the CPU and the
+    segmented programs (``ragged_trimmed_mean``, ``ragged_median``: one
+    segmented sort-reduce of the whole batch) on the card; both give the
+    same bits on finite rows."""
     sizes = BATCHES[batch]
     flat, seg, offsets, lengths, _ = _batch(sizes, seed=21)
     args = _t(flat, seg, offsets, lengths)
