@@ -38,6 +38,36 @@ __device__ __forceinline__ float s4_code(const uint8_t* __restrict__ packed, lon
   return (float)(int)((j & 1) ? (b >> 4) : (b & 0xF)) - 8.0f;
 }
 
+// The codes of one 32-bit word of a wire row, read little endian (byte k
+// of an int8 / fp8 word is q[k], nibble k of an s4 word is q[k]): the
+// values decode_code and s4_code give, exactly, with fewer instructions
+// than a conversion a code. An int8 code c is the float with bits
+// 0x4B400000 | (c + 128) (= 1.5 * 2^23 + c + 128) less 12583040 (= 1.5 *
+// 2^23 + 128), both exact; an s4 nibble n the float 0x4B400000 | n less
+// 12582920 (= 1.5 * 2^23 + 8); two fp8 codes convert to two f16 values in
+// one instruction, each exact.
+template <int CODE>
+__device__ __forceinline__ void decode_word(unsigned int word, float (&q)[CODE == kS4 ? 8 : 4]) {
+  if constexpr (CODE == kS4) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      q[k] = __fadd_rn(__uint_as_float(0x4B400000u | ((word >> (4 * k)) & 0xFu)), -12582920.0f);
+  } else if constexpr (CODE == kInt8) {
+    const unsigned int biased = word ^ 0x80808080u;  // c + 128 in each byte
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      q[k] = __fadd_rn(__uint_as_float(__byte_perm(biased, 0x4B400000u, 0x7650u | k)), -12583040.0f);
+  } else {
+    constexpr __nv_fp8_interpretation_t kind = CODE == kE4M3 ? __NV_E4M3 : __NV_E5M2;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(word >> (16 * k)), kind);
+      q[2 * k] = __half2float(__half(__half_raw{h.x}));
+      q[2 * k + 1] = __half2float(__half(__half_raw{h.y}));
+    }
+  }
+}
+
 // Code value at position j of a wire row in any mode: one byte a position
 // for int8 / fp8, half a byte for s4.
 template <int CODE>

@@ -681,19 +681,21 @@ def masked_rows(shape, seed: int, dtype, *, specials: bool = True):
 def check_masked_kernels(errs: dict) -> None:
     """B11, B2 and the row reduction against their plain versions, bit for
     bit, in f32, bf16 and f16, on rows holding NaN, +-inf and -0.0: B11 at
-    one cohort and at 8, fill = R and R / 2 (an int and a device int32,
-    the rows past the fill NaN, which must not be read), at the serving
-    path's 64 x 421,642, R = 8 and the headline; B2 at n = 8 ... 128
-    (and 13, 29) x 421,642 and the headline, n = 129 raising; the row
-    reduction with and without a centre."""
+    1, 4, 8 and 17 cohorts (every cohort tile up to 8, and two tiles of 16),
+    fill = R and R / 2 (an int and a device int32, the rows past the fill
+    NaN, which must not be read), at the serving path's 64 x 421,642, R =
+    8, the executor's 128 rows at an odd d (row starts at every alignment)
+    and the headline; B2 at n = 8 ... 128 (and 13, 29) x 421,642 and the
+    headline, n = 129 raising; the row reduction with and without a
+    centre."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
 
-    for (R, d) in ((64, 421_642), (8, 421_642), HEADLINE):
+    for (R, d) in ((64, 421_642), (8, 421_642), (EXEC_CAP, 421_641), HEADLINE):
         for name in DTYPES if (R, d) != HEADLINE else ("float32",):
             x = masked_rows((R, d), 600 + R, getattr(torch, name))
-            for C in (1, 8):
+            for C in B11_COHORTS if (R, d) != HEADLINE else (1, 4):
                 gen = torch.Generator(device="cuda").manual_seed(C)
                 w = torch.randn((C, R), generator=gen, device="cuda")
                 out = kernels.segment_sum(x, w)
@@ -711,8 +713,9 @@ def check_masked_kernels(errs: dict) -> None:
                     check(bits_equal(kernels.segment_sum(xg, wz, fill=f), want),
                           f"B11 fill={fill} ({type(f).__name__}) differs at C={C} {(R, d)} {name}")
                 del w, out, ref, xz, wz, want, xg
-            log(f"  B11 {(R, d)} {name}: C = 1 and 8 bitwise equal to plain, fill = R and R/2 "
-                f"(int and device int32) bitwise, NaN canonical")
+            log(f"  B11 {(R, d)} {name}: C in {B11_COHORTS if (R, d) != HEADLINE else (1, 4)} "
+                f"bitwise equal to plain, fill = R and R/2 (int and device int32) bitwise, NaN "
+                f"canonical")
             del x
             torch.cuda.empty_cache()
     for n in (8, 13, 16, 29, 32, 64, 128):
@@ -749,6 +752,11 @@ def check_masked_kernels(errs: dict) -> None:
         torch.cuda.empty_cache()
     log("  row_sq_dists at 64 and 8 x 421,642 and the headline, with and without a centre, "
         f"in {', '.join(DTYPES)}: bitwise equal to plain")
+
+
+# B11's cohort counts in phase 3: one, the executor's four, a full tile of 8
+# and 17 (two tiles of 16)
+B11_COHORTS = (1, 4, 8, 17)
 
 
 # blocks of the s4 codec's checks: 100 is not a multiple of 8, so B16 writes
@@ -806,17 +814,18 @@ def check_s4_codec(errs: dict) -> None:
 def check_segment_sum_dequant(errs: dict) -> None:
     """B12 against its plain version (the plain decode, the rows times the
     row weights, B11's plain chain) bit for bit: int8, fp8, fp8_e5m2 and s4
-    wire rows (block 256) of 128 x 421,642 with C = 1, 4 and 16 cohorts,
-    row weights None and stale (every fourth 0.5), and a device fill of 96
-    (the rows past it NaN-scaled, which must not be read); and 64 x
-    1,048,576 at C = 1."""
+    wire rows (block 256) of 128 x 421,642 with C = 1, 4, 16 and 17
+    cohorts, and of 128 x 421,641 (int8 / fp8 code rows of odd width, so
+    row starts at every byte alignment) with C = 4 and 17, row weights None
+    and stale (every fourth 0.5), and a device fill of 96 (the rows past it
+    NaN-scaled, which must not be read); and 64 x 1,048,576 at C = 1."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
     from byzpy_tpu_torch.parallel import CommPrecision, encode_blockwise
 
     block = 256
-    for R, d, cohorts in ((128, 421_642, (1, 4, 16)), (*HEADLINE, (1,))):
+    for R, d, cohorts in ((128, 421_642, (1, 4, 16, 17)), (128, 421_641, (4, 17)), (*HEADLINE, (1,))):
         x = masked_rows((R, d), 1000 + R, torch.float32, specials=False)
         omega = torch.where(torch.arange(R, device="cuda") % 4 == 1, 0.5, 1.0)
         fill = R * 3 // 4
@@ -2106,12 +2115,16 @@ def port_device_ms(fn, calls: int = 10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {p: ms / count for p, (ms, count) in port_part(device_events(prof, calls)).items()
-            if count}
+    for _ in range(3):  # a profile that recorded none of the launches is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {p: ms / count for p, (ms, count) in port_part(device_events(prof, calls)).items()
+               if count}
+        if out:
+            return out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2504,6 +2517,48 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
     return out
 
 
+def cohort_kernel_times(seed: int) -> dict:
+    """B11 at the executor's capacity, 128 x 421,642 f32, with C = 4
+    cohorts (the (n) dispatch's contraction; C = 16 beside it), beside its
+    bound, its plain version and ``w @ x``; and B3 on the same rows beside
+    ``x @ x.T``, the library call a later B3 redesign is ordered by."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    R, d = EXEC_CAP, 421_642
+    x = masked_rows((R, d), seed, torch.float32, specials=False)
+    out = {}
+    for C in (EXEC_MAX_COHORTS, 16):
+        w = torch.randn((C, R), generator=torch.Generator(device="cuda").manual_seed(C), device="cuda")
+        # read x and w once, write the (C, d) sums; one FMA (2 flops) per (c, r, col)
+        b_ms, b_by = bound_ms(R * d * 4 + C * R * 4 + C * d * 4, 2 * C * R * d)
+        out[f"segment_sum:C={C}"] = {
+            "ms": cuda_time_ms(lambda: kernels.segment_sum(x, w)),
+            "device_ms": port_device_ms(lambda: kernels.segment_sum(x, w)),
+            "plain_ms": cuda_time_ms(lambda: kernels.segment_sum_plain(x, w), iters=1, warmup=1),
+            "library_ms": cuda_time_ms(lambda: w @ x),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [C, R, d],
+        }
+        del w
+    x3 = x[None]
+    b_ms, b_by = bound_ms(R * d * 4 + R * R * 4, R * (R + 1) * d)
+    out["gram"] = {
+        "ms": cuda_time_ms(lambda: kernels.gram(x3)),
+        "device_ms": port_device_ms(lambda: kernels.gram(x3)),
+        "plain_ms": cuda_time_ms(lambda: kernels.gram_plain(x3)),
+        "library_ms": cuda_time_ms(lambda: x @ x.T),
+        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, R, d],
+    }
+    for key, v in out.items():
+        log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library "
+            f"{v['library_ms']:.4f} ms")
+    del x, x3
+    torch.cuda.empty_cache()
+    return out
+
+
 def aggregator_times() -> dict:
     """The six aggregators of this slice, whole, on one ByzPy grid input
     (64 x 65,536 f32 normal, benchmarks/full_grid.py), by CUDA events
@@ -2838,6 +2893,11 @@ def timing() -> dict:
     for k, v in masked.items():
         v["main_path_shape"] = {key: serve[k][key] for key in keys + ("cdist_ms",) if key in serve[k]}
     out.update(masked)
+    # B11 at the (n) dispatch's 4 cohorts and B3 at its 128 rows
+    cohorts = cohort_kernel_times(seed=45)
+    out["segment_sum"]["at_executor_capacity"] = {
+        k.split("=")[1]: v for k, v in cohorts.items() if k.startswith("segment_sum")}
+    out["gram"]["at_executor_capacity"] = cohorts["gram"]
     return out
 
 
@@ -2909,6 +2969,41 @@ CODEC_COUNTERS = {
 }
 
 
+def ptxas_report(text: str, nvcc: str, kernels: tuple) -> list:
+    """Registers, spill bytes and stack frame of each instance of the named
+    kernels in one source's ``-Xptxas -v`` output, named as ``cu++filt``
+    (beside ``nvcc``) demangles them."""
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    out, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line) or re.search(
+            r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or not any(k in fn for k in kernels):
+            continue
+        if "stack frame" in line:
+            nums = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+            entry = {"kernel": fn, "stack_frame": nums[0], "spill_stores": nums[1], "spill_loads": nums[2]}
+            out.append(entry)
+        elif "Used" in line and out and out[-1]["kernel"] == fn:
+            out[-1]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    if os.path.isfile(filt) and out:
+        names = subprocess.run([filt], input="\n".join(e["kernel"] for e in out), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        for e, name in zip(out, names):
+            name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|^void |\((int|bool)\)", "", name)
+            depth = 0
+            for i, ch in enumerate(name):  # cut the argument list: the first '(' outside <>
+                depth += (ch == "<") - (ch == ">")
+                if ch == "(" and depth == 0:
+                    name = name[:i]
+                    break
+            e["kernel"] = name.strip()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2942,6 +3037,9 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "stack frame" in line:
                 log(f"  [{name}] {line.strip()}")
+    log("SEGMENT_SUM_PTXAS " + json.dumps(ptxas_report(_build.build_log.get("segment_sum", ""),
+                                                       nvcc, ("segment_sum_kernel",
+                                                              "segment_sum_dequant_kernel"))))
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}

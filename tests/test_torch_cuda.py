@@ -727,26 +727,63 @@ def test_cuda_compressed_rounds_launch_the_codecs(cuda_device):
 # ---------------------------------------------------------------------------
 
 
+def _dispatch_weights(C, R, seed, device):
+    """A ragged dispatch's weights: cohorts 0 .. C - 2 own consecutive row
+    ranges (cohort 0 the first), the last cohort is an all-zero padding
+    slot (at C = 1 the one cohort owns every row)."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((C, R), np.float32)
+    owners = max(C - 1, 1)
+    cuts = np.linspace(0, R, owners + 1).astype(int)
+    for c in range(owners):
+        w[c, cuts[c]:cuts[c + 1]] = rng.uniform(0.25, 2.0, size=cuts[c + 1] - cuts[c])
+    return torch.from_numpy(w).to(device), int(cuts[1])
+
+
+def _count_one(key, fn):
+    before = kernels.launch_counts[key]
+    out = fn()
+    assert kernels.launch_counts[key] == before + 1, key
+    return out
+
+
+# (C, R, d): C across every cohort tile (1, 2, 4, 8, 16 and two or three
+# tiles of 16), d at every alignment of a row start (odd d, d < 4, 421,641)
+SEGMENT_CASES = [(1, 8, 5000), (1, 64, 421_641), (2, 300, 4999), (3, 13, 3), (4, 128, 421_641),
+                 (5, 40, 4999), (8, 128, 5000), (9, 20, 1), (16, 64, 4997), (17, 33, 421_641),
+                 (33, 12, 2)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
-@pytest.mark.parametrize("C,R", [(1, 8), (1, 64), (3, 13), (8, 128), (2, 300)])
-def test_cuda_segment_sum_matches_plain_bitwise(cuda_device, C, R, dt):
+@pytest.mark.parametrize("C,R,d", SEGMENT_CASES)
+def test_cuda_segment_sum_matches_plain_bitwise(cuda_device, C, R, d, dt):
     """B11 equals its plain version bit for bit (one FMA chain per output
-    in row order), NaN and +-inf rows included, at fill = R and at a fill
-    below R given as an int and as a device int32."""
-    rng = np.random.default_rng(R + C)
-    x = torch.from_numpy(_matrix(rng, (R, 5000))).to(cuda_device, DTYPES[dt])
-    w = torch.from_numpy(rng.normal(size=(C, R)).astype(np.float32)).to(cuda_device)
-    before = kernels.launch_counts["segment_sum"]
-    out = kernels.segment_sum(x, w)
-    assert kernels.launch_counts["segment_sum"] == before + 1
-    assert _bits_equal(out, kernels.segment_sum_plain(x, w))
+    in row order), one launch a call: dense weights over rows holding NaN,
+    +-inf and -0.0; a dispatch's block-diagonal weights with an all-zero
+    padding slot while cohort 0 holds +-inf / NaN entries (every other
+    cohort's chain adds 0 * inf = NaN there, so their NaN bits are pinned);
+    and a fill below R as an int and as a device int32, the rows past it
+    NaN and never read."""
+    rng = np.random.default_rng(R + C + d)
+    x = torch.from_numpy(_matrix(rng, (R, max(d, 6)))[:, :d].copy()).to(cuda_device, DTYPES[dt])
+    dense = torch.from_numpy(rng.normal(size=(C, R)).astype(np.float32)).to(cuda_device)
+    block, own = _dispatch_weights(C, R, C + d, cuda_device)
+    xb = x.clone()
+    xb[:own, : min(d, 3)] = float("inf")
+    xb[own - 1, d // 2] = float("-inf")
+    xb[0, d - 1] = float("nan")
+    for xx, w in ((x, dense), (xb, block)):
+        out = _count_one("segment_sum", lambda: kernels.segment_sum(xx, w))
+        assert _bits_equal(out, kernels.segment_sum_plain(xx, w))
     fill = R // 2
-    xz, wz = x.clone(), w.clone()
-    xz[fill:], wz[:, fill:] = 0, 0
+    wz = dense.clone()
+    wz[:, fill:] = 0
+    xz, xg = x.clone(), x.clone()
+    xz[fill:], xg[fill:] = 0, float("nan")
     ref = kernels.segment_sum_plain(xz, wz)
     for f in (fill, torch.tensor([fill], dtype=torch.int32, device=cuda_device)):
-        assert _bits_equal(kernels.segment_sum(x, w, fill=f), ref)
+        assert _bits_equal(_count_one("segment_sum", lambda: kernels.segment_sum(xg, wz, fill=f)), ref)
 
 
 @pytest.mark.cuda
@@ -859,34 +896,44 @@ def _wire(mode, rows, d, block, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 8, 9, 16, 17, 33])
 @pytest.mark.parametrize("mode", ["int8", "fp8", "fp8_e5m2", "s4"])
 def test_cuda_segment_sum_dequant_matches_plain_bitwise(cuda_device, mode, C):
     """B12 equals its plain version (the plain decode, then B11's plain
-    chain) bit for bit, with and without staleness row weights, at fill = R
-    and at a device fill below R (rows past it NaN-scaled, never read);
-    one launch each, counted under its mode."""
-    R, d, block = 40, 5003, 256
-    codes, scales = _wire(mode, R, d, block, cuda_device)
+    chain) bit for bit, one launch a call counted under its mode: code rows
+    of odd width (every alignment of an int8 / fp8 row start) and blocks
+    256, 100 and 32 (a word of codes across a block boundary); dense and a
+    dispatch's block-diagonal weights with an all-zero padding slot while
+    cohort 0's rows carry inf and NaN scales (the other cohorts' 0 * inf =
+    NaN pinned); with and without staleness row weights; and a device fill
+    below R, the rows past it NaN-scaled and never read."""
+    R = 40
     gen = torch.Generator(device="cuda").manual_seed(C)
-    w = torch.randn((C, R), generator=gen, device=cuda_device)
+    dense = torch.randn((C, R), generator=gen, device=cuda_device)
+    block_w, own = _dispatch_weights(C, R, C, cuda_device)
     omega = torch.where(torch.arange(R, device=cuda_device) % 4 == 1, 0.5, 1.0)
-    for rw in (None, omega):
-        before = kernels.launch_counts[f"segment_sum_dequant:{mode}"]
-        out = kernels.segment_sum_dequant(codes, scales, w, mode=mode, block=block, d=d, row_weights=rw)
-        assert kernels.launch_counts[f"segment_sum_dequant:{mode}"] == before + 1
-        assert _bits_equal(out, kernels.segment_sum_dequant_plain(codes, scales, w, mode=mode,
-                                                                  block=block, d=d, row_weights=rw))
-    fill = R // 2
-    wz = w.clone()
-    wz[:, fill:] = 0
-    want = kernels.segment_sum_dequant_plain(codes, scales, wz, mode=mode, block=block, d=d,
-                                             row_weights=omega)
-    bad = scales.clone()
-    bad[fill:] = float("nan")
-    got = kernels.segment_sum_dequant(codes, bad, w, mode=mode, block=block, d=d, row_weights=omega,
-                                      fill=torch.tensor([fill], dtype=torch.int32, device=cuda_device))
-    assert _bits_equal(got, want)
+    key = f"segment_sum_dequant:{mode}"
+    for d, block in ((5003, 256), (4999, 100), (1001, 32)):
+        codes, scales = _wire(mode, R, d, block, cuda_device)
+        bad = scales.clone()
+        bad[0, 0], bad[own - 1, -1] = float("inf"), float("nan")
+        for sc, w in ((scales, dense), (bad, block_w)):
+            for rw in (None, omega):
+                out = _count_one(key, lambda: kernels.segment_sum_dequant(
+                    codes, sc, w, mode=mode, block=block, d=d, row_weights=rw))
+                assert _bits_equal(out, kernels.segment_sum_dequant_plain(
+                    codes, sc, w, mode=mode, block=block, d=d, row_weights=rw)), (d, block, rw is None)
+        fill = R // 2
+        wz = dense.clone()
+        wz[:, fill:] = 0
+        want = kernels.segment_sum_dequant_plain(codes, scales, wz, mode=mode, block=block, d=d,
+                                                 row_weights=omega)
+        nan_past = scales.clone()
+        nan_past[fill:] = float("nan")
+        got = _count_one(key, lambda: kernels.segment_sum_dequant(
+            codes, nan_past, dense, mode=mode, block=block, d=d, row_weights=omega,
+            fill=torch.tensor([fill], dtype=torch.int32, device=cuda_device)))
+        assert _bits_equal(got, want), (d, block)
 
 
 @pytest.mark.cuda

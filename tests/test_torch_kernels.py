@@ -1003,8 +1003,33 @@ def test_segment_sum_plain_matches_einsum_and_pallas_bitwise(R, d, C):
     assert (np.abs(out.astype(np.float64) - ref) <= bound).all()
 
 
+@pytest.mark.parametrize("C", [5, 9, 17])
+@pytest.mark.parametrize("R,d", [(8, 421), (13, 193), (16, 1000), (64, 4099)])
+def test_segment_sum_plain_matches_pallas_bitwise_at_many_cohorts(R, d, C):
+    """The plain B11 at cohort counts past one tile of 4 (5, 9) and of 16
+    (17) equals the Pallas kernel in interpret mode bit for bit, and each
+    cohort's row einsum on the columns XLA:CPU vectorizes. XLA's own loop
+    over the last d mod 8 columns is held to the recursive-summation bound
+    here (it differs from the chain by up to 4 ulp on these inputs, where
+    the sums cancel), as is the matrix-product einsum on every column."""
+    rng = np.random.default_rng(R * 7 + C)
+    x = (rng.normal(size=(R, d)) * rng.uniform(0.1, 50.0, size=(R, 1))).astype(np.float32)
+    w = rng.normal(size=(C, R)).astype(np.float32)
+    out = kernels.segment_sum(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    pal = np.asarray(pk.ragged_segment_sum_pallas(jnp.asarray(x), jnp.asarray(w), interpret=True))
+    np.testing.assert_array_equal(out.view(np.uint32), pal.view(np.uint32))
+    bound = R * 2.0 ** -24 * (np.abs(w).astype(np.float64) @ np.abs(x))
+    cut = d - d % 8
+    for c in range(C):
+        row = np.asarray(jnp.einsum("n,nd->d", jnp.asarray(w[c]), jnp.asarray(x)))
+        np.testing.assert_array_equal(out[c, :cut].view(np.uint32), row[:cut].view(np.uint32))
+        assert (np.abs(out[c].astype(np.float64) - row) <= bound[c]).all()
+    ref = np.asarray(jnp.einsum("cr,rd->cd", jnp.asarray(w), jnp.asarray(x)))
+    assert (np.abs(out.astype(np.float64) - ref) <= bound).all()
+
+
 @pytest.mark.parametrize("as_tensor", [False, True])
-@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("C", [1, 3, 5, 9, 17])
 def test_segment_sum_fill_matches_pallas_bitwise(C, as_tensor):
     """``fill`` < R with zero rows and zero weights past it: the rows past
     the fill are not read (they hold NaN here), and the result equals the

@@ -237,7 +237,7 @@ def test_batch_decode_matches_jax_flat_dequantize_and_the_wire_codec(mode, block
     assert bool(torch.signbit(got[-1]).all()) == (mode == "s4") and not got[-1].any()
 
 
-@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("C", [1, 3, 5, 9, 17])
 @pytest.mark.parametrize("R,d,block", [(12, 1024, 256), (40, 512, 128), (128, 264, 8)])
 @pytest.mark.parametrize("mode", WIRE)
 def test_b12_plain_matches_the_pallas_kernel_in_interpret_mode(mode, R, d, block, C):
