@@ -336,11 +336,23 @@ def sorted_reduce_stream_plain(xs: torch.Tensor, *, mode: str, f: int = 0) -> to
 # ---------------------------------------------------------------------------
 
 
+def gram_chunks(d: int, K: int, sms: int) -> tuple:
+    """``(chunk, nchunks)`` of B3's split-K Gram over ``K`` rounds of ``d``
+    columns on a card of ``sms`` SMs: about ``_GRAM_BLOCKS_PER_SM`` blocks
+    a SM, each a chunk of a multiple of ``_GRAM_TK`` columns and at least
+    ``_GRAM_MIN_CHUNK``, the chunks covering ``d``. They fix the summation
+    order (:func:`gram_split_k_plain`)."""
+    per_round = max(1, _GRAM_BLOCKS_PER_SM * sms // K)
+    chunk = max(_GRAM_MIN_CHUNK, _round_up(_ceil_div(d, per_round), _GRAM_TK))
+    return chunk, _ceil_div(d, chunk)
+
+
 def gram(xs: torch.Tensor) -> torch.Tensor:
     """``(K, n, n)`` f32 Gram matrices ``x @ x.T`` of ``K`` stacked rounds
     ``xs: (K, n, d)``, accumulated in f32 (B3; ref
     ``pallas_kernels.gram_pallas``). On the card: split-K partials plus a
-    fixed-order reduction, the same bits on every run."""
+    fixed-order reduction, the same bits on every run; they equal
+    :func:`gram_split_k_plain` at the card's chunking (:func:`gram_chunks`)."""
     _check_ndim(xs, 3, "xs")
     _check_float(xs)
     K, n, d = xs.shape
@@ -351,10 +363,9 @@ def gram(xs: torch.Tensor) -> torch.Tensor:
         return torch.zeros((K, n, n), dtype=torch.float32, device=xs.device)
     npad = max(16, network_width(n))
     sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
-    per_round = max(1, _GRAM_BLOCKS_PER_SM * sms // K)
-    chunk = max(_GRAM_MIN_CHUNK, _round_up(_ceil_div(d, per_round), _GRAM_TK))
-    nchunks = _ceil_div(d, chunk)
-    partial = torch.empty(K * nchunks * npad * npad, dtype=torch.float32, device=xs.device)
+    chunk, nchunks = gram_chunks(d, K, sms)
+    # each chunk's partial Gram: its entries i <= j packed row by row
+    partial = torch.empty(K * nchunks * (n * (n + 1) // 2), dtype=torch.float32, device=xs.device)
     out = torch.empty((K, n, n), dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         _call(
@@ -374,6 +385,39 @@ def gram_plain(xs: torch.Tensor) -> torch.Tensor:
     if x.shape[0] == 0:
         return x.new_zeros((0, x.shape[1], x.shape[1]))
     return torch.stack([xk @ xk.T for xk in x])
+
+
+def gram_split_k_plain(xs: torch.Tensor, chunk: int) -> torch.Tensor:
+    """B3's own summation order in plain PyTorch, on any device: per chunk
+    of ``chunk`` columns, each entry's ascending :func:`fma_f32` chain from
+    +0.0 over the chunk's columns (the last chunk's zero-padded past ``d``
+    to a multiple of ``_GRAM_TK``, and no further), all chunks at once;
+    then the chunks' partials added in chunk order in f32. At the card's
+    :func:`gram_chunks` it equals :func:`gram` on the card bit for bit (NaN
+    payloads aside). No path runs it: :func:`gram_plain` is the CPU path."""
+    _check_ndim(xs, 3, "xs")
+    if chunk < 1 or chunk % _GRAM_TK:
+        raise ValueError(f"chunk must be a positive multiple of {_GRAM_TK}, got {chunk}")
+    x = xs.float()
+    K, n, d = x.shape
+    s = x.new_zeros((K, n, n))
+    if K == 0 or d == 0:
+        return s
+    nchunks = _ceil_div(d, chunk)
+    cols = torch.zeros((K, n, nchunks * chunk), dtype=torch.float32, device=x.device)
+    cols[..., :d] = x
+    cols = cols.view(K, n, nchunks, chunk).permute(0, 2, 3, 1)  # (K, chunk b, column, row)
+    acc = x.new_zeros((K, nchunks, n, n))
+    last_end = _round_up(d, _GRAM_TK) - (nchunks - 1) * chunk  # the last chunk's columns
+    for c in range(chunk):
+        v = cols[:, :, c]  # (K, nchunks, n)
+        step = fma_f32(v[..., :, None], v[..., None, :], acc)
+        if c >= last_end:
+            step[:, -1] = acc[:, -1]
+        acc = step
+    for b in range(nchunks):
+        s = s + acc[:, b]
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -1513,7 +1557,9 @@ __all__ = [
     "float_sort_keys",
     "fma_f32",
     "gram",
+    "gram_chunks",
     "gram_plain",
+    "gram_split_k_plain",
     "keys_to_float",
     "launch_counts",
     "meamed_stream",

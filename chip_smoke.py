@@ -13,7 +13,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    krum / cge / monna modes, B5 selection mean from a given Gram, B6
    MeaMed, B7 centre step in its weiszfeld / clip modes, B8 NNM, B9 NNM ->
    selection mean, B10 clip / ARC -> selection mean) against its plain
-   PyTorch version on the card, at the main path's shapes, at the 64 x
+   PyTorch version on the card (B3 also bit for bit its own split-K
+   order, ``gram_split_k_plain``, at 8, 64 and 128 x 421,642 and 2 x 13 x
+   50,000 in f32, bf16 and f16), at the main path's shapes, at the 64 x
    1,048,576 headline and, for B5-B10, on rows holding NaN and inf (B8's
    mixing sweep also bitwise where rows start off a 16-byte boundary, at
    K = 3, n = 128, d below a tile, in bf16 and f16, and finite under a
@@ -78,7 +80,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    program's on the decoded rows and (s4) the CPU port's;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642) beside the card's bound, the plain version and, where one
-   exists, a single PyTorch call (B8's mixing sweep also with its
+   exists, a single PyTorch call (B3 also at 64 and 128 x 421,642, its
+   partials' and reduce's device times apart; B8's mixing sweep also with its
    torch.profiler device time and in bf16), with a whole Multi-Krum fold round beside
    the barrier Multi-Krum, the codecs at block 256, B2, B11 and the row
    reduction at the headline and at 64 x 421,642, B16 and B17, B12 at 64 x
@@ -313,6 +316,43 @@ def check_gram_and_selection(errs: dict) -> None:
             log(f"  B3+B4 {shape} {mode}: Gram within 1e-5|xi||xj|, weights equal, same rows "
                 f"as the plain Gram's, sweep {rows_ulps} ulp, aggregate {ulps} ulp")
         del x, g, g_ref
+        torch.cuda.empty_cache()
+
+
+# B3's bitwise shapes: the main path's, the serving and ragged (m)
+# capacity, the executor's, and two rounds with a NaN row
+GRAM_ORDER_SHAPES = [((1, MAIN_N, 421_642), False), ((1, 64, 421_642), False),
+                     ((1, 128, 421_642), False), ((2, 13, 50_000), True)]
+
+
+def check_gram_order(errs: dict) -> None:
+    """B3 against ``gram_split_k_plain`` at the card's chunking, bit for bit
+    (NaN at the same places: the card's NaN payload is its own), in f32,
+    bf16 and f16, and the same bits on a second call."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, nan_row in GRAM_ORDER_SHAPES:
+        chunk, nchunks = kernels.gram_chunks(shape[2], shape[0], sms)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            x = random_rounds(shape, seed=200 + shape[1], dtype=dtype)
+            if nan_row:
+                x[1, 4] = float("nan")
+            g = kernels.gram(x)
+            ref = kernels.gram_split_k_plain(x, chunk)
+            nan = torch.isnan(g)
+            check(torch.equal(nan, torch.isnan(ref)),
+                  f"B3 NaN pattern differs from its order at {shape} {dtype}")
+            check(torch.equal(g[~nan].view(torch.int32), ref[~nan].view(torch.int32)),
+                  f"B3 differs from gram_split_k_plain at {shape} {dtype}")
+            check(torch.equal(g.view(torch.int32), kernels.gram(x).view(torch.int32)),
+                  f"B3 not bit-stable at {shape} {dtype}")
+            errs["gram"] = max(errs["gram"], max_abs_err(g, ref))
+            log(f"  B3 {shape} {str(dtype)[6:]}: bit for bit gram_split_k_plain ({nchunks} chunks of "
+                f"{chunk}), {int(nan.sum())} NaN entries, stable")
+            del x, g, ref
         torch.cuda.empty_cache()
 
 
@@ -2158,15 +2198,6 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
             "plain_ms": cuda_time_ms(lambda: kernels.sorted_reduce_stream_plain(x, mode=mode, f=f), iters=3),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [1, n, d],
         }
-    gram_ops = n * (n + 1) * d  # symmetric half, 2 flops per FMA
-    b_ms, b_by = bound_ms(rows_in + n * n * 4, gram_ops)
-    out["gram"] = {
-        "ms": cuda_time_ms(lambda: kernels.gram(x)),
-        "plain_ms": cuda_time_ms(lambda: kernels.gram_plain(x)),
-        "library_ms": cuda_time_ms(lambda: x[0] @ x[0].T),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
-    }
-
     # B4's two launches on the kernel Gram of x: the weights read only the
     # (n, n) Gram; the sweep reads only the q selected rows
     g = kernels.gram(x)
@@ -2467,8 +2498,10 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
     f32 matrix beside their bounds, plain versions and, where one exists,
     a single PyTorch call that computes the same function: ``w @ x`` for
     B11, ``torch.sort(x, dim=0)`` for B2 (the same sorted values on these
-    finite inputs). No single call computes the row reduction; ``torch.cdist``
-    (the square roots of the same sums) is timed beside it as ``cdist_ms``."""
+    finite inputs). For the row reduction, ``torch.linalg.vecdot(x, x)``
+    computes the sums without a centre, timed beside the kernel's
+    ``row_sq_dists(x)`` (``no_centre_ms``); ``torch.cdist`` (the square roots
+    of the centred sums) is timed as ``cdist_ms``."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
@@ -2502,7 +2535,9 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
     out["row_sq_dists"] = {
         "ms": cuda_time_ms(lambda: kernels.row_sq_dists(x, z)),
         "plain_ms": cuda_time_ms(lambda: kernels.row_sq_dists_plain(x, z), iters=3),
-        "library_ms": None,
+        # the same sums without a centre: the kernel, and one PyTorch call
+        "no_centre_ms": cuda_time_ms(lambda: kernels.row_sq_dists(x)),
+        "library_ms": cuda_time_ms(lambda: torch.linalg.vecdot(x, x)),
         "cdist_ms": cuda_time_ms(lambda: torch.cdist(
             x, z[None], compute_mode="donot_use_mm_for_euclid_dist")),
         "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
@@ -2511,17 +2546,54 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
     for key, v in out.items():
         log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library "
-            f"{v['library_ms']}" + (f", cdist {v['cdist_ms']:.4f} ms" if "cdist_ms" in v else ""))
+            f"{v['library_ms']}" + (f", cdist {v['cdist_ms']:.4f} ms, no centre "
+                                    f"{v['no_centre_ms']:.4f} ms" if "cdist_ms" in v else ""))
     del x, w, z
     torch.cuda.empty_cache()
+    return out
+
+
+# B3's timed shapes: the main path's 8 rows, the serving and ragged (m)
+# capacity, the (n) executor's, and the headline
+GRAM_SHAPES = [(MAIN_N, 421_642), (64, 421_642), (128, 421_642), HEADLINE]
+
+
+def gram_times(seed: int) -> dict:
+    """B3 on one ``(1, n, d)`` f32 round at each of ``GRAM_SHAPES``: CUDA
+    events (before and after the library call), the partials' and the
+    reduce's device times (torch.profiler), the bound (the symmetric half's
+    FMAs or one read of x), the plain version and ``x @ x.T``, the library
+    call B3 is ordered by."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    out = {}
+    for n, d in GRAM_SHAPES:
+        x = random_rounds((1, n, d), seed=seed + n)
+        # read x once, write the (n, n) Gram; the symmetric half's FMAs, 2 flops each
+        b_ms, b_by = bound_ms(n * d * 4 + n * n * 4, n * (n + 1) * d)
+        v = {
+            "ms": cuda_time_ms(lambda: kernels.gram(x)),
+            "device_ms": port_device_ms(lambda: kernels.gram(x)),
+            "plain_ms": cuda_time_ms(lambda: kernels.gram_plain(x)),
+            "library_ms": cuda_time_ms(lambda: x[0] @ x[0].T),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
+        }
+        v["ms_after_library"] = cuda_time_ms(lambda: kernels.gram(x))
+        out[f"{n}x{d}"] = v
+        log(f"  gram {v['shape']}: {v['ms']:.4f} / {v['ms_after_library']:.4f} ms (device "
+            f"{json.dumps(v['device_ms'])}), bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
+            f"plain {v['plain_ms']:.4f} ms, library {v['library_ms']:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
     return out
 
 
 def cohort_kernel_times(seed: int) -> dict:
     """B11 at the executor's capacity, 128 x 421,642 f32, with C = 4
     cohorts (the (n) dispatch's contraction; C = 16 beside it), beside its
-    bound, its plain version and ``w @ x``; and B3 on the same rows beside
-    ``x @ x.T``, the library call a later B3 redesign is ordered by."""
+    bound, its plain version and ``w @ x``."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
@@ -2541,20 +2613,11 @@ def cohort_kernel_times(seed: int) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "shape": [C, R, d],
         }
         del w
-    x3 = x[None]
-    b_ms, b_by = bound_ms(R * d * 4 + R * R * 4, R * (R + 1) * d)
-    out["gram"] = {
-        "ms": cuda_time_ms(lambda: kernels.gram(x3)),
-        "device_ms": port_device_ms(lambda: kernels.gram(x3)),
-        "plain_ms": cuda_time_ms(lambda: kernels.gram_plain(x3)),
-        "library_ms": cuda_time_ms(lambda: x @ x.T),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [1, R, d],
-    }
     for key, v in out.items():
         log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library "
             f"{v['library_ms']:.4f} ms")
-    del x, x3
+    del x
     torch.cuda.empty_cache()
     return out
 
@@ -2891,13 +2954,19 @@ def timing() -> dict:
     masked = masked_kernel_times(*HEADLINE, seed=41)
     serve = masked_kernel_times(SERVE_CAP, 421_642, seed=43)
     for k, v in masked.items():
-        v["main_path_shape"] = {key: serve[k][key] for key in keys + ("cdist_ms",) if key in serve[k]}
+        v["main_path_shape"] = {key: serve[k][key] for key in keys + ("cdist_ms", "no_centre_ms")
+                                if key in serve[k]}
     out.update(masked)
-    # B11 at the (n) dispatch's 4 cohorts and B3 at its 128 rows
+    # B11 at the (n) dispatch's 4 cohorts
     cohorts = cohort_kernel_times(seed=45)
     out["segment_sum"]["at_executor_capacity"] = {
         k.split("=")[1]: v for k, v in cohorts.items() if k.startswith("segment_sum")}
-    out["gram"]["at_executor_capacity"] = cohorts["gram"]
+    # B3: the headline's numbers on the JSON line, every shape beside them
+    grams = gram_times(seed=47)
+    main_gram = grams[f"{MAIN_N}x421642"]
+    out["gram"] = dict(grams[f"{HEADLINE[0]}x{HEADLINE[1]}"], by_shape=grams,
+                       main_path_shape={key: main_gram[key] for key in keys if key in main_gram},
+                       at_executor_capacity=grams["128x421642"])
     return out
 
 
@@ -3040,11 +3109,17 @@ def main() -> int:
     log("SEGMENT_SUM_PTXAS " + json.dumps(ptxas_report(_build.build_log.get("segment_sum", ""),
                                                        nvcc, ("segment_sum_kernel",
                                                               "segment_sum_dequant_kernel"))))
+    gram_ptxas = ptxas_report(_build.build_log.get("gram", ""), nvcc,
+                              ("gram_partial_kernel", "gram_reduce_kernel"))
+    log("GRAM_PTXAS " + json.dumps(gram_ptxas))
+    spilled = [e["kernel"] for e in gram_ptxas if e["spill_stores"] or e["spill_loads"]]
+    check(not spilled, f"B3 instances spill: {spilled}")
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}
     check_sorted_reduce(errs)
     check_gram_and_selection(errs)
+    check_gram_order(errs)
     check_selection_from_gram(errs)
     check_pre_aggregation(errs)
     check_meamed(errs)

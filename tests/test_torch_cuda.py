@@ -91,6 +91,55 @@ def test_cuda_gram_and_selection_match_plain(cuda_device, n):
         torch.testing.assert_close(out, kernels.weighted_rows_plain(x, w), rtol=0, atol=0)
 
 
+# (n, K, d): every network width (n = 1 .. 128), one and three rounds, and
+# d at the order's edges: no columns, one part-filled tile, a chunk short
+# of 512, tails of 8, 9 and 11 columns past a tile, the SmallCNN width and
+# one less; odd d puts 16-bit rows at odd elements, so row starts take
+# every alignment
+GRAM_ORDER_CASES = [(1, 1, 7), (1, 3, 421_642), (5, 3, 5001), (8, 1, 421_642), (8, 3, 0),
+                    (13, 1, 421_641), (16, 1, 511), (16, 3, 5000), (17, 1, 7), (17, 3, 5003),
+                    (64, 1, 421_641), (64, 3, 5000), (100, 1, 5001), (100, 3, 511),
+                    (128, 1, 421_642), (128, 3, 5003)]
+
+
+def _gram_order_equal(g: torch.Tensor, ref: torch.Tensor) -> bool:
+    """Bit for bit, NaN at the same places (the card's NaN payload is its own)."""
+    nan = torch.isnan(g)
+    return bool(torch.equal(nan, torch.isnan(ref))
+                and torch.equal(g[~nan].view(torch.int32), ref[~nan].view(torch.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,K,d", GRAM_ORDER_CASES)
+def test_cuda_gram_equals_its_split_k_order_bitwise(cuda_device, n, K, d, dt):
+    """B3 equals ``gram_split_k_plain`` at the card's chunking bit for bit,
+    one launch a call and the same bits on every run: on rows holding NaN,
+    +-inf and -0.0, with one row all NaN; and on a contiguous view 4 bytes
+    into its storage, so every row starts 4 bytes off its usual alignment."""
+    x = torch.from_numpy(_matrix(np.random.default_rng(n + K + d), (K, max(n, 2), max(d, 6)),
+                                 specials=n >= 2)[:, :n, :d].copy()).to(cuda_device, DTYPES[dt])
+    if n >= 5 and d:
+        x[-1, n - 1] = float("nan")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    chunk, _ = kernels.gram_chunks(d, K, sms)
+    ref = kernels.gram_split_k_plain(x, chunk)
+    if d == 0:
+        assert torch.equal(kernels.gram(x), ref)
+        return
+    g = _count_one("gram", lambda: kernels.gram(x))
+    assert _gram_order_equal(g, ref)
+    for _ in range(2):
+        assert torch.equal(kernels.gram(x).view(torch.int32), g.view(torch.int32))
+    step = 4 // x.element_size()
+    storage = torch.empty(x.numel() + step, dtype=x.dtype, device=cuda_device)
+    shifted = storage[step:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != x.data_ptr() % 16
+    assert torch.equal(_count_one("gram", lambda: kernels.gram(shifted)).view(torch.int32),
+                       g.view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
     """n > 128 raises NotImplementedError; a strided tensor raises; nothing
