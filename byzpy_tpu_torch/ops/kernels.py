@@ -23,8 +23,10 @@ Kernels (TPU kernel they replace -> CUDA source):
   Gram);
 * B6 ``meamed_stream``: ``_meamed_stream_kernel`` (:619) ->
   ``csrc/meamed.cu``;
-* B7 ``weighted_center_step``: ``_weighted_center_step_kernel`` (:470),
-  modes ``weiszfeld`` and ``clip`` -> ``csrc/center_step.cu``;
+* B7 ``center_loop`` (and its first step, ``weighted_center_step``):
+  ``_weighted_center_step_kernel`` (:470) and the reference's loops around
+  it, modes ``weiszfeld`` and ``clip`` -> ``csrc/center_step.cu``, one
+  launch a loop;
 * B8 ``nnm_stream``: ``_nnm_stream_kernel`` (:1245) -> ``csrc/gram.cu`` +
   ``csrc/nnm.cu``;
 * B9 ``nnm_selection_mean_stream``: ``_nnm_selection_stream_kernel``
@@ -77,10 +79,10 @@ _GRAM_MIN_CHUNK = 16 * _GRAM_TK
 # B8's mixing sweep: at most this many persistent blocks per SM stride over
 # the column tiles (csrc/nnm.cu also caps them at what fits on the card)
 _MIX_BLOCKS_PER_SM = 4
-# B7's distance partials: this many blocks per SM, at least
-# _CENTER_MIN_CHUNK columns each
-_CENTER_BLOCKS_PER_SM = 4
-_CENTER_MIN_CHUNK = 1024
+# B7's loop kernel: its sums over columns take chunks of this many
+# columns, a block of _CENTER_THREADS threads a chunk (csrc/center_step.cu)
+_CENTER_CHUNK = 1024
+_CENTER_THREADS = 256
 # row_sq_dists: stage-1 lanes per row (csrc/segment_sum.cu kLanes)
 _ROW_LANES = 4096
 
@@ -96,6 +98,9 @@ launch_counts = {
     "selection_weights:monna": 0,
     "weighted_rows": 0,
     "meamed": 0,
+    # B7: the whole loops, and the one-step phases of the same kernel
+    "center_loop:weiszfeld": 0,
+    "center_loop:clip": 0,
     "center_weights:weiszfeld": 0,
     "center_weights:clip": 0,
     "center_sweep": 0,
@@ -686,7 +691,7 @@ def meamed_stream_plain(xs: torch.Tensor, *, f: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# B7: one Weiszfeld / centred-clipping step
+# B7: the Weiszfeld and centred-clipping loops
 # ---------------------------------------------------------------------------
 
 
@@ -705,6 +710,183 @@ def _check_center(x: torch.Tensor, z: torch.Tensor, mode: str = "weiszfeld") -> 
     return n, d
 
 
+def _center_tree(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis of 32 lanes by the kernel's warp butterfly
+    (xor 16, 8, 4, 2, 1): lane 0's value."""
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., idx ^ o]
+    return v[..., 0]
+
+
+def _center_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """``(r,)`` sums of the rows of ``v: (r, d)`` f32 in ``csrc/center_step.cu``'s
+    order, fixed by ``d`` alone: chunks of ``_CENTER_CHUNK`` columns; in a
+    chunk, thread ``t`` of ``_CENTER_THREADS`` adds columns ``t + 256 k`` in
+    order, a butterfly adds each warp's 32 threads, the 8 warp sums add in
+    order; lane ``l`` adds chunks ``l, l + 32, ...`` in order and a
+    butterfly adds the 32 lanes. Every add starts from +0.0; the padding
+    adds +0.0, which leaves these non-negative (or NaN) sums as they are."""
+    r, d = v.shape
+    nchunks = _ceil_div(d, _CENTER_CHUNK)
+    steps = _CENTER_CHUNK // _CENTER_THREADS
+    v = torch.nn.functional.pad(v, (0, nchunks * _CENTER_CHUNK - d))
+    v = v.view(r, nchunks, steps, _CENTER_THREADS)
+    acc = torch.zeros((r, nchunks, _CENTER_THREADS), dtype=torch.float32, device=v.device)
+    for k in range(steps):
+        acc = acc + v[:, :, k]
+    warps = _center_tree(acc.view(r, nchunks, _CENTER_THREADS // 32, 32))
+    part = torch.zeros((r, nchunks), dtype=torch.float32, device=v.device)
+    for w in range(warps.shape[2]):
+        part = part + warps[:, :, w]
+    rounds = _ceil_div(nchunks, 32)
+    part = torch.nn.functional.pad(part, (0, rounds * 32 - nchunks)).view(r, rounds, 32)
+    lanes = torch.zeros((r, 32), dtype=torch.float32, device=v.device)
+    for m in range(rounds):
+        lanes = lanes + part[:, m]
+    return _center_tree(lanes)
+
+
+def center_sq_dists_plain(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``(n,)`` f32 ``sum_c (x_ic - z_c)^2``, each difference and square
+    rounded once, summed in the loop kernel's order (:func:`_center_order_sum`)."""
+    diff = x.float() - z.float()
+    return _center_order_sum(diff * diff)
+
+
+def _center_round(v: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 ``v`` rounded to ``dtype`` and back (``rnd`` in the kernel)."""
+    return v.to(dtype).float()
+
+
+def _center_weights_from(sq: torch.Tensor, n: int, *, mode: str, eps: float, c_tau: float):
+    """``(w (n,), alpha (1,))`` f32 from the squared distances: the raw
+    weights row by row, their sum in row order."""
+    one = torch.ones((), dtype=torch.float32, device=sq.device)
+    # torch.maximum / torch.minimum keep NaN, as jnp's do
+    den = torch.maximum(torch.sqrt(sq), torch.full_like(one, eps))
+    if mode == "weiszfeld":
+        raw = one / den
+    else:
+        raw = torch.minimum(one, torch.full_like(den, c_tau) / den) * _recip(n, sq)
+    total = _sequential_row_sum(raw[None, :, None])[0]
+    if mode == "weiszfeld":
+        return raw / total, torch.zeros_like(total)
+    return raw, one - total
+
+
+def _check_max_iter(max_iter: int) -> None:
+    if max_iter < 0:
+        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+
+
+def center_loop(
+    x: torch.Tensor,
+    z0: torch.Tensor,
+    *,
+    mode: str,
+    eps: float = 1e-12,
+    c_tau: float = 1.0,
+    tol: float = 1e-6,
+    max_iter: int = 256,
+) -> tuple:
+    """A whole centre-seeking loop on ``x: (n, d)`` from ``z0: (d,)`` (B7;
+    ref ``byzpy_tpu/ops/robust.py:727-754`` and :814 around
+    ``pallas_kernels.weighted_center_step_pallas``): ``(z, iterations)``,
+    the final centre in ``x``'s dtype and the steps taken as an int32
+    scalar on ``x``'s device.
+
+    Each step is ``z <- alpha z + sum_i w_i x_i`` in f32, rounded to
+    ``x``'s dtype. ``weiszfeld``: ``w_i = (1/max(dist_i, eps)) / sum_j
+    (...)``, ``alpha = 0``, stepping while ``(it == 0 or delta > tol) and it
+    < max_iter``, ``delta`` the step length in ``x``'s dtype; ``clip``:
+    ``w_i = min(1, c_tau/max(dist_i, eps)) / n``, ``alpha = 1 - sum_i w_i``,
+    exactly ``max_iter`` steps (``tol`` unused). Every row enters the sum, so
+    an inf row (``w = 0``) or a NaN one makes the step NaN, as in the
+    reference.
+
+    On the card: one launch of ``csrc/center_step.cu`` whatever the step
+    count, its stopping test on the device (counter ``center_loop:<mode>``);
+    ``max_iter = 0`` or ``d = 0`` launches nothing and returns a copy of
+    ``z0``."""
+    n, d = _check_center(x, z0, mode)
+    _check_max_iter(max_iter)
+    if _on_cpu(x, z0):
+        return center_loop_plain(x, z0, mode=mode, eps=eps, c_tau=c_tau, tol=tol, max_iter=max_iter)
+    _check_cuda_input(x, n)
+    _check_cuda_input(z0, n)
+    if max_iter == 0 or d == 0:
+        return z0.clone(), torch.zeros((), dtype=torch.int32, device=x.device)
+    if n < 1:
+        raise ValueError(f"x must have at least one row, got {(n, d)}")
+    out = torch.empty((d,), dtype=x.dtype, device=x.device)
+    ints = _center_launch(x, z0, out, mode=mode, eps=eps, c_tau=c_tau, tol=tol, max_iter=max_iter)
+    launch_counts[f"center_loop:{mode}"] += 1
+    return out, ints[0]
+
+
+def _center_launch(x, z0, out, *, mode, eps, c_tau, tol=0.0, max_iter=1, w_in=None,
+                   alpha_in=None, wa_out=None) -> torch.Tensor:
+    """One launch of ``byz_center_loop``; returns its two int32 (the steps
+    taken, the barrier's counter). Scratch: the chunk partials of the n
+    rows and the step length, the raw weights, delta."""
+    n, d = x.shape
+    nchunks = _ceil_div(d, _CENTER_CHUNK)
+    scratch = torch.empty(((n + 1) * nchunks + n + 1,), dtype=torch.float32, device=x.device)
+    ints = torch.empty((2,), dtype=torch.int32, device=x.device)
+    tol_x = float(torch.tensor(tol, dtype=x.dtype))  # the comparison runs in x's dtype
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        _call(
+            "byz_center_loop", x.data_ptr(), z0.data_ptr(), ptr(out), ptr(w_in),
+            ptr(alpha_in), ptr(wa_out), scratch.data_ptr(), ints.data_ptr(), n, d,
+            _CENTER_MODES[mode], eps, c_tau, tol_x, max_iter, _DTYPE_CODES[x.dtype], _stream(x),
+        )
+    return ints
+
+
+def center_loop_plain(
+    x: torch.Tensor,
+    z0: torch.Tensor,
+    *,
+    mode: str,
+    eps: float = 1e-12,
+    c_tau: float = 1.0,
+    tol: float = 1e-6,
+    max_iter: int = 256,
+) -> tuple:
+    """Plain PyTorch version of :func:`center_loop`: the same steps in the
+    same order (the distances and the step length by
+    :func:`_center_order_sum`), the stopping test read on the host."""
+    n, d = _check_center(x, z0, mode)
+    _check_max_iter(max_iter)
+    z, it = z0.clone(), 0
+    if d == 0:
+        max_iter = 0
+    tol_x = float(torch.tensor(tol, dtype=x.dtype))
+    sq = center_sq_dists_plain(x, z) if max_iter else None
+    while it < max_iter:
+        w, alpha = _center_weights_from(sq, n, mode=mode, eps=eps, c_tau=c_tau)
+        zn = center_sweep_plain(x, z, w, alpha)
+        it += 1
+        if it == max_iter:
+            z = zn
+            break
+        if mode == "weiszfeld":
+            e = _center_round(zn.float() - z.float(), x.dtype)
+            s = _center_order_sum(_center_round(e * e, x.dtype)[None])[0]
+            delta = _center_round(torch.sqrt(_center_round(s, x.dtype)), x.dtype)
+            if not bool(delta > tol_x):
+                z = zn
+                break
+        z = zn
+        sq = center_sq_dists_plain(x, z)
+    return z, torch.tensor(it, dtype=torch.int32, device=x.device)
+
+
 def weighted_center_step(
     x: torch.Tensor,
     z: torch.Tensor,
@@ -714,21 +896,14 @@ def weighted_center_step(
     c_tau: float = 1.0,
 ) -> torch.Tensor:
     """One step of a centre-seeking aggregator on ``x: (n, d)`` and the
-    centre ``z: (d,)`` (B7; ref ``pallas_kernels.weighted_center_step_pallas``),
-    returning the new centre ``alpha z + sum_i w_i x_i`` in ``x``'s dtype,
-    computed in f32. ``weiszfeld``: ``w_i = (1/max(dist_i, eps)) / sum_j
-    (...)``, ``alpha = 0``; ``clip``: ``w_i = min(1, c_tau/max(dist_i,
-    eps)) / n``, ``alpha = 1 - sum_i w_i``, with ``dist_i = |x_i - z|``.
-    Every row enters the sum, so an inf row (``w = 0``) or a NaN one makes
-    the step NaN, as in the reference.
-
-    A composition of :func:`center_weights` and :func:`center_sweep`, which
-    count their own launches; ``d = 0`` launches nothing."""
+    centre ``z: (d,)`` (B7; ref ``pallas_kernels.weighted_center_step_pallas``):
+    the new centre ``alpha z + sum_i w_i x_i`` in ``x``'s dtype (see
+    :func:`center_loop`). :func:`center_loop` at ``max_iter = 1``, so it is
+    that loop's first step bit for bit; ``d = 0`` launches nothing."""
     n, d = _check_center(x, z, mode)
     if d == 0:
         return x.new_empty((0,))
-    w, alpha = center_weights(x, z, mode=mode, eps=eps, c_tau=c_tau)
-    return center_sweep(x, z, w, alpha)
+    return center_loop(x, z, mode=mode, eps=eps, c_tau=c_tau, max_iter=1)[0]
 
 
 def weighted_center_step_plain(
@@ -740,17 +915,15 @@ def weighted_center_step_plain(
     c_tau: float = 1.0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`weighted_center_step`."""
-    w, alpha = center_weights_plain(x, z, mode=mode, eps=eps, c_tau=c_tau)
-    return center_sweep_plain(x, z, w, alpha)
+    return center_loop_plain(x, z, mode=mode, eps=eps, c_tau=c_tau, max_iter=1)[0]
 
 
 def center_weights(
     x: torch.Tensor, z: torch.Tensor, *, mode: str, eps: float = 1e-12, c_tau: float = 1.0
 ) -> tuple:
-    """``(w (n,), alpha (1,))`` f32 of one centre step (B7's distance
-    phase and the weights between its phases). On the card: per-chunk
-    partial sums of ``(x_ic - z_c)^2``, then one block that adds them in a
-    fixed order and forms the weights; no float atomics."""
+    """``(w (n,), alpha (1,))`` f32 of one centre step (the weights the
+    loop's first step takes). On the card: the loop kernel's first pass,
+    row reduce and weights, then it stops (counter ``center_weights:<mode>``)."""
     n, d = _check_center(x, z, mode)
     if n < 1 or d < 1:
         raise ValueError(f"x must have at least one row and one column, got {(n, d)}")
@@ -758,17 +931,8 @@ def center_weights(
         return center_weights_plain(x, z, mode=mode, eps=eps, c_tau=c_tau)
     _check_cuda_input(x, n)
     _check_cuda_input(z, n)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunk = max(_CENTER_MIN_CHUNK, _ceil_div(d, _CENTER_BLOCKS_PER_SM * sms))
-    nchunks = _ceil_div(d, chunk)
-    partial = torch.empty(nchunks * n, dtype=torch.float32, device=x.device)
-    wa = torch.empty(n + 1, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _call(
-            "byz_center_weights", x.data_ptr(), z.data_ptr(), partial.data_ptr(), wa.data_ptr(),
-            n, d, chunk, nchunks, _CENTER_MODES[mode], eps, c_tau, _DTYPE_CODES[x.dtype],
-            _stream(x),
-        )
+    wa = torch.empty((n + 1,), dtype=torch.float32, device=x.device)
+    _center_launch(x, z, None, mode=mode, eps=eps, c_tau=c_tau, wa_out=wa)
     launch_counts[f"center_weights:{mode}"] += 1
     return wa[:n], wa[n:]
 
@@ -776,32 +940,20 @@ def center_weights(
 def center_weights_plain(
     x: torch.Tensor, z: torch.Tensor, *, mode: str, eps: float = 1e-12, c_tau: float = 1.0
 ) -> tuple:
-    """Plain PyTorch version of :func:`center_weights` (the distances sum
-    in PyTorch's order; the weights' sum runs in row order, as the
-    kernel's)."""
-    n = x.shape[0]
-    diff = x.float() - z.float()
-    dist = torch.sqrt((diff * diff).sum(dim=1))
-    one = torch.ones((), dtype=torch.float32, device=x.device)
-    # torch.maximum / torch.minimum keep NaN, as jnp's do
-    den = torch.maximum(dist, torch.full_like(one, eps))
-    if mode == "weiszfeld":
-        raw = one / den
-    else:
-        raw = torch.minimum(one, torch.full_like(den, c_tau) / den) * _recip(n, x)
-    total = _sequential_row_sum(raw[None, :, None])[0]
-    if mode == "weiszfeld":
-        return raw / total, torch.zeros_like(total)
-    return raw, one - total
+    """Plain PyTorch version of :func:`center_weights` (the distances in the
+    kernel's order, the weights' sum in row order)."""
+    return _center_weights_from(center_sq_dists_plain(x, z), x.shape[0], mode=mode, eps=eps,
+                                c_tau=c_tau)
 
 
 def center_sweep(
     x: torch.Tensor, z: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
 ) -> torch.Tensor:
     """``alpha z + sum_i w_i x_i`` in f32, rows ascending, cast to ``x``'s
-    dtype (B7's sweep). Every row is read, ``w = 0`` ones included, so that
-    ``0 * inf`` poisons the output as in the reference (B4's
-    :func:`weighted_rows` skips them)."""
+    dtype (a step under given weights). Every row is read, ``w = 0`` ones
+    included, so that ``0 * inf`` poisons the output as in the reference
+    (B4's :func:`weighted_rows` skips them). On the card: the loop
+    kernel's sweep alone (counter ``center_sweep``)."""
     n, d = _check_center(x, z)
     if w.shape != (n,) or w.dtype != torch.float32:
         raise ValueError(f"w must be ({n},) float32, got {tuple(w.shape)} {w.dtype}")
@@ -814,11 +966,7 @@ def center_sweep(
     out = torch.empty((d,), dtype=x.dtype, device=x.device)
     if d == 0:
         return out
-    with torch.cuda.device(x.device):
-        _call(
-            "byz_center_sweep", x.data_ptr(), z.data_ptr(), w.data_ptr(), alpha.data_ptr(),
-            out.data_ptr(), n, d, _DTYPE_CODES[x.dtype], _stream(x),
-        )
+    _center_launch(x, z, out, mode="clip", eps=0.0, c_tau=0.0, w_in=w, alpha_in=alpha)
     launch_counts["center_sweep"] += 1
     return out
 
@@ -1546,6 +1694,9 @@ __all__ = [
     "arc_selection_mean_stream",
     "batcher_pairs",
     "canonical_nan",
+    "center_loop",
+    "center_loop_plain",
+    "center_sq_dists_plain",
     "center_sweep",
     "center_sweep_plain",
     "center_weights",

@@ -28,10 +28,11 @@ aggregates the valid rows of a padded matrix with the cohort size on the
 device; its row contractions are B11, its column sorts B2 (see the
 section's notes).
 
-The iterative aggregators run their loops on the host: each Weiszfeld
-iteration of ``geometric_median`` reads its step length once, and each
-CAF pass its stopping test. :data:`last_iterations` keeps the last call's
-count of each.
+``geometric_median`` and ``centered_clipping`` run their whole loop in one
+B7 launch on the card (the geometric median then reads its iteration
+count); CAF runs its passes on the host, reading each pass's stopping
+test, as do the masked Weiszfeld loop's iterations. :data:`last_iterations`
+keeps the last call's count of each.
 """
 
 from __future__ import annotations
@@ -249,28 +250,20 @@ def geometric_median(
     init: str = "median",
 ) -> torch.Tensor:
     """Geometric median by Weiszfeld iterations (ref:
-    ``aggregators/geometric_wise/geometric_median.py:69-104``), each one
-    the B7 step in ``weiszfeld`` mode. The loop is the JAX package's: the
-    centre and the previous centre are carried, and it steps while
-    ``(it == 0 or delta > tol) and it < max_iter``, ``delta`` the L2 step
-    length in ``x``'s dtype, read on the host once per iteration.
+    ``aggregators/geometric_wise/geometric_median.py:69-104``): the B7 loop
+    in ``weiszfeld`` mode (:func:`kernels.center_loop`), which steps as the
+    JAX package's ``while_loop`` does, while ``(it == 0 or delta > tol) and
+    it < max_iter``, ``delta`` the L2 step length in ``x``'s dtype. On the
+    card the whole loop is one launch; the call reads one value on the
+    host, the iteration count, into :data:`last_iterations`.
     ``init="median"`` starts from :func:`coordinate_median` (the midpoint
     at even ``n``, as ``jnp.median``), ``"mean"`` from the row mean."""
     if init not in {"median", "mean"}:
         raise ValueError("init must be 'median' or 'mean'")
     _check_matrix(x)
-    z = coordinate_median(x) if init == "median" else _row_mean(x)
-    zprev = z
-    tol_t = torch.tensor(tol, dtype=x.dtype)  # the comparison runs in x's dtype
-    it = 0
-    while it < max_iter:
-        if it > 0:
-            delta = torch.sqrt(torch.sum((z - zprev) ** 2))
-            if not bool(delta.cpu() > tol_t):
-                break
-        z, zprev = kernels.weighted_center_step(x, z, mode="weiszfeld", eps=eps), z
-        it += 1
-    last_iterations["geometric_median"] = it
+    z0 = coordinate_median(x) if init == "median" else _row_mean(x)
+    z, iterations = kernels.center_loop(x, z0, mode="weiszfeld", eps=eps, tol=tol, max_iter=max_iter)
+    last_iterations["geometric_median"] = int(iterations)
     return z
 
 
@@ -284,10 +277,11 @@ def centered_clipping(
 ) -> torch.Tensor:
     """Centred clipping (Karimireddy et al. 2021): ``M`` steps of ``v <- v
     + mean_i clip(x_i - v, c_tau)`` (ref:
-    ``aggregators/norm_wise/center_clipping.py:29-120``), each the B7 step
-    in ``clip`` mode, which computes ``alpha v + sum_i w_i x_i`` with ``w_i
-    = min(1, c_tau / |x_i - v|) / n`` and ``alpha = 1 - sum_i w_i`` (the
-    JAX package's kernel formula, equal in algebra to its XLA one)."""
+    ``aggregators/norm_wise/center_clipping.py:29-120``): the B7 loop in
+    ``clip`` mode, one launch on the card and no host read, each step
+    ``alpha v + sum_i w_i x_i`` with ``w_i = min(1, c_tau / |x_i - v|) / n``
+    and ``alpha = 1 - sum_i w_i`` (the JAX package's kernel formula, equal
+    in algebra to its XLA one)."""
     if init not in {"mean", "median", "zero"}:
         raise ValueError("init must be one of {'mean','median','zero'}")
     _check_matrix(x)
@@ -297,9 +291,7 @@ def centered_clipping(
         v = coordinate_median(x)
     else:
         v = x.new_zeros((x.shape[1],))
-    for _ in range(M):
-        v = kernels.weighted_center_step(x, v, mode="clip", eps=eps, c_tau=c_tau)
-    return v
+    return kernels.center_loop(x, v, mode="clip", eps=eps, c_tau=c_tau, max_iter=M)[0]
 
 
 def caf(
@@ -813,8 +805,8 @@ def masked_geometric_median(
     weight 0, the distances by ``kernels.row_sq_dists``, the numerator
     ``sum_i w_i x_i`` and the denominator ``sum_i w_i`` row contractions
     (B11), so each step and the trip count are the compacted cohort's. The
-    loop runs on the host, as :func:`geometric_median`'s: one read of the
-    step length per iteration (:data:`last_iterations`)."""
+    loop runs on the host: one read of the step length per iteration
+    (:data:`last_iterations`)."""
     if init not in {"median", "mean"}:
         raise ValueError("init must be 'median' or 'mean'")
     _check_matrix(x)

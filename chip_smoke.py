@@ -11,7 +11,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
 2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed);
 3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean in its
    krum / cge / monna modes, B5 selection mean from a given Gram, B6
-   MeaMed, B7 centre step in its weiszfeld / clip modes, B8 NNM, B9 NNM ->
+   MeaMed, B7's loop kernel (whole Weiszfeld and centred-clipping loops
+   and their one-step phases, bit for bit with the iteration counts), B8
+   NNM, B9 NNM ->
    selection mean, B10 clip / ARC -> selection mean) against its plain
    PyTorch version on the card (B3 also bit for bit its own split-K
    order, ``gram_split_k_plain``, at 8, 64 and 128 x 421,642 and 2 x 13 x
@@ -41,7 +43,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (f=2, q=4), the pre-aggregated ones (a) static clipping + trimmed mean,
    (b) NNM + coordinate median, (c) NNM + Multi-Krum, (d) clipping +
    Multi-Krum, (e) ARC + Multi-Krum, and MeaMed (f=2), the geometric
-   median, centred clipping (M=10), CGE (f=2), MoNNA (f=2) and CAF (f=2);
+   median, centred clipping (M=10), CGE (f=2), MoNNA (f=2) and CAF (f=2)
+   (the geometric median and centred clipping exactly one B7 launch a
+   step, their host reads per aggregation counted: at most 1 and 0);
    then through the operator classes: Multi-Krum, trimmed mean and CGE
    folded gradient by gradient in a seeded arrival order (the Multi-Krum
    finalize runs B5 and no Gram), ``CoordinateWiseMedian().aggregate`` of
@@ -89,7 +93,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    B11, and the ragged door's segmented sort beside B2; the segmented
    sort-reduce at the (n) batch, at 4 x 32 rows in 128 and at one cohort
    of 64 in 64 x 1,048,576, beside its plain version, the generic door on
-   the same batch and (at the last) B1; then the six
+   the same batch and (at the last) B1; B7's loop at 10, 1 and 256
+   forced steps beside (steps + 1) reads of x; then the six
    centre-seeking and coordinate aggregators, whole, at ByzPy's grid
    shapes (64 x 65,536).
 
@@ -132,6 +137,8 @@ PRE_ARGS = {8: (2, 2, 4, 1000.0), 13: (3, 3, 4, 300.0), 64: (8, 8, 12, 1500.0)}
 MAIN_CTAU = 10.0
 # ByzPy's grid shape for the whole-aggregator times (benchmarks/full_grid.py)
 GRID = (64, 65_536)
+# steps of B7's timed loop: centred clipping's M on the main path
+LOOP_STEPS = 10
 
 
 class SmokeFailure(AssertionError):
@@ -593,16 +600,20 @@ def centre_inputs(n: int, d: int, seed: int, dtype):
 
 
 def check_center_step(errs: dict) -> None:
-    """B7's two C calls against their plain versions: the weights within
-    rtol 1e-5 (the distances sum in another order) and alpha within 1e-5,
-    the sweep bitwise on the same weights, the whole step within 1e-5 of
-    its terms' magnitude plus one unit in the last place of a 16-bit dtype;
-    an all-inf row or one NaN entry makes the whole step NaN in both."""
+    """B7's loop kernel against its plain version, bit for bit (the order
+    of every sum is fixed by d alone, and the plain version takes it):
+    the one-step phases (weights and alpha, the sweep on the same weights,
+    the whole step) at the main path's shape, the headline, ByzPy's grid
+    and 128 and 13 x 50,000; then whole loops, the centre and the iteration
+    count, Weiszfeld to tol = 1e-6 (at most 256 steps) and centred
+    clipping's M = 10, at the main path's shape, the grid and 13 x 50,000
+    in f32, bf16 and f16 and at the headline in f32; an all-inf row or one
+    NaN entry makes the step and the loop all canonical NaN in both, and
+    stops Weiszfeld after its first step."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
 
-    ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
     shapes = [(MAIN_N, 421_642), HEADLINE, GRID, (128, 50_000), (13, 50_000)]
     for n, d in shapes:
         for name in DTYPES:
@@ -612,28 +623,22 @@ def check_center_step(errs: dict) -> None:
                 kw = dict(mode=mode, c_tau=c_tau)
                 w, alpha = kernels.center_weights(x, z, **kw)
                 w_p, alpha_p = kernels.center_weights_plain(x, z, **kw)
-                rel = float(((w - w_p).abs() / w_p.abs()).max())
-                check(rel <= 1e-5 and abs(float(alpha - alpha_p)) <= 1e-5,
-                      f"B7 {mode} weights off plain at {(n, d)} {name}: rtol {rel:.3g}")
+                check(bits_equal(w, w_p) and bits_equal(alpha, alpha_p),
+                      f"B7 {mode} weights differ from plain at {(n, d)} {name}")
                 clipped = int((w_p < w_p.max()).sum())
                 if mode == "clip":
                     check(0 < clipped < n, f"B7 clip took {clipped} of {n} rows at {(n, d)}")
                 sweep = kernels.center_sweep(x, z, w, alpha)
-                sweep_p = kernels.center_sweep_plain(x, z, w, alpha)
-                check(bits_equal(sweep, sweep_p), f"B7 sweep differs from plain at {(n, d)} {name}")
+                check(bits_equal(sweep, kernels.center_sweep_plain(x, z, w, alpha)),
+                      f"B7 sweep differs from plain at {(n, d)} {name}")
                 out = kernels.weighted_center_step(x, z, **kw)
                 ref = kernels.weighted_center_step_plain(x, z, **kw)
-                scale = alpha_p.abs() * z.float().abs() + (w_p.abs()[:, None] * x.float().abs()).sum(0)
-                excess = float(((out.float() - ref.float()).abs()
-                                / (1e-5 * scale + ulp[dtype] * ref.float().abs() + 1e-30)).max())
-                check(excess <= 1.0, f"B7 {mode} step off plain at {(n, d)} {name}: {excess:.3g}")
-                errs[f"center_weights:{mode}"] = max(errs[f"center_weights:{mode}"],
-                                                     float((w - w_p).abs().max()))
-                errs["center_sweep"] = max(errs["center_sweep"], max_abs_err(sweep, sweep_p))
-                log(f"  B7 {mode} {(n, d)} {name}: weights rtol {rel:.2g}, alpha "
-                    f"{float(alpha):.6f}, {clipped if mode == 'clip' else '-'} rows clipped, sweep "
-                    f"bitwise, step max |diff| {max_abs_err(out, ref):.3g}, within {excess:.2f} x "
-                    f"its tolerance")
+                check(bits_equal(out, ref), f"B7 {mode} step differs from plain at {(n, d)} {name}")
+                line = (f"  B7 {mode} {(n, d)} {name}: weights, alpha {float(alpha):.6f}, "
+                        f"{clipped if mode == 'clip' else '-'} rows clipped, sweep and step bitwise")
+                if (n, d) != (128, 50_000) and (name == "float32" or (n, d) != HEADLINE):
+                    line += "; " + check_center_loop(x, z, mode, c_tau, errs, f"{(n, d)} {name}")
+                log(line)
             del x, z
         torch.cuda.empty_cache()
     for name in DTYPES:
@@ -648,7 +653,32 @@ def check_center_step(errs: dict) -> None:
                 ref = kernels.weighted_center_step_plain(x, z, mode=mode, c_tau=c_tau)
                 check(bool(torch.isnan(out).all()) and nan_is_canonical(out) and bits_equal(out, ref),
                       f"B7 {mode} with an {case} is not all canonical NaN in {name}")
-        log(f"  B7 {name}: an inf row or a NaN entry makes the whole step canonical NaN, both modes")
+                out, its = kernels.center_loop(x, z, mode=mode, c_tau=c_tau, max_iter=10)
+                check(bool(torch.isnan(out).all()) and nan_is_canonical(out)
+                      and int(its) == (1 if mode == "weiszfeld" else 10),
+                      f"B7 {mode} loop with an {case} in {name}: {int(its)} steps, not all NaN")
+                check_center_loop(x, z, mode, c_tau, errs, f"{case} {name}")
+        log(f"  B7 {name}: an inf row or a NaN entry makes the whole step and loop canonical NaN, "
+            f"both modes, the loops bitwise their plain versions (Weiszfeld stops after 1 step)")
+
+
+def check_center_loop(x, z, mode: str, c_tau: float, errs: dict, what: str) -> str:
+    """One launch of the whole loop (Weiszfeld: tol 1e-6, max_iter 256;
+    clip: M = 10) equal to its plain version bit for bit, iteration counts
+    equal; returns a line for the log."""
+    from byzpy_tpu_torch.ops import kernels
+
+    kw = dict(mode=mode, c_tau=c_tau, max_iter=256 if mode == "weiszfeld" else 10)
+    before = dict(kernels.launch_counts)
+    out, its = kernels.center_loop(x, z, **kw)
+    launched = {k: v - before[k] for k, v in kernels.launch_counts.items() if v != before[k]}
+    check(launched == {f"center_loop:{mode}": 1}, f"B7 {mode} loop at {what} launched {launched}")
+    ref, its_p = kernels.center_loop_plain(x, z, **kw)
+    check(int(its) == int(its_p), f"B7 {mode} loop at {what}: {int(its)} steps, plain {int(its_p)}")
+    check(bits_equal(out, ref) and nan_is_canonical(out),
+          f"B7 {mode} loop differs from plain at {what} ({int(its)} steps)")
+    errs[f"center_loop:{mode}"] = max(errs[f"center_loop:{mode}"], max_abs_err(out, ref))
+    return f"loop {int(its)} steps, one launch, bitwise"
 
 
 CODEC_MODES = ("int8", "fp8", "fp8_e5m2")
@@ -1182,7 +1212,6 @@ def main_path(counts: dict) -> dict:
     # name -> (pre_aggregate, aggregate, kernels that must launch, the
     # threshold rule whose clipped rows at step 1 are counted)
     sweep = "weighted_rows"
-    centre = ["center_weights:weiszfeld", "center_sweep"]
     krum = {"gram": 1, "selection_weights:krum": 1, sweep: 1}
     aggregators = {
         "coordinate_median": (None, robust.coordinate_median, ["sorted_reduce:median"], None),
@@ -1202,9 +1231,10 @@ def main_path(counts: dict) -> dict:
         "e_arc_multi_krum": (None, lambda m: robust.arc_multi_krum(m, f_arc=b, f=b, q=4),
                              ["gram", "clip_selection_weights:arc", sweep], "arc"),
         "meamed": (None, lambda m: robust.mean_of_medians(m, f=b), ["meamed"], None),
-        "geometric_median": (None, robust.geometric_median, ["sorted_reduce:median"] + centre, None),
+        "geometric_median": (None, robust.geometric_median,
+                             ["sorted_reduce:median", "center_loop:weiszfeld"], None),
         "centered_clipping": (None, lambda m: robust.centered_clipping(m, c_tau=MAIN_CTAU, M=10),
-                              ["center_weights:clip", "center_sweep"], "centre"),
+                              ["center_loop:clip"], "centre"),
         "cge": (None, lambda m: robust.cge(m, f=b), ["gram", "selection_weights:cge", sweep], None),
         "monna": (None, lambda m: robust.monna(m, f=b, reference_index=0),
                   ["gram", "selection_weights:monna", sweep], None),
@@ -1229,6 +1259,21 @@ def main_path(counts: dict) -> dict:
         aggregators[name] = (None, agg, list(wire[name][1]), None)
     # the loops whose iterations each step reports (robust.last_iterations)
     loops = {"geometric_median": "geometric_median", "caf": "caf"}
+    # B7's loops: exactly one launch a step, and at most this many host
+    # reads a call (the geometric median reads its iteration count)
+    centre_loops = {"geometric_median": ("center_loop:weiszfeld", 1),
+                    "centered_clipping": ("center_loop:clip", 0)}
+    host_reads = {name: [] for name in centre_loops}
+
+    def reads_counted(name, fn):
+        """``fn`` whose host reads on the card are counted, call by call."""
+        def call(m):
+            if not m.is_cuda:
+                return fn(m)
+            out, reads = count_syncs(lambda: fn(m))
+            host_reads[name].append(reads)
+            return out
+        return call
     first_norms, first_centre_dists, first_matrix = {}, {}, {}
 
     def recording(name, fn):
@@ -1253,6 +1298,8 @@ def main_path(counts: dict) -> dict:
     aggregators.update(class_api)
     results = {}
     for name, (pre, agg, kernel_keys, clip_rule) in aggregators.items():
+        if name in centre_loops:
+            agg = reads_counted(name, agg)
         if pre is not None:
             pre = recording(name, pre)
         else:
@@ -1299,6 +1346,15 @@ def main_path(counts: dict) -> dict:
             for k, v in run_counts.items():
                 want = per_step.get(k, 0) * MAIN_STEPS
                 check(v == want, f"{name}: {k} launched {v} times in {MAIN_STEPS} steps, not {want}")
+        if name in centre_loops:
+            key, most = centre_loops[name]
+            others = {k: v for k, v in run_counts.items()
+                      if v and k not in (key, "sorted_reduce:median")}
+            check(run_counts[key] == MAIN_STEPS and not others,
+                  f"{name}: {run_counts[key]} {key} launches in {MAIN_STEPS} steps, others {others}")
+            reads = host_reads[name]
+            check(len(reads) >= MAIN_STEPS and max(reads) <= most,
+                  f"{name}: host reads per aggregation {reads}, more than {most}")
         if name == "fold_multi_krum":
             # no Gram launched: each krum weights launch is one B5 call's, as
             # long as each has its one sweep and no other selection ran in
@@ -1337,6 +1393,7 @@ def main_path(counts: dict) -> dict:
             "row_dists_to_mean_step1": [round(float(v), 4) for v in first_centre_dists[name]],
             "iterations_per_step": iters,
             "cpu_iterations_per_step": cpu_iters,
+            "aggregator_host_reads_per_call": host_reads.get(name),
         }
         if name in class_checks:
             flags = list(fold_flags.get(name, []))
@@ -1374,7 +1431,9 @@ def main_path(counts: dict) -> dict:
             f"rows clipped at step 1 {clipped} (norms {results[name]['row_norms_step1']}, "
             f"distances to the row mean {results[name]['row_dists_to_mean_step1']})"
             + (f", {loops[name]} iterations per step {iters} (CPU {cpu_iters})"
-               if name in loops else "") + extra)
+               if name in loops else "")
+            + (f", host reads per aggregation {host_reads[name]}" if name in host_reads else "")
+            + extra)
         log(f"    profile: {json.dumps(profile)}")
     return results
 
@@ -2078,8 +2137,7 @@ def ragged_executor_path(counts: dict) -> dict:
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
                 "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
                 "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
-                "meamed_kernel", "center_dist_partial_kernel", "center_weights_kernel",
-                "center_sweep_kernel", "quantize_kernel", "dequantize_kernel",
+                "meamed_kernel", "center_loop_kernel", "quantize_kernel", "dequantize_kernel",
                 "sort_columns_kernel", "segment_sum_kernel", "row_sq_partial_kernel",
                 "row_sq_reduce_kernel", "quantize_s4_kernel", "dequantize_s4_kernel",
                 "segment_sum_dequant_kernel", "segmented_sort_reduce_kernel")
@@ -2376,12 +2434,13 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
 
 
 def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
-    """B6's launch and B7's two C calls on one (n, d) f32 round (every
-    third row x3; B7 about the coordinate median, c_tau between the two
-    scales) beside their bounds, plain versions and, where one exists, a
-    single PyTorch call: ``torch.cdist`` for B7's distances (the weights
-    are n more scalars), ``torch.addmv`` for its sweep. No single PyTorch
-    call computes MeaMed."""
+    """B6's launch and B7's loop on one (n, d) f32 round (every third row
+    x3; B7 from the coordinate median, c_tau between the two scales)
+    beside their bounds and plain versions. B7 by mode: LOOP_STEPS forced
+    steps (the entry's numbers), one step, and 256 forced steps, each
+    beside (steps + 1) reads of x, the kernel's own floor; ``torch.cdist``
+    times one step's distances alone. No single PyTorch call computes
+    MeaMed or a centre-seeking loop."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
@@ -2398,35 +2457,43 @@ def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
         "plain_ms": cuda_time_ms(lambda: kernels.meamed_stream_plain(x[None], f=f), iters=3),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d], "f": f,
     }
+    read_ms = n * d * isz / PEAK_BYTES_PER_S * 1e3
     for mode in ("weiszfeld", "clip"):
         kw = dict(mode=mode, c_tau=c_tau)
-        # read x and z, write n weights and alpha; a sub, a mul, an add per entry
-        b_ms, b_by = bound_ms(n * d * isz + d * isz + (n + 1) * 4, 3 * n * d)
-        out[f"center_weights:{mode}"] = {
-            "ms": cuda_time_ms(lambda kw=kw: kernels.center_weights(x, z, **kw)),
-            "plain_ms": cuda_time_ms(lambda kw=kw: kernels.center_weights_plain(x, z, **kw)),
-            "library_ms": cuda_time_ms(lambda: torch.cdist(
+        # the entry's call: LOOP_STEPS steps (Weiszfeld forced by tol = -1).
+        # Its bound: read x and z once, write the centre; per step and
+        # entry the sweep's mul and add and the distances' sub, mul and add
+        loop = dict(kw, tol=-1.0, max_iter=LOOP_STEPS)
+        b_ms, b_by = bound_ms(n * d * isz + 2 * d * isz, 5 * n * d * LOOP_STEPS)
+        entry = {
+            "ms": cuda_time_ms(lambda: kernels.center_loop(x, z, **loop)),
+            "plain_ms": cuda_time_ms(lambda: kernels.center_loop_plain(x, z, **loop), iters=2,
+                                     warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+            "steps": LOOP_STEPS,
+            # the kernel's own floor: a first pass, then one read of x a step
+            "reads_bound_ms": (LOOP_STEPS + 1) * read_ms,
+            # one step (two reads of x), and 256 forced steps
+            "one_step_ms": cuda_time_ms(lambda: kernels.weighted_center_step(x, z, **kw)),
+            "one_step_plain_ms": cuda_time_ms(lambda: kernels.weighted_center_step_plain(x, z, **kw),
+                                              iters=3),
+            "steps_256_ms": cuda_time_ms(lambda: kernels.center_loop(
+                x, z, **dict(kw, tol=-1.0, max_iter=256)), iters=3, warmup=1),
+            "steps_256_reads_bound_ms": 257 * read_ms,
+            # one PyTorch call for one step's distances alone (no single call
+            # computes a loop, or a step)
+            "cdist_ms": cuda_time_ms(lambda: torch.cdist(
                 x, z[None], compute_mode="donot_use_mm_for_euclid_dist")),
-            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
-            # the whole step: distances, weights and the sweep
-            "step_ms": cuda_time_ms(lambda kw=kw: kernels.weighted_center_step(x, z, **kw)),
-            "step_plain_ms": cuda_time_ms(lambda kw=kw: kernels.weighted_center_step_plain(x, z, **kw)),
         }
-    w, alpha = kernels.center_weights(x, z, mode="clip", c_tau=c_tau)
-    beta = float(alpha)
-    # read x, z, n weights and alpha, write the centre; a mul and an add per entry
-    b_ms, b_by = bound_ms(n * d * isz + 2 * d * isz + (n + 1) * 4, 2 * n * d + 2 * d)
-    out["center_sweep"] = {
-        "ms": cuda_time_ms(lambda: kernels.center_sweep(x, z, w, alpha)),
-        "plain_ms": cuda_time_ms(lambda: kernels.center_sweep_plain(x, z, w, alpha), iters=3),
-        "library_ms": cuda_time_ms(lambda: torch.addmv(z, x.t(), w, beta=beta)),
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
-    }
+        entry["ms_per_step"] = (entry["steps_256_ms"] - entry["one_step_ms"]) / 255
+        out[f"center_loop:{mode}"] = entry
     for key, v in out.items():
         log(f"  {key} {v['shape']}: {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
             f"({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library {v['library_ms']}"
-            + (f", whole step {v['step_ms']:.4f} ms (plain {v['step_plain_ms']:.4f})"
-               if "step_ms" in v else ""))
+            + (f"; {v['steps']} steps (reads bound {v['reads_bound_ms']:.4f}), one step "
+               f"{v['one_step_ms']:.4f} (plain {v['one_step_plain_ms']:.4f}), 256 steps "
+               f"{v['steps_256_ms']:.4f} (reads bound {v['steps_256_reads_bound_ms']:.4f}), "
+               f"{v['ms_per_step']:.5f} a step, cdist {v['cdist_ms']:.4f}" if "steps" in v else ""))
     del x, z
     torch.cuda.empty_cache()
     return out
@@ -2945,7 +3012,9 @@ def timing() -> dict:
         times.update(centre_kernel_times(*shape, f=f, seed=seed + 10))
         times["selection_mean_from_gram"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
     keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "with_nnm_weights",
-            "with_clip_weights", "step_ms", "step_plain_ms", "weights_ms", "sweep_ms",
+            "with_clip_weights", "steps", "ms_per_step", "one_step_ms", "one_step_plain_ms",
+            "steps_256_ms", "steps_256_reads_bound_ms", "reads_bound_ms", "cdist_ms",
+            "weights_ms", "sweep_ms",
             "sweep_library_ms", "device_ms", "fold_round")
     for k, v in out.items():
         v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
@@ -2987,10 +3056,11 @@ KERNELS = [
     ("selection_weights:cge", "byzpy_tpu_torch/csrc/selection.cu", "byzpy_tpu/ops/pallas_kernels.py:928"),
     ("selection_weights:monna", "byzpy_tpu_torch/csrc/selection.cu", "byzpy_tpu/ops/pallas_kernels.py:928"),
     ("meamed", "byzpy_tpu_torch/csrc/meamed.cu", "byzpy_tpu/ops/pallas_kernels.py:619"),
-    ("center_weights:weiszfeld", "byzpy_tpu_torch/csrc/center_step.cu",
+    # B7: the whole loop in one launch (its one-step phases, center_weights
+    # and center_sweep, are the same kernel and launch on no path)
+    ("center_loop:weiszfeld", "byzpy_tpu_torch/csrc/center_step.cu",
      "byzpy_tpu/ops/pallas_kernels.py:470"),
-    ("center_weights:clip", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
-    ("center_sweep", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
+    ("center_loop:clip", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
     # B5, a composition of B4's two kernels: launches counts its calls on the
     # main path (fold_multi_krum), one selection_weights:krum and one
     # weighted_rows launch each, no Gram
@@ -3029,7 +3099,8 @@ KERNELS = [
 # checks: B8's redesigned mixing sweep and the ragged door's kernels (the
 # segmented sort-reduce among them)
 NEW_KERNELS = ("mix_rows", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
-               "segment_sum_dequant:fp8", "segment_sum_dequant:s4", "segmented_sort_reduce")
+               "segment_sum_dequant:fp8", "segment_sum_dequant:s4", "segmented_sort_reduce",
+               "center_loop:weiszfeld", "center_loop:clip")
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
     "quantize:int8": ("quantize:int8",),
@@ -3114,6 +3185,8 @@ def main() -> int:
     log("GRAM_PTXAS " + json.dumps(gram_ptxas))
     spilled = [e["kernel"] for e in gram_ptxas if e["spill_stores"] or e["spill_loads"]]
     check(not spilled, f"B3 instances spill: {spilled}")
+    log("CENTER_PTXAS " + json.dumps(ptxas_report(_build.build_log.get("center_step", ""), nvcc,
+                                                   ("center_loop_kernel",))))
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}

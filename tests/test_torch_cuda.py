@@ -451,37 +451,24 @@ def _center_rows(seed, n, d, device, dtype):
     return x, z
 
 
-def _assert_center_close(out, ref, w, alpha, x, z):
-    """Kernel and plain centres agree within 1e-5 of the terms' magnitude
-    (the distances sum in another order) plus one unit in the last place of
-    a 16-bit dtype; NaN at the same places."""
-    o, r = out.float(), ref.float()
-    assert torch.equal(torch.isnan(o), torch.isnan(r))
-    scale = (alpha.abs() * z.float().abs() + (w.abs()[:, None] * x.float().abs()).sum(0))
-    ulp = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[out.dtype]
-    fin = torch.isfinite(r)
-    assert torch.all((o - r).abs()[fin] <= (1e-5 * scale + ulp * r.abs() + 1e-30)[fin])
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("n", [3, 8, 13, 64, 128])
 @pytest.mark.parametrize("mode", ["weiszfeld", "clip"])
 def test_cuda_center_step_matches_plain(cuda_device, mode, n, dt):
-    """B7: the weights within rtol 1e-5 of the plain version (alpha within
-    1e-5), the sweep bitwise equal to its plain version on the same weights,
-    the whole step within the terms' 1e-5."""
+    """B7's one-step phases: the weights and alpha, the sweep on the same
+    weights and the whole step bitwise equal to their plain versions (the
+    distances sum in the kernel's order in both)."""
     x, z = _center_rows(400 + n, n, 5000, cuda_device, DTYPES[dt])
     kw = dict(mode=mode, c_tau=160.0)
     w, alpha = kernels.center_weights(x, z, **kw)
     w_p, alpha_p = kernels.center_weights_plain(x, z, **kw)
-    torch.testing.assert_close(w, w_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(alpha, alpha_p, rtol=0, atol=1e-5)
+    assert _bits_equal(w, w_p) and _bits_equal(alpha, alpha_p)
     if mode == "clip" and n >= 8:
         assert 0 < int((w_p < w_p.max()).sum()) < n  # some rows clipped, not all
     assert _bits_equal(kernels.center_sweep(x, z, w, alpha), kernels.center_sweep_plain(x, z, w, alpha))
-    out = kernels.weighted_center_step(x, z, **kw)
-    _assert_center_close(out, kernels.weighted_center_step_plain(x, z, **kw), w_p, alpha_p, x, z)
+    assert _bits_equal(kernels.weighted_center_step(x, z, **kw),
+                       kernels.weighted_center_step_plain(x, z, **kw))
 
 
 @pytest.mark.cuda
@@ -503,10 +490,104 @@ def test_cuda_center_step_nonfinite_rows_poison_the_step(cuda_device, mode, case
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 8, 13, 64, 128])
+@pytest.mark.parametrize("mode", ["weiszfeld", "clip"])
+def test_cuda_center_loop_matches_plain_bitwise(cuda_device, mode, n, dt):
+    """The whole loop in one launch equals its plain version bit for bit:
+    the centre and the iteration count, at d = 4 x 1024 + 3 (a ragged last
+    chunk, rows starting off every alignment), run to its tolerance and to
+    a forced count (tol = -1; clipping at M = 15 and 3)."""
+    x, z = _center_rows(700 + n, n, 4 * 1024 + 3, cuda_device, DTYPES[dt])
+    runs = ([dict(tol=1e-6, max_iter=256), dict(tol=-1.0, max_iter=13)] if mode == "weiszfeld"
+            else [dict(max_iter=15), dict(max_iter=3)])
+    for kw in runs:
+        kernels.reset_launch_counts()
+        out, its = kernels.center_loop(x, z, mode=mode, c_tau=160.0, **kw)
+        assert kernels.launch_counts == dict(dict.fromkeys(kernels.launch_counts, 0),
+                                             **{f"center_loop:{mode}": 1})
+        ref, its_p = kernels.center_loop_plain(x, z, mode=mode, c_tau=160.0, **kw)
+        assert its.device.type == "cuda" and its.dtype == torch.int32
+        assert int(its) == int(its_p) >= 1, (int(its), int(its_p))
+        assert _bits_equal(out, ref), (mode, n, dt, kw)
+        if kw.get("tol", -1.0) == -1.0:
+            assert int(its) == kw["max_iter"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inf_row", "nan_entry"])
+@pytest.mark.parametrize("mode", ["weiszfeld", "clip"])
+def test_cuda_center_loop_nonfinite_rows(cuda_device, mode, case):
+    """An all-inf row or one NaN entry: the loop's centre is all canonical
+    NaN, bitwise the plain version's, and Weiszfeld stops after its forced
+    first step (delta is NaN), as the reference's while_loop does."""
+    for dtype in DTYPES.values():
+        x, z = _center_rows(19, 13, 3000, cuda_device, dtype)
+        if case == "inf_row":
+            x[5] = float("inf")
+        else:
+            x[5, 17] = float("nan")
+        out, its = kernels.center_loop(x, z, mode=mode, c_tau=160.0, max_iter=7)
+        ref, its_p = kernels.center_loop_plain(x, z, mode=mode, c_tau=160.0, max_iter=7)
+        assert _all_canonical_nan(out) and _bits_equal(out, ref)
+        assert int(its) == int(its_p) == (1 if mode == "weiszfeld" else 7)
+
+
+@pytest.mark.cuda
+def test_cuda_center_loop_forces_its_first_step_at_large_z(cuda_device):
+    """At |z| = 2^24 a step may leave z where it was: iteration 1 still runs
+    (it == 0), and the loop matches its plain version bit for bit."""
+    x = torch.full((5, 2048), 2.0 ** 24, device=cuda_device)
+    x[0, :7] += 2.0
+    z = x[1].clone()
+    out, its = kernels.center_loop(x, z, mode="weiszfeld")
+    ref, its_p = kernels.center_loop_plain(x, z, mode="weiszfeld")
+    assert int(its) == int(its_p) >= 1 and _bits_equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_center_loop_zero_steps_launch_nothing(cuda_device):
+    x = torch.randn((8, 300), device=cuda_device)
+    kernels.reset_launch_counts()
+    for mode in ("weiszfeld", "clip"):
+        out, its = kernels.center_loop(x, x[0].contiguous(), mode=mode, max_iter=0)
+        assert _bits_equal(out, x[0]) and int(its) == 0
+    assert all(v == 0 for v in kernels.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_cuda_centre_loops_read_the_host_at_most_once(cuda_device):
+    """``robust.geometric_median`` makes one loop launch (and B1 for its
+    start) and reads one value on the host, its iteration count;
+    ``robust.centered_clipping`` makes one launch and no host read
+    (PyTorch's sync debug mode warns once per synchronizing call)."""
+    import warnings
+
+    from byzpy_tpu_torch.ops import robust
+
+    x = _center_rows(5, 8, 20_000, cuda_device, torch.float32)[0]
+    for fn, reads, launches in (
+        (lambda: robust.geometric_median(x), 1, {"sorted_reduce:median": 1, "center_loop:weiszfeld": 1}),
+        (lambda: robust.centered_clipping(x, c_tau=160.0, M=10), 0, {"center_loop:clip": 1}),
+    ):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert sum("synchroniz" in str(w.message) for w in caught) <= reads
+        assert kernels.launch_counts == dict(dict.fromkeys(kernels.launch_counts, 0), **launches)
+
+
+@pytest.mark.cuda
 def test_cuda_centre_and_meamed_launch_counts(cuda_device):
     """Each launching wrapper counts one; the compositions and the robust
     entry points count nothing themselves; CGE and MoNNA reach B4's cge and
-    monna modes."""
+    monna modes; a centre-seeking loop is one B7 launch."""
     from byzpy_tpu_torch.ops import robust
 
     x = torch.randn((8, 300), device=cuda_device)
@@ -518,8 +599,8 @@ def test_cuda_centre_and_meamed_launch_counts(cuda_device):
     robust.cge(x, f=2)
     robust.monna_stream(x[None], f=2, reference_index=3)
     expected = dict.fromkeys(kernels.launch_counts, 0)
-    expected.update({"meamed": 2, "center_weights:weiszfeld": 1, "center_weights:clip": 3,
-                     "center_sweep": 4, "gram": 2, "selection_weights:cge": 1,
+    expected.update({"meamed": 2, "center_loop:weiszfeld": 1, "center_loop:clip": 1,
+                     "gram": 2, "selection_weights:cge": 1,
                      "selection_weights:monna": 1, "weighted_rows": 2})
     assert kernels.launch_counts == expected
     kernels.reset_launch_counts()
@@ -527,7 +608,8 @@ def test_cuda_centre_and_meamed_launch_counts(cuda_device):
     iters = robust.last_iterations["geometric_median"]
     assert 1 <= iters <= 256
     assert kernels.launch_counts["sorted_reduce:median"] == 1
-    assert kernels.launch_counts["center_weights:weiszfeld"] == iters == kernels.launch_counts["center_sweep"]
+    assert kernels.launch_counts["center_loop:weiszfeld"] == 1
+    assert sum(kernels.launch_counts.values()) == 2
 
 
 @pytest.mark.cuda
@@ -549,6 +631,8 @@ def test_cuda_meamed_and_centre_reject_wide_n(cuda_device):
     for call in (
         lambda: kernels.meamed_stream(wide[None], f=1),
         lambda: kernels.weighted_center_step(wide, wide[0].contiguous(), mode="weiszfeld"),
+        lambda: kernels.center_loop(wide, wide[0].contiguous(), mode="weiszfeld"),
+        lambda: kernels.center_loop(wide, wide[0].contiguous(), mode="clip", max_iter=3),
         lambda: kernels.center_weights(wide, wide[0].contiguous(), mode="clip"),
         lambda: kernels.center_sweep(wide, wide[0].contiguous(), torch.zeros(129, device=cuda_device),
                                      torch.zeros(1, device=cuda_device)),
@@ -898,7 +982,8 @@ def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
     assert _bits_equal(out, ref)
     assert counts["segment_sum"] > 0 or name == "median"
     for k in ("sorted_reduce:median", "sorted_reduce:trimmed", "weighted_rows", "meamed",
-              "center_sweep", "center_weights:weiszfeld", "center_weights:clip"):
+              "center_sweep", "center_weights:weiszfeld", "center_weights:clip",
+              "center_loop:weiszfeld", "center_loop:clip"):
         assert counts[k] == 0, (k, counts)
 
 

@@ -345,7 +345,8 @@ def test_masked_family_runs_no_b1_b4_b6_b7_on_the_cpu_either(monkeypatch):
         raise AssertionError("the masked family reached an unmasked kernel")
 
     for fn in ("sorted_reduce_stream", "selection_mean_stream", "weighted_rows",
-               "meamed_stream", "weighted_center_step", "center_weights", "center_sweep"):
+               "meamed_stream", "weighted_center_step", "center_weights", "center_sweep",
+               "center_loop"):
         monkeypatch.setattr(kernels, fn, trap)
     x, valid = _padded(_grads(seed=8), 11, N)
     xt, vt = torch.from_numpy(x), torch.from_numpy(valid)
