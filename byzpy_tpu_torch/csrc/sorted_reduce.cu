@@ -3,87 +3,86 @@
 //
 // Replaces byzpy_tpu/ops/pallas_kernels.py:363 _sorted_reduce_stream_kernel
 // (pallas_call at :440). What it computes: for each round k and column c,
-// the n values x[k, :, c] are mapped to int32 total-order keys (from the
-// f32 up-cast) and sorted with Batcher's network; the kernel emits only
-// the median (midpoint in the output dtype, NaN iff the column holds a
-// NaN) or the f32 mean of sorted rows [f, n - f).
+// the n values x[k, :, c] are mapped to total-order keys and sorted (f32:
+// the int32 key of common.cuh:float_sort_key; bf16 and f16: the 16-bit
+// key of column_sort.cuh:Keys16, which orders as the f32 key of the
+// up-cast does); the kernel emits only the median (midpoint in the output
+// dtype, NaN iff the column holds a NaN) or the f32 mean of sorted rows
+// [f, n - f).
 //
-// Bound: memory. One read of the (K, n, d) input and a (K, d) write; the
-// network is ~n/2 log^2 n integer min/max per column, well under the
-// card's ALU rate at n <= 128. Design: one thread per column, a block of
-// 256 neighbouring columns, so every row load is one coalesced 1 KB (f32)
-// transaction across the block; the whole column stays in registers and
-// nothing but the reduction goes back to memory. The network width NPAD
-// is a template parameter (8..128) and the network is expanded at compile
-// time, so the keys stay in registers: ptxas reports no spills, but
-// NPAD = 128 takes ~210 registers a thread, one 256-thread block per SM
-// (a shared-memory or warp-cooperative sort is not done yet).
+// Bound: memory, one read of the (K, n, d) input and a (K, d) write; at n =
+// 64 the network's int32 min/max cost ~0.84 of the read at the card's
+// integer rate. It is the column-sort engine (column_sort.cuh) with a round
+// as its slot: row k n of the (K n, d) matrix, n rows, n checked on the
+// host. One instance a network width and dtype (the mode is a runtime
+// argument), so a narrow round is not sized for 64 keys; n of 65-128 takes the engine's two runs of 64 and a merge,
+// never a 128-key network in registers.
 
-#include "common.cuh"
+#include "column_sort.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+enum Mode { kMedian = 0, kTrimmed = 1 };
 
-template <typename T, int NPAD>
-__global__ void __launch_bounds__(kThreads)
-sorted_reduce_kernel(const T* __restrict__ x, T* __restrict__ out, int n,
-                     long long d, int mode, int f) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int k = blockIdx.y;
-  if (c >= d) return;
-  const T* xk = x + (long long)k * n * d + c;
-  int32_t keys[NPAD];
-#pragma unroll
-  for (int i = 0; i < NPAD; ++i)
-    keys[i] = (i < n) ? float_sort_key(to_f32(xk[(long long)i * d])) : PAD_KEY;
-  batcher_sort<NPAD>(keys);
-  T res;
-  if (mode == 0) {
-    // median: midpoint computed in the output dtype (each op rounds once,
-    // as jnp.median does on 16-bit floats)
-    const T vlo = from_f32<T>(key_to_float(select_key(keys, (n - 1) / 2)));
-    const T vhi = from_f32<T>(key_to_float(select_key(keys, n / 2)));
+// median: the midpoint computed in the output dtype (each op rounds once,
+// as jnp.median does on 16-bit floats), NaN iff the last key is a NaN;
+// trimmed: the window [f, n - f) over n - 2f.
+template <typename T>
+struct Reduce : colsort::Window<colsort::Keys<T>, true> {
+  using K = colsort::Keys<T>;
+  using W = colsort::Window<K, true>;
+  __device__ __forceinline__ Reduce(int mode, int n, int f)
+      : W(mode == kTrimmed, mode == kTrimmed ? f : (n - 1) / 2, mode == kTrimmed ? n - f : n / 2, n - 1) {}
+
+  __device__ __forceinline__ T value() const {
+    if (this->sum) return from_f32<T>(__fdiv_rn(this->acc, (float)(this->hi - this->lo)));
+    const T vlo = from_f32<T>(K::value(this->klo));
+    const T vhi = from_f32<T>(K::value(this->khi));
     const T sum = from_f32<T>(__fadd_rn(to_f32(vlo), to_f32(vhi)));
-    res = from_f32<T>(__fmul_rn(to_f32(sum), 0.5f));  // NaN if -inf and +inf meet
-    if (select_key(keys, n - 1) > INF_KEY) res = from_f32<T>(__int_as_float(0x7FC00000));
-  } else {
-    const float acc = sum_sorted_range(keys, f, n - f);
-    res = from_f32<T>(__fdiv_rn(acc, (float)(n - 2 * f)));
+    const T res = from_f32<T>(__fmul_rn(to_f32(sum), 0.5f));  // NaN if -inf and +inf meet
+    return isnan(K::value(this->klast)) ? from_f32<T>(__int_as_float(0x7FC00000)) : res;
   }
-  out[(long long)k * d + c] = res;
+};
+
+template <typename T, int N>
+__global__ void __launch_bounds__(colsort::kBlockThreads, colsort::kMinBlocks)
+sorted_reduce_kernel(const T* __restrict__ x, T* __restrict__ out, int n, long long d, int mode,
+                     int f, int run_tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const long long k = blockIdx.y;
+  colsort::sort_run<T, N, N>(x, smem, k * n, n, d, run_tiles, out + k * d, Reduce<T>(mode, n, f));
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* out, int K, int n, long long d,
-                   int mode, int f, cudaStream_t stream) {
-  const dim3 grid((unsigned)((d + kThreads - 1) / kThreads), (unsigned)K);
+cudaError_t launch(const void* x, void* out, int K, int n, long long d, int mode, int f,
+                   int run_tiles, cudaStream_t s) {
+  if (mode != kMedian && mode != kTrimmed) return cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   T* op = static_cast<T*>(out);
   switch (network_width(n)) {
-    case 8: sorted_reduce_kernel<T, 8><<<grid, kThreads, 0, stream>>>(xp, op, n, d, mode, f); break;
-    case 16: sorted_reduce_kernel<T, 16><<<grid, kThreads, 0, stream>>>(xp, op, n, d, mode, f); break;
-    case 32: sorted_reduce_kernel<T, 32><<<grid, kThreads, 0, stream>>>(xp, op, n, d, mode, f); break;
-    case 64: sorted_reduce_kernel<T, 64><<<grid, kThreads, 0, stream>>>(xp, op, n, d, mode, f); break;
-    case 128: sorted_reduce_kernel<T, 128><<<grid, kThreads, 0, stream>>>(xp, op, n, d, mode, f); break;
+    case 8: return colsort::launch<&sorted_reduce_kernel<T, 8>>(K, d, run_tiles, s, xp, op, n, d, mode, f);
+    case 16: return colsort::launch<&sorted_reduce_kernel<T, 16>>(K, d, run_tiles, s, xp, op, n, d, mode, f);
+    case 32: return colsort::launch<&sorted_reduce_kernel<T, 32>>(K, d, run_tiles, s, xp, op, n, d, mode, f);
+    case 64: return colsort::launch<&sorted_reduce_kernel<T, 64>>(K, d, run_tiles, s, xp, op, n, d, mode, f);
+    case 128: return colsort::launch<&sorted_reduce_kernel<T, 128>>(K, d, run_tiles, s, xp, op, n, d, mode, f);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (K, n, d) contiguous; out: (K, d) of the same dtype.
-// mode 0 = median, 1 = trimmed mean. Returns the launch's cudaError_t.
+// mode 0 = median, 1 = trimmed mean; run_tiles: the column tiles a block
+// takes (ops/kernels.py:column_runs). Returns the launch's cudaError_t.
 extern "C" int byz_sorted_reduce(const void* x, void* out, int K, int n,
                                  long long d, int mode, int f, int dtype,
-                                 void* stream) {
+                                 int run_tiles, void* stream) {
   if (K <= 0 || d <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch<float>(x, out, K, n, d, mode, f, s);
-    case kBF16: return launch<__nv_bfloat16>(x, out, K, n, d, mode, f, s);
-    case kF16: return launch<__half>(x, out, K, n, d, mode, f, s);
+    case kF32: return launch<float>(x, out, K, n, d, mode, f, run_tiles, s);
+    case kBF16: return launch<__nv_bfloat16>(x, out, K, n, d, mode, f, run_tiles, s);
+    case kF16: return launch<__half>(x, out, K, n, d, mode, f, run_tiles, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -43,7 +43,7 @@ _c_float = ctypes.c_float
 # C signature of every exported function: (library, argtypes)
 SIGNATURES = {
     "byz_sorted_reduce": ("sorted_reduce", [
-        _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int, _c_int, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p,
     ]),
     "byz_gram": ("gram", [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_ll, _c_int, _c_int,
@@ -105,7 +105,7 @@ SIGNATURES = {
     ]),
     "byz_segmented_sort_reduce": ("segmented_sort", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int,
-        _c_void_p,
+        _c_int, _c_void_p,
     ]),
 }
 

@@ -48,6 +48,9 @@ Kernels (TPU kernel they replace -> CUDA source):
   counterpart of the reference's two-key ``lax.sort`` and windowed
   ``einsum`` (``byzpy_tpu/ops/ragged.py:96-192``) -> ``csrc/segmented_sort.cu``.
 
+B1 and the segmented sort-reduce are two instances of one column-sort
+engine, ``csrc/column_sort.cuh`` (its run rule: :func:`column_runs`).
+
 The codec kernels B13-B17 (``parallel/quantization.py``) have their
 wrappers in ``ops/codec_kernels.py``; their launch counters live in this
 module's :data:`launch_counts` with the others.
@@ -256,6 +259,36 @@ def _round_up(a: int, m: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The column-sort engine of B1 and the segmented sort-reduce
+# ---------------------------------------------------------------------------
+
+# csrc/column_sort.cuh: a block takes a run of tiles of this many columns of
+# one slot; the ring's 69,760 bytes of shared memory a block leave room for
+# three blocks in an SM's 228 KB
+_SORT_TILE = 128
+_SORT_BLOCKS_PER_SM = 3
+
+
+def column_runs(d: int, sms: int) -> tuple:
+    """``(T, runs)``: the tiles of ``_SORT_TILE`` columns a block of the
+    column-sort engine takes, and the runs a slot of ``d`` columns splits
+    into, so that a slot's blocks fill one wave of the blocks a card of
+    ``sms`` SMs holds at once (``_SORT_BLOCKS_PER_SM`` an SM). Every tile
+    is in exactly one run and no run is empty. B1 and the segmented
+    sort-reduce launch with T on a grid of (runs, slots)."""
+    if d < 1 or sms < 1:
+        raise ValueError(f"column_runs needs positive sizes, got {(d, sms)}")
+    tiles = _ceil_div(d, _SORT_TILE)
+    t = _ceil_div(tiles, _SORT_BLOCKS_PER_SM * sms)
+    return t, _ceil_div(tiles, t)
+
+
+def _run_tiles(x: torch.Tensor, d: int) -> int:
+    """The column-sort engine's T for ``d`` columns on ``x``'s card."""
+    return column_runs(d, torch.cuda.get_device_properties(x.device).multi_processor_count)[0]
+
+
+# ---------------------------------------------------------------------------
 # B1: fused column sort + reduce
 # ---------------------------------------------------------------------------
 
@@ -284,7 +317,7 @@ def sorted_reduce_stream(xs: torch.Tensor, *, mode: str = "median", f: int = 0) 
     with torch.cuda.device(xs.device):
         _call(
             "byz_sorted_reduce", xs.data_ptr(), out.data_ptr(), K, n, d,
-            _SORT_MODES[mode], f, _DTYPE_CODES[xs.dtype], _stream(xs),
+            _SORT_MODES[mode], f, _DTYPE_CODES[xs.dtype], _run_tiles(xs, d), _stream(xs),
         )
     launch_counts[f"sorted_reduce:{mode}"] += 1
     return out
@@ -1590,7 +1623,7 @@ def segmented_sort_reduce(
         return out
     with torch.cuda.device(flat.device):
         _call("byz_segmented_sort_reduce", flat.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
-              out.data_ptr(), R, C, d, _SORT_MODES[mode], f, _stream(flat))
+              out.data_ptr(), R, C, d, _SORT_MODES[mode], f, _run_tiles(flat, d), _stream(flat))
     launch_counts["segmented_sort_reduce"] += 1
     return out
 
@@ -1708,6 +1741,7 @@ __all__ = [
     "float_sort_keys",
     "fma_f32",
     "gram",
+    "column_runs",
     "gram_chunks",
     "gram_plain",
     "gram_split_k_plain",

@@ -8,8 +8,11 @@ Run from the repository root with no arguments:
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device probe: the card's name and power limit (``nvidia-smi``);
-2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed);
-3. every kernel (B1 sorted reduce, B3 Gram, B4 selection mean in its
+2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed), with
+   the registers and spills of B3's, B7's, B11/B12's and the column-sort
+   engine's instances (a spill in B3 or the engine fails the run);
+3. every kernel (B1 sorted reduce, bit for bit in f32, bf16 and f16 at n =
+   1 to 128 on odd d, at the main path's shape and at the headline; B3 Gram, B4 selection mean in its
    krum / cge / monna modes, B5 selection mean from a given Gram, B6
    MeaMed, B7's loop kernel (whole Weiszfeld and centred-clipping loops
    and their one-step phases, bit for bit with the iteration counts), B8
@@ -83,8 +86,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    dispatch), every cohort bit for bit ``CohortAggregator``'s, the dense
    program's on the decoded rows and (s4) the CPU port's;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
-   421,642) beside the card's bound, the plain version and, where one
-   exists, a single PyTorch call (B3 also at 64 and 128 x 421,642, its
+   421,642; B1 also at 128 x 421,642, the engine's two runs and merge)
+   beside the card's bound (sort networks at the int32 min/max rate), the
+   plain version and, where one exists, a single PyTorch call (B3 also at 64 and 128 x 421,642, its
    partials' and reduce's device times apart; B8's mixing sweep also with its
    torch.profiler device time and in bf16), with a whole Multi-Krum fold round beside
    the barrier Multi-Krum, the codecs at block 256, B2, B11 and the row
@@ -118,7 +122,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data sheet peaks (dense, no sparsity)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12  # non-tensor-core f32; int32 min/max counted at this rate too
+PEAK_F32_OPS_PER_S = 67e12  # non-tensor-core f32
+# int32 min and max (the sort networks' compare-exchanges): 64 results per
+# clock cycle per SM for compute capability 9.0 (CUDA C++ Programming
+# Guide, "Arithmetic Instructions", throughput of "compare, minimum,
+# maximum"), half the f32 FMA's 128, on 132 SMs at the H100 SXM's
+# 1,980 MHz boost clock (NVIDIA data sheet; nvidia-smi's clocks.max.sm,
+# printed in phase 1)
+PEAK_INT_MINMAX_PER_S = 64 * 132 * 1.98e9
 
 HEADLINE = (64, 1_048_576)
 MAIN_N, MAIN_BYZ, MAIN_BATCH, MAIN_STEPS, CPU_STEPS = 8, 2, 64, 5, 2
@@ -241,28 +252,32 @@ def max_abs_err(a, b) -> float:
 
 
 def check_sorted_reduce(errs: dict) -> None:
+    """B1 bit for bit its plain version, median and trimmed mean, in f32,
+    bf16 and f16, on rows holding NaN and +-inf: at K = 2 rounds of odd d
+    (several tiles a block, rows at every alignment) at n on both sides of
+    each network width, 65 and 128 rows through the engine's two runs and
+    merge; at the main path's 8 x 421,642 and the headline."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
 
-    shapes = [(2, n, 100_003) for n in (7, 8, 64, 128)] + [(1, MAIN_N, 421_642)]
+    shapes = [(2, n, 100_003) for n in (1, 7, 8, 9, 33, 64, 65, 128)] + [(1, MAIN_N, 421_642), (1, *HEADLINE)]
     for shape in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = random_rounds(shape, seed=shape[1], specials=True, dtype=dtype)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            if shape[2] == HEADLINE[1] and dtype != torch.float32:
+                continue
+            x = random_rounds(shape, seed=shape[1], specials=shape[1] >= 4, dtype=dtype)
             n = shape[1]
-            med = kernels.sorted_reduce_stream(x, mode="median")
-            ref = kernels.sorted_reduce_stream_plain(x, mode="median")
-            ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            check(torch.equal(med.view(ints), ref.view(ints)),
-                  f"B1 median differs from plain at {shape} {dtype}")
             f = 2 if n == MAIN_N else (n - 1) // 3
-            tm = kernels.sorted_reduce_stream(x, mode="trimmed", f=f)
-            tref = kernels.sorted_reduce_stream_plain(x, mode="trimmed", f=f)
-            ulps = ulp_diff(tm, tref)
-            check(ulps <= 2, f"B1 trimmed mean {ulps} ulp from plain at {shape} {dtype}")
-            errs["sorted_reduce:median"] = max(errs["sorted_reduce:median"], max_abs_err(med, ref))
-            errs["sorted_reduce:trimmed"] = max(errs["sorted_reduce:trimmed"], max_abs_err(tm, tref))
-            log(f"  B1 {tuple(shape)} {str(dtype)[6:]}: median bitwise, trimmed {ulps} ulp")
+            for mode, ff in (("median", 0), ("trimmed", f)):
+                out = kernels.sorted_reduce_stream(x, mode=mode, f=ff)
+                ref = kernels.sorted_reduce_stream_plain(x, mode=mode, f=ff)
+                check(bits_equal(out, ref) and nan_is_canonical(out),
+                      f"B1 {mode} differs from plain at {shape} {dtype}")
+                errs[f"sorted_reduce:{mode}"] = max(errs[f"sorted_reduce:{mode}"], max_abs_err(out, ref))
+            log(f"  B1 {tuple(shape)} {str(dtype)[6:]}: median and trimmed (f = {f}) bitwise")
+            del x
+        torch.cuda.empty_cache()
 
 
 def check_gram_and_selection(errs: dict) -> None:
@@ -2230,9 +2245,49 @@ def port_device_ms(fn, calls: int = 10) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def bound_ms(bytes_moved: float, ops: float):
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+def bound_ms(bytes_moved: float, ops: float, minmax: float = 0.0):
+    """The least time for ``bytes_moved`` bytes, ``ops`` f32 operations and
+    ``minmax`` int32 min/max operations: the larger of the bytes over the
+    memory rate and the operations over their rates (the f32 and integer
+    pipes run side by side, so their times do not add)."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = max(ops / PEAK_F32_OPS_PER_S, minmax / PEAK_INT_MINMAX_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sort_exchanges(m: int) -> int:
+    """Compare-exchanges a column of ``m`` rows needs: Batcher's network at
+    the width that holds m (19, 63, 191, 543 and 1,471 at 8-128 rows), as
+    B2's and B6's bounds count them. The engine (``csrc/column_sort.cuh``)
+    runs more above 64 rows (two runs of 64 and a bitonic merge: 1,534);
+    the bound counts what the function needs."""
+    from byzpy_tpu_torch.ops import kernels
+
+    return len(kernels.batcher_pairs(kernels.network_width(m)))
+
+
+def sorted_reduce_times(n: int, d: int, *, f_trim: int, seed: int, x=None) -> dict:
+    """B1 (median, and trimmed mean at ``f_trim``) on one (1, n, d) f32
+    round: CUDA events, torch.profiler device ms, the plain version and the
+    bound (the rows read once, the engine's compare-exchanges at the int32
+    rate)."""
+    from byzpy_tpu_torch.ops import kernels
+
+    x = random_rounds((1, n, d), seed=seed) if x is None else x
+    isz = x.element_size()
+    out = {}
+    sort_ops = 2 * sort_exchanges(n) * d  # one int32 min and one max per compare-exchange
+    for mode, f in (("median", 0), ("trimmed", f_trim)):
+        # the median's add and multiply, or the window's adds and a divide
+        adds = 2 * d if mode == "median" else (n - 2 * f + 1) * d
+        b_ms, b_by = bound_ms(n * d * isz + d * isz, adds, sort_ops)
+        kern = lambda mode=mode, f=f: kernels.sorted_reduce_stream(x, mode=mode, f=f)  # noqa: E731
+        out[f"sorted_reduce:{mode}"] = {
+            "ms": cuda_time_ms(kern), "device_ms": port_device_ms(kern),
+            "plain_ms": cuda_time_ms(lambda: kernels.sorted_reduce_stream_plain(x, mode=mode, f=f), iters=3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [1, n, d], "f": f,
+        }
+    return out
 
 
 def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int) -> dict:
@@ -2244,18 +2299,7 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
 
     x = random_rounds((1, n, d), seed=seed)
     isz = x.element_size()
-    rows_in = n * d * isz
-    out = {}
-    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
-    sort_ops = 2 * pairs * d  # one int32 min and one max per compare-exchange
-    for mode, f in (("median", 0), ("trimmed", f_trim)):
-        adds = 0 if mode == "median" else (n - 2 * f) * d
-        b_ms, b_by = bound_ms(rows_in + d * isz, sort_ops + adds)
-        out[f"sorted_reduce:{mode}"] = {
-            "ms": cuda_time_ms(lambda: kernels.sorted_reduce_stream(x, mode=mode, f=f)),
-            "plain_ms": cuda_time_ms(lambda: kernels.sorted_reduce_stream_plain(x, mode=mode, f=f), iters=3),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [1, n, d],
-        }
+    out = sorted_reduce_times(n, d, f_trim=f_trim, seed=seed, x=x)
     # B4's two launches on the kernel Gram of x: the weights read only the
     # (n, n) Gram; the sweep reads only the q selected rows
     g = kernels.gram(x)
@@ -2451,7 +2495,7 @@ def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
     out = {}
     # the key sort, the window cut (2 subs, a max, a min per start), the
     # select's two passes (a sub, an abs, a compare each) and the k adds
-    b_ms, b_by = bound_ms(n * d * isz + d * isz, (2 * pairs + 4 * (f + 1) + 6 * n + (n - f)) * d)
+    b_ms, b_by = bound_ms(n * d * isz + d * isz, (4 * (f + 1) + 6 * n + (n - f)) * d, 2 * pairs * d)
     out["meamed"] = {
         "ms": cuda_time_ms(lambda: kernels.meamed_stream(x[None], f=f)),
         "plain_ms": cuda_time_ms(lambda: kernels.meamed_stream_plain(x[None], f=f), iters=3),
@@ -2589,7 +2633,7 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
     }
     pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
     # read and write the matrix; an int32 min and max per compare-exchange
-    b_ms, b_by = bound_ms(2 * n * d * isz, 2 * pairs * d)
+    b_ms, b_by = bound_ms(2 * n * d * isz, 0, 2 * pairs * d)
     out["sort_columns"] = {
         "ms": cuda_time_ms(lambda: kernels.sort_columns(x)),
         "plain_ms": cuda_time_ms(lambda: kernels.sort_columns_plain(x), iters=3),
@@ -2902,18 +2946,16 @@ def ragged_kernel_times() -> dict:
 def segmented_bound(sizes, d: int, mode: str, f: int) -> tuple:
     """``bound_ms`` of one segmented sort-reduce: read each cohort's rows and
     the layout once and write the ``(C, d)`` result; an int32 min and max a
-    compare-exchange of Batcher's network at each cohort's width (19, 63,
-    191 and 543 exchanges at 8-64 rows), then the window's adds
+    compare-exchange of Batcher's network at each cohort's width
+    (:func:`sort_exchanges`), then the window's adds
     and a multiply (trimmed) or an add and a multiply (median) a column."""
-    from byzpy_tpu_torch.ops import kernels
-
     C = len(sizes)
-    ops = 0
+    ops = minmax = 0
     for m in sizes:
         if m:
-            ops += 2 * len(kernels.batcher_pairs(kernels.network_width(m)))
+            minmax += 2 * sort_exchanges(m)
             ops += (m - 2 * f + 1) if mode == "trimmed" else 2
-    return bound_ms(sum(sizes) * d * 4 + 2 * C * 4 + C * d * 4, ops * d)
+    return bound_ms(sum(sizes) * d * 4 + 2 * C * 4 + C * d * 4, ops * d, minmax * d)
 
 
 def segmented_times() -> dict:
@@ -3004,6 +3046,10 @@ def timing() -> dict:
     odd = kernel_times(n - 1, d, f_trim=8, f_krum=8, q=12, seed=8)["sorted_reduce:median"]
     out["sorted_reduce:median"] = dict(odd, at_headline=out["sorted_reduce:median"])
     main = kernel_times(MAIN_N, 421_642, f_trim=MAIN_BYZ, f_krum=MAIN_BYZ, q=4, seed=9)
+    # B1 at the executor's 128 rows: the engine's two runs of 64 and merge
+    wide = sorted_reduce_times(EXEC_CAP, 421_642, f_trim=(EXEC_CAP - 1) // 3, seed=10)
+    for mode in ("median", "trimmed"):
+        out[f"sorted_reduce:{mode}"]["at_128_rows"] = wide[f"sorted_reduce:{mode}"]
     for times, shape, seed, f, q in ((out, HEADLINE, 17, 8, 12),
                                      (main, (MAIN_N, 421_642), 19, MAIN_BYZ, 4)):
         pre = pre_kernel_times(*shape, seed=seed)
@@ -3011,7 +3057,7 @@ def timing() -> dict:
         times.update(pre)
         times.update(centre_kernel_times(*shape, f=f, seed=seed + 10))
         times["selection_mean_from_gram"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
-    keys = ("shape", "ms", "plain_ms", "bound_ms", "library_ms", "with_nnm_weights",
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "with_nnm_weights",
             "with_clip_weights", "steps", "ms_per_step", "one_step_ms", "one_step_plain_ms",
             "steps_256_ms", "steps_256_reads_bound_ms", "reads_bound_ms", "cdist_ms",
             "weights_ms", "sweep_ms",
@@ -3187,6 +3233,15 @@ def main() -> int:
     check(not spilled, f"B3 instances spill: {spilled}")
     log("CENTER_PTXAS " + json.dumps(ptxas_report(_build.build_log.get("center_step", ""), nvcc,
                                                    ("center_loop_kernel",))))
+    # the column-sort engine's instances (B1 a dtype and width; the
+    # segmented sort-reduce one) and its out-of-line run sort
+    sort_ptxas = (ptxas_report(_build.build_log.get("sorted_reduce", ""), nvcc,
+                               ("sorted_reduce_kernel", "sort_runs"))
+                  + ptxas_report(_build.build_log.get("segmented_sort", ""), nvcc,
+                                 ("segmented_sort_reduce_kernel", "sort_runs")))
+    log("COLUMN_SORT_PTXAS " + json.dumps(sort_ptxas))
+    spilled = [e["kernel"] for e in sort_ptxas if e["spill_stores"] or e["spill_loads"]]
+    check(not spilled, f"column-sort instances spill: {spilled}")
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}

@@ -1116,12 +1116,16 @@ def test_cuda_ragged_executor_dispatch(cuda_device, name, mode):
 
 
 # (R, d, cohort sizes, padding slots): the executor's batch at SmallCNN's
-# width (odd rows start 8-byte aligned), an odd d (rows at every alignment)
-# with a one-row and a 120-row cohort, and d below one column tile
+# width (odd rows start 8-byte aligned; several tiles a block, the last run
+# partial), an odd d (rows at every alignment) with a one-row and a 120-row
+# cohort, d below one column tile, and slots of every network width,
+# 65-128 rows among them, at an odd d
 SEGMENTED = {
     "n_batch": (128, 421_642, (6, 13, 29, 64), 1),
     "odd_d": (128, 50_001, (1, 2, 5, 120), 0),
     "small": (16, 37, (3, 8, 5), 1),
+    "mixed_widths": (128, 300_001, (65, 7, 33, 9, 1, 13), 2),
+    "two_wide": (128, 90_003, (100, 28), 0),
 }
 
 
@@ -1178,3 +1182,114 @@ def test_cuda_segmented_sort_reduce_rejects(cuda_device):
     with pytest.raises(ValueError):
         kernels.segmented_sort_reduce(torch.zeros((10, 8), device=cuda_device).T, offsets, lengths,
                                       mode="trimmed")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,f", [("trimmed", 2), ("median", 0)])
+@pytest.mark.parametrize("d", [37, 200_003])
+def test_cuda_segmented_sort_reduce_empty_and_out_of_range_slots(cuda_device, d, mode, f):
+    """Slots of length 0 write zeros and slots whose rows leave [0, R) NaN,
+    reading nothing, among slots that sort (6, 70 and 1 rows, packed from
+    row 0 as the plain version takes them): every slot bit for bit its plain
+    version."""
+    flat = torch.from_numpy(_matrix(np.random.default_rng(d), (128, d))).to(cuda_device)
+    layout = [(0, 6), (6, 0), (-1, 4), (120, 10), (5, -3), (6, 70), (76, 1), (128, 0), (0, 129)]
+    offsets = torch.tensor([o for o, _ in layout], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor([m for _, m in layout], dtype=torch.int32, device=cuda_device)
+    out = kernels.segmented_sort_reduce(flat, offsets, lengths, mode=mode, f=f)
+    torch.cuda.synchronize()
+    ref = kernels.segmented_sort_reduce_plain(flat, offsets, lengths, mode=mode, f=f)
+    assert _bits_equal(out, ref)
+    assert bool((out[[1, 7]] == 0).all()) and _all_canonical_nan(out[[2, 3, 4, 8]])
+
+
+# B1 on the column-sort engine: (d, why) -- several tiles a block with a
+# partial last run; an odd d (f32 rows at 4-, 8- and 16-byte starts, 16-bit
+# rows at 2-byte starts); d below one tile
+ENGINE_D = {"runs": 100_003, "odd": 1001, "below_tile": 37}
+
+
+def _engine_rows(seed, K, n, d, dtype, device):
+    """Normal rows with a NaN, +-inf, a -0.0 column and ties; from n >= 3 a
+    row of NaN over the first half of the columns and a row of +inf over the
+    second, from n >= 2 a row of -inf over a third."""
+    x = np.random.default_rng(seed).normal(size=(K, n, d)).astype(np.float32)
+    x[:, 0, min(1, d - 1)] = np.nan
+    x[:, -1, min(2, d - 1)] = np.inf
+    x[:, :, min(5, d - 1)] = -0.0
+    x[:, :, -1] = 1.0
+    if n >= 2:
+        x[:, 1, : d // 3] = -np.inf
+    if n >= 3:
+        x[:, 2, 7: d // 2] = np.nan
+        x[:, n - 1, d // 2:] = np.inf
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", sorted(ENGINE_D))
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 33, 64, 65, 128])
+def test_cuda_sorted_reduce_engine_bitwise(cuda_device, n, dt, where):
+    """B1 at K = 3 rounds, every network width and its edges, f32 and the
+    16-bit keys, NaN and +-inf rows: median and trimmed mean (f = (n - 1) //
+    3 and 0) bit for bit their plain versions, NaN canonical, one launch a
+    call."""
+    d = ENGINE_D[where]
+    x = _engine_rows(n * 7 + d, 3, n, d, DTYPES[dt], cuda_device)
+    for mode, f in (("median", 0), ("trimmed", (n - 1) // 3), ("trimmed", 0)):
+        before = kernels.launch_counts[f"sorted_reduce:{mode}"]
+        out = kernels.sorted_reduce_stream(x, mode=mode, f=f)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts[f"sorted_reduce:{mode}"] == before + 1
+        assert _bits_equal(out, kernels.sorted_reduce_stream_plain(x, mode=mode, f=f)), (mode, f)
+        assert _all_canonical_nan(out[torch.isnan(out)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [1, 2, 3, 5])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+def test_cuda_sorted_reduce_at_every_base_alignment(cuda_device, dt, start):
+    """A contiguous input that starts ``start`` elements into its storage
+    (its rows at every byte alignment the dtype allows), n = 8, 64 and 100:
+    bit for bit the plain version."""
+    for n in (8, 64, 100):
+        x = _engine_rows(start + n, 2, n, 5003, DTYPES[dt], cuda_device)
+        big = torch.empty(x.numel() + start, dtype=x.dtype, device=cuda_device)
+        big[start:] = x.reshape(-1)
+        xv = big[start:].view(x.shape)
+        assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+        for mode, f in (("median", 0), ("trimmed", 2)):
+            out = kernels.sorted_reduce_stream(xv, mode=mode, f=f)
+            assert _bits_equal(out, kernels.sorted_reduce_stream_plain(x, mode=mode, f=f)), (n, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_tiles", [0, 1, 2, 7, 1000])
+def test_cuda_column_sort_any_run_length(cuda_device, run_tiles):
+    """B1 and the segmented sort-reduce through their C entry points at a
+    given run length (``kernels.column_runs`` picks it on the path): every
+    length gives the bits of the plain versions, the last run partial or a
+    slot in one run; a length of 0 is refused (cudaErrorInvalidValue)."""
+    from byzpy_tpu_torch.ops import _build
+
+    d = 100_003
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    x = _engine_rows(run_tiles, 2, 33, d, torch.float32, cuda_device)
+    out = torch.zeros((2, d), device=cuda_device)
+    rc = _build.function("byz_sorted_reduce")(x.data_ptr(), out.data_ptr(), 2, 33, d, 1, 4,
+                                              kernels._DTYPE_CODES[torch.float32], run_tiles, stream)
+    flat = x.reshape(66, d)
+    offsets = torch.tensor([0, 33, 40], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor([33, 26, 0], dtype=torch.int32, device=cuda_device)
+    seg = torch.zeros((3, d), device=cuda_device)
+    rc_seg = _build.function("byz_segmented_sort_reduce")(
+        flat.data_ptr(), offsets.data_ptr(), lengths.data_ptr(), seg.data_ptr(), 66, 3, d, 0, 0,
+        run_tiles, stream)
+    torch.cuda.synchronize()
+    if run_tiles == 0:
+        assert rc == rc_seg == 1
+        return
+    assert rc == rc_seg == 0
+    assert _bits_equal(out, kernels.sorted_reduce_stream_plain(x, mode="trimmed", f=4))
+    assert _bits_equal(seg, kernels.segmented_sort_reduce_plain(flat, offsets, lengths, mode="median"))
