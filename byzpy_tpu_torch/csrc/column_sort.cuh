@@ -2,14 +2,16 @@
 // int32 total-order key and reduced in rank order, a block walking a run of
 // column tiles of one slot through a ring of staged tiles.
 //
-// Two kernels are instantiations of it: B1 (csrc/sorted_reduce.cu, a slot
-// is a round of a (K, n, d) stack) and the ragged door's segmented
+// Three kernels are instantiations of it: B1 (csrc/sorted_reduce.cu, a
+// slot is a round of a (K, n, d) stack), the ragged door's segmented
 // sort-reduce (csrc/segmented_sort.cu, a slot is a cohort whose offset and
-// length live in device memory). Each brings its slot layout and the
-// finish of its reduce; the engine does the staging, the sort and the
-// window it hands to the reduce.
+// length live in device memory) and B6, MeaMed (csrc/meamed.cu, a slot is a
+// round). Each brings its slot layout and the finish of its reduce; the
+// engine does the staging, the sort and the window it hands to the reduce,
+// or, for a column reduce (B6), the sorted keys in shared memory and the
+// column's place in x.
 //
-// Bound. Both kernels read every row once and write one value a column:
+// Bound. The kernels read every row once and write one value a column:
 // bytes. The compare-exchanges of Batcher's network come close to that:
 // 543 a 64-row column, an int32 min and a max each, run at half the card's
 // f32 FMA rate (chip_smoke.py's PEAK_INT_MINMAX_PER_S), so the sort of a
@@ -58,7 +60,16 @@
 //   - positions at and past m hold PAD_KEY from start to end (a comparator
 //     whose upper slot holds PAD_KEY leaves both), and are never stored;
 //   - the reduce is fused: the keys reach it in rank order, and only the
-//     result goes back to memory.
+//     result goes back to memory;
+//   - a column reduce (Red::kColumn, B6) indexes the sorted keys at
+//     run-time positions and walks the column in row order: the engine
+//     writes the sorted keys back over the column in the stage (narrow
+//     path: at the addresses it read them from; wide path: the merge's last
+//     stage stores too), hands the reduce a view of them (and, on the
+//     narrow path, the sorted keys in registers), releases the stage
+//     once the reduce is done with it, and the reduce reads the column again
+//     from device memory, where the producer's copy has just passed through
+//     L2. A reduce sets its ring's buffers (kRingStages): B6 takes one.
 #pragma once
 
 #include <atomic>
@@ -77,7 +88,7 @@ constexpr int kShift = 16;     // bytes a stage row holds beyond its columns
 // a stage: the widest step (128 rows of 64 f32 columns, or 64 of 128) with
 // each row's shift
 constexpr int kStageBytes = 2 * kWide * (kWide * 4 + kShift);
-constexpr int kStages = 2;     // stage buffers of the ring
+constexpr int kStages = 2;     // stage buffers of the ring (a kernel's reduce may take fewer)
 constexpr int kMaxDepth = 8;   // steps in flight at most (a small slot's steps share a buffer)
 constexpr int kRingOffset = 128;  // the stages' mbarriers come first
 // registers for four blocks an SM (96 a thread; shared memory holds three):
@@ -218,6 +229,23 @@ __device__ __forceinline__ void load_staged(int32_t (&k)[N], const unsigned (&ba
     k[r] = r < m ? K::raw(lds<typename K::Elem>(base[r % P] + off + r * RS)) : PAD_KEY;
 }
 
+// Write k[r] back over row r of this thread's column of a step as staged
+// (the addresses load_staged read), r < m.
+template <class K, int N, int RS, int P>
+__device__ __forceinline__ void store_staged(const int32_t (&k)[N], const unsigned (&base)[P], int m) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    if (r < m) {
+      if constexpr (sizeof(typename K::Elem) == 4) {
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(base[r % P] + r * RS), "r"(k[r]) : "memory");
+      } else {
+        asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(base[r % P] + r * RS), "h"((unsigned short)k[r])
+                     : "memory");
+      }
+    }
+  }
+}
+
 // Keys of sorted positions [base, base + N) of a column of keys written back
 // to the stage (element p at col[p * STRIDE]), PAD_KEY at and past m.
 template <class K, int N, int STRIDE>
@@ -240,6 +268,8 @@ __device__ __forceinline__ void store(const int32_t (&k)[N], typename K::Elem* c
 // take(). A kernel's reduce derives from it and adds the finish.
 template <class K, bool LAST = false>
 struct Window {
+  static constexpr bool kColumn = false;
+  static constexpr int kRingStages = kStages;
   bool sum;
   int lo, hi, last;
   float acc = 0.0f;
@@ -267,20 +297,40 @@ struct Window {
   }
 };
 
+// The sorted keys of one column as a column reduce sees them: key(p) for a
+// run-time position p < m. Narrow path: written back over the column in the
+// stage, position p at the byte shift of row p (a + p e mod 16, the ring's
+// shift rule; e = d sizeof(T) mod 16) from the column's unshifted address.
+template <class K, int RS>
+struct StagedKeys {
+  unsigned col;  // the column's address in the stage, before the row shifts
+  unsigned a, e;
+  __device__ __forceinline__ int32_t operator()(int p) const {
+    return K::key(lds<typename K::Elem>(col + ((a + p * e) & 15u) + p * RS));
+  }
+};
+
+// Wide path: the merged column in the stage, position p at col[p * STRIDE].
+template <class K, int STRIDE>
+struct TileKeys {
+  const typename K::Elem* col;
+  __device__ __forceinline__ int32_t operator()(int p) const { return K::key(col[p * STRIDE]); }
+};
+
 // ---------------------------------------------------------------------------
 // The ring
 // ---------------------------------------------------------------------------
 
 // A run's layout in the ring: DEPTH slots of STEP bytes (as many steps of
-// one width as the stage buffers hold, at most kMaxDepth), their mbarriers
+// one width as its STAGES buffers hold, at most kMaxDepth), their mbarriers
 // and the byte shift of each row residue (rows of d elements, `first` the
 // run's first column of the slot's first row: a step starts a multiple of
 // 16 bytes on, so the shifts are the same at every step).
-template <typename T, int STEP>
+template <typename T, int STEP, int STAGES>
 struct Ring {
   static constexpr int P = 16 / sizeof(T);  // rows after which the shifts repeat
-  static constexpr int DEPTH = kStages * (kStageBytes / STEP) < kMaxDepth
-                                   ? kStages * (kStageBytes / STEP) : kMaxDepth;
+  static constexpr int DEPTH = STAGES * (kStageBytes / STEP) < kMaxDepth
+                                   ? STAGES * (kStageBytes / STEP) : kMaxDepth;
   unsigned stages, mbars;
   unsigned shift[P];
 
@@ -351,7 +401,7 @@ __device__ __forceinline__ void narrow_run(const T* __restrict__ x, unsigned cha
                                            OutT* __restrict__ out, const Red& red0) {
   using K = Keys<T>;
   constexpr int RS = kTile * (int)sizeof(T) + kShift;  // a stage row's bytes
-  using R = Ring<T, N * RS>;
+  using R = Ring<T, N * RS, Red::kRingStages>;
   const R ring(smem, x + row0 * d + c0, d);
   const int tid = threadIdx.x;
   if (tid >= kThreads) return produce<T, kTile, RS>(ring, x, row0, m, d, c0, c1);
@@ -364,13 +414,29 @@ __device__ __forceinline__ void narrow_run(const T* __restrict__ x, unsigned cha
     for (int q = 0; q < R::P; ++q) base[q] = ring.stage(j) + ring.shift[q] + tid * (int)sizeof(T);
     int32_t k[N];
     load_staged<K, N, RS>(k, base, 0, m);
-    consume_release(ring, j, steps);
     const long long c = c0 + (long long)j * kTile + tid;
-    if (c < c1) {
-      batcher_sort<N>(k);
+    if constexpr (Red::kColumn) {
+      // the stage holds the sorted keys until the reduce has read them
       Red red = red0;
-      red.take(k, 0);
-      out[c] = red.value();
+      if (c < c1) {
+        batcher_sort<N>(k);
+        store_staged<K, N, RS>(k, base, m);
+        const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(x + row0 * d + c0)) & 15u;
+        red.sorted(StagedKeys<K, RS>{ring.stage(j) + tid * (unsigned)sizeof(T), a,
+                                     static_cast<unsigned>(d * (long long)sizeof(T)) & 15u},
+                   k);
+      }
+      fence_proxy_async();  // the keys written back, before the next bulk copy lands
+      consume_release(ring, j, steps);
+      if (c < c1) out[c] = red.value(x + row0 * d + c, d);
+    } else {
+      consume_release(ring, j, steps);
+      if (c < c1) {
+        batcher_sort<N>(k);
+        Red red = red0;
+        red.take(k, 0);
+        out[c] = red.value();
+      }
     }
   }
 }
@@ -397,7 +463,8 @@ __device__ __noinline__ void sort_runs(const unsigned (&stage_base)[P], typename
 // Merge the two sorted runs of one column (row stride STRIDE) and hand the
 // keys to the reduce: one bitonic merge of 128 whose first stage compares
 // position i with its mirror 127 - i, two 16-key chunks in registers at a
-// time; its last stage hands the chunks to the reduce in rank order.
+// time; its last stage hands the chunks to the reduce in rank order (a
+// column reduce: stores them, so the column holds its sorted keys).
 template <class K, int STRIDE, class Red>
 __device__ __forceinline__ void merge_wide(typename K::Elem* col, int m, Red& red) {
   constexpr int W = 2 * kWide;
@@ -431,8 +498,13 @@ __device__ __forceinline__ void merge_wide(typename K::Elem* col, int m, Red& re
     for (int r = 0; r < kChunk; ++r) cx(a[r], z[r]);
     clean<kChunk, kChunk / 2>(a);
     clean<kChunk, kChunk / 2>(z);
-    red.take(a, p);
-    red.take(z, p + kChunk);
+    if constexpr (Red::kColumn) {
+      store<K, kChunk, STRIDE>(a, col, p, m);
+      store<K, kChunk, STRIDE>(z, col, p + kChunk, m);
+    } else {
+      red.take(a, p);
+      red.take(z, p + kChunk);
+    }
   }
 }
 
@@ -447,7 +519,7 @@ __device__ __forceinline__ void wide_run(const T* __restrict__ x, unsigned char*
   using E = typename K::Elem;
   constexpr int SW = kThreads / 2;
   constexpr int RS = SW * (int)sizeof(T) + kShift;
-  using R = Ring<T, 2 * kWide * RS>;
+  using R = Ring<T, 2 * kWide * RS, Red::kRingStages>;
   const R ring(smem, x + row0 * d + c0, d);
   const int tid = threadIdx.x;
   if (tid >= kThreads) return produce<T, SW, RS>(ring, x, row0, m, d, c0, c1);
@@ -462,13 +534,26 @@ __device__ __forceinline__ void wide_run(const T* __restrict__ x, unsigned char*
     sort_runs<K, RS>(base, tile, m);
     bar_sync(kBarConsumers, kThreads);
     const long long c = c0 + (long long)j * SW + tid;
-    if (tid < SW && c < c1) {
+    constexpr int STRIDE = RS / (int)sizeof(E);
+    if constexpr (Red::kColumn) {
       Red red = red0;
-      merge_wide<K, RS / (int)sizeof(E)>(tile + tid, m, red);
-      out[c] = red.value();
+      const bool mine = tid < SW && c < c1;
+      if (mine) {
+        merge_wide<K, STRIDE>(tile + tid, m, red);
+        red.sorted(TileKeys<K, STRIDE>{tile + tid});
+      }
+      fence_proxy_async();
+      consume_release(ring, j, steps);  // after the reduce has read the keys
+      if (mine) out[c] = red.value(x + row0 * d + c, d);
+    } else {
+      if (tid < SW && c < c1) {
+        Red red = red0;
+        merge_wide<K, STRIDE>(tile + tid, m, red);
+        out[c] = red.value();
+      }
+      fence_proxy_async();  // the keys written back, before the next bulk copy lands
+      consume_release(ring, j, steps);  // after the merge
     }
-    fence_proxy_async();  // the keys written back, before the next bulk copy lands
-    consume_release(ring, j, steps);  // after the merge
   }
 }
 
@@ -480,7 +565,8 @@ __device__ __forceinline__ void run_columns(long long d, int run_tiles, long lon
 
 // This block's run of a slot of m rows starting at row0 of x (rows of d
 // columns): sorted and reduced by red0's kind, one value a column to out
-// (the slot's output row). smem: ring_bytes() of dynamic shared memory.
+// (the slot's output row). smem: ring_bytes(Red::kRingStages) of dynamic
+// shared memory.
 // Network widths LO..HI are compiled in; m must need one of them. Every
 // thread of the block calls it.
 template <typename T, int LO, int HI, class Red, typename OutT>
@@ -525,17 +611,18 @@ __device__ __forceinline__ void fill_run(OutT* __restrict__ out, long long d, in
 // Host side
 // ---------------------------------------------------------------------------
 
-constexpr int ring_bytes() { return kRingOffset + kStages * kStageBytes; }
+constexpr int ring_bytes(int stages = kStages) { return kRingOffset + stages * kStageBytes; }
 
 // Launch KERNEL(args..., run_tiles) on grid (runs, slots), a run being
 // run_tiles column tiles of a slot's d columns (ops/kernels.py:column_runs
-// picks run_tiles), with the ring in dynamic shared memory. The kernel's
-// shared-memory attributes are set once a device. Returns the first error
-// of the set-up or launch.
-template <auto KERNEL, typename... Args>
+// picks run_tiles), with a ring of STAGES buffers (its reduce's
+// kRingStages) in dynamic shared memory. The kernel's shared-memory
+// attributes are set once a device. Returns the first error of the set-up
+// or launch.
+template <auto KERNEL, int STAGES = kStages, typename... Args>
 cudaError_t launch(int slots, long long d, int run_tiles, cudaStream_t stream, Args... args) {
   static std::atomic<unsigned long long> ready{0};  // a bit a device whose attributes are set
-  constexpr int smem = ring_bytes();
+  constexpr int smem = ring_bytes(STAGES);
   const long long tiles = (d + kTile - 1) / kTile;
   const long long runs = run_tiles < 1 ? 0 : (tiles + run_tiles - 1) / run_tiles;
   if (runs < 1 || runs > INT_MAX || slots < 1 || slots > 65535) return cudaErrorInvalidValue;

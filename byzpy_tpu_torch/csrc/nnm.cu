@@ -18,16 +18,32 @@
 //     an exact +-0, and the sweep adds the selected rows only.
 // B9 replaces :1380 _nnm_selection_stream_kernel (pallas_call at :1806):
 //   byz_nnm_selection_weights: one block per round. The same selection A
-//     (= mask_clean, kept as bytes); G~ = G with tainted rows and columns
-//     zeroed; GA = G~ A and Gm = A^T GA / k^2 in f32, sums ascending;
-//     rows and columns of Gm whose mixer selected a tainted row set to NaN;
-//     the selection weights w_sel of Gm (selection.cuh); w_eff = A w_sel / k,
-//     all NaN when a tainted mixer was selected (:1415-1455).
+//     (= mask_clean); G~ = G with tainted rows and columns zeroed; GA = G~ A
+//     and Gm = A^T GA / k^2 in f32, sums ascending; rows and columns of Gm
+//     whose mixer selected a tainted row set to NaN; the selection weights
+//     w_sel of Gm; w_eff = A w_sel / k, all NaN when a tainted mixer was
+//     selected (:1415-1455).
 //   then selection.cu's weighted-row sweep, which reads the rows whose
 //     w_eff is not 0 (NaN included).
 // The (n, n) products multiply by 0/1 entries of A only, so each FFMA of
 // the reference is an exact add of a selected term (or of +-0), and the
 // kernels add the selected terms in index order.
+// Design of nnm_selection_weights_kernel: the (n, n) problem is 16 KB at n
+// = 64, so nothing streams; what bounds it is the work of its steps on one
+// SM: GA and Gm are n^2 k adds each, NNM's selection and Krum's scores n
+// sorts of n keys. One block of up to 1,024 threads a round holds G in
+// shared memory and spreads each step over the whole block
+// (selection_block.cuh): every thread a tile of the (n, n) products, each
+// loaded value serving the tile's other row or column; a warp a column to
+// sort, across its lanes. NNM takes, for mixer i, the keys below the k-th
+// smallest of column i, then keys equal to it in row order
+// (nnm_select_column's set, read off the sorted column with ballots); A is
+// a bit mask a mixer, in registers across the products, whose unselected
+// adds are predicated off; GA, then Gm, overwrite dead buffers; Krum adds
+// each sorted column's positions in order, one thread a column. Tensor
+// cores are not used: a TF32 product would change the bits.
+// chip_selection_ablation.py takes it apart (thread counts, NNM's
+// selection by stable ranks, the launch alone).
 //
 // The mixing sweep is an (n x n)^T (n x d) product with 0/1 weights and n
 // <= 128: at 64 x 2^20 f32 it reads and writes 512 MB (0.16 ms at 3.35
@@ -72,15 +88,16 @@
 // j, one __fadd_rn each (no --use_fast_math), then __fdiv_rn by k, and the
 // canonical NaN where sel_taint is set, cast to x's dtype: the plain
 // version's function, bit for bit.
-// The weights blocks touch only (n, n) data; B9's GA and Gm take 2 n^2 f32
-// of dynamic shared memory (128 KB at n = 128), above the 48 KB a block
-// gets without opting in, so the launcher raises the block's limit with
-// cudaFuncSetAttribute before the launch, as the sweep's launcher does for
-// its ring.
+// The weights blocks touch only (n, n) data; B9's two square buffers and
+// masks take 132 KB of dynamic shared memory at NPAD = 128, above the 48 KB
+// a block gets without opting in, so the launcher raises the block's limit
+// with cudaFuncSetAttribute before the launch, as the sweep's launcher does
+// for its ring.
 
+#include <atomic>
 #include <type_traits>
 
-#include "selection.cuh"
+#include "selection_block.cuh"
 
 namespace {
 
@@ -266,57 +283,214 @@ mix_rows_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   cp_async_wait<0>();  // no copy outlives the block
 }
 
+// B9's weights block: NPAD x NPAD problem, at most kSelThreads threads.
+constexpr int kSelThreads = 1024;
+
 template <int NPAD>
-__global__ void __launch_bounds__(NPAD)
+using SelShape = selblock::Shape<NPAD, kSelThreads>;
+
+// Dynamic shared memory of a block: two square f32 buffers and the
+// selection masks.
+template <int NPAD>
+constexpr int sel_smem_bytes() {
+  using S = SelShape<NPAD>;
+  return (2 * NPAD * S::SP + NPAD * S::W) * (int)sizeof(float);
+}
+
+template <int NPAD>
+__global__ void __launch_bounds__(SelShape<NPAD>::T, 1)
 nnm_selection_weights_kernel(const float* __restrict__ gram, float* __restrict__ w, int n,
                              int k, int f, int q, int mode, int ref) {
-  extern __shared__ float dyn[];  // GA (n x n), then Gm (n x n)
-  float* ga = dyn;
-  float* gm = dyn + n * n;
-  __shared__ unsigned char A[NPAD * NPAD];  // A[j * NPAD + i]: mixer i took row j
-  __shared__ float norms[NPAD];
-  __shared__ int taint[NPAD];
+  using S = SelShape<NPAD>;
+  constexpr int SP = S::SP, W = S::W, U = S::U;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* X = reinterpret_cast<float*>(dyn);  // G, then Gm, then Krum's sorted keys
+  float* Y = X + NPAD * SP;                  // NNM's keys, then GA, then Krum's keys
+  int32_t* keys = reinterpret_cast<int32_t*>(Y);
+  unsigned* sel = reinterpret_cast<unsigned*>(Y + NPAD * SP);  // sel[i * W + w]: rows mixer i took
+  __shared__ unsigned tmask[W];  // rows whose squared norm is not finite
   __shared__ int sel_taint[NPAD];
+  __shared__ float nrm[NPAD];    // Gm's diagonal
+  __shared__ float score[NPAD];
+  __shared__ int bad[NPAD];
+  __shared__ int rank_s[NPAD];
   __shared__ float w_sel[NPAD];
   __shared__ int picked_tainted;
-  const int r = blockIdx.x, i = threadIdx.x;
-  const float* g = gram + (long long)r * n * n;
-  const DenseGram gat{g, n};
-  norms[i] = (i < n) ? gat(i, i) : 0.0f;
-  taint[i] = (i < n && !isfinite(norms[i])) ? 1 : 0;
-  if (i == 0) picked_tainted = 0;
+  const int t = threadIdx.x, a = t / S::TB, b = t % S::TB;
+  const float* g = gram + (long long)blockIdx.x * n * n;
+
+  // G into shared memory; the taint mask from its diagonal
+  for (int e = t; e < n * n; e += S::T) {
+    const int j = e / n;
+    X[j * SP + e - j * n] = g[e];
+  }
+  for (int e = t; e < NPAD * W; e += S::T) sel[e] = 0u;
+  if (t < NPAD) rank_s[t] = 0;
+  if (t == 0) picked_tainted = 0;
+  if (t < 32 * W) {
+    const unsigned bits = __ballot_sync(0xFFFFFFFFu, t < n && !isfinite(g[(long long)t * n + t]));
+    if ((t & 31) == 0) tmask[t >> 5] = bits;
+  }
   __syncthreads();
-  sel_taint[i] = (i < n) ? nnm_select_column<NPAD>(gat, n, k, i, norms, taint, A, NPAD) : 0;
+
+  // NNM's keys: keys[i * SP + j] = key of d2[j][i], row j seen from mixer i
+#pragma unroll
+  for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+    for (int c = 0; c < S::RB; ++c) {
+      const int j = a + S::TA * r, i = b + S::TB * c;
+      if (j < n && i < n)
+        keys[i * SP + j] = float_sort_key(sq_dist(X[j * SP + j], X[i * SP + i], X[j * SP + i]));
+    }
   __syncthreads();
-  if (i < n) {  // column i of GA = G~ A; a tainted row of G~ is all 0
-    for (int j = 0; j < n; ++j) {
-      float acc = 0.0f;
-      if (!taint[j])
-        for (int l = 0; l < n; ++l)
-          if (A[l * NPAD + i]) acc = __fadd_rn(acc, g[j * n + l]);
-      ga[j * n + i] = acc;
+
+  // mixer i takes row j iff fewer than k keys of column i come before it
+  // (below it, or equal and in an earlier row): one warp sorts the column,
+  // reads the k-th smallest key, and takes the keys below it, then keys
+  // equal to it in row order (nnm_select_column's set)
+  {
+    using WS = selblock::WarpSort<NPAD>;
+    const int lane = t & 31, le = lane % WS::G, grp = lane / WS::G;
+    const unsigned mine = WS::G == 32 ? 0xFFFFFFFFu : ((1u << WS::G) - 1u) << (grp * WS::G);
+    for (int i0 = (t >> 5) * WS::CPW; i0 < n; i0 += (S::T / 32) * WS::CPW) {
+      const int i = i0 + grp;
+      int32_t v[WS::R], o[WS::R];
+#pragma unroll
+      for (int r = 0; r < WS::R; ++r) {
+        const int j = r * WS::G + le;
+        o[r] = i < n && j < n ? keys[i * SP + j] : PAD_KEY;
+        v[r] = o[r];
+      }
+      WS::sort(v, lane);
+      int32_t at = v[0];
+#pragma unroll
+      for (int r = 1; r < WS::R; ++r)
+        if (r == (k - 1) / WS::G) at = v[r];
+      const int32_t cut = __shfl_sync(0xFFFFFFFFu, at, grp * WS::G + (k - 1) % WS::G);
+      int quota = k;  // places left for keys equal to the cut
+#pragma unroll
+      for (int r = 0; r < WS::R; ++r) quota -= __popc(__ballot_sync(0xFFFFFFFFu, o[r] < cut) & mine);
+#pragma unroll
+      for (int r = 0; r < WS::R; ++r) {
+        const unsigned eq = __ballot_sync(0xFFFFFFFFu, o[r] == cut) & mine;
+        const bool take = o[r] < cut || (o[r] == cut && __popc(eq & ((1u << lane) - 1u)) < quota);
+        quota -= __popc(eq);
+        const unsigned bits = __ballot_sync(0xFFFFFFFFu, take) & mine;
+        if (le == 0 && i < n) sel[i * W + r] = bits >> (grp * WS::G);
+      }
     }
   }
   __syncthreads();
-  if (i < n) {  // column i of Gm = A^T GA / k^2
+
+  // GA[j][i] = sum over the clean rows l mixer i took of G[j][l], l
+  // ascending (0 for a tainted row j); sel_taint[i]: mixer i took a
+  // tainted row
+  if (t < n) {
+    int any = 0;
+#pragma unroll
+    for (int v = 0; v < W; ++v) any |= (sel[t * W + v] & tmask[v]) != 0u;
+    sel_taint[t] = any;
+  }
+  {
+    float acc[S::RA][S::RB];
+#pragma unroll
+    for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) acc[r][c] = 0.0f;
+    for (int v = 0; v * U < n; ++v) {
+      unsigned m[S::RB];
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) m[c] = sel[(b + S::TB * c) * W + v] & ~tmask[v];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float x[S::RA];
+#pragma unroll
+        for (int r = 0; r < S::RA; ++r) x[r] = X[(a + S::TA * r) * SP + v * U + u];
+#pragma unroll
+        for (int c = 0; c < S::RB; ++c)
+          if ((m[c] >> u) & 1u) {
+#pragma unroll
+            for (int r = 0; r < S::RA; ++r) acc[r][c] = __fadd_rn(acc[r][c], x[r]);
+          }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) {
+        const int j = a + S::TA * r;
+        Y[j * SP + b + S::TB * c] = (tmask[j >> 5] >> (j & 31)) & 1u ? 0.0f : acc[r][c];
+      }
+  }
+  __syncthreads();
+
+  // Gm[m][i] = (sum over the clean rows l mixer m took of GA[l][i]) / k^2,
+  // NaN in the rows and columns of a mixer that took a tainted row
+  {
+    float acc[S::RA][S::RB];
+#pragma unroll
+    for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) acc[r][c] = 0.0f;
+    for (int v = 0; v * U < n; ++v) {
+      unsigned m[S::RA];
+#pragma unroll
+      for (int r = 0; r < S::RA; ++r) m[r] = sel[(a + S::TA * r) * W + v] & ~tmask[v];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float y[S::RB];
+#pragma unroll
+        for (int c = 0; c < S::RB; ++c) y[c] = Y[(v * U + u) * SP + b + S::TB * c];
+#pragma unroll
+        for (int r = 0; r < S::RA; ++r)
+          if ((m[r] >> u) & 1u) {
+#pragma unroll
+            for (int c = 0; c < S::RB; ++c) acc[r][c] = __fadd_rn(acc[r][c], y[c]);
+          }
+      }
+    }
     const float kk = (float)(k * k);
-    for (int m = 0; m < n; ++m) {
-      float acc = 0.0f;
-      for (int l = 0; l < n; ++l)
-        if (A[l * NPAD + m]) acc = __fadd_rn(acc, ga[l * n + i]);
-      gm[m * n + i] = (sel_taint[m] || sel_taint[i]) ? canonical_nan() : __fdiv_rn(acc, kk);
-    }
+#pragma unroll
+    for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) {
+        const int mm = a + S::TA * r, i = b + S::TB * c;
+        if (mm < n && i < n) {
+          const float v = (sel_taint[mm] || sel_taint[i]) ? canonical_nan() : __fdiv_rn(acc[r][c], kk);
+          X[mm * SP + i] = v;
+          if (mm == i) nrm[i] = v;
+        }
+      }
   }
   __syncthreads();
-  const float ws = selection_weight<NPAD>(DenseGram{gm, n}, n, f, q, mode, ref);
-  w_sel[i] = ws;
-  if (ws > 0.0f && sel_taint[i]) atomicOr(&picked_tainted, 1);
+
+  // the selection's scores and weights (selection.cuh:selection_weight)
+  if (mode == kKrum) {
+    selblock::krum_scores<S, NPAD>(X, keys, nrm, n, f, score);
+  } else if (t < n) {
+    score[t] = mode == kCge ? nrm[t] : sq_dist(nrm[ref], nrm[t], X[ref * SP + t]);
+  }
+  if (t < n) {
+    const int nan_score = isnan(score[t]) ? 1 : 0;
+    bad[t] = nan_score;
+    if (nan_score) score[t] = 0.0f;
+  }
   __syncthreads();
-  if (i >= n) return;
-  float acc = 0.0f;  // row i of A w_sel
-  for (int m = 0; m < n; ++m)
-    if (A[i * NPAD + m]) acc = __fadd_rn(acc, w_sel[m]);
-  w[(long long)r * n + i] = picked_tainted ? canonical_nan() : __fdiv_rn(acc, (float)k);
+  selblock::weights_of_scores<S, NPAD>(score, bad, rank_s, w_sel, n, q);
+  if (t < n && w_sel[t] > 0.0f && sel_taint[t]) atomicOr(&picked_tainted, 1);
+  __syncthreads();
+
+  // w_eff[i] = (sum over the mixers m that took clean row i of w_sel[m], m
+  // ascending) / k, all NaN when a mixer that took a tainted row was picked
+  if (t < n) {
+    float acc = 0.0f;
+    const unsigned bit = 1u << (t & 31);
+    if (!(tmask[t >> 5] & bit)) {
+      for (int mm = 0; mm < n; ++mm)
+        if (sel[mm * W + (t >> 5)] & bit) acc = __fadd_rn(acc, w_sel[mm]);
+    }
+    w[(long long)blockIdx.x * n + t] = picked_tainted ? canonical_nan() : __fdiv_rn(acc, (float)k);
+  }
 }
 
 // One launch of the sweep at width NPAD: the ring is dynamic shared
@@ -362,15 +536,26 @@ cudaError_t launch_mix(const void* x, const float* mask, const float* sel_taint,
   }
 }
 
+// One launch of B9's weights at width NPAD: a block a round, its buffers
+// in dynamic shared memory, opted in above 48 KB (132 KB at NPAD = 128)
+// once a device.
 template <int NPAD>
 cudaError_t launch_nnm_selection(const float* gram, float* w, int K, int n, int k, int f,
                                  int q, int mode, int ref, cudaStream_t s) {
-  const int dyn = 2 * n * n * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&nnm_selection_weights_kernel<NPAD>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  static std::atomic<unsigned long long> ready{0};  // a bit a device whose limit is raised
+  constexpr int dyn = sel_smem_bytes<NPAD>();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  nnm_selection_weights_kernel<NPAD><<<K, NPAD, dyn, s>>>(gram, w, n, k, f, q, mode, ref);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&nnm_selection_weights_kernel<NPAD>),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (err != cudaSuccess) return err;
+    ready.fetch_or(bit, std::memory_order_relaxed);
+  }
+  nnm_selection_weights_kernel<NPAD><<<K, SelShape<NPAD>::T, dyn, s>>>(gram, w, n, k, f, q, mode,
+                                                                      ref);
   return cudaGetLastError();
 }
 

@@ -71,7 +71,7 @@ SIGNATURES = {
         _c_int, _c_int, _c_void_p,
     ]),
     "byz_meamed": ("meamed", [
-        _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int, _c_void_p,
+        _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_int, _c_int, _c_void_p,
     ]),
     "byz_center_loop": ("center_step", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,

@@ -22,7 +22,7 @@ Kernels (TPU kernel they replace -> CUDA source):
   (:1094) -> ``csrc/selection.cu`` (B4's weights and sweep on a given
   Gram);
 * B6 ``meamed_stream``: ``_meamed_stream_kernel`` (:619) ->
-  ``csrc/meamed.cu``;
+  ``csrc/meamed.cu``, on the column-sort engine;
 * B7 ``center_loop`` (and its first step, ``weighted_center_step``):
   ``_weighted_center_step_kernel`` (:470) and the reference's loops around
   it, modes ``weiszfeld`` and ``clip`` -> ``csrc/center_step.cu``, one
@@ -48,8 +48,10 @@ Kernels (TPU kernel they replace -> CUDA source):
   counterpart of the reference's two-key ``lax.sort`` and windowed
   ``einsum`` (``byzpy_tpu/ops/ragged.py:96-192``) -> ``csrc/segmented_sort.cu``.
 
-B1 and the segmented sort-reduce are two instances of one column-sort
-engine, ``csrc/column_sort.cuh`` (its run rule: :func:`column_runs`).
+B1, B6 and the segmented sort-reduce are three instances of one
+column-sort engine, ``csrc/column_sort.cuh`` (its run rule:
+:func:`column_runs`). B9's weights work block-wide on the round's
+``(n, n)`` problem in shared memory (``csrc/selection_block.cuh``).
 
 The codec kernels B13-B17 (``parallel/quantization.py``) have their
 wrappers in ``ops/codec_kernels.py``; their launch counters live in this
@@ -259,12 +261,13 @@ def _round_up(a: int, m: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The column-sort engine of B1 and the segmented sort-reduce
+# The column-sort engine of B1, B6 and the segmented sort-reduce
 # ---------------------------------------------------------------------------
 
 # csrc/column_sort.cuh: a block takes a run of tiles of this many columns of
 # one slot; the ring's 69,760 bytes of shared memory a block leave room for
-# three blocks in an SM's 228 KB
+# three blocks in an SM's 228 KB (B6's one-buffer ring is half that, but its
+# 128 registers a thread hold it to three blocks as well)
 _SORT_TILE = 128
 _SORT_BLOCKS_PER_SM = 3
 
@@ -274,7 +277,7 @@ def column_runs(d: int, sms: int) -> tuple:
     column-sort engine takes, and the runs a slot of ``d`` columns splits
     into, so that a slot's blocks fill one wave of the blocks a card of
     ``sms`` SMs holds at once (``_SORT_BLOCKS_PER_SM`` an SM). Every tile
-    is in exactly one run and no run is empty. B1 and the segmented
+    is in exactly one run and no run is empty. B1, B6 and the segmented
     sort-reduce launch with T on a grid of (runs, slots)."""
     if d < 1 or sms < 1:
         raise ValueError(f"column_runs needs positive sizes, got {(d, sms)}")
@@ -687,7 +690,7 @@ def meamed_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
         return out
     with torch.cuda.device(xs.device):
         _call("byz_meamed", xs.data_ptr(), out.data_ptr(), K, n, d, f, _DTYPE_CODES[xs.dtype],
-              _stream(xs))
+              _run_tiles(xs, d), _stream(xs))
     launch_counts["meamed"] += 1
     return out
 

@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""Take B9's weights and B6 apart on one NVIDIA GPU: the block-wide NNM ->
+selection weights (``byzpy_tpu_torch/csrc/nnm.cu`` on
+``csrc/selection_block.cuh``) and MeaMed on the column-sort engine
+(``csrc/meamed.cu`` on ``csrc/column_sort.cuh``).
+
+Run from the repository root on a machine with a card and ``nvcc``:
+
+    python3 chip_selection_ablation.py [--before DIR] [--kinds b9,b6]
+
+It builds each kernel as it is and variants of the same sources (text
+patches), each into its own library under
+``byzpy_tpu_torch/_build/selection_ablation/``. B9's:
+
+* ``threads_256`` / ``threads_512``: at most 256 / 512 threads a block in
+  place of 1,024 (a thread takes a larger tile of each phase);
+* ``rank_select``: NNM's selection by stable ranks, in place of a warp's
+  sort of each mixer's column: every thread counts, for its tile of (row,
+  mixer) pairs, the keys of the mixer's column below the row's key (or
+  equal and in an earlier row) and takes the row when fewer than k are;
+* ``launch_only``: every block returns at once (the launch of the block
+  shape with its shared memory: the floor of a call);
+
+B6's (f32 instances only):
+
+* ``min_blocks_4``: registers for four blocks an SM (96 a thread, B1's)
+  in place of three (128);
+* ``cut_rotation``: up to 64 rows, the sorted keys stay in registers, the
+  median is picked by compile-time selects and the cut read through a
+  copy of the keys rotated by k - 1 (a barrel shifter of log2 N stages);
+  the stage is released once the keys are in registers, as B1 releases it,
+  and the column is read again from device memory;
+* ``column_from_stage``: ``cut_rotation``'s cut, and the column read in
+  node order from the stage, which is held until the select is done;
+* ``two_buffers``: the engine's ring of two stage buffers, as B1's, in
+  place of B6's one;
+* ``waves_2``: the kernel as it is, runs half as long;
+* ``evict_last``: the producer's bulk copies with an L2 evict-last policy,
+  so the column is still in L2 when the select reads it again;
+
+and, with ``--before DIR`` (a ``csrc`` directory of an older tree), that
+tree's ``nnm.cu`` and ``meamed.cu`` as ``before``. It prints ptxas's
+registers and spills of every build, then times each with CUDA events and
+torch.profiler's device time (the main path's calls are shorter than a
+launch gap): B9's weights on a Gram of n = 8, 64 and 128 rows (f_nnm = f =
+n / 8, q = 3 n / 16; the main path's 8 rows at f = 2, q = 4), and B6 on f32
+rounds of 64 x 1,048,576 (f = 8), 8 x 421,642 (f = 2) and 128 x 421,642 (f
+= 40), beside a copy of the rows. Every variant that computes the result is
+checked bit for bit against the plain version. One JSON object a line; the
+card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "byzpy_tpu_torch", "csrc")
+NNM, BLOCK, MEAMED, ENGINE = "nnm.cu", "selection_block.cuh", "meamed.cu", "column_sort.cuh"
+
+RANK_BLOCK_START = "  // mixer i takes row j iff fewer than k keys of column i come before it"
+RANK_BLOCK_END = "  // GA[j][i] = sum over the clean rows l mixer i took"
+# NNM's selection by stable ranks: thread (a, b) counts, for its rows j = a +
+# TA r of mixers i = b + TB c, the keys of column i below key j (<= before
+# row j, < from it on) over a loop of l, and sets the bit when the count is
+# below k
+RANK_SELECT = """  // (rank_select) row j is taken by mixer i iff its stable rank in column i is below k
+  {
+    int32_t th[S::RA][S::RB];
+    int rank[S::RA][S::RB];
+#pragma unroll
+    for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) {
+        th[r][c] = keys[(b + S::TB * c) * SP + a + S::TA * r] + 1;
+        rank[r][c] = 0;
+      }
+    int l = 0;
+#pragma unroll
+    for (int r = 0; r <= S::RA; ++r) {
+      const int end = r < S::RA ? min(a + S::TA * r, n) : n;
+#pragma unroll 4
+      for (; l < end; ++l) {
+        int32_t v[S::RB];
+#pragma unroll
+        for (int c = 0; c < S::RB; ++c) v[c] = keys[(b + S::TB * c) * SP + l];
+#pragma unroll
+        for (int r2 = 0; r2 < S::RA; ++r2)
+#pragma unroll
+          for (int c = 0; c < S::RB; ++c) rank[r2][c] += v[c] < th[r2][c] ? 1 : 0;
+      }
+      if (r < S::RA) {
+#pragma unroll
+        for (int c = 0; c < S::RB; ++c) th[r][c] -= 1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+      for (int c = 0; c < S::RB; ++c) {
+        const int j = a + S::TA * r, i = b + S::TB * c;
+        if (j < n && i < n && rank[r][c] < k) atomicOr(&sel[i * W + (j >> 5)], 1u << (j & 31));
+      }
+  }
+  __syncthreads();
+
+"""
+# the rotation cut, as a MeaMed method: the median by compile-time selects
+# and the cut through a copy of the keys rotated by k - 1
+ROTATION_METHOD = """  template <int N>
+  __device__ __forceinline__ void sorted_in_registers(const int32_t (&key)[N]) {
+    const float qnan = __int_as_float(0x7FC00000), inf = __int_as_float(0x7F800000);
+    const int k = n - f, lo = (n - 1) / 2, hi = n / 2;
+    int32_t klo = key[0], khi = key[0], klast = key[0];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      if (r == lo) klo = key[r];
+      if (r == hi) khi = key[r];
+      if (r == n - 1) klast = key[r];
+    }
+    med = K::value(klo);
+    if (lo != hi) med = __fadd_rn(__fmul_rn(med, 0.5f), __fmul_rn(K::value(khi), 0.5f));
+    if (isnan(K::value(klast))) med = qnan;
+    if (isfinite(med)) {
+      int32_t rot[N];
+#pragma unroll
+      for (int r = 0; r < N; ++r) rot[r] = key[r];
+#pragma unroll
+      for (int lb = 0; lb < ilog2(N); ++lb) {
+        if (((k - 1) >> lb) & 1) {
+#pragma unroll
+          for (int r = 0; r < N; ++r)
+            if (r + (1 << lb) < N) rot[r] = rot[r + (1 << lb)];
+        }
+      }
+      cut = inf;
+#pragma unroll
+      for (int s = 0; s < N; ++s) {
+        if (s <= f) {
+          const float below = __fsub_rn(med, K::value(key[s]));
+          const float above = __fsub_rn(K::value(rot[s]), med);
+          cut = nan_min(cut, nan_max(below, above));
+        }
+      }
+    } else {
+      int finite_devs = 0;
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+        if (r < n) finite_devs += isnan(fabsf(__fsub_rn(K::value(key[r]), med))) ? 0 : 1;
+      cut = (finite_devs >= k) ? inf : qnan;
+    }
+    int below = 0;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      below += r < n && fabsf(__fsub_rn(K::value(key[r]), med)) < cut ? 1 : 0;
+    quota = k - below;
+  }
+
+  // x_col: row 0 of this column in x, rows d apart."""
+NARROW_COLUMN = """    if constexpr (Red::kColumn) {
+      // the stage holds the sorted keys until the reduce has read them
+      Red red = red0;
+      if (c < c1) {
+        batcher_sort<N>(k);
+        store_staged<K, N, RS>(k, base, m);
+        const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(x + row0 * d + c0)) & 15u;
+        red.sorted(StagedKeys<K, RS>{ring.stage(j) + tid * (unsigned)sizeof(T), a,
+                                     static_cast<unsigned>(d * (long long)sizeof(T)) & 15u},
+                   k);
+      }
+      fence_proxy_async();  // the keys written back, before the next bulk copy lands
+      consume_release(ring, j, steps);
+      if (c < c1) out[c] = red.value(x + row0 * d + c, d);
+    }"""
+NARROW_ROTATION = """    if constexpr (Red::kColumn) {
+      consume_release(ring, j, steps);
+      if (c < c1) {
+        batcher_sort<N>(k);
+        Red red = red0;
+        red.template sorted_in_registers<N>(k);
+        out[c] = red.value(x + row0 * d + c, d);
+      }
+    }"""
+NARROW_FROM_STAGE = """    if constexpr (Red::kColumn) {
+      if (c < c1) {
+        batcher_sort<N>(k);
+        Red red = red0;
+        red.template sorted_in_registers<N>(k);
+        const unsigned col = ring.stage(j) + tid * (unsigned)sizeof(T);
+        const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(x + row0 * d + c0)) & 15u;
+        const unsigned e = static_cast<unsigned>(d * (long long)sizeof(T)) & 15u;
+        out[c] = red.select([=](int i) {
+          return __int_as_float(lds<int32_t>(col + ((a + i * e) & 15u) + i * RS));
+        });
+      }
+      consume_release(ring, j, steps);
+    }"""
+BULK_COPY = """  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar) : "memory");"""
+BULK_COPY_EVICT_LAST = """  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\\n" : "=l"(policy));
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;\\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar), "l"(policy) : "memory");"""
+MEAMED_F32_ONLY = [
+    (MEAMED, "    case kBF16: return launch<__nv_bfloat16>(x, out, K, n, d, f, run_tiles, s);\n", ""),
+    (MEAMED, "    case kF16: return launch<__half>(x, out, K, n, d, f, run_tiles, s);\n", ""),
+    (MEAMED, "    case kBF16: return launch<__nv_bfloat16>(x, out, K, n, d, f, s);\n", ""),
+    (MEAMED, "    case kF16: return launch<__half>(x, out, K, n, d, f, s);\n", ""),
+]
+ROTATION = [(MEAMED, "  // x_col: row 0 of this column in x, rows d apart.", ROTATION_METHOD)]
+# (file, anchor, replacement) for each variant; "b9" variants build nnm.cu,
+# "b6" variants meamed.cu
+VARIANTS = {
+    "b9": {
+        "kernel": [],
+        "threads_256": [(NNM, "constexpr int kSelThreads = 1024;", "constexpr int kSelThreads = 256;")],
+        "threads_512": [(NNM, "constexpr int kSelThreads = 1024;", "constexpr int kSelThreads = 512;")],
+        "rank_select": [(NNM, None, RANK_SELECT)],
+        "launch_only": [(NNM, "  const float* g = gram + (long long)blockIdx.x * n * n;\n",
+                         "  const float* g = gram + (long long)blockIdx.x * n * n;\n  if (n > 0) return;\n")],
+    },
+    "b6": {
+        "kernel": [],
+        "min_blocks_4": [(MEAMED, "constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 4;")],
+        "cut_rotation": ROTATION + [(ENGINE, NARROW_COLUMN, NARROW_ROTATION)],
+        "column_from_stage": ROTATION + [(ENGINE, NARROW_COLUMN, NARROW_FROM_STAGE)],
+        "two_buffers": [(MEAMED, "  static constexpr int kRingStages = 1;", "  static constexpr int kRingStages = 2;")],
+        "waves_2": [],
+        "evict_last": [(ENGINE, BULK_COPY, BULK_COPY_EVICT_LAST)],
+    },
+}
+# B6 variants run at runs this many times shorter (kernels.column_runs as if
+# the card had this many times its SMs)
+RUN_WAVES = {"waves_2": 2}
+UNCHECKED = ("launch_only",)
+# (label, n, f_nnm, f, q) of B9's Gram
+B9_SHAPES = [("main_path", 8, 2, 2, 4), ("n8", 8, 1, 1, 1), ("n64", 64, 8, 8, 12), ("n128", 128, 16, 16, 24)]
+# (label, n, d, f) of B6's single round
+B6_SHAPES = [("headline", 64, 1_048_576, 8), ("main_path", 8, 421_642, 2), ("n128", 128, 421_642, 40)]
+
+
+def sources(kind: str, name: str, before: str | None) -> dict:
+    """The variant's patched file texts, by file name."""
+    src_dir = before if name == "before" else CSRC
+    texts = {}
+    for fn in os.listdir(src_dir):
+        if fn.endswith((".cu", ".cuh")):
+            with open(os.path.join(src_dir, fn)) as fh:
+                texts[fn] = fh.read()
+    for fn, anchor, repl in VARIANTS[kind].get(name, []):
+        text = texts.get(fn, "")
+        if anchor is None:  # replace NNM's rank-select block
+            i, j = text.find(RANK_BLOCK_START), text.find(RANK_BLOCK_END)
+            if i < 0 or j < 0:
+                raise SystemExit(f"{fn} no longer holds the rank-select block: update {name!r}")
+            texts[fn] = text[:i] + repl + text[j:]
+            continue
+        if anchor not in text:
+            raise SystemExit(f"{fn} no longer holds {anchor!r}: update VARIANTS[{kind!r}][{name!r}]")
+        texts[fn] = text.replace(anchor, repl)
+    if kind == "b6":
+        for fn, anchor, repl in MEAMED_F32_ONLY:
+            texts[fn] = texts[fn].replace(anchor, repl)
+    return texts
+
+
+def build(nvcc: str, flags, out_dir: str, before: str | None, kinds) -> dict:
+    """Every variant's library of the given kinds, built in parallel:
+    (kind, variant) -> (ctypes function, whether it takes the run
+    length)."""
+    from byzpy_tpu_torch.ops import _build
+
+    procs = {}
+    for kind, variants in VARIANTS.items():
+        if kind not in kinds:
+            continue
+        for name in list(variants) + (["before"] if before else []):
+            vdir = os.path.join(out_dir, kind, name)
+            shutil.rmtree(vdir, ignore_errors=True)
+            os.makedirs(vdir)
+            texts = sources(kind, name, before)
+            for fn, t in texts.items():
+                with open(os.path.join(vdir, fn), "w") as fh:
+                    fh.write(t)
+            src = NNM if kind == "b9" else MEAMED
+            lib = os.path.join(vdir, f"lib{kind}.so")
+            cmd = [nvcc, *flags, "-o", lib, os.path.join(vdir, src)]
+            procs[(kind, name)] = (lib, "int run_tiles, void* stream" in texts[src],
+                                   subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for (kind, name), (lib, takes_runs, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:  # a variant that does not build is reported and left out
+            print(json.dumps({"kernel": kind, "variant": name, "build_failed": log[-2000:]}), flush=True)
+            continue
+        wanted = "nnm_selection_weights_kernel" if kind == "b9" else "meamed_kernel"
+        regs, fn = [], None
+        for line in log.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                fn = line
+            if fn and wanted in fn and ("registers" in line or "spill" in line):
+                regs.append(line.strip())
+        print(json.dumps({"kernel": kind, "variant": name, "ptxas": regs}), flush=True)
+        entry = "byz_nnm_selection_weights" if kind == "b9" else "byz_meamed"
+        f = getattr(ctypes.CDLL(lib), entry)
+        argtypes = list(_build.SIGNATURES[entry][1])
+        if kind == "b6" and not takes_runs:
+            del argtypes[-2]  # an older entry point: no run length before the stream
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        fns[(kind, name)] = (f, takes_runs)
+    return fns
+
+
+def cuda_time_ms(fn, iters: int = 20) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
+    """Device time a launch of ``kernel`` (torch.profiler), or None when the
+    profile recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = count = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+            us += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+            count += ev.count
+    return us / 1e3 / count if count else None
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def b9_rows(fns) -> None:
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, n, f_nnm, f, q in B9_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn((1, n, 421_642), generator=gen, device="cuda")
+        x[:, ::3] *= 3.0
+        g = kernels.gram(x)
+        del x
+        w = torch.empty((1, n), device="cuda")
+        for mode in ("krum", "cge"):
+            code = {"krum": 0, "cge": 1}[mode]
+            kw = dict(k=n - f_nnm, f=f, q=q, mode=mode, reference_index=0)
+            ref = kernels.nnm_selection_weights_plain(g, **kw)
+            row = {"kernel": "b9", "shape": label, "n": n, "f_nnm": f_nnm, "f": f, "q": q, "mode": mode}
+            for (kind, name), (fn, _) in fns.items():
+                if kind != "b9":
+                    continue
+
+                def run(fn=fn):
+                    rc = fn(g.data_ptr(), w.data_ptr(), 1, n, n - f_nnm, f, q, code, 0, stream)
+                    if rc:
+                        raise RuntimeError(f"{name} returned {rc}")
+
+                run()
+                torch.cuda.synchronize()
+                if name not in UNCHECKED and not bits_equal(w, ref):
+                    raise SystemExit(f"B9 {name} differs from the plain version at {label} {mode}")
+                row[f"{name}_ms"] = cuda_time_ms(run)
+                row[f"{name}_device_ms"] = device_ms(run, "nnm_selection_weights_kernel")
+            print(json.dumps(row), flush=True)
+
+
+def b6_rows(fns) -> None:
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, n, d, f in B6_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n + f)
+        x = torch.randn((1, n, d), generator=gen, device="cuda")
+        x[:, :, ::5] = torch.round(x[:, :, ::5] * 2.0) / 2.0  # ties at the cut
+        out = torch.empty((1, d), device="cuda")
+        ref = kernels.meamed_stream_plain(x, f=f)
+        row = {"kernel": "b6", "shape": [1, n, d], "f": f, "label": label,
+               "bytes_bound_ms": (n + 1) * d * 4 / 3.35e9}
+        for (kind, name), (fn, takes_runs) in fns.items():
+            if kind != "b6":
+                continue
+            runs = (kernels.column_runs(d, sms * RUN_WAVES.get(name, 1))[0],) if takes_runs else ()
+
+            def run(fn=fn, runs=runs):
+                rc = fn(x.data_ptr(), out.data_ptr(), 1, n, d, f, 0, *runs, stream)
+                if rc:
+                    raise RuntimeError(f"{name} returned {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            if not bits_equal(out, ref):
+                raise SystemExit(f"B6 {name} differs from the plain version at {label}")
+            row[f"{name}_ms"] = cuda_time_ms(run)
+            row[f"{name}_device_ms"] = device_ms(run, "meamed_kernel")
+        y = torch.empty_like(x)
+        row["copy_ms"] = cuda_time_ms(lambda: y.copy_(x))
+        print(json.dumps(row), flush=True)
+        del x, y, out, ref
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--before", help="csrc directory of an older tree, built as 'before'")
+    parser.add_argument("--kinds", default="b9,b6", help="kernels to take apart: b9, b6 or both")
+    args = parser.parse_args()
+    kinds = args.kinds.split(",")
+    if not torch.cuda.is_available():
+        print("chip_selection_ablation: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from byzpy_tpu_torch.ops import _build
+
+    nvcc = _build.find_nvcc()
+    if nvcc is None:
+        print("chip_selection_ablation: nvcc not found", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"device": smi}), flush=True)
+    out_dir = str(_build.BUILD_ROOT / "selection_ablation")
+    os.makedirs(out_dir, exist_ok=True)
+    fns = build(nvcc, _build.NVCC_FLAGS, out_dir, args.before and os.path.abspath(args.before), kinds)
+    if "b9" in kinds:
+        b9_rows(fns)
+    if "b6" in kinds:
+        b6_rows(fns)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,15 +9,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device probe: the card's name and power limit (``nvidia-smi``);
 2. kernel build from ``byzpy_tpu_torch/csrc`` with ``nvcc`` (timed), with
-   the registers and spills of B3's, B7's, B11/B12's and the column-sort
-   engine's instances (a spill in B3 or the engine fails the run);
+   the registers and spills of B3's, B7's, B11/B12's, the column-sort
+   engine's, B6's and ``nnm.cu``'s instances (a spill in B3, the engine, B6
+   or ``nnm.cu`` fails the run);
 3. every kernel (B1 sorted reduce, bit for bit in f32, bf16 and f16 at n =
    1 to 128 on odd d, at the main path's shape and at the headline; B3 Gram, B4 selection mean in its
    krum / cge / monna modes, B5 selection mean from a given Gram, B6
    MeaMed, B7's loop kernel (whole Weiszfeld and centred-clipping loops
    and their one-step phases, bit for bit with the iteration counts), B8
    NNM, B9 NNM ->
-   selection mean, B10 clip / ARC -> selection mean) against its plain
+   selection mean (its weights also on rows repeated in threes at 64 and
+   128 rows, in all three modes), B10 clip / ARC -> selection mean) against its plain
    PyTorch version on the card (B3 also bit for bit its own split-K
    order, ``gram_split_k_plain``, at 8, 64 and 128 x 421,642 and 2 x 13 x
    50,000 in f32, bf16 and f16), at the main path's shapes, at the 64 x
@@ -26,7 +28,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    K = 3, n = 128, d below a tile, in bf16 and f16, and finite under a
    mask that leaves the non-finite rows unselected; B5,
    B6 and B7 also in f32, bf16 and f16; B5 on a B3 Gram and on one folded
-   row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13;
+   row by row; B6 and B7 also at ByzPy's 64 x 65,536, at n = 128 and 13,
+   B6 also at 100 rows of odd d;
    the codecs B13 int8 encode, B15 fp8 e4m3fn / e5m2 encode and B14
    decode bitwise, in f32, bf16 and f16, at block 256 and 100, on rows
    holding NaN, +-inf, zero blocks and a partial last block; B11 segment
@@ -86,7 +89,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    dispatch), every cohort bit for bit ``CohortAggregator``'s, the dense
    program's on the decoded rows and (s4) the CPU port's;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
-   421,642; B1 also at 128 x 421,642, the engine's two runs and merge)
+   421,642; B1, B6 (f = 40) and B9's weights also at 128 x 421,642, the
+   engine's two runs and merge and the weights block's largest tile; B6 and
+   B9's weights also by torch.profiler device time)
    beside the card's bound (sort networks at the int32 min/max rate), the
    plain version and, where one exists, a single PyTorch call (B3 also at 64 and 128 x 421,642, its
    partials' and reduce's device times apart; B8's mixing sweep also with its
@@ -568,6 +573,36 @@ def check_pre_aggregation(errs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def check_b9_ties(errs: dict) -> None:
+    """B9's weights where the block-wide design has its edges: rows repeated
+    in groups of three (B3's Gram then ties at NNM's cut and in Krum's
+    sort), at 64 and 128 rows of the main path's d, in all three modes,
+    bitwise against the plain version on the same Gram; the whole call
+    within 2 ulp of the plain sweep under the kernel's weights."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    for n in (64, 128):
+        f_pre, f, q = n // 8, n // 8, 3 * n // 16
+        x = pre_rows((1, n, 421_642), seed=310 + n)
+        x = x[:, torch.arange(n, device=x.device) // 3 * 3].contiguous()
+        g = kernels.gram(x)
+        for mode in ("krum", "cge", "monna"):
+            sel = dict(f=f, q=q, mode=mode, reference_index=n // 2)
+            w = kernels.nnm_selection_weights(g, k=n - f_pre, **sel)
+            w_plain = kernels.nnm_selection_weights_plain(g, k=n - f_pre, **sel)
+            check(bits_equal(w, w_plain), f"B9 weights ({mode}) differ from plain on repeated rows at n={n}")
+            errs["nnm_selection_weights:krum"] = max(errs["nnm_selection_weights:krum"], max_abs_err(w, w_plain))
+            out = kernels.nnm_selection_mean_stream(x, f_nnm=f_pre, **sel)
+            ulps = ulp_diff(out, kernels.weighted_rows_plain(x, w))
+            check(ulps <= 2, f"B9 aggregate ({mode}) {ulps} ulp from plain on repeated rows at n={n}")
+            log(f"  B9 weights ({mode}) on rows repeated in threes, (1, {n}, 421642): bitwise, "
+                f"{int((w != 0).sum())} rows weighted, aggregate {ulps} ulp")
+        del x, g
+        torch.cuda.empty_cache()
+
+
 DTYPES = ("float32", "bfloat16", "float16")
 
 
@@ -581,8 +616,8 @@ def check_meamed(errs: dict) -> None:
     from byzpy_tpu_torch.ops import kernels
 
     cases = [((1, MAIN_N, 421_642), MAIN_BYZ), ((1,) + HEADLINE, 8), ((2,) + GRID, 8),
-             ((2, 128, 50_000), 40), ((2, 13, 50_000), 3), ((2, 13, 50_000), 0),
-             ((2, 13, 50_000), 12)]
+             ((2, 128, 50_000), 40), ((2, 100, 50_001), 25), ((2, 13, 50_000), 3),
+             ((2, 13, 50_000), 0), ((2, 13, 50_000), 12)]
     for shape, f in cases:
         for quantized in (False, True):
             base = random_rounds(shape, seed=400 + shape[1] + f, specials=True)
@@ -2375,6 +2410,28 @@ def mix_rows_times(x, mask, st, k: int) -> dict:
     }
 
 
+def b9_weights_times(g, n: int, *, f_pre: int, f: int, q: int) -> dict:
+    """B9's weights (krum) on the Gram ``g`` of one round of ``n`` rows:
+    CUDA events, torch.profiler device ms (the call is shorter than a
+    launch gap), the plain version and the bound: the Gram read once; a
+    column sort a node and d2 for NNM's selection, GA's and Gm's k selected
+    adds an entry, w_eff's k a row and the Krum scores."""
+    from byzpy_tpu_torch.ops import kernels
+
+    k = n - f_pre
+    sel = dict(f=f, q=q, mode="krum")
+    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
+    select_ops = 2 * pairs * n + 5 * n * n
+    krum_ops = select_ops + (n - f - 1) * n
+    b_ms, b_by = bound_ms(n * n * 4 + n * 4, krum_ops + 2 * n * n * k + n * k)
+    call = lambda: kernels.nnm_selection_weights(g, k=k, **sel)  # noqa: E731
+    return {
+        "ms": cuda_time_ms(call), "device_ms": port_device_ms(call)["nnm_selection_weights_kernel"],
+        "plain_ms": cuda_time_ms(lambda: kernels.nnm_selection_weights_plain(g, k=k, **sel)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "f_nnm": f_pre, "f": f, "q": q,
+    }
+
+
 def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
     """B8's, B9's and B10's launches on one (1, n, d) f32 round (every third
     row x3, so the clip engages) beside their bounds, plain versions and,
@@ -2418,21 +2475,17 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
 
     sel = dict(f=f, q=q, mode="krum")
     w_nnm = kernels.nnm_selection_weights(g, k=k, **sel)
-    # GA and Gm add k selected terms per entry, w_eff k per row
-    b_ms, b_by = bound_ms(gram_bytes + n * 4, krum_ops + 2 * n * n * k + n * k)
 
     def nnm_selection_plain():
         wp = kernels.nnm_selection_weights_plain(kernels.gram_plain(x), k=k, **sel)
         return kernels.weighted_rows_plain(x, wp)
 
-    out["nnm_selection_weights:krum"] = {
-        "ms": cuda_time_ms(lambda: kernels.nnm_selection_weights(g, k=k, **sel)),
-        "plain_ms": cuda_time_ms(lambda: kernels.nnm_selection_weights_plain(g, k=k, **sel)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d],
-        "nnm_selection_mean_ms": cuda_time_ms(
+    out["nnm_selection_weights:krum"] = dict(
+        b9_weights_times(g, n, f_pre=f_pre, f=f, q=q), shape=[1, n, d],
+        nnm_selection_mean_ms=cuda_time_ms(
             lambda: kernels.nnm_selection_mean_stream(x, f_nnm=f_pre, **sel)),
-        "nnm_selection_mean_plain_ms": cuda_time_ms(nnm_selection_plain, iters=3),
-    }
+        nnm_selection_mean_plain_ms=cuda_time_ms(nnm_selection_plain, iters=3),
+    )
     cut_off = arc_cut_off(n, f_pre)
     clip_kw = {"clip": dict(pre="clip", tau=tau), "arc": dict(pre="arc", cut_off=cut_off)}
     whole = {"clip": lambda: kernels.clip_selection_mean_stream(x, tau=tau, **sel),
@@ -2477,6 +2530,26 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
     return out
 
 
+def meamed_times(x, f: int) -> dict:
+    """B6 on the rounds ``x: (1, n, d)``: CUDA events, torch.profiler device
+    ms, the plain version and the bound: the rows read once and the output
+    written; the key sort's int32 min/max; the window cut (2 subs, a max, a
+    min per start), the select's two passes (a sub, an abs, a compare each)
+    and the k adds in f32."""
+    from byzpy_tpu_torch.ops import kernels
+
+    _, n, d = x.shape
+    isz = x.element_size()
+    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
+    b_ms, b_by = bound_ms(n * d * isz + d * isz, (4 * (f + 1) + 6 * n + (n - f)) * d, 2 * pairs * d)
+    call = lambda: kernels.meamed_stream(x, f=f)  # noqa: E731
+    return {
+        "ms": cuda_time_ms(call), "device_ms": port_device_ms(call)["meamed_kernel"],
+        "plain_ms": cuda_time_ms(lambda: kernels.meamed_stream_plain(x, f=f), iters=3),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape), "f": f,
+    }
+
+
 def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
     """B6's launch and B7's loop on one (n, d) f32 round (every third row
     x3; B7 from the coordinate median, c_tau between the two scales)
@@ -2491,16 +2564,7 @@ def centre_kernel_times(n: int, d: int, *, f: int, seed: int) -> dict:
 
     x, z, c_tau = centre_inputs(n, d, seed, torch.float32)
     isz = x.element_size()
-    pairs = len(kernels.batcher_pairs(kernels.network_width(n)))
-    out = {}
-    # the key sort, the window cut (2 subs, a max, a min per start), the
-    # select's two passes (a sub, an abs, a compare each) and the k adds
-    b_ms, b_by = bound_ms(n * d * isz + d * isz, (4 * (f + 1) + 6 * n + (n - f)) * d, 2 * pairs * d)
-    out["meamed"] = {
-        "ms": cuda_time_ms(lambda: kernels.meamed_stream(x[None], f=f)),
-        "plain_ms": cuda_time_ms(lambda: kernels.meamed_stream_plain(x[None], f=f), iters=3),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d], "f": f,
-    }
+    out = {"meamed": meamed_times(x[None], f)}
     read_ms = n * d * isz / PEAK_BYTES_PER_S * 1e3
     for mode in ("weiszfeld", "clip"):
         kw = dict(mode=mode, c_tau=c_tau)
@@ -3041,6 +3105,8 @@ def timing() -> dict:
     the median's entry is taken at 63 x 1,048,576, where that library call
     computes the same function on the same inputs; its n = 64 numbers sit
     beside it under ``at_headline``."""
+    from byzpy_tpu_torch.ops import kernels
+
     n, d = HEADLINE
     out = kernel_times(n, d, f_trim=8, f_krum=8, q=12, seed=7)
     odd = kernel_times(n - 1, d, f_trim=8, f_krum=8, q=12, seed=8)["sorted_reduce:median"]
@@ -3050,6 +3116,13 @@ def timing() -> dict:
     wide = sorted_reduce_times(EXEC_CAP, 421_642, f_trim=(EXEC_CAP - 1) // 3, seed=10)
     for mode in ("median", "trimmed"):
         out[f"sorted_reduce:{mode}"]["at_128_rows"] = wide[f"sorted_reduce:{mode}"]
+    # B6 and B9's weights at the executor's 128 rows (the wide path; the
+    # weights block's largest tile)
+    wide_x = pre_rows((1, EXEC_CAP, 421_642), seed=11)
+    wide_meamed = meamed_times(wide_x, 40)
+    wide_b9 = dict(b9_weights_times(kernels.gram(wide_x), EXEC_CAP, f_pre=16, f=16, q=24),
+                   shape=[1, EXEC_CAP, 421_642])
+    del wide_x
     for times, shape, seed, f, q in ((out, HEADLINE, 17, 8, 12),
                                      (main, (MAIN_N, 421_642), 19, MAIN_BYZ, 4)):
         pre = pre_kernel_times(*shape, seed=seed)
@@ -3057,6 +3130,8 @@ def timing() -> dict:
         times.update(pre)
         times.update(centre_kernel_times(*shape, f=f, seed=seed + 10))
         times["selection_mean_from_gram"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
+    out["meamed"]["at_128_rows"] = wide_meamed
+    out["nnm_selection_weights:krum"]["at_128_rows"] = wide_b9
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "with_nnm_weights",
             "with_clip_weights", "steps", "ms_per_step", "one_step_ms", "one_step_plain_ms",
             "steps_256_ms", "steps_256_reads_bound_ms", "reads_bound_ms", "cdist_ms",
@@ -3242,6 +3317,15 @@ def main() -> int:
     log("COLUMN_SORT_PTXAS " + json.dumps(sort_ptxas))
     spilled = [e["kernel"] for e in sort_ptxas if e["spill_stores"] or e["spill_loads"]]
     check(not spilled, f"column-sort instances spill: {spilled}")
+    # B6, the engine's third instance (a dtype and width each), and nnm.cu's
+    # kernels (B8's two, B9's weights block)
+    meamed_ptxas = ptxas_report(_build.build_log.get("meamed", ""), nvcc, ("meamed_kernel", "sort_runs"))
+    log("MEAMED_PTXAS " + json.dumps(meamed_ptxas))
+    nnm_ptxas = ptxas_report(_build.build_log.get("nnm", ""), nvcc,
+                             ("nnm_weights_kernel", "mix_rows_kernel", "nnm_selection_weights_kernel"))
+    log("NNM_PTXAS " + json.dumps(nnm_ptxas))
+    spilled = [e["kernel"] for e in meamed_ptxas + nnm_ptxas if e["spill_stores"] or e["spill_loads"]]
+    check(not spilled, f"B6 or nnm.cu instances spill: {spilled}")
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}
@@ -3250,6 +3334,7 @@ def main() -> int:
     check_gram_order(errs)
     check_selection_from_gram(errs)
     check_pre_aggregation(errs)
+    check_b9_ties(errs)
     check_meamed(errs)
     check_center_step(errs)
     check_codecs(errs)

@@ -1293,3 +1293,110 @@ def test_cuda_column_sort_any_run_length(cuda_device, run_tiles):
     assert rc == rc_seg == 0
     assert _bits_equal(out, kernels.sorted_reduce_stream_plain(x, mode="trimmed", f=4))
     assert _bits_equal(seg, kernels.segmented_sort_reduce_plain(flat, offsets, lengths, mode="median"))
+
+
+# ---------------------------------------------------------------------------
+# B9's weights as one block-wide pass; B6 on the column-sort engine
+# ---------------------------------------------------------------------------
+
+B9_N = [1, 2, 8, 9, 13, 64, 65, 127, 128]
+
+
+def _b9_gram(seed, K, n, case, device):
+    """A (K, n, n) Gram with ties or tainted rows. ``dup``: B3's Gram of rows
+    repeated in groups of three (equal distances at NNM's cut and in Krum's
+    sort); ``quantized``: small integers, not symmetric, so most keys tie;
+    ``taint``: an inf row in round 0 and a NaN entry in the last round's
+    last row."""
+    if case == "quantized":
+        rng = np.random.default_rng(seed)
+        g = rng.integers(-3, 4, size=(K, n, n)).astype(np.float32)
+        g[:, np.arange(n), np.arange(n)] = rng.integers(6, 9, size=(K, n))
+        return torch.from_numpy(g).to(device)
+    x = _pre_rows(seed, K, n, 600, torch.device("cpu"))
+    if case == "dup":
+        x = x[:, np.arange(n) // 3 * 3]
+    else:
+        x[0, n // 2] = float("inf")
+        x[-1, n - 1, 5] = float("nan")
+    return kernels.gram(x.contiguous().to(device))
+
+
+def _b9_args(n, mode):
+    """(f_nnm, f, q) sets for n: the usual ones, and q as large as the mode
+    takes (every mixer picked: all NaN where one took a tainted row)."""
+    f_nnm = n // 4
+    if mode == "krum":
+        f = max(0, min((n - 3) // 4, n - 2))
+        return [(f_nnm, f, max(1, n // 3)), (f_nnm, f, n - f)]
+    return [(f_nnm, 0, max(1, n // 3)), (f_nnm, 0, n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dup", "quantized", "taint"])
+@pytest.mark.parametrize("n", B9_N)
+def test_cuda_nnm_selection_weights_block_bitwise(cuda_device, n, case):
+    """B9's weights at K = 3 in all three modes, bit for bit the plain
+    version on the same Gram: rows tied at NNM's cut and in Krum's sort, a
+    Gram that is not symmetric, tainted rows (the whole round NaN, the
+    canonical NaN, when q picks a mixer that took one), one launch a call."""
+    g = _b9_gram(7 * n + len(case), 3, n, case, cuda_device)
+    for mode in ("krum", "cge", "monna"):
+        if mode == "krum" and n < 2:
+            continue
+        for f_nnm, f, q in _b9_args(n, mode):
+            kw = dict(k=n - f_nnm, f=f, q=q, mode=mode, reference_index=(n - 1) // 2)
+            before = kernels.launch_counts[f"nnm_selection_weights:{mode}"]
+            w = kernels.nnm_selection_weights(g, **kw)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts[f"nnm_selection_weights:{mode}"] == before + 1
+            ref = kernels.nnm_selection_weights_plain(g, **kw)
+            assert _bits_equal(w, ref), (mode, f_nnm, f, q)
+            assert _all_canonical_nan(w[torch.isnan(w)])
+            if case == "taint" and q == n and mode != "krum" and n > 1:
+                assert bool(torch.isnan(w[0]).all())  # every mixer of round 0 took the inf row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n", [1, 2, 9, 64, 65, 100, 128])
+def test_cuda_meamed_engine_bitwise(cuda_device, n, dt):
+    """B6 at K = 3, f = 0, n // 4 and n - 1, bit for bit its plain version,
+    NaN canonical, one launch a call: an odd d, and rows that start an
+    element past an aligned address (16-bit rows at odd elements); NaN and
+    +-inf columns, values quantized to halves so deviations tie at the
+    cut."""
+    for d, start in ((5003, 0), (4099, 1)):
+        x = _meamed_rows(n * 11 + d, 3, max(n, 2), d, cuda_device, DTYPES[dt])[:, :n].contiguous()
+        big = torch.empty(x.numel() + start, dtype=x.dtype, device=cuda_device)
+        big[start:] = x.reshape(-1)
+        xv = big[start:].view(x.shape)
+        for f in sorted({0, n // 4, n - 1}):
+            before = kernels.launch_counts["meamed"]
+            out = kernels.meamed_stream(xv, f=f)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts["meamed"] == before + 1
+            assert _bits_equal(out, kernels.meamed_stream_plain(x, f=f)), (d, start, f)
+            assert _all_canonical_nan(out[torch.isnan(out)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run_tiles", [0, 1, 2, 7, 1000])
+def test_cuda_meamed_any_run_length(cuda_device, run_tiles):
+    """B6 through its C entry point at a given run length, at 33 and 100
+    rows: every length gives the plain version's bits; 0 is refused."""
+    from byzpy_tpu_torch.ops import _build
+
+    d = 20_003
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for n in (33, 100):
+        x = _meamed_rows(run_tiles + n, 2, n, d, cuda_device, torch.float32)
+        out = torch.zeros((2, d), device=cuda_device)
+        rc = _build.function("byz_meamed")(x.data_ptr(), out.data_ptr(), 2, n, d, n // 4,
+                                           kernels._DTYPE_CODES[torch.float32], run_tiles, stream)
+        torch.cuda.synchronize()
+        if run_tiles == 0:
+            assert rc == 1
+            continue
+        assert rc == 0
+        assert _bits_equal(out, kernels.meamed_stream_plain(x, f=n // 4))
