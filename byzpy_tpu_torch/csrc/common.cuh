@@ -109,17 +109,6 @@ __device__ __forceinline__ int32_t select_key(const int32_t (&k)[N], int idx) {
   return out;
 }
 
-// Sum of key_to_float(k[i]) for i in [lo, hi), ascending, in f32.
-template <int N>
-__device__ __forceinline__ float sum_sorted_range(const int32_t (&k)[N], int lo, int hi) {
-  float acc = 0.0f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i >= lo && i < hi) acc = __fadd_rn(acc, key_to_float(k[i]));
-  }
-  return acc;
-}
-
 // cp.async copies from global to shared memory (sm_80 and later), and the
 // row copy B8's sweep and the segmented sort-reduce stage their tiles with.
 template <int W>

@@ -91,10 +91,9 @@
 // The weights blocks touch only (n, n) data; B9's two square buffers and
 // masks take 132 KB of dynamic shared memory at NPAD = 128, above the 48 KB
 // a block gets without opting in, so the launcher raises the block's limit
-// with cudaFuncSetAttribute before the launch, as the sweep's launcher does
+// once a device (selblock::raise_smem_once), as the sweep's launcher does
 // for its ring.
 
-#include <atomic>
 #include <type_traits>
 
 #include "selection_block.cuh"
@@ -283,6 +282,82 @@ mix_rows_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   cp_async_wait<0>();  // no copy outlives the block
 }
 
+// B9's finish: Krum's scores by a warp's sort of each column, then the
+// weights. B4 and B10 share selblock::select_weights; in this kernel that
+// finish raised the allocation to the 64 registers a thread that 1,024
+// threads leave and spilled 1 KB at NPAD = 128, twice the kernel's time
+// (chip_selection_ablation.py on the H100), so B9 keeps its own.
+//
+// The selection weights of scores held in shared memory (score[j], bad[j]
+// for j < n: NaN scores flagged): 1/q for the q lowest, NaN last, ties by
+// index (the ranks of selblock::select_weights), into w_sel[j]. rank_s
+// (NPAD ints) must be zero on entry. Every thread of the block calls it;
+// it synchronizes the block and returns with w_sel written.
+template <class S, int NPAD>
+__device__ __forceinline__ void weights_of_scores(const float* score, const int* bad, int* rank_s,
+                                                  float* w_sel, int n, int q) {
+  constexpr int PARTS = S::T / NPAD, CHUNK = NPAD / PARTS;
+  const int j = threadIdx.x % NPAD, part = threadIdx.x / NPAD;
+  if (j < n) {
+    const float sj = score[j];
+    const int bj = bad[j];
+    int cnt = 0;
+    for (int c = part * CHUNK; c < min(n, part * CHUNK + CHUNK); ++c) {
+      const int bc = bad[c];
+      const float sc = score[c];
+      cnt += ((!bc && bj) || (bc == bj && (sc < sj || (sc == sj && c < j)))) ? 1 : 0;
+    }
+    if (cnt) atomicAdd(&rank_s[j], cnt);
+  }
+  __syncthreads();
+  if (threadIdx.x < n) w_sel[threadIdx.x] = rank_s[threadIdx.x] < q ? 1.0f / (float)q : 0.0f;
+  __syncthreads();
+}
+
+// Krum scores of the (n, n) Gram gm (row stride SP; NaN entries allowed):
+// score[j] = the sum, ascending, of sorted positions [1, n - f) of column
+// j's squared distances (the sort drops the diagonal). keys is a square
+// buffer for the distances' keys; gm is overwritten with the sorted keys,
+// a warp sorting a column (WarpSort). Every thread calls it; it synchronizes the block and returns
+// with score[j] written by thread j < n.
+template <class S, int NPAD>
+__device__ __forceinline__ void krum_scores(float* gm, int32_t* keys, const float* nrm, int n,
+                                            int f, float* score) {
+  using WS = selblock::WarpSort<NPAD>;
+  const int t = threadIdx.x, a = t / S::TB, b = t % S::TB;
+#pragma unroll
+  for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+    for (int c = 0; c < S::RB; ++c) {
+      const int i = a + S::TA * r, j = b + S::TB * c;
+      if (i < n && j < n) keys[j * S::SP + i] = float_sort_key(sq_dist(nrm[i], nrm[j], gm[i * S::SP + j]));
+    }
+  __syncthreads();
+  int32_t* sorted = reinterpret_cast<int32_t*>(gm);
+  const int lane = t & 31, le = lane % WS::G;
+  for (int j0 = (t >> 5) * WS::CPW; j0 < n; j0 += (S::T / 32) * WS::CPW) {
+    const int j = j0 + lane / WS::G;
+    int32_t v[WS::R];
+#pragma unroll
+    for (int r = 0; r < WS::R; ++r) {
+      const int e = r * WS::G + le;
+      v[r] = j < n && e < n ? keys[j * S::SP + e] : PAD_KEY;
+    }
+    WS::sort(v, lane);
+#pragma unroll
+    for (int r = 0; r < WS::R; ++r) {
+      const int e = r * WS::G + le;
+      if (j < n && e < n) sorted[j * S::SP + e] = v[r];
+    }
+  }
+  __syncthreads();
+  if (t < n) {
+    float acc = 0.0f;
+    for (int p = 1; p < n - f; ++p) acc = __fadd_rn(acc, key_to_float(sorted[t * S::SP + p]));
+    score[t] = acc;
+  }
+}
+
 // B9's weights block: NPAD x NPAD problem, at most kSelThreads threads.
 constexpr int kSelThreads = 1024;
 
@@ -464,9 +539,9 @@ nnm_selection_weights_kernel(const float* __restrict__ gram, float* __restrict__
   }
   __syncthreads();
 
-  // the selection's scores and weights (selection.cuh:selection_weight)
+  // the selection's scores and weights
   if (mode == kKrum) {
-    selblock::krum_scores<S, NPAD>(X, keys, nrm, n, f, score);
+    krum_scores<S, NPAD>(X, keys, nrm, n, f, score);
   } else if (t < n) {
     score[t] = mode == kCge ? nrm[t] : sq_dist(nrm[ref], nrm[t], X[ref * SP + t]);
   }
@@ -476,7 +551,7 @@ nnm_selection_weights_kernel(const float* __restrict__ gram, float* __restrict__
     if (nan_score) score[t] = 0.0f;
   }
   __syncthreads();
-  selblock::weights_of_scores<S, NPAD>(score, bad, rank_s, w_sel, n, q);
+  weights_of_scores<S, NPAD>(score, bad, rank_s, w_sel, n, q);
   if (t < n && w_sel[t] > 0.0f && sel_taint[t]) atomicOr(&picked_tainted, 1);
   __syncthreads();
 
@@ -542,18 +617,11 @@ cudaError_t launch_mix(const void* x, const float* mask, const float* sel_taint,
 template <int NPAD>
 cudaError_t launch_nnm_selection(const float* gram, float* w, int K, int n, int k, int f,
                                  int q, int mode, int ref, cudaStream_t s) {
-  static std::atomic<unsigned long long> ready{0};  // a bit a device whose limit is raised
+  static std::atomic<unsigned long long> ready{0};
   constexpr int dyn = sel_smem_bytes<NPAD>();
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = selblock::raise_smem_once(
+      reinterpret_cast<const void*>(&nnm_selection_weights_kernel<NPAD>), dyn, ready);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(ready.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&nnm_selection_weights_kernel<NPAD>),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-    if (err != cudaSuccess) return err;
-    ready.fetch_or(bit, std::memory_order_relaxed);
-  }
   nnm_selection_weights_kernel<NPAD><<<K, SelShape<NPAD>::T, dyn, s>>>(gram, w, n, k, f, q, mode,
                                                                       ref);
   return cudaGetLastError();

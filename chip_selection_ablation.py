@@ -1,16 +1,34 @@
 #!/usr/bin/env python3
-"""Take B9's weights and B6 apart on one NVIDIA GPU: the block-wide NNM ->
-selection weights (``byzpy_tpu_torch/csrc/nnm.cu`` on
-``csrc/selection_block.cuh``) and MeaMed on the column-sort engine
+"""Take the selection family's weights blocks and B6 apart on one NVIDIA
+GPU: B4's weights (Multi-Krum, CGE, MoNNA; ``byzpy_tpu_torch/csrc/selection.cu``),
+B10's (clip and ARC in front of them; ``csrc/clip_selection.cu``) and B9's
+(NNM in front of them; ``csrc/nnm.cu``), all block-wide on
+``csrc/selection_block.cuh``, and MeaMed on the column-sort engine
 (``csrc/meamed.cu`` on ``csrc/column_sort.cuh``).
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
-    python3 chip_selection_ablation.py [--before DIR] [--kinds b9,b6]
+    python3 chip_selection_ablation.py [--before DIR] [--kinds b4,b10,b9,b6]
 
 It builds each kernel as it is and variants of the same sources (text
 patches), each into its own library under
-``byzpy_tpu_torch/_build/selection_ablation/``. B9's:
+``byzpy_tpu_torch/_build/selection_ablation/``. B4's and B10's:
+
+* ``threads_256`` / ``threads_1024``: at most 256 / 1,024 threads a block
+  in place of 512;
+* ``launch_only``: every block returns at once (the launch of the block
+  shape with its shared memory: the floor of a call);
+* ``narrow``: at 8 and 16 rows (NPAD <= 16) the per-thread instance, one
+  thread a node that sorts its column in registers and counts its rank in
+  an n-long loop (the design the block-wide kernel replaced);
+* ``unpadded_keys``: Krum's keys in rows of NPAD + 1 words with a warp's
+  columns consecutive, in place of KeySort's padded layout (from 64 rows
+  on, a warp's loads and stores of its columns then share banks);
+* B10's ``formed_on_staging``: each thread's tile of the Gram loaded once
+  the clip factors are known, each entry (c_i c_j) G_ij formed as it
+  lands, in place of loaded first and clipped in registers.
+
+B9's:
 
 * ``threads_256`` / ``threads_512``: at most 256 / 512 threads a block in
   place of 1,024 (a thread takes a larger tile of each phase);
@@ -18,8 +36,7 @@ patches), each into its own library under
   sort of each mixer's column: every thread counts, for its tile of (row,
   mixer) pairs, the keys of the mixer's column below the row's key (or
   equal and in an earlier row) and takes the row when fewer than k are;
-* ``launch_only``: every block returns at once (the launch of the block
-  shape with its shared memory: the floor of a call);
+* ``launch_only``: as B4's;
 
 B6's (f32 instances only):
 
@@ -39,15 +56,19 @@ B6's (f32 instances only):
   so the column is still in L2 when the select reads it again;
 
 and, with ``--before DIR`` (a ``csrc`` directory of an older tree), that
-tree's ``nnm.cu`` and ``meamed.cu`` as ``before``. It prints ptxas's
-registers and spills of every build, then times each with CUDA events and
-torch.profiler's device time (the main path's calls are shorter than a
-launch gap): B9's weights on a Gram of n = 8, 64 and 128 rows (f_nnm = f =
-n / 8, q = 3 n / 16; the main path's 8 rows at f = 2, q = 4), and B6 on f32
-rounds of 64 x 1,048,576 (f = 8), 8 x 421,642 (f = 2) and 128 x 421,642 (f
-= 40), beside a copy of the rows. Every variant that computes the result is
-checked bit for bit against the plain version. One JSON object a line; the
-card's name and power limit first.
+tree's ``selection.cu``, ``clip_selection.cu``, ``nnm.cu`` and ``meamed.cu``
+as ``before``. It prints ptxas's registers and spills of every build, then
+times each with CUDA events and torch.profiler's device time (the main
+path's calls are shorter than a launch gap): B4's and B10's weights in
+every mode on B3's Gram of one round of n = 8 (f = 2, q = 4: the main
+path's), 16, 64 and 128 rows (f = n / 8, q = 3 n / 16; cge and monna at f
+= 0, q = n - n / 8, as ``robust.cge`` and ``robust.monna`` call them;
+tau the median norm, ARC's f = n / 8); B9's weights on a Gram of n = 8, 64
+and 128 rows (f_nnm = f = n / 8, q = 3 n / 16; the main path's 8 rows at f
+= 2, q = 4); and B6 on f32 rounds of 64 x 1,048,576 (f = 8), 8 x 421,642 (f
+= 2) and 128 x 421,642 (f = 40), beside a copy of the rows. Every variant
+that computes the result is checked bit for bit against the plain version.
+One JSON object a line; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -63,7 +84,163 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "byzpy_tpu_torch", "csrc")
 NNM, BLOCK, MEAMED, ENGINE = "nnm.cu", "selection_block.cuh", "meamed.cu", "column_sort.cuh"
+SEL, CLIP = "selection.cu", "clip_selection.cu"
+# each kind's source, C entry point and kernels (ptxas lines, profiler rows)
+SOURCE = {"b4": SEL, "b10": CLIP, "b9": NNM, "b6": MEAMED}
+ENTRY = {"b4": "byz_selection_weights", "b10": "byz_clip_selection_weights",
+         "b9": "byz_nnm_selection_weights", "b6": "byz_meamed"}
+KERNEL = {"b4": ("selection_weights_kernel", "narrow_weights_kernel"),
+          "b10": ("clip_selection_weights_kernel", "narrow_clip_kernel"),
+          "b9": ("nnm_selection_weights_kernel",), "b6": ("meamed_kernel",)}
 
+# The per-thread instance (the design the block-wide weights replaced): one
+# block of NPAD threads a round, thread j owning node j, its column's keys
+# sorted in registers, its rank counted in an n-long loop.
+NARROW_WEIGHT = """// (narrow) node j = threadIdx.x's weight, one thread a node
+template <int NPAD, typename Gram>
+__device__ float narrow_weight(const Gram& gat, int n, int f, int q, int mode, int ref) {
+  __shared__ float norms[NPAD];
+  __shared__ float score_s[NPAD];
+  __shared__ int bad_s[NPAD];
+  const int j = threadIdx.x;
+  norms[j] = (j < n) ? gat(j, j) : 0.0f;
+  __syncthreads();
+  float score = 0.0f;
+  if (j < n) {
+    if (mode == kCge) {
+      score = norms[j];
+    } else if (mode == kMonna) {
+      score = sq_dist(norms[ref], norms[j], gat(ref, j));
+    } else {
+      int32_t keys[NPAD];
+#pragma unroll
+      for (int i = 0; i < NPAD; ++i) {
+        keys[i] = PAD_KEY;
+        if (i < n) keys[i] = float_sort_key(sq_dist(norms[i], norms[j], gat(i, j)));
+      }
+      batcher_sort<NPAD>(keys);
+#pragma unroll
+      for (int i = 0; i < NPAD; ++i)
+        if (i >= 1 && i < n - f) score = __fadd_rn(score, key_to_float(keys[i]));
+    }
+  }
+  const int bad = (j >= n || isnan(score)) ? 1 : 0;
+  score_s[j] = bad ? 0.0f : score;
+  bad_s[j] = bad;
+  __syncthreads();
+  if (j >= n) return 0.0f;
+  const float sj = score_s[j];
+  int rank = 0;
+  for (int c = 0; c < NPAD; ++c) {
+    const int bc = bad_s[c];
+    const float sc = score_s[c];
+    rank += ((!bc && bad) || (bc == bad && (sc < sj || (sc == sj && c < j)))) ? 1 : 0;
+  }
+  return (rank < q) ? 1.0f / (float)q : 0.0f;
+}
+
+"""
+NARROW_B4 = NARROW_WEIGHT + """template <int NPAD>
+__global__ void __launch_bounds__(NPAD)
+narrow_weights_kernel(const float* __restrict__ gram, float* __restrict__ w, int n, int f, int q,
+                      int mode, int ref) {
+  const float wj = narrow_weight<NPAD>(DenseGram{gram + (long long)blockIdx.x * n * n, n}, n, f, q,
+                                       mode, ref);
+  if (threadIdx.x < n) w[(long long)blockIdx.x * n + threadIdx.x] = wj;
+}
+
+"""
+NARROW_B10 = NARROW_WEIGHT + """struct NarrowClipped {
+  const float* g;
+  const float* c;
+  int n;
+  __device__ __forceinline__ float operator()(int i, int j) const {
+    return __fmul_rn(__fmul_rn(c[i], c[j]), g[i * n + j]);
+  }
+};
+
+template <int NPAD>
+__global__ void __launch_bounds__(NPAD)
+narrow_clip_kernel(const float* __restrict__ gram, float* __restrict__ w, int n, int pre,
+                   float tau, int cut_off, int f, int q, int mode, int ref) {
+  __shared__ int32_t key_s[NPAD];
+  __shared__ float cfac[NPAD];
+  __shared__ float threshold;
+  __shared__ int picked_bad;
+  const int r = blockIdx.x, i = threadIdx.x;
+  const float* g = gram + (long long)r * n * n;
+  float norm = 0.0f;
+  if (i < n) {
+    const float sq = g[i * n + i];
+    norm = __fsqrt_rn(sq < 0.0f ? 0.0f : sq);
+  }
+  key_s[i] = (i < n) ? float_sort_key(norm) : PAD_KEY;
+  if (i == 0) {
+    threshold = tau;
+    picked_bad = 0;
+  }
+  __syncthreads();
+  if (pre == kArc && i < n) {
+    const int32_t ki = key_s[i];
+    int rank = 0;
+    for (int l = 0; l < n; ++l) {
+      const int32_t kl = key_s[l];
+      rank += (kl < ki || (kl == ki && l < i)) ? 1 : 0;
+    }
+    if (rank == cut_off - 1) threshold = key_to_float(ki);
+  }
+  __syncthreads();
+  float c = 0.0f;
+  if (i < n) {
+    const float den = isnan(norm) ? norm : fmaxf(norm, 1e-12f);
+    const float ratio = __fdiv_rn(threshold, den);
+    c = isnan(ratio) ? ratio : fminf(1.0f, ratio);
+  }
+  cfac[i] = c;
+  __syncthreads();
+  const float ws = narrow_weight<NPAD>(NarrowClipped{g, cfac, n}, n, f, q, mode, ref);
+  const bool bad = i < n && !isfinite(norm);
+  if (ws > 0.0f && bad) atomicOr(&picked_bad, 1);
+  __syncthreads();
+  if (i >= n) return;
+  w[(long long)r * n + i] = picked_bad ? __int_as_float(0x7FC00000) : (bad ? 0.0f : __fmul_rn(ws, c));
+}
+
+"""
+B4_LAUNCH_ANCHOR = "// One launch of B4's weights at width NPAD"
+B10_LAUNCH_ANCHOR = "// One launch of B10's weights at width NPAD"
+B4_NARROW_CASES = (
+    "    case 8: return launch_weights<8>(gram, w, K, n, f, q, mode, ref, s);\n"
+    "    case 16: return launch_weights<16>(gram, w, K, n, f, q, mode, ref, s);\n",
+    "    case 8: narrow_weights_kernel<8><<<K, 8, 0, s>>>(gram, w, n, f, q, mode, ref); return cudaGetLastError();\n"
+    "    case 16: narrow_weights_kernel<16><<<K, 16, 0, s>>>(gram, w, n, f, q, mode, ref); return cudaGetLastError();\n")
+B10_NARROW_CASES = (
+    "    case 8: return launch_weights<8>(gram, w, K, n, pre, tau, cut_off, f, q, mode, ref, s);\n"
+    "    case 16: return launch_weights<16>(gram, w, K, n, pre, tau, cut_off, f, q, mode, ref, s);\n",
+    "    case 8: narrow_clip_kernel<8><<<K, 8, 0, s>>>(gram, w, n, pre, tau, cut_off, f, q, mode, ref); "
+    "return cudaGetLastError();\n"
+    "    case 16: narrow_clip_kernel<16><<<K, 16, 0, s>>>(gram, w, n, pre, tau, cut_off, f, q, mode, ref); "
+    "return cudaGetLastError();\n")
+# B10's tile loaded once the clip factors are known, each entry (c_i c_j)
+# G_ij formed as it lands, in place of loaded first and clipped in
+# registers as the scores read it
+EARLY_TILE = "  if constexpr (KRUM && NPAD > 8) selblock::load_tile<S>(DenseGram{g, n}, n, tile);\n"
+CLIP_IN_REGISTERS = """  if constexpr (KRUM && NPAD > 8) {
+    const int a = t / S::TB, b = t % S::TB;
+#pragma unroll
+    for (int rr = 0; rr < S::RA; ++rr)
+#pragma unroll
+      for (int cc = 0; cc < S::RB; ++cc)
+        tile[rr][cc] = __fmul_rn(__fmul_rn(cfac[a + S::TA * rr], cfac[b + S::TB * cc]), tile[rr][cc]);
+  }
+"""
+CLIP_ON_STAGING = "  if constexpr (KRUM && NPAD > 8) selblock::load_tile<S>(clipped, n, tile);  // (formed_on_staging)\n"
+# Krum's keys in square rows of NPAD + 1 words, a warp's columns consecutive
+UNPADDED = [(BLOCK, "  static constexpr int SP = (NPAD + NPAD / R) | 1;", "  static constexpr int SP = NPAD + 1;"),
+            (BLOCK, "return j * SP + e + e / R;", "return j * SP + e;"),
+            (BLOCK, "return j * SP + le * (R + 1);", "return j * SP + le * R;"),
+            (BLOCK, "return G == 1 ? c : (c & ~31) | ((c % CPW) * (32 / CPW)) | ((c / CPW) % (32 / CPW));",
+             "return c;")]
 RANK_BLOCK_START = "  // mixer i takes row j iff fewer than k keys of column i come before it"
 RANK_BLOCK_END = "  // GA[j][i] = sum over the clean rows l mixer i took"
 # NNM's selection by stable ranks: thread (a, b) counts, for its rows j = a +
@@ -214,16 +391,33 @@ MEAMED_F32_ONLY = [
     (MEAMED, "    case kF16: return launch<__half>(x, out, K, n, d, f, s);\n", ""),
 ]
 ROTATION = [(MEAMED, "  // x_col: row 0 of this column in x, rows d apart.", ROTATION_METHOD)]
-# (file, anchor, replacement) for each variant; "b9" variants build nnm.cu,
-# "b6" variants meamed.cu
+# (file, anchor, replacement) for each variant; a kind's variants build its SOURCE
+SEL_LAUNCH_ONLY = ("  const float* g = gram + (long long)blockIdx.x * n * n;\n",
+                   "  const float* g = gram + (long long)blockIdx.x * n * n;\n  if (n > 0) return;\n")
 VARIANTS = {
+    "b4": {
+        "kernel": [],
+        "threads_256": [(SEL, "constexpr int kSelThreads = 512;", "constexpr int kSelThreads = 256;")],
+        "threads_1024": [(SEL, "constexpr int kSelThreads = 512;", "constexpr int kSelThreads = 1024;")],
+        "launch_only": [(SEL, *SEL_LAUNCH_ONLY)],
+        "narrow": [(SEL, B4_LAUNCH_ANCHOR, NARROW_B4 + B4_LAUNCH_ANCHOR), (SEL, *B4_NARROW_CASES)],
+        "unpadded_keys": UNPADDED,
+    },
+    "b10": {
+        "kernel": [],
+        "threads_256": [(CLIP, "constexpr int kSelThreads = 512;", "constexpr int kSelThreads = 256;")],
+        "threads_1024": [(CLIP, "constexpr int kSelThreads = 512;", "constexpr int kSelThreads = 1024;")],
+        "launch_only": [(CLIP, *SEL_LAUNCH_ONLY)],
+        "narrow": [(CLIP, B10_LAUNCH_ANCHOR, NARROW_B10 + B10_LAUNCH_ANCHOR), (CLIP, *B10_NARROW_CASES)],
+        "unpadded_keys": UNPADDED,
+        "formed_on_staging": [(CLIP, EARLY_TILE, ""), (CLIP, CLIP_IN_REGISTERS, CLIP_ON_STAGING)],
+    },
     "b9": {
         "kernel": [],
         "threads_256": [(NNM, "constexpr int kSelThreads = 1024;", "constexpr int kSelThreads = 256;")],
         "threads_512": [(NNM, "constexpr int kSelThreads = 1024;", "constexpr int kSelThreads = 512;")],
         "rank_select": [(NNM, None, RANK_SELECT)],
-        "launch_only": [(NNM, "  const float* g = gram + (long long)blockIdx.x * n * n;\n",
-                         "  const float* g = gram + (long long)blockIdx.x * n * n;\n  if (n > 0) return;\n")],
+        "launch_only": [(NNM, *SEL_LAUNCH_ONLY)],
     },
     "b6": {
         "kernel": [],
@@ -241,6 +435,8 @@ RUN_WAVES = {"waves_2": 2}
 UNCHECKED = ("launch_only",)
 # (label, n, f_nnm, f, q) of B9's Gram
 B9_SHAPES = [("main_path", 8, 2, 2, 4), ("n8", 8, 1, 1, 1), ("n64", 64, 8, 8, 12), ("n128", 128, 16, 16, 24)]
+# (label, n, f, q) of B4's and B10's Krum (ARC's f = f)
+SEL_SHAPES = [("main_path", 8, 2, 4), ("n16", 16, 2, 3), ("n64", 64, 8, 12), ("n128", 128, 16, 24)]
 # (label, n, d, f) of B6's single round
 B6_SHAPES = [("headline", 64, 1_048_576, 8), ("main_path", 8, 421_642, 2), ("n128", 128, 421_642, 40)]
 
@@ -288,7 +484,7 @@ def build(nvcc: str, flags, out_dir: str, before: str | None, kinds) -> dict:
             for fn, t in texts.items():
                 with open(os.path.join(vdir, fn), "w") as fh:
                     fh.write(t)
-            src = NNM if kind == "b9" else MEAMED
+            src = SOURCE[kind]
             lib = os.path.join(vdir, f"lib{kind}.so")
             cmd = [nvcc, *flags, "-o", lib, os.path.join(vdir, src)]
             procs[(kind, name)] = (lib, "int run_tiles, void* stream" in texts[src],
@@ -300,15 +496,14 @@ def build(nvcc: str, flags, out_dir: str, before: str | None, kinds) -> dict:
         if proc.returncode:  # a variant that does not build is reported and left out
             print(json.dumps({"kernel": kind, "variant": name, "build_failed": log[-2000:]}), flush=True)
             continue
-        wanted = "nnm_selection_weights_kernel" if kind == "b9" else "meamed_kernel"
         regs, fn = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line or "Function properties for" in line:
                 fn = line
-            if fn and wanted in fn and ("registers" in line or "spill" in line):
+            if fn and any(k in fn for k in KERNEL[kind]) and ("registers" in line or "spill" in line):
                 regs.append(line.strip())
         print(json.dumps({"kernel": kind, "variant": name, "ptxas": regs}), flush=True)
-        entry = "byz_nnm_selection_weights" if kind == "b9" else "byz_meamed"
+        entry = ENTRY[kind]
         f = getattr(ctypes.CDLL(lib), entry)
         argtypes = list(_build.SIGNATURES[entry][1])
         if kind == "b6" and not takes_runs:
@@ -334,9 +529,9 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
-    """Device time a launch of ``kernel`` (torch.profiler), or None when the
-    profile recorded none."""
+def device_ms(fn, kernel, calls: int = 20) -> float | None:
+    """Device time a launch of ``kernel`` (a name, or a tuple of names: any
+    of them) by torch.profiler, or None when the profile recorded none."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -348,8 +543,9 @@ def device_ms(fn, kernel: str, calls: int = 20) -> float | None:
             fn()
         torch.cuda.synchronize()
     us = count = 0
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+        if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in names):
             us += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
             count += ev.count
     return us / 1e3 / count if count else None
@@ -359,6 +555,59 @@ def bits_equal(a, b) -> bool:
     import torch
 
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def selection_rows(fns, kind: str) -> None:
+    """B4's (``kind`` b4) or B10's (b10) weights in every mode (and B10's
+    two clips) on B3's Gram of one round, each variant bit for bit against
+    the plain version, timed."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = {"krum": 0, "cge": 1, "monna": 2}
+    for label, n, f, q in SEL_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn((1, n, 421_642), generator=gen, device="cuda")
+        x[:, ::3] *= 3.0
+        g = kernels.gram(x)
+        tau = float(torch.linalg.vector_norm(x, dim=2).median())
+        del x
+        w = torch.empty((1, n), device="cuda")
+        pres = [None] if kind == "b4" else ["clip", "arc"]
+        for pre, mode in [(p, m) for p in pres for m in codes]:
+            fm, qm = (f, q) if mode == "krum" else (0, n - f)
+            sel = dict(f=fm, q=qm, mode=mode, reference_index=0)
+            row = {"kernel": kind, "shape": label, "n": n, "f": fm, "q": qm, "mode": mode}
+            if pre is None:
+                ref = kernels.selection_weights_plain(g, **sel)
+                args = (fm, qm, codes[mode], 0)
+            else:
+                cut_off = arc_cut_off(n, f)
+                kw = dict(pre=pre, tau=tau) if pre == "clip" else dict(pre=pre, cut_off=cut_off)
+                ref = kernels.clip_selection_weights_plain(g, **kw, **sel)
+                args = (int(pre == "arc"), tau, cut_off, fm, qm, codes[mode], 0)
+                row.update(pre=pre, tau=tau, cut_off=cut_off)
+            for (k, name), (fn, _) in fns.items():
+                if k != kind:
+                    continue
+
+                def run(fn=fn, name=name):
+                    rc = fn(g.data_ptr(), w.data_ptr(), 1, n, *args, stream)
+                    if rc:
+                        raise RuntimeError(f"{name} returned {rc}")
+
+                run()
+                torch.cuda.synchronize()
+                if name not in UNCHECKED and not bits_equal(w, ref):
+                    raise SystemExit(f"{kind} {name} differs from the plain version at {label} {pre} {mode}")
+                row[f"{name}_ms"] = cuda_time_ms(run)
+                row[f"{name}_device_ms"] = device_ms(run, KERNEL[kind])
+            print(json.dumps(row), flush=True)
+        del g
+        torch.cuda.empty_cache()
 
 
 def b9_rows(fns) -> None:
@@ -440,9 +689,12 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--before", help="csrc directory of an older tree, built as 'before'")
-    parser.add_argument("--kinds", default="b9,b6", help="kernels to take apart: b9, b6 or both")
+    parser.add_argument("--kinds", default="b4,b10,b9,b6",
+                        help="kernels to take apart: any of b4, b10, b9, b6, comma-separated")
     args = parser.parse_args()
     kinds = args.kinds.split(",")
+    if not set(kinds) <= set(VARIANTS):
+        parser.error(f"--kinds takes {', '.join(VARIANTS)}")
     if not torch.cuda.is_available():
         print("chip_selection_ablation: no CUDA device", file=sys.stderr)
         return 2
@@ -460,6 +712,9 @@ def main() -> int:
     out_dir = str(_build.BUILD_ROOT / "selection_ablation")
     os.makedirs(out_dir, exist_ok=True)
     fns = build(nvcc, _build.NVCC_FLAGS, out_dir, args.before and os.path.abspath(args.before), kinds)
+    for kind in ("b4", "b10"):
+        if kind in kinds:
+            selection_rows(fns, kind)
     if "b9" in kinds:
         b9_rows(fns)
     if "b6" in kinds:

@@ -115,6 +115,7 @@ repository, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -146,7 +147,11 @@ MAIN_TAU = 11.0
 # pre-aggregated kernel checks and timings: (f of the pre-aggregator, f, q,
 # tau) by n; every third row is scaled x3, so norms sit at ~sqrt(d) and
 # ~3 sqrt(d) and tau between them clips a third of the rows
-PRE_ARGS = {8: (2, 2, 4, 1000.0), 13: (3, 3, 4, 300.0), 64: (8, 8, 12, 1500.0)}
+PRE_ARGS = {8: (2, 2, 4, 1000.0), 13: (3, 3, 4, 300.0), 64: (8, 8, 12, 1500.0),
+            128: (16, 16, 24, 1500.0)}
+# Krum's (f, q) of the selection weights' checks and timings by n: the main
+# path's at 8 rows, the headline's at 64, the same shares at 128
+SEL_ARGS = {8: (2, 4), 64: (8, 12), 128: (16, 24)}
 # centred clipping's threshold on the main path: at step 1 the honest rows
 # sit 6.0-8.0 from the row mean and the two byzantine rows 15.0 on the H100
 # (torch 2.11); phase 4 fails if the first iteration clips none or all
@@ -294,6 +299,7 @@ def check_gram_and_selection(errs: dict) -> None:
         ((1, MAIN_N, 421_642), 2, 4, ("krum", "cge", "monna")),
         ((2, 13, 50_000), 3, 5, ("krum", "cge", "monna")),
         ((4,) + HEADLINE, 8, 12, ("krum",)),
+        ((1, EXEC_CAP, 421_642), 16, 24, ("krum", "cge", "monna")),
     ]
     for shape, f, q, modes in cases:
         x = random_rounds(shape, seed=100 + shape[1])
@@ -600,6 +606,51 @@ def check_b9_ties(errs: dict) -> None:
             log(f"  B9 weights ({mode}) on rows repeated in threes, (1, {n}, 421642): bitwise, "
                 f"{int((w != 0).sum())} rows weighted, aggregate {ulps} ulp")
         del x, g
+        torch.cuda.empty_cache()
+
+
+def check_selection_ties(errs: dict) -> None:
+    """B4's and B10's weights where the block-wide design has its edges,
+    bit for bit the plain version on the same Gram, in every mode: K = 3
+    rounds of rows repeated in groups of three (ties in Krum's sort, the
+    ranks and ARC's threshold) at 8, 64 and 128 rows of the main path's d,
+    and a Gram of small integers that is not symmetric; B10 with clip
+    (tau a norm of the round: rows at the threshold) and ARC."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    for n in (MAIN_N, 64, EXEC_CAP):
+        f, q = SEL_ARGS[n]
+        x = pre_rows((3, n, 421_642), seed=320 + n)
+        x = x[:, torch.arange(n, device=x.device) // 3 * 3].contiguous()
+        gen = torch.Generator(device=x.device).manual_seed(330 + n)
+        ints = torch.randint(-3, 4, (3, n, n), generator=gen, device=x.device).float()
+        ints.diagonal(dim1=1, dim2=2).copy_(torch.randint(6, 9, (3, n), generator=gen, device=x.device))
+        for label, g in (("rows repeated in threes", kernels.gram(x)), ("integer, not symmetric", ints)):
+            tau = float(torch.sqrt(torch.diagonal(g, dim1=1, dim2=2)).median())
+            weighted = []
+            for mode in ("krum", "cge", "monna"):
+                sel = dict(f=f, q=q, mode=mode) if mode == "krum" else dict(f=0, q=n - f, mode=mode)
+                sel["reference_index"] = n // 2
+                w = kernels.selection_weights(g, **sel)
+                w_plain = kernels.selection_weights_plain(g, **sel)
+                check(bits_equal(w, w_plain), f"B4 weights ({mode}) differ from plain on the {label} Gram at n={n}")
+                key = f"selection_weights:{mode}"
+                errs[key] = max(errs[key], max_abs_err(w, w_plain))
+                weighted.append(int((w != 0).sum()))
+                for pre, kw in (("clip", dict(tau=tau)), ("arc", dict(cut_off=arc_cut_off(n, f)))):
+                    w = kernels.clip_selection_weights(g, pre=pre, **kw, **sel)
+                    w_plain = kernels.clip_selection_weights_plain(g, pre=pre, **kw, **sel)
+                    check(bits_equal(w, w_plain),
+                          f"B10 {pre} weights ({mode}) differ from plain on the {label} Gram at n={n}")
+                    key = f"clip_selection_weights:{pre}"
+                    errs[key] = max(errs[key], max_abs_err(w, w_plain))
+                    weighted.append(int((w != 0).sum()))
+            log(f"  B4 and B10 weights on the {label} Gram, K = 3, n = {n}: bitwise in every mode "
+                f"(rows weighted, B4 / clip / arc by mode: {weighted})")
+        del x, g, ints
         torch.cuda.empty_cache()
 
 
@@ -2374,6 +2425,7 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
     b_ms, b_by = bound_ms(q * d * isz + n * 4 + d * isz, 2 * q * d)
     out["weighted_rows"] = {
         "ms": cuda_time_ms(lambda: kernels.weighted_rows(x, w)),
+        "device_ms": port_device_ms(lambda: kernels.weighted_rows(x, w))["weighted_rows_kernel"],
         "plain_ms": cuda_time_ms(lambda: kernels.weighted_rows_plain(x, w), iters=3),
         # w @ x: the same function on these finite inputs (it reads all n rows)
         "library_ms": cuda_time_ms(lambda: w[0] @ x[0]),
@@ -2430,6 +2482,123 @@ def b9_weights_times(g, n: int, *, f_pre: int, f: int, q: int) -> dict:
         "plain_ms": cuda_time_ms(lambda: kernels.nnm_selection_weights_plain(g, k=k, **sel)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "f_nnm": f_pre, "f": f, "q": q,
     }
+
+
+# An empty kernel, launched with a weights block's threads and dynamic
+# shared memory: the floor of such a launch on the card
+EMPTY_BLOCK_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_block_kernel() {}
+extern "C" int byz_empty_block(int threads, int smem, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&empty_block_kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  empty_block_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+"""
+@functools.lru_cache(maxsize=None)
+def empty_block_fn():
+    """The C entry point of EMPTY_BLOCK_CU, built with the port's flags."""
+    import ctypes
+
+    from byzpy_tpu_torch.ops import _build
+
+    out_dir = _build.BUILD_ROOT / "chip_smoke_empty_block"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "empty_block.cu").write_text(EMPTY_BLOCK_CU)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / "libempty_block.so"),
+                    str(out_dir / "empty_block.cu")], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(out_dir / "libempty_block.so")).byz_empty_block
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def empty_block_ms(threads: int, smem: int) -> float:
+    """Device ms (torch.profiler) of one block of ``threads`` threads with
+    ``smem`` bytes of dynamic shared memory that does nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(empty_block_fn()(threads, smem, stream) == 0, f"empty block ({threads}, {smem}) refused")
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that recorded none of the launches is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+        got = [v for k, v in device_events(prof, 10).items() if "empty_block_kernel" in k]
+        if got and got[0][1]:
+            return got[0][0] / got[0][1]
+    return float("nan")
+
+
+def selection_weights_times(seed: int) -> dict:
+    """B4's weights (krum, cge, monna) and B10's (clip, arc; krum) on B3's
+    Gram of one (1, n, 421,642) f32 round (every third row x3) at 8, 64 and
+    128 rows: CUDA events, torch.profiler device ms, the plain version, the
+    bound (the Gram's entries read; d2, the sorts' compare-exchanges, the
+    adds and the rank compares at the f32 rate) and the device ms of an
+    empty block of the kernel's shape (``empty_ms``: its threads, min(1024,
+    NPAD^2), and krum's two square buffers of dynamic shared memory).
+    Krum's (f, q) from SEL_ARGS; cge and monna at f = 0, q = n - f, as
+    ``robust.cge`` and ``robust.monna`` call them; B10's tau and ARC's f
+    from PRE_ARGS."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    out = {k: {} for k in ("selection_weights:krum", "selection_weights:cge", "selection_weights:monna",
+                           "clip_selection_weights:clip", "clip_selection_weights:arc")}
+    for n in (MAIN_N, 64, EXEC_CAP):
+        f, q = SEL_ARGS[n]
+        f_pre, _, _, tau = PRE_ARGS[n]
+        x = pre_rows((1, n, 421_642), seed=seed + n)
+        g = kernels.gram(x)
+        del x
+        npad = kernels.network_width(n)
+        threads, square = min(1024, npad * npad), 2 * npad * (npad + 1) * 4
+        krum_ops = 5 * n * n + 2 * len(kernels.batcher_pairs(npad)) * n + (n - f - 1) * n
+        calls = {
+            "selection_weights:krum": (dict(f=f, q=q, mode="krum"), None,
+                                       bound_ms(n * n * 4 + n * 4, krum_ops), square),
+            "selection_weights:cge": (dict(f=0, q=n - f, mode="cge"), None,
+                                      bound_ms(2 * n * 4, n * n), 0),
+            "selection_weights:monna": (dict(f=0, q=n - f, mode="monna"), None,
+                                        bound_ms(3 * n * 4, 3 * n + n * n), 0),
+            "clip_selection_weights:clip": (dict(f=f, q=q, mode="krum"), dict(pre="clip", tau=tau),
+                                            bound_ms(n * n * 4 + n * 4, krum_ops + 2 * n * n), square),
+            "clip_selection_weights:arc": (dict(f=f, q=q, mode="krum"),
+                                           dict(pre="arc", cut_off=arc_cut_off(n, f_pre)),
+                                           bound_ms(n * n * 4 + n * 4, krum_ops + 3 * n * n), square),
+        }
+        for key, (sel, clip, (b_ms, b_by), smem) in calls.items():
+            if clip is None:
+                call = lambda sel=sel: kernels.selection_weights(g, **sel)  # noqa: E731
+                plain = lambda sel=sel: kernels.selection_weights_plain(g, **sel)  # noqa: E731
+                name = "selection_weights_kernel"
+            else:
+                call = lambda sel=sel, clip=clip: kernels.clip_selection_weights(g, **clip, **sel)  # noqa: E731
+                plain = lambda sel=sel, clip=clip: kernels.clip_selection_weights_plain(g, **clip, **sel)  # noqa: E731
+                name = "clip_selection_weights_kernel"
+            out[key][str(n)] = {
+                "ms": cuda_time_ms(call), "device_ms": port_device_ms(call)[name],
+                "empty_ms": empty_block_ms(threads, smem), "plain_ms": cuda_time_ms(plain),
+                "bound_ms": b_ms, "bound_by": b_by, "threads": threads, "smem": smem, **sel,
+            }
+        del g
+        torch.cuda.empty_cache()
+    for key, rows in out.items():
+        log(f"  {key} weights by rows (device ms; empty block): " + ", ".join(
+            f"{n}: {v['device_ms']:.5f} ({v['empty_ms']:.5f})" for n, v in rows.items()))
+    return out
 
 
 def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
@@ -2514,6 +2683,7 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
         sweeps[label] = {
             "rows_read": rows,
             "ms": cuda_time_ms(lambda w=w: kernels.weighted_rows(x, w)),
+            "device_ms": port_device_ms(lambda w=w: kernels.weighted_rows(x, w))["weighted_rows_kernel"],
             "plain_ms": cuda_time_ms(lambda w=w: kernels.weighted_rows_plain(x, w), iters=3),
             "library_ms": cuda_time_ms(lambda w=w: w[0] @ x[0]),  # reads all n rows
             "bound_ms": b_ms, "bound_by": b_by,
@@ -3132,6 +3302,12 @@ def timing() -> dict:
         times["selection_mean_from_gram"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
     out["meamed"]["at_128_rows"] = wide_meamed
     out["nnm_selection_weights:krum"]["at_128_rows"] = wide_b9
+    # B4's and B10's weights by rows: the device ms at the headline's 64
+    # rows and the main path's 8 go to the entries
+    for key, rows in selection_weights_times(seed=23).items():
+        out[key]["weights_by_rows"] = rows
+        out[key]["device_ms"] = rows["64"]["device_ms"]
+        main[key]["device_ms"] = rows[str(MAIN_N)]["device_ms"]
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "with_nnm_weights",
             "with_clip_weights", "steps", "ms_per_step", "one_step_ms", "one_step_plain_ms",
             "steps_256_ms", "steps_256_reads_bound_ms", "reads_bound_ms", "cdist_ms",
@@ -3326,6 +3502,14 @@ def main() -> int:
     log("NNM_PTXAS " + json.dumps(nnm_ptxas))
     spilled = [e["kernel"] for e in meamed_ptxas + nnm_ptxas if e["spill_stores"] or e["spill_loads"]]
     check(not spilled, f"B6 or nnm.cu instances spill: {spilled}")
+    # B4's weights block and sweep, B10's weights block
+    selection_ptxas = (ptxas_report(_build.build_log.get("selection", ""), nvcc,
+                                    ("selection_weights_kernel", "weighted_rows_kernel"))
+                       + ptxas_report(_build.build_log.get("clip_selection", ""), nvcc,
+                                      ("clip_selection_weights_kernel",)))
+    log("SELECTION_PTXAS " + json.dumps(selection_ptxas))
+    spilled = [e["kernel"] for e in selection_ptxas if e["spill_stores"] or e["spill_loads"]]
+    check(not spilled, f"selection.cu or clip_selection.cu instances spill: {spilled}")
 
     log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}
@@ -3335,6 +3519,7 @@ def main() -> int:
     check_selection_from_gram(errs)
     check_pre_aggregation(errs)
     check_b9_ties(errs)
+    check_selection_ties(errs)
     check_meamed(errs)
     check_center_step(errs)
     check_codecs(errs)

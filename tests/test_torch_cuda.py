@@ -1400,3 +1400,75 @@ def test_cuda_meamed_any_run_length(cuda_device, run_tiles):
             continue
         assert rc == 0
         assert _bits_equal(out, kernels.meamed_stream_plain(x, f=n // 4))
+
+
+# ---------------------------------------------------------------------------
+# B4's and B10's weights as one block-wide pass over the round's Gram
+# ---------------------------------------------------------------------------
+
+SEL_N = [3, 8, 13, 16, 17, 64, 100, 128]
+
+
+def _sel_args(n, mode):
+    """(f, q) sets for n: the usual ones, and q as large as the mode takes
+    (every node selected: B10's weights all NaN where a non-finite row is
+    among them)."""
+    if mode == "krum":
+        f = max(0, min((n - 3) // 4, n - 2))
+        return [(f, max(1, n // 3)), (f, n - f)]
+    return [(0, max(1, n // 3)), (0, n)]
+
+
+def _launch_once(key, call):
+    """``call()``'s result, asserting that it launched ``key`` once."""
+    before = kernels.launch_counts[key]
+    out = call()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts[key] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dup", "quantized", "taint"])
+@pytest.mark.parametrize("n", SEL_N)
+def test_cuda_selection_weights_block_bitwise(cuda_device, n, case):
+    """B4's weights at K = 3 in all three modes, bit for bit the plain
+    version on the same Gram, one launch a call: rows repeated in threes
+    (ties in Krum's sort and in the ranks), a Gram that is not symmetric,
+    an inf row and a NaN entry (NaN scores rank last: never selected while
+    q leaves them out)."""
+    g = _b9_gram(11 * n + len(case), 3, n, case, cuda_device)
+    for mode in ("krum", "cge", "monna"):
+        for f, q in _sel_args(n, mode):
+            kw = dict(f=f, q=q, mode=mode, reference_index=(n - 1) // 2)
+            w = _launch_once(f"selection_weights:{mode}", lambda: kernels.selection_weights(g, **kw))
+            assert _bits_equal(w, kernels.selection_weights_plain(g, **kw)), (mode, f, q)
+            assert bool(((w == 0) | (w == 1.0 / q)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dup", "quantized", "taint"])
+@pytest.mark.parametrize("n", SEL_N)
+def test_cuda_clip_selection_weights_block_bitwise(cuda_device, n, case):
+    """B10's weights at K = 3, clip and ARC in all three modes, bit for bit
+    the plain version on the same Gram, one launch a call: tau a norm of
+    the round (rows at the threshold), ARC's cut among repeated norms, a
+    Gram that is not symmetric, an inf norm and a NaN row, which are never
+    selected or else poison the round to the canonical NaN. (Where ARC's
+    cut lands on the NaN norm, every clip factor is NaN, in the kernel and
+    the plain version alike.)"""
+    from byzpy_tpu_torch.ops.preagg import arc_cut_off
+
+    g = _b9_gram(13 * n + len(case), 3, n, case, cuda_device)
+    norms = torch.sqrt(torch.diagonal(g, dim1=1, dim2=2).clamp(min=0))
+    tau = float(norms[1].nan_to_num(0.0, 0.0, 0.0).median()) or 1.0
+    for pre in ("clip", "arc"):
+        extra = dict(tau=tau) if pre == "clip" else dict(cut_off=arc_cut_off(n, n // 4))
+        for mode in ("krum", "cge", "monna"):
+            for f, q in _sel_args(n, mode):
+                kw = dict(pre=pre, f=f, q=q, mode=mode, reference_index=(n - 1) // 2, **extra)
+                key = f"clip_selection_weights:{pre}"
+                w = _launch_once(key, lambda: kernels.clip_selection_weights(g, **kw))
+                assert _bits_equal(w, kernels.clip_selection_weights_plain(g, **kw)), (pre, mode, f, q)
+                if case == "taint" and q == n and n > 1:
+                    assert _all_canonical_nan(w[0])  # the inf row is among the n selected
