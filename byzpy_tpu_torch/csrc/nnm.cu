@@ -7,9 +7,9 @@
 // state in VMEM across a (K, 2, C) grid and forms the mixed rows with an
 // MXU dot at HIGHEST precision (:1282-1287). Here, after B3's Gram
 // (gram.cu):
-//   byz_nnm_weights: one block per round, one thread per mixing row i.
+//   byz_nnm_weights: one block per round (nnm_weights_kernel below).
 //     taint_j = the squared norm G_jj is not finite; row i's k = n - f
-//     nearest rows by the stable k-select of selection.cuh give column i of
+//     nearest rows by the stable k-select (take_bits) give column i of
 //     mask_clean (0/1 f32, tainted rows cleared) and sel_taint_i = a tainted
 //     row was selected (_nnm_weights :1216-1242).
 //   byz_mix_rows: out[i] = (sum_j mask_clean[j][i] * x_j) / k in f32, rows j
@@ -37,7 +37,7 @@
 // loaded value serving the tile's other row or column; a warp a column to
 // sort, across its lanes. NNM takes, for mixer i, the keys below the k-th
 // smallest of column i, then keys equal to it in row order
-// (nnm_select_column's set, read off the sorted column with ballots); A is
+// (B8's set, read off the sorted column with ballots); A is
 // a bit mask a mixer, in registers across the products, whose unselected
 // adds are predicated off; GA, then Gm, overwrite dead buffers; Krum adds
 // each sorted column's positions in order, one thread a column. Tensor
@@ -122,21 +122,178 @@ struct MixShape {
 
 __device__ __forceinline__ float canonical_nan() { return __int_as_float(0x7FC00000); }
 
+// B8's selection state: one block of up to kNnmThreads threads a round
+// (selection_block.cuh), as B9's weights start. Every thread forms the
+// keys of its tile of the Gram (held in registers, its loads in flight
+// with the diagonal's) into KeySort's padded buffer; the lanes of a warp
+// sort a mixer's column (a lane a column up to 16 rows, 8 lanes from 32)
+// and read the cut, the quota and the taken rows off it with shuffles
+// (take_bits), a bit a row. Up to 16 rows each lane then writes its
+// mixer's column of the mask straight from its bits; above, the block
+// writes the f32 mask in rows, consecutive mixers across the lanes, each
+// lane from a word of 32 rows' bits in a register. Pad rows carry NaN
+// norms: their keys tie with a NaN row's and come after every real row in
+// row order, so no key needs a bounds test and no pad is taken (k <= n).
+// What bounds it is the sort on one SM's integer pipe (n columns of NPAD
+// keys), then the mask's n^2 stores. chip_selection_ablation.py --kinds
+// b8 takes it apart.
+constexpr int kNnmThreads = 512;
+
 template <int NPAD>
-__global__ void __launch_bounds__(NPAD)
+using NnmShape = selblock::Shape<NPAD, kNnmThreads>;
+
+// Dynamic shared memory of B8's block: the keys.
+template <int NPAD>
+constexpr int nnm_smem_bytes() {
+  return NPAD * selblock::KeySort<NPAD>::SP * (int)sizeof(int32_t);
+}
+
+// The rows a lane of KeySort<NPAD>'s column group takes: v its sorted run,
+// o its unsorted one (rows le R + r, r < R, of the column). The cut is
+// the column's k-th smallest key; a row is taken if its key is below the
+// cut, or equal to it while fewer than quota = k - (keys below the cut)
+// equal keys come before it in row order (nnm_weights_plain's set, the
+// stable-argsort rule of _stable_threshold_select :784). Returns bit r
+// for row le R + r. Every lane of the warp calls it.
+template <int NPAD>
+__device__ __forceinline__ unsigned take_bits(const int32_t (&v)[selblock::KeySort<NPAD>::R],
+                                              const int32_t (&o)[selblock::KeySort<NPAD>::R], int k,
+                                              int lane) {
+  using KS = selblock::KeySort<NPAD>;
+  constexpr int R = KS::R, G = KS::G, LG = ilog2(G);
+  const int le = lane % G;
+  int32_t cut = select_key<R>(v, (k - 1) % R);
+  if constexpr (G > 1) cut = __shfl_sync(0xFFFFFFFFu, cut, lane - le + (k - 1) / R);
+  int below = 0, eq = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    below += o[r] < cut ? 1 : 0;
+    eq += o[r] == cut ? 1 : 0;
+  }
+  int seen = eq;  // keys equal to the cut in this lane and the lanes before it
+#pragma unroll
+  for (int ls = 0; ls < LG; ++ls) {
+    below += __shfl_xor_sync(0xFFFFFFFFu, below, 1 << ls);
+    const int up = __shfl_up_sync(0xFFFFFFFFu, seen, 1 << ls);
+    if (le >= (1 << ls)) seen += up;
+  }
+  const int quota = k - below;
+  int before = seen - eq;
+  unsigned bits = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool at = o[r] == cut;
+    if (o[r] < cut || (at && before < quota)) bits |= 1u << r;
+    before += at ? 1 : 0;
+  }
+  return bits;
+}
+
+template <int NPAD>
+__global__ void __launch_bounds__(NnmShape<NPAD>::T, 1)
 nnm_weights_kernel(const float* __restrict__ gram, float* __restrict__ mask,
                    float* __restrict__ sel_taint, int n, int k) {
-  __shared__ float norms[NPAD];
-  __shared__ int taint[NPAD];
-  const int r = blockIdx.x, i = threadIdx.x;
-  const DenseGram gat{gram + (long long)r * n * n, n};
-  norms[i] = (i < n) ? gat(i, i) : 0.0f;
-  taint[i] = (i < n && !isfinite(norms[i])) ? 1 : 0;
+  using S = NnmShape<NPAD>;
+  using KS = selblock::KeySort<NPAD>;
+  constexpr int W = S::W, WP = W | 1;  // words of a row mask, and their odd stride
+  extern __shared__ __align__(16) unsigned char dyn[];  // the keys
+  __shared__ float nrm[NPAD];
+  __shared__ unsigned tmask[W];        // rows whose squared norm is not finite
+  __shared__ unsigned sel[NPAD * WP];  // sel[i * WP + w]: rows mixer i took
+  const int t = threadIdx.x;
+  const float* g = gram + (long long)blockIdx.x * n * n;
+  float* m = mask + (long long)blockIdx.x * n * n;
+  int32_t* keys = reinterpret_cast<int32_t*>(dyn);
+  float tile[S::RA][S::RB];
+  selblock::load_tile<S>(DenseGram{g, n}, n, tile);
+  if (t < NPAD) nrm[t] = t < n ? g[t * n + t] : __int_as_float(0x7FC00000);
+  if (t < 32 * W) {
+    const unsigned bits = __ballot_sync(0xFFFFFFFFu, t < n && !isfinite(g[t * n + t]));
+    if ((t & 31) == 0) tmask[t >> 5] = bits;
+  }
   __syncthreads();
-  if (i >= n) return;
-  const int st = nnm_select_column<NPAD>(gat, n, k, i, norms, taint,
-                                         mask + (long long)r * n * n, n);
-  sel_taint[(long long)r * n + i] = st ? 1.0f : 0.0f;
+  // column i (a mixer) holds the keys of d2[j][i], rows j
+  const int a = t / S::TB, b = t % S::TB;
+#pragma unroll
+  for (int r = 0; r < S::RA; ++r)
+#pragma unroll
+    for (int c = 0; c < S::RB; ++c) {
+      const int j = a + S::TA * r, i = b + S::TB * c;
+      keys[KS::addr(i, j)] = float_sort_key(sq_dist(nrm[j], nrm[i], tile[r][c]));
+    }
+  __syncthreads();
+  // the lanes of a column group sort mixer i's column, then take its rows
+  const int lane = t & 31, le = lane % KS::G;
+  for (int c0 = (t >> 5) * KS::CPW; c0 < NPAD; c0 += (S::T / 32) * KS::CPW) {
+    const int i = KS::column(c0 + lane / KS::G);
+    if constexpr (KS::CPW > NPAD) if (i >= NPAD) continue;  // a lane a column: no shuffles
+    const int32_t* run = keys + KS::run(i, le);
+    int32_t v[KS::R], o[KS::R];
+#pragma unroll
+    for (int r = 0; r < KS::R; ++r) {
+      o[r] = run[r];
+      v[r] = o[r];
+    }
+    KS::sort(v, lane);
+    const unsigned bits = take_bits<NPAD>(v, o, k, lane);
+    if constexpr (KS::G == 1) {
+      // a lane a mixer (up to 16 rows): its column of the mask and its
+      // sel_taint straight from its bits, consecutive mixers across the lanes
+      if (i < n) {
+        const unsigned taint = tmask[0];
+#pragma unroll
+        for (int j = 0; j < NPAD; ++j)
+          if (j < n) m[j * n + i] = ((bits & ~taint) >> j) & 1u ? 1.0f : 0.0f;
+        sel_taint[(long long)blockIdx.x * n + i] = bits & taint ? 1.0f : 0.0f;
+      }
+    } else {
+      // this lane's R bits at their place in the word of rows; the lanes
+      // that share a word join their bits
+      unsigned word = bits << ((le * KS::R) & 31);
+#pragma unroll
+      for (int ls = 0; (1 << ls) < 32 / KS::R && (1 << ls) < KS::G; ++ls)
+        word |= __shfl_xor_sync(0xFFFFFFFFu, word, 1 << ls);
+      if (((le * KS::R) & 31) == 0 && i < n) sel[i * WP + ((le * KS::R) >> 5)] = word;
+    }
+  }
+  if constexpr (KS::G == 1) return;
+  __syncthreads();
+  // mask[j][i] from the bits: lane l of a warp takes mixer i = 32 ib + l and
+  // rows 32 jw ... 32 jw + 31 from one word in a register (tainted rows
+  // cleared), a store a row, consecutive mixers across the lanes; a word's
+  // rows go in CH chunks, so that every warp has some
+  constexpr int WARPS = S::T / 32, CH = WARPS > W * W ? WARPS / (W * W) : 1, RPC = S::U / CH;
+  static_assert(RPC * CH == S::U, "the chunks must tile a word");
+  for (int task = t >> 5; task < W * W * CH; task += WARPS) {
+    const int blk = task / CH, j0 = task % CH * RPC;
+    const int i = blk / W * 32 + lane, jw = blk % W;
+    const unsigned word = i < n ? sel[i * WP + jw] & ~tmask[jw] : 0u;
+    float* col = m + (jw * 32 + j0) * n + i;
+#pragma unroll
+    for (int jj = 0; jj < RPC; ++jj)
+      if (i < n && jw * 32 + j0 + jj < n) col[jj * n] = (word >> (j0 + jj)) & 1u ? 1.0f : 0.0f;
+  }
+  if (t < n) {
+    unsigned any = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) any |= sel[t * WP + w] & tmask[w];
+    sel_taint[(long long)blockIdx.x * n + t] = any ? 1.0f : 0.0f;
+  }
+}
+
+// One launch of B8's selection state at width NPAD: a block a round, its
+// keys in dynamic shared memory, opted in above 48 KB (70 KB at NPAD =
+// 128) once a device.
+template <int NPAD>
+cudaError_t launch_nnm_weights(const float* gram, float* mask, float* sel_taint, int K, int n,
+                               int k, cudaStream_t s) {
+  static std::atomic<unsigned long long> ready{0};
+  constexpr int dyn = nnm_smem_bytes<NPAD>();
+  const cudaError_t err = selblock::raise_smem_once(
+      reinterpret_cast<const void*>(&nnm_weights_kernel<NPAD>), dyn, ready);
+  if (err != cudaSuccess) return err;
+  nnm_weights_kernel<NPAD><<<K, NnmShape<NPAD>::T, dyn, s>>>(gram, mask, sel_taint, n, k);
+  return cudaGetLastError();
 }
 
 // Stage tile t (its round's n rows x TW columns) into ring buffer `buf`.
@@ -422,7 +579,7 @@ nnm_selection_weights_kernel(const float* __restrict__ gram, float* __restrict__
   // mixer i takes row j iff fewer than k keys of column i come before it
   // (below it, or equal and in an earlier row): one warp sorts the column,
   // reads the k-th smallest key, and takes the keys below it, then keys
-  // equal to it in row order (nnm_select_column's set)
+  // equal to it in row order (B8's set, take_bits)
   {
     using WS = selblock::WarpSort<NPAD>;
     const int lane = t & 31, le = lane % WS::G, grp = lane / WS::G;
@@ -638,14 +795,13 @@ extern "C" int byz_nnm_weights(const float* gram, float* mask, float* sel_taint,
   if (k < 1 || k > n) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (network_width(n)) {
-    case 8: nnm_weights_kernel<8><<<K, 8, 0, s>>>(gram, mask, sel_taint, n, k); break;
-    case 16: nnm_weights_kernel<16><<<K, 16, 0, s>>>(gram, mask, sel_taint, n, k); break;
-    case 32: nnm_weights_kernel<32><<<K, 32, 0, s>>>(gram, mask, sel_taint, n, k); break;
-    case 64: nnm_weights_kernel<64><<<K, 64, 0, s>>>(gram, mask, sel_taint, n, k); break;
-    case 128: nnm_weights_kernel<128><<<K, 128, 0, s>>>(gram, mask, sel_taint, n, k); break;
+    case 8: return launch_nnm_weights<8>(gram, mask, sel_taint, K, n, k, s);
+    case 16: return launch_nnm_weights<16>(gram, mask, sel_taint, K, n, k, s);
+    case 32: return launch_nnm_weights<32>(gram, mask, sel_taint, K, n, k, s);
+    case 64: return launch_nnm_weights<64>(gram, mask, sel_taint, K, n, k, s);
+    case 128: return launch_nnm_weights<128>(gram, mask, sel_taint, K, n, k, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // x: (K, n, d) contiguous; mask: (K, n, n) f32; sel_taint: (K, n) f32; out:

@@ -55,6 +55,11 @@ SIGNATURES = {
     "byz_weighted_rows": ("selection", [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_ll, _c_int, _c_void_p,
     ]),
+    "byz_selection_mean_from_gram": ("selection", [
+        _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_ll, _c_int, _c_int, _c_int, _c_int,
+        _c_int, _c_void_p,
+    ]),
+    "byz_from_gram_scratch_bytes": ("selection", []),
     "byz_nnm_weights": ("nnm", [
         _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_void_p,
     ]),

@@ -19,8 +19,8 @@ Kernels (TPU kernel they replace -> CUDA source):
 * B4 ``selection_mean_stream``: ``_selection_mean_stream_kernel`` (:928)
   -> ``csrc/gram.cu`` + ``csrc/selection.cu``;
 * B5 ``selection_mean_from_gram``: ``_selection_from_gram_kernel``
-  (:1094) -> ``csrc/selection.cu`` (B4's weights and sweep on a given
-  Gram);
+  (:1094) -> ``csrc/selection.cu`` (B4's weights block and a sweep of the
+  selected rows on a given Gram, one launch);
 * B6 ``meamed_stream``: ``_meamed_stream_kernel`` (:619) ->
   ``csrc/meamed.cu``, on the column-sort engine;
 * B7 ``center_loop`` (and its first step, ``weighted_center_step``):
@@ -50,8 +50,9 @@ Kernels (TPU kernel they replace -> CUDA source):
 
 B1, B6 and the segmented sort-reduce are three instances of one
 column-sort engine, ``csrc/column_sort.cuh`` (its run rule:
-:func:`column_runs`). B9's weights work block-wide on the round's
-``(n, n)`` problem in shared memory (``csrc/selection_block.cuh``).
+:func:`column_runs`). The selection family's weights (B4, B5, B9, B10)
+and B8's selection state work block-wide on the round's ``(n, n)``
+problem in shared memory (``csrc/selection_block.cuh``).
 
 The codec kernels B13-B17 (``parallel/quantization.py``) have their
 wrappers in ``ops/codec_kernels.py``; their launch counters live in this
@@ -102,6 +103,10 @@ launch_counts = {
     "selection_weights:cge": 0,
     "selection_weights:monna": 0,
     "weighted_rows": 0,
+    # B5: its weights and sweep in one launch
+    "selection_mean_from_gram:krum": 0,
+    "selection_mean_from_gram:cge": 0,
+    "selection_mean_from_gram:monna": 0,
     "meamed": 0,
     # B7: the whole loops, and the one-step phases of the same kernel
     "center_loop:weiszfeld": 0,
@@ -634,18 +639,47 @@ def selection_mean_from_gram(
     Gram grew one row per arrival. Scores, ties and NaN order as in
     :func:`selection_mean_stream`; the Gram is read as f32.
 
-    A composition of :func:`selection_weights` on ``gram[None]`` and
-    :func:`weighted_rows` on ``x[None]`` (no Gram launch): one read of the
-    Gram, one of the selected rows, a ``(d,)`` write, the TPU kernel's
-    traffic. The sweep reads rows with ``w != 0`` where the TPU kernel
-    reads ``w > 0``; B5's weights are ``1/q`` or 0, so the two give the
-    same bits. It counts nothing itself; ``d = 0`` launches nothing."""
+    On the card one launch (counter ``selection_mean_from_gram:<mode>``):
+    the first block computes B4's weights on the Gram and every block then
+    sums the selected rows (those with ``w != 0``; B5's weights are ``1/q``
+    or 0, so this is the reference's ``w > 0``), one read of the Gram, one
+    of the selected rows and a ``(d,)`` write, the TPU kernel's traffic. It
+    uses a small zeroed scratch kept for each device and stream (zeroed
+    once, when first made, and left zeroed by every call). ``d = 0``
+    launches nothing."""
     sel = dict(f=f, q=q, mode=mode, reference_index=reference_index)
     _check_from_gram(x, gram, **sel)
-    if x.shape[1] == 0:
-        return x.new_empty((0,))
-    w = selection_weights(gram.to(torch.float32)[None].contiguous(), **sel)
-    return weighted_rows(x[None], w)[0]
+    if _on_cpu(x, gram):
+        return selection_mean_from_gram_plain(x, gram, **sel)
+    n, d = x.shape
+    _check_cuda_input(x, n)
+    g = gram.to(torch.float32).contiguous()
+    out = torch.empty((d,), dtype=x.dtype, device=x.device)
+    if d == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _call(
+            "byz_selection_mean_from_gram", x.data_ptr(), g.data_ptr(), out.data_ptr(),
+            _from_gram_scratch(x).data_ptr(), n, d, f, q, _SELECTION_MODES[mode],
+            reference_index, _DTYPE_CODES[x.dtype], _stream(x),
+        )
+    launch_counts[f"selection_mean_from_gram:{mode}"] += 1
+    return out
+
+
+# B5's scratch by (device, stream): zeroed when made, and each call leaves it
+# zeroed; calls on one stream run one after another, so they can share one
+_FROM_GRAM_SCRATCH: dict = {}
+
+
+def _from_gram_scratch(x: torch.Tensor) -> torch.Tensor:
+    key = (x.device.index, _stream(x))
+    scratch = _FROM_GRAM_SCRATCH.get(key)
+    if scratch is None:
+        size = _build.function("byz_from_gram_scratch_bytes")()
+        scratch = torch.zeros((size,), dtype=torch.uint8, device=x.device)
+        _FROM_GRAM_SCRATCH[key] = scratch
+    return scratch
 
 
 def selection_mean_from_gram_plain(

@@ -8,7 +8,7 @@ B10's (clip and ARC in front of them; ``csrc/clip_selection.cu``) and B9's
 
 Run from the repository root on a machine with a card and ``nvcc``:
 
-    python3 chip_selection_ablation.py [--before DIR] [--kinds b4,b10,b9,b6]
+    python3 chip_selection_ablation.py [--before DIR] [--kinds b4,b10,b9,b6,b8,b5]
 
 It builds each kernel as it is and variants of the same sources (text
 patches), each into its own library under
@@ -55,9 +55,45 @@ B6's (f32 instances only):
 * ``evict_last``: the producer's bulk copies with an L2 evict-last policy,
   so the column is still in L2 when the select reads it again;
 
+B8's selection state (``nnm_weights_kernel``, ``csrc/nnm.cu``):
+
+* ``threads_256`` / ``threads_1024``: at most 256 / 1,024 threads a block
+  in place of 512;
+* ``warp_sort``: from 16 rows on, a warp's bitonic sort of each mixer's
+  column across its lanes (``WarpSort``, keys in rows of NPAD + 1 words)
+  and ballots, as B9's selection, in place of KeySort's runs in a padded
+  buffer;
+* ``no_mask``: the sort and the bits only, the mask not written;
+* ``launch_only``: as B4's;
+
+B5, the Multi-Krum fold's finalize in one launch
+(``selection_mean_from_gram_kernel``, ``csrc/selection.cu``):
+
+* ``rows_2`` / ``rows_8``: 2 / 8 rows' loads in flight a thread in place
+  of 4;
+* ``slots_1`` / ``slots_2``: 1 / 2 slots of 16 bytes a thread at once at
+  every width, in place of 2 where every block computes the weights (up
+  to 8 rows) and 1 above;
+* ``one_replica``: one copy of the published selection in place of 8 (every
+  waiting block polls one line);
+* ``ticket_at_8``: at 8 rows the ticket and the published selection, in
+  place of every block computing the weights itself;
+* ``bounds_no_min``: the launch bounds without a block count (ptxas then
+  holds some 16-bit instances to 40 registers and spills);
+* ``scalar_loads``: every row read an element at a time, in place of the
+  widest load its start allows;
+* ``prefetch_wait``: every block first asks L2 for its first slot of every
+  row, before it waits for the weights;
+* ``no_sweep``: the weights, their publication and the wait only;
+* ``pdl``: B4's two kernels (weights, then the row sweep) joined by
+  Hopper's programmatic dependent launch, in place of one kernel (how
+  much of the gain is the launch gap alone);
+* ``two_launches``: B4's two kernels as they are, launched one after the
+  other (B5 before this design);
+
 and, with ``--before DIR`` (a ``csrc`` directory of an older tree), that
 tree's ``selection.cu``, ``clip_selection.cu``, ``nnm.cu`` and ``meamed.cu``
-as ``before``. It prints ptxas's registers and spills of every build, then
+as ``before`` (B5's ``before``: that tree's two launches). It prints ptxas's registers and spills of every build, then
 times each with CUDA events and torch.profiler's device time (the main
 path's calls are shorter than a launch gap): B4's and B10's weights in
 every mode on B3's Gram of one round of n = 8 (f = 2, q = 4: the main
@@ -65,10 +101,14 @@ path's), 16, 64 and 128 rows (f = n / 8, q = 3 n / 16; cge and monna at f
 = 0, q = n - n / 8, as ``robust.cge`` and ``robust.monna`` call them;
 tau the median norm, ARC's f = n / 8); B9's weights on a Gram of n = 8, 64
 and 128 rows (f_nnm = f = n / 8, q = 3 n / 16; the main path's 8 rows at f
-= 2, q = 4); and B6 on f32 rounds of 64 x 1,048,576 (f = 8), 8 x 421,642 (f
-= 2) and 128 x 421,642 (f = 40), beside a copy of the rows. Every variant
-that computes the result is checked bit for bit against the plain version.
-One JSON object a line; the card's name and power limit first.
+= 2, q = 4); B6 on f32 rounds of 64 x 1,048,576 (f = 8), 8 x 421,642 (f
+= 2) and 128 x 421,642 (f = 40), beside a copy of the rows; B8's selection
+state on the Gram of 8, 64 and 128 rows (k = n - 2 at 8 rows, n - n / 8
+above); and B5 (krum) at 8 x 421,642 (f = 2, q = 4), 64 x 1,048,576 (f =
+8, q = 12) in f32 and bf16, and 128 x 421,642 (f = 16, q = 24), beside its
+bound (the Gram and the q rows read once, the output written once). Every
+variant that computes the result is checked bit for bit against the plain
+version. One JSON object a line; the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -86,12 +126,15 @@ CSRC = os.path.join(HERE, "byzpy_tpu_torch", "csrc")
 NNM, BLOCK, MEAMED, ENGINE = "nnm.cu", "selection_block.cuh", "meamed.cu", "column_sort.cuh"
 SEL, CLIP = "selection.cu", "clip_selection.cu"
 # each kind's source, C entry point and kernels (ptxas lines, profiler rows)
-SOURCE = {"b4": SEL, "b10": CLIP, "b9": NNM, "b6": MEAMED}
+SOURCE = {"b4": SEL, "b10": CLIP, "b9": NNM, "b6": MEAMED, "b8": NNM, "b5": SEL}
 ENTRY = {"b4": "byz_selection_weights", "b10": "byz_clip_selection_weights",
-         "b9": "byz_nnm_selection_weights", "b6": "byz_meamed"}
+         "b9": "byz_nnm_selection_weights", "b6": "byz_meamed", "b8": "byz_nnm_weights",
+         "b5": "byz_selection_mean_from_gram"}
 KERNEL = {"b4": ("selection_weights_kernel", "narrow_weights_kernel"),
           "b10": ("clip_selection_weights_kernel", "narrow_clip_kernel"),
-          "b9": ("nnm_selection_weights_kernel",), "b6": ("meamed_kernel",)}
+          "b9": ("nnm_selection_weights_kernel",), "b6": ("meamed_kernel",),
+          "b8": ("nnm_weights_kernel", "nnm_selection_weights_kernel"),
+          "b5": ("selection_mean_from_gram_kernel", "selection_weights_kernel", "weighted_rows_kernel")}
 
 # The per-thread instance (the design the block-wide weights replaced): one
 # block of NPAD threads a round, thread j owning node j, its column's keys
@@ -391,7 +434,128 @@ MEAMED_F32_ONLY = [
     (MEAMED, "    case kF16: return launch<__half>(x, out, K, n, d, f, s);\n", ""),
 ]
 ROTATION = [(MEAMED, "  // x_col: row 0 of this column in x, rows d apart.", ROTATION_METHOD)]
-# (file, anchor, replacement) for each variant; a kind's variants build its SOURCE
+# B8 by a warp's sort of each mixer's column (B9's selection), keys in rows
+# of NPAD + 1 words
+B8_SORT_START = "  // the lanes of a column group sort mixer i's column, then take its rows\n"
+B8_SORT_END = "  // mask[j][i] from the bits: lane l of a warp takes mixer i = 32 ib + l and\n"
+B8_WARP_SORT = """    // (warp_sort) a warp sorts mixer i's column across its lanes; ballots take the rows
+    const int lane = t & 31;
+    {
+      using WS = selblock::WarpSort<NPAD>;
+      const int le = lane % WS::G, grp = lane / WS::G;
+      const unsigned mine = WS::G == 32 ? 0xFFFFFFFFu : ((1u << WS::G) - 1u) << (grp * WS::G);
+      for (int i0 = (t >> 5) * WS::CPW; i0 < n; i0 += (S::T / 32) * WS::CPW) {
+        const int i = i0 + grp;
+        int32_t v[WS::R], o[WS::R];
+#pragma unroll
+        for (int r = 0; r < WS::R; ++r) {
+          o[r] = keys[i * (NPAD + 1) + r * WS::G + le];
+          v[r] = o[r];
+        }
+        WS::sort(v, lane);
+        int32_t at = v[0];
+#pragma unroll
+        for (int r = 1; r < WS::R; ++r)
+          if (r == (k - 1) / WS::G) at = v[r];
+        const int32_t cut = __shfl_sync(0xFFFFFFFFu, at, grp * WS::G + (k - 1) % WS::G);
+        int quota = k;
+#pragma unroll
+        for (int r = 0; r < WS::R; ++r) quota -= __popc(__ballot_sync(0xFFFFFFFFu, o[r] < cut) & mine);
+#pragma unroll
+        for (int r = 0; r < WS::R; ++r) {
+          const unsigned eq = __ballot_sync(0xFFFFFFFFu, o[r] == cut) & mine;
+          const bool take = o[r] < cut || (o[r] == cut && __popc(eq & ((1u << lane) - 1u)) < quota);
+          quota -= __popc(eq);
+          const unsigned bits = __ballot_sync(0xFFFFFFFFu, take) & mine;
+          if (le == 0 && i < n) sel[i * WP + r] = bits >> (grp * WS::G);
+        }
+      }
+    }
+    __syncthreads();
+"""
+B8_WARP_SORT_KEYS = [
+    (NNM, "return NPAD * selblock::KeySort<NPAD>::SP * (int)sizeof(int32_t);",
+     "return NPAD * (NPAD + 1) * (int)sizeof(int32_t);"),
+    (NNM, "      keys[KS::addr(i, j)] =", "      keys[i * (NPAD + 1) + j] ="),
+    (NNM, (B8_SORT_START, B8_SORT_END), B8_WARP_SORT),
+]
+# B8 without the mask's stores (the sort and the bits only)
+B8_LAUNCH = "// One launch of B8's selection state at width NPAD"
+B8_NO_MASK = """  // (no_mask) the bits kept alive, the mask not written
+  if (t == 0 && n < 0) m[0] = (float)sel[0];
+}
+
+"""
+# B5 as B4's two kernels joined by programmatic dependent launch: the
+# weights kernel lets the sweep start at once, and the sweep waits for the
+# weights before it reads them
+B5_PDL_ENTRY = """
+template <typename T, int NPAD>
+cudaError_t launch_pdl(const T* x, const float* gram, T* out, float* w, int n, long long d, int f,
+                       int q, int mode, int ref, cudaStream_t s) {
+  cudaError_t err = launch_weights<NPAD>(gram, w, 1, n, f, q, mode, ref, s);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((d + kRowThreads - 1) / kRowThreads), 1);
+  cfg.blockDim = dim3(kRowThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, weighted_rows_kernel<T>, x, (const float*)w, out, n, d);
+}
+
+template <typename T>
+cudaError_t launch_pdl_dtype(const void* x, const float* gram, void* out, float* w, int n, long long d,
+                             int f, int q, int mode, int ref, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  switch (network_width(n)) {
+    case 8: return launch_pdl<T, 8>(xt, gram, ot, w, n, d, f, q, mode, ref, s);
+    case 16: return launch_pdl<T, 16>(xt, gram, ot, w, n, d, f, q, mode, ref, s);
+    case 32: return launch_pdl<T, 32>(xt, gram, ot, w, n, d, f, q, mode, ref, s);
+    case 64: return launch_pdl<T, 64>(xt, gram, ot, w, n, d, f, q, mode, ref, s);
+    case 128: return launch_pdl<T, 128>(xt, gram, ot, w, n, d, f, q, mode, ref, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int byz_selection_mean_from_gram_pdl(const void* x, const float* gram, void* out,
+                                                void* scratch, int n, long long d, int f, int q,
+                                                int mode, int ref, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = reinterpret_cast<float*>(static_cast<char*>(scratch) + 2048);  // past B5's scratch
+  switch (dtype) {
+    case kF32: return launch_pdl_dtype<float>(x, gram, out, w, n, d, f, q, mode, ref, s);
+    case kBF16: return launch_pdl_dtype<__nv_bfloat16>(x, gram, out, w, n, d, f, q, mode, ref, s);
+    case kF16: return launch_pdl_dtype<__half>(x, gram, out, w, n, d, f, q, mode, ref, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+"""
+B5_PDL = [
+    (SEL, "  const float* g = gram + (long long)blockIdx.x * n * n;\n",
+     "  const float* g = gram + (long long)blockIdx.x * n * n;\n"
+     "  asm volatile(\"griddepcontrol.launch_dependents;\" ::: \"memory\");\n"),
+    (SEL, "  __shared__ float ws[128];\n  const int k = blockIdx.y;\n",
+     "  __shared__ float ws[128];\n  const int k = blockIdx.y;\n"
+     "  asm volatile(\"griddepcontrol.wait;\" ::: \"memory\");\n"),
+    (SEL, "}  // namespace\n\n// gram: (K, n, n) f32; w: (K, n) f32 out.",
+     "}  // namespace\n" + B5_PDL_ENTRY + "\n// gram: (K, n, n) f32; w: (K, n) f32 out."),
+]
+# the waiting blocks ask L2 for their first slot of every row
+B5_WAIT = "  unsigned exits = 0;  // thread 0: the blocks counted out before this one\n"
+B5_PREFETCH = B5_WAIT + """  {
+    const long long c = ((long long)blockIdx.x * S::T + t) * (16 / (int)sizeof(T));
+    if (c < d)
+      for (int j = 0; j < n; ++j) asm volatile("prefetch.global.L2 [%0];" ::"l"(x + (long long)j * d + c));
+  }
+"""
+B5_SWEEP = "  sweep_selected<T, S::T, kSweepSlots<NPAD>>(x, out, row_s, weight_s, cnt, d);\n"
+# (file, anchor, replacement) for each variant, an anchor a string or a
+# (start, end) pair whose text between is replaced; a kind's variants build its SOURCE
 SEL_LAUNCH_ONLY = ("  const float* g = gram + (long long)blockIdx.x * n * n;\n",
                    "  const float* g = gram + (long long)blockIdx.x * n * n;\n  if (n > 0) return;\n")
 VARIANTS = {
@@ -416,7 +580,7 @@ VARIANTS = {
         "kernel": [],
         "threads_256": [(NNM, "constexpr int kSelThreads = 1024;", "constexpr int kSelThreads = 256;")],
         "threads_512": [(NNM, "constexpr int kSelThreads = 1024;", "constexpr int kSelThreads = 512;")],
-        "rank_select": [(NNM, None, RANK_SELECT)],
+        "rank_select": [(NNM, (RANK_BLOCK_START, RANK_BLOCK_END), RANK_SELECT)],
         "launch_only": [(NNM, *SEL_LAUNCH_ONLY)],
     },
     "b6": {
@@ -428,17 +592,51 @@ VARIANTS = {
         "waves_2": [],
         "evict_last": [(ENGINE, BULK_COPY, BULK_COPY_EVICT_LAST)],
     },
+    "b8": {
+        "kernel": [],
+        "threads_256": [(NNM, "constexpr int kNnmThreads = 512;", "constexpr int kNnmThreads = 256;")],
+        "threads_1024": [(NNM, "constexpr int kNnmThreads = 512;", "constexpr int kNnmThreads = 1024;")],
+        "warp_sort": B8_WARP_SORT_KEYS,
+        "no_mask": [(NNM, (B8_SORT_END, B8_LAUNCH), B8_NO_MASK)],
+        "launch_only": [(NNM, "  float* m = mask + (long long)blockIdx.x * n * n;\n",
+                         "  float* m = mask + (long long)blockIdx.x * n * n;\n  if (n > 0) return;\n")],
+    },
+    "b5": {
+        "kernel": [],
+        "rows_2": [(SEL, "constexpr int kSweepRows = 4;", "constexpr int kSweepRows = 2;")],
+        "rows_8": [(SEL, "constexpr int kSweepRows = 4;", "constexpr int kSweepRows = 8;")],
+        "slots_1": [(SEL, "constexpr int kSweepSlots = NPAD <= kSelfWeightsRows ? 2 : 1;",
+                     "constexpr int kSweepSlots = 1;")],
+        "slots_2": [(SEL, "constexpr int kSweepSlots = NPAD <= kSelfWeightsRows ? 2 : 1;",
+                     "constexpr int kSweepSlots = 2;")],
+        "one_replica": [(SEL, "constexpr int kReplicas = 8;", "constexpr int kReplicas = 1;")],
+        "ticket_at_8": [(SEL, "constexpr int kSelfWeightsRows = 8;", "constexpr int kSelfWeightsRows = 4;")],
+        "bounds_no_min": [(SEL, "__global__ void __launch_bounds__(SelShape<NPAD>::T, 2)\nselection_mean_from_gram_kernel",
+                           "__global__ void __launch_bounds__(SelShape<NPAD>::T)\nselection_mean_from_gram_kernel")],
+        "scalar_loads": [(SEL, "  return (low & 15u) == 0 ? 16 : (low & 7u) == 0 ? 8 : (low & 3u) == 0 ? 4 : (int)sizeof(T);",
+                          "  return (int)sizeof(T);")],
+        "prefetch_wait": [(SEL, B5_WAIT, B5_PREFETCH)],
+        "no_sweep": [(SEL, B5_SWEEP, "  if (d < 0) " + B5_SWEEP.lstrip())],
+        "pdl": B5_PDL,
+    },
 }
+# B5's variants with another entry point
+B5_ENTRY = {"pdl": "byz_selection_mean_from_gram_pdl"}
 # B6 variants run at runs this many times shorter (kernels.column_runs as if
 # the card had this many times its SMs)
 RUN_WAVES = {"waves_2": 2}
-UNCHECKED = ("launch_only",)
+UNCHECKED = ("launch_only", "no_sweep", "no_mask")
 # (label, n, f_nnm, f, q) of B9's Gram
 B9_SHAPES = [("main_path", 8, 2, 2, 4), ("n8", 8, 1, 1, 1), ("n64", 64, 8, 8, 12), ("n128", 128, 16, 16, 24)]
 # (label, n, f, q) of B4's and B10's Krum (ARC's f = f)
 SEL_SHAPES = [("main_path", 8, 2, 4), ("n16", 16, 2, 3), ("n64", 64, 8, 12), ("n128", 128, 16, 24)]
 # (label, n, d, f) of B6's single round
 B6_SHAPES = [("headline", 64, 1_048_576, 8), ("main_path", 8, 421_642, 2), ("n128", 128, 421_642, 40)]
+# (label, n, k) of B8's Gram
+B8_SHAPES = [("main_path", 8, 6), ("n64", 64, 56), ("n128", 128, 112)]
+# (label, n, d, f, q, dtype) of B5's round
+B5_SHAPES = [("main_path", 8, 421_642, 2, 4, "float32"), ("headline", 64, 1_048_576, 8, 12, "float32"),
+             ("n128", 128, 421_642, 16, 24, "float32"), ("headline_bf16", 64, 1_048_576, 8, 12, "bfloat16")]
 
 
 def sources(kind: str, name: str, before: str | None) -> dict:
@@ -451,10 +649,10 @@ def sources(kind: str, name: str, before: str | None) -> dict:
                 texts[fn] = fh.read()
     for fn, anchor, repl in VARIANTS[kind].get(name, []):
         text = texts.get(fn, "")
-        if anchor is None:  # replace NNM's rank-select block
-            i, j = text.find(RANK_BLOCK_START), text.find(RANK_BLOCK_END)
+        if isinstance(anchor, tuple):  # replace the text from one anchor up to another
+            i, j = text.find(anchor[0]), text.find(anchor[1])
             if i < 0 or j < 0:
-                raise SystemExit(f"{fn} no longer holds the rank-select block: update {name!r}")
+                raise SystemExit(f"{fn} no longer holds {anchor[0]!r} ... {anchor[1]!r}: update {name!r}")
             texts[fn] = text[:i] + repl + text[j:]
             continue
         if anchor not in text:
@@ -501,8 +699,12 @@ def build(nvcc: str, flags, out_dir: str, before: str | None, kinds) -> dict:
             if "Compiling entry function" in line or "Function properties for" in line:
                 fn = line
             if fn and any(k in fn for k in KERNEL[kind]) and ("registers" in line or "spill" in line):
-                regs.append(line.strip())
+                # the instance's mangled name (cu++filt demangles it), then its line
+                regs.append(fn.replace("'", " ").split()[-3 if "entry" in fn else -1] + ": " + line.strip())
         print(json.dumps({"kernel": kind, "variant": name, "ptxas": regs}), flush=True)
+        if kind == "b5":  # its entry points are looked up by b5_rows
+            fns[(kind, name)] = (ctypes.CDLL(lib), False)
+            continue
         entry = ENTRY[kind]
         f = getattr(ctypes.CDLL(lib), entry)
         argtypes = list(_build.SIGNATURES[entry][1])
@@ -529,9 +731,11 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel, calls: int = 20) -> float | None:
+def device_ms(fn, kernel, calls: int = 20, *, each: bool = False) -> float | None:
     """Device time a launch of ``kernel`` (a name, or a tuple of names: any
-    of them) by torch.profiler, or None when the profile recorded none."""
+    of them) by torch.profiler, or None when the profile recorded none;
+    with ``each``, the sum over the names of each one's time a launch (a
+    call that launches each of them once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -542,19 +746,26 @@ def device_ms(fn, kernel, calls: int = 20) -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = count = 0
     names = (kernel,) if isinstance(kernel, str) else kernel
+    us, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in names):
-            us += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
-            count += ev.count
-    return us / 1e3 / count if count else None
+        hit = [k for k in names if k in ev.key] if ev.device_type == DeviceType.CUDA else []
+        if hit:
+            us[hit[0]] += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+            count[hit[0]] += ev.count
+    if each:
+        if not all(count.values()):
+            return None
+        return sum(us[k] / count[k] for k in names) / 1e3
+    total = sum(count.values())
+    return sum(us.values()) / 1e3 / total if total else None
 
 
 def bits_equal(a, b) -> bool:
     import torch
 
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ints = torch.int32 if a.element_size() == 4 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
 
 
 def selection_rows(fns, kind: str) -> None:
@@ -684,13 +895,113 @@ def b6_rows(fns) -> None:
         torch.cuda.empty_cache()
 
 
+def gram_of_rows(n: int):
+    """B3's Gram of one (1, n, 421,642) f32 round, every third row x3."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn((1, n, 421_642), generator=gen, device="cuda")
+    x[:, ::3] *= 3.0
+    return kernels.gram(x)
+
+
+def b8_rows(fns) -> None:
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, n, k in B8_SHAPES:
+        g = gram_of_rows(n)
+        mask, st = torch.empty((1, n, n), device="cuda"), torch.empty((1, n), device="cuda")
+        ref_mask, ref_st = kernels.nnm_weights_plain(g, k=k)
+        row = {"kernel": "b8", "shape": label, "n": n, "k": k}
+        for (kind, name), (fn, _) in fns.items():
+            if kind != "b8":
+                continue
+
+            def run(fn=fn, name=name):
+                rc = fn(g.data_ptr(), mask.data_ptr(), st.data_ptr(), 1, n, k, stream)
+                if rc:
+                    raise RuntimeError(f"{name} returned {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            if name not in UNCHECKED and not (torch.equal(mask, ref_mask) and torch.equal(st, ref_st)):
+                raise SystemExit(f"B8 {name} differs from the plain version at {label}")
+            row[f"{name}_ms"] = cuda_time_ms(run)
+            row[f"{name}_device_ms"] = device_ms(run, "nnm_weights_kernel")
+        print(json.dumps(row), flush=True)
+
+
+def b5_rows(fns) -> None:
+    """B5 (krum) by each variant on one round and its B3 Gram, bit for bit
+    against the plain version; ``two_launches`` (and ``before``) call B4's
+    two entry points of that library, weights then sweep."""
+    import torch
+
+    from byzpy_tpu_torch.ops import _build, kernels
+
+    stream = torch.cuda.current_stream().cuda_stream
+    codes = {"float32": 0, "bfloat16": 1, "float16": 2}
+    scratch = torch.zeros((4096,), dtype=torch.uint8, device="cuda")
+    variants = [(name, lib) for (kind, name), (lib, _) in fns.items() if kind == "b5"]
+    if ("b5", "kernel") in fns:
+        variants.append(("two_launches", fns[("b5", "kernel")][0]))
+    for label, n, d, f, q, dt in B5_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n + d)
+        x = torch.randn((n, d), generator=gen, device="cuda").to(getattr(torch, dt))
+        x[::3] *= 3.0
+        g = kernels.gram(x[None])[0]
+        isz = x.element_size()
+        out = torch.empty((d,), dtype=x.dtype, device="cuda")
+        w = torch.empty((1, n), device="cuda")
+        ref = kernels.selection_mean_from_gram_plain(x, g, f=f, q=q)
+        row = {"kernel": "b5", "shape": label, "n": n, "d": d, "f": f, "q": q, "dtype": dt,
+               "bytes_bound_ms": (n * n * 4 + q * d * isz + d * isz) / 3.35e9 * 1e3}
+        for name, lib in variants:
+            if name in ("two_launches", "before"):
+                weights, rows = lib.byz_selection_weights, lib.byz_weighted_rows
+                weights.argtypes = _build.SIGNATURES["byz_selection_weights"][1]
+                rows.argtypes = _build.SIGNATURES["byz_weighted_rows"][1]
+
+                def run(weights=weights, rows=rows, name=name):
+                    rc = weights(g.data_ptr(), w.data_ptr(), 1, n, f, q, 0, 0, stream) or rows(
+                        x.data_ptr(), w.data_ptr(), out.data_ptr(), 1, n, d, codes[dt], stream)
+                    if rc:
+                        raise RuntimeError(f"{name} returned {rc}")
+                names = ("selection_weights_kernel", "weighted_rows_kernel")
+            else:
+                fn = getattr(lib, B5_ENTRY.get(name, ENTRY["b5"]))
+                fn.argtypes = _build.SIGNATURES[ENTRY["b5"]][1]
+
+                def run(fn=fn, name=name):
+                    rc = fn(x.data_ptr(), g.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, f, q, 0, 0,
+                            codes[dt], stream)
+                    if rc:
+                        raise RuntimeError(f"{name} returned {rc}")
+                names = ("selection_weights_kernel", "weighted_rows_kernel") if name == "pdl" else (
+                    "selection_mean_from_gram_kernel",)
+            run()
+            torch.cuda.synchronize()
+            if name not in UNCHECKED and not bits_equal(out, ref):
+                raise SystemExit(f"B5 {name} differs from the plain version at {label}")
+            row[f"{name}_ms"] = cuda_time_ms(run)
+            row[f"{name}_device_ms"] = device_ms(run, names, each=True)
+        print(json.dumps(row), flush=True)
+        del x, g, out, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--before", help="csrc directory of an older tree, built as 'before'")
-    parser.add_argument("--kinds", default="b4,b10,b9,b6",
-                        help="kernels to take apart: any of b4, b10, b9, b6, comma-separated")
+    parser.add_argument("--kinds", default="b4,b10,b9,b6,b8,b5",
+                        help="kernels to take apart: any of b4, b10, b9, b6, b8, b5, comma-separated")
     args = parser.parse_args()
     kinds = args.kinds.split(",")
     if not set(kinds) <= set(VARIANTS):
@@ -719,6 +1030,10 @@ def main() -> int:
         b9_rows(fns)
     if "b6" in kinds:
         b6_rows(fns)
+    if "b8" in kinds:
+        b8_rows(fns)
+    if "b5" in kinds:
+        b5_rows(fns)
     return 0
 
 

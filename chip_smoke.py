@@ -390,13 +390,13 @@ def check_gram_order(errs: dict) -> None:
 
 
 def check_selection_from_gram(errs: dict) -> None:
-    """B5 (B4's weights and sweep on a given Gram, no Gram launch) against
-    its plain version, K = 1, in f32, bf16 and f16, on a Gram from B3 and
-    on one folded by ``robust.gram_fold_update`` in a seeded arrival order
-    (16-bit rows into an f32 Gram): the weights equal to the plain
-    version's on the same Gram, the output within B4's sweep tolerance of
-    the plain sweep on those weights (2 ulp), on tie-heavy rows (duplicated
-    and zero rows) and on ``random_rounds(specials=True)``'s NaN and inf."""
+    """B5 (one launch: B4's weights block and the selected rows' sweep on a
+    given Gram, no Gram launch) against its plain version and B4's two
+    kernels, K = 1, in f32, bf16 and f16, bit for bit: on a Gram from B3
+    and on one folded by ``robust.gram_fold_update`` in a seeded arrival
+    order (16-bit rows into an f32 Gram), on tie-heavy rows (duplicated and
+    zero rows) and on ``random_rounds(specials=True)``'s NaN and inf; then
+    the edges of its sweep (``check_from_gram_edges``)."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels, robust
@@ -420,19 +420,74 @@ def check_selection_from_gram(errs: dict) -> None:
                     w_plain = kernels.selection_weights_plain(g[None], f=f, q=q, mode="krum")
                     check(torch.equal(w, w_plain),
                           f"B5 weights differ from plain on the {label} Gram at {(n, d)} {name}")
-                    before = kernels.launch_counts["gram"]
+                    before = dict(kernels.launch_counts)
                     out = kernels.selection_mean_from_gram(x, g, f=f, q=q)
-                    check(kernels.launch_counts["gram"] == before, "B5 launched a Gram")
+                    moved = {k: v - before[k] for k, v in kernels.launch_counts.items() if v != before[k]}
+                    check(moved == {"selection_mean_from_gram:krum": 1},
+                          f"B5 launched {moved}, not one selection_mean_from_gram:krum")
                     ref = kernels.weighted_rows_plain(x[None], w_plain)[0]
-                    ulps = ulp_diff(out, ref)
-                    check(ulps <= 2 and nan_is_canonical(out),
-                          f"B5 {ulps} ulp from plain on the {label} Gram at {(n, d)} {name}")
-                    errs["selection_mean_from_gram"] = max(errs["selection_mean_from_gram"],
-                                                           max_abs_err(out, ref))
+                    check(bits_equal(out, ref) and nan_is_canonical(out),
+                          f"B5 differs from plain on the {label} Gram at {(n, d)} {name}")
+                    check(bits_equal(out, kernels.weighted_rows(x[None], w)[0]),
+                          f"B5 differs from B4's two kernels on the {label} Gram at {(n, d)} {name}")
+                    errs["selection_mean_from_gram:krum"] = max(errs["selection_mean_from_gram:krum"],
+                                                                max_abs_err(out, ref))
                     log(f"  B5 {(n, d)} {name} {'specials' if specials else 'ties'} {label} Gram: "
-                        f"weights equal, rows {(w[0] != 0).nonzero().flatten().tolist()}, "
-                        f"{ulps} ulp, {int(torch.isnan(out).sum())} NaN")
+                        f"one launch, bitwise plain and B4's two kernels, rows "
+                        f"{(w[0] != 0).nonzero().flatten().tolist()}, {int(torch.isnan(out).sum())} NaN")
                 del x, buf, folded
+        torch.cuda.empty_cache()
+    check_from_gram_edges(errs)
+
+
+# B5's sweep where its design has edges: d below a 16-byte slot, around
+# one, at the main path's d (every other f32 row only 8-byte aligned) and
+# the headline's, rows that start an element past an aligned address
+FROM_GRAM_EDGES = [(8, 1), (8, 255), (13, 256), (13, 257), (MAIN_N, 421_642), (64, 1_048_576),
+                   (128, 4099)]
+
+
+def check_from_gram_edges(errs: dict) -> None:
+    """B5 bit for bit its plain version and B4's two kernels, one launch a
+    call, in every mode and dtype at ``FROM_GRAM_EDGES``, on rows viewed at
+    element offsets 0 and 1 of a larger buffer, with a NaN row and an inf
+    row (ranked last, so taken only where q reaches them: the log counts
+    the calls that took one)."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    for n, d in FROM_GRAM_EDGES:
+        for name in DTYPES:
+            x = random_rounds((1, n, d), seed=620 + n, dtype=getattr(torch, name))[0]
+            x[2], x[5], x[3] = x[1], x[1], 0.0
+            x[n - 1, ::7] = float("nan")
+            x[n // 2] = float("inf")
+            g = kernels.gram(x[None])[0]
+            for start in (0, 1):
+                big = torch.zeros(n * d + start, dtype=x.dtype, device=x.device)
+                big[start:] = x.reshape(-1)
+                xv = big[start:].view(n, d)
+                picked = []
+                for mode in ("krum", "cge", "monna"):
+                    f = max(0, (n - 3) // 4) if mode == "krum" else 0
+                    for q in sorted({max(1, n // 3), n - f}):
+                        sel = dict(f=f, q=q, mode=mode, reference_index=(n - 1) // 2)
+                        before = kernels.launch_counts[f"selection_mean_from_gram:{mode}"]
+                        out = kernels.selection_mean_from_gram(xv, g, **sel)
+                        check(kernels.launch_counts[f"selection_mean_from_gram:{mode}"] == before + 1,
+                              f"B5 ({mode}) did not count one launch")
+                        ref = kernels.selection_mean_from_gram_plain(x, g, **sel)
+                        w = kernels.selection_weights(g[None], **sel)
+                        check(bits_equal(out, ref) and bits_equal(out, kernels.weighted_rows(x[None], w)[0]),
+                              f"B5 ({mode}, q={q}) differs at n={n}, d={d}, {name}, offset {start}")
+                        key = f"selection_mean_from_gram:{mode}"
+                        if key in errs:
+                            errs[key] = max(errs[key], max_abs_err(out, ref))
+                        picked.append(int(bool(w[0, n - 1] != 0 or w[0, n // 2] != 0)))
+            log(f"  B5 edges n={n} d={d} {name}: bitwise at offsets 0 and 1, every mode, "
+                f"non-finite rows taken by mode and q {picked[-6:]}")
+            del x, g, big, xv
         torch.cuda.empty_cache()
 
 
@@ -513,6 +568,50 @@ def check_mixing_edges(errs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# B8's selection state where its block has edges: a lane a column (up to 16
+# rows) and 8 lanes a column (32 and up), n at and around each width
+NNM_EDGE_N = (1, 2, 3, 7, 8, 9, 31, 33, 64, 100, 127, 128)
+
+
+def check_nnm_selection_edges(errs: dict) -> None:
+    """B8's selection state bit for bit its plain version at ``NNM_EDGE_N``
+    rows, K = 1 and 3, k = 1, n - n // 4 and n, on B3's Gram of rows
+    repeated in threes with zero rows (ties at the cut), of rows holding an
+    inf row and a NaN entry, and on a Gram of small integers that is not
+    symmetric; one launch a call."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    for n in NNM_EDGE_N:
+        for K in (1, 3):
+            x = pre_rows((K, n, 4099), seed=340 + n + K)
+            ties = x[:, torch.arange(n, device=x.device) // 3 * 3].clone()
+            ties[:, [i for i in (1, 4) if i < n]] = 0.0
+            bad = x.clone()
+            bad[0, n // 2] = float("inf")
+            bad[-1, n - 1, 10] = float("nan")
+            gen = torch.Generator(device=x.device).manual_seed(350 + n + K)
+            ints = torch.randint(-3, 4, (K, n, n), generator=gen, device=x.device).float()
+            ints.diagonal(dim1=1, dim2=2).copy_(torch.randint(6, 9, (K, n), generator=gen, device=x.device))
+            tainted = 0
+            for label, g in (("ties", kernels.gram(ties)), ("non-finite", kernels.gram(bad)),
+                             ("integer", ints)):
+                for k in sorted({1, n - n // 4, n}):
+                    before = kernels.launch_counts["nnm_weights"]
+                    mask, st = kernels.nnm_weights(g, k=k)
+                    check(kernels.launch_counts["nnm_weights"] == before + 1, "B8 did not count one launch")
+                    mask_p, st_p = kernels.nnm_weights_plain(g, k=k)
+                    check(bits_equal(mask, mask_p) and bits_equal(st, st_p),
+                          f"B8 selection differs from plain on the {label} Gram at n={n}, K={K}, k={k}")
+                    errs["nnm_weights"] = max(errs["nnm_weights"], float((mask - mask_p).abs().max()))
+                    tainted += int(st.sum())
+            del x, ties, bad, ints
+        log(f"  B8 selection state n={n}: bitwise at K = 1 and 3, k in {sorted({1, n - n // 4, n})}, "
+            f"ties, non-finite rows ({tainted} tainted mixers) and an integer Gram")
+    torch.cuda.empty_cache()
+
+
 def check_pre_aggregation(errs: dict) -> None:
     """B8, B9, B10-clip and B10-arc against their plain versions: each
     weights launch bitwise on the kernel Gram, each sweep bitwise (B8) or
@@ -524,6 +623,7 @@ def check_pre_aggregation(errs: dict) -> None:
     from byzpy_tpu_torch.ops.preagg import arc_cut_off
 
     check_mixing_edges(errs)
+    check_nnm_selection_edges(errs)
     cases = [((1, MAIN_N, 421_642), False), ((1,) + HEADLINE, False), ((2, 13, 50_000), True)]
     for shape, nonfinite in cases:
         n = shape[1]
@@ -1165,7 +1265,7 @@ def class_api_configs(example_params: dict) -> tuple:
     fold_cge = folded("fold_cge", lambda dev: ComparativeGradientElimination(b, device=dev))
     sweep = "weighted_rows"
     configs = {
-        "fold_multi_krum": (None, fold_mk, ["selection_weights:krum", sweep], None),
+        "fold_multi_krum": (None, fold_mk, ["selection_mean_from_gram:krum"], None),
         "fold_trimmed_mean": (None, fold_tm, [], None),
         "fold_cge": (None, fold_cge, [], None),
         "class_median": (None, class_median, ["sorted_reduce:median"], None),
@@ -1173,7 +1273,8 @@ def class_api_configs(example_params: dict) -> tuple:
                                     None),
     }
     forbidden = {
-        "fold_multi_krum": ["gram"],  # the finalize is B5 on the folded Gram
+        # the finalize is B5 on the folded Gram, one launch
+        "fold_multi_krum": ["gram", "selection_weights:krum", sweep],
         "fold_trimmed_mean": ["sorted_reduce:trimmed"],  # the extremes path, no fallback
         "fold_cge": ["gram", "selection_weights:cge"],
     }
@@ -1457,15 +1558,11 @@ def main_path(counts: dict) -> dict:
             check(len(reads) >= MAIN_STEPS and max(reads) <= most,
                   f"{name}: host reads per aggregation {reads}, more than {most}")
         if name == "fold_multi_krum":
-            # no Gram launched: each krum weights launch is one B5 call's, as
-            # long as each has its one sweep and no other selection ran in
-            # this configuration
-            b5 = run_counts["selection_weights:krum"]
-            check(b5 == run_counts["weighted_rows"] and all(
-                      v == 0 for k, v in run_counts.items()
-                      if k not in ("selection_weights:krum", "weighted_rows")),
-                  f"{name}: launches other than B5's {run_counts}")
-            counts["selection_mean_from_gram"] += b5
+            # B5 alone, one launch a step
+            others = {k: v for k, v in run_counts.items() if v and k != "selection_mean_from_gram:krum"}
+            check(run_counts["selection_mean_from_gram:krum"] == MAIN_STEPS and not others,
+                  f"{name}: {run_counts['selection_mean_from_gram:krum']} B5 launches in {MAIN_STEPS} "
+                  f"steps, others {others}")
         slack = None
         if comm.enabled:
             steps_c = [torch.maximum(a, c) for a, c in zip(wire_steps["cuda"], wire_steps["cpu"])]
@@ -2236,7 +2333,8 @@ def ragged_executor_path(counts: dict) -> dict:
 
 
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
-                "selection_weights_kernel", "weighted_rows_kernel", "nnm_weights_kernel",
+                "selection_weights_kernel", "weighted_rows_kernel", "selection_mean_from_gram_kernel",
+                "nnm_weights_kernel",
                 "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
                 "meamed_kernel", "center_loop_kernel", "quantize_kernel", "dequantize_kernel",
                 "sort_columns_kernel", "segment_sum_kernel", "row_sq_partial_kernel",
@@ -2324,6 +2422,17 @@ def port_device_ms(fn, calls: int = 10) -> dict:
         if out:
             return out
     return out
+
+
+def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
+    """``port_device_ms(fn)[name]``, profiled again (five profiles in all)
+    while a profile recorded no launch of ``name``: the device profile of a
+    short call can miss its launches."""
+    for _ in range(5):
+        out = port_device_ms(fn, calls)
+        if name in out:
+            return out[name]
+    check(False, f"torch.profiler recorded no {name} launch in five profiles")
 
 
 # ---------------------------------------------------------------------------
@@ -2425,7 +2534,7 @@ def kernel_times(n: int, d: int, *, f_trim: int, f_krum: int, q: int, seed: int)
     b_ms, b_by = bound_ms(q * d * isz + n * 4 + d * isz, 2 * q * d)
     out["weighted_rows"] = {
         "ms": cuda_time_ms(lambda: kernels.weighted_rows(x, w)),
-        "device_ms": port_device_ms(lambda: kernels.weighted_rows(x, w))["weighted_rows_kernel"],
+        "device_ms": kernel_device_ms(lambda: kernels.weighted_rows(x, w), "weighted_rows_kernel"),
         "plain_ms": cuda_time_ms(lambda: kernels.weighted_rows_plain(x, w), iters=3),
         # w @ x: the same function on these finite inputs (it reads all n rows)
         "library_ms": cuda_time_ms(lambda: w[0] @ x[0]),
@@ -2455,7 +2564,7 @@ def mix_rows_times(x, mask, st, k: int) -> dict:
     m = mask[0].T.to(x.dtype)
     return {
         "ms": cuda_time_ms(lambda: kernels.mix_rows(x, mask, st, k=k)),
-        "device_ms": port_device_ms(lambda: kernels.mix_rows(x, mask, st, k=k))["mix_rows_kernel"],
+        "device_ms": kernel_device_ms(lambda: kernels.mix_rows(x, mask, st, k=k), "mix_rows_kernel"),
         "plain_ms": cuda_time_ms(lambda: kernels.mix_rows_plain(x, mask, st, k=k), iters=3),
         "library_ms": cuda_time_ms(lambda: (m @ x[0]) / k),
         "bound_ms": b_ms, "bound_by": b_by, "shape": [1, n, d], "dtype": str(x.dtype).split(".")[-1],
@@ -2478,7 +2587,7 @@ def b9_weights_times(g, n: int, *, f_pre: int, f: int, q: int) -> dict:
     b_ms, b_by = bound_ms(n * n * 4 + n * 4, krum_ops + 2 * n * n * k + n * k)
     call = lambda: kernels.nnm_selection_weights(g, k=k, **sel)  # noqa: E731
     return {
-        "ms": cuda_time_ms(call), "device_ms": port_device_ms(call)["nnm_selection_weights_kernel"],
+        "ms": cuda_time_ms(call), "device_ms": kernel_device_ms(call, "nnm_selection_weights_kernel"),
         "plain_ms": cuda_time_ms(lambda: kernels.nnm_selection_weights_plain(g, k=k, **sel)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "f_nnm": f_pre, "f": f, "q": q,
     }
@@ -2589,7 +2698,7 @@ def selection_weights_times(seed: int) -> dict:
                 plain = lambda sel=sel, clip=clip: kernels.clip_selection_weights_plain(g, **clip, **sel)  # noqa: E731
                 name = "clip_selection_weights_kernel"
             out[key][str(n)] = {
-                "ms": cuda_time_ms(call), "device_ms": port_device_ms(call)[name],
+                "ms": cuda_time_ms(call), "device_ms": kernel_device_ms(call, name),
                 "empty_ms": empty_block_ms(threads, smem), "plain_ms": cuda_time_ms(plain),
                 "bound_ms": b_ms, "bound_by": b_by, "threads": threads, "smem": smem, **sel,
             }
@@ -2598,6 +2707,43 @@ def selection_weights_times(seed: int) -> dict:
     for key, rows in out.items():
         log(f"  {key} weights by rows (device ms; empty block): " + ", ".join(
             f"{n}: {v['device_ms']:.5f} ({v['empty_ms']:.5f})" for n, v in rows.items()))
+    return out
+
+
+def nnm_weights_times(seed: int) -> dict:
+    """B8's selection state on B3's Gram of one (1, n, 421,642) f32 round
+    (every third row x3) at 8, 64 and 128 rows, k = n - f_pre (PRE_ARGS):
+    CUDA events, torch.profiler device ms, the plain version, the bound
+    (the Gram read, the mask and sel_taint written; d2 and a column sort a
+    mixer at the int32 rate) and an empty block of the kernel's shape
+    (min(512, NPAD^2) threads, the keys' padded buffer)."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    out = {}
+    for n in (MAIN_N, 64, EXEC_CAP):
+        k = n - PRE_ARGS[n][0]
+        x = pre_rows((1, n, 421_642), seed=seed + n)
+        g = kernels.gram(x)
+        del x
+        npad = kernels.network_width(n)
+        threads = min(512, npad * npad)
+        r = npad if npad <= 16 else npad // 8
+        smem = npad * ((npad + npad // r) | 1) * 4
+        b_ms, b_by = bound_ms(2 * n * n * 4 + n * 4, 5 * n * n,
+                              2 * len(kernels.batcher_pairs(npad)) * n)
+        call = lambda: kernels.nnm_weights(g, k=k)  # noqa: E731
+        out[str(n)] = {
+            "ms": cuda_time_ms(call), "device_ms": kernel_device_ms(call, "nnm_weights_kernel"),
+            "empty_ms": empty_block_ms(threads, smem),
+            "plain_ms": cuda_time_ms(lambda: kernels.nnm_weights_plain(g, k=k)),
+            "bound_ms": b_ms, "bound_by": b_by, "threads": threads, "smem": smem, "k": k,
+        }
+        del g
+        torch.cuda.empty_cache()
+    log("  nnm_weights by rows (device ms; empty block): " + ", ".join(
+        f"{n}: {v['device_ms']:.5f} ({v['empty_ms']:.5f})" for n, v in out.items()))
     return out
 
 
@@ -2683,7 +2829,7 @@ def pre_kernel_times(n: int, d: int, *, seed: int) -> dict:
         sweeps[label] = {
             "rows_read": rows,
             "ms": cuda_time_ms(lambda w=w: kernels.weighted_rows(x, w)),
-            "device_ms": port_device_ms(lambda w=w: kernels.weighted_rows(x, w))["weighted_rows_kernel"],
+            "device_ms": kernel_device_ms(lambda w=w: kernels.weighted_rows(x, w), "weighted_rows_kernel"),
             "plain_ms": cuda_time_ms(lambda w=w: kernels.weighted_rows_plain(x, w), iters=3),
             "library_ms": cuda_time_ms(lambda w=w: w[0] @ x[0]),  # reads all n rows
             "bound_ms": b_ms, "bound_by": b_by,
@@ -2714,7 +2860,7 @@ def meamed_times(x, f: int) -> dict:
     b_ms, b_by = bound_ms(n * d * isz + d * isz, (4 * (f + 1) + 6 * n + (n - f)) * d, 2 * pairs * d)
     call = lambda: kernels.meamed_stream(x, f=f)  # noqa: E731
     return {
-        "ms": cuda_time_ms(call), "device_ms": port_device_ms(call)["meamed_kernel"],
+        "ms": cuda_time_ms(call), "device_ms": kernel_device_ms(call, "meamed_kernel"),
         "plain_ms": cuda_time_ms(lambda: kernels.meamed_stream_plain(x, f=f), iters=3),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": list(x.shape), "f": f,
     }
@@ -2802,14 +2948,20 @@ def from_gram_times(n: int, d: int, *, f: int, q: int, seed: int) -> dict:
         "plain_ms": cuda_time_ms(lambda: kernels.selection_mean_from_gram_plain(x, g, f=f, q=q),
                                  iters=3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": [n, d],
+        # B4's two kernels on the same inputs, B5 before it was one launch
         "weights_ms": cuda_time_ms(lambda: kernels.selection_weights(g[None], f=f, q=q)),
         "sweep_ms": cuda_time_ms(lambda: kernels.weighted_rows(x[None], w)),
+        "two_launches_ms": cuda_time_ms(lambda: kernels.weighted_rows(
+            x[None], kernels.selection_weights(g[None], f=f, q=q))),
         # w @ x: the sweep's function on these finite inputs (it reads all n rows)
         "sweep_library_ms": cuda_time_ms(lambda: w[0] @ x),
     }
-    # the same call's device time by kernel: the CUDA-event times above
-    # follow the host's launch rate where a launch is short
-    out["device_ms"] = port_device_ms(lambda: kernels.selection_mean_from_gram(x, g, f=f, q=q))
+    # the device time of the one launch and of the two: the CUDA-event times
+    # above follow the host's launch rate where a launch is short
+    out["device_ms"] = kernel_device_ms(lambda: kernels.selection_mean_from_gram(x, g, f=f, q=q),
+                                        "selection_mean_from_gram_kernel")
+    out["two_launches_device_ms"] = port_device_ms(
+        lambda: kernels.weighted_rows(x[None], kernels.selection_weights(g[None], f=f, q=q)))
     buf = torch.zeros_like(x)
     gram = torch.zeros((n, n), device=x.device)
     order = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).tolist()
@@ -2828,10 +2980,11 @@ def from_gram_times(n: int, d: int, *, f: int, q: int, seed: int) -> dict:
         "barrier_multi_krum_ms": cuda_time_ms(lambda: robust.multi_krum(x, f=f, q=q)),
         "max_abs_diff_vs_barrier": max_abs_err(folded, barrier),
     }
-    log(f"  selection_mean_from_gram {[n, d]}: {out['ms']:.4f} ms (weights {out['weights_ms']:.4f}, "
-        f"sweep {out['sweep_ms']:.4f}; w @ x {out['sweep_library_ms']:.4f}), bound "
-        f"{b_ms:.4f} ms ({b_by}), plain {out['plain_ms']:.4f} ms; device ms by kernel "
-        f"{json.dumps(out['device_ms'])}")
+    log(f"  selection_mean_from_gram {[n, d]}: {out['ms']:.4f} ms, device {out['device_ms']:.5f} ms in "
+        f"one launch; B4's two launches {out['two_launches_ms']:.4f} ms (weights {out['weights_ms']:.4f}, "
+        f"sweep {out['sweep_ms']:.4f}; w @ x {out['sweep_library_ms']:.4f}), device "
+        f"{json.dumps(out['two_launches_device_ms'])}; bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{out['plain_ms']:.4f} ms")
     log(f"  Multi-Krum fold round at {[n, d]}: {json.dumps(out['fold_round'])}")
     del x, g, buf
     torch.cuda.empty_cache()
@@ -3299,7 +3452,7 @@ def timing() -> dict:
         times["weighted_rows"].update(pre.pop("weighted_rows"))
         times.update(pre)
         times.update(centre_kernel_times(*shape, f=f, seed=seed + 10))
-        times["selection_mean_from_gram"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
+        times["selection_mean_from_gram:krum"] = from_gram_times(*shape, f=f, q=q, seed=seed + 20)
     out["meamed"]["at_128_rows"] = wide_meamed
     out["nnm_selection_weights:krum"]["at_128_rows"] = wide_b9
     # B4's and B10's weights by rows: the device ms at the headline's 64
@@ -3308,10 +3461,15 @@ def timing() -> dict:
         out[key]["weights_by_rows"] = rows
         out[key]["device_ms"] = rows["64"]["device_ms"]
         main[key]["device_ms"] = rows[str(MAIN_N)]["device_ms"]
+    # B8's selection state by rows, the same way
+    rows = nnm_weights_times(seed=25)
+    out["nnm_weights"]["weights_by_rows"] = rows
+    out["nnm_weights"]["device_ms"] = rows["64"]["device_ms"]
+    main["nnm_weights"]["device_ms"] = rows[str(MAIN_N)]["device_ms"]
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "with_nnm_weights",
             "with_clip_weights", "steps", "ms_per_step", "one_step_ms", "one_step_plain_ms",
             "steps_256_ms", "steps_256_reads_bound_ms", "reads_bound_ms", "cdist_ms",
-            "weights_ms", "sweep_ms",
+            "weights_ms", "sweep_ms", "two_launches_ms", "two_launches_device_ms",
             "sweep_library_ms", "device_ms", "fold_round")
     for k, v in out.items():
         v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
@@ -3358,10 +3516,9 @@ KERNELS = [
     ("center_loop:weiszfeld", "byzpy_tpu_torch/csrc/center_step.cu",
      "byzpy_tpu/ops/pallas_kernels.py:470"),
     ("center_loop:clip", "byzpy_tpu_torch/csrc/center_step.cu", "byzpy_tpu/ops/pallas_kernels.py:470"),
-    # B5, a composition of B4's two kernels: launches counts its calls on the
-    # main path (fold_multi_krum), one selection_weights:krum and one
-    # weighted_rows launch each, no Gram
-    ("selection_mean_from_gram", "byzpy_tpu_torch/csrc/selection.cu",
+    # B5: B4's weights block and the selected rows' sweep in one launch
+    # (fold_multi_krum's finalize), no Gram
+    ("selection_mean_from_gram:krum", "byzpy_tpu_torch/csrc/selection.cu",
      "byzpy_tpu/ops/pallas_kernels.py:1094"),
     # B13, B15 and B14; launches: quantize:fp8 counts both fp8 formats'
     # encodes, dequantize both codes' decodes (their counters beside them)
@@ -3393,9 +3550,10 @@ KERNELS = [
      "byzpy_tpu/ops/ragged.py:96 (segmented lax.sort + windowed einsum; no Pallas kernel)"),
 ]
 # kernels that must launch on the main path beside each configuration's own
-# checks: B8's redesigned mixing sweep and the ragged door's kernels (the
-# segmented sort-reduce among them)
-NEW_KERNELS = ("mix_rows", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
+# checks: B8's redesigned mixing sweep and selection state, B5 in one
+# launch, and the ragged door's kernels (the segmented sort-reduce among
+# them)
+NEW_KERNELS = ("mix_rows", "nnm_weights", "selection_mean_from_gram:krum", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
                "segment_sum_dequant:fp8", "segment_sum_dequant:s4", "segmented_sort_reduce",
                "center_loop:weiszfeld", "center_loop:clip")
 # the launch counters each codec entry sums
@@ -3502,9 +3660,10 @@ def main() -> int:
     log("NNM_PTXAS " + json.dumps(nnm_ptxas))
     spilled = [e["kernel"] for e in meamed_ptxas + nnm_ptxas if e["spill_stores"] or e["spill_loads"]]
     check(not spilled, f"B6 or nnm.cu instances spill: {spilled}")
-    # B4's weights block and sweep, B10's weights block
+    # B4's weights block and sweep, B5's one kernel, B10's weights block
     selection_ptxas = (ptxas_report(_build.build_log.get("selection", ""), nvcc,
-                                    ("selection_weights_kernel", "weighted_rows_kernel"))
+                                    ("selection_weights_kernel", "weighted_rows_kernel",
+                                     "selection_mean_from_gram_kernel"))
                        + ptxas_report(_build.build_log.get("clip_selection", ""), nvcc,
                                       ("clip_selection_weights_kernel",)))
     log("SELECTION_PTXAS " + json.dumps(selection_ptxas))
@@ -3531,7 +3690,6 @@ def main() -> int:
     log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
         "configurations")
     counts = {k: 0 for k in kernels.launch_counts}
-    counts["selection_mean_from_gram"] = 0
     log("MAIN_PATH " + json.dumps(main_path(counts)))
     log("== 4b. main path: the gossip round (SmallCNN)")
     log("GOSSIP_PATH " + json.dumps(gossip_path(counts)))

@@ -662,10 +662,10 @@ def _tie_heavy(x):
 def test_cuda_selection_mean_from_gram_matches_plain(cuda_device, gram_from, n, dt):
     """B5 on a Gram from B3 or from the arrival-order fold (rows folded in
     a seeded order; 16-bit rows into an f32 Gram): the weights equal to the
-    plain version's on the same Gram, the sweep bitwise equal to the plain
+    plain version's on the same Gram, the output bitwise equal to the plain
     sweep on the same weights, with tie-heavy rows; one
-    ``selection_weights:krum`` and one ``weighted_rows`` launch, no Gram
-    launch."""
+    ``selection_mean_from_gram:krum`` launch (B5's weights and sweep in one
+    kernel), no Gram launch."""
     from byzpy_tpu_torch.ops import robust
 
     x = _tie_heavy(_pre_rows(500 + n, 1, n, 3000, cuda_device, DTYPES[dt]))[0].contiguous()
@@ -681,7 +681,7 @@ def test_cuda_selection_mean_from_gram_matches_plain(cuda_device, gram_from, n, 
     kernels.reset_launch_counts()
     out = kernels.selection_mean_from_gram(x, g, f=f, q=q)
     expected = dict.fromkeys(kernels.launch_counts, 0)
-    expected.update({"selection_weights:krum": 1, "weighted_rows": 1})
+    expected.update({"selection_mean_from_gram:krum": 1})
     assert kernels.launch_counts == expected
     w = kernels.selection_weights(g[None], f=f, q=q)
     assert torch.equal(w, kernels.selection_weights_plain(g[None], f=f, q=q, mode="krum"))
@@ -707,9 +707,10 @@ def test_cuda_selection_mean_from_gram_nonfinite_and_wide(cuda_device):
 @pytest.mark.cuda
 def test_cuda_folded_multi_krum_runs_b5_not_the_gram(cuda_device):
     """``MultiKrum.fold`` / ``fold_finalize`` on the card: the finalize
-    launches B5 (``selection_weights:krum`` and ``weighted_rows``) and no
-    Gram (the fold built it by matvecs); the result is within rtol 1e-5,
-    atol 1e-6 of ``aggregate`` (which launches B3 and B4)."""
+    launches B5 (one ``selection_mean_from_gram:krum``, no
+    ``selection_weights`` or ``weighted_rows`` launch) and no Gram (the
+    fold built it by matvecs); the result is within rtol 1e-5, atol 1e-6
+    of ``aggregate`` (which launches B3 and B4)."""
     from byzpy_tpu_torch.aggregators import MultiKrum
 
     agg = MultiKrum(2, 4)
@@ -721,8 +722,9 @@ def test_cuda_folded_multi_krum_runs_b5_not_the_gram(cuda_device):
         agg.fold(state, i, grads[i])
     out = agg.fold_finalize(state)
     assert kernels.launch_counts["gram"] == 0
-    assert kernels.launch_counts["selection_weights:krum"] == 1
-    assert kernels.launch_counts["weighted_rows"] == 1
+    assert kernels.launch_counts["selection_mean_from_gram:krum"] == 1
+    assert kernels.launch_counts["selection_weights:krum"] == 0
+    assert kernels.launch_counts["weighted_rows"] == 0
     ref = agg.aggregate(grads)
     assert kernels.launch_counts["gram"] == 1
     for k in ("w", "b"):
@@ -1472,3 +1474,104 @@ def test_cuda_clip_selection_weights_block_bitwise(cuda_device, n, case):
                 assert _bits_equal(w, kernels.clip_selection_weights_plain(g, **kw)), (pre, mode, f, q)
                 if case == "taint" and q == n and n > 1:
                     assert _all_canonical_nan(w[0])  # the inf row is among the n selected
+
+
+# ---------------------------------------------------------------------------
+# B8's selection state as one block-wide pass; B5 in one launch
+# ---------------------------------------------------------------------------
+
+B8_N = [1, 2, 3, 7, 8, 9, 16, 17, 31, 33, 64, 100, 127, 128]
+
+
+def _b8_gram(seed, K, n, case, device):
+    """``_b9_gram``'s Grams, and ``zeros``: rows repeated in threes with
+    rows 1 and 4 zero (ties at the cut among equal and zero distances)."""
+    if case != "zeros":
+        return _b9_gram(seed, K, n, case, device)
+    x = _pre_rows(seed, K, n, 600, torch.device("cpu"))[:, np.arange(n) // 3 * 3]
+    x[:, [i for i in (1, 4) if i < n]] = 0.0
+    return kernels.gram(x.contiguous().to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dup", "zeros", "quantized", "taint"])
+@pytest.mark.parametrize("n", B8_N)
+def test_cuda_nnm_weights_block_bitwise(cuda_device, n, case):
+    """B8's selection state at K = 1 and 3 and k = 1, n - n // 4 and n, bit
+    for bit the plain version on the same Gram, one launch a call: rows
+    tied at the cut (repeated and zero rows), a Gram that is not symmetric,
+    an inf row and a NaN entry (every mixer that took one is tainted and
+    the row is cleared from the mask)."""
+    for K in (1, 3):
+        g = _b8_gram(17 * n + K + len(case), K, n, case, cuda_device)
+        for k in sorted({1, n - n // 4, n}):
+            mask, st = _launch_once("nnm_weights", lambda: kernels.nnm_weights(g, k=k))
+            mask_p, st_p = kernels.nnm_weights_plain(g, k=k)
+            assert _bits_equal(mask, mask_p) and _bits_equal(st, st_p), (K, k)
+            if case == "taint" and k == n and n > 1:
+                assert bool((st[0] == 1.0).all())  # every mixer of round 0 took the inf row
+
+
+def _b5_rows(seed, n, d, dt, start, device, *, nonfinite):
+    """(n, d) rows of dtype dt that start ``start`` elements past an
+    aligned address (a view into a larger buffer), and their contiguous
+    copy; rows 2 and 5 repeat row 1, row 3 is zero; with ``nonfinite``, row
+    n - 1 holds NaN entries and row n // 2 is all inf (never selected by
+    Krum while q leaves them out; selected by CGE and MoNNA at q = n)."""
+    x = _pre_rows(seed, 1, n, d, device, DTYPES[dt])[0]
+    if n > 5:
+        x[2], x[5], x[3] = x[1], x[1], 0.0
+    if nonfinite and n > 2:
+        x[n - 1, ::7] = float("nan")
+        x[n // 2] = float("inf")
+    big = torch.zeros(n * d + start, dtype=x.dtype, device=device)
+    big[start:] = x.reshape(-1)
+    return big[start:].view(n, d), x.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize(("n", "d"), [(8, 1), (8, 255), (8, 256), (8, 257), (8, 421_642), (13, 257),
+                                      (64, 255), (64, 1_048_576), (100, 257), (128, 421_642)])
+def test_cuda_selection_mean_from_gram_one_launch_bitwise(cuda_device, n, d, dt):
+    """B5 in one launch, every mode and two q, rows at element offsets 0
+    and 1 (16-bit rows at odd elements, f32 rows 4-byte aligned), with and
+    without non-finite rows: bit for bit the plain version, and B4's two
+    kernels (weights, then the row sweep) on the same inputs; exactly one
+    ``selection_mean_from_gram:<mode>`` launch a call. The calls run one
+    after another on one scratch, each selecting other rows than the one
+    before, so a flag left set would hand a call the last call's rows."""
+    for start in (0, 1):
+        for nonfinite in (False, True):
+            xv, x = _b5_rows(31 * n + start, n, d, dt, start, cuda_device, nonfinite=nonfinite)
+            g = kernels.gram(x[None])[0]
+            for mode in ("krum", "cge", "monna"):
+                f = max(0, min((n - 3) // 4, n - 2)) if mode == "krum" else 0
+                for q in sorted({max(1, n // 3), n - f}):
+                    sel = dict(f=f, q=q, mode=mode, reference_index=(n - 1) // 2)
+                    before = dict(kernels.launch_counts)
+                    out = kernels.selection_mean_from_gram(xv, g, **sel)
+                    torch.cuda.synchronize()
+                    moved = {k: v - before[k] for k, v in kernels.launch_counts.items() if v != before[k]}
+                    assert moved == {f"selection_mean_from_gram:{mode}": 1}
+                    assert _bits_equal(out, kernels.selection_mean_from_gram_plain(x, g, **sel)), (start, mode, q)
+                    w = kernels.selection_weights(g[None], **sel)
+                    assert _bits_equal(out, kernels.weighted_rows(x[None], w)[0]), (start, mode, q)
+                    assert _all_canonical_nan(out[torch.isnan(out)])
+
+
+@pytest.mark.cuda
+def test_cuda_selection_mean_from_gram_runs_in_a_second_stream(cuda_device):
+    """B5 on a side stream: its own scratch, the plain version's bits,
+    and the default stream's calls unaffected."""
+    x = _pre_rows(41, 1, 64, 5000, cuda_device)[0].contiguous()
+    g = kernels.gram(x[None])[0]
+    ref = kernels.selection_mean_from_gram_plain(x, g, f=8, q=12)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out_side = kernels.selection_mean_from_gram(x, g, f=8, q=12)
+    out = kernels.selection_mean_from_gram(x, g, f=8, q=12)
+    torch.cuda.synchronize()
+    assert _bits_equal(out_side, ref) and _bits_equal(out, ref)
+
