@@ -2,8 +2,9 @@
 
 The JAX package ``byzpy_tpu`` is the reference; this package mirrors its
 layout (``ops``, ``models``, ``parallel``, ``utils``, the operator classes
-of ``aggregators`` and ``pre_aggregators``, and ``engine.graph``'s
-operator protocol) and runs on an NVIDIA Hopper GPU. Plain tensor code is PyTorch; every kernel the JAX
+of ``aggregators``, ``pre_aggregators`` and ``attacks``, and
+``engine.graph``'s operator protocol) and runs on an NVIDIA Hopper GPU.
+Plain tensor code is PyTorch; every kernel the JAX
 package wrote in Pallas becomes a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use and bound with ``ctypes``
 (``ops/_build.py``). Entry points run on ``cuda`` unless the caller

@@ -5,7 +5,7 @@ arguments and ``validate_n`` messages, and takes a keyword-only
 
 from .base import Aggregator, SlotFoldState, ravel_gradient
 from .coordinate_wise import CoordinateWiseMedian, CoordinateWiseTrimmedMean, MeanOfMedians
-from .geometric_wise import GeometricMedian, Krum, MoNNA, MultiKrum
+from .geometric_wise import GeometricMedian, Krum, MinimumDiameterAveraging, MoNNA, MultiKrum, SMEA
 from .norm_wise import CAF, CenteredClipping, ComparativeGradientElimination
 from .pipelines import fused_pipeline_matrix_fn
 
@@ -20,6 +20,8 @@ __all__ = [
     "Krum",
     "GeometricMedian",
     "MoNNA",
+    "MinimumDiameterAveraging",
+    "SMEA",
     "CenteredClipping",
     "CAF",
     "ComparativeGradientElimination",

@@ -9,8 +9,9 @@ bits, so parity tests hand both packages the same noise.
 from __future__ import annotations
 
 from statistics import NormalDist
-from typing import Sequence
+from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
@@ -22,8 +23,17 @@ def sign_flip(base_grad: torch.Tensor, *, scale: float = -1.0) -> torch.Tensor:
 
 
 def empire(honest: torch.Tensor, *, scale: float = -1.0) -> torch.Tensor:
-    """``scale * mean(honest)`` over the node axis."""
-    return scale * honest.mean(dim=0)
+    """``scale * mean(honest)`` over the node axis. In f32 it is computed
+    as the JAX package's compiled function computes it on the CPU: the
+    rows added in index order, times the one f32 constant ``f32(scale) *
+    f32(1 / h)``, so the two agree bit for bit at a round's node counts
+    (``tests/test_torch_attacks.py``)."""
+    if honest.dtype != torch.float32:
+        return scale * honest.mean(dim=0)
+    acc = honest[0]
+    for r in range(1, honest.shape[0]):
+        acc = acc + honest[r]
+    return acc * float(np.float32(scale) * np.float32(1.0 / honest.shape[0]))
 
 
 def little(honest: torch.Tensor, *, f: int, n_total: int) -> torch.Tensor:
@@ -74,4 +84,36 @@ def mimic(honest: torch.Tensor, *, epsilon: int = 0) -> torch.Tensor:
     return honest[epsilon]
 
 
-__all__ = ["sign_flip", "empire", "little", "gaussian", "inf_vector", "mimic"]
+def label_flip_grad(
+    grad_fn: Callable[..., Any],
+    params: Any,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    num_classes: Optional[int] = None,
+    mapping: Any = None,
+) -> Any:
+    """Gradient of the loss on flipped labels (ref ``attacks/label_flip.py:35``).
+
+    ``grad_fn(params, x, y) -> gradient`` is supplied by the caller (e.g.
+    ``torch.func.grad`` of a bundle's loss); labels flip through an
+    explicit ``mapping`` lookup table or the default ``num_classes - 1 -
+    y``."""
+    if mapping is not None:
+        flipped = torch.as_tensor(mapping, device=y.device)[y]
+    elif num_classes is not None:
+        flipped = num_classes - 1 - y
+    else:
+        raise ValueError("label_flip_grad requires num_classes or mapping")
+    return grad_fn(params, x, flipped)
+
+
+__all__ = [
+    "sign_flip",
+    "empire",
+    "little",
+    "gaussian",
+    "inf_vector",
+    "mimic",
+    "label_flip_grad",
+]

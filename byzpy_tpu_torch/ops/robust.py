@@ -37,8 +37,10 @@ keeps the last call's count of each.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from . import kernels
@@ -869,6 +871,163 @@ def masked_centered_clipping(
     return v
 
 
+# ---------------------------------------------------------------------------
+# Subset-search aggregators (MDA / SMEA). Enumeration stays on the host;
+# scoring is batched over an int64 ``(c, m)`` index tensor on the inputs'
+# device. The JAX package leaves these to XLA (no Pallas kernel), so they
+# are plain PyTorch here; the Gram under them is B3 on the card.
+# ---------------------------------------------------------------------------
+
+
+def subset_diameters(d2: torch.Tensor, combos: torch.Tensor) -> torch.Tensor:
+    """Diameter (max pairwise squared distance) of each row-index subset.
+
+    ``d2``: ``(n, n)`` pairwise squared distances; ``combos``: ``(c, m)``.
+    A NaN entry makes its subset's diameter NaN, as ``jnp.max`` does."""
+    combos = combos.long()
+    sub = d2[combos[:, :, None], combos[:, None, :]]  # (c, m, m)
+    return torch.amax(sub, dim=(1, 2))
+
+
+def _centering(m: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``I - 1/m``: the (m, m) centering matrix."""
+    return (torch.eye(m, dtype=dtype, device=device)
+            - torch.full((m, m), 1.0 / m, dtype=dtype, device=device))
+
+
+def subset_max_eigvals(gram: torch.Tensor, combos: torch.Tensor) -> torch.Tensor:
+    """SMEA score per subset: largest eigenvalue of the centered Gram block
+    divided by ``m`` (``torch.linalg.eigvalsh``; ref
+    ``aggregators/geometric_wise/smea.py:63-88``)."""
+    combos = combos.long()
+    m = combos.shape[1]
+    sub = gram[combos[:, :, None], combos[:, None, :]]  # (c, m, m)
+    h = _centering(m, sub.dtype, sub.device)
+    vals = torch.linalg.eigvalsh(h @ sub @ h)
+    return torch.clamp_min(vals[:, -1], 0.0) / m
+
+
+def _parallel_jacobi_schedule(m: int):
+    """Round-robin (circle-method) rotation schedule: ``m_pad - 1``
+    rounds of ``m_pad // 2`` DISJOINT (p, q) pairs covering every pair
+    exactly once per sweep. Disjointness lets one step apply all its
+    rotations at once. Odd ``m`` pads with a dummy player; the bye pair
+    is encoded ``(b, b)`` with valid=0 (its rotation is forced to the
+    identity, and ``b`` appears nowhere else that round, so the row/col
+    scatters never collide). Numpy, the JAX package's code."""
+    m_pad = m + (m & 1)
+    half = m_pad // 2
+    players = list(range(m_pad))
+    p_rounds, q_rounds, valid = [], [], []
+    for _ in range(m_pad - 1):
+        ps, qs, vs = [], [], []
+        for i in range(half):
+            a_, b_ = players[i], players[m_pad - 1 - i]
+            lo, hi = min(a_, b_), max(a_, b_)
+            if hi >= m:  # bye: partner sits this round out
+                ps.append(lo)
+                qs.append(lo)
+                vs.append(0.0)
+            else:
+                ps.append(lo)
+                qs.append(hi)
+                vs.append(1.0)
+        p_rounds.append(ps)
+        q_rounds.append(qs)
+        valid.append(vs)
+        players = [players[0]] + [players[-1]] + players[1:-1]
+    return (
+        np.asarray(p_rounds, np.int32),
+        np.asarray(q_rounds, np.int32),
+        np.asarray(valid, np.float32),
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule_on(m: int, device: torch.device) -> list:
+    """Each round of :func:`_parallel_jacobi_schedule` as tensors on
+    ``device``, copied there once without a host synchronization: ``(pq,
+    qp, flat, sign)`` with ``pq = p ++ q`` the rotated rows, ``qp = q ++ p``
+    the row each combines with, ``flat`` the offsets of the ``(p, p)``,
+    ``(q, q)`` and ``(p, q)`` entries of each rotated row's pair in a
+    row-major ``(m, m)`` block, and ``sign`` -1 on the ``p`` rows, +1 on the
+    ``q`` rows. The bye pair of an odd ``m`` is left out: its rotation is
+    the identity, which rewrites its row and column with their own bits."""
+    p_r, q_r, v_r = _parallel_jacobi_schedule(m)
+    rounds = []
+    for p, q, v in zip(p_r, q_r, v_r):
+        p, q = p[v > 0.5].astype(np.int64), q[v > 0.5].astype(np.int64)
+        pp, qq, pq = np.tile(p * m + p, 2), np.tile(q * m + q, 2), np.tile(p * m + q, 2)
+        host = (np.concatenate([p, q]), np.concatenate([q, p]), np.concatenate([pp, qq, pq]),
+                np.repeat(np.float32([-1.0, 1.0]), len(p)))
+        rounds.append(tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in host))
+    return rounds
+
+
+def subset_max_eigvals_jacobi(
+    gram: torch.Tensor, combos: torch.Tensor, *, sweeps: int = 8
+) -> torch.Tensor:
+    """SMEA score per subset, the quantity of :func:`subset_max_eigvals`,
+    by batched parallel-order Jacobi: the JAX package's ``fori_loop`` as a
+    Python loop over the static schedule, ``sweeps * n_rounds`` steps of
+    34 PyTorch operations each. Each step applies one round's disjoint
+    rotations with the reference body's arithmetic in its order: the
+    ``safe`` test, ``sgn`` taken with ``tau >= 0`` (so ``tau == 0`` gives a
+    45-degree rotation), then the rows and the columns of the pairs, each
+    as one indexed copy of ``c * r_p - s * r_q`` and ``s * r_p + c * r_q``
+    (written ``c * r + (-s) * r'``, the same IEEE results). 16-bit Grams
+    accumulate in f32. A subset touching a non-finite entry is set to the
+    identity and scores ``+inf``. No host read: the schedule lives on the
+    device."""
+    combos = combos.long()
+    m = combos.shape[1]
+    c_n = combos.shape[0]
+    acc = torch.float32 if gram.dtype in (torch.bfloat16, torch.float16) else gram.dtype
+    sub = gram[combos[:, :, None], combos[:, None, :]].to(acc)  # (c, m, m)
+    if m < 2:
+        # the centered 1x1 (or empty) Gram is identically zero; non-finite
+        # singleton rows still score +inf
+        zeros = torch.zeros((c_n,), dtype=gram.dtype, device=gram.device)
+        if m == 0:
+            return zeros
+        bad1 = ~torch.isfinite(sub[:, 0, 0])
+        return torch.where(bad1, torch.full_like(zeros, float("inf")), zeros)
+    h = _centering(m, acc, gram.device)
+    a = h @ sub @ h
+    bad = ~torch.isfinite(a).all(dim=2).all(dim=1)
+    eye = torch.eye(m, dtype=acc, device=gram.device)
+    a = torch.where(bad[:, None, None], eye, a).contiguous()
+    rounds = _schedule_on(m, gram.device)
+    for i in range(sweeps * len(rounds)):
+        pq, qp, flat, sign = rounds[i % len(rounds)]
+        # (c, 2P) each: every pair's entries twice, for its p row and its q row
+        app, aqq, apq = a.view(c_n, m * m).index_select(1, flat).chunk(3, dim=1)
+        safe = apq.abs() > 1e-30
+        tau = (aqq - app) / torch.where(safe, 2.0 * apq, 1.0)
+        sgn = torch.where(tau >= 0.0, 1.0, -1.0)
+        t = sgn / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+        t = torch.where(safe, t, 0.0)
+        cc = torch.reciprocal(torch.sqrt(1.0 + t * t))  # c, as 1.0 / sqrt(...)
+        ss = (t * cc) * sign  # -s on the p rows, s on the q rows
+        rows = cc[:, :, None] * a.index_select(1, pq) + ss[:, :, None] * a.index_select(1, qp)
+        a.index_copy_(1, pq, rows)
+        cols = cc[:, None, :] * a.index_select(2, pq) + ss[:, None, :] * a.index_select(2, qp)
+        a.index_copy_(2, pq, cols)
+    top = torch.amax(torch.diagonal(a, dim1=1, dim2=2), dim=1)
+    scores = torch.clamp_min(top, 0.0) / m
+    return torch.where(bad, torch.full_like(scores, float("inf")), scores).to(gram.dtype)
+
+
+def subset_mean(x: torch.Tensor, combo: torch.Tensor) -> torch.Tensor:
+    """Mean of the rows selected by ``combo``."""
+    return x.index_select(0, combo.long()).mean(dim=0)
+
+
+def best_subset_by_score(scores: torch.Tensor) -> torch.Tensor:
+    """Index of the minimum score (first on ties, matching the host loop)."""
+    return torch.argmin(scores)
+
+
 def aggregate_stream(
     agg_fn: Callable[[torch.Tensor], torch.Tensor], xs: torch.Tensor
 ) -> torch.Tensor:
@@ -882,6 +1041,7 @@ def aggregate_stream(
 __all__ = [
     "aggregate_stream",
     "arc_multi_krum",
+    "best_subset_by_score",
     "arc_multi_krum_stream",
     "caf",
     "centered_clipping",
@@ -923,6 +1083,10 @@ __all__ = [
     "pairwise_sq_dists",
     "ranked_mean",
     "sort_rows",
+    "subset_diameters",
+    "subset_max_eigvals",
+    "subset_max_eigvals_jacobi",
+    "subset_mean",
     "trimmed_mean",
     "trimmed_mean_from_extremes",
     "trimmed_mean_stream",

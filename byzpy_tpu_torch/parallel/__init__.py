@@ -5,6 +5,7 @@ from .gossip import GossipStepConfig, build_gossip_train_step
 from .ps import (
     PSStepConfig,
     SGD,
+    adaptive_attack_rows,
     build_ps_train_step,
     build_ragged_serving_ps_step,
     build_serving_ps_step,
@@ -32,6 +33,7 @@ __all__ = [
     "PSStepConfig",
     "QuantizedBlocks",
     "SGD",
+    "adaptive_attack_rows",
     "as_comm_precision",
     "build_gossip_train_step",
     "build_ps_train_step",

@@ -24,7 +24,8 @@ and optimizer state are returned anew, never updated in place.
 ``build_serving_ps_step`` is the serving tier's bucketed update (ref
 ``ps.py:504``): it takes a padded cohort instead of computing gradients;
 ``build_ragged_serving_ps_step`` (ref ``ps.py:585``) takes the same
-cohort in the ragged door's flat-rows layout.
+cohort in the ragged door's flat-rows layout. ``adaptive_attack_rows``
+(ref ``ps.py:673``) turns an attack class into a round's byzantine rows.
 """
 
 from __future__ import annotations
@@ -315,3 +316,27 @@ __all__ = [
     "build_serving_ps_step",
     "default_optimizer",
 ]
+
+
+def adaptive_attack_rows(
+    attack: Any, n_byz: int, *, honest: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The ``(n_byz, d)`` byzantine rows of one round from an attack class
+    (``byzpy_tpu_torch.attacks``), each row its one ``apply``.
+
+    A stateful adaptive attack updates its Python state between rounds
+    (``observe_round``), so it runs outside the step: the round's
+    ``attack`` closure calls this, e.g. ``lambda honest, g:
+    adaptive_attack_rows(atk, 2, honest=honest)``, and the caller feeds
+    the step's aggregate back through ``atk.observe_round``. ``honest``
+    (an ``(h, d)`` matrix) is forwarded, row by row, only to attacks that
+    declare ``uses_honest_grads``; public-feed-only attacks ignore it."""
+    if n_byz < 1:
+        raise ValueError(f"n_byz must be >= 1 (got {n_byz})")
+    kwargs: dict = {}
+    if getattr(attack, "uses_honest_grads", False):
+        if honest is None:
+            raise ValueError(f"{attack.name} needs the honest matrix")
+        kwargs["honest_grads"] = list(honest)
+    row = torch.as_tensor(attack.apply(**kwargs))
+    return row.reshape(1, -1).repeat(n_byz, 1)

@@ -107,6 +107,14 @@ def _build(spec: Any, leaves) -> Any:
     return kind._make(values) if hasattr(kind, "_make") else kind(values)
 
 
+def map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to each leaf, its structure kept (the
+    one-tree ``jax.tree_util.tree_map``)."""
+    leaves: List[Any] = []
+    spec = _spec(tree, leaves)
+    return _build(spec, iter([fn(leaf) for leaf in leaves]))
+
+
 def _cat(leaves: List[torch.Tensor]) -> torch.Tensor:
     """The leaves raveled into one vector of their promoted dtype (one leaf
     of that dtype: a view where it can be)."""
@@ -205,4 +213,4 @@ def unstack_rows(matrix: torch.Tensor, unravel: Callable[[torch.Tensor], Any]) -
     return [unravel(matrix[i]) for i in range(matrix.shape[0])]
 
 
-__all__ = ["Params", "ravel_fn", "ravel_pytree", "stack_gradients", "unstack_rows"]
+__all__ = ["Params", "map_leaves", "ravel_fn", "ravel_pytree", "stack_gradients", "unstack_rows"]

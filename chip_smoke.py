@@ -60,7 +60,18 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (and those a fold bypasses must not), its clip must engage at step 1,
    losses stay finite, and the first 2 steps match the same round on the
    CPU; 3 more steps run under torch.profiler for the device's busy share
-   and kernel breakdown; the same loop runs the compressed wire: the PS
+   and kernel breakdown; the same loop runs the subset-search aggregators
+   and the attack classes: (o) MDA (f=2: one B3 a step, its distances the
+   one host read of an aggregation) and (p) SMEA (f=2, C(8, 6) = 28
+   subsets on the device: one B3 a step, no host read), each subset the
+   CPU port's or a printed near tie; the byzantine rows from attack
+   classes through ``parallel.adaptive_attack_rows``: (q)
+   ``LittleAttack`` with Multi-Krum, (r) ``EmpireAttack(scale=-1.1)`` with
+   the trimmed mean, (s) ``InfAttack`` with SMEA (finite aggregate, no
+   byzantine row selected) and (t) ``InfluenceAscentAttack`` with the
+   trimmed mean, fed each step's aggregate, its submissions equal bit for
+   bit to a CPU replay of the card's observations (the CPU run observes
+   the card's aggregates); then the compressed wire: the PS
    round with its gradient hop in int8 (trimmed mean), fp8 (Multi-Krum)
    and int8 with error feedback (median), and (l) s4 with error feedback
    (trimmed mean: exactly one B16, one B17 and one B1 a step); then (4b)
@@ -105,7 +116,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the same batch and (at the last) B1; B7's loop at 10, 1 and 256
    forced steps beside (steps + 1) reads of x; then the six
    centre-seeking and coordinate aggregators, whole, at ByzPy's grid
-   shapes (64 x 65,536).
+   shapes (64 x 65,536); then MDA (30 x 2,048, f = 10) and SMEA (16 x
+   4,096, f = 5), whole, at ByzPy's subset-search shapes: host and device
+   ms, launches and host reads of a call, the subset against the CPU
+   port's, beside ByzPy's direct times (BASELINE.md).
 
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
@@ -1396,6 +1410,196 @@ def ps_wire_slack(steps_c: list, cfg, error_feedback: bool) -> list:
     return out
 
 
+# the subset-search aggregators and the attack classes on the main path:
+# name -> (aggregator, attack, launches a step of every counter that moves,
+# host reads of each aggregation on the card; None: not counted)
+SUBSET_ATTACK_CONFIGS = {
+    "o_mda": ("mda", None, {"gram": 1}, 1),
+    "p_smea": ("smea", None, {"gram": 1}, 0),
+    "q_little_multi_krum": ("multi_krum", "little",
+                            {"gram": 1, "selection_weights:krum": 1, "weighted_rows": 1}, None),
+    "r_empire_trimmed_mean": ("trimmed_mean", "empire", {"sorted_reduce:trimmed": 1}, None),
+    "s_inf_smea": ("smea", "inf", {"gram": 1}, 0),
+    "t_influence_trimmed_mean": ("trimmed_mean", "influence", {"sorted_reduce:trimmed": 1}, None),
+}
+# f32 rounding of a subset's diameter or eigenvalue score at these rows:
+# where the CPU's runner-up is within it of the CPU's winner, the card may
+# pick either
+SUBSET_RTOL = 1e-5
+
+
+class SubsetAttackPath:
+    """Phase 4's configurations (o)-(t): MDA and SMEA through their classes,
+    and the byzantine rows of attack classes through
+    ``parallel.adaptive_attack_rows``, on the SmallCNN PS round.
+
+    Each device gets its own aggregator and attack instances (``device=None``
+    on the card, ``"cpu"`` on the CPU). The hooks record what the checks
+    need: the subset each aggregation selected (read after the step, not
+    inside the counted aggregation), the CPU's score of every subset at each
+    step (for the near-tie rule), the influence attack's submissions and the
+    observations fed to it. The CPU run of (t) observes the card run's
+    aggregates, not its own, so that both runs submit the same rows and the
+    CPU comparison holds the round, not the attacker's branch choices."""
+
+    def __init__(self, n: int, b: int, d: int) -> None:
+        self.n, self.b, self.d = n, b, d
+        self.made = {}
+        self.selections = {name: {"cuda": [], "cpu": []} for name in SUBSET_ATTACK_CONFIGS}
+        self.cpu_scores = {name: [] for name in SUBSET_ATTACK_CONFIGS}
+        self.captured = {}
+        self.submissions = {"cuda": [], "cpu": []}
+        self.observed = []  # the card's aggregates, in step order
+        self.agg_norms = {name: [] for name in SUBSET_ATTACK_CONFIGS}
+
+    def _instance(self, name: str, dev: str, make):
+        key = (name, dev)
+        if key not in self.made:
+            self.made[key] = make(None if dev == "cuda" else "cpu")
+        return self.made[key]
+
+    def aggregators(self) -> dict:
+        """The entries of the main path's aggregator table."""
+        from byzpy_tpu_torch.aggregators import SMEA, MinimumDiameterAveraging
+        from byzpy_tpu_torch.ops import robust
+
+        b = self.b
+        out = {}
+        for name, (kind, _, launches, _) in SUBSET_ATTACK_CONFIGS.items():
+            if kind in ("mda", "smea"):
+                make = (lambda dev: MinimumDiameterAveraging(b, device=dev)) if kind == "mda" \
+                    else (lambda dev: SMEA(b, device=dev))
+
+                def agg(m, name=name, make=make, kind=kind):
+                    dev = m.device.type
+                    if dev == "cpu":
+                        self.cpu_scores[name].append(self._all_scores(kind, m))
+                    return self._instance(name, dev, make).matrix_fn()(m)
+            elif kind == "multi_krum":
+                def agg(m):
+                    return robust.multi_krum(m, f=b, q=4)
+            else:
+                def agg(m, name=name):
+                    out = robust.trimmed_mean(m, f=b)
+                    self.captured[m.device.type] = out
+                    return out
+            out[name] = (None, agg, list(launches), None)
+        return out
+
+    def _all_scores(self, kind: str, m):
+        """The CPU's score of every (n - b)-subset of ``m``, in enumeration
+        order: diameters on the search's distances (MDA), the Jacobi
+        scores on the Gram (SMEA)."""
+        import torch
+
+        from byzpy_tpu_torch.aggregators.geometric_wise.minimum_diameter_average import (
+            _dists_for_search,
+        )
+        from byzpy_tpu_torch.aggregators.geometric_wise.smea import _device_combos
+        from byzpy_tpu_torch.ops import robust
+
+        combos = _device_combos(self.n, self.n - self.b, torch.device("cpu"))
+        if kind == "mda":
+            return robust.subset_diameters(torch.from_numpy(_dists_for_search(m)), combos)
+        return robust.subset_max_eigvals_jacobi(robust.gram_matrix(m), combos)
+
+    def attack(self, name: str, dev: str):
+        """The round's ``attack`` for ``name`` on ``dev``, or None."""
+        from byzpy_tpu_torch.attacks import (
+            EmpireAttack, InfAttack, InfluenceAscentAttack, LittleAttack,
+        )
+        from byzpy_tpu_torch.parallel import adaptive_attack_rows
+
+        kind = SUBSET_ATTACK_CONFIGS.get(name, (None, None))[1]
+        if kind is None:
+            return None
+        make = {"little": lambda d: LittleAttack(self.b, device=d),
+                "empire": lambda d: EmpireAttack(scale=-1.1, device=d),
+                "inf": lambda d: InfAttack(device=d),
+                "influence": lambda d: InfluenceAscentAttack(self.d, device=d)}[kind]
+        atk = self._instance(name + ":attack", dev, make)
+
+        def rows(honest, generator):
+            out = adaptive_attack_rows(atk, self.b, honest=honest)
+            if kind == "influence":
+                self.submissions[dev].append(out[0].cpu().clone())
+            return out
+        return rows
+
+    def after_step(self, name: str, dev: str, metrics: dict) -> None:
+        """Read what the step chose, outside its counted aggregation; feed
+        (t)'s attack its observation."""
+        from byzpy_tpu_torch.attacks import PublicRoundState
+
+        if name not in SUBSET_ATTACK_CONFIGS:
+            return
+        kind, attack = SUBSET_ATTACK_CONFIGS[name][:2]
+        self.agg_norms[name].append(float(metrics["agg_grad_norm"]))
+        if kind in ("mda", "smea"):
+            sel = self.made[(name, dev)].last_selection
+            self.selections[name][dev].append(sel.tolist())
+        if attack == "influence":
+            atk = self.made[(name + ":attack", dev)]
+            step = len(atk.observations)
+            if dev == "cuda":
+                self.observed.append(self.captured["cuda"].float().cpu().numpy())
+            atk.observe_round(PublicRoundState(step, self.observed[step]))
+
+    def finish(self, name: str) -> dict:
+        """The checks of ``name`` after its drive: the same subsets as the
+        CPU port (or a near tie, printed), no byzantine row under (s), the
+        adaptive submissions replayed bit for bit."""
+        import torch
+
+        from byzpy_tpu_torch.aggregators.geometric_wise.smea import _device_combos
+        from byzpy_tpu_torch.attacks import InfluenceAscentAttack, PublicRoundState
+
+        kind, attack = SUBSET_ATTACK_CONFIGS[name][:2]
+        out = {"agg_grad_norms": self.agg_norms[name]}
+        check(all(map(math.isfinite, self.agg_norms[name])),
+              f"{name}: the aggregate is not finite {self.agg_norms[name]}")
+        if kind in ("mda", "smea"):
+            combos = _device_combos(self.n, self.n - self.b, torch.device("cpu")).tolist()
+            card, cpu = self.selections[name]["cuda"], self.selections[name]["cpu"]
+            gaps, ties = [], []
+            for s, (g, c, scores) in enumerate(zip(card, cpu, self.cpu_scores[name])):
+                order = torch.sort(scores[torch.isfinite(scores)]).values
+                best = float(order[0])
+                # None: no other subset scores finite (every other one holds an inf row)
+                gaps.append(float((order[1] - order[0]) / max(abs(best), 1e-30))
+                            if order.numel() > 1 else None)
+                if g != c:
+                    mine = float(scores[combos.index(g)])
+                    ties.append({"step": s + 1, "card": g, "cpu": c,
+                                 "rel_score_above_cpu_winner": (mine - best) / max(abs(best), 1e-30)})
+                    check(mine <= best + SUBSET_RTOL * abs(best),
+                          f"{name}: step {s + 1} selected {g} on the card, {c} on the CPU, "
+                          f"and no near tie ({ties[-1]})")
+            if ties:
+                log(f"    {name}: near ties the card broke the other way: {ties}")
+            out.update(selected_card=card, selected_cpu=cpu, near_ties=ties,
+                       runner_up_rel_gap_per_step=gaps)
+        if attack == "inf":
+            honest = list(range(self.n - self.b))
+            check(all(sel == honest for sel in self.selections[name]["cuda"]),
+                  f"{name}: a byzantine row was selected {self.selections[name]['cuda']}")
+        if attack == "influence":
+            subs = self.submissions["cuda"]
+            check(len(subs) == len(self.observed) == MAIN_STEPS + 3,
+                  f"{name}: {len(subs)} submissions, {len(self.observed)} observations")
+            replay = InfluenceAscentAttack(self.d, device="cpu")
+            for s, (sub, obs) in enumerate(zip(subs, self.observed)):
+                check(bits_equal(replay.apply(), sub),
+                      f"{name}: the CPU replay's submission {s + 1} differs from the card's")
+                replay.observe_round(PublicRoundState(s, obs))
+            for s, sub in enumerate(self.submissions["cpu"]):
+                check(bits_equal(sub, subs[s]),
+                      f"{name}: the CPU run's submission {s + 1} differs from the card's")
+            out.update(replayed_submissions_bitwise=len(subs),
+                       attack_scale_after=float(replay.scale))
+        return out
+
+
 def main_path(counts: dict) -> dict:
     import torch
     from torch.func import grad_and_value, vmap
@@ -1466,6 +1670,9 @@ def main_path(counts: dict) -> dict:
     centre_loops = {"geometric_median": ("center_loop:weiszfeld", 1),
                     "centered_clipping": ("center_loop:clip", 0)}
     host_reads = {name: [] for name in centre_loops}
+    # the subset-search aggregations' host reads: exactly this many a call
+    subset_reads = {name: cfg[3] for name, cfg in SUBSET_ATTACK_CONFIGS.items() if cfg[3] is not None}
+    host_reads.update({name: [] for name in subset_reads})
 
     def reads_counted(name, fn):
         """``fn`` whose host reads on the card are counted, call by call."""
@@ -1498,9 +1705,11 @@ def main_path(counts: dict) -> dict:
     check(d == 421_642, f"SmallCNN has d={d}")
     class_api, forbidden, class_checks, fold_flags = class_api_configs(cpu_bundle.params)
     aggregators.update(class_api)
+    subset = SubsetAttackPath(n, b, d)
+    aggregators.update(subset.aggregators())
     results = {}
     for name, (pre, agg, kernel_keys, clip_rule) in aggregators.items():
-        if name in centre_loops:
+        if name in host_reads:
             agg = reads_counted(name, agg)
         if pre is not None:
             pre = recording(name, pre)
@@ -1521,8 +1730,8 @@ def main_path(counts: dict) -> dict:
                     wire_steps[dev].append(code_steps(honest, comm))
                 return attack_ops.sign_flip(honest.mean(dim=0))
 
-            step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack, pre_aggregate=pre,
-                                            comm_precision=comm)
+            step, opt = build_ps_train_step(bundle, agg, cfg, attack=subset.attack(name, dev) or attack,
+                                            pre_aggregate=pre, comm_precision=comm)
             state = [bundle.params, opt]
             made[dev] = (bundle, xs, ys)
 
@@ -1530,6 +1739,7 @@ def main_path(counts: dict) -> dict:
                 state[0], state[1], metrics = step(state[0], state[1], xs, ys)
                 if name in loops:
                     metrics["iterations"] = robust.last_iterations[loops[name]]
+                subset.after_step(name, dev, metrics)
                 return metrics
 
             def snapshot():
@@ -1557,6 +1767,15 @@ def main_path(counts: dict) -> dict:
             reads = host_reads[name]
             check(len(reads) >= MAIN_STEPS and max(reads) <= most,
                   f"{name}: host reads per aggregation {reads}, more than {most}")
+        if name in SUBSET_ATTACK_CONFIGS:
+            per_step = SUBSET_ATTACK_CONFIGS[name][2]
+            moved = {k: v for k, v in run_counts.items() if v}
+            want = {k: v * MAIN_STEPS for k, v in per_step.items()}
+            check(moved == want, f"{name}: launches {moved} in {MAIN_STEPS} steps, not {want}")
+        if name in subset_reads:
+            reads = host_reads[name]
+            check(len(reads) >= MAIN_STEPS and all(r == subset_reads[name] for r in reads),
+                  f"{name}: host reads per aggregation {reads}, not {subset_reads[name]} each")
         if name == "fold_multi_krum":
             # B5 alone, one launch a step
             others = {k: v for k, v in run_counts.items() if v and k != "selection_mean_from_gram:krum"}
@@ -1593,6 +1812,12 @@ def main_path(counts: dict) -> dict:
             "cpu_iterations_per_step": cpu_iters,
             "aggregator_host_reads_per_call": host_reads.get(name),
         }
+        if name in SUBSET_ATTACK_CONFIGS:
+            results[name].update(subset.finish(name))
+            extra_subset = {k: results[name][k] for k in (
+                "selected_card", "near_ties", "runner_up_rel_gap_per_step",
+                "replayed_submissions_bitwise") if k in results[name]}
+            log(f"    subset/attack checks: {json.dumps(extra_subset)}")
         if name in class_checks:
             flags = list(fold_flags.get(name, []))
             check(not any(flags), f"{name}: the fold fell back to the exact path {flags}")
@@ -3153,6 +3378,85 @@ def aggregator_times() -> dict:
     return out
 
 
+# ByzPy's subset-search workloads (BASELINE.md:20-21,
+# benchmarks/aggregators_bench.py): (rows, d, f) and ByzPy's direct time (ms)
+SUBSET_SEARCH_SHAPES = {"mda_30x2048_f10": ("mda", 30, 2048, 10, 353.0),
+                        "smea_16x4096_f5": ("smea", 16, 4096, 5, 82.0)}
+
+
+def subset_search_times() -> dict:
+    """MDA and SMEA, whole, at ByzPy's shapes (normal f32 rows made from a
+    numpy seed): host ms per call (perf_counter around a synchronized
+    call, the median of 5), device ms and launches per call
+    (torch.profiler), the port kernels' launches and the host reads of a
+    call, the subset against the CPU port's on the same rows (or a near
+    tie), beside ByzPy's direct time (BASELINE.md). SMEA at m = 11 runs its
+    8 x 11 Jacobi rounds as ~20 PyTorch operations each."""
+    import numpy as np
+    import torch
+
+    from byzpy_tpu_torch.aggregators import SMEA, MinimumDiameterAveraging
+    from byzpy_tpu_torch.aggregators.geometric_wise.minimum_diameter_average import (
+        _dists_for_search,
+    )
+    from byzpy_tpu_torch.aggregators.geometric_wise.smea import _device_combos
+    from byzpy_tpu_torch.ops import kernels, robust
+
+    out = {}
+    for name, (kind, n, d, f, byzpy_ms) in SUBSET_SEARCH_SHAPES.items():
+        host = torch.from_numpy(np.random.default_rng(n * d).normal(size=(n, d)).astype(np.float32))
+        x = host.cuda()
+        make = MinimumDiameterAveraging if kind == "mda" else SMEA
+        agg, cpu = make(f), make(f, device="cpu")
+        res = agg.aggregate(x)  # the combos and the Jacobi schedule reach the card once
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(res).all()), f"{name}: result not finite")
+        kernels.reset_launch_counts()
+        _, reads = count_syncs(lambda: agg.aggregate(x))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts.items() if v}
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            agg.aggregate(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        host_ms = sorted(times)[len(times) // 2]
+        prof = profile_steps(lambda: agg.aggregate(x), steps=3)
+        got = agg.last_selection.tolist()
+        cpu.aggregate(host)
+        want = cpu.last_selection.tolist()
+        if kind == "mda":
+            d2 = _dists_for_search(host)
+
+            def score(c, d2=d2):
+                return float(d2[np.ix_(c, c)].max())
+        else:
+            combos = _device_combos(n, n - f, torch.device("cpu"))
+            scores = robust.subset_max_eigvals_jacobi(robust.gram_matrix(host), combos)
+            rank = {tuple(c): i for i, c in enumerate(combos.tolist())}
+
+            def score(c, scores=scores, rank=rank):
+                return float(scores[rank[tuple(c)]])
+        best = score(want)
+        check(got == want or score(got) <= best + SUBSET_RTOL * abs(best),
+              f"{name}: the card selected {got}, the CPU port {want}, and no near tie")
+        check(launches == {"gram": 1}, f"{name}: launches {launches}, not one B3")
+        check(reads == (1 if kind == "mda" else 0), f"{name}: {reads} host reads a call")
+        out[name] = {
+            "host_ms": host_ms, "host_ms_calls": times,
+            "device_ms": prof["device_ms_per_step"],
+            "device_busy_share": prof["device_ms_per_step"] / host_ms,
+            "device_launches": prof["device_launches_per_step"],
+            "port_kernels": prof["port_kernels"], "port_launches": launches,
+            "host_reads": reads, "selected_equals_cpu_port": got == want,
+            "byzpy_direct_ms_baseline_md": byzpy_ms, "top": prof["top"],
+        }
+        log(f"  {name}: {json.dumps(out[name])}")
+    return out
+
+
 def codec_times() -> dict:
     """B13, B15 (both formats) and B14 (int8 codes, both fp8 formats) at
     block 256 on f32 rows at the headline 64 x 1,048,576 and the main
@@ -3713,6 +4017,7 @@ def main() -> int:
     log("RAGGED_KERNELS " + json.dumps(ragged_times))
     times.update(ragged_entries(ragged_times))
     log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
+    log("SUBSET_SEARCH at ByzPy's shapes " + json.dumps(subset_search_times()))
 
     entries = []
     for key, source, replaces in KERNELS:

@@ -1575,3 +1575,127 @@ def test_cuda_selection_mean_from_gram_runs_in_a_second_stream(cuda_device):
     torch.cuda.synchronize()
     assert _bits_equal(out_side, ref) and _bits_equal(out, ref)
 
+
+
+# ---------------------------------------------------------------------------
+# the subset-search aggregators (MDA, SMEA) on B3
+# ---------------------------------------------------------------------------
+
+
+def _host_reads(fn):
+    """``(fn(), the synchronizing CUDA operations it made)``, counted by
+    PyTorch's sync debug mode."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _subset_rows(n, d, seed, outliers):
+    x = np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+    x[n - outliers:] *= 3.0
+    return torch.from_numpy(x)
+
+
+SUBSET_CASES = [(8, 421_642, 2, 2), (12, 5000, 3, 3), (16, 4096, 5, 4), (30, 2048, 10, 6)]
+# f32 rounding of a score or distance at the magnitudes of these rows
+SUBSET_RTOL = 1e-5
+
+
+def _near_tie(card, cpu, score):
+    """Where the two devices chose different subsets, the card's scores
+    within f32 rounding of the CPU winner on the CPU's own scores
+    (``score(subset)``): a near tie that the last bits of B3's Gram may
+    break either way."""
+    best = score(cpu)
+    return score(card) <= best + SUBSET_RTOL * abs(best)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,f,outliers", SUBSET_CASES)
+def test_cuda_mda_selects_the_cpu_ports_subset(cuda_device, n, d, f, outliers):
+    from byzpy_tpu_torch.aggregators import MinimumDiameterAveraging
+
+    x = _subset_rows(n, d, n * 7 + f, outliers)
+    card, cpu = MinimumDiameterAveraging(f), MinimumDiameterAveraging(f, device="cpu")
+    xc = x.to(cuda_device)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out, reads = _host_reads(lambda: card.aggregate(xc))
+    assert kernels.launch_counts["gram"] == 1 and reads == 1  # B3 once, its d2 read once
+    ref = cpu.aggregate(x)
+    got, want = card.last_selection.tolist(), cpu.last_selection.tolist()
+    if got != want:
+        from byzpy_tpu_torch.aggregators.geometric_wise.minimum_diameter_average import (
+            _dists_for_search,
+        )
+
+        d2 = _dists_for_search(x)
+        assert _near_tie(got, want, lambda c: float(d2[np.ix_(c, c)].max())), (got, want)
+    else:
+        torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,f,outliers", SUBSET_CASES[:3])
+def test_cuda_smea_selects_the_cpu_ports_subset_with_no_host_read(cuda_device, n, d, f, outliers):
+    from byzpy_tpu_torch.aggregators import SMEA
+    from byzpy_tpu_torch.aggregators.geometric_wise.smea import _device_combos
+    from byzpy_tpu_torch.ops import robust
+
+    x = _subset_rows(n, d, n * 5 + f, outliers)
+    card, cpu = SMEA(f), SMEA(f, device="cpu")
+    xc = x.to(cuda_device)
+    card.aggregate(xc)  # the combos and the schedule reach the card once
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out, reads = _host_reads(lambda: card.aggregate(xc))
+    assert reads == 0 and kernels.launch_counts["gram"] == 1
+    ref = cpu.aggregate(x)
+    combos = _device_combos(n, n - f, torch.device("cpu"))
+    scores_cpu = robust.subset_max_eigvals_jacobi(robust.gram_matrix(x), combos)
+    got, want = card.last_selection.tolist(), cpu.last_selection.tolist()
+    rank = {tuple(c): i for i, c in enumerate(combos.tolist())}
+    assert got == want or _near_tie(got, want, lambda c: float(scores_cpu[rank[tuple(c)]])), (got, want)
+    if got == want:
+        torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(8, 6), (16, 11), (12, 3)])
+def test_cuda_jacobi_scores_within_f32_of_the_cpu_port(cuda_device, n, m):
+    from byzpy_tpu_torch.aggregators.geometric_wise.smea import _device_combos
+    from byzpy_tpu_torch.ops import robust
+
+    x = _subset_rows(n, 3000, n + m, 2)
+    x[1, :] = float("inf") if m == 3 else x[1, :]
+    g = robust.gram_matrix(x)
+    combos = _device_combos(n, m, torch.device("cpu"))
+    ref = robust.subset_max_eigvals_jacobi(g, combos)
+    gc, cc = g.to(cuda_device), _device_combos(n, m, cuda_device)
+    robust.subset_max_eigvals_jacobi(gc, cc)  # the schedule reaches the card once
+    torch.cuda.synchronize()
+    got, reads = _host_reads(lambda: robust.subset_max_eigvals_jacobi(gc, cc))
+    assert reads == 0
+    got = got.cpu()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got[fin], ref[fin], rtol=0,
+                               atol=SUBSET_RTOL * float(ref[fin].abs().max()))
+    assert torch.equal(got[~fin], ref[~fin])
+
+
+@pytest.mark.cuda
+def test_cuda_subset_search_inherits_b3s_row_cap(cuda_device):
+    from byzpy_tpu_torch.aggregators import SMEA, MinimumDiameterAveraging
+
+    x = torch.zeros((129, 64), device=cuda_device)
+    for agg in (MinimumDiameterAveraging(100), SMEA(60)):
+        with pytest.raises(NotImplementedError, match="at most 128 rows"):
+            agg.aggregate(x)
