@@ -8,7 +8,8 @@ Plain tensor code is PyTorch; every kernel the JAX
 package wrote in Pallas becomes a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use and bound with ``ctypes``
 (``ops/_build.py``). Entry points run on ``cuda`` unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``. The compiled steps of ``parallel`` (``jit_*``),
+the counterpart of ``jax.jit``, replay CUDA graphs (``utils/cuda_graph.py``).
 
 This package imports neither JAX nor anything of ``byzpy_tpu``.
 """

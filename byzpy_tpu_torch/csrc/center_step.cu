@@ -41,7 +41,7 @@
 // distances to z0; step t then reads each column of x once, forms z_{t+1}
 // on it and, from the same values, the distances to z_{t+1} and the
 // column's part of delta. Design: a persistent cooperative kernel
-// (cudaLaunchCooperativeKernel at the co-resident grid; block g walks
+// (a cooperative launch at the co-resident grid; block g walks
 // chunks g, g + G, ...). A pass stages each tile of n rows x 512 (n <= 16)
 // or 256 columns in shared memory with cp.async, each warp
 // copying whole row segments in the widest piece the row's start allows;
@@ -391,9 +391,19 @@ int launch_rows(LoopArgs& a, int sms, cudaStream_t s) {
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long fit = (long long)per_sm * sms;
   const int grid = (int)(a.nchunks < fit ? a.nchunks : fit);
-  void* args[] = {&a};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads), args, smem,
-                                     s);
+  // a cooperative launch through cudaLaunchKernelEx, which a stream capture
+  // records as a cooperative kernel node (the compiled steps' CUDA graphs)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 template <typename T>

@@ -2,15 +2,30 @@
 
 The JAX package keeps flax parameter trees; the tests hand them over as a
 nested dictionary of numpy arrays (``{"params": {"Dense_0": {"kernel",
-"bias"}, ...}}``). The port keeps ``name -> tensor`` dictionaries named
-after its modules (``dense_0.weight``, ``conv_1.bias``). The maps:
+"bias"}, ...}}``, and for the ResNets ``{"params": {"Conv_0": {"kernel"},
+"GroupNorm_0": {"scale", "bias"}, "BottleneckBlock_3": {"Conv_1":
+{"kernel"}, ...}, ...}}``). The port keeps flat ``name -> tensor``
+dictionaries named after its modules, each flax name lower-cased and the
+path joined by dots (``dense_0.weight``, ``bottleneckblock_3.conv_1.weight``,
+``groupnorm_0.bias``). The maps:
 
 * Dense kernel ``(in, out)`` -> Linear weight ``(out, in)``;
-* Conv kernel ``HWIO`` -> Conv2d weight ``OIHW``;
+* Conv kernel ``HWIO`` -> Conv2d weight ``OIHW`` (the ResNets' convolutions
+  have no bias);
+* GroupNorm ``scale`` -> ``weight``;
 * biases as they are.
 
 ``SmallCNN`` flattens in NHWC order, as flax does, so ``Dense_0`` needs no
 permutation beyond the transpose.
+
+The two packages ravel a model's parameters in different orders. The port
+follows its modules' order of creation (:func:`ordered_like` re-keys a
+converted dictionary that way), flax sorts each level's names as strings
+(``ResNetBlock_10`` before ``ResNetBlock_2``, ``Conv_0`` before
+``Dense_0`` before ``GroupNorm_0``, ``bias`` before ``kernel``). A flat
+vector of one package is therefore a permutation of the other's: that
+matters to nothing coordinate-wise, only to the blockwise wire codes,
+whose blocks group different coordinates.
 """
 
 from __future__ import annotations
@@ -23,46 +38,73 @@ import torch
 from ..utils.device import DeviceLike, resolve_device
 from .bundle import Params
 
-_TO_TORCH = {"Dense": (1, 0), "Conv": (3, 2, 0, 1)}
-_TO_FLAX = {"dense": (1, 0), "conv": (2, 3, 1, 0)}
+# flax module kinds by the port's lower-cased prefix: layers with parameters
+# and the blocks that hold them
+_FLAX_KINDS = {"dense": "Dense", "conv": "Conv", "groupnorm": "GroupNorm",
+               "resnetblock": "ResNetBlock", "bottleneckblock": "BottleneckBlock"}
+_LAYERS = {"Dense", "Conv", "GroupNorm"}
+_TO_TORCH = {2: (1, 0), 4: (3, 2, 0, 1)}   # kernel rank -> permutation
+_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
+def _kind(name: str, what: str) -> str:
+    kind, idx = name.rsplit("_", 1) if "_" in name else (name, "")
+    if kind not in _FLAX_KINDS.values() or not idx.isdigit():
+        raise ValueError(f"no mapping for flax {what} {name!r}")
+    return kind
 
 
 def from_flax(flax_params: Mapping[str, Any], *, device: DeviceLike = None) -> Params:
     """The port's parameter dictionary for a flax tree (with or without
-    the outer ``"params"`` level)."""
+    the outer ``"params"`` level), in flax's sorted order."""
     tree = flax_params.get("params", flax_params)
     dev = resolve_device(device)
     out: Params = {}
-    for layer in sorted(tree):
-        kind, idx = layer.rsplit("_", 1)
-        if kind not in _TO_TORCH:
-            raise ValueError(f"no mapping for flax layer {layer!r}")
-        prefix = f"{kind.lower()}_{idx}"
-        kernel = np.asarray(tree[layer]["kernel"], dtype=np.float32)
-        out[f"{prefix}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(kernel.transpose(_TO_TORCH[kind]))
-        ).to(dev)
-        out[f"{prefix}.bias"] = torch.from_numpy(
-            np.array(tree[layer]["bias"], dtype=np.float32)
-        ).to(dev)
+
+    def walk(node: Mapping[str, Any], prefix: str) -> None:
+        for name in sorted(node):
+            kind = _kind(name, "layer")
+            path = f"{prefix}{name.lower()}"
+            if kind not in _LAYERS:
+                walk(node[name], path + ".")
+                continue
+            for leaf in sorted(node[name]):
+                arr = np.asarray(node[name][leaf], dtype=np.float32)
+                if leaf == "kernel":
+                    out[f"{path}.weight"] = torch.from_numpy(
+                        np.ascontiguousarray(arr.transpose(_TO_TORCH[arr.ndim]))).to(dev)
+                elif leaf in ("scale", "bias"):
+                    key = "weight" if leaf == "scale" else "bias"
+                    out[f"{path}.{key}"] = torch.from_numpy(arr.copy()).to(dev)
+                else:
+                    raise ValueError(f"no mapping for flax parameter {path}/{leaf}")
+
+    walk(tree, "")
     return out
 
 
-def to_flax(params: Params) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
-    """Inverse of :func:`from_flax`: ``{"params": {layer: {"kernel",
-    "bias"}}}`` of numpy arrays."""
-    tree: Dict[str, Dict[str, np.ndarray]] = {}
+def to_flax(params: Params) -> Dict[str, Any]:
+    """Inverse of :func:`from_flax`: ``{"params": {...}}``, nested as flax
+    nests the modules, of numpy arrays."""
+    tree: Dict[str, Any] = {}
     for name, t in params.items():
-        prefix, leaf = name.rsplit(".", 1)
-        kind, idx = prefix.rsplit("_", 1)
-        if kind not in _TO_FLAX:
+        *modules, leaf = name.split(".")
+        node, kind = tree, None
+        for m in modules:
+            prefix, _, idx = m.rpartition("_")
+            if prefix not in _FLAX_KINDS or not idx.isdigit():
+                raise ValueError(f"no mapping for parameter {name!r}")
+            kind = _FLAX_KINDS[prefix]
+            node = node.setdefault(f"{kind}_{idx}", {})
+        if kind not in _LAYERS or leaf not in ("weight", "bias"):
             raise ValueError(f"no mapping for parameter {name!r}")
-        layer = f"{kind.capitalize()}_{idx}"
         arr = t.detach().cpu().numpy()
-        if leaf == "weight":
-            tree.setdefault(layer, {})["kernel"] = np.ascontiguousarray(arr.transpose(_TO_FLAX[kind]))
+        if leaf == "bias":
+            node["bias"] = arr.copy()
+        elif kind == "GroupNorm":
+            node["scale"] = arr.copy()
         else:
-            tree.setdefault(layer, {})["bias"] = arr.copy()
+            node["kernel"] = np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim]))
     return {"params": tree}
 
 

@@ -140,6 +140,11 @@ launch_counts = {
     "segment_sum_dequant:s4": 0,
     # the ragged door's sort family
     "segmented_sort_reduce": 0,
+    # replays of a compiled step's CUDA graph (utils/cuda_graph.py), by
+    # step: the kernels a graph holds count once, when it is captured
+    "graph_replay:ps_train_step": 0,
+    "graph_replay:serving_ps_step": 0,
+    "graph_replay:ragged_serving_ps_step": 0,
 }
 
 

@@ -257,7 +257,9 @@ def geometric_median(
     JAX package's ``while_loop`` does, while ``(it == 0 or delta > tol) and
     it < max_iter``, ``delta`` the L2 step length in ``x``'s dtype. On the
     card the whole loop is one launch; the call reads one value on the
-    host, the iteration count, into :data:`last_iterations`.
+    host, the iteration count, into :data:`last_iterations`, except while
+    the stream is captured in a CUDA graph: there the record is the 0-d
+    device tensor itself, which each replay of the graph rewrites.
     ``init="median"`` starts from :func:`coordinate_median` (the midpoint
     at even ``n``, as ``jnp.median``), ``"mean"`` from the row mean."""
     if init not in {"median", "mean"}:
@@ -265,7 +267,10 @@ def geometric_median(
     _check_matrix(x)
     z0 = coordinate_median(x) if init == "median" else _row_mean(x)
     z, iterations = kernels.center_loop(x, z0, mode="weiszfeld", eps=eps, tol=tol, max_iter=max_iter)
-    last_iterations["geometric_median"] = int(iterations)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        last_iterations["geometric_median"] = iterations
+    else:
+        last_iterations["geometric_median"] = int(iterations)
     return z
 
 

@@ -3,13 +3,17 @@
 from .collectives import reshard_q, reshard_q_ef
 from .gossip import GossipStepConfig, build_gossip_train_step
 from .ps import (
-    PSStepConfig,
     SGD,
+    Adam,
+    PSStepConfig,
     adaptive_attack_rows,
     build_ps_train_step,
     build_ragged_serving_ps_step,
     build_serving_ps_step,
     default_optimizer,
+    jit_ps_train_step,
+    jit_ragged_serving_ps_step,
+    jit_serving_ps_step,
 )
 from .quantization import (
     DEFAULT_BLOCK,
@@ -26,6 +30,7 @@ from .quantization import (
 )
 
 __all__ = [
+    "Adam",
     "DEFAULT_BLOCK",
     "SUB_INT8_MODES",
     "CommPrecision",
@@ -44,6 +49,9 @@ __all__ = [
     "dequantize_rows",
     "ef_encode",
     "encode_blockwise",
+    "jit_ps_train_step",
+    "jit_ragged_serving_ps_step",
+    "jit_serving_ps_step",
     "quantization_error_bound",
     "quantize_blockwise",
     "reshard_q",

@@ -7,7 +7,9 @@ one-device mesh, whose gradient transpose moves nothing but still
 encodes and decodes. One step:
 
 1. per-node gradients of every node's batch, ``torch.func.vmap`` over
-   ``torch.func.grad_and_value`` of the loss (the JAX ``vmap`` at :403);
+   ``torch.func.grad_and_value`` of the loss (the JAX ``vmap`` at :403),
+   each node's flat gradient cast to ``grad_dtype`` where one is given
+   (:263-268);
 2. with ``comm_precision`` on, every node's raw gradient row, byzantine
    nodes' too, crosses the compressed wire hop (``collectives.reshard_q``,
    :404-422): int8 through B13 + B14, fp8 through B15 + B14, s4 through
@@ -16,7 +18,9 @@ encodes and decodes. One step:
    replaces the last ``n_byzantine`` rows of the ``(n, d)`` matrix (:345);
 4. the optional ``pre_aggregate`` hook, then ``aggregate(matrix)`` (:441);
    on the card this is where the hand-written kernels run;
-5. SGD with momentum (:75, :479-481), exactly ``optax.sgd(lr, momentum)``.
+5. the optimizer on the flat parameters: by default SGD with momentum
+   (:75, :479-481), exactly ``optax.sgd(lr, momentum)``; :class:`Adam` is
+   ``optax.adam``.
 
 The step is a pure function of its inputs, like the JAX one: parameters
 and optimizer state are returned anew, never updated in place.
@@ -26,6 +30,12 @@ and optimizer state are returned anew, never updated in place.
 ``build_ragged_serving_ps_step`` (ref ``ps.py:585``) takes the same
 cohort in the ragged door's flat-rows layout. ``adaptive_attack_rows``
 (ref ``ps.py:673``) turns an attack class into a round's byzantine rows.
+
+``jit_ps_train_step``, ``jit_serving_ps_step`` and
+``jit_ragged_serving_ps_step`` (ref :723, :706, :654) are the compiled
+steps, the counterpart of ``jax.jit`` with donation: on the card each
+captures its step in one CUDA graph per input signature and replays it
+(``utils.cuda_graph``); on CPU tensors it runs the step as it is.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from torch.profiler import record_function
 from ..models.bundle import ModelBundle, Params
 from ..ops import kernels
 from ..ops import ragged as ragged_ops
+from ..utils.cuda_graph import CapturedStep, capture_guard
 from ..utils.trees import ravel_fn
 from .collectives import reshard_q, reshard_q_ef
 from .quantization import as_comm_precision
@@ -54,6 +65,7 @@ PreAggFn = Callable[[torch.Tensor], torch.Tensor]   # (n, d) -> (m, d)
 # attack: (honest (h, d), generator) -> (n_byz, d) or (d,)
 AttackFn = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 OptState = Dict[str, torch.Tensor]
+_INT32_MAX = 2**31 - 1
 
 
 @dataclass(frozen=True)
@@ -92,6 +104,50 @@ class SGD:
         return flat_params + trace * (-self.learning_rate), state
 
 
+class Adam:
+    """Adam on a flat parameter vector, equal to ``optax.adam(learning_rate,
+    b1, b2, eps)``: the moments ``mu = (1 - b1) g + b1 mu`` and ``nu = (1 -
+    b2) g^2 + b2 nu`` from zero, each divided by ``1 - b^t``, the update
+    ``-lr * mu_hat / (sqrt(nu_hat) + eps)``. The step
+    count ``t`` is an int32 0-d tensor of the state on the parameters'
+    device (optax's ``count``), so a step captured in a CUDA graph counts
+    on at every replay."""
+
+    def __init__(self, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
+
+    def init(self, flat_params: torch.Tensor) -> OptState:
+        return {
+            "count": torch.zeros((), dtype=torch.int32, device=flat_params.device),
+            "mu": torch.zeros_like(flat_params),
+            "nu": torch.zeros_like(flat_params),
+        }
+
+    def step(
+        self, flat_params: torch.Tensor, grad: torch.Tensor, state: OptState
+    ) -> Tuple[torch.Tensor, OptState]:
+        mu = (1 - self.b1) * grad + self.b1 * state["mu"]
+        nu = (1 - self.b2) * (grad * grad) + self.b2 * state["nu"]
+        count = state["count"]
+        count = torch.where(count < _INT32_MAX, count + 1, count)  # optax.safe_increment
+        t = count.to(torch.float32)
+        mu_hat = mu / (1 - torch.pow(self.b1, t)).to(mu.dtype)
+        nu_hat = nu / (1 - torch.pow(self.b2, t)).to(nu.dtype)
+        update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        return flat_params + update * (-self.learning_rate), {"count": count, "mu": mu, "nu": nu}
+
+
+def _checked_optimizer(optimizer: Any, default: Any) -> Any:
+    """``optimizer``, or ``default`` for ``None``; raises ``TypeError`` for
+    an object without the ``init`` / ``step`` protocol."""
+    opt = default if optimizer is None else optimizer
+    if not (callable(getattr(opt, "init", None)) and callable(getattr(opt, "step", None))):
+        raise TypeError(f"optimizer must have init(flat_params) and step(flat_params, grad, "
+                        f"state), got {type(opt).__name__}")
+    return opt
+
+
 def default_optimizer(cfg: PSStepConfig) -> SGD:
     """SGD + momentum, matching the reference examples' torch SGD."""
     return SGD(cfg.learning_rate, momentum=cfg.momentum)
@@ -104,6 +160,8 @@ def build_ps_train_step(
     *,
     attack: Optional[AttackFn] = None,
     pre_aggregate: Optional[PreAggFn] = None,
+    optimizer: Any = None,
+    grad_dtype: Optional[torch.dtype] = None,
     comm_precision: Any = None,
 ) -> Tuple[Callable, Any]:
     """Build ``(train_step, opt_state0)``.
@@ -115,6 +173,14 @@ def build_ps_train_step(
     gradient's norm. ``generator`` feeds a randomized attack. With
     ``n_byzantine > 0`` and no attack, byzantine rows echo honest rows.
 
+    ``optimizer`` is any object with ``init(flat_params) -> state`` and
+    ``step(flat_params, grad, state) -> (flat_params, state)`` on the flat
+    parameter vector (:class:`SGD`, :class:`Adam`); the default is
+    :func:`default_optimizer`'s SGD with momentum. ``grad_dtype`` (e.g.
+    ``torch.bfloat16``) casts each node's flat gradient before the wire,
+    the attack and the aggregator, as the reference does; the aggregate
+    returns to the parameters' dtype for the update.
+
     ``comm_precision`` (``None``/``"off"``/``"bf16"``/``"int8"``/``"fp8"``/
     ``"fp8_e5m2"``/``"s4"`` or a :class:`~byzpy_tpu_torch.parallel.quantization.CommPrecision`)
     compresses the gradient hop. This is the reference's round on a
@@ -125,9 +191,10 @@ def build_ps_train_step(
     the round carries each node's quantization residual: ``opt_state0``
     becomes ``(base_opt_state, {"transpose": zeros(n, d)})``, the step
     returns the new residual in the same slot, and the metrics gain
-    ``ef_transpose_norm``. The reference's ``param_gather_precision``
-    and sharded update need a mesh (ROADMAP A.7)."""
-    opt = default_optimizer(cfg)
+    ``ef_transpose_norm``; the residual has ``grad_dtype`` where one is
+    given. The reference's ``param_gather_precision`` and sharded update
+    need a mesh (ROADMAP A.7)."""
+    opt = _checked_optimizer(optimizer, default_optimizer(cfg))
     comm = as_comm_precision(comm_precision)
     ef = comm.enabled and comm.error_feedback
     ravel, unravel = ravel_fn(bundle.params)
@@ -139,7 +206,8 @@ def build_ps_train_step(
     flat0 = ravel(bundle.params)
     opt_state0 = opt.init(flat0)
     if ef:
-        opt_state0 = (opt_state0, {"transpose": flat0.new_zeros((cfg.n_nodes, flat0.shape[0]))})
+        residual0 = flat0.new_zeros((cfg.n_nodes, flat0.shape[0]), dtype=grad_dtype or flat0.dtype)
+        opt_state0 = (opt_state0, {"transpose": residual0})
 
     def build_matrix(grads_n: torch.Tensor, generator) -> torch.Tensor:
         honest = grads_n[:h]
@@ -161,6 +229,8 @@ def build_ps_train_step(
             opt_state, ef_state = opt_state
         grads, losses = per_node(params, xs, ys)
         flat = torch.cat([grads[k].reshape(cfg.n_nodes, -1) for k in names], dim=1)
+        if grad_dtype is not None:
+            flat = flat.to(grad_dtype)
         if ef:
             flat, residual = reshard_q_ef(flat, ef_state["transpose"], precision=comm)
             ef_state = {**ef_state, "transpose": residual}
@@ -211,14 +281,11 @@ def build_serving_ps_step(
 
     Preconditions, as in the reference: the cohort is admissible for the
     aggregator and its valid rows are finite (``Aggregator.aggregate_masked``
-    is the guarded door). ``optimizer=`` and ``mesh=`` raise
-    ``NotImplementedError``: only the built-in SGD and one device are
-    ported. Returns ``(step, opt_state0)``."""
-    if optimizer is not None:
-        raise NotImplementedError("optimizer=: only the built-in SGD with momentum is ported")
+    is the guarded door). ``mesh=`` raises ``NotImplementedError``: only
+    one device is ported. Returns ``(step, opt_state0)``."""
     if mesh is not None:
         raise NotImplementedError("mesh=: the feature-sharded serving step is not ported")
-    opt = SGD(learning_rate, momentum=momentum)
+    opt = _checked_optimizer(optimizer, SGD(learning_rate, momentum=momentum))
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
 
@@ -261,24 +328,21 @@ def build_ragged_serving_ps_step(
     device. It scales the rows, derives the segment ids and the fill on the
     device (``ops.ragged.segment_ids``), aggregates with
     ``ragged_aggregate`` (an ``Aggregator.ragged_matrix_fn()``, its row
-    contractions B11 bounded by the fill) and steps SGD with momentum. No
-    value is read on the host (the geometric median's Weiszfeld loop
-    excepted). The per-cohort contract of the ragged programs makes the
-    step's parameters bit for bit :func:`build_serving_ps_step`'s on the
-    same cohort in its bucket. The metrics are ``agg_grad_norm`` and
+    contractions B11 bounded by the fill) and steps ``optimizer`` (by
+    default SGD with momentum). No value is read on the host (the
+    geometric median's Weiszfeld loop excepted). The per-cohort contract
+    of the ragged programs makes the step's parameters bit for bit
+    :func:`build_serving_ps_step`'s on the same cohort in its bucket. The metrics are ``agg_grad_norm`` and
     ``cohort_m``, device scalars; the stages run under the profiler ranges
     ``serving.ragged_scale``, ``serving.ragged_aggregate`` and
     ``serving.opt_update``.
 
     Preconditions as in the bucketed step: an admissible cohort of finite
-    rows. ``optimizer=`` and ``mesh=`` raise ``NotImplementedError``. The
-    reference's jitted wrapper (``jit_ragged_serving_ps_step``) has no
-    counterpart: PyTorch runs eagerly. Returns ``(step, opt_state0)``."""
-    if optimizer is not None:
-        raise NotImplementedError("optimizer=: only the built-in SGD with momentum is ported")
+    rows. ``mesh=`` raises ``NotImplementedError``. Returns ``(step,
+    opt_state0)``."""
     if mesh is not None:
         raise NotImplementedError("mesh=: the feature-sharded serving step is not ported")
-    opt = SGD(learning_rate, momentum=momentum)
+    opt = _checked_optimizer(optimizer, SGD(learning_rate, momentum=momentum))
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
     rows = int(row_capacity)
@@ -304,17 +368,97 @@ def build_ragged_serving_ps_step(
     return step, opt.init(ravel(bundle.params))
 
 
+def _guarded(kwargs: dict, roles: Tuple[str, ...]) -> dict:
+    """``kwargs`` with each callable named in ``roles`` wrapped by
+    :func:`~byzpy_tpu_torch.utils.cuda_graph.capture_guard`."""
+    return {k: capture_guard(v, k) if k in roles and v is not None else v
+            for k, v in kwargs.items()}
+
+
+def jit_ps_train_step(
+    bundle: ModelBundle,
+    aggregate: AggFn,
+    cfg: PSStepConfig,
+    *,
+    mesh: Any = None,
+    donate: bool = True,
+    **kwargs: Any,
+) -> Tuple[Callable, Any]:
+    """:func:`build_ps_train_step` compiled: ``(step, opt_state0)``, ``step``
+    a :class:`~byzpy_tpu_torch.utils.cuda_graph.CapturedStep` with the
+    train step's signature (ref ``ps.py:723``, ``jax.jit`` with donation).
+
+    On the card the first call of each input signature (shapes, dtypes,
+    whether a generator is given) runs the step once on copies of its
+    inputs, captures it in a CUDA graph and replays it; later calls copy
+    their inputs into the graph's buffers and replay. A generator is
+    registered with the graph, so each replay draws fresh numbers and
+    advances it as the eager step would. With ``donate=True`` the new
+    parameters and optimizer state are written into the graph's input
+    buffers and returned as they are: passing them back in costs no copy,
+    and the previous round's references are overwritten. ``donate=False``
+    returns clones. A step that reads the host (a synchronizing operation)
+    cannot be captured: the capture raises
+    :class:`~byzpy_tpu_torch.utils.cuda_graph.GraphCaptureError` naming the
+    aggregate, pre-aggregate or attack callable that read; nothing runs
+    eagerly on the card in its place. On CPU tensors ``step`` is the eager
+    step. ``mesh=`` raises ``NotImplementedError`` (ROADMAP A.7)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh=: the sharded PS round is not ported")
+    kwargs = _guarded(kwargs, ("attack", "pre_aggregate"))
+    step, opt_state0 = build_ps_train_step(bundle, capture_guard(aggregate, "aggregate"), cfg,
+                                           **kwargs)
+    return CapturedStep(step, name="ps_train_step", donate=donate), opt_state0
+
+
+def jit_serving_ps_step(
+    bundle: ModelBundle,
+    masked_aggregate: MaskedAggFn,
+    *,
+    donate: bool = False,
+    **kwargs: Any,
+) -> Tuple[Callable, Any]:
+    """:func:`build_serving_ps_step` compiled as :func:`jit_ps_train_step`
+    compiles the train step (ref ``ps.py:706``): one CUDA graph per bucket
+    shape, the cohort size flowing through the mask."""
+    step, opt_state0 = build_serving_ps_step(
+        bundle, capture_guard(masked_aggregate, "masked_aggregate"), **kwargs)
+    return CapturedStep(step, name="serving_ps_step", donate=donate), opt_state0
+
+
+def jit_ragged_serving_ps_step(
+    bundle: ModelBundle,
+    ragged_aggregate: RaggedAggFn,
+    *,
+    row_capacity: int,
+    donate: bool = False,
+    **kwargs: Any,
+) -> Tuple[Callable, Any]:
+    """:func:`build_ragged_serving_ps_step` compiled as
+    :func:`jit_ps_train_step` compiles the train step (ref ``ps.py:654``):
+    one CUDA graph per row capacity, the cohort's placement data."""
+    step, opt_state0 = build_ragged_serving_ps_step(
+        bundle, capture_guard(ragged_aggregate, "ragged_aggregate"), row_capacity=row_capacity,
+        **kwargs)
+    return CapturedStep(step, name="ragged_serving_ps_step", donate=donate), opt_state0
+
+
 __all__ = [
+    "Adam",
     "AggFn",
     "AttackFn",
     "MaskedAggFn",
     "PSStepConfig",
     "RaggedAggFn",
     "SGD",
+    "adaptive_attack_rows",
     "build_ps_train_step",
     "build_ragged_serving_ps_step",
     "build_serving_ps_step",
     "default_optimizer",
+    "jit_ps_train_step",
+    "jit_ragged_serving_ps_step",
+    "jit_serving_ps_step",
 ]
 
 

@@ -12,11 +12,14 @@ insertion order (the JAX package sorts keys), lists and tuples in order.
 Tests compare structures leaf by leaf, or parameters after
 ``models.convert``, never flat vectors of a structure across the two
 packages. :func:`ravel_fn` is the PS round's flattener for one parameter
-dictionary.
+dictionary. :func:`ravel_pytree_fn` is the exception: it follows the JAX
+package's leaf order (dictionary keys sorted), so its flat vector of a
+structure is the reference's, value for value.
 """
 
 from __future__ import annotations
 
+import functools
 import numbers
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -65,13 +68,15 @@ def _as_tensor(leaf: Any, device: DeviceLike) -> torch.Tensor:
     raise TypeError(f"unsupported gradient leaf of type {type(leaf).__name__}")
 
 
-def _spec(tree: Any, leaves: List[Any]) -> Any:
+def _spec(tree: Any, leaves: List[Any], *, sort_keys: bool = False) -> Any:
     """The structure of ``tree`` (``None`` marks a leaf), collecting its
-    leaves in flat order."""
+    leaves in flat order: dictionaries in insertion order, or in sorted
+    key order (``jax.tree_util``'s) with ``sort_keys``."""
     if isinstance(tree, dict):
-        return (type(tree), tuple((k, _spec(v, leaves)) for k, v in tree.items()))
+        keys = sorted(tree) if sort_keys else list(tree)
+        return (type(tree), tuple((k, _spec(tree[k], leaves, sort_keys=sort_keys)) for k in keys))
     if isinstance(tree, (list, tuple)):
-        return (type(tree), tuple(_spec(v, leaves) for v in tree))
+        return (type(tree), tuple(_spec(v, leaves, sort_keys=sort_keys) for v in tree))
     leaves.append(tree)
     return None
 
@@ -168,6 +173,55 @@ def _ravel(tree: Any, device: DeviceLike) -> Tuple[torch.Tensor, Callable, Any]:
     return flat, unravel, spec
 
 
+def tree_size(tree: Any) -> int:
+    """Total number of elements across all leaves of ``tree``."""
+    leaves: List[Any] = []
+    _spec(tree, leaves)
+    return sum(int(np.size(t)) if not isinstance(t, torch.Tensor) else int(t.numel())
+               for t in leaves)
+
+
+def ravel_pytree_fn(
+    example: Any,
+) -> Tuple[Callable[[Any], torch.Tensor], Callable[[torch.Tensor], Any]]:
+    """``(ravel, unravel)`` for structures shaped like ``example``, in the
+    JAX package's leaf order (``jax.flatten_util.ravel_pytree``):
+    dictionaries by sorted key, lists and tuples in order.
+
+    ``ravel(tree)`` concatenates ``tree``'s leaves, raveled, into one
+    vector of their promoted dtype. ``unravel(flat)`` splits a vector of
+    ``example``'s total size back into ``example``'s structure and leaf
+    shapes. Where ``example``'s leaves share one dtype, ``unravel`` keeps
+    ``flat``'s dtype; where they mix, ``flat`` must have the promoted
+    dtype (``TypeError`` otherwise) and each leaf is cast back to its own,
+    as the reference's unravel does."""
+    raw: List[Any] = []
+    spec = _spec(example, raw, sort_keys=True)
+    leaves = [_as_tensor(t, None) for t in raw]
+    shapes = [tuple(t.shape) for t in leaves]
+    dtypes = [t.dtype for t in leaves]
+    sizes = [int(t.numel()) for t in leaves]
+    mixed = len(set(dtypes)) > 1
+    to_dtype = functools.reduce(torch.promote_types, dtypes) if dtypes else torch.float32
+
+    def ravel(tree: Any) -> torch.Tensor:
+        out: List[Any] = []
+        _spec(tree, out, sort_keys=True)
+        return _cat([_as_tensor(t, None) for t in out])
+
+    def unravel(flat: torch.Tensor) -> Any:
+        if tuple(flat.shape) != (sum(sizes),):
+            raise ValueError(f"expected a flat vector of {sum(sizes)}, got {tuple(flat.shape)}")
+        if mixed and flat.dtype != to_dtype:
+            raise TypeError(f"unravel function given a vector of dtype {flat.dtype}, "
+                            f"but expected dtype {to_dtype}")
+        parts = [p.reshape(s) if not mixed else p.reshape(s).to(dt)
+                 for p, s, dt in zip(torch.split(flat, sizes), shapes, dtypes)]
+        return _build(spec, iter(parts))
+
+    return ravel, unravel
+
+
 def stack_gradients(
     gradients: Any, *, device: DeviceLike = None
 ) -> Tuple[torch.Tensor, Callable[[torch.Tensor], Any]]:
@@ -213,4 +267,13 @@ def unstack_rows(matrix: torch.Tensor, unravel: Callable[[torch.Tensor], Any]) -
     return [unravel(matrix[i]) for i in range(matrix.shape[0])]
 
 
-__all__ = ["Params", "map_leaves", "ravel_fn", "ravel_pytree", "stack_gradients", "unstack_rows"]
+__all__ = [
+    "Params",
+    "map_leaves",
+    "ravel_fn",
+    "ravel_pytree",
+    "ravel_pytree_fn",
+    "stack_gradients",
+    "tree_size",
+    "unstack_rows",
+]

@@ -98,7 +98,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    int8, fp8 and s4 client rows (encoded on the card), through Multi-Krum,
    CGE, the trimmed mean and the median (one segmented sort-reduce a
    dispatch), every cohort bit for bit ``CohortAggregator``'s, the dense
-   program's on the decoded rows and (s4) the CPU port's;
+   program's on the decoded rows and (s4) the CPU port's; then (4e) the
+   compiled step, with cuDNN's deterministic algorithms: each compiled
+   twin (``jit_ps_train_step``, ``jit_serving_ps_step``,
+   ``jit_ragged_serving_ps_step``: a CUDA graph captured once and replayed)
+   runs 5 steps from the eager step's start, its parameters, optimizer
+   state and metrics bit for bit the eager step's at every step, its
+   counted launches the capture's once and one ``graph_replay:<twin>`` a
+   step: (u) BASELINE config #5 at full width, ResNet-50 at 224 x 224
+   (bf16 compute, d = 25,557,032), 8 nodes of which 2 send Empire rows, 16
+   images a node, bf16 gradients, centred clipping (M = 3, some but not
+   all rows clipped at step 1), with its peak memory, the per-node forward
+   and backward's device ms and B7's; (v) ResNet-18 at 32 x 32 (d =
+   11,173,962) with Multi-Krum; (w) SmallCNN's median, trimmed mean,
+   Multi-Krum, CGE, geometric median, centred clipping, (h) int8 + EF
+   median and (p) SMEA; (x) the serving step at bucket 64 (Multi-Krum,
+   MeaMed) and the ragged step at capacity 64 (trimmed mean, cohorts of 6
+   to 64 rows in one graph), each also equal to ``CohortAggregator``; host
+   and device ms, host-issued and device launches a step, eager beside
+   compiled, and the capture's launches and wall ms; (y) MDA, CAF, the
+   masked geometric median and influence ascent through a twin: each
+   capture refused with ``GraphCaptureError`` naming the host-reading
+   callable;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642; B1, B6 (f = 40) and B9's weights also at 128 x 421,642, the
    engine's two runs and merge and the weights block's largest tile; B6 and
@@ -2557,6 +2578,463 @@ def ragged_executor_path(counts: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: the compiled step
+# ---------------------------------------------------------------------------
+
+# (u) BASELINE config #5 at full width: ResNet-50 at 224 x 224 (bf16 compute,
+# f32 parameters, d = 25,557,032), 8 nodes of which 2 send Empire rows, 16
+# images a node, bf16 gradients, centred clipping with M = 3
+U_NODES, U_BYZ, U_BATCH, U_LR = 8, 2, 16, 0.01
+# (u)'s clipping threshold: at step 1 the honest rows sit 24.95-26.47 from
+# the rows' mean and the two Empire rows 19.14 on the H100 (torch 2.11), so
+# 25.5 clips four; phase 4e fails if the first iteration clips none or all
+U_CTAU = 25.5
+# (v) ResNet-18 at 32 x 32 (d = 11,173,962), 8 nodes of which 2 sign-flip the
+# honest mean, 64 images a node, Multi-Krum (f = 2, q = 4)
+V_BATCH = 64
+COMPILED_STEPS = 5
+# the CUDA runtime and driver calls that put work on the card, as
+# torch.profiler names them: a step's host-issued launches
+HOST_LAUNCH = re.compile(r"^(cuda|cu)(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy|Memset)")
+
+
+def tensors_of(tree) -> list:
+    import torch
+
+    from byzpy_tpu_torch.utils.trees import _spec
+
+    leaves = []
+    _spec(tree, leaves)
+    return [t for t in leaves if isinstance(t, torch.Tensor)]
+
+
+def states_bits_equal(a, b) -> bool:
+    """Every tensor of two structures equal bit for bit (shapes, dtypes and
+    bytes)."""
+    import torch
+
+    la, lb = tensors_of(a), tensors_of(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def profile_host_device(run, steps: int = 3) -> dict:
+    """``profile_steps``' device time and launches, and the host-issued
+    launches a step: the CUDA API calls that put work on the card (kernel
+    and graph launches, copies, memsets), by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_events(prof, steps)
+    ours = port_part(by_kernel)
+    host = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and HOST_LAUNCH.match(ev.key):
+            host[ev.key] = host.get(ev.key, 0.0) + ev.count / steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    return {
+        "profiled_wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": sum(v[0] for v in by_kernel.values()),
+        "device_launches_per_step": sum(v[1] for v in by_kernel.values()),
+        "host_issued_per_step": sum(host.values()),
+        "host_issued": host,
+        "port_kernels": {p: [ms, count] for p, (ms, count) in ours.items()},
+        "top": [[k[:60], round(v[0], 4), v[1]] for k, v in top],
+    }
+
+
+def span_ms(fn, reps: int = 3) -> float:
+    """The device's time from before ``fn()``'s work to after it (CUDA
+    events on the current stream), the median of ``reps`` calls: for a
+    graph replay, the graph's time on the card."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return sorted(out)[len(out) // 2]
+
+
+def compiled_vs_eager(name: str, eager, compiled, state0, inputs, kernel_keys, counts: dict) -> dict:
+    """``COMPILED_STEPS`` eager steps, then as many of the compiled twin from
+    the same start with the counts set to 0 just before and read just after,
+    each step's parameters, optimizer state and metrics bit for bit the
+    eager step's; the counts are the capture's launches once and a replay
+    a step, ``kernel_keys`` among the captured. Then 3 more steps of each
+    under torch.profiler. ``inputs(s)`` gives step s's other arguments."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    e_states, e_times = [], []
+    p, o = state0
+    for s in range(COMPILED_STEPS):
+        (p, o, m), ms = timed(lambda: eager(p, o, *inputs(s)))
+        e_states.append((p, o, m))
+        e_times.append(ms)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    c_times = []
+    p, o = state0
+    for s in range(COMPILED_STEPS):
+        (p, o, m), ms = timed(lambda: compiled(p, o, *inputs(s)))
+        c_times.append(ms)
+        check(states_bits_equal((p, o, m), e_states[s]),
+              f"{name}: compiled step {s + 1} differs from the eager step")
+    run_counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    capture = compiled.last_capture
+    check(len(compiled.graphs) == 1, f"{name}: {len(compiled.graphs)} graphs captured, not 1")
+    want = {**capture["launches"], compiled.counter: COMPILED_STEPS}
+    check(run_counts == want, f"{name}: launches {run_counts}, not the capture's once and "
+          f"{COMPILED_STEPS} replays {want}")
+    for k in kernel_keys:
+        check(capture["launches"].get(k, 0) > 0, f"{name}: kernel {k} is not in the captured step")
+        counts[k] += capture["launches"][k]
+    losses = [float(st[2].get("honest_loss", st[2]["agg_grad_norm"])) for st in e_states]
+    check(all(map(math.isfinite, losses)), f"{name}: not finite {losses}")
+    pe, oe = e_states[-1][:2]
+    last = inputs(COMPILED_STEPS - 1)
+    e_prof = profile_host_device(lambda: eager(pe, oe, *last))
+    state = [p, o]
+
+    def replay():
+        state[0], state[1], _ = compiled(state[0], state[1], *last)
+
+    c_prof = profile_host_device(replay)
+    e_span, c_span = span_ms(lambda: eager(pe, oe, *last)), span_ms(replay)
+    e_ms, c_ms = sorted(e_times[1:])[len(e_times[1:]) // 2], sorted(c_times[1:])[len(c_times[1:]) // 2]
+    out = {
+        "bitwise_steps": COMPILED_STEPS, "losses_or_norms": losses,
+        "eager": {"host_ms": e_ms, "first_ms": e_times[0], "span_ms": e_span, "profile": e_prof,
+                  "busy": e_prof["device_ms_per_step"] / e_ms},
+        "compiled": {"host_ms": c_ms, "first_ms": c_times[0], "span_ms": c_span, "profile": c_prof,
+                     "busy": c_prof["device_ms_per_step"] / c_ms},
+        "capture": {"ms": capture["ms"], "launches": capture["launches"],
+                    "warmup_launches": capture["warmup_launches"]},
+        "first_eager_state": e_states[0],
+    }
+    log(f"  {name}: {COMPILED_STEPS} compiled steps == eager bitwise; host ms a step eager "
+        f"{e_ms:.3f} / compiled {c_ms:.3f} (median of steps 2-{COMPILED_STEPS}); device ms "
+        f"{e_prof['device_ms_per_step']:.4f} / {c_prof['device_ms_per_step']:.4f}; host-issued "
+        f"launches a step {e_prof['host_issued_per_step']:.1f} / {c_prof['host_issued_per_step']:.1f} "
+        f"(device launches {e_prof['device_launches_per_step']:.1f} / "
+        f"{c_prof['device_launches_per_step']:.1f}); busy {out['eager']['busy']:.3f} / "
+        f"{out['compiled']['busy']:.3f}; device span (CUDA events) {e_span:.3f} / {c_span:.3f} ms; "
+        f"profiled wall {e_prof['profiled_wall_ms_per_step']:.3f} / "
+        f"{c_prof['profiled_wall_ms_per_step']:.3f} ms; capture {capture['ms']:.1f} ms, its "
+        f"launches {capture['launches']}")
+    log(f"    host-issued eager {json.dumps(e_prof['host_issued'])}, compiled "
+        f"{json.dumps(c_prof['host_issued'])}")
+    log(f"    eager profile top {json.dumps(e_prof['top'])}; compiled {json.dumps(c_prof['top'])}; "
+        f"compiled port kernels {json.dumps(c_prof['port_kernels'])}")
+    return out
+
+
+def ps_twins(bundle, agg, cfg, **kw):
+    """The eager train step and its compiled twin, and the start."""
+    from byzpy_tpu_torch.parallel import build_ps_train_step, jit_ps_train_step
+
+    eager, opt0 = build_ps_train_step(bundle, agg, cfg, **kw)
+    compiled, copt0 = jit_ps_train_step(bundle, agg, cfg, **kw)
+    check(states_bits_equal(opt0, copt0), "the twin's opt_state0 differs from the eager one")
+    return eager, compiled, (bundle.params, opt0)
+
+
+def compiled_resnet50(counts: dict) -> dict:
+    """(u) BASELINE config #5 at full width, compiled."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.models import imagenet_resnet50
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig
+
+    torch.cuda.reset_peak_memory_stats()
+    bundle = imagenet_resnet50(seed=0, device="cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    check(d == 25_557_032, f"imagenet_resnet50 has d={d}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = torch.randn((U_NODES, U_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    ys = torch.randint(0, 1000, (U_NODES, U_BATCH), generator=gen, device="cuda")
+    cfg = PSStepConfig(n_nodes=U_NODES, n_byzantine=U_BYZ, learning_rate=U_LR)
+    first = {}
+
+    def agg(m):
+        return robust.centered_clipping(m, c_tau=U_CTAU, M=3)
+
+    def recording(m):
+        if "dists" not in first:
+            check(m.dtype == torch.bfloat16, f"(u): the aggregator sees {m.dtype}, not bf16")
+            mf = m.float()
+            first["dists"] = torch.linalg.vector_norm(mf - mf.mean(dim=0), dim=1).cpu()
+        return agg(m)
+
+    kw = dict(attack=lambda honest, g: attack_ops.empire(honest), grad_dtype=torch.bfloat16)
+    from byzpy_tpu_torch.parallel import build_ps_train_step, jit_ps_train_step
+
+    eager, opt0 = build_ps_train_step(bundle, recording, cfg, **kw)
+    compiled, _ = jit_ps_train_step(bundle, agg, cfg, **kw)
+    res = compiled_vs_eager("(u) ResNet-50, centred clipping under Empire, bf16 gradients", eager,
+                            compiled, (bundle.params, opt0), lambda s: (xs, ys), ["center_loop:clip"],
+                            counts)
+    dists = [round(float(v), 4) for v in first["dists"]]
+    clipped = int((first["dists"] > U_CTAU).sum())
+    log(f"    (u) step-1 distances of the rows from their mean {dists}, c_tau {U_CTAU}: "
+        f"{clipped} of {U_NODES} clipped at the first iteration")
+    check(0 < clipped < U_NODES, f"(u): the first iteration clipped {clipped} of {U_NODES} rows")
+    per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+    fwd_bwd = profile_host_device(lambda: per_node(bundle.params, xs, ys), steps=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res.update(d=d, step1_row_dists=dists, c_tau=U_CTAU, clipped_step1=clipped,
+               per_node_forward_backward_device_ms=fwd_bwd["device_ms_per_step"],
+               per_node_forward_backward_top=fwd_bwd["top"],
+               b7_device_ms=res["compiled"]["profile"]["port_kernels"].get("center_loop_kernel"),
+               peak_memory_gib=peak)
+    log(f"    (u) d = {d}; per-node forward and backward {fwd_bwd['device_ms_per_step']:.3f} device "
+        f"ms ({json.dumps(fwd_bwd['top'])}); B7 {res['b7_device_ms']}; peak memory {peak:.2f} GiB")
+    del bundle, eager, compiled, xs, ys
+    torch.cuda.empty_cache()
+    return res
+
+
+def compiled_resnet18(counts: dict) -> dict:
+    """(v) ResNet-18 at full width with Multi-Krum, compiled."""
+    import torch
+
+    from byzpy_tpu_torch.models import cifar_resnet18, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig
+
+    bundle = cifar_resnet18(seed=0, device="cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    check(d == 11_173_962, f"cifar_resnet18 has d={d}")
+    x, y = synthetic_classification(n_samples=MAIN_N * V_BATCH, input_shape=(32, 32, 3), seed=3,
+                                    device="cuda")
+    xs, ys = x.reshape(MAIN_N, V_BATCH, 32, 32, 3), y.reshape(MAIN_N, V_BATCH)
+    cfg = PSStepConfig(n_nodes=MAIN_N, n_byzantine=MAIN_BYZ)
+    eager, compiled, state0 = ps_twins(
+        bundle, lambda m: robust.multi_krum(m, f=MAIN_BYZ, q=4), cfg,
+        attack=lambda honest, g: attack_ops.sign_flip(honest.mean(dim=0)))
+    res = compiled_vs_eager("(v) ResNet-18, Multi-Krum", eager, compiled, state0, lambda s: (xs, ys),
+                            ["gram", "selection_weights:krum", "weighted_rows"], counts)
+    res["d"] = d
+    del bundle, eager, compiled
+    torch.cuda.empty_cache()
+    return res
+
+
+def compiled_smallcnn(counts: dict) -> dict:
+    """(w) SmallCNN's main path, compiled."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import SMEA
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import CommPrecision, PSStepConfig
+
+    b = MAIN_BYZ
+    krum = ["gram", "selection_weights:krum", "weighted_rows"]
+    configs = {
+        "coordinate_median": (robust.coordinate_median, ["sorted_reduce:median"], None),
+        "trimmed_mean": (lambda m: robust.trimmed_mean(m, f=b), ["sorted_reduce:trimmed"], None),
+        "multi_krum": (lambda m: robust.multi_krum(m, f=b, q=4), krum, None),
+        "cge": (lambda m: robust.cge(m, f=b), ["gram", "selection_weights:cge", "weighted_rows"], None),
+        "geometric_median": (robust.geometric_median,
+                             ["sorted_reduce:median", "center_loop:weiszfeld"], None),
+        "centered_clipping": (lambda m: robust.centered_clipping(m, c_tau=MAIN_CTAU, M=10),
+                              ["center_loop:clip"], None),
+        "h_ps_int8_ef_median": (robust.coordinate_median,
+                                ["quantize:int8", "dequantize:int8", "sorted_reduce:median"],
+                                CommPrecision("int8", error_feedback=True)),
+        "p_smea": (None, ["gram"], None),
+    }
+    x, y = synthetic_classification(n_samples=MAIN_N * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = x.reshape(MAIN_N, MAIN_BATCH, 28, 28, 1), y.reshape(MAIN_N, MAIN_BATCH)
+    cfg = PSStepConfig(n_nodes=MAIN_N, n_byzantine=b)
+    results = {}
+    for name, (agg, keys, comm) in configs.items():
+        bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+        if agg is None:
+            agg = SMEA(b).matrix_fn()
+        eager, compiled, state0 = ps_twins(
+            bundle, agg, cfg, attack=lambda honest, g: attack_ops.sign_flip(honest.mean(dim=0)),
+            comm_precision=comm)
+        results[name] = compiled_vs_eager(f"(w) {name}", eager, compiled, state0, lambda s: (xs, ys),
+                                          keys, counts)
+        results[name].pop("first_eager_state")
+    return results
+
+
+def compiled_serving(counts: dict) -> dict:
+    """(x) the serving twins at bucket and capacity 64."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean, MeanOfMedians, MultiKrum
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.parallel import (
+        SGD, build_ragged_serving_ps_step, build_serving_ps_step, jit_ragged_serving_ps_step,
+        jit_serving_ps_step,
+    )
+    from byzpy_tpu_torch.serving import BucketLadder, CohortAggregator, StalenessPolicy, build_cohort
+    from byzpy_tpu_torch.utils import ravel_fn
+
+    ladder = BucketLadder(SERVE_CAP, min_bucket=SERVE_MIN_BUCKET)
+    policy = StalenessPolicy("exponential", gamma=0.5)
+    clients = max(SERVE_COHORTS)
+    x, y = synthetic_classification(n_samples=clients * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = x.reshape(clients, MAIN_BATCH, 28, 28, 1), y.reshape(clients, MAIN_BATCH)
+    bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+    per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+    ravel, _ = ravel_fn(bundle.params)
+    names = list(bundle.params)
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    subs = {m: cohort_submissions(per_node, names, bundle.params, bundle.params, xs, ys, m, d, 1)[0]
+            for m in SERVE_COHORTS}
+    results = {}
+    bucketed = build_cohort(subs[64], 1, ladder, policy)
+    bucket_in = (bucketed.matrix, torch.from_numpy(bucketed.valid).cuda(),
+                 torch.from_numpy(bucketed.weights).cuda())
+    for name, make, keys in (("serve_multi_krum", lambda: MultiKrum(MAIN_BYZ, 4), ["gram", "segment_sum"]),
+                             ("serve_meamed", lambda: MeanOfMedians(MAIN_BYZ),
+                              ["sort_columns", "segment_sum"])):
+        agg = make()
+        eager, opt0 = build_serving_ps_step(bundle, agg.masked_matrix_fn())
+        compiled, _ = jit_serving_ps_step(bundle, agg.masked_matrix_fn())
+        res = compiled_vs_eager(f"(x) {name}, bucket 64", eager, compiled, (bundle.params, opt0),
+                                lambda s: bucket_in, keys, counts)
+        p1 = res.pop("first_eager_state")[0]
+        via = CohortAggregator(agg).aggregate(bucketed)
+        p_ca, _ = SGD(0.05, momentum=0.9).step(ravel(bundle.params), via, opt0)
+        check(bits_equal(p_ca, ravel(p1)), f"{name}: CohortAggregator does not give the step's parameters")
+        res["cohort_aggregator_bitwise"] = True
+        results[name] = res
+    agg = CoordinateWiseTrimmedMean(MAIN_BYZ)
+    eager, opt0 = build_ragged_serving_ps_step(bundle, agg.ragged_matrix_fn(), row_capacity=RAGGED_CAP)
+    compiled, _ = jit_ragged_serving_ps_step(bundle, agg.ragged_matrix_fn(), row_capacity=RAGGED_CAP)
+    ragged_in, cohorts = [], []
+    for s in range(COMPILED_STEPS):
+        m = SERVE_COHORTS[s % len(SERVE_COHORTS)]
+        cohort = build_cohort(subs[m], 1, None, policy)
+        flat = torch.zeros((RAGGED_CAP, d), device="cuda")
+        flat[:m] = cohort.matrix
+        weights = torch.zeros(RAGGED_CAP, device="cuda")
+        weights[:m] = torch.from_numpy(cohort.weights).cuda()
+        ragged_in.append((flat, torch.zeros(1, dtype=torch.int32, device="cuda"),
+                          torch.tensor([m], dtype=torch.int32, device="cuda"), weights))
+        cohorts.append(cohort)
+    res = compiled_vs_eager("(x) ragged trimmed mean, capacity 64, cohorts "
+                            f"{[c.m for c in cohorts]}", eager, compiled, (bundle.params, opt0),
+                            lambda s: ragged_in[s], ["segmented_sort_reduce"], counts)
+    p1 = res.pop("first_eager_state")[0]
+    via = CohortAggregator(agg).aggregate(cohorts[0])
+    p_ca, _ = SGD(0.05, momentum=0.9).step(ravel(bundle.params), via, opt0)
+    check(bits_equal(p_ca, ravel(p1)), "ragged: CohortAggregator does not give the step's parameters")
+    res["cohort_aggregator_bitwise"] = True
+    results["ragged_trimmed_mean"] = res
+    return results
+
+
+def compiled_refusals() -> dict:
+    """(y) host-reading callables through a twin: each capture raises
+    ``GraphCaptureError`` naming the callable's role, and nothing replays."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import GeometricMedian, MinimumDiameterAveraging
+    from byzpy_tpu_torch.attacks import InfluenceAscentAttack
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels, robust
+    from byzpy_tpu_torch.parallel import (
+        PSStepConfig, adaptive_attack_rows, jit_ps_train_step, jit_serving_ps_step,
+    )
+    from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
+
+    cfg = PSStepConfig(n_nodes=MAIN_N, n_byzantine=MAIN_BYZ)
+    x, y = synthetic_classification(n_samples=MAIN_N * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = x.reshape(MAIN_N, MAIN_BATCH, 28, 28, 1), y.reshape(MAIN_N, MAIN_BATCH)
+    bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    atk = InfluenceAscentAttack(d)
+    cases = {
+        "mda": (lambda: jit_ps_train_step(bundle, MinimumDiameterAveraging(MAIN_BYZ).matrix_fn(), cfg),
+                "aggregate", "ps"),
+        "caf": (lambda: jit_ps_train_step(bundle, lambda m: robust.caf(m, f=MAIN_BYZ), cfg),
+                "aggregate", "ps"),
+        "masked_geometric_median": (lambda: jit_serving_ps_step(
+            bundle, GeometricMedian().masked_matrix_fn()), "masked_aggregate", "serving"),
+        "influence_ascent": (lambda: jit_ps_train_step(
+            bundle, robust.coordinate_median, cfg,
+            attack=lambda h, g: adaptive_attack_rows(atk, MAIN_BYZ, honest=h)), "attack", "ps"),
+    }
+    matrix = torch.randn((16, d), device="cuda")
+    valid = torch.ones(16, dtype=torch.bool, device="cuda")
+    results = {}
+    for name, (make, role, kind) in cases.items():
+        step, opt0 = make()
+        args = ((bundle.params, opt0, xs, ys) if kind == "ps"
+                else (bundle.params, opt0, matrix, valid, valid.float()))
+        kernels.reset_launch_counts()
+        try:
+            step(*args)
+            raised = None
+        except GraphCaptureError as exc:
+            raised = str(exc)
+        torch.cuda.synchronize()
+        check(raised is not None, f"(y) {name}: the twin did not refuse the host-reading step")
+        check(f"the {role} callable" in raised and "reads the host" in raised,
+              f"(y) {name}: the refusal does not name the {role} callable's host read: {raised[:300]}")
+        check(not step.graphs and not any(v for k, v in kernels.launch_counts.items()
+                                          if k.startswith("graph_replay")),
+              f"(y) {name}: a graph was kept or replayed after the refusal")
+        results[name] = raised[:240]
+        log(f"  (y) {name}: refused: {raised[:240]}")
+    return results
+
+
+def compiled_path(counts: dict) -> dict:
+    """Phase 4e: the compiled steps (u)-(x) against their eager steps, bit
+    for bit, with cuDNN's deterministic algorithms, then the refusals (y)."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out = {"u_resnet50_config5": compiled_resnet50(counts),
+               "v_resnet18_multi_krum": compiled_resnet18(counts),
+               "w_smallcnn": compiled_smallcnn(counts),
+               "x_serving": compiled_serving(counts),
+               "y_refusals": compiled_refusals()}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    for part in ("u_resnet50_config5", "v_resnet18_multi_krum"):
+        out[part].pop("first_eager_state", None)
+    return out
+
+
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
                 "selection_weights_kernel", "weighted_rows_kernel", "selection_mean_from_gram_kernel",
                 "nnm_weights_kernel",
@@ -4003,6 +4481,9 @@ def main() -> int:
         "ragged executor with quantized ingress)")
     log("RAGGED_PATH " + json.dumps({"m_ragged_serving_step": ragged_step_path(counts),
                                      "n_ragged_executor": ragged_executor_path(counts)}))
+    log("== 4e. main path: the compiled step (CUDA-graph twins against the eager steps: (u) "
+        "ResNet-50 config #5, (v) ResNet-18, (w) SmallCNN, (x) serving; (y) refusals)")
+    log("COMPILED_PATH " + json.dumps(compiled_path(counts)))
     for key in NEW_KERNELS:
         check(counts[key] > 0, f"{key} never launched on the main path")
     for key, parts in CODEC_COUNTERS.items():

@@ -1699,3 +1699,266 @@ def test_cuda_subset_search_inherits_b3s_row_cap(cuda_device):
     for agg in (MinimumDiameterAveraging(100), SMEA(60)):
         with pytest.raises(NotImplementedError, match="at most 128 rows"):
             agg.aggregate(x)
+
+
+# ---------------------------------------------------------------------------
+# compiled steps: CUDA-graph replays against the eager step
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda_device):
+    """cuDNN's deterministic algorithms, so that an eager step and a graph
+    replay of it can be compared bit for bit."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _flat_state(tree):
+    from byzpy_tpu_torch.utils.trees import _spec
+
+    leaves = []
+    _spec(tree, leaves)
+    return [t for t in leaves if isinstance(t, torch.Tensor)]
+
+
+def _states_bits_equal(a, b) -> bool:
+    la, lb = _flat_state(a), _flat_state(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _smallcnn_round(device, n=8, batch=16):
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+
+    bundle = make_bundle(SmallCNN(), seed=0, device=device)
+    x, y = synthetic_classification(n_samples=n * batch, seed=3, device=device)
+    return bundle, x.reshape(n, batch, 28, 28, 1), y.reshape(n, batch)
+
+
+def _compiled_aggregators():
+    from byzpy_tpu_torch.aggregators import SMEA
+    from byzpy_tpu_torch.ops import robust
+
+    return {
+        "median": robust.coordinate_median,
+        "multi_krum": lambda m: robust.multi_krum(m, f=2, q=4),
+        "centered_clipping": lambda m: robust.centered_clipping(m, c_tau=10.0, M=10),
+        "smea": SMEA(2, device="cuda").matrix_fn(),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["median", "multi_krum", "centered_clipping", "smea"])
+def test_cuda_compiled_ps_step_replays_bitwise(deterministic_cudnn, agg):
+    """Five replays of ``jit_ps_train_step``'s graph (donated state) equal
+    five eager steps from the same start bit for bit: parameters, momentum
+    and metrics; the kernels count once, the replays under their key."""
+    from byzpy_tpu_torch.ops import attack_ops
+    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step, jit_ps_train_step
+
+    fn = _compiled_aggregators()[agg]
+    bundle, xs, ys = _smallcnn_round("cuda")
+    cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
+
+    def attack(honest, g):
+        return attack_ops.sign_flip(honest.mean(dim=0))
+
+    eager, opt0 = build_ps_train_step(bundle, fn, cfg, attack=attack)
+    compiled, copt0 = jit_ps_train_step(bundle, fn, cfg, attack=attack)
+    start = {k: v.clone() for k, v in bundle.params.items()}
+    kernels.reset_launch_counts()
+    pe, oe, pc, oc = bundle.params, opt0, bundle.params, copt0
+    for s in range(5):
+        pe, oe, me = eager(pe, oe, xs, ys)
+        pc, oc, mc = compiled(pc, oc, xs, ys)
+        assert _states_bits_equal((pe, oe, me), (pc, oc, mc)), f"step {s + 1}"
+    assert kernels.launch_counts["graph_replay:ps_train_step"] == 5
+    assert len(compiled.graphs) == 1
+    recorded = compiled.last_capture["launches"]
+    assert recorded and "graph_replay:ps_train_step" not in recorded
+    # the caller's start is untouched: donation writes the graph's own buffers
+    assert _states_bits_equal(bundle.params, start)
+
+
+@pytest.mark.cuda
+def test_cuda_b5_and_b7_inside_a_graph_bitwise(cuda_device):
+    """B5 (one launch, a ticket and a scratch its last block re-zeroes) and
+    B7 (a cooperative launch whose barrier counter a memset resets) captured
+    in one graph after a warm-up on the capture stream: every one of five
+    replays, on the same memory, gives the eager bits."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(8, 421_642)).astype(np.float32)).to(cuda_device)
+    x[6:] *= 4.0
+    g = kernels.gram(x[None])[0]
+    z0 = x.mean(dim=0)
+    want_b5 = kernels.selection_mean_from_gram(x, g, f=2, q=4)
+    want_b7, want_it = kernels.center_loop(x, z0, mode="clip", c_tau=900.0, max_iter=10)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up: per-stream caches, first-launch attributes
+        kernels.selection_mean_from_gram(x, g, f=2, q=4)
+        kernels.center_loop(x, z0, mode="clip", c_tau=900.0, max_iter=10)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        b5 = kernels.selection_mean_from_gram(x, g, f=2, q=4)
+        b7, it = kernels.center_loop(x, z0, mode="clip", c_tau=900.0, max_iter=10)
+    for r in range(5):
+        b5.zero_()
+        b7.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bits_equal(b5, want_b5), f"B5, replay {r + 1}"
+        assert _bits_equal(b7, want_b7) and int(it) == int(want_it), f"B7, replay {r + 1}"
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_gaussian_noise_per_replay(deterministic_cudnn):
+    """A generator passed to the compiled step draws fresh noise at every
+    replay (the byzantine rows differ step to step) and the same noise as
+    the eager step from the same seed; the caller's generator advances as
+    the eager step's does."""
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step, jit_ps_train_step
+
+    bundle, xs, ys = _smallcnn_round("cuda")
+    cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
+    rows = []
+
+    def attack(honest, g):
+        return attack_ops.gaussian(g, (honest.shape[1],), honest.dtype, device=honest.device)
+
+    def eager_attack(honest, g):
+        rows.append(attack(honest, g))
+        return rows[-1]
+
+    eager, opt0 = build_ps_train_step(bundle, robust.coordinate_median, cfg, attack=eager_attack)
+    compiled, _ = jit_ps_train_step(bundle, robust.coordinate_median, cfg, attack=attack,
+                                    donate=False)
+    ge = torch.Generator(device="cuda").manual_seed(11)
+    gc = torch.Generator(device="cuda").manual_seed(11)
+    pe, oe, pc, oc = bundle.params, opt0, bundle.params, opt0
+    norms = []
+    for s in range(3):
+        pe, oe, me = eager(pe, oe, xs, ys, generator=ge)
+        pc, oc, mc = compiled(pc, oc, xs, ys, generator=gc)
+        assert _states_bits_equal((pe, oe, me), (pc, oc, mc)), f"step {s + 1}"
+        assert torch.equal(ge.get_state(), gc.get_state())
+        norms.append(float(mc["agg_grad_norm"]))
+    assert len(set(norms)) == 3
+    assert not torch.equal(rows[0], rows[1])  # the eager draws advance too
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["multi_krum", "meamed"])
+def test_cuda_compiled_serving_step_bitwise(deterministic_cudnn, which):
+    """``jit_serving_ps_step`` at bucket 64 (a cohort of 13 valid rows):
+    five replays equal the eager step bit for bit and capture one graph."""
+    from byzpy_tpu_torch.aggregators import MeanOfMedians, MultiKrum
+    from byzpy_tpu_torch.parallel import build_serving_ps_step, jit_serving_ps_step
+
+    agg = MultiKrum(2, 4, device="cuda") if which == "multi_krum" else MeanOfMedians(2, device="cuda")
+    bundle, _, _ = _smallcnn_round("cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    rng = np.random.default_rng(3)
+    matrix = torch.zeros((64, d), device="cuda")
+    matrix[:13] = torch.from_numpy(rng.normal(size=(13, d)).astype(np.float32)).cuda()
+    valid = torch.zeros(64, dtype=torch.bool, device="cuda")
+    valid[:13] = True
+    weights = valid.float()
+    eager, opt0 = build_serving_ps_step(bundle, agg.masked_matrix_fn())
+    compiled, _ = jit_serving_ps_step(bundle, agg.masked_matrix_fn())
+    pe, oe, pc, oc = bundle.params, opt0, bundle.params, opt0
+    for s in range(5):
+        pe, oe, me = eager(pe, oe, matrix, valid, weights)
+        pc, oc, mc = compiled(pc, oc, matrix, valid, weights)
+        assert _states_bits_equal((pe, oe, me), (pc, oc, mc)), f"step {s + 1}"
+    assert len(compiled.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_ragged_step_bitwise(deterministic_cudnn):
+    """``jit_ragged_serving_ps_step`` at capacity 64, trimmed mean through
+    the segmented sort-reduce: replays equal the eager step at cohorts of
+    6, 13 and 29 rows, one graph for all."""
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.parallel import build_ragged_serving_ps_step, jit_ragged_serving_ps_step
+
+    agg = CoordinateWiseTrimmedMean(2, device="cuda")
+    bundle, _, _ = _smallcnn_round("cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    rng = np.random.default_rng(5)
+    eager, opt0 = build_ragged_serving_ps_step(bundle, agg.ragged_matrix_fn(), row_capacity=64)
+    compiled, _ = jit_ragged_serving_ps_step(bundle, agg.ragged_matrix_fn(), row_capacity=64)
+    pe, oe, pc, oc = bundle.params, opt0, bundle.params, opt0
+    for m in (6, 13, 29):
+        flat = torch.zeros((64, d), device="cuda")
+        flat[:m] = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).cuda()
+        weights = torch.zeros(64, device="cuda")
+        weights[:m] = 1.0
+        offsets = torch.zeros(1, dtype=torch.int32, device="cuda")
+        lengths = torch.tensor([m], dtype=torch.int32, device="cuda")
+        pe, oe, me = eager(pe, oe, flat, offsets, lengths, weights)
+        pc, oc, mc = compiled(pc, oc, flat, offsets, lengths, weights)
+        assert _states_bits_equal((pe, oe, me), (pc, oc, mc)), f"m = {m}"
+    assert len(compiled.graphs) == 1
+
+
+def _refusals():
+    """name -> (twin builder of a SmallCNN bundle, the role the error names)."""
+    from byzpy_tpu_torch.aggregators import GeometricMedian, MinimumDiameterAveraging
+    from byzpy_tpu_torch.attacks import InfluenceAscentAttack
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel import (
+        PSStepConfig, adaptive_attack_rows, jit_ps_train_step, jit_serving_ps_step,
+    )
+
+    cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
+
+    def influence(bundle):
+        d = sum(int(v.numel()) for v in bundle.params.values())
+        atk = InfluenceAscentAttack(d, device="cuda")
+        return jit_ps_train_step(bundle, robust.coordinate_median, cfg,
+                                 attack=lambda h, g: adaptive_attack_rows(atk, 2, honest=h))
+
+    return {
+        "mda": (lambda b: jit_ps_train_step(
+            b, MinimumDiameterAveraging(2, device="cuda").matrix_fn(), cfg), "aggregate"),
+        "caf": (lambda b: jit_ps_train_step(b, lambda m: robust.caf(m, f=2), cfg), "aggregate"),
+        "masked_geometric_median": (lambda b: jit_serving_ps_step(
+            b, GeometricMedian(device="cuda").masked_matrix_fn()), "masked_aggregate"),
+        "influence_ascent": (influence, "attack"),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mda", "caf", "masked_geometric_median", "influence_ascent"])
+def test_cuda_compiled_step_refuses_host_reads(cuda_device, which):
+    """A step whose aggregate or attack reads the host cannot be captured:
+    the twin raises ``GraphCaptureError`` naming the callable's role and
+    saying that it reads the host, and runs nothing eagerly in its place."""
+    from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
+
+    make, role = _refusals()[which]
+    bundle, xs, ys = _smallcnn_round("cuda")
+    step, opt0 = make(bundle)
+    if which == "masked_geometric_median":
+        d = sum(int(v.numel()) for v in bundle.params.values())
+        matrix = torch.randn((16, d), device="cuda")
+        valid = torch.ones(16, dtype=torch.bool, device="cuda")
+        args = (bundle.params, opt0, matrix, valid, valid.float())
+    else:
+        args = (bundle.params, opt0, xs, ys)
+    kernels.reset_launch_counts()
+    with pytest.raises(GraphCaptureError, match=rf"the {role} callable .* reads the host"):
+        step(*args)
+    assert not step.graphs
+    assert all(v == 0 for k, v in kernels.launch_counts.items() if k.startswith("graph_replay"))

@@ -577,7 +577,8 @@ def test_port_imports_no_jax():
     """No module of byzpy_tpu_torch, nor chip_smoke.py, imports JAX, flax,
     optax or the JAX package; the scan covers the operator classes, the
     attack classes, the subset-search aggregators, the engine, the
-    compressed wire fabric and the serving tier."""
+    compressed wire fabric, the serving tier, the models and data helpers
+    and the compiled steps' CUDA-graph capture."""
     files = _port_sources()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
     assert REPO / "byzpy_tpu_torch" / "ops" / "preagg.py" in files
@@ -595,7 +596,8 @@ def test_port_imports_no_jax():
                    "utils/combinatorics.py", "aggregators/geometric_wise/smea.py",
                    "aggregators/geometric_wise/minimum_diameter_average.py",
                    "attacks/base.py", "attacks/adaptive.py", "attacks/gaussian.py",
-                   "attacks/label_flip.py", "engine/actor/wire.py"):
+                   "attacks/label_flip.py", "engine/actor/wire.py", "utils/cuda_graph.py",
+                   "utils/trees.py", "models/nets.py", "models/data.py", "models/convert.py"):
         assert REPO / "byzpy_tpu_torch" / module in files, module
     bad = []
     for path in files:

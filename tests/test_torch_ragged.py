@@ -578,7 +578,7 @@ def test_ragged_serving_step_matches_the_bucketed_step_and_jax(name):
 def test_ragged_serving_step_rejects_what_is_not_ported():
     ours_b, _ = _linear_bundles()
     fn = T.CoordinateWiseMedian(device="cpu").ragged_matrix_fn()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="init"):
         build_ragged_serving_ps_step(ours_b, fn, row_capacity=8, optimizer=object())
     with pytest.raises(NotImplementedError):
         build_ragged_serving_ps_step(ours_b, fn, row_capacity=8, mesh=object())

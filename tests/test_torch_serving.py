@@ -339,7 +339,7 @@ def test_serving_step_weight_one_keeps_the_bits():
 def test_serving_step_rejects_what_is_not_ported():
     ours_b, _ = _linear_bundles()
     fn = T.CoordinateWiseMedian(device="cpu").masked_matrix_fn()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="init"):
         build_serving_ps_step(ours_b, fn, optimizer=object())
     with pytest.raises(NotImplementedError):
         build_serving_ps_step(ours_b, fn, mesh=object())
