@@ -55,17 +55,12 @@ def ravel_gradient(gradient: Any, device: DeviceLike = None) -> tuple:
     return row, unravel
 
 
-def check_chunk_size(chunk_size: int, default: int) -> None:
-    """Validate ``chunk_size`` as the JAX classes do. It sizes the subtasks
-    of the actor pools, which are not ported yet, so a value other than
-    the class's default raises rather than being ignored."""
+def check_chunk_size(chunk_size: int) -> int:
+    """``chunk_size`` as an int, validated as the JAX classes do: it sizes
+    the subtasks of the actor pools (``aggregators/chunked.py``)."""
     if chunk_size <= 0:
         raise ValueError("chunk_size must be > 0")
-    if chunk_size != default:
-        raise NotImplementedError(
-            f"chunk_size={chunk_size}: the pool-chunked subtasks are not ported yet "
-            f"(leave it at {default})"
-        )
+    return int(chunk_size)
 
 
 class SlotFoldState:

@@ -3,7 +3,8 @@
 Counterpart of ``byzpy_tpu/aggregators/coordinate_wise/median.py``
 (behavioral parity: ``byzpy/aggregators/coordinate_wise/median.py:28-178``):
 ``robust.coordinate_median``, B1 on the card; the ragged program is the
-segmented sort-reduce on the card.
+segmented sort-reduce on the card. On an actor pool it fans out feature
+chunks (``aggregators/chunked.py``), each chunk's median B1 on the card.
 """
 
 from __future__ import annotations
@@ -14,16 +15,21 @@ from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, check_chunk_size
+from ..chunked import FeatureChunkedAggregator
 
 
-class CoordinateWiseMedian(Aggregator):
+def _median_chunk(chunk: torch.Tensor) -> torch.Tensor:
+    return robust.coordinate_median(chunk.contiguous())
+
+
+class CoordinateWiseMedian(FeatureChunkedAggregator, Aggregator):
     """Per-coordinate median over the node axis."""
 
     name = "coordinate-wise-median"
+    _chunk_fn = staticmethod(_median_chunk)
 
     def __init__(self, *, chunk_size: int = 8192, device: DeviceLike = None) -> None:
-        check_chunk_size(chunk_size, 8192)
-        # kept for the pool-chunked path of the engine slice
+        self.chunk_size = check_chunk_size(chunk_size)
         super().__init__(device=device)
 
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:

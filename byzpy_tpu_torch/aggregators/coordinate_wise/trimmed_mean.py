@@ -5,7 +5,8 @@ Counterpart of ``byzpy_tpu/aggregators/coordinate_wise/trimmed_mean.py``
 The barrier path is ``robust.trimmed_mean`` (B1 on the card); the
 streaming fold keeps a running sum and the extreme buffers in plain
 PyTorch, as the JAX package leaves them to XLA; the ragged program is the
-segmented sort-reduce on the card.
+segmented sort-reduce on the card. On an actor pool it fans out feature
+chunks (``aggregators/chunked.py``), each chunk B1 on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, SlotFoldState, check_chunk_size
+from ..chunked import FeatureChunkedAggregator
+
+
+def _trimmed_mean_chunk(chunk: torch.Tensor, *, f: int) -> torch.Tensor:
+    return robust.trimmed_mean(chunk.contiguous(), f=f)
 
 
 class _TrimmedMeanFoldState:
@@ -39,15 +45,16 @@ class _TrimmedMeanFoldState:
         self.nonfinite = None
 
 
-class CoordinateWiseTrimmedMean(Aggregator):
+class CoordinateWiseTrimmedMean(FeatureChunkedAggregator, Aggregator):
     """Drop the f largest and f smallest values per coordinate, average the rest."""
 
     name = "coordinate-wise-trimmed-mean"
+    _chunk_fn = staticmethod(_trimmed_mean_chunk)
 
     def __init__(self, f: int, *, chunk_size: int = 8192, device: DeviceLike = None) -> None:
         if f < 0:
             raise ValueError("f must be >= 0")
-        check_chunk_size(chunk_size, 8192)
+        self.chunk_size = check_chunk_size(chunk_size)
         self.f = int(f)
         super().__init__(device=device)
 
@@ -56,6 +63,9 @@ class CoordinateWiseTrimmedMean(Aggregator):
             raise ValueError(
                 f"trim parameter f must satisfy 0 <= 2f < n (got n={n}, f={self.f})"
             )
+
+    def _chunk_params(self):
+        return {"f": self.f}
 
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.trimmed_mean(x, f=self.f)

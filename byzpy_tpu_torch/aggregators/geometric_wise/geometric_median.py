@@ -3,7 +3,11 @@
 Counterpart of ``byzpy_tpu/aggregators/geometric_wise/geometric_median.py``
 (behavioral parity: ``byzpy/aggregators/geometric_wise/geometric_median.py:33-158``):
 ``robust.geometric_median``, one B7 step per iteration on the card, the
-loop on the host. The pool's barriered mode waits for the engine slice.
+loop on the host. On an actor pool (two workers or more) it runs the
+reference's barriered mode instead (``aggregators/chunked.py``): every
+Weiszfeld step fans row-block weighted sums over the pool, the centre and
+the blocks stay on the device, and the coordinator reads the step length
+once a step.
 """
 
 from __future__ import annotations
@@ -13,12 +17,14 @@ import torch
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator
+from ..chunked import BarrieredIterativeAggregator, _weiszfeld_chunk, sum_in_order
 
 
-class GeometricMedian(Aggregator):
+class GeometricMedian(BarrieredIterativeAggregator, Aggregator):
     """Weiszfeld-iterated geometric median of the gradient rows."""
 
     name = "geometric-median"
+    _barrier_chunk_fn = staticmethod(_weiszfeld_chunk)
 
     def __init__(
         self,
@@ -54,6 +60,28 @@ class GeometricMedian(Aggregator):
         return robust.masked_geometric_median(
             x, valid, tol=self.tol, max_iter=self.max_iter, eps=self.eps, init=self.init
         )
+
+    # -- barriered hooks (pool mode) -----------------------------------------
+
+    def _barrier_params(self):
+        return {"eps": self.eps}
+
+    def _barrier_init(self, x: torch.Tensor) -> torch.Tensor:
+        if self.init == "median":
+            return robust.coordinate_median(x)
+        return robust._row_mean(x)
+
+    def _barrier_update(self, partials, center):
+        num = sum_in_order([p[0] for p in partials])
+        den = sum_in_order([p[1] for p in partials])
+        return num / torch.clamp(den, min=1e-30)
+
+    def _barrier_max_iters(self) -> int:
+        return self.max_iter
+
+    def _barrier_converged(self, old, new) -> bool:
+        # the iteration's one host read
+        return float(torch.linalg.norm(new - old)) <= self.tol
 
 
 __all__ = ["GeometricMedian"]

@@ -6,6 +6,9 @@ The barrier path is ``robust.multi_krum`` (B3's Gram, then B4). The
 streaming fold builds the Gram one row per arrival
 (``robust.gram_fold_update``) and its finalize selects from that Gram
 without recomputing it (``robust.multi_krum_from_gram``, B5 on the card).
+On an actor pool it fans out row ranges of Krum scores against the whole
+matrix, which stays on its device (``aggregators/chunked.py``), and
+selects centrally with B4's row sweep (``robust.selection_sweep_mean``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,20 @@ from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, SlotFoldState, check_chunk_size
+from ..chunked import RowScoredAggregator
+
+
+def _krum_score_rows(x: torch.Tensor, start: int, end: int, *, f: int) -> torch.Tensor:
+    """Scores of rows ``[start, end)``: the sum of each row's ``n - f - 1``
+    smallest squared distances to the other rows."""
+    block = x[start:end]
+    n = x.shape[0]
+    d2 = (torch.sum(block * block, dim=1, keepdim=True) + torch.sum(x * x, dim=1)[None, :]
+          - 2.0 * block @ x.T)
+    d2 = torch.clamp(d2, min=0.0)
+    # a row's distance to itself: (i, start + i)
+    d2.diagonal(offset=start).fill_(float("inf"))
+    return torch.sum(torch.sort(d2, dim=1).values[:, : n - f - 1], dim=1)
 
 
 class _GramFoldState:
@@ -40,11 +57,12 @@ def _gram_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
 
 
-class MultiKrum(Aggregator):
+class MultiKrum(RowScoredAggregator, Aggregator):
     """Average the q rows with the best Krum scores (sum of distances to
     each row's n - f - 1 nearest neighbours)."""
 
     name = "multi-krum"
+    _score_fn = staticmethod(_krum_score_rows)
 
     def __init__(
         self, f: int, q: int, *, chunk_size: int = 32, device: DeviceLike = None
@@ -53,7 +71,7 @@ class MultiKrum(Aggregator):
             raise ValueError("f must be >= 0")
         if q < 1:
             raise ValueError("q must be >= 1")
-        check_chunk_size(chunk_size, 32)
+        self.chunk_size = check_chunk_size(chunk_size)
         self.f = int(f)
         self.q = int(q)
         super().__init__(device=device)
@@ -65,6 +83,12 @@ class MultiKrum(Aggregator):
             raise ValueError(
                 f"q must satisfy 1 <= q <= n - f (got n={n}, f={self.f}, q={self.q})"
             )
+
+    def _score_params(self):
+        return {"f": self.f}
+
+    def _select_from_scores(self, scores: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+        return robust.selection_sweep_mean(matrix, scores, self.q)
 
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.multi_krum(x, f=self.f, q=self.q)

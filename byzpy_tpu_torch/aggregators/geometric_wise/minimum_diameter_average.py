@@ -12,16 +12,19 @@ incumbent global and pre-seeded with a greedy-peeling upper bound. The
 * on the card it is ``ops.robust.pairwise_sq_dists`` (B3), read to the
   host once; the winner's mean is taken on the card.
 
-A batched device scorer (``subset_diameters`` over combo index tensors)
-is kept for range scoring and validation. The pool fan-out
-(``create_subtasks`` / ``reduce_subtasks``) needs the actor pools and
-comes with them (ROADMAP A.4).
+A batched scorer (``subset_diameters`` over combo index tensors) serves
+range scoring and validation. On an actor pool the search fans out as the
+reference's does (``create_subtasks`` / ``reduce_subtasks``): groups of
+index prefixes searched by branch-and-bound from the greedy bound
+(``seed_prefix``, ``seeds_per_task``), or, with ``seed_prefix=0``, ranges
+of ``chunk_size`` subsets scored by brute force, all on the host's copy of
+the distances; the winner's mean is taken on the matrix's device.
 """
 
 from __future__ import annotations
 
 import math
-from itertools import islice
+from itertools import combinations, islice
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,6 +33,10 @@ import torch
 from ...ops import kernels, robust
 from ...utils.combinatorics import iter_combinations
 from ...utils.device import DeviceLike
+from ...engine.graph.chunking import pool_size_from_context, select_adaptive_chunk_size
+from ...engine.graph.operator import OpContext
+from ...engine.graph.subtask import SubTask
+from ...utils.trees import stack_gradients
 from ..base import Aggregator, check_chunk_size
 
 _DEVICE_BATCH = 4096
@@ -182,8 +189,8 @@ def _score_combo_range(
     host_d2: np.ndarray, n: int, m: int, start: int, count: int
 ) -> tuple[float, np.ndarray]:
     """Best (min-diameter) combo among combinations [start, start+count),
-    by brute-force scoring: the pool subtasks' scorer (ROADMAP A.4), on the
-    host's distances."""
+    by brute-force scoring: the pool subtasks' scorer, on the host's
+    distances."""
     d2 = torch.as_tensor(host_d2)
     batch = min(_DEVICE_BATCH, count)
     return _device_best(d2, _combo_batches(n, m, batch, start=start, count=count))
@@ -215,6 +222,7 @@ class MinimumDiameterAveraging(Aggregator):
     read to the host once)."""
 
     name = "minimum-diameter-averaging"
+    supports_subtasks = True
 
     def __init__(
         self,
@@ -227,17 +235,8 @@ class MinimumDiameterAveraging(Aggregator):
     ) -> None:
         if f < 0:
             raise ValueError("f must be >= 0")
-        check_chunk_size(chunk_size, 20000)
-        # both only shape the pool-partitioned search
-        for key, value, default in (("seed_prefix", seed_prefix, 2),
-                                    ("seeds_per_task", seeds_per_task, 4)):
-            if value != default:
-                raise NotImplementedError(
-                    f"{key}={value}: the pool-partitioned search is not ported yet "
-                    f"(leave it at {default})"
-                )
         self.f = int(f)
-        self.chunk_size = int(chunk_size)
+        self.chunk_size = check_chunk_size(chunk_size)
         self.seed_prefix = int(seed_prefix)
         self.seeds_per_task = int(seeds_per_task)
         super().__init__(device=device)
@@ -255,6 +254,67 @@ class MinimumDiameterAveraging(Aggregator):
         combo = _to_device(_exact_min_diameter(d2, n - self.f), x.device)
         self.last_selection = combo
         return robust.subset_mean(x, combo)
+
+    # -- pool path ----------------------------------------------------------
+
+    def create_subtasks(self, inputs, *, context: OpContext):
+        matrix, _ = stack_gradients(inputs.get(self.input_key), device=self.device)
+        self.validate_n(matrix.shape[0])
+        check_rows_on_card(self, matrix)
+        n = matrix.shape[0]
+        m = n - self.f
+        host_d2 = _dists_for_search(matrix)
+
+        if 0 < self.seed_prefix < m:
+            # partition the space by index prefixes; every task gets the
+            # greedy incumbent so pruning starts tight everywhere. Tasks
+            # where nothing beats it return an empty combo; if all do, the
+            # greedy subset itself was optimal (reduce falls back to it).
+            bound, _ = greedy_peel_bound(host_d2, m)
+            depth = self.seed_prefix
+            max_last = n - (m - depth) - 1
+
+            def gen_seeded():
+                group: List[Tuple[int, ...]] = []
+                for seed in combinations(range(n), depth):
+                    if seed[-1] > max_last:
+                        continue
+                    group.append(seed)
+                    if len(group) >= self.seeds_per_task:
+                        yield SubTask(fn=_search_seed_group, args=(host_d2, tuple(group), m, bound),
+                                      name=f"mda-seeds-{group[0]}")
+                        group = []
+                if group:
+                    yield SubTask(fn=_search_seed_group, args=(host_d2, tuple(group), m, bound),
+                                  name=f"mda-seeds-{group[0]}")
+
+            return gen_seeded()
+
+        total = math.comb(n, m)
+        chunk = select_adaptive_chunk_size(
+            total, self.chunk_size, pool_size=pool_size_from_context(context)
+        )
+
+        def gen():
+            for start in range(0, total, chunk):
+                count = min(chunk, total - start)
+                yield SubTask(fn=_score_combo_range, args=(host_d2, n, m, start, count),
+                              name=f"mda-combos[{start}:{start + count}]")
+
+        return gen()
+
+    def reduce_subtasks(self, partials, inputs, *, context: OpContext):
+        matrix, unravel = stack_gradients(inputs.get(self.input_key), device=self.device)
+        viable = [p for p in partials if len(np.atleast_1d(p[1]))]
+        if not viable:
+            # every seeded task was pruned by the shared bound: the greedy
+            # incumbent is optimal (the same distances as create_subtasks, so
+            # the recomputed combo matches the bound's derivation)
+            _, combo = greedy_peel_bound(_dists_for_search(matrix), matrix.shape[0] - self.f)
+        else:
+            combo = min(viable, key=lambda p: p[0])[1]
+        self.last_selection = _to_device(combo, matrix.device)
+        return unravel(robust.subset_mean(matrix, self.last_selection))
 
 
 __all__ = [

@@ -11,8 +11,10 @@ Two scoring paths, the same score, split as the JAX class splits them:
 * **host LAPACK** (larger spaces): stacked ``numpy.linalg.eigvalsh`` over
   the combo range on the host Gram, the JAX package's code.
 
-The pool fan-out over combo ranges (``create_subtasks`` /
-``reduce_subtasks``) comes with the actor pools (ROADMAP A.4).
+On an actor pool the combo ranges fan out as the reference's do
+(``create_subtasks`` / ``reduce_subtasks``): the Gram (B3 on the card) is
+read to the host once and each subtask scores ``chunk_size`` subsets by
+host LAPACK; the winner's mean is taken on the matrix's device.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ import torch
 
 from ...ops import robust
 from ...utils.device import DeviceLike
+from ...engine.graph.chunking import pool_size_from_context, select_adaptive_chunk_size
+from ...engine.graph.operator import OpContext
+from ...engine.graph.subtask import SubTask
+from ...utils.trees import stack_gradients
 from ..base import Aggregator, check_chunk_size
 from .minimum_diameter_average import _combo_batches, _to_device, check_rows_on_card
 
@@ -92,13 +98,13 @@ class SMEA(Aggregator):
     scoring on the inputs' device)."""
 
     name = "smea"
+    supports_subtasks = True
 
     def __init__(self, f: int, *, chunk_size: int = 4096, device: DeviceLike = None) -> None:
         if f < 0:
             raise ValueError("f must be >= 0")
-        check_chunk_size(chunk_size, 4096)
         self.f = int(f)
-        self.chunk_size = int(chunk_size)
+        self.chunk_size = check_chunk_size(chunk_size)
         super().__init__(device=device)
         #: the row indices the last aggregation averaged, on its device
         self.last_selection: Optional[torch.Tensor] = None
@@ -118,6 +124,34 @@ class SMEA(Aggregator):
         _, best_combo = _score_combo_range_smea(gram.cpu().numpy(), n, m, 0, math.comb(n, m))
         self.last_selection = _to_device(best_combo, x.device)
         return robust.subset_mean(x, self.last_selection)
+
+    # -- pool path ----------------------------------------------------------
+
+    def create_subtasks(self, inputs, *, context: OpContext):
+        matrix, _ = stack_gradients(inputs.get(self.input_key), device=self.device)
+        self.validate_n(matrix.shape[0])
+        check_rows_on_card(self, matrix)
+        n = matrix.shape[0]
+        m = n - self.f
+        total = math.comb(n, m)
+        host_gram = robust.gram_matrix(matrix).cpu().numpy()  # the one host read
+        chunk = select_adaptive_chunk_size(
+            total, self.chunk_size, pool_size=pool_size_from_context(context)
+        )
+
+        def gen():
+            for start in range(0, total, chunk):
+                count = min(chunk, total - start)
+                yield SubTask(fn=_score_combo_range_smea, args=(host_gram, n, m, start, count),
+                              name=f"smea-combos[{start}:{start + count}]")
+
+        return gen()
+
+    def reduce_subtasks(self, partials, inputs, *, context: OpContext):
+        _, best_combo = min(partials, key=lambda p: p[0])
+        matrix, unravel = stack_gradients(inputs.get(self.input_key), device=self.device)
+        self.last_selection = _to_device(best_combo, matrix.device)
+        return unravel(robust.subset_mean(matrix, self.last_selection))
 
 
 __all__ = ["SMEA"]

@@ -3,7 +3,10 @@
 Counterpart of ``byzpy_tpu/aggregators/norm_wise/center_clipping.py``
 (behavioral parity: ``byzpy/aggregators/norm_wise/center_clipping.py:29-269``):
 ``robust.centered_clipping``, ``M`` B7 steps in ``clip`` mode on the card.
-The pool's barriered mode waits for the engine slice.
+On an actor pool (two workers or more) it runs the reference's barriered
+mode instead (``aggregators/chunked.py``): each of the ``M`` steps fans
+row-block clip sums over the pool and the coordinator applies ``v +=
+mean``, all on the device.
 """
 
 from __future__ import annotations
@@ -13,13 +16,15 @@ import torch
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator
+from ..chunked import BarrieredIterativeAggregator, _centered_clip_chunk, sum_in_order
 
 
-class CenteredClipping(Aggregator):
+class CenteredClipping(BarrieredIterativeAggregator, Aggregator):
     """Iterative centred clipping: clip each row to a radius around the
     running centre, then re-centre."""
 
     name = "centered-clipping"
+    _barrier_chunk_fn = staticmethod(_centered_clip_chunk)
 
     def __init__(
         self,
@@ -55,6 +60,27 @@ class CenteredClipping(Aggregator):
         return robust.masked_centered_clipping(
             x, valid, c_tau=self.c_tau, M=self.M, eps=self.eps, init=self.init
         )
+
+    # -- barriered hooks (pool mode) -----------------------------------------
+
+    def _barrier_params(self):
+        return {"c_tau": self.c_tau, "eps": self.eps}
+
+    def _barrier_init(self, x: torch.Tensor) -> torch.Tensor:
+        if self.init == "mean":
+            return robust._row_mean(x)
+        if self.init == "median":
+            return robust.coordinate_median(x)
+        return x.new_zeros((x.shape[1],))
+
+    def _barrier_update(self, partials, center):
+        # the row count from the partials themselves, as the reference does
+        total = sum_in_order([p[0] for p in partials])
+        rows = sum(p[1] for p in partials)
+        return center + total / rows
+
+    def _barrier_max_iters(self) -> int:
+        return self.M
 
 
 __all__ = ["CenteredClipping"]

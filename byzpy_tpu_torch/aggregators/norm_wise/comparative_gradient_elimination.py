@@ -7,7 +7,8 @@ Counterpart of
 The barrier path is ``robust.cge`` (B3 + B4's ``cge`` mode on the card);
 the streaming fold takes each squared norm as its gradient arrives and
 finalizes with ``robust.ranked_mean``, plain PyTorch as in the JAX
-package.
+package. On an actor pool it fans out row ranges of squared norms
+(``aggregators/chunked.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,12 @@ from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, SlotFoldState, check_chunk_size
+from ..chunked import RowScoredAggregator
+
+
+def _sq_norm_rows(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    block = x[start:end]
+    return torch.sum(block * block, dim=1)
 
 
 class _NormFoldState:
@@ -35,21 +42,25 @@ class _NormFoldState:
         self.norms: dict = {}
 
 
-class ComparativeGradientElimination(Aggregator):
+class ComparativeGradientElimination(RowScoredAggregator, Aggregator):
     """CGE: drop the f largest-norm rows and average the rest."""
 
     name = "comparative-gradient-elimination"
+    _score_fn = staticmethod(_sq_norm_rows)
 
     def __init__(self, f: int, *, chunk_size: int = 32, device: DeviceLike = None) -> None:
         if f < 0:
             raise ValueError("f must be >= 0")
-        check_chunk_size(chunk_size, 32)
+        self.chunk_size = check_chunk_size(chunk_size)
         self.f = int(f)
         super().__init__(device=device)
 
     def validate_n(self, n: int) -> None:
         if self.f >= n:
             raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={self.f})")
+
+    def _select_from_scores(self, scores: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+        return robust.selection_sweep_mean(matrix, scores, matrix.shape[0] - self.f)
 
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         return robust.cge(x, f=self.f)

@@ -1,8 +1,8 @@
 """Empire attack: ``scale * mean(honest_grads)``, default scale -1.
 
 Counterpart of ``byzpy_tpu/attacks/empire.py`` (behavioral parity:
-``byzpy/attacks/empire.py:23-187``). The pool fan-out mixin comes with the
-actor pools (ROADMAP A.4)."""
+``byzpy/attacks/empire.py:23-187``). On an actor pool it fans out column spans
+(``attacks/chunked.py``)."""
 
 from __future__ import annotations
 
@@ -11,18 +11,23 @@ from typing import Any, List, Optional
 from ..ops import attack_ops
 from ..utils.device import DeviceLike
 from .base import Attack
+from .chunked import FeatureChunkedAttack, _empire_chunk
 
 
-class EmpireAttack(Attack):
+class EmpireAttack(FeatureChunkedAttack, Attack):
     """Send ``scale * mean(honest)`` — inner-product manipulation of the
     average."""
 
     name = "empire"
     uses_honest_grads = True
+    _chunk_fn = staticmethod(_empire_chunk)
 
     def __init__(self, *, scale: float = -1.0, device: DeviceLike = None) -> None:
         self.scale = float(scale)
         super().__init__(device=device)
+
+    def _chunk_params(self, host):
+        return {"scale": self.scale}
 
     def apply(self, *, model=None, x=None, y=None,
               honest_grads: Optional[List[Any]] = None, base_grad: Any = None) -> Any:

@@ -6,8 +6,11 @@ Counterpart of ``byzpy_tpu/attacks/gaussian.py`` (behavioral parity:
 passed in): each ``apply`` draws fresh noise, and the same seed replays
 the same draws. JAX's key chain cannot be reproduced in PyTorch, so the
 two packages draw different numbers from the same distribution
-(ROADMAP C). The pool fan-out mixin comes with the actor pools (ROADMAP
-A.4)."""
+(ROADMAP C). On an actor pool each column span is drawn from a generator
+of its own, seeded from (the attack's seed, the fan-out's count, the
+span's index) where the JAX package folds the span's index into a key
+(``attacks/chunked.py``): the same seed gives the same fan-outs, the
+draws differ from ``apply``'s and have its distribution."""
 
 from __future__ import annotations
 
@@ -18,13 +21,15 @@ import torch
 from ..ops import attack_ops
 from ..utils.device import DeviceLike
 from .base import Attack
+from .chunked import FeatureChunkedAttack, _gaussian_chunk, mix_seed
 
 
-class GaussianAttack(Attack):
+class GaussianAttack(FeatureChunkedAttack, Attack):
     """Send IID Gaussian noise in place of a gradient."""
 
     name = "gaussian"
     uses_honest_grads = True
+    _chunk_fn = staticmethod(_gaussian_chunk)
 
     def __init__(self, *, mu: float = 0.0, sigma: float = 1.0, seed: int = 0,
                  generator: Optional[torch.Generator] = None,
@@ -41,6 +46,8 @@ class GaussianAttack(Attack):
                 f"generator lives on {generator.device}, the attack draws on {self.device}"
             )
         self.generator = generator
+        self._fanouts = 0
+        self._fanout_seed = 0
 
     def apply(self, *, model=None, x=None, y=None,
               honest_grads: Optional[List[Any]] = None, base_grad: Any = None) -> Any:
@@ -50,6 +57,20 @@ class GaussianAttack(Attack):
         noise = attack_ops.gaussian(self.generator, (matrix.shape[1],), dtype=matrix.dtype,
                                     mu=self.mu, sigma=self.sigma, device=matrix.device)
         return unravel(noise)
+
+    # -- fan-out: each span from a generator seeded from (seed, fan-out,
+    # span); the JAX package folds the span's index into a split key ------
+
+    def create_subtasks(self, inputs, *, context):
+        self._fanouts += 1
+        self._fanout_seed = mix_seed(self.generator.initial_seed(), self._fanouts)
+        return super().create_subtasks(inputs, context=context)
+
+    def _chunk_params(self, host):
+        return {"mu": self.mu, "sigma": self.sigma, "dtype": host.dtype, "device": host.device}
+
+    def _chunk_args(self, host, start, end, idx):
+        return (end - start, mix_seed(self._fanout_seed, idx))
 
 
 __all__ = ["GaussianAttack"]

@@ -1,8 +1,8 @@
 """Mimic attack: replay honest worker ``epsilon``'s gradient.
 
 Counterpart of ``byzpy_tpu/attacks/mimic.py`` (behavioral parity:
-``byzpy/attacks/mimic.py:35-142``). The pool fan-out mixin comes with the
-actor pools (ROADMAP A.4)."""
+``byzpy/attacks/mimic.py:35-142``). On an actor pool it fans out column spans
+(``attacks/chunked.py``)."""
 
 from __future__ import annotations
 
@@ -13,20 +13,30 @@ import torch
 from ..utils.device import DeviceLike
 from ..utils.trees import map_leaves
 from .base import Attack
+from .chunked import FeatureChunkedAttack, _mimic_chunk
 
 
-class MimicAttack(Attack):
+class MimicAttack(FeatureChunkedAttack, Attack):
     """Copy one honest worker's gradient (breaks uniqueness assumptions
     without being an outlier)."""
 
     name = "mimic"
     uses_honest_grads = True
+    _chunk_fn = staticmethod(_mimic_chunk)
 
     def __init__(self, *, epsilon: int = 0, device: DeviceLike = None) -> None:
         if epsilon < 0:
             raise ValueError("epsilon must be >= 0")
         self.epsilon = int(epsilon)
         super().__init__(device=device)
+
+    def _chunk_params(self, host):
+        if self.epsilon >= host.shape[0]:
+            raise ValueError(
+                f"epsilon must index an honest worker in [0, {host.shape[0]}) "
+                f"(got {self.epsilon})"
+            )
+        return {"epsilon": self.epsilon}
 
     def apply(self, *, model=None, x=None, y=None,
               honest_grads: Optional[List[Any]] = None, base_grad: Any = None) -> Any:

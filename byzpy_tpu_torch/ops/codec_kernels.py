@@ -51,7 +51,7 @@ from .kernels import (
     _on_cpu,
     _stream,
     canonical_nan,
-    launch_counts,
+    count_launch,
 )
 
 #: fp8 formats of the wire: mode -> (torch dtype, largest finite magnitude)
@@ -108,7 +108,7 @@ def encode_rows(x: torch.Tensor, *, block: int, mode: str) -> Tuple[torch.Tensor
             "byz_quantize", x.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, d,
             block, nb, _CODES[mode], _DTYPE_CODES[x.dtype], _stream(x),
         )
-    launch_counts[f"quantize:{mode}"] += 1
+    count_launch(f"quantize:{mode}")
     return codes.view(code), scales
 
 
@@ -207,7 +207,7 @@ def decode_rows(
             "byz_dequantize", codes.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, d,
             block, scales.shape[1], _CODES[mode], _DTYPE_CODES[dtype], _stream(codes),
         )
-    launch_counts["dequantize:int8" if mode == "int8" else "dequantize:fp8"] += 1
+    count_launch("dequantize:int8" if mode == "int8" else "dequantize:fp8")
     return out
 
 
@@ -273,7 +273,7 @@ def encode_rows_s4(x: torch.Tensor, *, block: int) -> Tuple[torch.Tensor, torch.
     with torch.cuda.device(x.device):
         _call("byz_quantize_s4", x.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows, d,
               block, nb, _DTYPE_CODES[x.dtype], _stream(x))
-    launch_counts["quantize:s4"] += 1
+    count_launch("quantize:s4")
     return packed, scales
 
 
@@ -335,7 +335,7 @@ def decode_rows_s4(
     with torch.cuda.device(packed.device):
         _call("byz_dequantize_s4", packed.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, d,
               packed.shape[1], block, scales.shape[1], _DTYPE_CODES[dtype], _stream(packed))
-    launch_counts["dequantize:s4"] += 1
+    count_launch("dequantize:s4")
     return out
 
 

@@ -65,6 +65,8 @@ larger ``n`` on the card raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import _build
@@ -93,8 +95,8 @@ _CENTER_THREADS = 256
 _ROW_LANES = 4096
 
 # Launches of each kernel since the last reset, keyed "kernel" or
-# "kernel:mode". Only a wrapper's CUDA branch adds to it, right after its
-# kernel launched.
+# "kernel:mode". Only a wrapper's CUDA branch adds to it, through
+# count_launch, right after its kernel launched.
 launch_counts = {
     "sorted_reduce:median": 0,
     "sorted_reduce:trimmed": 0,
@@ -148,9 +150,23 @@ launch_counts = {
 }
 
 
+# several actor threads of a pool launch at once (engine/actor/backends/
+# cuda.py); a plain `+= 1` on the dict could lose a count between its read
+# and its write
+_count_lock = threading.Lock()
+
+
+def count_launch(key: str) -> None:
+    """Add one launch of ``key`` to :data:`launch_counts`, exactly, from
+    any thread."""
+    with _count_lock:
+        launch_counts[key] += 1
+
+
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +348,7 @@ def sorted_reduce_stream(xs: torch.Tensor, *, mode: str = "median", f: int = 0) 
             "byz_sorted_reduce", xs.data_ptr(), out.data_ptr(), K, n, d,
             _SORT_MODES[mode], f, _DTYPE_CODES[xs.dtype], _run_tiles(xs, d), _stream(xs),
         )
-    launch_counts[f"sorted_reduce:{mode}"] += 1
+    count_launch(f"sorted_reduce:{mode}")
     return out
 
 
@@ -423,7 +439,7 @@ def gram(xs: torch.Tensor) -> torch.Tensor:
             "byz_gram", xs.data_ptr(), partial.data_ptr(), out.data_ptr(), K, n, d,
             chunk, nchunks, npad, _DTYPE_CODES[xs.dtype], _stream(xs),
         )
-    launch_counts["gram"] += 1
+    count_launch("gram")
     return out
 
 
@@ -535,7 +551,7 @@ def selection_weights(
             "byz_selection_weights", g.data_ptr(), w.data_ptr(), K, n, f, q,
             _SELECTION_MODES[mode], reference_index, _stream(g),
         )
-    launch_counts[f"selection_weights:{mode}"] += 1
+    count_launch(f"selection_weights:{mode}")
     return w
 
 
@@ -600,7 +616,7 @@ def weighted_rows(xs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             "byz_weighted_rows", xs.data_ptr(), w.data_ptr(), out.data_ptr(), K, n, d,
             _DTYPE_CODES[xs.dtype], _stream(xs),
         )
-    launch_counts["weighted_rows"] += 1
+    count_launch("weighted_rows")
     return out
 
 
@@ -668,7 +684,7 @@ def selection_mean_from_gram(
             _from_gram_scratch(x).data_ptr(), n, d, f, q, _SELECTION_MODES[mode],
             reference_index, _DTYPE_CODES[x.dtype], _stream(x),
         )
-    launch_counts[f"selection_mean_from_gram:{mode}"] += 1
+    count_launch(f"selection_mean_from_gram:{mode}")
     return out
 
 
@@ -730,7 +746,7 @@ def meamed_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
     with torch.cuda.device(xs.device):
         _call("byz_meamed", xs.data_ptr(), out.data_ptr(), K, n, d, f, _DTYPE_CODES[xs.dtype],
               _run_tiles(xs, d), _stream(xs))
-    launch_counts["meamed"] += 1
+    count_launch("meamed")
     return out
 
 
@@ -896,7 +912,7 @@ def center_loop(
         raise ValueError(f"x must have at least one row, got {(n, d)}")
     out = torch.empty((d,), dtype=x.dtype, device=x.device)
     ints = _center_launch(x, z0, out, mode=mode, eps=eps, c_tau=c_tau, tol=tol, max_iter=max_iter)
-    launch_counts[f"center_loop:{mode}"] += 1
+    count_launch(f"center_loop:{mode}")
     return out, ints[0]
 
 
@@ -1008,7 +1024,7 @@ def center_weights(
     _check_cuda_input(z, n)
     wa = torch.empty((n + 1,), dtype=torch.float32, device=x.device)
     _center_launch(x, z, None, mode=mode, eps=eps, c_tau=c_tau, wa_out=wa)
-    launch_counts[f"center_weights:{mode}"] += 1
+    count_launch(f"center_weights:{mode}")
     return wa[:n], wa[n:]
 
 
@@ -1042,7 +1058,7 @@ def center_sweep(
     if d == 0:
         return out
     _center_launch(x, z, out, mode="clip", eps=0.0, c_tau=0.0, w_in=w, alpha_in=alpha)
-    launch_counts["center_sweep"] += 1
+    count_launch("center_sweep")
     return out
 
 
@@ -1099,7 +1115,7 @@ def nnm_weights(g: torch.Tensor, *, k: int) -> tuple:
     with torch.cuda.device(g.device):
         _call("byz_nnm_weights", g.data_ptr(), mask.data_ptr(), sel_taint.data_ptr(), K, n, k,
               _stream(g))
-    launch_counts["nnm_weights"] += 1
+    count_launch("nnm_weights")
     return mask, sel_taint
 
 
@@ -1149,7 +1165,7 @@ def mix_rows(
             "byz_mix_rows", xs.data_ptr(), mask.data_ptr(), sel_taint.data_ptr(), out.data_ptr(),
             K, n, k, d, _MIX_BLOCKS_PER_SM * sms, _DTYPE_CODES[xs.dtype], _stream(xs),
         )
-    launch_counts["mix_rows"] += 1
+    count_launch("mix_rows")
     return out
 
 
@@ -1228,7 +1244,7 @@ def nnm_selection_weights(
             "byz_nnm_selection_weights", g.data_ptr(), w.data_ptr(), K, n, k, f, q,
             _SELECTION_MODES[mode], reference_index, _stream(g),
         )
-    launch_counts[f"nnm_selection_weights:{mode}"] += 1
+    count_launch(f"nnm_selection_weights:{mode}")
     return w
 
 
@@ -1369,7 +1385,7 @@ def clip_selection_weights(
             "byz_clip_selection_weights", g.data_ptr(), w.data_ptr(), K, n, _CLIP_MODES[pre],
             tau, cut_off, f, q, _SELECTION_MODES[mode], reference_index, _stream(g),
         )
-    launch_counts[f"clip_selection_weights:{pre}"] += 1
+    count_launch(f"clip_selection_weights:{pre}")
     return w
 
 
@@ -1428,7 +1444,7 @@ def sort_columns(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         _call("byz_sort_columns", x.data_ptr(), out.data_ptr(), n, d, _DTYPE_CODES[x.dtype],
               _stream(x))
-    launch_counts["sort_columns"] += 1
+    count_launch("sort_columns")
     return out
 
 
@@ -1491,7 +1507,7 @@ def segment_sum(x: torch.Tensor, w: torch.Tensor, *, fill=None) -> torch.Tensor:
             None if fill_t is None else fill_t.data_ptr(), fill_host, out.data_ptr(), C, R, d,
             _DTYPE_CODES[x.dtype], _stream(x),
         )
-    launch_counts["segment_sum"] += 1
+    count_launch("segment_sum")
     return out
 
 
@@ -1590,7 +1606,7 @@ def segment_sum_dequant(
             None if fill_t is None else fill_t.data_ptr(), fill_host, out.data_ptr(), C, R, d,
             ncodes, nb, block, ck.WIRE_CODES[mode], _stream(codes),
         )
-    launch_counts[f"segment_sum_dequant:{mode}"] += 1
+    count_launch(f"segment_sum_dequant:{mode}")
     return out
 
 
@@ -1666,7 +1682,7 @@ def segmented_sort_reduce(
     with torch.cuda.device(flat.device):
         _call("byz_segmented_sort_reduce", flat.data_ptr(), offsets.data_ptr(), lengths.data_ptr(),
               out.data_ptr(), R, C, d, _SORT_MODES[mode], f, _run_tiles(flat, d), _stream(flat))
-    launch_counts["segmented_sort_reduce"] += 1
+    count_launch("segmented_sort_reduce")
     return out
 
 
@@ -1739,7 +1755,7 @@ def row_sq_dists(x: torch.Tensor, z=None) -> torch.Tensor:
             "byz_row_sq_dists", x.data_ptr(), None if z is None else z.data_ptr(),
             partial.data_ptr(), out.data_ptr(), n, d, _DTYPE_CODES[x.dtype], _stream(x),
         )
-    launch_counts["row_sq_dists"] += 1
+    count_launch("row_sq_dists")
     return out
 
 
@@ -1801,6 +1817,7 @@ __all__ = [
     "nnm_weights",
     "nnm_weights_plain",
     "reset_launch_counts",
+    "count_launch",
     "row_sq_dists",
     "row_sq_dists_plain",
     "segment_sum",

@@ -175,6 +175,21 @@ def ranked_mean(x: torch.Tensor, scores: torch.Tensor, q: int) -> torch.Tensor:
     return (w @ xm).to(x.dtype)
 
 
+def selection_sweep_mean(x: torch.Tensor, scores: torch.Tensor, q: int) -> torch.Tensor:
+    """Mean of the ``q`` lowest-score rows of ``x`` (the order of
+    :func:`ranked_mean`: ties by index, NaN scores last) as the selection
+    kernels finish theirs: weight ``1/q`` in f32 on the selected rows and
+    B4's row sweep (:func:`kernels.weighted_rows`, rows ascending, a row
+    of weight 0 never read). Given the same rows it equals
+    :func:`multi_krum`'s, :func:`cge`'s and :func:`monna`'s result bit for
+    bit; the pool path of those classes selects from row-range scores
+    with it."""
+    selected = _nan_last_ranks(scores) < q
+    w = torch.where(selected, torch.full_like(scores, 1.0 / q, dtype=torch.float32),
+                    torch.zeros((), dtype=torch.float32, device=scores.device))
+    return kernels.weighted_rows(x[None], w[None])[0]
+
+
 def multi_krum(x: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
     """Multi-Krum: the mean of the ``q`` rows with the lowest Krum score
     (the fused B3 + B4 kernels on the card)."""
@@ -1087,6 +1102,7 @@ __all__ = [
     "nnm_multi_krum_stream",
     "pairwise_sq_dists",
     "ranked_mean",
+    "selection_sweep_mean",
     "sort_rows",
     "subset_diameters",
     "subset_max_eigvals",

@@ -42,6 +42,13 @@ step's ~100-1,700 launches.
   :class:`GraphCaptureError`, naming the callable that read where
   :func:`capture_guard` wrapped it. Nothing then runs eagerly on the card.
 
+* **Actor pools.** A capture uses CUDA's global capture mode, in which
+  another thread's unsafe call (an allocation, a synchronization) fails
+  the capture. So a capture refuses with :class:`GraphCaptureError` while
+  a ``cuda`` actor (``engine/actor/backends/cuda.py``) runs a call on its
+  thread, and no actor call starts while a capture runs
+  (:data:`launching_actors`).
+
 On CPU inputs the step runs eagerly: the caller asked for the CPU.
 Graphs capture on one side stream of the :class:`CapturedStep` and replay
 on the caller's current stream; replays of one :class:`CapturedStep` on
@@ -50,8 +57,10 @@ two streams at once are not supported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import re
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -70,6 +79,56 @@ _CAPTURE_ERRORS = re.compile(
 
 class GraphCaptureError(RuntimeError):
     """A step could not be captured in a CUDA graph."""
+
+
+class LaunchingActors:
+    """The process's ``cuda`` actor calls in flight and its captures in
+    progress, kept apart: an actor call and a capture never overlap."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._calls = 0
+        self._captures = 0
+
+    @property
+    def calls(self) -> int:
+        return self._calls
+
+    @contextlib.contextmanager
+    def call(self):
+        """Around a ``cuda`` actor's call on its thread."""
+        with self._lock:
+            if self._captures:
+                raise RuntimeError(
+                    "a CUDA graph capture is in progress in this process: a cuda actor cannot "
+                    "launch work until it ends")
+            self._calls += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._calls -= 1
+
+    @contextlib.contextmanager
+    def capture(self, name: str):
+        """Around a capture (warm-up included) of step ``name``."""
+        with self._lock:
+            if self._calls:
+                raise GraphCaptureError(
+                    f"{name} cannot be captured while {self._calls} cuda actor call(s) are "
+                    f"running: their threads launch and allocate on their own streams, which "
+                    f"a capture in global mode does not allow; wait for the actor pool's "
+                    f"subtasks to finish (or close the pool) first")
+            self._captures += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._captures -= 1
+
+
+#: the process's one record: CUDA's capture mode is process-wide
+launching_actors = LaunchingActors()
 
 
 def _capturing() -> bool:
@@ -196,7 +255,7 @@ class CapturedStep:
         entry.graph.replay()
         if generator is not None:
             generator.set_state(entry.generator.get_state())
-        kernels.launch_counts[self.counter] += 1
+        kernels.count_launch(self.counter)
         args = _build(entry.spec, iter(entry.static_in))
         params, opt_state = args[0], args[1]
         if not self.donate:
@@ -206,6 +265,10 @@ class CapturedStep:
     # -- capture ------------------------------------------------------------
 
     def _capture(self, device: torch.device, leaves: list, spec, generator) -> _Graph:
+        with launching_actors.capture(self.name):
+            return self._capture_alone(device, leaves, spec, generator)
+
+    def _capture_alone(self, device: torch.device, leaves: list, spec, generator) -> _Graph:
         t0 = time.perf_counter()
         stream = self._streams.get(device)
         if stream is None:
@@ -274,4 +337,4 @@ def _map(fn: Callable, tree: Any) -> Any:
     return _build(spec, iter([fn(t) if _is_tensor(t) else t for t in leaves]))
 
 
-__all__ = ["CapturedStep", "GraphCaptureError", "capture_guard"]
+__all__ = ["CapturedStep", "GraphCaptureError", "LaunchingActors", "capture_guard", "launching_actors"]

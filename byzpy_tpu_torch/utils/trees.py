@@ -262,6 +262,15 @@ def stack_gradients(
     return matrix, unravel
 
 
+def unravel_like(gradients: Any, device: DeviceLike = None) -> Callable[[torch.Tensor], Any]:
+    """The ``unravel`` that ``stack_gradients(gradients, device=device)``
+    returns, without stacking the matrix: a stacked matrix's rows stay
+    rows; a sequence's rows unravel to its first gradient's structure."""
+    if isinstance(gradients, (torch.Tensor, np.ndarray)):
+        return lambda row: row
+    return _ravel(gradients[0], device)[1]
+
+
 def unstack_rows(matrix: torch.Tensor, unravel: Callable[[torch.Tensor], Any]) -> List[Any]:
     """Split an ``(n, d)`` matrix back into a list of per-node gradients."""
     return [unravel(matrix[i]) for i in range(matrix.shape[0])]
@@ -275,5 +284,6 @@ __all__ = [
     "ravel_pytree_fn",
     "stack_gradients",
     "tree_size",
+    "unravel_like",
     "unstack_rows",
 ]

@@ -119,7 +119,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    compiled, and the capture's launches and wall ms; (y) MDA, CAF, the
    masked geometric median and influence ascent through a twin: each
    capture refused with ``GraphCaptureError`` naming the host-reading
-   callable;
+   callable; then (4f) the engine, every await bounded: (a) BASELINE
+   config #1, ``CoordinateWiseMedian`` on 10 x 100,000 as a
+   single-operator graph under ``NodeScheduler`` on a thread and a cuda
+   actor pool of 4 (16 chunks of 6,250 columns: exactly 16 B1 launches,
+   bit for bit the direct call and the plain version; beside it 16 empty
+   subtasks, and the pooled run at a 0.1 ms interpreter switch interval);
+   (b) config #2, ``MultiKrum(f=8, q=12)`` at 64 x 1,048,576
+   on a cuda pool of 4 (16 row ranges; the selection of B3 + B4, the
+   aggregate within 1e-6 of its largest value, B4's sweep launched once;
+   a torch.profiler trace with the subtasks' kernels on two streams or
+   more besides the caller's); (c) ByzPy's pool table at its shapes
+   through ``run_operator`` with no pool and on cuda pools of 2, 4 and 6,
+   host ms beside ByzPy's, each pooled result the direct one's bits
+   (coordinate-wise work and the row selections) or within rtol 1e-6,
+   atol 3e-6 (Little) or 1e-4 (the geometric median's and centred
+   clipping's barriered loops); (d) ByzPy's 4-branch scheduler pipeline
+   at 64 x 200,000 under ``NodeScheduler`` and ``ParallelScheduler`` on
+   cuda pools of 2, 4 and 6, the two schedulers' outputs bit for bit;
+   (e) configs #1 and #2 on a pool of 6 bit for bit a pool of 1, a
+   ``jit_ps_train_step`` capture refused with ``GraphCaptureError`` while
+   a pool's call runs and captured after the pool closed;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642; B1, B6 (f = 40) and B9's weights also at 128 x 421,642, the
    engine's two runs and merge and the weights block's largest tile; B6 and
@@ -3139,6 +3159,476 @@ def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 4f: the engine (actor pools, schedulers, the subtask fan-out)
+# ---------------------------------------------------------------------------
+
+# ByzPy's per-workload table (BASELINE.md, benchmarks/README.md:15-28): ms
+# direct and on process pools of 2, 4 and 6 workers (CPU, hardware
+# unspecified)
+BYZPY_POOL = {
+    "cw_median_64x65536": (52.0, 56.0, 42.0, 37.0),
+    "cwtm_64x65536_f8": (65.52, 27.72, 18.75, 15.15),
+    "multi_krum_80x65536_f20_q12": (59.66, 39.65, 38.05, 26.30),
+    "meamed_64x65536_f8": (113.0, 109.0, 73.0, 59.0),
+    "cge_64x65536_f8": (100.0, 38.0, 28.0, 23.0),
+    "monna_64x65536_f8": (67.0, 15.0, 11.0, 16.0),
+    "geometric_median_64x65536": (398.21, 143.50, 145.05, 142.97),
+    "centered_clipping_64x65536_M10": (112.0, 65.0, 58.0, 50.0),
+    "empire_64x65536": (34.0, 26.0, 14.0, 15.0),
+    "little_96x65536_f12": (67.03, 34.79, 32.86, 47.45),
+}
+# ByzPy's scheduler table (BASELINE.md:40-46, benchmarks/README.md:67-69):
+# pool workers -> (NodeScheduler ms, ParallelScheduler ms)
+BYZPY_SCHEDULER = {2: (3362.0, 1375.0), 4: (3361.0, 1252.0), 6: (3240.0, 1239.0)}
+ENGINE_POOLS = (2, 4, 6)
+# the engine's waits: no await of phase 4f may hang the run
+ENGINE_WAIT_S = 600
+# the loops' pool path (row-block sums a step) against B7's loop
+LOOP_RTOL, LOOP_ATOL = 1e-4, 1e-4
+# Little's means reduce over column views on the pool path
+LITTLE_RTOL, LITTLE_ATOL = 1e-6, 3e-6
+
+
+async def host_ms(fn, reps: int) -> tuple:
+    """``(median host ms, last result)`` of ``reps`` awaited calls of
+    ``fn()``, each synchronized on both ends."""
+    import torch
+
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = await fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def engine_counts(counts: dict, run_counts: dict, name: str, want: dict) -> None:
+    """Check a pooled run's launches against ``want`` (every key named,
+    nothing else) and add them to the main path's counts."""
+    got = {k: v for k, v in run_counts.items() if v}
+    check(got == want, f"{name}: launches {got}, not {want}")
+    for k, v in got.items():
+        counts[k] += v
+
+
+def kernel_streams(prof, marker: str) -> tuple:
+    """``({stream id: launches and the first kernel names}, the one stream
+    of the kernels whose names hold ``marker``)`` of a torch.profiler trace,
+    from its Chrome trace (the kernels' ``stream`` argument)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    streams: dict = {}
+    marked = set()
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            sid = str((ev.get("args") or {}).get("stream"))
+            entry = streams.setdefault(sid, [0, set()])
+            entry[0] += 1
+            entry[1].add(ev.get("name", "")[:40])
+            if marker in ev.get("name", ""):
+                marked.add(sid)
+    check(len(marked) == 1, f"kernel {marker!r} ran on streams {sorted(marked)}: {streams}")
+    return ({k: {"launches": v[0], "kernels": sorted(v[1])[:6]} for k, v in streams.items()},
+            marked.pop())
+
+
+def no_work():
+    """A subtask that does nothing: what a pool costs a subtask."""
+
+
+async def engine_config1(counts: dict) -> dict:
+    """(a) BASELINE config #1: the coordinate median of 10 x 100,000 seeded
+    f32 gradients as a single-operator graph under ``NodeScheduler``, on a
+    ``thread`` and a ``cuda`` pool of 4: 16 feature chunks of 6,250
+    columns, one B1 launch each, bit for bit the direct B1 call and the
+    plain version; beside it 16 subtasks that do nothing on the same
+    pool, and the pooled run at a 0.1 ms interpreter switch interval."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.graph import (ActorPool, ActorPoolConfig, NodeScheduler, SubTask,
+                                              make_single_operator_graph,
+                                              select_adaptive_chunk_size)
+    from byzpy_tpu_torch.ops import kernels
+
+    x = random_rounds((1, 10, 100_000), seed=41)[0]
+    rows = list(x)
+    agg = CoordinateWiseMedian()
+    graph = make_single_operator_graph(agg)
+    plain = kernels.sorted_reduce_stream_plain(x[None], mode="median")[0]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    direct = agg.aggregate(rows)
+    torch.cuda.synchronize()
+    engine_counts(counts, kernels.launch_counts, "(a) direct", {"sorted_reduce:median": 1})
+    check(bits_equal(direct, plain), "(a) the direct median differs from the plain version")
+    chunk = select_adaptive_chunk_size(100_000, agg.chunk_size, pool_size=4)
+    check(chunk == 6250, f"(a) chunk {chunk}, not the reference's 6,250 at a pool of 4")
+    out = {"chunk": chunk, "subtasks": -(-100_000 // chunk)}
+    out["direct_ms"], _ = await host_ms(lambda: NodeScheduler(graph).run({"gradients": rows}), 10)
+    for backend in ("thread", "cuda"):
+        async with ActorPool(ActorPoolConfig(backend=backend, count=4)) as pool:
+            sched = NodeScheduler(graph, pool=pool)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            res = (await sched.run({"gradients": rows}))["op"]
+            torch.cuda.synchronize()
+            engine_counts(counts, kernels.launch_counts, f"(a) {backend} pool of 4",
+                          {"sorted_reduce:median": 16})
+            check(bits_equal(res, direct), f"(a) the {backend} pool's median differs from B1's")
+            out[f"{backend}_pool4_ms"], res = await host_ms(
+                lambda: sched.run({"gradients": rows}), 10)
+            check(bits_equal(res["op"], direct), f"(a) a timed {backend} run differs")
+            noop = [SubTask(fn=no_work) for _ in range(16)]
+            out[f"{backend}_pool4_16_empty_subtasks_ms"], _ = await host_ms(
+                lambda: pool.run_many(noop), 10)
+            # the interpreter hands the GIL to a waiting thread after its
+            # switch interval (5 ms by default): the same run at 0.1 ms
+            interval = sys.getswitchinterval()
+            sys.setswitchinterval(1e-4)
+            try:
+                out[f"{backend}_pool4_switch_0.1ms_ms"], res = await host_ms(
+                    lambda: sched.run({"gradients": rows}), 10)
+            finally:
+                sys.setswitchinterval(interval)
+            check(bits_equal(res["op"], direct), f"(a) a timed {backend} run differs")
+    log(f"  (a) config #1, median 10 x 100,000: {out['subtasks']} chunks of {chunk}; host ms "
+        f"direct {out['direct_ms']:.3f}, thread pool of 4 {out['thread_pool4_ms']:.3f}, cuda "
+        f"pool of 4 {out['cuda_pool4_ms']:.3f} (at a 0.1 ms switch interval "
+        f"{out['thread_pool4_switch_0.1ms_ms']:.3f} / {out['cuda_pool4_switch_0.1ms_ms']:.3f}); "
+        f"bit for bit B1 and the plain version; 16 empty subtasks: thread "
+        f"{out['thread_pool4_16_empty_subtasks_ms']:.3f}, cuda "
+        f"{out['cuda_pool4_16_empty_subtasks_ms']:.3f}")
+    return out
+
+
+def recording_krum(f: int, q: int):
+    """A ``MultiKrum`` that keeps the pool path's scores."""
+    from byzpy_tpu_torch.aggregators import MultiKrum
+
+    class RecordingKrum(MultiKrum):
+        scores = None
+
+        def _select_from_scores(self, scores, matrix):
+            self.scores = scores
+            return super()._select_from_scores(scores, matrix)
+
+    return RecordingKrum(f, q)
+
+
+async def engine_config2(counts: dict) -> dict:
+    """(b) BASELINE config #2: ``MultiKrum(f=8, q=12)`` on 64 x 1,048,576
+    f32 (256 MiB) under ``NodeScheduler`` on a ``cuda`` pool of 4: 16
+    subtasks of 4 rows' scores on the actors' streams, the compute path's
+    (B3 + B4) selection and, through B4's row sweep, its bits; a
+    torch.profiler trace shows the subtasks' kernels on two streams or
+    more besides the caller's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from byzpy_tpu_torch.engine.graph import (ActorPool, ActorPoolConfig, NodeScheduler,
+                                              make_single_operator_graph)
+    from byzpy_tpu_torch.ops import kernels
+
+    f, q = 8, 12
+    x = random_rounds((1,) + HEADLINE, seed=42)[0]
+    agg = recording_krum(f, q)
+    graph = make_single_operator_graph(agg)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    direct = agg.aggregate(x)
+    torch.cuda.synchronize()
+    engine_counts(counts, kernels.launch_counts, "(b) direct",
+                  {"gram": 1, "selection_weights:krum": 1, "weighted_rows": 1})
+    w = kernels.selection_weights(kernels.gram(x[None]), f=f, q=q, mode="krum")[0]
+    chosen = sorted(int(i) for i in torch.nonzero(w).flatten().tolist())
+    out = {}
+    out["direct_ms"], _ = await host_ms(lambda: NodeScheduler(graph).run({"gradients": x}), 5)
+    async with ActorPool(ActorPoolConfig(backend="cuda", count=4)) as pool:
+        sched = NodeScheduler(graph, pool=pool)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        res = (await sched.run({"gradients": x}))["op"]
+        torch.cuda.synchronize()
+        engine_counts(counts, kernels.launch_counts, "(b) cuda pool of 4", {"weighted_rows": 1})
+        check(agg.scores is not None and agg.scores.shape == (64,), "(b) no pool scores recorded")
+        pooled = sorted(int(i) for i in torch.argsort(agg.scores, stable=True)[:q].tolist())
+        check(pooled == chosen, f"(b) the pool selected {pooled}, the compute path {chosen}")
+        err = max_abs_err(res, direct)
+        check(err <= 1e-6 * float(direct.abs().max()), f"(b) the pooled aggregate is {err} off")
+        out["selected"], out["max_abs_err"], out["bitwise"] = pooled, err, bits_equal(res, direct)
+        out["cuda_pool4_ms"], _ = await host_ms(lambda: sched.run({"gradients": x}), 5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            await sched.run({"gradients": x})
+            torch.cuda.synchronize()
+        # the reduce's B4 sweep is the caller's: its stream is the caller's
+        streams, caller = kernel_streams(prof, "weighted_rows_kernel")
+    others = {s: v for s, v in streams.items() if s != caller}
+    check(len(others) >= 2, f"(b) the subtasks' kernels ran on {len(others)} stream(s) besides "
+          f"the caller's: {streams}")
+    out["streams"] = streams
+    out["caller_stream"] = caller
+    log(f"  (b) config #2, Multi-Krum (f=8, q=12) 64 x 1,048,576: 16 subtasks, selection "
+        f"{pooled} == B3 + B4's, max |diff| {err} (bitwise {out['bitwise']}); host ms direct "
+        f"{out['direct_ms']:.3f}, cuda pool of 4 {out['cuda_pool4_ms']:.3f}; kernels by stream "
+        f"{json.dumps({s: v['launches'] for s, v in streams.items()})} (caller {caller})")
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def pool_table_cases():
+    """(c)'s workloads at ByzPy's shapes: name -> (operator, inputs, how
+    the pool's result is held to the direct one)."""
+    from byzpy_tpu_torch import aggregators as P
+    from byzpy_tpu_torch import attacks as A
+
+    def rows(n, seed):
+        return list(random_rounds((1, n, GRID[1]), seed=seed)[0])
+
+    g64 = rows(64, 51)
+    return {
+        "cw_median_64x65536": (P.CoordinateWiseMedian(), {"gradients": g64}, "bitwise"),
+        "cwtm_64x65536_f8": (P.CoordinateWiseTrimmedMean(8), {"gradients": g64}, "bitwise"),
+        "multi_krum_80x65536_f20_q12": (P.MultiKrum(20, 12), {"gradients": rows(80, 52)},
+                                        "bitwise"),
+        "meamed_64x65536_f8": (P.MeanOfMedians(8), {"gradients": g64}, "bitwise"),
+        "cge_64x65536_f8": (P.ComparativeGradientElimination(8), {"gradients": g64}, "bitwise"),
+        "monna_64x65536_f8": (P.MoNNA(8), {"gradients": g64}, "bitwise"),
+        "geometric_median_64x65536": (P.GeometricMedian(), {"gradients": g64}, "loop"),
+        "centered_clipping_64x65536_M10": (P.CenteredClipping(c_tau=10.0, M=10),
+                                           {"gradients": g64}, "loop"),
+        "empire_64x65536": (A.EmpireAttack(), {"honest_grads": g64}, "bitwise"),
+        "little_96x65536_f12": (A.LittleAttack(12), {"honest_grads": rows(96, 53)}, "little"),
+    }
+
+
+async def engine_pool_table(counts: dict) -> dict:
+    """(c) ByzPy's pool table at its own shapes: each workload through
+    ``run_operator`` with no pool and on ``cuda`` pools of 2, 4 and 6 (one
+    pool of each size, started once), host median ms beside ByzPy's
+    direct and pool figures; each pooled result held to the direct one."""
+    import torch
+
+    from byzpy_tpu_torch.engine.graph import ActorPool, ActorPoolConfig, run_operator
+    from byzpy_tpu_torch.ops import kernels
+
+    cases = pool_table_cases()
+    pools = {k: ActorPool(ActorPoolConfig(backend="cuda", count=k)) for k in ENGINE_POOLS}
+    out = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    try:
+        for p in pools.values():
+            await p.start()
+        for name, (op, inputs, rule) in cases.items():
+            reps = 3 if name.startswith("geometric") else 5
+            direct_ms, direct = await host_ms(lambda: run_operator(op, inputs), reps)
+            row = {"direct_ms": direct_ms, "byzpy_direct_ms": BYZPY_POOL[name][0]}
+            for i, k in enumerate(ENGINE_POOLS):
+                ms, res = await host_ms(lambda: run_operator(op, inputs, pool=pools[k]), reps)
+                if rule == "bitwise":
+                    ok, err = bits_equal(res, direct), max_abs_err(res, direct)
+                elif rule == "little":
+                    ok = bool(torch.allclose(res, direct, rtol=LITTLE_RTOL, atol=LITTLE_ATOL))
+                    err = max_abs_err(res, direct)
+                else:
+                    ok = bool(torch.allclose(res, direct, rtol=LOOP_RTOL, atol=LOOP_ATOL))
+                    err = max_abs_err(res, direct)
+                check(ok, f"(c) {name}: the pool of {k}'s result is {err} off the direct one "
+                      f"({rule})")
+                row[f"pool{k}_ms"] = ms
+                row[f"byzpy_pool{k}_ms"] = BYZPY_POOL[name][i + 1]
+                row[f"pool{k}_max_abs_err"] = err
+            out[name] = row
+            log(f"  (c) {name}: host ms direct {direct_ms:.3f} (ByzPy {BYZPY_POOL[name][0]}), "
+                + ", ".join(f"pool x{k} {row[f'pool{k}_ms']:.3f} (ByzPy "
+                            f"{row[f'byzpy_pool{k}_ms']})" for k in ENGINE_POOLS)
+                + f"; held {rule}")
+    finally:
+        for p in pools.values():
+            await p.close()
+    torch.cuda.synchronize()
+    for k, v in kernels.launch_counts.items():
+        counts[k] += v
+    out["launches"] = {k: v for k, v in kernels.launch_counts.items() if v}
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
+def scheduler_graph():
+    """``benchmarks/scheduler_bench.py``'s 4-branch pipeline on the card:
+    each branch a preprocessing node (5 rounds of row-standardize and
+    clip, on the device) then median, trimmed mean (f = 15), CGE (f =
+    15) or centred clipping (c_tau = 10, M = 5)."""
+    import torch
+
+    from byzpy_tpu_torch import aggregators as P
+    from byzpy_tpu_torch.engine.graph import ComputationGraph, GraphInput, GraphNode, Operator
+
+    class Preprocess(Operator):
+        name = "preprocess"
+
+        def compute(self, inputs, *, context):
+            x = inputs["gradients"]
+            for _ in range(5):
+                x = x - x.mean(dim=1, keepdim=True)
+                x = x / (x.std(dim=1, keepdim=True, correction=0) + 1e-8)
+                x = torch.clamp(x, -3.0, 3.0)
+            return x
+
+    branches = {"median": P.CoordinateWiseMedian(), "trimmed": P.CoordinateWiseTrimmedMean(15),
+                "cge": P.ComparativeGradientElimination(15),
+                "clip": P.CenteredClipping(c_tau=10.0, M=5)}
+    nodes = []
+    for name, op in branches.items():
+        nodes.append(GraphNode(f"pre_{name}", Preprocess(), {"gradients": GraphInput("gradients")}))
+        nodes.append(GraphNode(name, op, {"gradients": f"pre_{name}"}))
+    return ComputationGraph(nodes, outputs=list(branches))
+
+
+async def engine_schedulers(counts: dict) -> dict:
+    """(d) ByzPy's scheduler table: the 4-branch pipeline at 64 x 200,000
+    under ``NodeScheduler`` and ``ParallelScheduler`` on ``cuda`` pools of
+    2, 4 and 6; the two schedulers' outputs equal bit for bit."""
+    import torch
+
+    from byzpy_tpu_torch.engine.graph import (ActorPool, ActorPoolConfig, NodeScheduler,
+                                              ParallelScheduler)
+    from byzpy_tpu_torch.ops import kernels
+
+    x = random_rounds((1, 64, 200_000), seed=61)[0]
+    graph = scheduler_graph()
+    out = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for k in ENGINE_POOLS:
+        async with ActorPool(ActorPoolConfig(backend="cuda", count=k)) as pool:
+            seq_ms, seq = await host_ms(lambda: NodeScheduler(graph, pool=pool).run(
+                {"gradients": x}), 3)
+            par_ms, par = await host_ms(lambda: ParallelScheduler(graph, pool=pool).run(
+                {"gradients": x}), 3)
+        for b in graph.outputs:
+            check(bits_equal(seq[b], par[b]), f"(d) pool of {k}: {b} differs between the schedulers")
+            check(bool(torch.isfinite(seq[b]).all()), f"(d) pool of {k}: {b} not finite")
+        node, parallel = BYZPY_SCHEDULER[k]
+        out[f"pool{k}"] = {"node_scheduler_ms": seq_ms, "parallel_scheduler_ms": par_ms,
+                           "speedup": seq_ms / par_ms, "byzpy_node_scheduler_ms": node,
+                           "byzpy_parallel_scheduler_ms": parallel}
+        log(f"  (d) pool x{k}: NodeScheduler {seq_ms:.3f} ms (ByzPy {node}), ParallelScheduler "
+            f"{par_ms:.3f} ms (ByzPy {parallel}), speedup {seq_ms / par_ms:.3f} (ByzPy "
+            f"{node / parallel:.2f}); the outputs bit for bit equal")
+    torch.cuda.synchronize()
+    for key, v in kernels.launch_counts.items():
+        counts[key] += v
+    out["launches"] = {key: v for key, v in kernels.launch_counts.items() if v}
+    return out
+
+
+async def engine_many_streams(counts: dict) -> dict:
+    """(e) configs #1 and #2 on a ``cuda`` pool of 6 give the bits of a
+    pool of 1 (the direct path); then the capture guard."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian, MultiKrum
+    from byzpy_tpu_torch.engine.graph import (ActorPool, ActorPoolConfig, NodeScheduler,
+                                              make_single_operator_graph)
+    from byzpy_tpu_torch.ops import kernels
+
+    x1 = list(random_rounds((1, 10, 100_000), seed=41)[0])
+    x2 = random_rounds((1,) + HEADLINE, seed=42)[0]
+    configs = {"config1": (make_single_operator_graph(CoordinateWiseMedian()), x1),
+               "config2": (make_single_operator_graph(MultiKrum(8, 12)), x2)}
+    bits = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for k in (1, 6):
+        async with ActorPool(ActorPoolConfig(backend="cuda", count=k)) as pool:
+            for name, (graph, inputs) in configs.items():
+                bits[(name, k)] = (await NodeScheduler(graph, pool=pool).run(
+                    {"gradients": inputs}))["op"]
+    torch.cuda.synchronize()
+    for key, v in kernels.launch_counts.items():
+        counts[key] += v
+    launches = {key: v for key, v in kernels.launch_counts.items() if v}
+    for name in configs:
+        check(bits_equal(bits[(name, 6)], bits[(name, 1)]),
+              f"(e) {name}: a pool of 6 differs from a pool of 1")
+    del x2, bits
+    torch.cuda.empty_cache()
+    log(f"  (e) pool of 6 == pool of 1 bit for bit on configs #1 and #2 (launches "
+        f"{json.dumps(launches)})")
+    return {"bitwise_pool6_vs_pool1": sorted(configs), "launches": launches,
+            **await engine_capture_guard()}
+
+
+async def engine_capture_guard() -> dict:
+    """(e) the capture guard: a ``jit_ps_train_step`` capture while a
+    ``cuda`` pool runs a call refuses with ``GraphCaptureError``; after the
+    pool has closed the same step captures and replays."""
+    import asyncio
+    import threading
+
+    import torch
+
+    from byzpy_tpu_torch.engine.graph import ActorPool, ActorPoolConfig, SubTask
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, jit_ps_train_step
+    from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
+
+    bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+    xs, ys = synthetic_classification(n_samples=MAIN_N * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = xs.reshape(MAIN_N, MAIN_BATCH, 28, 28, 1), ys.reshape(MAIN_N, MAIN_BATCH)
+    step, opt0 = jit_ps_train_step(bundle, robust.coordinate_median, PSStepConfig(n_nodes=MAIN_N))
+    refused = None
+    async with ActorPool(ActorPoolConfig(backend="cuda", count=6)) as pool:
+        release = threading.Event()
+        busy = asyncio.ensure_future(pool.run_subtask(SubTask(fn=release.wait, args=(60,))))
+        await asyncio.sleep(0.2)
+        try:
+            step(bundle.params, opt0, xs, ys)
+        except GraphCaptureError as exc:
+            refused = str(exc)
+        finally:
+            release.set()
+        await busy
+    check(refused is not None and "cuda actor call" in refused,
+          f"(e) a capture while the pool ran did not refuse: {refused}")
+    check(not step.graphs, "(e) the refused capture left a graph")
+    _, _, m = step(bundle.params, opt0, xs, ys)
+    torch.cuda.synchronize()
+    check(len(step.graphs) == 1 and math.isfinite(float(m["agg_grad_norm"])),
+          "(e) the capture after the pool closed failed")
+    log(f"  (e) a capture while the pool ran refused: {refused[:120]}...; after close "
+        f"captured {len(step.graphs)} graph")
+    return {"capture_refused": refused, "capture_after_close": len(step.graphs)}
+
+
+def engine_path(counts: dict) -> dict:
+    """Phase 4f: (a)-(e), every await bounded."""
+    import asyncio
+
+    async def phase():
+        return {"a_config1": await engine_config1(counts),
+                "b_config2": await engine_config2(counts),
+                "c_pool_table": await engine_pool_table(counts),
+                "d_schedulers": await engine_schedulers(counts),
+                "e_many_streams": await engine_many_streams(counts)}
+
+    return asyncio.run(asyncio.wait_for(phase(), ENGINE_WAIT_S))
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -4484,6 +4974,9 @@ def main() -> int:
     log("== 4e. main path: the compiled step (CUDA-graph twins against the eager steps: (u) "
         "ResNet-50 config #5, (v) ResNet-18, (w) SmallCNN, (x) serving; (y) refusals)")
     log("COMPILED_PATH " + json.dumps(compiled_path(counts)))
+    log("== 4f. main path: the engine (actor pools: (a) config #1, (b) config #2, (c) ByzPy's "
+        "pool table, (d) the schedulers, (e) many streams and the capture guard)")
+    log("ENGINE_PATH " + json.dumps(engine_path(counts)))
     for key in NEW_KERNELS:
         check(counts[key] > 0, f"{key} never launched on the main path")
     for key, parts in CODEC_COUNTERS.items():

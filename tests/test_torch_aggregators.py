@@ -32,7 +32,8 @@ import byzpy_tpu_torch.aggregators as P
 import byzpy_tpu_torch.pre_aggregators as PP
 from byzpy_tpu_torch.aggregators import fused_pipeline_matrix_fn
 from byzpy_tpu_torch.aggregators.base import ravel_gradient
-from byzpy_tpu_torch.engine.graph import OpContext
+from byzpy_tpu.engine.graph import OpContext as JOpContext
+from byzpy_tpu_torch.engine.graph import ActorPool, ActorPoolConfig, OpContext
 from byzpy_tpu_torch.ops import robust
 from byzpy_tpu_torch.utils import ravel_pytree, stack_gradients, unstack_rows
 
@@ -443,12 +444,22 @@ CHUNKED = [(P.MultiKrum, (1, 2), 32), (P.Krum, (1,), 32), (P.MoNNA, (1,), 32),
 
 @pytest.mark.parametrize("cls,args,default", CHUNKED, ids=lambda c: getattr(c, "__name__", None))
 def test_chunk_size_other_than_default_raises(cls, args, default):
-    """``chunk_size`` sizes the pool subtasks, which are not ported: the
-    default is accepted, any other valid value raises instead of being
-    ignored."""
-    cls(*args, chunk_size=default, device=CPU)
-    with pytest.raises(NotImplementedError, match="chunk_size=7"):
-        cls(*args, chunk_size=7, device=CPU)
+    """``chunk_size`` sizes the pool subtasks: a value other than the
+    default is accepted, and the class fans out the JAX class's subtasks,
+    as many and with the same names, without a pool (the configured size)
+    and at a pool of 4 (the adaptive size)."""
+    assert cls(*args, device=CPU).chunk_size == default
+    ours, ref = cls(*args, chunk_size=7, device=CPU), getattr(J, cls.__name__)(*args, chunk_size=7)
+    assert ours.chunk_size == 7
+    rows = _rows(3)
+    for pool_size in (0, 4):
+        md = {"pool_size": pool_size}
+        mine = list(ours.create_subtasks({"gradients": [torch.from_numpy(r) for r in rows]},
+                                         context=OpContext("agg", md)))
+        theirs = list(ref.create_subtasks({"gradients": [jnp.asarray(r) for r in rows]},
+                                          context=JOpContext("agg", md)))
+        assert [t.name for t in mine] == [t.name for t in theirs]
+        assert len(mine) > 1
 
 
 @pytest.mark.parametrize("cls,args,kwargs", BAD_CONSTRUCTORS)
@@ -473,14 +484,16 @@ KWARGS = {P.CenteredClipping: {"c_tau": 1.0}}
 
 @pytest.mark.parametrize("cls", ALL_CLASSES, ids=lambda c: c.__name__)
 def test_classes_default_to_cuda_and_keep_the_jax_names(cls, monkeypatch):
-    """Every class has the JAX class's name, no subtask fan-out, and
-    resolves ``device=None`` to the card: without one it raises, and
-    ``device="cpu"`` is the caller's explicit choice."""
+    """Every class has the JAX class's name and subtask flags (fan-out,
+    barriered), and resolves ``device=None`` to the card: without one it
+    raises, and ``device="cpu"`` is the caller's explicit choice."""
     args, kwargs = ARGS.get(cls, ()), KWARGS.get(cls, {})
     jcls = getattr(JP if cls.__module__.startswith("byzpy_tpu_torch.pre") else J, cls.__name__)
     ours = cls(*args, **kwargs, device=CPU)
     assert ours.name == jcls(*args, **kwargs).name
-    assert ours.device == torch.device("cpu") and not ours.supports_subtasks
+    assert ours.device == torch.device("cpu")
+    assert ours.supports_subtasks == jcls.supports_subtasks
+    assert ours.supports_barriered_subtasks == jcls.supports_barriered_subtasks
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls(*args, **kwargs)
@@ -488,15 +501,22 @@ def test_classes_default_to_cuda_and_keep_the_jax_names(cls, monkeypatch):
 
 def test_operator_protocol():
     """``compute`` reads the input key; ``run`` without a pool computes, and
-    with one raises until the engine's pools are ported."""
+    on a ``thread`` pool of two fans out the Krum row scores, selects the
+    direct path's rows and averages them as the direct path does (B4's
+    row sweep): the direct result, bit for bit."""
     agg = P.MultiKrum(1, 2, device=CPU)
     grads = [torch.from_numpy(g) for g in _rows(0, n=5)]
     ctx = OpContext(node_name="agg")
     direct = agg.aggregate(grads)
     assert torch.equal(agg.compute({"gradients": grads}, context=ctx), direct)
     assert torch.equal(asyncio.run(agg.run({"gradients": grads}, context=ctx, pool=None)), direct)
-    with pytest.raises(NotImplementedError, match="pools"):
-        asyncio.run(agg.run({"gradients": grads}, context=ctx, pool=object()))
+
+    async def pooled():
+        async with ActorPool(ActorPoolConfig(backend="thread", count=2)) as pool:
+            pctx = OpContext(node_name="agg", metadata={"pool_size": pool.size})
+            return await asyncio.wait_for(agg.run({"gradients": grads}, context=pctx, pool=pool), 60)
+
+    assert torch.equal(asyncio.run(pooled()), direct)
     with pytest.raises(KeyError, match="gradients"):
         agg.compute({"vectors": grads}, context=ctx)
     with pytest.raises(TypeError, match="sequence"):

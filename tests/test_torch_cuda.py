@@ -1962,3 +1962,153 @@ def test_cuda_compiled_step_refuses_host_reads(cuda_device, which):
         step(*args)
     assert not step.graphs
     assert all(v == 0 for k, v in kernels.launch_counts.items() if k.startswith("graph_replay"))
+
+
+# ---------------------------------------------------------------------------
+# the engine's cuda actor pool: stream discipline and pooled results
+# ---------------------------------------------------------------------------
+
+# ~50 ms of device time at the H100's clock: long enough that a missing
+# wait or an early reuse shows
+_SLEEP_CYCLES = 100_000_000
+
+
+class _StreamWorker:
+    """An actor object whose methods queue slow work on the actor's stream."""
+
+    def stream_id(self):
+        return torch.cuda.current_stream().cuda_stream
+
+    def slow_double(self, x):
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        return x * 2
+
+    def slow_clone(self, v):
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        return v.clone()
+
+    def block(self, event):
+        event.wait(timeout=60)
+        return torch.ones(2, device="cuda")
+
+
+def _engine_run(coro, timeout=120):
+    import asyncio
+
+    return asyncio.run(asyncio.wait_for(coro, timeout))
+
+
+@pytest.mark.cuda
+def test_cuda_actor_stream_discipline(cuda_device):
+    """Each actor runs on a stream of its own; the caller's stream waits on
+    the actor's result, the actor waits on the caller's writes, and a
+    chunk view the caller drops (allocated on a stream that never waits on
+    the actor) is not handed to a new allocation while the actor reads
+    it."""
+    import asyncio
+
+    from byzpy_tpu_torch.engine.actor import spawn_actor
+    from byzpy_tpu_torch.engine.actor.backends.cuda import CudaActorBackend
+
+    async def go():
+        a = await spawn_actor(CudaActorBackend(), _StreamWorker)
+        b = await spawn_actor(CudaActorBackend(), _StreamWorker)
+        streams = {await a.stream_id(), await b.stream_id(),
+                   torch.cuda.current_stream().cuda_stream}
+        # the caller waits on the actor: read the result at once
+        x = torch.full((1 << 20,), 3.0, device=cuda_device)
+        seen_after = (await a.slow_double(x)).clone()
+        # the actor waits on the caller: a slow write, then the actor reads
+        y = torch.empty((1 << 20,), device=cuda_device)
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        y.fill_(5.0)
+        seen_before = await b.slow_clone(y)
+        # a dropped view of a matrix made on a side stream
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            m = torch.full((64, 1 << 16), 7.0, device=cuda_device)
+            task = asyncio.ensure_future(a.slow_clone(m[:, : 1 << 15]))
+            await asyncio.sleep(0)  # the call records its event on `side`
+            del m
+        out = await task
+        with torch.cuda.stream(side):
+            junk = [torch.empty((64, 1 << 16), device=cuda_device).fill_(-1.0) for _ in range(4)]
+        torch.cuda.synchronize()
+        for ref in (a, b):
+            await ref.backend.close()
+        return streams, seen_after, seen_before, out, junk
+
+    streams, seen_after, seen_before, out, _ = _engine_run(go())
+    assert len(streams) == 3
+    assert bool((seen_after == 6.0).all()) and bool((seen_before == 5.0).all())
+    assert bool((out == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_capture_refused_while_the_pool_runs(cuda_device):
+    """A CUDA-graph capture while a cuda actor's call runs raises
+    ``GraphCaptureError``; after the pool closes the same step captures."""
+    import asyncio
+    import threading
+
+    from byzpy_tpu_torch.engine.actor import spawn_actor
+    from byzpy_tpu_torch.engine.actor.backends.cuda import CudaActorBackend
+    from byzpy_tpu_torch.utils.cuda_graph import CapturedStep, GraphCaptureError
+
+    step = CapturedStep(lambda p, o: (p * 2, o + 1, {"s": p.sum()}), name="ps_train_step",
+                        donate=False)
+    p, o = torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device)
+
+    async def go():
+        a = await spawn_actor(CudaActorBackend(), _StreamWorker)
+        event = threading.Event()
+        task = asyncio.ensure_future(a.block(event))
+        await asyncio.sleep(0.1)
+        try:
+            with pytest.raises(GraphCaptureError, match="cuda actor call"):
+                step(p, o)
+        finally:
+            event.set()
+        await task
+        await a.backend.close()
+
+    _engine_run(go())
+    p2, o2, m = step(p, o)
+    assert len(step.graphs) == 1 and bool((p2 == 2).all()) and float(m["s"]) == 8.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [2, 4])
+def test_cuda_pooled_coordinate_wise_classes_bitwise(cuda_device, workers):
+    """On a cuda pool the coordinate-wise classes (feature chunks of B1 and
+    B6, the attacks' column spans) give their direct results bit for bit,
+    and each chunk's kernel launched on an actor."""
+    from byzpy_tpu_torch import attacks as A
+    from byzpy_tpu_torch import aggregators as P
+    from byzpy_tpu_torch.engine.graph import ActorPoolConfig, run_operator, select_adaptive_chunk_size
+
+    x = torch.from_numpy(_matrix(np.random.default_rng(workers), (13, 50_001), specials=False))
+    x = x.to(cuda_device)
+    rows = list(x)
+    cfg = ActorPoolConfig(backend="cuda", count=workers)
+    cases = [
+        (P.CoordinateWiseMedian(chunk_size=4096), {"gradients": rows}, "sorted_reduce:median"),
+        (P.CoordinateWiseTrimmedMean(3, chunk_size=4096), {"gradients": rows},
+         "sorted_reduce:trimmed"),
+        (P.MeanOfMedians(3, chunk_size=4096), {"gradients": rows}, "meamed"),
+        (A.EmpireAttack(scale=-1.1), {"honest_grads": rows}, None),
+        (A.SignFlipAttack(), {"base_grad": rows[0]}, None),
+        (A.MimicAttack(epsilon=2), {"honest_grads": rows}, None),
+    ]
+    chunk = select_adaptive_chunk_size(50_001, 4096, pool_size=workers)
+    for op, inputs, key in cases:
+        op.chunk_size = 4096
+        before = kernels.launch_counts[key] if key else 0
+        pooled = _engine_run(run_operator(op, inputs, pool_config=cfg))
+        if key:
+            assert kernels.launch_counts[key] - before == -(-50_001 // chunk)
+            direct = op.aggregate(rows)
+        else:
+            direct = op.apply(**inputs)
+        torch.cuda.synchronize()
+        assert _bits_equal(pooled, direct), op.name

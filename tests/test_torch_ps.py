@@ -565,7 +565,7 @@ def test_ps_s4_raises_not_implemented():
 # package rules
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "byzpy_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cloudpickle", "byzpy_tpu"}
 
 
 def _port_sources():
@@ -575,16 +575,19 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """No module of byzpy_tpu_torch, nor chip_smoke.py, imports JAX, flax,
-    optax or the JAX package; the scan covers the operator classes, the
-    attack classes, the subset-search aggregators, the engine, the
-    compressed wire fabric, the serving tier, the models and data helpers
-    and the compiled steps' CUDA-graph capture."""
+    optax, cloudpickle or the JAX package; the scan covers the operator
+    classes, the attack classes, the subset-search aggregators, the
+    engine (graphs, schedulers, sessions, pools, the actor backends and
+    the chunked fan-out), the compressed wire fabric, the serving tier,
+    the models and data helpers and the compiled steps' CUDA-graph
+    capture."""
     files = _port_sources()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
     assert REPO / "byzpy_tpu_torch" / "ops" / "preagg.py" in files
     for sub in ("aggregators", "aggregators/geometric_wise", "aggregators/coordinate_wise",
                 "aggregators/norm_wise", "pre_aggregators", "engine", "engine/graph",
-                "engine/peer_to_peer", "serving", "attacks"):
+                "engine/actor", "engine/actor/backends", "engine/peer_to_peer", "serving",
+                "attacks", "configs"):
         assert REPO / "byzpy_tpu_torch" / sub / "__init__.py" in files, sub
     for module in ("aggregators/base.py", "aggregators/geometric_wise/krum.py",
                    "aggregators/pipelines.py", "pre_aggregators/bucketing.py",
@@ -597,7 +600,15 @@ def test_port_imports_no_jax():
                    "aggregators/geometric_wise/minimum_diameter_average.py",
                    "attacks/base.py", "attacks/adaptive.py", "attacks/gaussian.py",
                    "attacks/label_flip.py", "engine/actor/wire.py", "utils/cuda_graph.py",
-                   "utils/trees.py", "models/nets.py", "models/data.py", "models/convert.py"):
+                   "utils/trees.py", "models/nets.py", "models/data.py", "models/convert.py",
+                   "engine/graph/pool.py", "engine/graph/scheduler.py",
+                   "engine/graph/parallel_scheduler.py", "engine/graph/session.py",
+                   "engine/graph/lazy.py", "engine/graph/executor.py", "engine/graph/ops.py",
+                   "engine/graph/graph.py", "engine/graph/chunking.py", "engine/actor/base.py",
+                   "engine/actor/channels.py", "engine/actor/router.py",
+                   "engine/actor/factory.py", "engine/actor/backends/thread.py",
+                   "engine/actor/backends/cuda.py", "configs/actor.py",
+                   "aggregators/chunked.py", "attacks/chunked.py"):
         assert REPO / "byzpy_tpu_torch" / module in files, module
     bad = []
     for path in files:

@@ -345,11 +345,11 @@ def test_validate_n_messages_and_options():
             getattr(P, cls)(-1, device=CPU)
         with pytest.raises(ValueError, match="chunk_size must be > 0"):
             getattr(P, cls)(1, chunk_size=0, device=CPU)
-        with pytest.raises(NotImplementedError, match="chunk_size"):
-            getattr(P, cls)(1, chunk_size=7, device=CPU)
+        # chunk_size sizes the pool's subtasks
+        assert getattr(P, cls)(1, chunk_size=7, device=CPU).chunk_size == 7
     for key in ("seed_prefix", "seeds_per_task"):
-        with pytest.raises(NotImplementedError, match=key):
-            P.MinimumDiameterAveraging(1, **{key: 3}, device=CPU)
+        # both shape the pool-partitioned search
+        assert getattr(P.MinimumDiameterAveraging(1, **{key: 3}, device=CPU), key) == 3
     assert P.MinimumDiameterAveraging.name == J.MinimumDiameterAveraging.name
     assert P.SMEA.name == J.SMEA.name
 
