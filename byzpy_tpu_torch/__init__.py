@@ -2,9 +2,11 @@
 
 The JAX package ``byzpy_tpu`` is the reference; this package mirrors its
 layout (``ops``, ``models``, ``parallel``, ``utils``, the operator classes
-of ``aggregators``, ``pre_aggregators`` and ``attacks``, and the graph
+of ``aggregators``, ``pre_aggregators`` and ``attacks``, the graph
 engine of ``engine.graph`` with its actor pools on ``engine.actor``'s
-``thread`` and ``cuda`` backends) and runs on an NVIDIA Hopper GPU.
+``thread`` and ``cuda`` backends, and the orchestrators of
+``engine.node``, ``engine.parameter_server`` and ``engine.peer_to_peer``)
+and runs on an NVIDIA Hopper GPU.
 Plain tensor code is PyTorch; every kernel the JAX
 package wrote in Pallas becomes a hand-written CUDA kernel under
 ``csrc/``, built with ``nvcc`` at first use and bound with ``ctypes``

@@ -13,7 +13,8 @@ the thread backend; what differs is the device context:
 * arguments and channel payloads pass by reference: a CUDA tensor, or a
   view of one, stays where it is.
 
-The stream discipline that makes the reference passing safe, per call:
+The stream discipline that makes the reference passing safe, per call
+(and for ``construct``, which builds the hosted object):
 
 1. the actor's stream waits on an event recorded on the caller's current
    stream, so the actor never reads a tensor the caller has not finished
@@ -97,6 +98,26 @@ class CudaActorBackend(ThreadActorBackend):
                 return work()
 
         return run
+
+    async def construct(self, target: Any, /, *args: Any, **kwargs: Any) -> None:
+        """Build the hosted object on the actor's thread and stream, under
+        the calls' discipline: the actor's stream first waits on the
+        caller's (a node built from a data shard the caller just wrote),
+        and the arguments' memory is kept for the actor's stream."""
+        self._ensure_started()
+        stream = self.stream
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        for t in _cuda_tensors((args, kwargs), self.device, []):
+            t.record_stream(stream)
+
+        def build():
+            with launching_actors.call():
+                stream.wait_event(ready)
+                return target(*args, **kwargs)
+
+        loop = asyncio.get_running_loop()
+        self._obj = await loop.run_in_executor(self._executor, self._on_actor(build))
 
     async def call(self, method: str, /, *args: Any, **kwargs: Any) -> Any:
         self._ensure_started()

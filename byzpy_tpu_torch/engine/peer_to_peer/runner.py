@@ -1,0 +1,499 @@
+"""DecentralizedPeerToPeer: gossip training over message-driven nodes.
+
+Counterpart of ``byzpy_tpu/engine/peer_to_peer/runner.py`` (behavior
+parity: ``byzpy/engine/peer_to_peer/runner.py:184-392``). One round:
+every honest node runs its ``half_step`` pipeline and broadcasts its
+half-stepped vector to its out-neighbours ("gradient" messages), the
+byzantine nodes craft vectors from the honest ones they observed and
+broadcast them, and every honest node aggregates its own vector followed
+by what it received, in arrival order, then adopts the aggregate.
+
+With an :class:`~..overlap.OverlapConfig` the aggregate folds each frame
+as it lands (``stream``) and the round runs as per-node chains with the
+next half step prefetched (``prefetch_depth``); the vectors each
+aggregator sees, and their order, are the barrier round's.
+
+The per-node logic goes in as pipelines through a ``configure`` function;
+``context_factory`` builds each node's context (``InProcessContext`` by
+default), the seam where the process and remote contexts plug in
+(ROADMAP A.4). The nodes run on the event loop's thread, so a worker's
+tensors are computed on that thread's current stream.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from functools import partial
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ...aggregators.base import Aggregator
+from ...observability import metrics as obs_metrics
+from ...observability import runtime as obs_runtime
+from ...observability import tracing as obs_tracing
+from ..graph.graph import ComputationGraph, GraphInput, GraphNode
+from ..graph.ops import CallableOp
+from ..node.context import InProcessContext, NodeContext
+from ..node.decentralized import DecentralizedNode
+from ..overlap import OverlapConfig, settle_all
+from .elastic import HeartbeatPolicy
+from .nodes import ByzantineP2PWorker, HonestP2PWorker
+from .topology import Topology
+
+if TYPE_CHECKING:  # pragma: no cover
+    from ..node.cluster import DecentralizedCluster
+
+GOSSIP_TYPE = "gradient"  # the reference handler's message type
+
+
+def _publish_p2p_round(mode: str) -> None:
+    """One closed gossip round into the registry (callers check the switch)."""
+    obs_metrics.registry().counter(
+        "byzpy_p2p_rounds_total", help="DecentralizedPeerToPeer gossip rounds completed",
+        labels={"mode": mode}).inc()
+
+
+def _configure_honest(
+    node: DecentralizedNode,
+    worker: HonestP2PWorker,
+    aggregator: Aggregator,
+    timeout: Optional[float],
+    liveness: bool = False,
+    stream: bool = False,
+) -> None:
+    """Install the half_step and aggregate pipelines on an honest node.
+    With ``stream`` (and a streaming aggregator) each frame is folded the
+    moment it arrives; the vectors and their order (own vector first, then
+    the frames in arrival order) are the barrier path's (ref:
+    ``runner.py:88-105``)."""
+    if liveness:
+        _install_liveness_responder(node)
+
+    def half_step(lr):
+        return worker.half_step(float(lr))
+
+    async def aggregate(expected):
+        expected = int(expected)
+        if stream and getattr(aggregator, "supports_streaming", False):
+            state = aggregator.fold_init(expected + 1)
+            aggregator.fold(state, 0, worker.parameters())
+            for k in range(expected):
+                msg = await node.wait_for_message(GOSSIP_TYPE, timeout=timeout)
+                aggregator.fold(state, k + 1, msg.payload)
+            result = aggregator.fold_finalize(state)
+        else:
+            received = []
+            for _ in range(expected):
+                msg = await node.wait_for_message(GOSSIP_TYPE, timeout=timeout)
+                received.append(msg.payload)
+            result = aggregator.aggregate([worker.parameters()] + received)
+        worker.apply_aggregate(result)
+        return result
+
+    node.register_pipeline("half_step", ComputationGraph([
+        GraphNode(name="half_step", op=CallableOp(half_step), inputs={"lr": GraphInput("lr")})]))
+    node.register_pipeline("aggregate", ComputationGraph([
+        GraphNode(name="aggregate", op=CallableOp(aggregate),
+                  inputs={"expected": GraphInput("expected")})]))
+
+
+def _install_liveness_responder(node: DecentralizedNode) -> None:
+    """The ping -> pong responder, installed where the node runs (the
+    configure hook runs there for every context)."""
+    from ..node.liveness import HeartbeatMonitor
+
+    HeartbeatMonitor.install_responder(node)
+
+
+def _configure_byzantine(
+    node: DecentralizedNode,
+    worker: ByzantineP2PWorker,
+    honest_ids: Sequence[str],
+    timeout: Optional[float],
+    liveness: bool = False,
+) -> None:
+    """Install the attack pipeline on a byzantine node: it waits for
+    ``expected`` honest vectors; frames from byzantine peers (stale ones
+    included) are consumed and dropped."""
+    if liveness:
+        _install_liveness_responder(node)
+    honest_set = set(honest_ids)
+
+    async def attack(expected):
+        honest: List[Any] = []
+        while len(honest) < int(expected):
+            msg = await node.wait_for_message(GOSSIP_TYPE, timeout=timeout)
+            if msg.sender in honest_set:
+                honest.append(msg.payload)
+        return worker.malicious_vector(honest)
+
+    node.register_pipeline("attack", ComputationGraph([
+        GraphNode(name="attack", op=CallableOp(attack), inputs={"expected": GraphInput("expected")})]))
+
+
+class DecentralizedPeerToPeer:
+    """Byzantine-robust gossip training over a cluster of message-driven
+    nodes. Node ids are ``node-<topology index>``; by default the
+    byzantine workers take the last indices."""
+
+    def __init__(
+        self,
+        honest_workers: Sequence[HonestP2PWorker],
+        byzantine_workers: Sequence[ByzantineP2PWorker],
+        *,
+        aggregator: Aggregator,
+        topology: Topology,
+        learning_rate: float = 0.1,
+        context_factory: Optional[Callable[[str], NodeContext]] = None,
+        byzantine_indices: Optional[Sequence[int]] = None,
+        gossip_timeout: Optional[float] = 30.0,
+        elastic: Optional[HeartbeatPolicy] = None,
+        overlap: Optional[OverlapConfig] = None,
+    ) -> None:
+        n = topology.n_nodes
+        if elastic is not None and gossip_timeout is None:
+            raise ValueError(
+                "elastic membership requires a finite gossip_timeout (removal waits out an "
+                "in-flight round's dead-peer gossip; None would make that wait unbounded)")
+        if elastic is not None and elastic.observer is not None and not 0 <= elastic.observer < n:
+            raise ValueError(f"elastic observer index {elastic.observer} is outside the "
+                             f"{n}-node topology")
+        if len(honest_workers) + len(byzantine_workers) != n:
+            raise ValueError(f"{len(honest_workers)}+{len(byzantine_workers)} workers for "
+                             f"a {n}-node topology")
+        self.topology = topology
+        # the live view: the full topology under the identity map, shrunk
+        # by remove_node()
+        self._live_topology = topology
+        self._live_to_global = {i: i for i in range(n)}
+        self._global_to_live = {i: i for i in range(n)}
+        self._round_lock = asyncio.Lock()
+        self.learning_rate = learning_rate
+        self._timeout = gossip_timeout
+        if byzantine_indices is None:
+            byzantine_indices = range(n - len(byzantine_workers), n)
+        self.byzantine_indices = sorted(int(i) for i in byzantine_indices)
+        if len(self.byzantine_indices) != len(byzantine_workers):
+            raise ValueError("byzantine_indices must match byzantine_workers")
+        self.honest_indices = [i for i in range(n) if i not in set(self.byzantine_indices)]
+        if len(self.honest_indices) != len(honest_workers):
+            raise ValueError("honest worker count does not fill the topology")
+        self._workers: Dict[int, Any] = {}
+        for i, w in zip(self.honest_indices, honest_workers, strict=True):
+            self._workers[i] = w
+        for i, w in zip(self.byzantine_indices, byzantine_workers, strict=True):
+            self._workers[i] = w
+        self.aggregator = aggregator
+        self._ctx_factory = context_factory or (lambda nid: InProcessContext(nid))
+        self.node_ids = {i: f"node-{i}" for i in range(n)}
+        self.nodes: Dict[int, DecentralizedNode] = {}
+        self._cluster: Optional["DecentralizedCluster"] = None
+        self._started = False
+        self.rounds_completed = 0
+        self._elastic = elastic
+        self._overlap = overlap
+        self._monitor: Optional[Any] = None
+        self._removal_tasks: set = set()
+        #: what the built-in policy did: (peer_id, outcome)
+        self.elastic_events: List[Tuple[str, str]] = []
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def _install(self, i: int, node: DecentralizedNode, honest_ids: List[str]) -> None:
+        """Install the worker's pipelines: on the node itself for a local
+        context, or as the context's ``configure`` hook where the context
+        hosts the node elsewhere."""
+        if i in set(self.byzantine_indices):
+            configure = partial(_configure_byzantine, worker=self._workers[i], honest_ids=honest_ids,
+                                timeout=self._timeout, liveness=self._elastic is not None)
+        else:
+            configure = partial(_configure_honest, worker=self._workers[i],
+                                aggregator=self.aggregator, timeout=self._timeout,
+                                liveness=self._elastic is not None,
+                                stream=self._overlap is not None and self._overlap.stream)
+        ctx = node.context
+        if hasattr(ctx, "remote_execute_pipeline"):
+            if not hasattr(ctx, "set_configure"):
+                raise TypeError(
+                    f"context {type(ctx).__name__} proxies pipelines remotely but has no "
+                    "set_configure(hook) — the P2P runner cannot install worker pipelines on it")
+            if getattr(ctx, "_configure", None) is not None:
+                raise ValueError(f"context for node {node.node_id!r} already has a configure "
+                                 "hook; P2P needs to install its own")
+            ctx.set_configure(configure)
+        else:
+            configure(node)
+
+    async def setup(self) -> None:
+        if self._started:
+            return
+        from ..node.cluster import DecentralizedCluster
+
+        honest_ids = [self.node_ids[i] for i in self.honest_indices]
+        # the live view: after remove_node() and shutdown() a new setup
+        # brings up the survivors only
+        self._cluster = DecentralizedCluster(self._live_topology)
+        for i in sorted(self._workers):
+            nid = self.node_ids[i]
+            node = DecentralizedNode(nid, self._ctx_factory(nid))
+            self._install(i, node, honest_ids)
+            self.nodes[i] = node
+            self._cluster.add_node(node)
+        await self._cluster.start_all()
+        self._started = True
+        if self._elastic is not None:
+            try:
+                await self._start_elastic()
+            except Exception:
+                await self.shutdown()
+                raise
+
+    async def _start_elastic(self) -> None:
+        """Start the built-in suspect -> remove loop (:class:`HeartbeatPolicy`)."""
+        from ..node.liveness import HeartbeatMonitor
+
+        pol = self._elastic
+        obs = pol.observer if pol.observer is not None else self.honest_indices[0]
+        if obs not in self.nodes:
+            raise ValueError(f"elastic observer index {obs} is not a live node")
+        if hasattr(self.nodes[obs].context, "remote_execute_pipeline"):
+            raise ValueError(
+                f"elastic observer index {obs} lives in a remote/subprocess context; the monitor "
+                "must run where its pong handler can fire — pick an in-process node as observer")
+        id_to_global = {nid: gi for gi, nid in self.node_ids.items()}
+
+        def on_suspect(peer_id: str) -> None:
+            gi = id_to_global.get(peer_id)
+            if gi is None or gi not in self._workers:
+                return
+            # a strong reference: shutdown() settles it
+            task = asyncio.get_running_loop().create_task(self._elastic_remove(gi, peer_id))
+            self._removal_tasks.add(task)
+            task.add_done_callback(self._removal_tasks.discard)
+
+        self._monitor = HeartbeatMonitor(self.nodes[obs], interval=pol.interval,
+                                         max_missed=pol.max_missed, on_suspect=on_suspect,
+                                         startup_grace=pol.startup_grace)
+        await self._monitor.start()
+
+    async def _elastic_remove(self, gi: int, peer_id: str) -> None:
+        try:
+            await self.remove_node(gi)
+        except KeyError:
+            self.elastic_events.append((peer_id, "already-removed"))
+        except ValueError as exc:
+            self.elastic_events.append((peer_id, f"refused: {exc}"))
+        except Exception as exc:  # noqa: BLE001 - audit, keep monitoring
+            self.elastic_events.append((peer_id, f"error: {exc}"))
+        else:
+            self.elastic_events.append((peer_id, "removed"))
+
+    async def shutdown(self) -> None:
+        if self._monitor is not None:
+            await self._monitor.stop()
+            self._monitor = None
+        # settle in-flight removals before the fabric goes down
+        while self._removal_tasks:
+            task = next(iter(self._removal_tasks))
+            try:
+                await asyncio.wait_for(task, timeout=(self._timeout or 0) + 5)
+            except asyncio.TimeoutError:
+                task.cancel()
+            except asyncio.CancelledError:
+                cur = asyncio.current_task()
+                if cur is not None and cur.cancelling() > 0:
+                    # shutdown itself was cancelled: drop the removals, propagate
+                    for t in self._removal_tasks:
+                        t.cancel()
+                    self._removal_tasks.clear()
+                    raise
+            self._removal_tasks.discard(task)
+        if self._cluster is not None:
+            await self._cluster.shutdown_all()
+            self._cluster = None
+        self.nodes.clear()
+        self._started = False
+
+    async def __aenter__(self) -> "DecentralizedPeerToPeer":
+        await self.setup()
+        return self
+
+    async def __aexit__(self, *exc: Any) -> None:
+        await self.shutdown()
+
+    # -- elastic membership ---------------------------------------------------
+
+    async def remove_node(self, i: int) -> None:
+        """Drop node ``i`` from the gossip fabric mid-training: the
+        survivors re-bind the induced sub-topology and every expected
+        message count shrinks to match. Waits for a round in flight (up to
+        ``gossip_timeout`` while it waits on the dead peer), so a fabric
+        with ``gossip_timeout=None`` refuses."""
+        if self._timeout is None:
+            raise ValueError(
+                "remove_node requires a finite gossip_timeout: with gossip_timeout=None an "
+                "in-flight round waits on the dead peer forever while holding the round lock, "
+                "so removal would deadlock. Construct the fabric with a bounded gossip_timeout "
+                "(default 30.0) to use elastic membership.")
+        if i not in self.nodes and i not in self._workers:
+            raise KeyError(f"node index {i} is not part of the fabric")
+        if i in self.honest_indices and len(self.honest_indices) <= 1:
+            raise ValueError("cannot remove the last honest node")
+        # the live-view update below has no await (atomic on the loop); the
+        # departing node shuts down after the fabric is consistent
+        async with self._round_lock:
+            node = self.nodes.pop(i, None)
+            self.honest_indices = [j for j in self.honest_indices if j != i]
+            self.byzantine_indices = [j for j in self.byzantine_indices if j != i]
+            self._workers.pop(i, None)
+            remaining = sorted(self._workers)
+            pos = {g: k for k, g in enumerate(remaining)}
+            induced = Topology(len(remaining))
+            for a, b in self._live_topology.edges:
+                ga, gb = self._live_to_global[a], self._live_to_global[b]
+                if ga in pos and gb in pos:
+                    induced.add_edge(pos[ga], pos[gb])
+            ids = {pos[g]: self.node_ids[g] for g in remaining}
+            self._live_topology = induced
+            self._live_to_global = {k: g for g, k in pos.items()}
+            self._global_to_live = pos
+            for g in remaining:
+                if g in self.nodes:
+                    self.nodes[g].bind_topology(induced, ids)
+        if node is not None:
+            try:
+                await asyncio.wait_for(node.shutdown(), timeout=2.0)
+            except Exception:  # noqa: BLE001 - the node may be the dead one
+                pass
+
+    # -- training ------------------------------------------------------------
+
+    def _honest_expected(self, i: int) -> int:
+        return len(self._live_topology.in_neighbors(self._global_to_live[i]))
+
+    def _byz_expected(self, i: int) -> int:
+        honest = set(self.honest_indices)
+        return len([j for j in self._live_topology.in_neighbors(self._global_to_live[i])
+                    if self._live_to_global[j] in honest])
+
+    async def run_round_async(self) -> Dict[int, Any]:
+        """One gossip round; returns each honest node's aggregate."""
+        if not self._started:
+            await self.setup()
+        async with self._round_lock:
+            return await self._round_locked()
+
+    async def _round_locked(self) -> Dict[int, Any]:
+        with obs_tracing.span("p2p.round", track="p2p", round=self.rounds_completed, mode="barrier"):
+            out = await self._round_locked_inner()
+        if obs_runtime.STATE.enabled:
+            _publish_p2p_round("barrier")
+        return out
+
+    async def _round_locked_inner(self) -> Dict[int, Any]:
+        lr = self.learning_rate
+        # 1. half steps (ref: runner.py:295-298)
+        half = await asyncio.gather(*(self.nodes[i].execute_pipeline("half_step", {"lr": lr})
+                                      for i in self.honest_indices))
+        half_vectors = {i: out["half_step"] for i, out in zip(self.honest_indices, half, strict=True)}
+        # 2. honest broadcasts (ref: runner.py:308-315)
+        for i in self.honest_indices:
+            await self.nodes[i].broadcast_message(GOSSIP_TYPE, half_vectors[i])
+        # 3. byzantine vectors from the observed honest ones (ref: runner.py:316-368)
+        if self.byzantine_indices:
+            attacks = await asyncio.gather(*(
+                self.nodes[i].execute_pipeline("attack", {"expected": self._byz_expected(i)})
+                for i in self.byzantine_indices))
+            for i, out in zip(self.byzantine_indices, attacks, strict=True):
+                await self.nodes[i].broadcast_message(GOSSIP_TYPE, out["attack"])
+        # 4. each honest node's aggregate (ref: runner.py:374-388)
+        with obs_tracing.span("p2p.aggregate", track="p2p"):
+            aggregated = await asyncio.gather(*(
+                self.nodes[i].execute_pipeline("aggregate", {"expected": self._honest_expected(i)})
+                for i in self.honest_indices))
+        self.rounds_completed += 1
+        return {i: out["aggregate"] for i, out in zip(self.honest_indices, aggregated, strict=True)}
+
+    async def _round_locked_overlap(self, pending_half: Dict[int, "asyncio.Task"], *,
+                                    prefetch: bool) -> Dict[int, Any]:
+        """One round as per-node chains instead of phase barriers (ref:
+        ``runner.py:567-668``): each honest node runs half_step ->
+        broadcast -> aggregate, each byzantine node attack -> broadcast,
+        and with ``prefetch`` a node's next half step goes out the moment
+        its aggregate lands. The next round's broadcasts stay in the next
+        round, so no frame crosses a round boundary."""
+        with obs_tracing.span("p2p.round", track="p2p", round=self.rounds_completed, mode="overlap"):
+            out = await self._overlap_round_body(pending_half, prefetch=prefetch)
+        if obs_runtime.STATE.enabled:
+            _publish_p2p_round("overlap")
+        return out
+
+    async def _overlap_round_body(self, pending_half: Dict[int, "asyncio.Task"], *,
+                                  prefetch: bool) -> Dict[int, Any]:
+        lr = self.learning_rate
+        # prefetched half steps of peers removed since the last round
+        live = set(self.honest_indices)
+        for i in [j for j in pending_half if j not in live]:
+            task = pending_half.pop(i)
+            task.cancel()
+            task.add_done_callback(lambda t: t.cancelled() or t.exception())
+
+        async def half_and_cast(i: int) -> None:
+            task = pending_half.pop(i, None)
+            out = (await self.nodes[i].execute_pipeline("half_step", {"lr": lr})
+                   if task is None else await task)
+            await self.nodes[i].broadcast_message(GOSSIP_TYPE, out["half_step"])
+
+        async def attack_and_cast(i: int) -> None:
+            out = await self.nodes[i].execute_pipeline("attack", {"expected": self._byz_expected(i)})
+            await self.nodes[i].broadcast_message(GOSSIP_TYPE, out["attack"])
+
+        half_tasks = {i: asyncio.ensure_future(half_and_cast(i)) for i in self.honest_indices}
+
+        async def aggregate_then_prefetch(i: int) -> Any:
+            # the node's own half step (and broadcast) first
+            await half_tasks[i]
+            out = await self.nodes[i].execute_pipeline(
+                "aggregate", {"expected": self._honest_expected(i)})
+            if prefetch:
+                pending_half[i] = asyncio.ensure_future(
+                    self.nodes[i].execute_pipeline("half_step", {"lr": lr}))
+            return out["aggregate"]
+
+        chains = list(half_tasks.values()) + [asyncio.ensure_future(attack_and_cast(i))
+                                              for i in self.byzantine_indices]
+        agg_tasks = [asyncio.ensure_future(aggregate_then_prefetch(i)) for i in self.honest_indices]
+        try:
+            await settle_all(chains)
+            aggregated = await settle_all(agg_tasks)
+        except BaseException:
+            # settle everything before raising: no frame may race the teardown
+            for t in chains + agg_tasks:
+                t.cancel()
+            await asyncio.gather(*chains, *agg_tasks, return_exceptions=True)
+            raise
+        self.rounds_completed += 1
+        return dict(zip(self.honest_indices, aggregated, strict=True))
+
+    async def run_async(self, rounds: int) -> None:
+        """Run ``rounds`` rounds; with ``prefetch_depth > 0`` they overlap,
+        and the last one prefetches nothing, so the workers end in the
+        serial schedule's state."""
+        if self._overlap is None or self._overlap.prefetch_depth == 0:
+            for _ in range(rounds):
+                await self.run_round_async()
+            return
+        if not self._started:
+            await self.setup()
+        pending_half: Dict[int, "asyncio.Task"] = {}
+        try:
+            for r in range(rounds):
+                async with self._round_lock:
+                    await self._round_locked_overlap(pending_half, prefetch=r < rounds - 1)
+        finally:
+            for task in pending_half.values():
+                task.cancel()
+            if pending_half:
+                await asyncio.gather(*pending_half.values(), return_exceptions=True)
+
+
+__all__ = ["DecentralizedPeerToPeer", "GOSSIP_TYPE"]

@@ -83,29 +83,67 @@ def from_flax(flax_params: Mapping[str, Any], *, device: DeviceLike = None) -> P
     return out
 
 
+def _flax_slot(name: str) -> tuple:
+    """``(flax module path, flax leaf name, kernel?)`` of a port parameter."""
+    *modules, leaf = name.split(".")
+    path, kind = [], None
+    for m in modules:
+        prefix, _, idx = m.rpartition("_")
+        if prefix not in _FLAX_KINDS or not idx.isdigit():
+            raise ValueError(f"no mapping for parameter {name!r}")
+        kind = _FLAX_KINDS[prefix]
+        path.append(f"{kind}_{idx}")
+    if kind not in _LAYERS or leaf not in ("weight", "bias"):
+        raise ValueError(f"no mapping for parameter {name!r}")
+    if leaf == "bias":
+        return path, "bias", False
+    return path, ("scale" if kind == "GroupNorm" else "kernel"), kind != "GroupNorm"
+
+
 def to_flax(params: Params) -> Dict[str, Any]:
     """Inverse of :func:`from_flax`: ``{"params": {...}}``, nested as flax
     nests the modules, of numpy arrays."""
     tree: Dict[str, Any] = {}
     for name, t in params.items():
-        *modules, leaf = name.split(".")
-        node, kind = tree, None
-        for m in modules:
-            prefix, _, idx = m.rpartition("_")
-            if prefix not in _FLAX_KINDS or not idx.isdigit():
-                raise ValueError(f"no mapping for parameter {name!r}")
-            kind = _FLAX_KINDS[prefix]
-            node = node.setdefault(f"{kind}_{idx}", {})
-        if kind not in _LAYERS or leaf not in ("weight", "bias"):
-            raise ValueError(f"no mapping for parameter {name!r}")
+        path, leaf, kernel = _flax_slot(name)
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
         arr = t.detach().cpu().numpy()
-        if leaf == "bias":
-            node["bias"] = arr.copy()
-        elif kind == "GroupNorm":
-            node["scale"] = arr.copy()
-        else:
-            node["kernel"] = np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim]))
+        node[leaf] = np.ascontiguousarray(arr.transpose(_TO_FLAX[arr.ndim])) if kernel else arr.copy()
     return {"params": tree}
+
+
+def flax_layout(params: Params) -> Dict[str, Any]:
+    """``params`` nested and laid out as flax keeps them (``{"params":
+    {"Dense_0": {"bias", "kernel"}, ...}}``, kernels ``(in, out)`` and
+    ``HWIO``), as tensor views on the parameters' device: no copy. With
+    :func:`~byzpy_tpu_torch.utils.trees.ravel_pytree_fn` it ravels a model
+    in the JAX package's order and layout, so the flat vectors of the two
+    packages compare coordinate by coordinate."""
+    tree: Dict[str, Any] = {}
+    for name, t in params.items():
+        path, leaf, kernel = _flax_slot(name)
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.permute(_TO_FLAX[t.ndim]) if kernel else t
+    return {"params": tree}
+
+
+def from_flax_layout(tree: Mapping[str, Any], example: Params) -> Params:
+    """Inverse of :func:`flax_layout`: the port's parameters, in
+    ``example``'s order, as tensor views of ``tree``'s leaves."""
+    tree = tree.get("params", tree)
+    out: Params = {}
+    for name in example:
+        path, leaf, kernel = _flax_slot(name)
+        node = tree
+        for key in path:
+            node = node[key]
+        t = node[leaf]
+        out[name] = t.permute(_TO_TORCH[t.ndim]) if kernel else t
+    return out
 
 
 def ordered_like(params: Params, example: Params) -> Params:
@@ -120,4 +158,4 @@ def ordered_like(params: Params, example: Params) -> Params:
     return {k: params[k] for k in example}
 
 
-__all__ = ["from_flax", "ordered_like", "to_flax"]
+__all__ = ["flax_layout", "from_flax", "from_flax_layout", "ordered_like", "to_flax"]

@@ -139,7 +139,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    cuda pools of 2, 4 and 6, the two schedulers' outputs bit for bit;
    (e) configs #1 and #2 on a pool of 6 bit for bit a pool of 1, a
    ``jit_ps_train_step`` capture refused with ``GraphCaptureError`` while
-   a pool's call runs and captured after the pool closed;
+   a pool's call runs and captured after the pool closed; then (4g) the
+   orchestrators, every await bounded, host ms and launches a round
+   beside the card's name and power limit: (a) BASELINE config #3 at
+   ``examples/ps/thread_mnist.py``'s shape (6 ``mnist_mlp(hidden=128)``
+   nodes and 2 sign-flip nodes in ``cuda`` actors, the trimmed mean f = 2,
+   30 rounds through ``train_with_progress_async``: accuracy > 0.5, one
+   B1 launch a round, each aggregate the direct call's bits; again on
+   ``thread`` actors, the same bits); (b) ``ParameterServer`` on SmallCNN
+   (6 + 2 ``cuda`` actors, 5 rounds a configuration): the trimmed mean
+   serial, overlapped with the barrier ingest (bit for bit the serial
+   round, aggregates and every node's parameters) and streaming (the
+   incremental fold, within rtol 1e-5 of the serial round), Multi-Krum
+   streaming (B5 alone), NNM + Multi-Krum (the fused pipeline: B3, B9,
+   B4's sweep) and the geometric median on a cuda pool of 2 (within the
+   barriered loop's tolerance); (c) ``ElasticPolicy``: a node raises in
+   round 2, another outlives the call timeout in round 3 (its NaN result
+   never gathered), both resynced and re-admitted, every aggregate the
+   direct call over the survivors, then ``QuorumLostError``; (d)
+   ``PeerToPeer`` at ``examples/p2p/gossip_mnist.py``'s shape (40
+   rounds, worker 0's accuracy > 0.5), then SmallCNN on ``ring(8, 2)``
+   with 2 Empire peers and the geometric median, the barrier and
+   streaming rounds the same bits and each aggregate the direct call on
+   its node's vectors in arrival order; (e)
+   ``examples/p2p/decentralized_autonomous.py``'s cluster (spread <
+   0.15); (f) ``HeartbeatPolicy`` removing a peer that stopped answering,
+   the rounds after it the bits of a run without the peer;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642; B1, B6 (f = 40) and B9's weights also at 128 x 421,642, the
    engine's two runs and merge and the weights block's largest tile; B6 and
@@ -170,6 +195,7 @@ repository, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import functools
 import json
 import math
@@ -3629,6 +3655,758 @@ def engine_path(counts: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the orchestrators (node actors, ParameterServer, the P2P runner)
+# ---------------------------------------------------------------------------
+
+# every await of phase 4g is bounded by this
+ORCH_WAIT_S = 600
+ORCH_LR = 0.1
+ORCH_BATCH = 64
+# BASELINE config #3 at examples/ps/thread_mnist.py's shape
+C3_HONEST, C3_BYZ, C3_ROUNDS = 6, 2, 30
+ORCH_ROUNDS = 5
+P2P_MNIST_ROUNDS = 40
+AUTO_ROUNDS = 15
+# the trimmed mean's and Multi-Krum's streaming folds sum (or take their
+# Gram's dot products) in arrival order: f32 rounding of an aggregate of 8
+# SmallCNN gradients (|g| <= ~1), against the barrier's kernels
+FOLD_RTOL, FOLD_ATOL = 1e-5, 1e-6
+# (c): a node call may take this long; the hanging node sleeps longer
+ELASTIC_TIMEOUT_S, ELASTIC_HANG_S = 2.0, 4.0
+ORCH_DEVICE = "cuda"
+
+
+def orchestrator_nodes():
+    """Phase 4g's node classes (made here: the port is importable only
+    after ``main`` put the checkout on the path)."""
+    import torch
+
+    from byzpy_tpu_torch.engine.node import ByzantineNode, HonestNode
+    from byzpy_tpu_torch.models import sample_batch
+
+    class ModelNode(HonestNode):
+        """An honest worker: its shard, a generator of its own, the
+        gradient of the bundle's loss (``torch.func.grad``) and SGD.
+        ``configure`` makes a later call raise, or sleep and return a NaN
+        gradient (the result an abandoned call must never fold)."""
+
+        def __init__(self, make_bundle, shard_x, shard_y, seed):
+            self.bundle = make_bundle()
+            self.x, self.y = shard_x, shard_y
+            self.gen = torch.Generator(device=shard_x.device).manual_seed(seed)
+            self._grad = torch.func.grad(self.bundle.loss_fn)
+            self.calls = 0
+            self.fail_at = self.hang_at = None
+
+        def configure(self, fail_after=None, hang_after=None):
+            """Raise at the ``fail_after``-th call from now (0: the next),
+            sleep at the ``hang_after``-th."""
+            self.fail_at = None if fail_after is None else self.calls + fail_after
+            self.hang_at = None if hang_after is None else self.calls + hang_after
+
+        def next_batch(self):
+            return sample_batch(self.x, self.y, self.gen, ORCH_BATCH)
+
+        def honest_gradient(self, x, y):
+            call = self.calls
+            self.calls += 1
+            if call == self.fail_at:
+                raise RuntimeError(f"node lost its card at call {call}")
+            grads = self._grad(self.bundle.params, x, y)
+            if call == self.hang_at:
+                time.sleep(ELASTIC_HANG_S)
+                return {k: torch.full_like(v, float("nan")) for k, v in grads.items()}
+            return grads
+
+        def apply_server_gradient(self, gradient):
+            self.bundle.params = {k: p - ORCH_LR * gradient[k] for k, p in self.bundle.params.items()}
+
+        def resync_params(self, params):
+            self.bundle.params = {k: v.clone() for k, v in params.items()}
+
+        def accuracy(self, x, y):
+            logits = self.bundle.apply(self.bundle.params, x)
+            return float((logits.argmax(-1) == y).float().mean())
+
+        def flat_params(self):
+            return torch.cat([v.reshape(-1) for v in self.bundle.params.values()])
+
+    class SignFlipNode(ByzantineNode):
+        """``-3 x`` the honest mean (examples/ps/thread_mnist.py)."""
+
+        def next_batch(self):
+            return None, None
+
+        def byzantine_gradient(self, honest_gradients):
+            return {k: -3.0 * (sum(g[k] for g in honest_gradients) / len(honest_gradients))
+                    for k in honest_gradients[0]}
+
+        def apply_server_gradient(self, gradient):
+            pass
+
+    return ModelNode, SignFlipNode
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Two gradients (tensors or dictionaries of them) equal bit for bit."""
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(bits_equal(a[k], b[k]) for k in a)
+    return bits_equal(a, b)
+
+
+def tree_flat(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return torch.cat([v.reshape(-1) for v in tree.values()])
+    return tree.reshape(-1)
+
+
+def record_aggregate(agg):
+    """``agg`` whose ``aggregate`` keeps each call's gradient list and
+    result (``agg.calls``) and whose folds keep each round's slots
+    (``agg.folds``: the rows in slot order and the result)."""
+    plain, fold, finalize = agg.aggregate, agg.fold, agg.fold_finalize
+    agg.calls, agg.folds, slots = [], [], {}
+
+    def aggregate(gradients):
+        out = plain(gradients)
+        agg.calls.append((list(gradients), out))
+        return out
+
+    def fold_(state, index, gradient):
+        slots.setdefault(id(state), {})[index] = gradient
+        fold(state, index, gradient)
+
+    def finalize_(state):
+        out = finalize(state)
+        got = slots.pop(id(state), {})
+        agg.folds.append(([got[i] for i in sorted(got)], out))
+        return out
+
+    agg.aggregate, agg.fold, agg.fold_finalize, agg.plain_aggregate = (
+        aggregate, fold_, finalize_, plain)
+    return agg
+
+
+class RoundClock:
+    """A ``ps.round`` that keeps each round's host ms (synchronized at both
+    ends) for ``train_with_progress_async``."""
+
+    def __init__(self, ps) -> None:
+        self.ps, self.ms = ps, []
+
+    async def round(self):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = await self.ps.round()
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def median_ms(times) -> float:
+    return sorted(times)[len(times) // 2]
+
+
+def orch_counts(counts: dict, name: str, want: dict) -> dict:
+    """The launches since the last reset, checked against ``want`` exactly
+    (every key named, nothing else) and added to the main path's counts."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernels.launch_counts.items() if v}
+    check(got == want, f"{name}: launches {got}, not {want}")
+    for k, v in got.items():
+        counts[k] += v
+    return got
+
+
+async def spawn_model_nodes(make_bundle, data, n_honest: int, n_byz: int, backend: str):
+    from byzpy_tpu_torch.engine.node import ByzantineNodeActor, HonestNodeActor
+
+    ModelNode, SignFlipNode = orchestrator_nodes()
+    honest = [await HonestNodeActor.spawn(ModelNode, make_bundle, *data.node_slice(i), i,
+                                          backend=backend) for i in range(n_honest)]
+    byz = [await ByzantineNodeActor.spawn(SignFlipNode, backend=backend) for _ in range(n_byz)]
+    return honest, byz
+
+
+async def close_all(actors) -> None:
+    for a in actors:
+        await a.close()
+
+
+async def orch_config3(counts: dict, smi: str) -> dict:
+    """(a) BASELINE config #3 at examples/ps/thread_mnist.py's shape: 6
+    honest ``mnist_mlp(hidden=128)`` nodes and 2 sign-flip nodes in ``cuda``
+    actors, 4,096 samples, batch 64, the trimmed mean (f = 2), 30 rounds
+    through ``train_with_progress_async``; then the same on ``thread``
+    actors, whose aggregates must be the same bits."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+    from byzpy_tpu_torch.models import ShardedDataset, mnist_mlp, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.utils.training import train_with_progress_async
+
+    x, y = synthetic_classification(n_samples=4096, seed=0, device=ORCH_DEVICE)
+    data = ShardedDataset(x, y, C3_HONEST)
+    torch.cuda.synchronize()
+    out, aggregates = {}, {}
+    for backend in ("cuda", "thread"):
+        honest, byz = await spawn_model_nodes(
+            lambda: mnist_mlp(seed=0, hidden=128, device=ORCH_DEVICE), data, C3_HONEST, C3_BYZ,
+            backend)
+        agg = record_aggregate(CoordinateWiseTrimmedMean(f=C3_BYZ, device=ORCH_DEVICE))
+        ps = ParameterServer(honest, byz, aggregator=agg)
+        clock = RoundClock(ps)
+
+        async def evaluate(i, honest=honest):
+            return await honest[0].accuracy(x, y)
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        history = await train_with_progress_async(clock, C3_ROUNDS, eval_callback=evaluate,
+                                                  eval_interval=10, progress=False)
+        got = orch_counts(counts, f"(a) {backend}", {"sorted_reduce:trimmed": C3_ROUNDS})
+        check(len(agg.calls) == C3_ROUNDS, f"(a) {backend}: {len(agg.calls)} aggregations")
+        d = int(tree_flat(agg.calls[0][1]).numel())
+        check(d == 101_770, f"(a) mnist_mlp(hidden=128) has d = {d}")
+        accuracy = history[-1][1]
+        check(accuracy > 0.5, f"(a) {backend}: accuracy {accuracy} after {C3_ROUNDS} rounds")
+        # each round's aggregate against the class's direct call on the
+        # gathered list (launches outside the counted run)
+        for r, (grads, res) in enumerate(agg.calls):
+            check(len(grads) == C3_HONEST + C3_BYZ, f"(a) round {r} gathered {len(grads)}")
+            check(tree_bits_equal(agg.plain_aggregate(grads), res),
+                  f"(a) {backend} round {r}: the aggregate differs from the direct call")
+        aggregates[backend] = [res for _, res in agg.calls]
+        await close_all(honest + byz)
+        out[backend] = {"host_ms_per_round": median_ms(clock.ms), "first_round_ms": clock.ms[0],
+                        "launches_per_round": {k: v / C3_ROUNDS for k, v in got.items()},
+                        "accuracy": [round(float(a), 4) for _, a in history]}
+    check(all(tree_bits_equal(a, b) for a, b in zip(aggregates["cuda"], aggregates["thread"])),
+          "(a) the cuda actors' aggregates differ from the thread actors'")
+    out["cuda_equals_thread_bitwise"] = True
+    log(f"  (a) config #3, mnist_mlp d = 101,770, 6 + 2 nodes, trimmed mean f = 2, "
+        f"{C3_ROUNDS} rounds: host ms/round cuda actors {out['cuda']['host_ms_per_round']:.3f}, "
+        f"thread actors {out['thread']['host_ms_per_round']:.3f}; accuracy "
+        f"{out['cuda']['accuracy']}; B1 launches/round {out['cuda']['launches_per_round']}; every "
+        f"aggregate = the direct call, cuda = thread bit for bit [{smi}]")
+    return out
+
+
+async def call_costs(honest, data, reps: int = 10) -> dict:
+    """Host ms (median of ``reps``, synchronized) of one SmallCNN gradient:
+    inline on the caller's thread, through one ``cuda`` node actor, and
+    the six actors' calls at once."""
+    import torch
+
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle
+
+    ModelNode, _ = orchestrator_nodes()
+    local = ModelNode(lambda: make_bundle(SmallCNN(), seed=0, device=ORCH_DEVICE), *data.node_slice(0), 0)
+
+    async def inline():
+        return local.honest_gradient_for_next_batch()
+
+    async def all_six():
+        return await asyncio.gather(*(h.honest_gradient_for_next_batch() for h in honest))
+
+    out = {}
+    for key, fn in (("inline", inline), ("one_cuda_actor", honest[0].honest_gradient_for_next_batch),
+                    ("six_cuda_actors_at_once", all_six)):
+        await fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            await fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[key] = median_ms(times)
+    return out
+
+
+async def orch_smallcnn(counts: dict, smi: str) -> dict:
+    """(b) The ParameterServer at the main path's width: SmallCNN (d =
+    421,642), 6 honest and 2 sign-flip nodes in ``cuda`` actors, batch
+    64, 5 rounds a configuration."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean, GeometricMedian, MultiKrum
+    from byzpy_tpu_torch.engine.graph import ActorPoolConfig
+    from byzpy_tpu_torch.engine.overlap import OverlapConfig
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+    from byzpy_tpu_torch.models import SmallCNN, ShardedDataset, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels, robust
+    from byzpy_tpu_torch.pre_aggregators import NearestNeighborMixing
+
+    x, y = synthetic_classification(n_samples=6 * 512, seed=3, device=ORCH_DEVICE)
+    data = ShardedDataset(x, y, 6)
+    torch.cuda.synchronize()
+    n_rounds = ORCH_ROUNDS
+    B1T, B1M = "sorted_reduce:trimmed", "sorted_reduce:median"
+    configs = {
+        "trimmed_serial": (lambda: CoordinateWiseTrimmedMean(f=2, device=ORCH_DEVICE), {}, {B1T: n_rounds}),
+        "trimmed_barrier_prefetch": (lambda: CoordinateWiseTrimmedMean(f=2, device=ORCH_DEVICE),
+                                     {"overlap": OverlapConfig(stream=False, prefetch_depth=1)},
+                                     {B1T: n_rounds}),
+        # the incremental fold (running sum and extreme buffers) is plain
+        # PyTorch: no kernel
+        "trimmed_stream_prefetch": (lambda: CoordinateWiseTrimmedMean(f=2, device=ORCH_DEVICE),
+                                    {"overlap": OverlapConfig(stream=True, prefetch_depth=1)}, {}),
+        "multi_krum_stream": (lambda: MultiKrum(f=2, q=4, device=ORCH_DEVICE),
+                              {"overlap": OverlapConfig(stream=True, prefetch_depth=1)},
+                              {"selection_mean_from_gram:krum": n_rounds}),
+        "nnm_multi_krum": (lambda: MultiKrum(f=2, q=4, device=ORCH_DEVICE),
+                           {"pre_aggregator": NearestNeighborMixing(f=2, device=ORCH_DEVICE)},
+                           {"gram": n_rounds, "nnm_selection_weights:krum": n_rounds,
+                            "weighted_rows": n_rounds}),
+        "geometric_median_pool": (lambda: GeometricMedian(device=ORCH_DEVICE),
+                                  {"pool_config": ActorPoolConfig(backend="cuda", count=2)},
+                                  {B1M: n_rounds}),
+    }
+    out, finals = {}, {}
+    for name, (make_agg, kw, want) in configs.items():
+        honest, byz = await spawn_model_nodes(
+            lambda: make_bundle(SmallCNN(), seed=0, device=ORCH_DEVICE), data, 6, 2, "cuda")
+        agg = record_aggregate(make_agg())
+        ps = ParameterServer(honest, byz, aggregator=agg, **kw)
+        pooled, fused = [], []
+        if ps._executor is not None:
+            run = ps._executor.run
+
+            async def run_logged(inputs, run=run, pooled=pooled):
+                res = await run(inputs)
+                pooled.append((list(inputs), res))
+                return res
+            ps._executor.run = run_logged
+        if ps._fused_pipeline is not None:
+            fn = ps._fused_pipeline
+
+            def fused_logged(matrix, fn=fn, fused=fused):
+                res = fn(matrix)
+                fused.append((matrix, res))
+                return res
+            ps._fused_pipeline = fused_logged
+        aggs, ms, modes = [], [], []
+
+        async def on_round(i, a, aggs=aggs, ms=ms, ps=ps, modes=modes):
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - clock[0]) * 1e3)
+            aggs.append(a)
+            modes.append(None if ps.last_overlap_stats is None else ps.last_overlap_stats.mode)
+            clock[0] = time.perf_counter()
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        clock = [time.perf_counter()]
+        await ps.run(n_rounds, on_round=on_round)
+        got = orch_counts(counts, f"(b) {name}", want)
+        await ps.close()
+        params = [await h.flat_params() for h in honest]
+        check(int(params[0].numel()) == 421_642, f"(b) SmallCNN has d = {params[0].numel()}")
+        calls = await call_costs(honest, data) if name == "trimmed_serial" else None
+        await close_all(honest + byz)
+        finals[name] = (aggs, params)
+        entry = {"host_ms_per_round": median_ms(ms), "first_round_ms": ms[0],
+                 "launches_per_round": {k: v / n_rounds for k, v in got.items()},
+                 "overlap_modes": modes}
+        if calls is not None:
+            entry["gradient_call_ms"] = calls
+            log(f"  (b) one SmallCNN gradient, host ms: {json.dumps(calls)} [{smi}]")
+        # each configuration against its direct calls, outside the counted run
+        if name.startswith("trimmed") and name != "trimmed_stream_prefetch":
+            for grads, res in agg.calls:
+                check(tree_bits_equal(agg.plain_aggregate(grads), res),
+                      f"(b) {name}: an aggregate differs from the direct call")
+        if name in ("trimmed_stream_prefetch", "multi_krum_stream"):
+            check(len(agg.folds) == n_rounds and modes == ["stream"] * n_rounds,
+                  f"(b) {name}: {len(agg.folds)} folded rounds, modes {modes}")
+            worst = 0.0
+            for rows, res in agg.folds:
+                direct = agg.plain_aggregate(rows)
+                a, b = tree_flat(res), tree_flat(direct)
+                check(bool(torch.allclose(a, b, rtol=FOLD_RTOL, atol=FOLD_ATOL)),
+                      f"(b) {name}: the fold's aggregate is off the barrier's")
+                worst = max(worst, float((a - b).abs().max()))
+            entry["fold_vs_barrier_max_abs"] = worst
+        if name == "nnm_multi_krum":
+            check(len(fused) == n_rounds, f"(b) {name}: {len(fused)} fused calls, not {n_rounds}")
+            worst = 0.0
+            for matrix, res in fused:
+                check(bits_equal(robust.nnm_multi_krum(matrix, f_nnm=2, f=2, q=4), res),
+                      f"(b) {name}: the fused call differs from robust.nnm_multi_krum")
+                two = agg.plain_aggregate(NearestNeighborMixing(f=2, device=ORCH_DEVICE)
+                                          .pre_aggregate(list(matrix)))
+                worst = max(worst, float((two - res).abs().max()))
+                check(bool(torch.allclose(two, res, rtol=FOLD_RTOL, atol=FOLD_ATOL)),
+                      f"(b) {name}: the fused pipeline is off the two-step path")
+            entry["fused_vs_two_step_max_abs"] = worst
+        if name == "geometric_median_pool":
+            check(len(pooled) == n_rounds, f"(b) {name}: {len(pooled)} pooled calls")
+            worst = 0.0
+            for grads, res in pooled:
+                a, b = tree_flat(res), tree_flat(agg.plain_aggregate(grads))
+                check(bool(torch.allclose(a, b, rtol=LOOP_RTOL, atol=LOOP_ATOL)),
+                      f"(b) {name}: the pooled geometric median is off the direct call")
+                worst = max(worst, float((a - b).abs().max()))
+            entry["pool_vs_direct_max_abs"] = worst
+        out[name] = entry
+        log(f"  (b) {name}: host ms/round {entry['host_ms_per_round']:.3f} (first "
+            f"{entry['first_round_ms']:.1f}), launches/round {entry['launches_per_round']}, "
+            f"modes {modes}" + "".join(f", {k} {entry[k]:.3g}" for k in (
+                "fold_vs_barrier_max_abs", "fused_vs_two_step_max_abs", "pool_vs_direct_max_abs")
+                if k in entry) + f" [{smi}]")
+    serial_aggs, serial_params = finals["trimmed_serial"]
+    aggs, params = finals["trimmed_barrier_prefetch"]
+    check(all(tree_bits_equal(a, b) for a, b in zip(aggs, serial_aggs))
+          and all(bits_equal(a, b) for a, b in zip(params, serial_params)),
+          "(b) the overlapped barrier round (prefetch 1) differs from the serial round")
+    aggs, params = finals["trimmed_stream_prefetch"]
+    worst = max(float((tree_flat(a) - tree_flat(b)).abs().max()) for a, b in zip(aggs, serial_aggs))
+    worst_p = max(float((a - b).abs().max()) for a, b in zip(params, serial_params))
+    bitwise = (all(tree_bits_equal(a, b) for a, b in zip(aggs, serial_aggs))
+               and all(bits_equal(a, b) for a, b in zip(params, serial_params)))
+    check(all(bool(torch.allclose(tree_flat(a), tree_flat(b), rtol=FOLD_RTOL, atol=FOLD_ATOL))
+              for a, b in zip(aggs, serial_aggs)),
+          f"(b) the streamed trimmed mean is off the serial round by {worst}")
+    out["serial_vs_overlapped"] = {
+        "barrier_prefetch_bitwise": True, "stream_prefetch_bitwise": bitwise,
+        "stream_prefetch_max_abs_aggregate": worst, "stream_prefetch_max_abs_params": worst_p,
+        "host_ms_per_round": {k: out[k]["host_ms_per_round"] for k in (
+            "trimmed_serial", "trimmed_barrier_prefetch", "trimmed_stream_prefetch")}}
+    log(f"  (b) serial vs overlapped (trimmed mean): host ms/round "
+        f"{json.dumps(out['serial_vs_overlapped']['host_ms_per_round'])}; barrier + prefetch bit "
+        f"for bit; stream + prefetch bitwise {bitwise}, max |diff| aggregate {worst:.3g}, params "
+        f"{worst_p:.3g} [{smi}]")
+    return out
+
+
+async def orch_elastic(counts: dict, smi: str) -> dict:
+    """(c) ``ElasticPolicy`` over ``cuda`` node actors (mnist_mlp, 6 + 2,
+    the trimmed mean): honest node 1 raises in round 2, node 2 outlives
+    the call timeout in round 3 (its abandoned result is NaN), both are
+    probed, resynced and re-admitted; every aggregate is the direct call
+    over the survivors; then the quorum is lost."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.engine.parameter_server import ElasticPolicy, ParameterServer, QuorumLostError
+    from byzpy_tpu_torch.models import ShardedDataset, mnist_mlp, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels
+
+    x, y = synthetic_classification(n_samples=4096, seed=1, device=ORCH_DEVICE)
+    data = ShardedDataset(x, y, 6)
+    torch.cuda.synchronize()
+    honest, byz = await spawn_model_nodes(
+        lambda: mnist_mlp(seed=0, hidden=128, device=ORCH_DEVICE), data, 6, 2, "cuda")
+    # one call each outside the policy's clock: a node's first gradient
+    # builds its autograd and library state
+    for h in honest:
+        await h.honest_gradient_for_next_batch()
+    await honest[1].configure(fail_after=1)
+    await honest[2].configure(hang_after=2)
+    shadow = {"params": dict(mnist_mlp(seed=0, hidden=128, device=ORCH_DEVICE).params)}
+    policy = ElasticPolicy(min_quorum=4, call_timeout=ELASTIC_TIMEOUT_S,
+                           resync=lambda: shadow["params"])
+    agg = record_aggregate(CoordinateWiseTrimmedMean(f=2, device=ORCH_DEVICE))
+    ps = ParameterServer(honest, byz, aggregator=agg, elastic=policy)
+    ms = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for r in range(ORCH_ROUNDS):
+        t0 = time.perf_counter()
+        a = await ps.round()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        shadow["params"] = {k: p - ORCH_LR * a[k] for k, p in shadow["params"].items()}
+        if r == 2:
+            # the abandoned call ends before its node is probed again
+            await asyncio.sleep(ELASTIC_HANG_S)
+    got = orch_counts(counts, "(c) elastic", {"sorted_reduce:trimmed": ORCH_ROUNDS})
+    sizes = [len(g) for g, _ in agg.calls]
+    check(sizes == [8, 7, 7, 8, 8], f"(c) gathered {sizes} gradients a round, not [8, 7, 7, 8, 8]")
+    for r, (grads, res) in enumerate(agg.calls):
+        check(all(bool(torch.isfinite(tree_flat(g)).all()) for g in grads),
+              f"(c) round {r}: a non-finite gradient (the abandoned call's) was gathered")
+        check(tree_bits_equal(agg.plain_aggregate(grads), res),
+              f"(c) round {r}: the aggregate differs from the direct call over the survivors")
+    events = list(ps.elastic_state.events)
+    for nid, r_fail, r_back in (("honest:1", 1, 2), ("honest:2", 2, 3)):
+        for kind, r in (("suspected", r_fail), ("failed", r_fail), ("resync", r_back),
+                        ("readmitted", r_back)):
+            check((r, nid, kind) in events, f"(c) no {(r, nid, kind)} in the events {events}")
+    check(not ps.elastic_state.suspects, f"(c) suspects left: {ps.elastic_state.suspects}")
+    # the quorum lost: six honest nodes required, node 1 raises again
+    await honest[1].configure(fail_after=0)
+    strict = ParameterServer(honest, byz, aggregator=CoordinateWiseTrimmedMean(f=2, device=ORCH_DEVICE),
+                             elastic=ElasticPolicy(min_quorum=6, call_timeout=ELASTIC_TIMEOUT_S))
+    lost = None
+    try:
+        await strict.round()
+    except QuorumLostError as exc:
+        lost = str(exc)
+    check(lost is not None and "min_quorum=6" in lost, f"(c) the quorum was not lost: {lost}")
+    await close_all(honest + byz)
+    out = {"host_ms_per_round": ms, "gathered_per_round": sizes,
+           "launches_per_round": {k: v / ORCH_ROUNDS for k, v in got.items()},
+           "events": [list(e) for e in events], "quorum_lost": lost}
+    log(f"  (c) elastic: host ms per round {[round(v, 3) for v in ms]} (round 3 waits out the "
+        f"{ELASTIC_TIMEOUT_S} s timeout), gathered {sizes}, every aggregate = the direct call over "
+        f"the survivors, both suspects resynced and re-admitted, then {lost!r} [{smi}]")
+    return out
+
+
+def gossip_worker(make_bundle, sx, sy, seed: int):
+    """An ``SGDModelWorker`` drawing batches of its shard with a numpy
+    generator, as examples/p2p/gossip_mnist.py does."""
+    import numpy as np
+    import torch
+
+    from byzpy_tpu_torch.engine.peer_to_peer import SGDModelWorker
+
+    rng = np.random.default_rng(seed)
+
+    def batch_fn():
+        idx = torch.from_numpy(rng.integers(0, sx.shape[0], size=ORCH_BATCH)).to(sx.device)
+        return sx.index_select(0, idx), sy.index_select(0, idx)
+
+    return SGDModelWorker(make_bundle(), batch_fn)
+
+
+async def timed_rounds(round_fn, rounds: int) -> tuple:
+    """``(outputs, host ms of each round)`` of ``rounds`` awaited calls."""
+    import torch
+
+    outs, ms = [], []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(await round_fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return outs, ms
+
+
+async def orch_p2p(counts: dict, smi: str) -> dict:
+    """(d) examples/p2p/gossip_mnist.py's shape through ``PeerToPeer``, then
+    SmallCNN on ``ring(8, 2)`` with the geometric median, barrier against
+    streaming. The P2P nodes run where the runner runs them, on the event
+    loop's thread (the reference's runner hosts no node in an actor; its
+    ``context_factory`` is where process and remote contexts plug in)."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean, GeometricMedian
+    from byzpy_tpu_torch.attacks import EmpireAttack
+    from byzpy_tpu_torch.engine.overlap import OverlapConfig
+    from byzpy_tpu_torch.engine.peer_to_peer import (AttackP2PWorker, DecentralizedPeerToPeer,
+                                                     PeerToPeer, Topology)
+    from byzpy_tpu_torch.models import (SmallCNN, ShardedDataset, make_bundle, mnist_mlp,
+                                        synthetic_classification)
+    from byzpy_tpu_torch.ops import kernels
+
+    out = {}
+    x, y = synthetic_classification(n_samples=4096, seed=0, device=ORCH_DEVICE)
+    data = ShardedDataset(x, y, 4)
+    workers = [gossip_worker(lambda: mnist_mlp(seed=0, device=ORCH_DEVICE), *data.node_slice(i), i)
+               for i in range(4)]
+    p2p = PeerToPeer(workers, [AttackP2PWorker(EmpireAttack(scale=-3.0, device=ORCH_DEVICE))],
+                     aggregator=CoordinateWiseTrimmedMean(f=1, device=ORCH_DEVICE),
+                     topology=Topology.complete(5), learning_rate=0.1)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    _, ms = await timed_rounds(p2p.round, P2P_MNIST_ROUNDS)
+    await p2p.shutdown_async()
+    got = orch_counts(counts, "(d) gossip_mnist", {"sorted_reduce:trimmed": 4 * P2P_MNIST_ROUNDS})
+    bundle = mnist_mlp(seed=0, device=ORCH_DEVICE)
+    acc = float((bundle.apply(workers[0].params, x).argmax(-1) == y).float().mean())
+    check(acc > 0.5, f"(d) worker 0's accuracy {acc} after {P2P_MNIST_ROUNDS} rounds")
+    out["gossip_mnist"] = {"host_ms_per_round": median_ms(ms), "first_round_ms": ms[0],
+                           "accuracy": acc,
+                           "launches_per_round": {k: v / P2P_MNIST_ROUNDS for k, v in got.items()}}
+    log(f"  (d) gossip_mnist: complete(5), 4 SGDModelWorkers + Empire (-3), trimmed mean f = 1, "
+        f"{P2P_MNIST_ROUNDS} rounds: host ms/round {median_ms(ms):.3f}, worker 0 accuracy {acc:.4f}, "
+        f"launches/round {out['gossip_mnist']['launches_per_round']} [{smi}]")
+
+    x, y = synthetic_classification(n_samples=6 * 512, seed=5, device=ORCH_DEVICE)
+    data = ShardedDataset(x, y, 6)
+    runs = {}
+    for mode, overlap in (("barrier", None), ("stream", OverlapConfig(stream=True, prefetch_depth=0))):
+        workers = [gossip_worker(lambda: make_bundle(SmallCNN(), seed=0, device=ORCH_DEVICE),
+                                 *data.node_slice(i), 100 + i) for i in range(6)]
+        agg = record_aggregate(GeometricMedian(device=ORCH_DEVICE))
+        runner = DecentralizedPeerToPeer(
+            workers, [AttackP2PWorker(EmpireAttack(scale=-3.0, device=ORCH_DEVICE)) for _ in range(2)],
+            aggregator=agg, topology=Topology.ring(8, 2), learning_rate=0.1, overlap=overlap)
+        await runner.setup()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs, ms = await timed_rounds(runner.run_round_async, ORCH_ROUNDS)
+        got = orch_counts(counts, f"(d) ring(8, 2) {mode}",
+                          {"sorted_reduce:median": 6 * ORCH_ROUNDS,
+                           "center_loop:weiszfeld": 6 * ORCH_ROUNDS})
+        await runner.shutdown()
+        calls = agg.calls if mode == "barrier" else agg.folds
+        check(len(calls) == 6 * ORCH_ROUNDS, f"(d) {mode}: {len(calls)} aggregations")
+        for vectors, res in calls:
+            # own half step first, then its two frames in arrival order
+            check(len(vectors) == 3 and bits_equal(agg.plain_aggregate(vectors), res),
+                  f"(d) {mode}: an aggregate differs from the direct call on its vectors")
+        runs[mode] = (outs, [w.parameters() for w in workers])
+        out[f"ring_{mode}"] = {"host_ms_per_round": median_ms(ms), "first_round_ms": ms[0],
+                               "launches_per_round": {k: v / ORCH_ROUNDS for k, v in got.items()}}
+        log(f"  (d) SmallCNN ring(8, 2), 6 + 2 Empire, geometric median, {mode}: host ms/round "
+            f"{median_ms(ms):.3f}, launches/round {out[f'ring_{mode}']['launches_per_round']} [{smi}]")
+    (b_outs, b_params), (s_outs, s_params) = runs["barrier"], runs["stream"]
+    check(all(bits_equal(o1[i], o2[i]) for o1, o2 in zip(b_outs, s_outs) for i in o1)
+          and all(bits_equal(a, b) for a, b in zip(b_params, s_params)),
+          "(d) the streaming gossip rounds differ from the barrier rounds")
+    out["ring_barrier_equals_stream_bitwise"] = True
+    return out
+
+
+async def orch_autonomous(counts: dict, smi: str) -> dict:
+    """(e) examples/p2p/decentralized_autonomous.py: 4 nodes on
+    ``complete(4)`` drive themselves (half step, gossip, coordinate median)
+    for 15 rounds and reach consensus."""
+    import numpy as np
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.node import DecentralizedCluster, DecentralizedNode, InProcessContext
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.ops import kernels
+
+    cluster = DecentralizedCluster(Topology.complete(4))
+    nodes, events, finals = [], [], {}
+    targets = np.linspace(0.0, 2.0, 4)
+
+    def loop(target, done):
+        async def run(node):
+            agg = CoordinateWiseMedian(device=ORCH_DEVICE)
+            w = torch.zeros((32,), device=ORCH_DEVICE)
+            n_in = len(node.router.in_neighbor_ids())
+            for _ in range(AUTO_ROUNDS):
+                w = w - 0.3 * 2.0 * (w - target)
+                await node.broadcast_message("gossip", w)
+                received = [(await node.wait_for_message("gossip", timeout=60)).payload
+                            for _ in range(n_in)]
+                w = agg.aggregate([w] + received)
+            finals[node.node_id] = w
+            done.set()
+        return run
+
+    for i in range(4):
+        node = DecentralizedNode(f"auto-{i}", InProcessContext(f"auto-{i}"))
+        cluster.add_node(node)
+        nodes.append(node)
+        events.append(asyncio.Event())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    async with cluster:
+        for node, target, event in zip(nodes, targets, events):
+            node.start_autonomous_task(loop(float(target), event))
+        await asyncio.gather(*(e.wait() for e in events))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / AUTO_ROUNDS
+    got = orch_counts(counts, "(e) autonomous", {"sorted_reduce:median": 4 * AUTO_ROUNDS})
+    w0 = [float(finals[n.node_id][0]) for n in nodes]
+    spread = max(w0) - min(w0)
+    check(spread < 0.15, f"(e) consensus spread {spread}")
+    log(f"  (e) decentralized_autonomous: 4 nodes, median, {AUTO_ROUNDS} rounds: {ms:.3f} host ms a "
+        f"round of the cluster, spread {spread:.4g}, launches/round "
+        f"{ {k: v / AUTO_ROUNDS for k, v in got.items()} } [{smi}]")
+    return {"host_ms_per_round": ms, "spread": spread, "final_w0": w0,
+            "launches_per_round": {k: v / AUTO_ROUNDS for k, v in got.items()}}
+
+
+async def orch_heartbeat(counts: dict, smi: str) -> dict:
+    """(f) ``HeartbeatPolicy``: of five gossip peers on ``complete(5)``
+    (mnist_mlp workers, the coordinate median) one stops answering before
+    the first round and is removed; the five rounds after it are the bits
+    of a run that starts on ``complete(4)`` without it."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.peer_to_peer import DecentralizedPeerToPeer, HeartbeatPolicy, Topology
+    from byzpy_tpu_torch.models import ShardedDataset, mnist_mlp, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels
+
+    x, y = synthetic_classification(n_samples=4096, seed=2, device=ORCH_DEVICE)
+    data = ShardedDataset(x, y, 5)
+    runs, out = {}, {}
+    for name, n in (("policy", 5), ("without", 4)):
+        workers = [gossip_worker(lambda: mnist_mlp(seed=0, device=ORCH_DEVICE), *data.node_slice(i),
+                                 200 + i) for i in range(n)]
+        policy = HeartbeatPolicy(interval=0.05, max_missed=3, startup_grace=0.0) if n == 5 else None
+        runner = DecentralizedPeerToPeer(workers, [], aggregator=CoordinateWiseMedian(device=ORCH_DEVICE),
+                                         topology=Topology.complete(n), learning_rate=0.1,
+                                         gossip_timeout=30.0, elastic=policy)
+        await runner.setup()
+        t_removed = None
+        if policy is not None:
+            t0 = time.perf_counter()
+            await runner.nodes[4].shutdown()   # stops answering, no goodbye
+            while ("node-4", "removed") not in runner.elastic_events:
+                check(time.perf_counter() - t0 < 30.0,
+                      f"(f) node-4 not removed: {runner.elastic_events}")
+                await asyncio.sleep(0.01)
+            t_removed = (time.perf_counter() - t0) * 1e3
+            check(runner.honest_indices == [0, 1, 2, 3], f"(f) live {runner.honest_indices}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs, ms = await timed_rounds(runner.run_round_async, ORCH_ROUNDS)
+        got = orch_counts(counts, f"(f) {name}", {"sorted_reduce:median": 4 * ORCH_ROUNDS})
+        await runner.shutdown()
+        runs[name] = (outs, [w.parameters() for w in workers[:4]])
+        out[name] = {"host_ms_per_round": median_ms(ms), "ms_to_removal": t_removed,
+                     "launches_per_round": {k: v / ORCH_ROUNDS for k, v in got.items()}}
+    (p_outs, p_params), (w_outs, w_params) = runs["policy"], runs["without"]
+    check(all(sorted(a) == sorted(b) and all(bits_equal(a[i], b[i]) for i in a)
+              for a, b in zip(p_outs, w_outs))
+          and all(bits_equal(a, b) for a, b in zip(p_params, w_params)),
+          "(f) the rounds after the removal differ from a run without the peer")
+    out["bitwise_equal_to_run_without_peer"] = True
+    log(f"  (f) HeartbeatPolicy(interval 0.05 s, 3 misses): node-4 removed after "
+        f"{out['policy']['ms_to_removal']:.1f} ms; then {ORCH_ROUNDS} rounds at host ms/round "
+        f"{out['policy']['host_ms_per_round']:.3f} (without it from the start "
+        f"{out['without']['host_ms_per_round']:.3f}), bit for bit [{smi}]")
+    return out
+
+
+def orchestrator_path(counts: dict) -> dict:
+    """Phase 4g: (a)-(f), every await bounded, with cuDNN's deterministic
+    algorithms (SmallCNN's convolutions: runs compared bit for bit)."""
+    import torch
+
+    smi = nvidia_smi_line()
+
+    async def phase():
+        return {"a_config3": await orch_config3(counts, smi),
+                "b_smallcnn_ps": await orch_smallcnn(counts, smi),
+                "c_elastic": await orch_elastic(counts, smi),
+                "d_p2p": await orch_p2p(counts, smi),
+                "e_autonomous": await orch_autonomous(counts, smi),
+                "f_heartbeat": await orch_heartbeat(counts, smi)}
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return asyncio.run(asyncio.wait_for(phase(), ORCH_WAIT_S))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -4977,6 +5755,10 @@ def main() -> int:
     log("== 4f. main path: the engine (actor pools: (a) config #1, (b) config #2, (c) ByzPy's "
         "pool table, (d) the schedulers, (e) many streams and the capture guard)")
     log("ENGINE_PATH " + json.dumps(engine_path(counts)))
+    log("== 4g. main path: the orchestrators (node actors: (a) config #3, (b) the ParameterServer "
+        "on SmallCNN, (c) elastic rounds; the P2P runner: (d) gossip, (e) the autonomous cluster, "
+        "(f) heartbeat removal)")
+    log("ORCHESTRATOR_PATH " + json.dumps(orchestrator_path(counts)))
     for key in NEW_KERNELS:
         check(counts[key] > 0, f"{key} never launched on the main path")
     for key, parts in CODEC_COUNTERS.items():

@@ -2112,3 +2112,230 @@ def test_cuda_pooled_coordinate_wise_classes_bitwise(cuda_device, workers):
             direct = op.apply(**inputs)
         torch.cuda.synchronize()
         assert _bits_equal(pooled, direct), op.name
+
+
+# ---------------------------------------------------------------------------
+# the orchestrators on cuda node actors
+# ---------------------------------------------------------------------------
+
+
+def _orchestrator_classes():
+    """An honest node that computes a gradient on its actor's stream (a
+    slow queue of work first, so a missing wait shows), optionally blocking
+    on an event or returning NaN after a host sleep; a sign-flip node."""
+    import threading
+    import time
+
+    from byzpy_tpu_torch.engine.node import ByzantineNode, HonestNode
+
+    class Node(HonestNode):
+        def __init__(self, idx, d=1 << 16):
+            g = torch.Generator(device="cuda").manual_seed(idx)
+            self.base = torch.randn((d,), device="cuda", generator=g)
+            self.state = torch.zeros((d,), device="cuda")
+            self.calls = 0
+            self.hang_s = None
+            self.block = None
+
+        def next_batch(self):
+            return None, None
+
+        def set_hang(self, seconds):
+            self.hang_s = seconds
+
+        def set_block(self, event: threading.Event):
+            self.block = event
+
+        def honest_gradient(self, x, y):
+            self.calls += 1
+            if self.block is not None:
+                self.block.wait(30.0)
+            torch.cuda._sleep(_SLEEP_CYCLES // 10)
+            g = self.base * self.calls + 0.5 * self.state
+            if self.hang_s is not None:
+                self.hang_s, seconds = None, self.hang_s
+                time.sleep(seconds)
+                return torch.full_like(g, float("nan"))
+            return g
+
+        def apply_server_gradient(self, gradient):
+            torch.cuda._sleep(_SLEEP_CYCLES // 10)
+            self.state = self.state - 0.1 * gradient
+
+        def snapshot(self):
+            return self.state.clone()
+
+    class Flip(ByzantineNode):
+        def next_batch(self):
+            return None, None
+
+        def byzantine_gradient(self, honest):
+            return -2.0 * honest[0]
+
+        def apply_server_gradient(self, gradient):
+            pass
+
+    return Node, Flip
+
+
+async def _spawn_orchestrator_nodes(backend, n=4):
+    from byzpy_tpu_torch.engine.node import ByzantineNodeActor, HonestNodeActor
+
+    Node, Flip = _orchestrator_classes()
+    honest = [await HonestNodeActor.spawn(Node, i, backend=backend) for i in range(n)]
+    byz = [await ByzantineNodeActor.spawn(Flip, backend=backend)]
+    return honest, byz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_cuda_ps_round_on_cuda_actors_equals_thread_actors(cuda_device, overlap):
+    """The same PS rounds (serial, or streamed with prefetch) on ``cuda``
+    node actors, each on a stream of its own, and on ``thread`` actors:
+    the aggregates and every node's state are the same bits."""
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.overlap import OverlapConfig
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+
+    async def go(backend):
+        honest, byz = await _spawn_orchestrator_nodes(backend)
+        ps = ParameterServer(honest, byz, aggregator=CoordinateWiseMedian(),
+                             overlap=OverlapConfig() if overlap else None)
+        aggs = []
+        await ps.run(4, on_round=lambda i, a: aggs.append(a.clone()))
+        await ps.close()
+        states = [await h.snapshot() for h in honest]
+        for a in honest + byz:
+            await a.close()
+        torch.cuda.synchronize()
+        return aggs, states
+
+    cuda_aggs, cuda_states = _engine_run(go("cuda"))
+    thread_aggs, thread_states = _engine_run(go("thread"))
+    for a, b in zip(cuda_aggs + cuda_states, thread_aggs + thread_states, strict=True):
+        assert _bits_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_timed_out_actor_call_is_never_folded(cuda_device):
+    """A ``cuda`` node whose call outlives ``call_timeout`` (it returns NaN
+    after a host sleep): the round aggregates the survivors only, nothing
+    of the abandoned call reaches a fold, and the next probe runs after
+    the leftover call on the actor's thread and stream and is
+    re-admitted."""
+    import asyncio
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.parameter_server import ElasticPolicy, ParameterServer
+
+    async def go():
+        honest, byz = await _spawn_orchestrator_nodes("cuda")
+        for h in honest:
+            await h.honest_gradient_for_next_batch()   # warm-up, off the clock
+        await honest[1].set_hang(1.0)
+        agg = CoordinateWiseMedian()
+        seen = []
+        aggregate = agg.aggregate
+
+        def logging_aggregate(gradients):
+            seen.extend(bool(torch.isfinite(g).all()) for g in gradients)
+            return aggregate(gradients)
+
+        agg.aggregate = logging_aggregate
+        ps = ParameterServer(honest, byz, aggregator=agg,
+                             elastic=ElasticPolicy(min_quorum=3, call_timeout=0.3))
+        first = await ps.round()
+        suspects = sorted(ps.elastic_state.suspects)
+        await asyncio.sleep(1.2)
+        second = await ps.round()
+        events = list(ps.elastic_state.events)
+        await ps.close()
+        for a in honest + byz:
+            await a.close()
+        torch.cuda.synchronize()
+        return first, second, suspects, events, seen
+
+    first, second, suspects, events, seen = _engine_run(go())
+    assert suspects == ["honest:1"]
+    assert bool(torch.isfinite(first).all()) and bool(torch.isfinite(second).all())
+    assert (1, "honest:1", "readmitted") in events
+    # round 1 gathered 3 honest and 1 byzantine gradient, round 2 all 5
+    assert seen == [True] * 9
+
+
+@pytest.mark.cuda
+def test_cuda_ps_close_leaves_no_task_pending(cuda_device):
+    """Prefetch chains in flight on ``cuda`` actors (each node's next
+    gradient queued behind its apply): ``close()`` cancels and awaits
+    them, so no task of the server is left, and ``flush()`` before it
+    settles them with every node's state the serial schedule's."""
+    import asyncio
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.overlap import OverlapConfig
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+
+    async def go(flush):
+        honest, byz = await _spawn_orchestrator_nodes("cuda")
+        ps = ParameterServer(honest, byz, aggregator=CoordinateWiseMedian(),
+                             overlap=OverlapConfig(prefetch_depth=1))
+        for _ in range(3):
+            await ps.round()
+        chains = list(ps._pending_honest)
+        if flush:
+            await ps.flush()
+            assert all(t.done() for t in chains)
+        await ps.close()
+        pending = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+        states = [await h.snapshot() for h in honest]
+        for a in honest + byz:
+            await a.close()
+        torch.cuda.synchronize()
+        return pending, chains, states
+
+    for flush in (False, True):
+        pending, chains, _ = _engine_run(go(flush))
+        assert pending == [] and all(t.done() for t in chains)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_refused_while_a_prefetch_chain_runs(cuda_device):
+    """Round r + 1's gradient is in flight on a ``cuda`` actor's stream
+    while round r returns: a CUDA-graph capture then refuses with
+    ``GraphCaptureError``; after ``flush`` and ``close`` it captures."""
+    import asyncio
+    import threading
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.overlap import OverlapConfig
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+    from byzpy_tpu_torch.utils.cuda_graph import CapturedStep, GraphCaptureError
+
+    step = CapturedStep(lambda p, o: (p * 2, o + 1, {"s": p.sum()}), name="ps_train_step",
+                        donate=False)
+    p, o = torch.ones(8, device=cuda_device), torch.zeros(8, device=cuda_device)
+
+    async def go():
+        honest, byz = await _spawn_orchestrator_nodes("cuda")
+        ps = ParameterServer(honest, byz, aggregator=CoordinateWiseMedian(),
+                             overlap=OverlapConfig(prefetch_depth=1))
+        await ps.round()
+        await ps.flush()   # round 1's gradients computed and buffered
+        gate = threading.Event()
+        for h in honest:
+            await h.set_block(gate)
+        await ps.round()   # its chains' next gradients now wait on the gate
+        await asyncio.sleep(0.2)
+        try:
+            with pytest.raises(GraphCaptureError, match="cuda actor call"):
+                step(p, o)
+        finally:
+            gate.set()
+        await ps.flush()
+        await ps.close()
+        for a in honest + byz:
+            await a.close()
+
+    _engine_run(go())
+    p2, o2, m = step(p, o)
+    assert len(step.graphs) == 1 and bool((p2 == 2).all()) and float(m["s"]) == 8.0
