@@ -62,6 +62,31 @@
 // Two phases of the same kernel serve the one-step wrappers: `wa_out`
 // stops after the first weights and writes them (n weights, then alpha);
 // `w_in` / `alpha_in` skip to one sweep under given weights.
+//
+// masked_weiszfeld (mode 2): the Weiszfeld loop of the masked family's
+// geometric median (byzpy_tpu/ops/robust.py:1581-1620
+// masked_geometric_median, a lax.while_loop of plain XLA, no Pallas
+// kernel), on a padded matrix whose `valid` rows (one byte each) are the
+// cohort. It takes that family's arithmetic, so the padded loop steps
+// exactly as the compacted one and the plain version is
+// ops/robust.py's masked loop:
+//   sq_i in row_sq_dists' order (csrc/segment_sum.cu): lane l of 4096 adds
+//     (x_ic - z_c)^2 at c = l, l + 4096, ... in order, then a warp adds
+//     lane partials j, j + 32, ... in order and a butterfly adds the 32;
+//   w_i = rnd(1 / max(sqrt(sq_i), eps)) on a valid row, +0 on the others
+//     (rnd: rounded to x's dtype);
+//   num_c = __fmaf_rn(w_i, x_ic, acc) over rows i ascending from +0.0, EVERY
+//     row read (B11's chain, segment_sum.cu), den = rnd(sum_i w_i) in row
+//     order from +0.0 (B11's chain of w against ones);
+//   z_new = rnd(rnd(num) / den);
+//   the stop test as in weiszfeld mode (delta in the column order above).
+// The sweep is the unmasked pass with the FMA chain and the divide (x read
+// once); the distances are a pass of their own over the (row, lane)
+// chains, a thread a chain, because row_sq_dists' lane order runs down
+// the columns a stride of 4096 at a time, across every block's chunks. So
+// a step reads x twice where weiszfeld reads it once. Each step makes
+// three grid barriers: after the sweep (the distances read the new
+// centre), after the distances, after the row reduce.
 
 #include "common.cuh"
 
@@ -71,7 +96,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 1024;
 constexpr int kSteps = kChunk / kThreads;  // columns a thread takes in a chunk
-enum CenterMode { kWeiszfeld = 0, kClip = 1 };
+enum CenterMode { kWeiszfeld = 0, kClip = 1, kMaskedWeiszfeld = 2 };
+constexpr int kLanes = 4096;  // the masked mode's lanes a row (row_sq_dists' kLanes)
 
 __device__ __forceinline__ float qnan() { return __int_as_float(0x7FC00000); }
 // NaN-propagating max / min (jnp.maximum / jnp.minimum; fmaxf and fminf
@@ -81,6 +107,17 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (isnan(a) || isnan(b)) ? qnan() : fminf(a, b);
+}
+
+// An element another block of this launch wrote: read past the SM's
+// incoherent L1.
+template <typename T> __device__ __forceinline__ T ldcg_elem(const T* p);
+template <> __device__ __forceinline__ float ldcg_elem<float>(const float* p) { return __ldcg(p); }
+template <> __device__ __forceinline__ __nv_bfloat16 ldcg_elem<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+template <> __device__ __forceinline__ __half ldcg_elem<__half>(const __half* p) {
+  return __ushort_as_half(__ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 // v rounded to T and back (the identity in f32 but for NaN's payload)
@@ -119,6 +156,8 @@ struct LoopArgs {
   float* partial;         // (n + 1) rows x nchunks: chunk partials, row n delta's
   float* raw;             // n: the rows' unnormalized weights
   float* delta;           // 1: the last step length
+  const unsigned char* valid;  // masked: n row flags; else null
+  float* lanes;                // masked: n x kLanes lane partials; else null
   unsigned int* counter;  // 1: the grid barrier, 0 at launch
   int* iters;             // 1: the steps taken
   long long d;
@@ -130,7 +169,7 @@ struct Shared {
   float w[128];
   float raw[128];
   float warp_part[kWarps][129];
-  float alpha, total, delta;
+  float alpha, total, delta;  // masked: total is den, rounded to x's dtype
 };
 
 // One row's `bytes` of x into shared memory by the lanes of a warp, in the
@@ -186,7 +225,7 @@ __device__ __forceinline__ void stage_tile(const LoopArgs& a, const T* x, T* xs,
 // KC * 256 of a chunk's columns, thread t the columns t + 256 k; the block
 // stages the step's tile of n rows in shared memory (cp.async, each warp
 // whole row segments), and the sweep and the distances read it there.
-template <typename T, int NR, int KC, int NBUF>
+template <typename T, int NR, int KC, int NBUF, bool MASKED = false>
 __device__ void pass(const LoopArgs& a, const T* zin, bool sweep, bool dist, bool step,
                      T* xs, Shared& sh) {
   constexpr int kPerChunk = kSteps / KC;  // steps of a chunk
@@ -234,14 +273,17 @@ __device__ void pass(const LoopArgs& a, const T* zin, bool sweep, bool dist, boo
 #pragma unroll 8
       for (int i = 0; i < n; ++i) {
 #pragma unroll
-        for (int k = 0; k < KC; ++k)
-          if (k * kThreads < valid)
-            acc[k] = __fadd_rn(acc[k], __fmul_rn(to_f32(buf[i * kWidth + k * kThreads]), sh.w[i]));
+        for (int k = 0; k < KC; ++k) {
+          if (k * kThreads >= valid) continue;
+          const float xv = to_f32(buf[i * kWidth + k * kThreads]);
+          acc[k] = MASKED ? __fmaf_rn(sh.w[i], xv, acc[k]) : __fadd_rn(acc[k], __fmul_rn(xv, sh.w[i]));
+        }
       }
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
         if (k * kThreads >= valid) continue;
-        const T zn = from_f32<T>(__fadd_rn(__fmul_rn(alpha, zf[k]), acc[k]));
+        const T zn = MASKED ? from_f32<T>(__fdiv_rn(rnd<T>(acc[k]), sh.total))
+                            : from_f32<T>(__fadd_rn(__fmul_rn(alpha, zf[k]), acc[k]));
         os[k * kThreads] = zn;
         const float znf = to_f32(zn);
         if (step) {
@@ -331,16 +373,75 @@ __device__ void form_weights(const LoopArgs& a, Shared& sh, bool read_delta) {
   __syncthreads();
 }
 
-// Registers capped for four blocks an SM at 16 rows and below (the main
-// path's 412 chunks then take one co-resident wave) and two below 128 rows
-// (chip_center_ablation.py: a cap for one block took the 64-row instance
-// 1.47x longer at the same register count).
+// masked_weiszfeld's distances to zc: the (row, lane) chains of
+// row_sq_dists, a thread a chain, the grid's threads striding over the n x
+// kLanes of them. zc may be the centre other blocks just wrote (__ldcg).
+template <typename T>
+__device__ void masked_dist_pass(const LoopArgs& a, const T* zc) {
+  const T* x = static_cast<const T*>(a.x);
+  const long long chains = (long long)a.n * kLanes;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x; p < chains; p += stride) {
+    const int i = (int)(p / kLanes), lane = (int)(p % kLanes);
+    const T* xi = x + (long long)i * a.d;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (long long c = lane; c < a.d; c += kLanes) {
+      const float v = __fsub_rn(to_f32(xi[c]), to_f32(ldcg_elem(zc + c)));
+      acc = __fadd_rn(acc, __fmul_rn(v, v));
+    }
+    a.lanes[p] = acc;
+  }
+}
+
+// masked_weiszfeld's row reduce: rows 0..n-1 of the lane partials to the
+// rounded weights (0 on an invalid row) and, with_step, the chunk partials'
+// row n to delta; a warp a row over all the grid's warps.
+template <typename T>
+__device__ void masked_reduce_rows(const LoopArgs& a, bool with_step) {
+  const int lane = threadIdx.x & 31;
+  const int rows = a.n + (with_step ? 1 : 0);
+  const int stride = gridDim.x * kWarps;
+  for (int r = blockIdx.x * kWarps + (threadIdx.x >> 5); r < rows; r += stride) {
+    float s = 0.0f;
+    if (r < a.n) {
+      const float* p = a.lanes + (long long)r * kLanes;
+      for (int k = lane; k < kLanes; k += 32) s = __fadd_rn(s, __ldcg(p + k));
+    } else {
+      const float* p = a.partial + (long long)r * a.nchunks;
+      for (int b = lane; b < a.nchunks; b += 32) s = __fadd_rn(s, __ldcg(p + b));
+    }
+    s = warp_sum(s);
+    if (lane != 0) continue;
+    if (r < a.n) {
+      const float w = rnd<T>(__fdiv_rn(1.0f, nan_max(__fsqrt_rn(from_f32<float>(s)), a.eps)));
+      a.raw[r] = a.valid[r] ? w : 0.0f;
+    } else {
+      *a.delta = rnd<T>(__fsqrt_rn(rnd<T>(s)));
+    }
+  }
+}
+
+// Every block takes the same weights and den = rnd(sum_i w_i), rows in
+// order from +0.0 (and reads delta).
+template <typename T>
+__device__ void masked_form_weights(const LoopArgs& a, Shared& sh, bool read_delta) {
+  const int t = threadIdx.x;
+  if (t < a.n) sh.w[t] = __ldcg(a.raw + t);
+  __syncthreads();
+  if (t == 0) {
+    float total = 0.0f;
+#pragma unroll 8
+    for (int i = 0; i < a.n; ++i) total = __fadd_rn(total, sh.w[i]);
+    sh.total = rnd<T>(total);
+    sh.delta = read_delta ? __ldcg(a.delta) : 0.0f;
+  }
+  __syncthreads();
+}
+
+// The weiszfeld and clip loops and their one-step phases.
 template <typename T, int NR, int KC, int NBUF>
-__global__ void __launch_bounds__(kThreads, NR <= 16 ? 4 : (NR < 128 ? 2 : 1))
-    center_loop_kernel(LoopArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];  // NBUF tiles of n x KC * kThreads
-  T* xs = reinterpret_cast<T*>(smem);
-  __shared__ Shared sh;
+__device__ __forceinline__ void center_loop_unmasked(const LoopArgs& a, T* xs, Shared& sh) {
   const T* z0 = static_cast<const T*>(a.z0);
   const T* zcur = static_cast<const T*>(a.out);
   if (a.w_in != nullptr) {  // sweep phase: one step under the given weights
@@ -373,14 +474,50 @@ __global__ void __launch_bounds__(kThreads, NR <= 16 ? 4 : (NR < 128 ? 2 : 1))
   if (blockIdx.x == 0 && threadIdx.x == 0) *a.iters = it;
 }
 
+// Registers capped for four blocks an SM at 16 rows and below (the main
+// path's 412 chunks then take one co-resident wave) and two below 128 rows
+// (chip_center_ablation.py: a cap for one block took the 64-row instance
+// 1.47x longer at the same register count).
+template <typename T, int NR, int KC, int NBUF, bool MASKED>
+__global__ void __launch_bounds__(kThreads, NR <= 16 ? 4 : (NR < 128 ? 2 : 1))
+    center_loop_kernel(LoopArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];  // NBUF tiles of n x KC * kThreads
+  T* xs = reinterpret_cast<T*>(smem);
+  __shared__ Shared sh;
+  if constexpr (MASKED) {
+    const T* z0 = static_cast<const T*>(a.z0);
+    const T* zcur = static_cast<const T*>(a.out);
+    // the sweep's pass keeps no distance partials: NR = 1
+    masked_dist_pass<T>(a, z0);
+    int it = 0;
+    for (;;) {
+      const bool with_step = it > 0;
+      grid_sync(a.counter);
+      masked_reduce_rows<T>(a, with_step);
+      grid_sync(a.counter);
+      masked_form_weights<T>(a, sh, with_step);
+      if (with_step && !(sh.delta > a.tol)) break;
+      const bool last = it + 1 == a.max_iter;
+      pass<T, 1, KC, NBUF, true>(a, it == 0 ? z0 : zcur, true, false, !last, xs, sh);
+      ++it;
+      if (last) break;
+      grid_sync(a.counter);
+      masked_dist_pass<T>(a, zcur);
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) *a.iters = it;
+  } else {
+    center_loop_unmasked<T, NR, KC, NBUF>(a, xs, sh);
+  }
+}
+
 // Rows per instance; a step's columns (KC * 256: 512 at 16 rows and below,
 // where 1024 spilled and was slower at 8 rows); one staging buffer
 // (occupancy beat a second buffer's overlap; chip_center_ablation.py).
-template <typename T, int NR>
+template <typename T, int NR, bool MASKED>
 int launch_rows(LoopArgs& a, int sms, cudaStream_t s) {
   constexpr int KC = NR <= 16 ? 2 : 1;
   constexpr int NBUF = 1;
-  auto kernel = center_loop_kernel<T, NR, KC, NBUF>;
+  auto kernel = center_loop_kernel<T, NR, KC, NBUF, MASKED>;
   const size_t smem = (size_t)NBUF * a.n * KC * kThreads * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -406,30 +543,42 @@ int launch_rows(LoopArgs& a, int sms, cudaStream_t s) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
+template <typename T, bool MASKED>
+int launch_width(LoopArgs& a, int sms, cudaStream_t s) {
+  if (a.n <= 8) return launch_rows<T, 8, MASKED>(a, sms, s);
+  if (a.n <= 16) return launch_rows<T, 16, MASKED>(a, sms, s);
+  if (a.n <= 32) return launch_rows<T, 32, MASKED>(a, sms, s);
+  if (a.n <= 64) return launch_rows<T, 64, MASKED>(a, sms, s);
+  return launch_rows<T, 128, MASKED>(a, sms, s);
+}
+
 template <typename T>
 int launch_loop(LoopArgs& a, int sms, cudaStream_t s) {
-  if (a.n <= 8) return launch_rows<T, 8>(a, sms, s);
-  if (a.n <= 16) return launch_rows<T, 16>(a, sms, s);
-  if (a.n <= 32) return launch_rows<T, 32>(a, sms, s);
-  if (a.n <= 64) return launch_rows<T, 64>(a, sms, s);
-  return launch_rows<T, 128>(a, sms, s);
+  return a.mode == kMaskedWeiszfeld ? launch_width<T, true>(a, sms, s)
+                                    : launch_width<T, false>(a, sms, s);
 }
 
 }  // namespace
 
 // x: (n, d) contiguous, 1 <= n <= 128, d >= 1; z0, out: (d,) of x's dtype
-// (out may not alias z0); scratch: (n + 1) * ceil(d / 1024) + n + 1 f32;
-// ints: 2 int32, [0] receives the steps taken. mode 0 = weiszfeld, 1 =
-// clip; tol is compared as given (round it to x's dtype first). Phases:
+// (out may not alias z0); scratch: (n + 1) * ceil(d / 1024) + n + 1 f32,
+// and n * 4096 more in mode 2; ints: 2 int32, [0] receives the steps
+// taken. mode 0 = weiszfeld, 1 = clip, 2 = masked_weiszfeld (valid: n
+// bytes, nonzero on a cohort row; null in the other modes); tol is
+// compared as given (round it to x's dtype first). Phases (modes 0 and 1):
 // w_in and alpha_in non-null: one sweep under them; wa_out non-null: stop
 // after the first weights and write n weights, then alpha. Otherwise
 // max_iter >= 1 steps at most. Returns the launch's cudaError_t.
 extern "C" int byz_center_loop(const void* x, const void* z0, void* out, const float* w_in,
                                const float* alpha_in, float* wa_out, float* scratch, int* ints,
-                               int n, long long d, int mode, float eps, float c_tau, float tol,
-                               int max_iter, int dtype, void* stream) {
-  if (n < 1 || n > 128 || d < 1 || max_iter < 1 || (mode != kWeiszfeld && mode != kClip) ||
-      ((w_in == nullptr) != (alpha_in == nullptr)))
+                               const unsigned char* valid, int n, long long d, int mode,
+                               float eps, float c_tau, float tol, int max_iter, int dtype,
+                               void* stream) {
+  const bool masked = mode == kMaskedWeiszfeld;
+  if (n < 1 || n > 128 || d < 1 || max_iter < 1 ||
+      (mode != kWeiszfeld && mode != kClip && !masked) ||
+      ((w_in == nullptr) != (alpha_in == nullptr)) || masked != (valid != nullptr) ||
+      (masked && (w_in != nullptr || wa_out != nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long nchunks = (d + kChunk - 1) / kChunk;
@@ -449,6 +598,8 @@ extern "C" int byz_center_loop(const void* x, const void* z0, void* out, const f
   a.partial = scratch;
   a.raw = scratch + (n + 1) * nchunks;
   a.delta = a.raw + n;
+  a.valid = valid;
+  a.lanes = masked ? a.delta + 1 : nullptr;
   a.counter = reinterpret_cast<unsigned int*>(ints + 1);
   a.iters = ints;
   a.d = d;

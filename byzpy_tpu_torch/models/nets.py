@@ -19,10 +19,13 @@ plain translation to PyTorch differs from flax:
   where ``Conv2d(padding=1)`` pads ``(1, 1)`` and shifts every output; the
   ImageNet stem's ``max_pool(3, 2, "SAME")`` likewise pads ``(0, 1)`` with
   ``-inf``; a 1x1 stride-2 convolution pads nothing;
-* :class:`GroupNorm` is flax's: 32 groups, epsilon 1e-6 (PyTorch's
-  default is 1e-5), mean and mean square reduced in float32, the variance
-  ``max(0, E[x^2] - E[x]^2)``, normalized, scaled and shifted in float32,
-  then cast to ``dtype``;
+* :class:`GroupNorm` is flax's: 32 groups unless ``num_groups`` says
+  otherwise, epsilon 1e-6 (PyTorch's default is 1e-5), mean and mean
+  square reduced in float32, the variance ``max(0, E[x^2] - E[x]^2)``,
+  normalized, scaled and shifted in float32, then cast to ``dtype``. The
+  ResNets' ``norm=`` (flax's ``norm: Callable``) is a factory
+  ``norm(channels, dtype=...)``, e.g. ``functools.partial(GroupNorm,
+  num_groups=math.gcd(32, filters))`` for widths 32 does not divide;
 * convolutions have no bias; ``dense_0`` has one, added after the product
   in ``dtype`` as flax adds it;
 * the global average pool is ``jnp.mean``'s: summed and divided in
@@ -33,7 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -124,23 +127,25 @@ _GN_GROUPS, _GN_EPSILON = 32, 1e-6
 
 
 class GroupNorm(nn.Module):
-    """``flax.linen.GroupNorm()`` on NCHW input: statistics of each of 32
-    groups of channels over the group and the spatial axes, in float32
-    (``mean(x)``, ``mean(x * x)``, variance ``max(0, mean(x * x) -
-    mean(x)^2)``), then ``(x - mean) * (rsqrt(var + 1e-6) * weight) + bias``
-    in float32, cast to ``dtype``. ``weight`` is flax's ``scale``."""
+    """``flax.linen.GroupNorm(num_groups=num_groups)`` on NCHW input:
+    statistics of each group of channels over the group and the spatial
+    axes, in float32 (``mean(x)``, ``mean(x * x)``, variance ``max(0,
+    mean(x * x) - mean(x)^2)``), then ``(x - mean) * (rsqrt(var + 1e-6) *
+    weight) + bias`` in float32, cast to ``dtype``. ``weight`` is flax's
+    ``scale``."""
 
-    def __init__(self, channels: int, *, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, *, num_groups: int = _GN_GROUPS,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if channels % _GN_GROUPS:
-            raise ValueError(f"{_GN_GROUPS} groups do not divide {channels} channels")
+        if num_groups < 1 or channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {channels} channels")
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.dtype = dtype
+        self.num_groups, self.dtype = num_groups, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        g = _GN_GROUPS
+        g = self.num_groups
         xf = x.float()
         grouped = xf.reshape(b, g, c // g, h, w)
         mean = grouped.mean(dim=(2, 3, 4), keepdim=True)
@@ -151,6 +156,10 @@ class GroupNorm(nn.Module):
         mul = mul * self.weight.reshape(1, c, 1, 1)
         y = (xf - mean) * mul + self.bias.reshape(1, c, 1, 1)
         return y.to(self.dtype)
+
+
+# a ResNet's norm=: channels, then the compute dtype as a keyword
+NormFactory = Callable[..., nn.Module]
 
 
 class Dense(nn.Module):
@@ -170,21 +179,23 @@ class Dense(nn.Module):
 class ResNetBlock(nn.Module):
     """Basic residual block (two 3x3 convolutions), ref ``nets.py:66``. The
     residual is projected (a 1x1 convolution and a norm) where the block
-    changes the shape: a stride other than 1 or another channel count."""
+    changes the shape: a stride other than 1 or another channel count.
+    ``norm`` makes each norm layer (:data:`NormFactory`); its modules keep
+    the names ``groupnorm_k`` whatever they are."""
 
     expansion = 1
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1, *,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: NormFactory = GroupNorm):
         super().__init__()
         self.conv_0 = Conv(in_channels, filters, 3, stride, dtype=dtype)
-        self.groupnorm_0 = GroupNorm(filters, dtype=dtype)
+        self.groupnorm_0 = norm(filters, dtype=dtype)
         self.conv_1 = Conv(filters, filters, 3, dtype=dtype)
-        self.groupnorm_1 = GroupNorm(filters, dtype=dtype)
+        self.groupnorm_1 = norm(filters, dtype=dtype)
         self.project = stride != 1 or in_channels != filters
         if self.project:
             self.conv_2 = Conv(in_channels, filters, 1, stride, dtype=dtype)
-            self.groupnorm_2 = GroupNorm(filters, dtype=dtype)
+            self.groupnorm_2 = norm(filters, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.groupnorm_0(self.conv_0(x)))
@@ -195,24 +206,25 @@ class ResNetBlock(nn.Module):
 
 class BottleneckBlock(nn.Module):
     """Bottleneck residual block (1x1 -> 3x3 -> 1x1, 4x expansion), ref
-    ``nets.py:91``; the residual projected as in :class:`ResNetBlock`."""
+    ``nets.py:91``; the residual projected and ``norm`` taken as in
+    :class:`ResNetBlock`."""
 
     expansion = 4
 
     def __init__(self, in_channels: int, filters: int, stride: int = 1, *,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: NormFactory = GroupNorm):
         super().__init__()
         out = filters * 4
         self.conv_0 = Conv(in_channels, filters, 1, dtype=dtype)
-        self.groupnorm_0 = GroupNorm(filters, dtype=dtype)
+        self.groupnorm_0 = norm(filters, dtype=dtype)
         self.conv_1 = Conv(filters, filters, 3, stride, dtype=dtype)
-        self.groupnorm_1 = GroupNorm(filters, dtype=dtype)
+        self.groupnorm_1 = norm(filters, dtype=dtype)
         self.conv_2 = Conv(filters, out, 1, dtype=dtype)
-        self.groupnorm_2 = GroupNorm(out, dtype=dtype)
+        self.groupnorm_2 = norm(out, dtype=dtype)
         self.project = stride != 1 or in_channels != out
         if self.project:
             self.conv_3 = Conv(in_channels, out, 1, stride, dtype=dtype)
-            self.groupnorm_3 = GroupNorm(out, dtype=dtype)
+            self.groupnorm_3 = norm(out, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.groupnorm_0(self.conv_0(x)))
@@ -228,25 +240,27 @@ class ResNet(nn.Module):
     pool) NHWC inputs of ``in_channels`` channels, ref ``nets.py:118``.
     Stage ``i`` has ``stage_sizes[i]`` blocks of ``num_filters * 2**i``
     filters, its first block strided 2 from the second stage on; then the
-    global average pool and ``dense_0``."""
+    global average pool and ``dense_0``. ``norm`` makes every norm layer,
+    the stem's and the blocks' (:data:`NormFactory`)."""
 
     def __init__(self, stage_sizes: Sequence[int], block_cls=ResNetBlock, num_classes: int = 10,
                  num_filters: int = 64, small_input: bool = True, *,
-                 dtype: torch.dtype = torch.float32, in_channels: int = 3):
+                 dtype: torch.dtype = torch.float32, in_channels: int = 3,
+                 norm: NormFactory = GroupNorm):
         super().__init__()
         self.small_input, self.dtype = small_input, dtype
         if small_input:
             self.conv_0 = Conv(in_channels, num_filters, 3, dtype=dtype)
         else:
             self.conv_0 = Conv(in_channels, num_filters, 7, 2, padding=3, dtype=dtype)
-        self.groupnorm_0 = GroupNorm(num_filters, dtype=dtype)
+        self.groupnorm_0 = norm(num_filters, dtype=dtype)
         prefix = block_cls.__name__.lower()
         channels, k = num_filters, 0
         self.blocks = []
         for i, size in enumerate(stage_sizes):
             for j in range(size):
                 block = block_cls(channels, num_filters * 2**i, 2 if i > 0 and j == 0 else 1,
-                                  dtype=dtype)
+                                  dtype=dtype, norm=norm)
                 self.add_module(f"{prefix}_{k}", block)
                 self.blocks.append(f"{prefix}_{k}")
                 channels, k = num_filters * 2**i * block_cls.expansion, k + 1
@@ -317,9 +331,9 @@ def digits_mlp(seed: int = 0, hidden: int = 64, *, device: DeviceLike = None) ->
 
 
 def cifar_resnet18(seed: int = 0, dtype: torch.dtype = torch.float32, *,
-                   device: DeviceLike = None) -> ModelBundle:
+                   device: DeviceLike = None, norm: NormFactory = GroupNorm) -> ModelBundle:
     """ResNet-18 bundle for 32x32x3 inputs, 10 classes (d = 11,173,962)."""
-    return make_bundle(ResNet18(num_classes=10, dtype=dtype), seed=seed, device=device)
+    return make_bundle(ResNet18(num_classes=10, dtype=dtype, norm=norm), seed=seed, device=device)
 
 
 def imagenet_resnet50(seed: int = 0, dtype: torch.dtype = torch.bfloat16, *,
@@ -336,6 +350,7 @@ __all__ = [
     "Conv",
     "Dense",
     "GroupNorm",
+    "NormFactory",
     "ResNetBlock",
     "BottleneckBlock",
     "ResNet",

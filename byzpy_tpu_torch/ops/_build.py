@@ -80,7 +80,7 @@ SIGNATURES = {
     ]),
     "byz_center_loop": ("center_step", [
         _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-        _c_int, _c_ll, _c_int, _c_float, _c_float, _c_float, _c_int, _c_int, _c_void_p,
+        _c_void_p, _c_int, _c_ll, _c_int, _c_float, _c_float, _c_float, _c_int, _c_int, _c_void_p,
     ]),
     "byz_quantize": ("quantize", [
         _c_void_p, _c_void_p, _c_void_p, _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_void_p,

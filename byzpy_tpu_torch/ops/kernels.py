@@ -26,7 +26,9 @@ Kernels (TPU kernel they replace -> CUDA source):
 * B7 ``center_loop`` (and its first step, ``weighted_center_step``):
   ``_weighted_center_step_kernel`` (:470) and the reference's loops around
   it, modes ``weiszfeld`` and ``clip`` -> ``csrc/center_step.cu``, one
-  launch a loop;
+  launch a loop; its ``masked_weiszfeld`` mode runs the masked family's
+  Weiszfeld loop (``byzpy_tpu/ops/robust.py:1581``, plain XLA) the same
+  way;
 * B8 ``nnm_stream``: ``_nnm_stream_kernel`` (:1245) -> ``csrc/gram.cu`` +
   ``csrc/nnm.cu``;
 * B9 ``nnm_selection_mean_stream``: ``_nnm_selection_stream_kernel``
@@ -66,6 +68,7 @@ larger ``n`` on the card raises ``NotImplementedError``.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
@@ -78,7 +81,7 @@ _CANONICAL_NAN_BITS = 0x7FC00000
 _SORT_MODES = {"median": 0, "trimmed": 1}
 _SELECTION_MODES = {"krum": 0, "cge": 1, "monna": 2}
 _CLIP_MODES = {"clip": 0, "arc": 1}
-_CENTER_MODES = {"weiszfeld": 0, "clip": 1}
+_CENTER_MODES = {"weiszfeld": 0, "clip": 1, "masked_weiszfeld": 2}
 # split-K Gram: aim for this many blocks per SM of the card, with chunks of
 # at least _GRAM_MIN_CHUNK columns (16 shared-memory tiles) each
 _GRAM_BLOCKS_PER_SM = 4
@@ -113,6 +116,7 @@ launch_counts = {
     # B7: the whole loops, and the one-step phases of the same kernel
     "center_loop:weiszfeld": 0,
     "center_loop:clip": 0,
+    "center_loop:masked_weiszfeld": 0,
     "center_weights:weiszfeld": 0,
     "center_weights:clip": 0,
     "center_sweep": 0,
@@ -147,6 +151,7 @@ launch_counts = {
     "graph_replay:ps_train_step": 0,
     "graph_replay:serving_ps_step": 0,
     "graph_replay:ragged_serving_ps_step": 0,
+    "graph_replay:gossip_train_step": 0,
 }
 
 
@@ -786,11 +791,15 @@ def meamed_stream_plain(xs: torch.Tensor, *, f: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_center(x: torch.Tensor, z: torch.Tensor, mode: str = "weiszfeld") -> tuple:
+def _check_center(x: torch.Tensor, z: torch.Tensor, mode: str = "weiszfeld", *,
+                  loop: bool = False) -> tuple:
     """``(n, d)`` of a centre step's inputs (ref
-    ``weighted_center_step_pallas``'s checks); raises otherwise."""
+    ``weighted_center_step_pallas``'s checks); raises otherwise. The
+    masked mode runs only as a whole loop (``loop``)."""
     if mode not in _CENTER_MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    if mode == "masked_weiszfeld" and not loop:
+        raise ValueError("masked_weiszfeld runs only as a whole loop (center_loop)")
     _check_ndim(x, 2, "x")
     n, d = x.shape
     if tuple(z.shape) != (d,):
@@ -871,6 +880,13 @@ def _check_max_iter(max_iter: int) -> None:
         raise ValueError(f"max_iter must be >= 0, got {max_iter}")
 
 
+def _check_valid(x: torch.Tensor, mode: str, valid) -> None:
+    if (mode == "masked_weiszfeld") != (valid is not None):
+        raise ValueError("valid is given exactly in mode masked_weiszfeld")
+    if valid is not None and (tuple(valid.shape) != (x.shape[0],) or valid.dtype != torch.bool):
+        raise ValueError(f"valid must be ({x.shape[0]},) bool, got {tuple(valid.shape)} {valid.dtype}")
+
+
 def center_loop(
     x: torch.Tensor,
     z0: torch.Tensor,
@@ -880,6 +896,7 @@ def center_loop(
     c_tau: float = 1.0,
     tol: float = 1e-6,
     max_iter: int = 256,
+    valid: Optional[torch.Tensor] = None,
 ) -> tuple:
     """A whole centre-seeking loop on ``x: (n, d)`` from ``z0: (d,)`` (B7;
     ref ``byzpy_tpu/ops/robust.py:727-754`` and :814 around
@@ -896,34 +913,50 @@ def center_loop(
     an inf row (``w = 0``) or a NaN one makes the step NaN, as in the
     reference.
 
+    ``masked_weiszfeld`` (ref ``robust.py:1581`` ``masked_geometric_median``)
+    takes the rows where ``valid`` (``(n,)`` bool) is set: each step is the
+    masked family's, ``z <- (sum_i w_i x_i) / sum_i w_i`` with ``w_i =
+    1/max(dist_i, eps)`` rounded to ``x``'s dtype on a valid row and 0 on
+    the others, the distances in :func:`row_sq_dists`' order and both sums
+    :func:`segment_sum`'s row chain, so a padded matrix steps as its valid
+    rows alone; it stops as ``weiszfeld`` does.
+
     On the card: one launch of ``csrc/center_step.cu`` whatever the step
     count, its stopping test on the device (counter ``center_loop:<mode>``);
     ``max_iter = 0`` or ``d = 0`` launches nothing and returns a copy of
     ``z0``."""
-    n, d = _check_center(x, z0, mode)
+    n, d = _check_center(x, z0, mode, loop=True)
+    _check_valid(x, mode, valid)
     _check_max_iter(max_iter)
-    if _on_cpu(x, z0):
-        return center_loop_plain(x, z0, mode=mode, eps=eps, c_tau=c_tau, tol=tol, max_iter=max_iter)
+    if _on_cpu(x, z0, *(() if valid is None else (valid,))):
+        return center_loop_plain(x, z0, mode=mode, eps=eps, c_tau=c_tau, tol=tol,
+                                 max_iter=max_iter, valid=valid)
     _check_cuda_input(x, n)
     _check_cuda_input(z0, n)
+    if valid is not None:
+        _check_cuda_input(valid, n)
     if max_iter == 0 or d == 0:
         return z0.clone(), torch.zeros((), dtype=torch.int32, device=x.device)
     if n < 1:
         raise ValueError(f"x must have at least one row, got {(n, d)}")
     out = torch.empty((d,), dtype=x.dtype, device=x.device)
-    ints = _center_launch(x, z0, out, mode=mode, eps=eps, c_tau=c_tau, tol=tol, max_iter=max_iter)
+    ints = _center_launch(x, z0, out, mode=mode, eps=eps, c_tau=c_tau, tol=tol, max_iter=max_iter,
+                          valid=valid)
     count_launch(f"center_loop:{mode}")
     return out, ints[0]
 
 
 def _center_launch(x, z0, out, *, mode, eps, c_tau, tol=0.0, max_iter=1, w_in=None,
-                   alpha_in=None, wa_out=None) -> torch.Tensor:
+                   alpha_in=None, wa_out=None, valid=None) -> torch.Tensor:
     """One launch of ``byz_center_loop``; returns its two int32 (the steps
     taken, the barrier's counter). Scratch: the chunk partials of the n
-    rows and the step length, the raw weights, delta."""
+    rows and the step length, the raw weights, delta; in the masked mode
+    also the n x 4,096 lane partials of the distances."""
     n, d = x.shape
     nchunks = _ceil_div(d, _CENTER_CHUNK)
-    scratch = torch.empty(((n + 1) * nchunks + n + 1,), dtype=torch.float32, device=x.device)
+    lanes = n * _ROW_LANES if valid is not None else 0
+    scratch = torch.empty(((n + 1) * nchunks + n + 1 + lanes,), dtype=torch.float32,
+                          device=x.device)
     ints = torch.empty((2,), dtype=torch.int32, device=x.device)
     tol_x = float(torch.tensor(tol, dtype=x.dtype))  # the comparison runs in x's dtype
 
@@ -933,10 +966,32 @@ def _center_launch(x, z0, out, *, mode, eps, c_tau, tol=0.0, max_iter=1, w_in=No
     with torch.cuda.device(x.device):
         _call(
             "byz_center_loop", x.data_ptr(), z0.data_ptr(), ptr(out), ptr(w_in),
-            ptr(alpha_in), ptr(wa_out), scratch.data_ptr(), ints.data_ptr(), n, d,
+            ptr(alpha_in), ptr(wa_out), scratch.data_ptr(), ints.data_ptr(), ptr(valid), n, d,
             _CENTER_MODES[mode], eps, c_tau, tol_x, max_iter, _DTYPE_CODES[x.dtype], _stream(x),
         )
     return ints
+
+
+def _center_delta(zn: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The step length ``|zn - z|`` in ``z``'s dtype as the loop kernel forms
+    it: each difference and square rounded to the dtype, their sum in
+    :func:`_center_order_sum`'s order rounded, its root rounded."""
+    e = _center_round(zn.float() - z.float(), z.dtype)
+    s = _center_order_sum(_center_round(e * e, z.dtype)[None])[0]
+    return _center_round(torch.sqrt(_center_round(s, z.dtype)), z.dtype)
+
+
+def _masked_center_step(x: torch.Tensor, z: torch.Tensor, valid: torch.Tensor, eps: float):
+    """One masked Weiszfeld step: the masked family's arithmetic (see
+    :func:`center_loop`)."""
+    n = x.shape[0]
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    dist = torch.sqrt(row_sq_dists_plain(x, z))
+    w = torch.where(valid, one / torch.maximum(dist, torch.full_like(one, eps)),
+                    torch.zeros_like(one)).to(x.dtype)
+    num = segment_sum_plain(x, w.float().reshape(1, -1))[0]
+    den = segment_sum_plain(w[:, None], torch.ones((1, n), device=x.device))[0]
+    return canonical_nan(num / den)
 
 
 def center_loop_plain(
@@ -948,33 +1003,38 @@ def center_loop_plain(
     c_tau: float = 1.0,
     tol: float = 1e-6,
     max_iter: int = 256,
+    valid: Optional[torch.Tensor] = None,
 ) -> tuple:
     """Plain PyTorch version of :func:`center_loop`: the same steps in the
     same order (the distances and the step length by
-    :func:`_center_order_sum`), the stopping test read on the host."""
-    n, d = _check_center(x, z0, mode)
+    :func:`_center_order_sum`; the masked mode's distances and sums by
+    :func:`row_sq_dists_plain` and :func:`segment_sum_plain`), the stopping
+    test read on the host."""
+    n, d = _check_center(x, z0, mode, loop=True)
+    _check_valid(x, mode, valid)
     _check_max_iter(max_iter)
     z, it = z0.clone(), 0
     if d == 0:
         max_iter = 0
     tol_x = float(torch.tensor(tol, dtype=x.dtype))
-    sq = center_sq_dists_plain(x, z) if max_iter else None
+    masked = mode == "masked_weiszfeld"
+    sq = center_sq_dists_plain(x, z) if max_iter and not masked else None
     while it < max_iter:
-        w, alpha = _center_weights_from(sq, n, mode=mode, eps=eps, c_tau=c_tau)
-        zn = center_sweep_plain(x, z, w, alpha)
+        if masked:
+            zn = _masked_center_step(x, z, valid, eps)
+        else:
+            w, alpha = _center_weights_from(sq, n, mode=mode, eps=eps, c_tau=c_tau)
+            zn = center_sweep_plain(x, z, w, alpha)
         it += 1
         if it == max_iter:
             z = zn
             break
-        if mode == "weiszfeld":
-            e = _center_round(zn.float() - z.float(), x.dtype)
-            s = _center_order_sum(_center_round(e * e, x.dtype)[None])[0]
-            delta = _center_round(torch.sqrt(_center_round(s, x.dtype)), x.dtype)
-            if not bool(delta > tol_x):
-                z = zn
-                break
+        if mode != "clip" and not bool(_center_delta(zn, z) > tol_x):
+            z = zn
+            break
         z = zn
-        sq = center_sq_dists_plain(x, z)
+        if not masked:
+            sq = center_sq_dists_plain(x, z)
     return z, torch.tensor(it, dtype=torch.int32, device=x.device)
 
 

@@ -28,11 +28,12 @@ aggregates the valid rows of a padded matrix with the cohort size on the
 device; its row contractions are B11, its column sorts B2 (see the
 section's notes).
 
-``geometric_median`` and ``centered_clipping`` run their whole loop in one
-B7 launch on the card (the geometric median then reads its iteration
-count); CAF runs its passes on the host, reading each pass's stopping
-test, as do the masked Weiszfeld loop's iterations. :data:`last_iterations`
-keeps the last call's count of each.
+``geometric_median``, ``centered_clipping`` and ``masked_geometric_median``
+run their whole loop in one B7 launch on the card (the unmasked geometric
+median then reads its iteration count, except while captured); CAF runs a
+fixed number of passes, each a no-op after the reference's loop would
+have stopped, and reads nothing on the host. :data:`last_iterations` keeps
+the last call's count of each.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ import torch
 from . import kernels
 
 # iterations the last call of each loop took: Weiszfeld steps of
-# geometric_median, filter passes of caf
+# geometric_median (an int after an eager unmasked call, else a 0-d device
+# tensor: read it with int()), filter passes of caf (a 0-d device tensor)
 last_iterations = {"geometric_median": 0, "caf": 0}
 
 
@@ -328,8 +330,19 @@ def caf(
     residual direction until at most ``n - 2f`` weight remains; return the
     mean seen at the smallest dominant eigenvalue (ref:
     ``aggregators/norm_wise/caf.py:140-185``). Plain PyTorch, as the JAX
-    package leaves it to XLA; the pass loop runs on the host, at most
-    ``4n`` passes.
+    package leaves it to XLA, and no value read on the host, so a step
+    that calls it can be captured in a CUDA graph.
+
+    The reference's ``while_loop`` runs while ``~stop & (sum(w) > n - 2f) &
+    (it < 4n)``. Here a fixed ``min(2f, 4n)`` passes run, each applying its
+    update where that condition holds on the device and keeping the state
+    (``torch.where``) where it does not, so a pass after the stop changes
+    no bit. The bound: each pass zeroes the surviving row of largest
+    leverage (``tau / tau_max`` is exactly 1 there) and no weight grows past
+    1, so after ``p`` passes ``sum(w) <= n - p`` (a rounded sum of values at
+    most 1 stays at most their count) and the condition fails by pass
+    ``2f``; a NaN weight fails it at once. :data:`last_iterations` keeps the
+    passes that applied, a 0-d device tensor.
 
     The power iteration starts from ``v_init``, a raw ``(d,)`` draw that
     is normalized here. The JAX package draws it with
@@ -363,12 +376,14 @@ def caf(
     best_mu = torch.mean(x, dim=0)
     best_lam = torch.full((), torch.finfo(torch.float32).max, dtype=x.dtype, device=x.device)
     stop = torch.zeros((), dtype=torch.bool, device=x.device)
-    it = 0
-    while it < 4 * n and bool(((~stop) & (torch.sum(w) > n - 2 * f)).cpu()):
+    applied = torch.zeros((), dtype=torch.int64, device=x.device)
+    # it < 4n holds on every pass: 2f < n
+    for _ in range(min(2 * f, 4 * n)):
+        active = (~stop) & (torch.sum(w) > n - 2 * f)
         mu = torch.sum(w[:, None] * x, dim=0) / torch.sum(w)
         diffs = x - mu[None, :]
         lam, vec = dominant_eigenpair(diffs, w)
-        better = lam < best_lam
+        better = active & (lam < best_lam)
         best_lam = torch.where(better, lam, best_lam)
         best_mu = torch.where(better, mu, best_mu)
         proj = diffs @ vec
@@ -377,10 +392,10 @@ def caf(
         tau_max = torch.max(torch.where(w > 0.0, tau, -float("inf")))
         degenerate = tau_max <= 1e-12
         w_new = torch.clamp(w * (1.0 - tau / tau_max.clamp(min=1e-30)), min=0.0)
-        w = torch.where(degenerate, w, w_new)
-        stop = degenerate | (torch.sum(w) <= 0.0)
-        it += 1
-    last_iterations["caf"] = it
+        w = torch.where(active & ~degenerate, w_new, w)
+        stop = torch.where(active, degenerate | (torch.sum(w) <= 0.0), stop)
+        applied = applied + active
+    last_iterations["caf"] = applied
     return best_mu
 
 
@@ -824,34 +839,21 @@ def masked_geometric_median(
 ) -> torch.Tensor:
     """Geometric median of the valid rows at the padded shape (ref
     ``masked_geometric_median``): Weiszfeld steps with every invalid row's
-    weight 0, the distances by ``kernels.row_sq_dists``, the numerator
-    ``sum_i w_i x_i`` and the denominator ``sum_i w_i`` row contractions
-    (B11), so each step and the trip count are the compacted cohort's. The
-    loop runs on the host: one read of the step length per iteration
-    (:data:`last_iterations`)."""
+    weight 0, the distances by ``kernels.row_sq_dists``' order, the
+    numerator ``sum_i w_i x_i`` and the denominator ``sum_i w_i`` B11's row
+    chains, so each step and the trip count are the compacted cohort's.
+    The loop is B7's ``masked_weiszfeld`` mode (:func:`kernels.center_loop`):
+    one launch on the card, its stopping test on the device (the step
+    length summed in B7's column order), no value read on the host;
+    :data:`last_iterations` keeps the count as a 0-d device tensor."""
     if init not in {"median", "mean"}:
         raise ValueError("init must be 'median' or 'mean'")
     _check_matrix(x)
     x = x.contiguous()
     z = _masked_median_rows(x, valid) if init == "median" else masked_mean(x, valid)
-    zprev = z
-    one = torch.ones((), dtype=torch.float32, device=x.device)
-    eps_t = torch.full((), eps, dtype=torch.float32, device=x.device)
-    ones_col = torch.ones(x.shape[0], device=x.device)
-    tol_t = torch.tensor(tol, dtype=x.dtype)
-    it = 0
-    while it < max_iter:
-        if it > 0:
-            delta = torch.sqrt(torch.sum((z - zprev) ** 2))
-            if not bool(delta.cpu() > tol_t):
-                break
-        dist = torch.sqrt(kernels.row_sq_dists(x, z))
-        w = _masked_weights(valid, one / torch.maximum(dist, eps_t), x.dtype)
-        num = _contract_rows(w, x)
-        den = _contract_rows(ones_col, w[:, None])[0]
-        z, zprev = num / den, z
-        it += 1
-    last_iterations["geometric_median"] = it
+    z, iterations = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid.contiguous(),
+                                        eps=eps, tol=tol, max_iter=max_iter)
+    last_iterations["geometric_median"] = iterations
     return z
 
 

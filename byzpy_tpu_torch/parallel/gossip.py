@@ -24,6 +24,11 @@ and ``s4`` included, exchanges uncompressed rows, as the reference's
 ``else`` branch (:233-235) does (ROADMAP C). The sharded update
 (``update_sharding``) and ``build_ring_gossip_train_step`` need a mesh
 (ROADMAP A.7).
+
+:func:`jit_gossip_train_step` is the round compiled, the counterpart of
+the reference examples' ``jax.jit(step)``
+(``examples/p2p/resnet_cifar_gossip.py:107``): one CUDA graph a signature
+(``utils/cuda_graph.py``), the node parameters donated.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from torch.func import grad_and_value, vmap
 
 from ..engine.peer_to_peer.topology import Topology
 from ..models.bundle import ModelBundle
+from ..utils.cuda_graph import CapturedStep, capture_guard
 from ..utils.trees import ravel_fn
 from .quantization import QuantizedBlocks, as_comm_precision, dequantize_blockwise, quantize_blockwise
 
@@ -147,4 +153,37 @@ def build_gossip_train_step(
     return train_step, init_stacked_params
 
 
-__all__ = ["AggFn", "AttackFn", "GossipStepConfig", "build_gossip_train_step"]
+def jit_gossip_train_step(
+    bundle: ModelBundle,
+    aggregate: AggFn,
+    topology: Topology,
+    cfg: GossipStepConfig,
+    *,
+    attack: Optional[AttackFn] = None,
+    comm_precision: Any = None,
+    donate: bool = True,
+) -> Tuple[Callable, Callable]:
+    """:func:`build_gossip_train_step` compiled: ``(step,
+    init_stacked_params)``, ``step`` a
+    :class:`~byzpy_tpu_torch.utils.cuda_graph.CapturedStep` with the train
+    step's signature ``step(theta, xs, ys, generator=None) -> (theta,
+    metrics)`` and one state argument, ``theta``.
+
+    As :func:`~byzpy_tpu_torch.parallel.ps.jit_ps_train_step` compiles the
+    PS step: on the card the first call of each input signature runs the
+    step once on copies, captures it in a CUDA graph and replays it; a
+    generator is registered with the graph; ``donate=True`` writes the new
+    ``theta`` into the graph's input buffer and returns that buffer. The
+    ``aggregate`` and ``attack`` callables are wrapped in
+    :func:`~byzpy_tpu_torch.utils.cuda_graph.capture_guard`, so a step
+    that reads the host raises ``GraphCaptureError`` naming the callable.
+    On CPU tensors ``step`` is the eager step. Each replay counts one
+    ``graph_replay:gossip_train_step``."""
+    step, init = build_gossip_train_step(
+        bundle, capture_guard(aggregate, "aggregate"), topology, cfg,
+        attack=capture_guard(attack, "attack"), comm_precision=comm_precision)
+    return CapturedStep(step, name="gossip_train_step", donate=donate, state_args=1), init
+
+
+__all__ = ["AggFn", "AttackFn", "GossipStepConfig", "build_gossip_train_step",
+           "jit_gossip_train_step"]

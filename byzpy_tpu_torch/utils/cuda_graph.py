@@ -20,16 +20,20 @@ step's ~100-1,700 launches.
   capture. Its launches are taken off ``kernels.launch_counts`` again, the
   default generator's state is restored and the caller's generator is
   never drawn from: the caller's state does not advance.
-* **Capture.** The step's new parameters and optimizer state (its
-  outputs 0 and 1) are written back into the graph's input buffers of
-  arguments 0 and 1 as the graph's last work, so a replay updates them in
-  place. The wrappers count their launches once, at the capture; each
-  replay adds one to ``kernels.launch_counts["graph_replay:<name>"]``.
+* **State.** The step's first ``state_args`` arguments are its state:
+  the PS twins' parameters and optimizer state (2), a gossip round's
+  stacked node parameters (1). The step returns the new state, shaped like
+  those arguments, then its metrics: ``(*state', metrics)``.
+* **Capture.** The new state is written back into the graph's input
+  buffers of the state arguments as the graph's last work, so a replay
+  updates them in place. The wrappers count their launches once, at the
+  capture; each replay adds one to
+  ``kernels.launch_counts["graph_replay:<name>"]``.
 * **Donation.** With ``donate=True`` the call returns those input buffers
   themselves: passed back in, they need no copy, and the previous
-  round's references are overwritten (``jax.jit``'s ``donate_argnums=(0,
-  1)``). With ``donate=False`` it returns clones. Metrics are always
-  clones.
+  round's references are overwritten (``jax.jit``'s ``donate_argnums``
+  over the state arguments). With ``donate=False`` it returns clones.
+  Metrics are always clones.
 * **Randomness.** A generator passed to the step is not captured itself:
   the graph holds a generator of its own, registered with it, whose state
   is set from the caller's before each replay and copied back after, so
@@ -200,18 +204,20 @@ class _Graph:
 
 class CapturedStep:
     """``step(*args[, generator=...])`` replayed from CUDA graphs on the card
-    (module docstring). ``step`` returns ``(args[0]', args[1]', metrics)``:
-    new parameters and optimizer state shaped like arguments 0 and 1, and
-    a structure of tensors. ``name`` keys the replay counter
-    ``graph_replay:<name>``.
+    (module docstring). ``step`` returns ``(args[0]', ..., args[k - 1]',
+    metrics)`` for ``k = state_args``: the new state shaped like the first
+    ``k`` arguments, and a structure of tensors. ``name`` keys the replay
+    counter ``graph_replay:<name>``.
 
     :attr:`graphs` holds one entry a captured signature;
     :attr:`last_capture` has the launches the last capture recorded (its
     ``kernels.launch_counts`` increments), its warm-up's and its wall
     time in ms."""
 
-    def __init__(self, step: Callable, *, name: str, donate: bool):
-        self.step, self.name, self.donate = step, name, donate
+    def __init__(self, step: Callable, *, name: str, donate: bool, state_args: int = 2):
+        if state_args < 1:
+            raise ValueError(f"state_args must be >= 1, got {state_args}")
+        self.step, self.name, self.donate, self.state_args = step, name, donate, state_args
         self.counter = f"graph_replay:{name}"
         if self.counter not in kernels.launch_counts:
             raise ValueError(f"no replay counter {self.counter!r} in kernels.launch_counts")
@@ -256,11 +262,10 @@ class CapturedStep:
         if generator is not None:
             generator.set_state(entry.generator.get_state())
         kernels.count_launch(self.counter)
-        args = _build(entry.spec, iter(entry.static_in))
-        params, opt_state = args[0], args[1]
+        state = _build(entry.spec, iter(entry.static_in))[:self.state_args]
         if not self.donate:
-            params, opt_state = _map(torch.clone, params), _map(torch.clone, opt_state)
-        return params, opt_state, _map(torch.clone, entry.outputs)
+            state = tuple(_map(torch.clone, s) for s in state)
+        return (*state, _map(torch.clone, entry.outputs))
 
     # -- capture ------------------------------------------------------------
 
@@ -304,7 +309,10 @@ class CapturedStep:
             graph.capture_begin(capture_error_mode="global")
             try:
                 out = self.step(*args, **self._gen_kw(own))
-                for i in (0, 1):
+                if len(out) != self.state_args + 1:
+                    raise ValueError(f"{self.name} returned {len(out)} values, not its "
+                                     f"{self.state_args} state(s) and metrics")
+                for i in range(self.state_args):
                     new, _ = _leaves(out[i])
                     old, _ = _leaves(args[i])
                     if len(new) != len(old):
@@ -329,7 +337,7 @@ class CapturedStep:
                     if v != counts.get(k, 0)}
         self.last_capture = {"launches": recorded, "warmup_launches": warmup,
                              "ms": (time.perf_counter() - t0) * 1e3}
-        return _Graph(graph, static_in, spec, out[2], own)
+        return _Graph(graph, static_in, spec, out[self.state_args], own)
 
 
 def _map(fn: Callable, tree: Any) -> Any:

@@ -16,7 +16,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    1 to 128 on odd d, at the main path's shape and at the headline; B3 Gram, B4 selection mean in its
    krum / cge / monna modes, B5 selection mean from a given Gram, B6
    MeaMed, B7's loop kernel (whole Weiszfeld and centred-clipping loops
-   and their one-step phases, bit for bit with the iteration counts), B8
+   and their one-step phases, bit for bit with the iteration counts; its
+   masked Weiszfeld mode bit for bit with the count in f32, bf16 and f16
+   at 8, 64 and 128 rows of 50,001 with padding rows, padded equal to
+   compacted, and on rows holding NaN and +-inf), B8
    NNM, B9 NNM ->
    selection mean (its weights also on rows repeated in threes at 64 and
    128 rows, in all three modes), B10 clip / ARC -> selection mean) against its plain
@@ -51,7 +54,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    Multi-Krum, (e) ARC + Multi-Krum, and MeaMed (f=2), the geometric
    median, centred clipping (M=10), CGE (f=2), MoNNA (f=2) and CAF (f=2)
    (the geometric median and centred clipping exactly one B7 launch a
-   step, their host reads per aggregation counted: at most 1 and 0);
+   step, their host reads per aggregation counted: at most 1 and 0; CAF's
+   fixed passes 0);
    then through the operator classes: Multi-Krum, trimmed mean and CGE
    folded gradient by gradient in a seeded arrival order (the Multi-Krum
    finalize runs B5 and no Gram), ``CoordinateWiseMedian().aggregate`` of
@@ -85,8 +89,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    client one round stale and every fourth byzantine, padded by
    ``build_cohort`` and stepped by ``build_serving_ps_step`` through the
    masked trimmed mean, median, Multi-Krum, MeaMed, CGE, centred clipping
-   and geometric median: exactly their listed launches (B2, B3, B11 and
-   the row reduction; never B1, B4, B6 or B7), the padded step bit for bit
+   and geometric median: exactly their listed launches (B2, B3, B11, the
+   row reduction and B7's masked mode, one launch a geometric-median step;
+   never B1, B4, B6 or B7's unmasked modes), the padded step bit for bit
    the compacted one, ``CohortAggregator`` the step's aggregate, host
    reads per step counted; then (4d) the ragged door: (m)
    ``build_ragged_serving_ps_step`` on the same cohorts in a flat capacity
@@ -116,10 +121,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
    MeaMed) and the ragged step at capacity 64 (trimmed mean, cohorts of 6
    to 64 rows in one graph), each also equal to ``CohortAggregator``; host
    and device ms, host-issued and device launches a step, eager beside
-   compiled, and the capture's launches and wall ms; (y) MDA, CAF, the
-   masked geometric median and influence ascent through a twin: each
-   capture refused with ``GraphCaptureError`` naming the host-reading
-   callable; then (4f) the engine, every await bounded: (a) BASELINE
+   compiled, and the capture's launches and wall ms; (y) MDA and influence
+   ascent through a twin: each capture refused with ``GraphCaptureError``
+   naming the host-reading callable; CAF (fixed passes) in the PS step and
+   the masked geometric median (B7's masked mode) in the serving step at
+   bucket 64: each captured, 5 compiled steps bit for bit the eager ones,
+   no host read a compiled step or an eager aggregation; then (4f) the
+   engine, every await bounded: (a) BASELINE
    config #1, ``CoordinateWiseMedian`` on 10 x 100,000 as a
    single-operator graph under ``NodeScheduler`` on a thread and a cuda
    actor pool of 4 (16 chunks of 6,250 columns: exactly 16 B1 launches,
@@ -164,7 +172,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
    its node's vectors in arrival order; (e)
    ``examples/p2p/decentralized_autonomous.py``'s cluster (spread <
    0.15); (f) ``HeartbeatPolicy`` removing a peer that stopped answering,
-   the rounds after it the bits of a run without the peer;
+   the rounds after it the bits of a run without the peer; then (4h)
+   BASELINE config #4 at ``examples/p2p/resnet_cifar_gossip.py``'s shape
+   (ResNet-18 at 64 filters, d = 11,173,962, GroupNorm with gcd(32, 64)
+   groups; 8 nodes on ring(8, 2), node 7 byzantine, 32 images a node from
+   4 rotating batches, lr 0.05; NNM f = 1 then ``geometric_median(max_iter
+   = 32)``) through ``jit_gossip_train_step`` with cuDNN's deterministic
+   algorithms: the example's 10 compiled steps, the first 5 bit for bit
+   the eager steps (theta and the honest loss), the capture exactly 8
+   launches each of B3, B8's two kernels, B1 and B7 and one
+   ``graph_replay:gossip_train_step`` a step; the same graph on to step 40,
+   the honest loss of steps 37-40 below step 1's (lr 0.05 overshoots first
+   at this width, in the reference too); then 5 steps
+   with a Gaussian attack drawn from the step's generator, bit for bit;
+   host ms eager and compiled, the graph's span, peak memory, the
+   per-node forward and backward's and B7's device ms, each node's
+   Weiszfeld count read after each replay;
 5. kernel timing at 64 x 1,048,576 f32 (and at the main path's 8 x
    421,642; B1, B6 (f = 40) and B9's weights also at 128 x 421,642, the
    engine's two runs and merge and the weights block's largest tile; B6 and
@@ -176,7 +199,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the barrier Multi-Krum, the codecs at block 256, B2, B11 and the row
    reduction at the headline and at 64 x 421,642, B16 and B17, B12 at 64 x
    1,048,576 (C = 1) and 128 x 421,642 (C = 4) beside the unfused decode +
-   B11, and the ragged door's segmented sort beside B2; the segmented
+   B11, B7's masked mode (10 forced steps, 3 of 4 rows valid) at the
+   headline and 64 x 421,642, and the ragged door's segmented sort beside
+   B2; the segmented
    sort-reduce at the (n) batch, at 4 x 32 rows in 128 and at one cohort
    of 64 in 64 x 1,048,576, beside its plain version, the generic door on
    the same batch and (at the last) B1; B7's loop at 10, 1 and 256
@@ -1106,6 +1131,96 @@ def check_masked_kernels(errs: dict) -> None:
         f"in {', '.join(DTYPES)}: bitwise equal to plain")
 
 
+# B7's masked Weiszfeld mode in phase 3: (rows, valid rows, columns)
+MASKED_LOOP_CASES = ((8, 6, 50_001), (64, 41, 50_001), (128, 100, 50_001))
+
+
+def check_masked_center_loop(errs: dict) -> None:
+    """B7's ``masked_weiszfeld`` loop against its plain version, bit for bit
+    with the iteration count, in f32, bf16 and f16 at 8, 64 and 128 rows of
+    an odd d, each with padding rows (zeros; the valid rows shuffled among
+    them), to tol 1e-6 (at most 256 steps) and 10 forced steps; then on
+    rows holding NaN and +-inf, in a valid row (the loop's centre turns
+    canonical NaN after its first step in both) and in a padding row (whose
+    weight 0 still reads it: 0 * inf is NaN, as in B11's chain); one launch
+    a loop, and the padded loop equal to the compacted one bit for bit."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels, robust
+
+    key = "center_loop:masked_weiszfeld"
+    for n, m, d in MASKED_LOOP_CASES:
+        for name in DTYPES:
+            dtype = getattr(torch, name)
+            gen = torch.Generator(device="cuda").manual_seed(900 + n)
+            x = torch.zeros((n, d), device="cuda")
+            x[:m] = masked_rows((m, d), 900 + n, torch.float32, specials=False)
+            x = x[torch.randperm(n, generator=gen, device="cuda")].to(dtype).contiguous()
+            valid = (x != 0).any(dim=1)
+            check(int(valid.sum()) == m, f"B7 masked: {int(valid.sum())} valid rows, not {m}")
+            z0 = robust._masked_median_rows(x, valid)
+            steps = []
+            for tol, max_iter in ((1e-6, 256), (-1.0, 10)):
+                kw = dict(mode="masked_weiszfeld", valid=valid, tol=tol, max_iter=max_iter)
+                before = dict(kernels.launch_counts)
+                out, its = kernels.center_loop(x, z0, **kw)
+                launched = {k: v - before[k] for k, v in kernels.launch_counts.items()
+                            if v != before[k]}
+                check(launched == {key: 1}, f"B7 masked loop at {(n, d)} {name} launched {launched}")
+                ref, its_p = kernels.center_loop_plain(x, z0, **kw)
+                check(int(its) == int(its_p),
+                      f"B7 masked loop at {(n, d)} {name}: {int(its)} steps, plain {int(its_p)}")
+                check(bits_equal(out, ref) and nan_is_canonical(out),
+                      f"B7 masked loop differs from plain at {(n, d)} {name} ({int(its)} steps)")
+                errs[key] = max(errs[key], max_abs_err(out, ref))
+                steps.append(int(its))
+            keep = valid.nonzero()[:, 0]
+            compact, its_c = kernels.center_loop(
+                x.index_select(0, keep).contiguous(), z0, mode="masked_weiszfeld",
+                valid=torch.ones(m, dtype=torch.bool, device="cuda"))
+            out, its = kernels.center_loop(x, z0, mode="masked_weiszfeld", valid=valid)
+            check(bits_equal(out, compact) and int(its) == int(its_c),
+                  f"B7 masked loop at {(n, d)} {name}: padded differs from compacted")
+            log(f"  B7 masked_weiszfeld {(n, d)} ({m} valid) {name}: {steps[0]} steps to tol "
+                f"1e-6 and {steps[1]} forced, one launch each, bitwise equal to plain with the "
+                f"counts; padded == compacted")
+            del x, valid, z0, out, ref, compact
+        torch.cuda.empty_cache()
+    for name in DTYPES:
+        dtype = getattr(torch, name)
+        for case in ("valid_row", "padding_row"):
+            x = torch.zeros((64, 50_001), device="cuda")
+            x[:41] = masked_rows((41, 50_001), 77, torch.float32, specials=False)
+            valid = torch.zeros(64, dtype=torch.bool, device="cuda")
+            valid[:41] = True
+            row = 5 if case == "valid_row" else 50
+            x[row, 17], x[row, 18], x[row, 19] = float("nan"), float("inf"), -float("inf")
+            x = x.to(dtype)
+            z0 = robust._masked_median_rows(x, valid)
+            out, its = kernels.center_loop(x, z0, mode="masked_weiszfeld", valid=valid, max_iter=10)
+            ref, its_p = kernels.center_loop_plain(x, z0, mode="masked_weiszfeld", valid=valid,
+                                                   max_iter=10)
+            # a valid row's NaN weight reaches every column; a padding row's
+            # weight 0 meets its NaN and +-inf entries only
+            nan = torch.isnan(out)
+            want = (bool(nan.all()) if case == "valid_row"
+                    else nan.nonzero()[:, 0].tolist() == [17, 18, 19])
+            check(want and nan_is_canonical(out) and int(its) == 1 and bits_equal(out, ref)
+                  and int(its_p) == 1,
+                  f"B7 masked loop with NaN and +-inf in a {case} in {name}: {int(its)} steps "
+                  f"(plain {int(its_p)}), NaN at {nan.nonzero()[:8, 0].tolist()}")
+        log(f"  B7 masked_weiszfeld {name}: NaN and +-inf in a valid row make the centre canonical "
+            f"NaN, in a padding row its three columns; the loop stops after one step, bitwise "
+            f"the plain version")
+    try:
+        kernels.center_loop(torch.zeros((129, 16), device="cuda"), torch.zeros(16, device="cuda"),
+                            mode="masked_weiszfeld", valid=torch.ones(129, dtype=torch.bool,
+                                                                      device="cuda"))
+        check(False, "B7's masked mode took n = 129")
+    except NotImplementedError:
+        pass
+
+
 # B11's cohort counts in phase 3: one, the executor's four, a full tile of 8
 # and 17 (two tiles of 16)
 B11_COHORTS = (1, 4, 8, 17)
@@ -1737,6 +1852,8 @@ def main_path(counts: dict) -> dict:
     centre_loops = {"geometric_median": ("center_loop:weiszfeld", 1),
                     "centered_clipping": ("center_loop:clip", 0)}
     host_reads = {name: [] for name in centre_loops}
+    # CAF's fixed passes read nothing on the host
+    host_reads["caf"] = []
     # the subset-search aggregations' host reads: exactly this many a call
     subset_reads = {name: cfg[3] for name, cfg in SUBSET_ATTACK_CONFIGS.items() if cfg[3] is not None}
     host_reads.update({name: [] for name in subset_reads})
@@ -1805,7 +1922,7 @@ def main_path(counts: dict) -> dict:
             def run():
                 state[0], state[1], metrics = step(state[0], state[1], xs, ys)
                 if name in loops:
-                    metrics["iterations"] = robust.last_iterations[loops[name]]
+                    metrics["iterations"] = int(robust.last_iterations[loops[name]])
                 subset.after_step(name, dev, metrics)
                 return metrics
 
@@ -1834,6 +1951,10 @@ def main_path(counts: dict) -> dict:
             reads = host_reads[name]
             check(len(reads) >= MAIN_STEPS and max(reads) <= most,
                   f"{name}: host reads per aggregation {reads}, more than {most}")
+        if name == "caf":
+            reads = host_reads[name]
+            check(len(reads) >= MAIN_STEPS and max(reads) == 0,
+                  f"caf: host reads per aggregation {reads}, not 0")
         if name in SUBSET_ATTACK_CONFIGS:
             per_step = SUBSET_ATTACK_CONFIGS[name][2]
             moved = {k: v for k, v in run_counts.items() if v}
@@ -2088,11 +2209,10 @@ def serving_configs() -> dict:
         # and the step
         "serve_centered_clipping": (lambda dev: CenteredClipping(c_tau=MAIN_CTAU, M=10, device=dev),
                                     lambda it: {"row_sq_dists": 10, "segment_sum": 11}),
-        # the start (the masked median), then per Weiszfeld iteration the
-        # distances, the numerator and the denominator
+        # the start (the masked median), then the whole Weiszfeld loop in
+        # one launch of B7's masked mode
         "serve_geometric_median": (lambda dev: GeometricMedian(device=dev),
-                                   lambda it: {"sort_columns": 1, "row_sq_dists": it,
-                                               "segment_sum": 2 * it}),
+                                   lambda it: {"sort_columns": 1, "center_loop:masked_weiszfeld": 1}),
     }
 
 
@@ -2213,7 +2333,7 @@ def serving_path(counts: dict) -> dict:
             torch.cuda.synchronize()
             metrics = dict(metrics, m=m, bucket=cohort.bucket, host_reads=reads,
                            serve_ms=(time.perf_counter() - t0) * 1e3, honest_loss=loss,
-                           iterations=robust.last_iterations["geometric_median"])
+                           iterations=int(robust.last_iterations["geometric_median"]))
             if len(record) < MAIN_STEPS:
                 record.append((inputs, cohort, params, opt, metrics))
             state.update(prev=state["params"], params=params, opt=opt, s=s + 1)
@@ -2266,7 +2386,7 @@ def serving_path(counts: dict) -> dict:
             on_cpu = lambda t: {k: v.cpu() for k, v in t.items()}  # noqa: E731
             p_cpu, _, _ = cpu_step(on_cpu(params), on_cpu(opt), matrix.cpu(), valid.cpu(),
                                    weights.cpu())
-            cpu_iters.append(robust.last_iterations["geometric_median"])
+            cpu_iters.append(int(robust.last_iterations["geometric_median"]))
             g, c = ravel(p_pad).cpu(), ravel(p_cpu)
             diff = (g - c).abs()
             share = float((diff / (PARAM_ATOL + PARAM_RTOL * c.abs())).max())
@@ -3006,17 +3126,17 @@ def compiled_serving(counts: dict) -> dict:
 
 
 def compiled_refusals() -> dict:
-    """(y) host-reading callables through a twin: each capture raises
-    ``GraphCaptureError`` naming the callable's role, and nothing replays."""
+    """(y) host-reading callables through a twin: MDA's branch-and-bound
+    and influence ascent's state machine read the host by design, so each
+    capture raises ``GraphCaptureError`` naming the callable's role, and
+    nothing replays."""
     import torch
 
-    from byzpy_tpu_torch.aggregators import GeometricMedian, MinimumDiameterAveraging
+    from byzpy_tpu_torch.aggregators import MinimumDiameterAveraging
     from byzpy_tpu_torch.attacks import InfluenceAscentAttack
     from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
     from byzpy_tpu_torch.ops import kernels, robust
-    from byzpy_tpu_torch.parallel import (
-        PSStepConfig, adaptive_attack_rows, jit_ps_train_step, jit_serving_ps_step,
-    )
+    from byzpy_tpu_torch.parallel import PSStepConfig, adaptive_attack_rows, jit_ps_train_step
     from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
 
     cfg = PSStepConfig(n_nodes=MAIN_N, n_byzantine=MAIN_BYZ)
@@ -3027,25 +3147,17 @@ def compiled_refusals() -> dict:
     atk = InfluenceAscentAttack(d)
     cases = {
         "mda": (lambda: jit_ps_train_step(bundle, MinimumDiameterAveraging(MAIN_BYZ).matrix_fn(), cfg),
-                "aggregate", "ps"),
-        "caf": (lambda: jit_ps_train_step(bundle, lambda m: robust.caf(m, f=MAIN_BYZ), cfg),
-                "aggregate", "ps"),
-        "masked_geometric_median": (lambda: jit_serving_ps_step(
-            bundle, GeometricMedian().masked_matrix_fn()), "masked_aggregate", "serving"),
+                "aggregate"),
         "influence_ascent": (lambda: jit_ps_train_step(
             bundle, robust.coordinate_median, cfg,
-            attack=lambda h, g: adaptive_attack_rows(atk, MAIN_BYZ, honest=h)), "attack", "ps"),
+            attack=lambda h, g: adaptive_attack_rows(atk, MAIN_BYZ, honest=h)), "attack"),
     }
-    matrix = torch.randn((16, d), device="cuda")
-    valid = torch.ones(16, dtype=torch.bool, device="cuda")
     results = {}
-    for name, (make, role, kind) in cases.items():
+    for name, (make, role) in cases.items():
         step, opt0 = make()
-        args = ((bundle.params, opt0, xs, ys) if kind == "ps"
-                else (bundle.params, opt0, matrix, valid, valid.float()))
         kernels.reset_launch_counts()
         try:
-            step(*args)
+            step(bundle.params, opt0, xs, ys)
             raised = None
         except GraphCaptureError as exc:
             raised = str(exc)
@@ -3061,9 +3173,83 @@ def compiled_refusals() -> dict:
     return results
 
 
+def compiled_host_free(counts: dict) -> dict:
+    """(y) the two loops that no longer read the host:
+    CAF (f = 2, fixed passes, a seeded start vector) in the PS step and the
+    masked geometric median (B7's masked mode) in the serving step at
+    bucket 64 (41 valid rows): each twin captures, its 5 compiled steps
+    equal the eager steps bit for bit, and a compiled step and the eager
+    aggregate read nothing on the host."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import GeometricMedian
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import (
+        PSStepConfig, build_serving_ps_step, jit_serving_ps_step,
+    )
+
+    cfg = PSStepConfig(n_nodes=MAIN_N, n_byzantine=MAIN_BYZ)
+    x, y = synthetic_classification(n_samples=MAIN_N * MAIN_BATCH, seed=3, device="cuda")
+    xs, ys = x.reshape(MAIN_N, MAIN_BATCH, 28, 28, 1), y.reshape(MAIN_N, MAIN_BATCH)
+    results = {}
+    bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    v0 = torch.randn((d,), generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+
+    def caf(m):
+        return robust.caf(m, f=MAIN_BYZ, v_init=v0)
+
+    eager, compiled, state0 = ps_twins(
+        bundle, caf, cfg, attack=lambda honest, g: attack_ops.sign_flip(honest.mean(dim=0)))
+    res = compiled_vs_eager("(y) CAF (f = 2), PS step", eager, compiled, state0,
+                            lambda s: (xs, ys), [], counts)
+    p, o = res.pop("first_eager_state")[:2]
+    _, reads = count_syncs(lambda: compiled(p, o, xs, ys))
+    matrix = torch.randn((MAIN_N, d), device="cuda")
+    _, agg_reads = count_syncs(lambda: caf(matrix))
+    passes = int(robust.last_iterations["caf"])
+    check(reads == 0 and agg_reads == 0,
+          f"(y) CAF: {reads} host reads a compiled step, {agg_reads} an eager aggregation")
+    res.update(host_reads_compiled_step=reads, host_reads_eager_aggregate=agg_reads,
+               passes_applied_on_a_normal_matrix=passes)
+    log(f"    (y) CAF: host reads a compiled step {reads}, an eager aggregation {agg_reads} "
+        f"({passes} of {2 * MAIN_BYZ} passes applied on a normal 8 x {d} matrix)")
+    results["caf"] = res
+    rows = 64
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    matrix = torch.zeros((rows, d), device="cuda")
+    matrix[:41] = torch.randn((41, d), generator=gen, device="cuda")
+    valid = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    valid[:41] = True
+    fn = GeometricMedian().masked_matrix_fn()
+    eager, opt0 = build_serving_ps_step(bundle, fn)
+    compiled, _ = jit_serving_ps_step(bundle, fn)
+    res = compiled_vs_eager("(y) masked geometric median, serving step at bucket 64 (41 rows)",
+                            eager, compiled, (bundle.params, opt0),
+                            lambda s: (matrix, valid, valid.float()),
+                            ["sort_columns", "center_loop:masked_weiszfeld"], counts)
+    p, o = res.pop("first_eager_state")[:2]
+    _, reads = count_syncs(lambda: compiled(p, o, matrix, valid, valid.float()))
+    _, agg_reads = count_syncs(lambda: fn(matrix, valid))
+    its = int(robust.last_iterations["geometric_median"])
+    check(reads == 0 and agg_reads == 0,
+          f"(y) masked geometric median: {reads} host reads a compiled step, {agg_reads} an "
+          f"eager aggregation")
+    res.update(host_reads_compiled_step=reads, host_reads_eager_aggregate=agg_reads,
+               weiszfeld_iterations=its)
+    log(f"    (y) masked geometric median: host reads a compiled step {reads}, an eager "
+        f"aggregation {agg_reads}; {its} Weiszfeld iterations")
+    results["masked_geometric_median"] = res
+    del bundle, eager, compiled
+    torch.cuda.empty_cache()
+    return results
+
+
 def compiled_path(counts: dict) -> dict:
     """Phase 4e: the compiled steps (u)-(x) against their eager steps, bit
-    for bit, with cuDNN's deterministic algorithms, then the refusals (y)."""
+    for bit, with cuDNN's deterministic algorithms, then (y) the refusals
+    and the two host-free loops' captures."""
     import torch
 
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
@@ -3073,12 +3259,212 @@ def compiled_path(counts: dict) -> dict:
                "v_resnet18_multi_krum": compiled_resnet18(counts),
                "w_smallcnn": compiled_smallcnn(counts),
                "x_serving": compiled_serving(counts),
-               "y_refusals": compiled_refusals()}
+               "y_refusals": compiled_refusals(),
+               "y_host_free": compiled_host_free(counts)}
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     for part in ("u_resnet50_config5", "v_resnet18_multi_krum"):
         out[part].pop("first_eager_state", None)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: BASELINE config #4, the compiled gossip round
+# ---------------------------------------------------------------------------
+
+# examples/p2p/resnet_cifar_gossip.py: ResNet-18 at 64 filters (GroupNorm
+# with gcd(32, 64) = 32 groups), 8 nodes on ring(8, 2), node 7 byzantine,
+# 32 images a node from 4 rotating batches, lr 0.05, NNM (f = 1) then the
+# geometric median (max_iter = 32), 10 steps
+C4_NODES, C4_BYZ, C4_BATCH, C4_LR, C4_FILTERS = 8, 1, 32, 0.05, 64
+C4_BATCHES, C4_STEPS = 4, 10
+# the same graph replayed on to this step for the loss check: at full width
+# lr 0.05 overshoots first (the reference's one-node SGD step too,
+# tests/test_torch_gossip_config4.py), so step 10's loss is above step 1's;
+# on an H100 it fell below step 1's from step 25 on
+C4_TRAIN_STEPS = 40
+# the attacked run: the byzantine node broadcasts N(0, 0.1^2) coordinates
+# drawn from the step's generator
+C4_SIGMA = 0.1
+# each node's aggregate, captured once: B3's Gram and B8's two kernels
+# (NNM), B1 (the median start) and B7's Weiszfeld loop
+C4_CAPTURE = {"gram": C4_NODES, "nnm_weights": C4_NODES, "mix_rows": C4_NODES,
+              "sorted_reduce:median": C4_NODES, "center_loop:weiszfeld": C4_NODES}
+
+
+def config4_path(counts: dict, smi: str) -> dict:
+    """Phase 4h: BASELINE config #4 at full width through the port's
+    compiled gossip step (``jit_gossip_train_step``, the example's
+    ``jax.jit(step)``), with cuDNN's deterministic algorithms: 5 eager steps
+    from ``init_stacked_params()``, then 10 compiled steps from the same
+    start with the counts set to 0 just before and read just after, the
+    first 5 equal to the eager steps bit for bit (``theta`` and the honest
+    loss), the capture exactly ``C4_CAPTURE``'s launches and a replay a
+    step; the same graph replayed on to step ``C4_TRAIN_STEPS``, the honest
+    loss of its last 4 steps (a cycle of the batches) below step 1's; then
+    the same
+    with a Gaussian attack drawn from the step's generator (5 steps each,
+    bitwise, the generators' states equal). Each node's Weiszfeld count is
+    read from the graph's own buffers after each replay."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.models import GroupNorm, ShardedDataset, cifar_resnet18, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, kernels, preagg, robust
+    from byzpy_tpu_torch.parallel import GossipStepConfig, build_gossip_train_step, jit_gossip_train_step
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    norm = functools.partial(GroupNorm, num_groups=math.gcd(32, C4_FILTERS))
+    bundle = cifar_resnet18(seed=0, device="cuda", norm=norm)
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    check(d == 11_173_962, f"config #4's ResNet-18 has d={d}")
+    x, y = synthetic_classification(n_samples=C4_NODES * C4_BATCH * C4_BATCHES,
+                                    input_shape=(32, 32, 3), seed=0, device="cuda")
+    xs_all, ys_all = ShardedDataset(x, y, n_nodes=C4_NODES).stacked_shards()
+
+    def batch_at(s):
+        start = (s % C4_BATCHES) * C4_BATCH
+        return xs_all[:, start:start + C4_BATCH], ys_all[:, start:start + C4_BATCH]
+
+    # each node's Weiszfeld count: ints in eager steps, the graph's 0-d
+    # buffers while capturing
+    eager_iters, captured_iters = [], []
+
+    def aggregate(m):
+        mixed = preagg.nnm(m, f=min(C4_BYZ, m.shape[0] - 1))
+        z = robust.geometric_median(mixed, max_iter=32)
+        its = robust.last_iterations["geometric_median"]
+        (captured_iters if torch.cuda.is_current_stream_capturing() else eager_iters).append(its)
+        return z
+
+    topo, cfg = Topology.ring(C4_NODES, 2), GossipStepConfig(C4_NODES, C4_BYZ, C4_LR)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def median(v):
+        return sorted(v)[len(v) // 2]
+
+    results = {"d": d, "groups": math.gcd(32, C4_FILTERS), "nvidia_smi": smi}
+    for attacked in (False, True):
+        label = "attacked" if attacked else "plain"
+        attack = None
+        if attacked:
+            def attack(honest, g):
+                return attack_ops.gaussian(g, (honest.shape[1],), sigma=C4_SIGMA, device=honest.device)
+        eager, init = build_gossip_train_step(bundle, aggregate, topo, cfg, attack=attack)
+        compiled, cinit = jit_gossip_train_step(bundle, aggregate, topo, cfg, attack=attack)
+        steps = C4_TRAIN_STEPS if not attacked else COMPILED_STEPS
+        gen_e = torch.Generator(device="cuda").manual_seed(17) if attacked else None
+        gen_c = torch.Generator(device="cuda").manual_seed(17) if attacked else None
+        kw_e = {} if gen_e is None else {"generator": gen_e}
+        kw_c = {} if gen_c is None else {"generator": gen_c}
+        eager_iters.clear()
+        e_states, e_times, theta = [], [], init()
+        for s in range(COMPILED_STEPS):
+            (theta, m), ms = synced(lambda: eager(theta, *batch_at(s), **kw_e))
+            e_states.append((theta, m["honest_loss"], None if gen_e is None else gen_e.get_state()))
+            e_times.append(ms)
+        e_iters = [list(eager_iters[i:i + C4_NODES]) for i in range(0, len(eager_iters), C4_NODES)]
+        captured_iters.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        c_times, c_losses, c_iters, theta = [], [], [], cinit()
+        for s in range(steps):
+            (theta, m), ms = synced(lambda: compiled(theta, *batch_at(s), **kw_c))
+            c_times.append(ms)
+            c_losses.append(float(m["honest_loss"]))
+            c_iters.append([int(t) for t in captured_iters])
+            if s < COMPILED_STEPS:
+                te, le, ge = e_states[s]
+                check(bits_equal(theta, te) and bits_equal(m["honest_loss"], le),
+                      f"(4h) {label}: compiled step {s + 1} differs from the eager step")
+                if gen_c is not None:
+                    check(torch.equal(gen_c.get_state(), ge),
+                          f"(4h) {label}: the generators differ after step {s + 1}")
+        run_counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        capture = compiled.last_capture
+        check(len(compiled.graphs) == 1, f"(4h) {label}: {len(compiled.graphs)} graphs captured")
+        check(capture["launches"] == C4_CAPTURE,
+              f"(4h) {label}: the capture recorded {capture['launches']}, not {C4_CAPTURE}")
+        want = {**C4_CAPTURE, compiled.counter: steps}
+        check(run_counts == want, f"(4h) {label}: launches {run_counts}, not {want}")
+        for k, v in want.items():
+            counts[k] += v
+        check(all(map(math.isfinite, c_losses)), f"(4h) {label}: losses not finite {c_losses}")
+        check(len(captured_iters) == C4_NODES and all(1 <= it <= 32 for row in c_iters for it in row),
+              f"(4h) {label}: Weiszfeld counts {c_iters}")
+        res = {"bitwise_steps": COMPILED_STEPS, "compiled_steps": steps, "losses": c_losses,
+               "eager_host_ms": median(e_times[1:]), "eager_first_ms": e_times[0],
+               "compiled_host_ms": median(c_times[1:]), "compiled_first_ms": c_times[0],
+               "capture": {"ms": capture["ms"], "launches": capture["launches"],
+                           "warmup_launches": capture["warmup_launches"]},
+               "weiszfeld_iterations_compiled": c_iters, "weiszfeld_iterations_eager": e_iters}
+        if not attacked:
+            check(max(c_losses[-C4_BATCHES:]) < c_losses[0],
+                  f"(4h) the honest loss did not fall by step {steps}: {c_losses}")
+            res["loss_step10_below_step1"] = c_losses[C4_STEPS - 1] < c_losses[0]
+            xs, ys = batch_at(steps - 1)
+            state = [theta]
+
+            def replay():
+                state[0], _ = compiled(state[0], xs, ys)
+
+            th = e_states[-1][0]
+            e_prof = profile_host_device(lambda: eager(th, xs, ys), steps=2)
+            c_prof = profile_host_device(replay, steps=3)
+            b7 = c_prof["port_kernels"].get("center_loop_kernel")
+            names = list(bundle.params)
+            sizes = [int(bundle.params[k].numel()) for k in names]
+            stacked = {k: p.reshape(C4_NODES, *bundle.params[k].shape)
+                       for k, p in zip(names, torch.split(th, sizes, dim=1))}
+            half = vmap(grad_and_value(bundle.loss_fn), in_dims=(0, 0, 0))
+            fwd_bwd = profile_host_device(lambda: half(stacked, xs, ys), steps=2)
+            res.update(
+                eager_span_ms=span_ms(lambda: eager(th, xs, ys)), compiled_span_ms=span_ms(replay),
+                eager_profile=e_prof, compiled_profile=c_prof,
+                eager_busy=e_prof["device_ms_per_step"] / res["eager_host_ms"],
+                compiled_busy=c_prof["device_ms_per_step"] / res["compiled_host_ms"],
+                per_node_forward_backward_device_ms=fwd_bwd["device_ms_per_step"],
+                per_node_forward_backward_top=fwd_bwd["top"],
+                b7_device_ms_per_step=None if b7 is None else b7[0],
+                b7_launches_per_step=None if b7 is None else b7[1],
+                b7_device_ms_per_launch=None if not b7 or not b7[1] else b7[0] / b7[1],
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+            log(f"  (4h) config #4 at d = {d} ({results['groups']} groups), {smi}: host ms a step eager "
+                f"{res['eager_host_ms']:.3f} / compiled {res['compiled_host_ms']:.3f} (first "
+                f"{res['eager_first_ms']:.1f} / {res['compiled_first_ms']:.1f} with the capture's "
+                f"{capture['ms']:.1f}); span (CUDA events) {res['eager_span_ms']:.3f} / "
+                f"{res['compiled_span_ms']:.3f} ms; device ms {e_prof['device_ms_per_step']:.3f} / "
+                f"{c_prof['device_ms_per_step']:.3f}, busy {res['eager_busy']:.3f} / "
+                f"{res['compiled_busy']:.3f}; host-issued launches {e_prof['host_issued_per_step']:.1f}"
+                f" / {c_prof['host_issued_per_step']:.1f}; peak {res['peak_memory_gib']:.2f} GiB; "
+                f"per-node forward and backward {fwd_bwd['device_ms_per_step']:.3f} device ms; B7 "
+                f"at 3 x {d}: {res['b7_device_ms_per_launch']} device ms a launch ({b7})")
+            log(f"    (4h) losses {[round(v, 4) for v in c_losses]} (step 1 {c_losses[0]:.4f}, "
+                f"step {C4_STEPS} {c_losses[C4_STEPS - 1]:.4f}, steps {steps - C4_BATCHES + 1}-{steps} "
+                f"at most {max(c_losses[-C4_BATCHES:]):.4f}); capture launches {capture['launches']}; "
+                f"Weiszfeld counts per node and step (compiled) {c_iters}, eager {e_iters}")
+            log(f"    (4h) eager top {json.dumps(e_prof['top'])}; compiled top "
+                f"{json.dumps(c_prof['top'])}; forward and backward top {json.dumps(fwd_bwd['top'])}")
+        else:
+            log(f"  (4h) attacked (Gaussian, sigma {C4_SIGMA}, from the step's generator): "
+                f"{COMPILED_STEPS} compiled steps == eager bitwise, generators equal; host ms "
+                f"eager {res['eager_host_ms']:.3f} / compiled {res['compiled_host_ms']:.3f}; losses "
+                f"{[round(v, 4) for v in c_losses]}; Weiszfeld counts {c_iters}")
+        results[label] = res
+        del eager, compiled, e_states, theta
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    return results
 
 
 PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kernel",
@@ -5012,12 +5398,35 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
         "device_ms": port_device_ms(lambda: kernels.row_sq_dists(x, z)),
     }
+    # B7's masked mode: LOOP_STEPS forced steps on the rows with 3 in 4
+    # valid, from their masked median. Bound: one read of x a step (and z
+    # once, the centre written once); a step's distances (sub, mul, add) and
+    # FMA chain (2 flops) on every entry. The kernel reads x twice a step
+    # (reads_bound_ms: the sweep and the distances' pass, and a first
+    # distance pass)
+    from byzpy_tpu_torch.ops import robust
+
+    valid = torch.arange(n, device="cuda") % 4 != 3
+    z0 = robust._masked_median_rows(x, valid)
+    loop = dict(mode="masked_weiszfeld", valid=valid, tol=-1.0, max_iter=LOOP_STEPS)
+    b_ms, b_by = bound_ms(LOOP_STEPS * n * d * isz + 2 * d * isz, 5 * n * d * LOOP_STEPS)
+    out["center_loop:masked_weiszfeld"] = {
+        "ms": cuda_time_ms(lambda: kernels.center_loop(x, z0, **loop), iters=5, warmup=1),
+        "plain_ms": cuda_time_ms(lambda: kernels.center_loop_plain(x, z0, **loop), iters=1,
+                                 warmup=1),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+        "valid_rows": int(valid.sum()), "steps": LOOP_STEPS,
+        "reads_bound_ms": (2 * LOOP_STEPS + 1) * n * d * isz / PEAK_BYTES_PER_S * 1e3,
+        "device_ms": port_device_ms(lambda: kernels.center_loop(x, z0, **loop), calls=3),
+    }
     for key, v in out.items():
         log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library "
             f"{v['library_ms']}" + (f", cdist {v['cdist_ms']:.4f} ms, no centre "
-                                    f"{v['no_centre_ms']:.4f} ms" if "cdist_ms" in v else ""))
-    del x, w, z
+                                    f"{v['no_centre_ms']:.4f} ms" if "cdist_ms" in v else "")
+            + (f", {v['steps']} steps (two reads of x a step: {v['reads_bound_ms']:.4f} ms)"
+               if "steps" in v else ""))
+    del x, w, z, z0, valid
     torch.cuda.empty_cache()
     return out
 
@@ -5117,7 +5526,7 @@ def aggregator_times() -> dict:
         check(bool(torch.isfinite(res).all()), f"{name}: result not finite")
         out[name] = {"ms": cuda_time_ms(fn, iters=5, warmup=1)}
         if loop is not None:
-            out[name]["iterations"] = robust.last_iterations[loop]
+            out[name]["iterations"] = int(robust.last_iterations[loop])
         log(f"  {name}: {json.dumps(out[name])}")
     del x
     torch.cuda.empty_cache()
@@ -5520,7 +5929,7 @@ def timing() -> dict:
             "with_clip_weights", "steps", "ms_per_step", "one_step_ms", "one_step_plain_ms",
             "steps_256_ms", "steps_256_reads_bound_ms", "reads_bound_ms", "cdist_ms",
             "weights_ms", "sweep_ms", "two_launches_ms", "two_launches_device_ms",
-            "sweep_library_ms", "device_ms", "fold_round")
+            "sweep_library_ms", "device_ms", "fold_round", "valid_rows")
     for k, v in out.items():
         v["main_path_shape"] = {key: main[k][key] for key in keys if key in main[k]}
     # B2, B11 and the row reduction: the serving path's largest bucket,
@@ -5582,6 +5991,11 @@ KERNELS = [
     ("segment_sum", "byzpy_tpu_torch/csrc/segment_sum.cu", "byzpy_tpu/ops/pallas_kernels.py:1840"),
     ("row_sq_dists", "byzpy_tpu_torch/csrc/segment_sum.cu",
      "byzpy_tpu/ops/robust.py:1542 (plain XLA reduce; no Pallas kernel)"),
+    # B7's masked Weiszfeld mode: the serving path's masked geometric median
+    # (phase 4c) and its compiled serving step (phase 4e (y))
+    ("center_loop:masked_weiszfeld", "byzpy_tpu_torch/csrc/center_step.cu",
+     "byzpy_tpu/ops/robust.py:1581 (masked_geometric_median's while_loop, plain XLA, around "
+     "the step of pallas_kernels.py:470; no Pallas kernel of its own)"),
     # B16 and B17 (the PS round (l), the ragged door's s4 ingress) and B12,
     # the ragged door's fused-dequant contraction, by wire mode (phase 4d);
     # launches: segment_sum_dequant:fp8 counts e4m3fn codes (e5m2 is checked
@@ -5605,7 +6019,8 @@ KERNELS = [
 # them)
 NEW_KERNELS = ("mix_rows", "nnm_weights", "selection_mean_from_gram:krum", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
                "segment_sum_dequant:fp8", "segment_sum_dequant:s4", "segmented_sort_reduce",
-               "center_loop:weiszfeld", "center_loop:clip")
+               "center_loop:weiszfeld", "center_loop:clip", "center_loop:masked_weiszfeld",
+               "graph_replay:gossip_train_step")
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
     "quantize:int8": ("quantize:int8",),
@@ -5733,6 +6148,7 @@ def main() -> int:
     check_center_step(errs)
     check_codecs(errs)
     check_masked_kernels(errs)
+    check_masked_center_loop(errs)
     check_s4_codec(errs)
     check_segment_sum_dequant(errs)
     check_segmented_sort(errs)
@@ -5759,6 +6175,9 @@ def main() -> int:
         "on SmallCNN, (c) elastic rounds; the P2P runner: (d) gossip, (e) the autonomous cluster, "
         "(f) heartbeat removal)")
     log("ORCHESTRATOR_PATH " + json.dumps(orchestrator_path(counts)))
+    log("== 4h. main path: BASELINE config #4 (P2P ResNet-18 on ring(8, 2), NNM + geometric "
+        "median) through the compiled gossip step")
+    log("CONFIG4_PATH " + json.dumps(config4_path(counts, smi)))
     for key in NEW_KERNELS:
         check(counts[key] > 0, f"{key} never launched on the main path")
     for key, parts in CODEC_COUNTERS.items():

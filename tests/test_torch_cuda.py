@@ -556,6 +556,71 @@ def test_cuda_center_loop_zero_steps_launch_nothing(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
+@pytest.mark.parametrize("n,m", [(1, 1), (8, 6), (13, 13), (64, 41), (128, 100)])
+def test_cuda_masked_center_loop_matches_plain_bitwise(cuda_device, n, m, dt):
+    """B7's masked Weiszfeld mode in one launch equals its plain version bit
+    for bit with the iteration count, to tol 1e-6 and 9 forced steps, on
+    ``m`` valid rows shuffled among zero padding rows at d = 4 x 4096 + 5
+    (several of row_sq_dists' lanes a row, a ragged last chunk); the padded
+    loop equals the compacted one; a NaN or +-inf in a valid row makes the
+    centre canonical NaN after one step."""
+    from byzpy_tpu_torch.ops import robust
+
+    d = 4 * 4096 + 5
+    gen = torch.Generator(device=cuda_device).manual_seed(n + m)
+    x = torch.zeros((n, d), device=cuda_device)
+    x[:m] = torch.randn((m, d), generator=gen, device=cuda_device) * (
+        torch.rand((m, 1), generator=gen, device=cuda_device) * 4.0 + 0.25)
+    x = x[torch.randperm(n, generator=gen, device=cuda_device)].to(DTYPES[dt]).contiguous()
+    valid = (x != 0).any(dim=1)
+    z = robust._masked_median_rows(x, valid)
+    for kw in (dict(tol=1e-6, max_iter=256), dict(tol=-1.0, max_iter=9)):
+        kernels.reset_launch_counts()
+        out, its = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid, **kw)
+        assert kernels.launch_counts == dict(dict.fromkeys(kernels.launch_counts, 0),
+                                             **{"center_loop:masked_weiszfeld": 1})
+        ref, its_p = kernels.center_loop_plain(x, z, mode="masked_weiszfeld", valid=valid, **kw)
+        assert its.device.type == "cuda" and its.dtype == torch.int32
+        assert int(its) == int(its_p) >= 1, (int(its), int(its_p))
+        assert _bits_equal(out, ref), (n, m, dt, kw)
+    keep = valid.nonzero()[:, 0]
+    compact, its_c = kernels.center_loop(x.index_select(0, keep).contiguous(), z,
+                                         mode="masked_weiszfeld",
+                                         valid=torch.ones(m, dtype=torch.bool, device=cuda_device))
+    out, its = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid)
+    assert _bits_equal(out, compact) and int(its) == int(its_c)
+    x[int(keep[0]), 3] = float("nan")
+    x[int(keep[-1]), 4] = float("inf")
+    out, its = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid, max_iter=7)
+    ref, its_p = kernels.center_loop_plain(x, z, mode="masked_weiszfeld", valid=valid, max_iter=7)
+    assert _all_canonical_nan(out) and _bits_equal(out, ref) and int(its) == int(its_p) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_masked_geometric_median_reads_nothing_on_the_host(cuda_device):
+    """``robust.masked_geometric_median`` is B2 (its median start) and one
+    B7 launch, with no synchronizing call (sync debug mode ``error``), its
+    count a device tensor."""
+    from byzpy_tpu_torch.ops import robust
+
+    x = torch.randn((64, 50_001), device=cuda_device)
+    valid = torch.arange(64, device=cuda_device) < 29
+    robust.masked_geometric_median(x, valid)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        robust.masked_geometric_median(x, valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: v for k, v in kernels.launch_counts.items() if v} == {
+        "sort_columns": 1, "center_loop:masked_weiszfeld": 1}
+    its = robust.last_iterations["geometric_median"]
+    assert isinstance(its, torch.Tensor) and its.is_cuda and int(its) >= 1
+
+
+@pytest.mark.cuda
 def test_cuda_centre_loops_read_the_host_at_most_once(cuda_device):
     """``robust.geometric_median`` makes one loop launch (and B1 for its
     start) and reads one value on the host, its iteration count;
@@ -960,7 +1025,8 @@ def test_cuda_row_sq_dists_matches_plain_bitwise(cuda_device, n, d, dt):
                                   "geomed", "clip"])
 def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
     """A masked class's padded program on the card equals its compacted one
-    bit for bit, and launches B2 / B11 and none of B1, B4, B6, B7."""
+    bit for bit, and launches B2 / B11 (the geometric median: B2 and B7's
+    masked mode) and none of B1, B4, B6 or B7's unmasked modes."""
     from byzpy_tpu_torch import aggregators as A
 
     make = {
@@ -982,7 +1048,10 @@ def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
     counts = dict(kernels.launch_counts)
     ref = agg.masked_matrix_fn()(padded[:m].contiguous(), valid[:m].contiguous())
     assert _bits_equal(out, ref)
-    assert counts["segment_sum"] > 0 or name == "median"
+    if name == "geomed":
+        assert counts["center_loop:masked_weiszfeld"] == 1 and counts["segment_sum"] == 0
+    else:
+        assert counts["segment_sum"] > 0 or name == "median"
     for k in ("sorted_reduce:median", "sorted_reduce:trimmed", "weighted_rows", "meamed",
               "center_sweep", "center_weights:weiszfeld", "center_weights:clip",
               "center_loop:weiszfeld", "center_loop:clip"):
@@ -1914,12 +1983,10 @@ def test_cuda_compiled_ragged_step_bitwise(deterministic_cudnn):
 
 def _refusals():
     """name -> (twin builder of a SmallCNN bundle, the role the error names)."""
-    from byzpy_tpu_torch.aggregators import GeometricMedian, MinimumDiameterAveraging
+    from byzpy_tpu_torch.aggregators import MinimumDiameterAveraging
     from byzpy_tpu_torch.attacks import InfluenceAscentAttack
     from byzpy_tpu_torch.ops import robust
-    from byzpy_tpu_torch.parallel import (
-        PSStepConfig, adaptive_attack_rows, jit_ps_train_step, jit_serving_ps_step,
-    )
+    from byzpy_tpu_torch.parallel import PSStepConfig, adaptive_attack_rows, jit_ps_train_step
 
     cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
 
@@ -1932,36 +1999,122 @@ def _refusals():
     return {
         "mda": (lambda b: jit_ps_train_step(
             b, MinimumDiameterAveraging(2, device="cuda").matrix_fn(), cfg), "aggregate"),
-        "caf": (lambda b: jit_ps_train_step(b, lambda m: robust.caf(m, f=2), cfg), "aggregate"),
-        "masked_geometric_median": (lambda b: jit_serving_ps_step(
-            b, GeometricMedian(device="cuda").masked_matrix_fn()), "masked_aggregate"),
         "influence_ascent": (influence, "attack"),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["mda", "caf", "masked_geometric_median", "influence_ascent"])
+@pytest.mark.parametrize("which", ["mda", "influence_ascent"])
 def test_cuda_compiled_step_refuses_host_reads(cuda_device, which):
     """A step whose aggregate or attack reads the host cannot be captured:
     the twin raises ``GraphCaptureError`` naming the callable's role and
-    saying that it reads the host, and runs nothing eagerly in its place."""
+    saying that it reads the host, and runs nothing eagerly in its place.
+    MDA's branch-and-bound and the adaptive attacks read it by design."""
     from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
 
     make, role = _refusals()[which]
     bundle, xs, ys = _smallcnn_round("cuda")
     step, opt0 = make(bundle)
-    if which == "masked_geometric_median":
-        d = sum(int(v.numel()) for v in bundle.params.values())
-        matrix = torch.randn((16, d), device="cuda")
-        valid = torch.ones(16, dtype=torch.bool, device="cuda")
-        args = (bundle.params, opt0, matrix, valid, valid.float())
-    else:
-        args = (bundle.params, opt0, xs, ys)
+    args = (bundle.params, opt0, xs, ys)
     kernels.reset_launch_counts()
     with pytest.raises(GraphCaptureError, match=rf"the {role} callable .* reads the host"):
         step(*args)
     assert not step.graphs
     assert all(v == 0 for k, v in kernels.launch_counts.items() if k.startswith("graph_replay"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["caf", "masked_geometric_median"])
+def test_cuda_compiled_step_captures_the_host_free_loops(deterministic_cudnn, which):
+    """CAF (fixed passes) in the PS step and the masked geometric median
+    (B7's masked mode) in the serving step at bucket 64 no longer read the
+    host: each twin captures one graph, five replays equal the eager steps
+    bit for bit, and a replay makes no synchronizing call (sync debug mode
+    ``error``)."""
+    from byzpy_tpu_torch.aggregators import GeometricMedian
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel import (
+        PSStepConfig, build_ps_train_step, build_serving_ps_step, jit_ps_train_step,
+        jit_serving_ps_step,
+    )
+
+    bundle, xs, ys = _smallcnn_round("cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    if which == "caf":
+        v0 = torch.randn((d,), generator=torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+
+        def agg(m):
+            return robust.caf(m, f=2, v_init=v0)
+
+        cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
+        eager, opt0 = build_ps_train_step(bundle, agg, cfg)
+        compiled, _ = jit_ps_train_step(bundle, agg, cfg, donate=False)
+        args = (xs, ys)
+    else:
+        fn = GeometricMedian(device="cuda").masked_matrix_fn()
+        eager, opt0 = build_serving_ps_step(bundle, fn)
+        compiled, _ = jit_serving_ps_step(bundle, fn)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        matrix = torch.zeros((64, d), device="cuda")
+        matrix[:37] = torch.randn((37, d), generator=gen, device="cuda")
+        valid = torch.arange(64, device="cuda") < 37
+        args = (matrix, valid, valid.float())
+    pe, oe, pc, oc = bundle.params, opt0, bundle.params, opt0
+    for s in range(5):
+        pe, oe, me = eager(pe, oe, *args)
+        pc, oc, mc = compiled(pc, oc, *args)
+        assert _states_bits_equal((pe, oe, me), (pc, oc, mc)), f"step {s + 1}"
+    assert len(compiled.graphs) == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        compiled(pc, oc, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attacked", [False, True])
+def test_cuda_compiled_gossip_step_replays_bitwise(deterministic_cudnn, attacked):
+    """``jit_gossip_train_step`` on SmallCNN over ring(8, 2) (NNM then the
+    geometric median, as BASELINE config #4 aggregates; one byzantine node,
+    attacked: Gaussian rows from the step's generator): two replays equal
+    two eager steps bit for bit, theta and the honest loss, the generators
+    advance alike, one graph, each node's kernels counted once at the
+    capture and one replay a step."""
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.ops import attack_ops, preagg, robust
+    from byzpy_tpu_torch.parallel import GossipStepConfig, build_gossip_train_step, jit_gossip_train_step
+
+    bundle, xs, ys = _smallcnn_round("cuda", batch=8)
+
+    def agg(m):
+        return robust.geometric_median(preagg.nnm(m, f=1), max_iter=32)
+
+    attack = None
+    if attacked:
+        def attack(honest, g):
+            return attack_ops.gaussian(g, (honest.shape[1],), sigma=0.1, device="cuda")
+
+    topo, cfg = Topology.ring(8, 2), GossipStepConfig(8, 1, 0.05)
+    eager, init = build_gossip_train_step(bundle, agg, topo, cfg, attack=attack)
+    compiled, cinit = jit_gossip_train_step(bundle, agg, topo, cfg, attack=attack)
+    ge = torch.Generator(device="cuda").manual_seed(9) if attacked else None
+    gc = torch.Generator(device="cuda").manual_seed(9) if attacked else None
+    te, tc = init(), cinit()
+    kernels.reset_launch_counts()
+    for s in range(2):
+        te, me = eager(te, xs, ys, generator=ge)
+        tc, mc = compiled(tc, xs, ys, generator=gc)
+        assert _bits_equal(te, tc) and _bits_equal(me["honest_loss"], mc["honest_loss"]), s
+        if attacked:
+            assert torch.equal(ge.get_state(), gc.get_state())
+    assert len(compiled.graphs) == 1
+    per_node = {"gram": 8, "nnm_weights": 8, "mix_rows": 8, "sorted_reduce:median": 8,
+                "center_loop:weiszfeld": 8}
+    assert compiled.last_capture["launches"] == per_node
+    assert kernels.launch_counts["graph_replay:gossip_train_step"] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -339,15 +339,23 @@ def test_masked_matrix_fn_is_the_masked_program():
 
 def test_masked_family_runs_no_b1_b4_b6_b7_on_the_cpu_either(monkeypatch):
     """The masked programs reach B2 (sort_columns), B3 (gram), B11
-    (segment_sum) and the row reduction, never B1, B4, B6 or B7: their
-    wrappers are replaced by a trap here."""
+    (segment_sum), the row reduction and B7's masked Weiszfeld mode, never
+    B1, B4, B6 or B7's unmasked modes: their wrappers are replaced by a
+    trap here (B7's loop passes its masked mode through)."""
     def trap(*a, **k):
         raise AssertionError("the masked family reached an unmasked kernel")
 
+    center_loop = kernels.center_loop
+
+    def masked_only(*a, **k):
+        if k.get("mode") != "masked_weiszfeld":
+            trap()
+        return center_loop(*a, **k)
+
     for fn in ("sorted_reduce_stream", "selection_mean_stream", "weighted_rows",
-               "meamed_stream", "weighted_center_step", "center_weights", "center_sweep",
-               "center_loop"):
+               "meamed_stream", "weighted_center_step", "center_weights", "center_sweep"):
         monkeypatch.setattr(kernels, fn, trap)
+    monkeypatch.setattr(kernels, "center_loop", masked_only)
     x, valid = _padded(_grads(seed=8), 11, N)
     xt, vt = torch.from_numpy(x), torch.from_numpy(valid)
     for name, (ours, _, _, least) in FUNCTIONS.items():
