@@ -317,8 +317,10 @@ class Aggregator(Operator, ABC):
 
     def ragged_matrix_fn(self) -> Optional[Callable]:
         """The ragged program ``(flat, seg, offsets, lengths, *, n_cohorts,
-        segment_sum=None) -> (aggregates, scores, keep)`` for one batch of
-        cohorts (:mod:`byzpy_tpu_torch.ops.ragged`'s layout), or ``None``
+        segment_sum=None, long_slots=False) -> (aggregates, scores, keep)``
+        for one batch of cohorts (:mod:`byzpy_tpu_torch.ops.ragged`'s
+        layout; ``long_slots``: some cohort may hold more than
+        ``kernels.MAX_NETWORK_ROWS`` rows, a host fact the caller knows), or ``None``
         without a masked program. The default runs the masked program per
         cohort (no shared work, no scores); classes with a specialized
         program override it. Each cohort's result is bit for bit its
@@ -328,7 +330,7 @@ class Aggregator(Operator, ABC):
             return None
         masked = self._aggregate_matrix_masked
 
-        def generic(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+        def generic(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None, long_slots=False):
             return ragged_ops.ragged_via_masked(masked, flat, seg, n_cohorts=n_cohorts), None, None
 
         return generic

@@ -75,7 +75,8 @@ class FeatureChunkedAggregator:
         return gen()
 
     def reduce_subtasks(self, partials: Sequence[Any], inputs, *, context: OpContext) -> Any:
-        vec = torch.cat(list(partials))
+        # a process or remote worker answers with host tensors
+        vec = torch.cat([p.to(self.device) for p in partials])
         return unravel_like(inputs.get(self.input_key), self.device)(vec)
 
 
@@ -116,8 +117,8 @@ class RowScoredAggregator:
         return gen()
 
     def reduce_subtasks(self, partials: Sequence[Any], inputs, *, context: OpContext) -> Any:
-        scores = torch.cat(list(partials))
         matrix, unravel = stack_gradients(inputs.get(self.input_key), device=self.device)
+        scores = torch.cat([p.to(matrix.device) for p in partials])
         return unravel(self._select_from_scores(scores, matrix))
 
 
@@ -146,6 +147,12 @@ def _centered_clip_chunk(block: torch.Tensor, center: torch.Tensor, *, c_tau: fl
     dist = torch.sqrt(torch.sum(diff * diff, dim=1))
     scale = torch.clamp(c_tau / torch.clamp(dist, min=eps), max=1.0)
     return torch.sum(diff * scale[:, None], dim=0), int(block.shape[0])
+
+
+def _on_device(partial: Any, device: torch.device) -> Any:
+    """A barrier partial (a tuple of tensors and ints) on ``device``: a
+    process or remote worker answers with host tensors."""
+    return tuple(v.to(device) if isinstance(v, torch.Tensor) else v for v in partial)
 
 
 def sum_in_order(values: Sequence[Any]) -> Any:
@@ -206,7 +213,8 @@ class BarrieredIterativeAggregator:
                         name=f"{self.name}-iter-rows[{s}:{e}]")
                 for b, (s, e) in zip(blocks, spans, strict=True)
             ]
-            partials = await self._run_subtasks(pool, tasks, context)
+            partials = [_on_device(p, matrix.device)
+                        for p in await self._run_subtasks(pool, tasks, context)]
             new_center = self._barrier_update(partials, center)
             done = self._barrier_converged(center, new_center)
             center = new_center

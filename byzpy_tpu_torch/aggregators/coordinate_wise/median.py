@@ -52,8 +52,9 @@ class CoordinateWiseMedian(FeatureChunkedAggregator, Aggregator):
         if self.device.type != "cuda":
             return super().ragged_matrix_fn()
 
-        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
-            return ragged_ops.ragged_median(flat, seg, offsets, lengths, n_cohorts=n_cohorts), None, None
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None, long_slots=False):
+            return ragged_ops.ragged_median(flat, seg, offsets, lengths, n_cohorts=n_cohorts,
+                                            long_slots=long_slots), None, None
 
         return fn
 

@@ -93,9 +93,9 @@ class CoordinateWiseTrimmedMean(FeatureChunkedAggregator, Aggregator):
             return super().ragged_matrix_fn()
         f = self.f
 
-        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None, long_slots=False):
             aggs = ragged_ops.ragged_trimmed_mean(flat, seg, offsets, lengths, f=f,
-                                                  n_cohorts=n_cohorts)
+                                                  n_cohorts=n_cohorts, long_slots=long_slots)
             return aggs, None, None
 
         return fn

@@ -119,7 +119,7 @@ class MultiKrum(RowScoredAggregator, Aggregator):
         view."""
         f, q = self.f, self.q
 
-        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None, long_slots=False):
             return ragged_ops.ragged_multi_krum(flat, seg, lengths, f=f, q=q, n_cohorts=n_cohorts,
                                                 segment_sum=segment_sum)
 

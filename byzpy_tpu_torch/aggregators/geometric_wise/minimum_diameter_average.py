@@ -30,7 +30,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...ops import kernels, robust
+from ...ops import robust
 from ...utils.combinatorics import iter_combinations
 from ...utils.device import DeviceLike
 from ...engine.graph.chunking import pool_size_from_context, select_adaptive_chunk_size
@@ -207,19 +207,11 @@ def _search_seed_group(
     return score, np.asarray(combo if combo else [], dtype=np.int32)
 
 
-def check_rows_on_card(agg: Aggregator, x: torch.Tensor) -> None:
-    """On the card the Gram is B3, which takes at most 128 rows."""
-    if x.is_cuda and x.shape[0] > kernels.MAX_NETWORK_ROWS:
-        raise NotImplementedError(
-            f"{type(agg).__name__} on the card takes at most {kernels.MAX_NETWORK_ROWS} rows "
-            f"(its Gram is B3's, capped there); got n={x.shape[0]}"
-        )
-
-
 class MinimumDiameterAveraging(Aggregator):
     """Average of the (n - f)-subset with the smallest pairwise diameter,
-    found by branch-and-bound over the distance matrix (B3's on the card,
-    read to the host once)."""
+    found by branch-and-bound over the distance matrix (B3's on the card up
+    to 128 rows, ``robust.gram_matrix``'s matmul above; read to the host
+    once)."""
 
     name = "minimum-diameter-averaging"
     supports_subtasks = True
@@ -249,7 +241,6 @@ class MinimumDiameterAveraging(Aggregator):
 
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
-        check_rows_on_card(self, x)
         d2 = _dists_for_search(x)
         combo = _to_device(_exact_min_diameter(d2, n - self.f), x.device)
         self.last_selection = combo
@@ -260,7 +251,6 @@ class MinimumDiameterAveraging(Aggregator):
     def create_subtasks(self, inputs, *, context: OpContext):
         matrix, _ = stack_gradients(inputs.get(self.input_key), device=self.device)
         self.validate_n(matrix.shape[0])
-        check_rows_on_card(self, matrix)
         n = matrix.shape[0]
         m = n - self.f
         host_d2 = _dists_for_search(matrix)

@@ -33,7 +33,7 @@ from ...engine.graph.operator import OpContext
 from ...engine.graph.subtask import SubTask
 from ...utils.trees import stack_gradients
 from ..base import Aggregator, check_chunk_size
-from .minimum_diameter_average import _combo_batches, _to_device, check_rows_on_card
+from .minimum_diameter_average import _combo_batches, _to_device
 
 _DEVICE_BATCH = 2048
 # the device path materializes the (n_combos, m, m) centered blocks:
@@ -116,7 +116,6 @@ class SMEA(Aggregator):
     def _aggregate_matrix(self, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
         m = n - self.f
-        check_rows_on_card(self, x)
         if math.comb(n, m) <= _DEVICE_COMBO_CAP and m <= _DEVICE_JACOBI_MAX_M:
             mean, self.last_selection = _smea_select_mean(x, _device_combos(n, m, x.device))
             return mean
@@ -130,7 +129,6 @@ class SMEA(Aggregator):
     def create_subtasks(self, inputs, *, context: OpContext):
         matrix, _ = stack_gradients(inputs.get(self.input_key), device=self.device)
         self.validate_n(matrix.shape[0])
-        check_rows_on_card(self, matrix)
         n = matrix.shape[0]
         m = n - self.f
         total = math.comb(n, m)

@@ -86,7 +86,7 @@ class ComparativeGradientElimination(RowScoredAggregator, Aggregator):
         and the keep set are the fused forensics view."""
         f = self.f
 
-        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None):
+        def fn(flat, seg, offsets, lengths, *, n_cohorts, segment_sum=None, long_slots=False):
             return ragged_ops.ragged_cge(flat, seg, lengths, f=f, n_cohorts=n_cohorts,
                                          segment_sum=segment_sum)
 

@@ -4,9 +4,8 @@ Counterpart of ``byzpy_tpu/configs/actor.py`` (API parity:
 ``byzpy/configs/actor.py:1-30``): ``set_actor`` / ``get_actor`` plus a
 context-manager override. Specs are the strings
 ``engine.actor.factory.resolve_backend`` understands, ``"thread"``,
-``"cuda"`` and ``"cuda:N"``, validated by the same parser: ``"process"``
-and ``"tcp://host:port"`` raise ``NotImplementedError`` (not ported yet),
-anything else ``ValueError``.
+``"cuda"``, ``"cuda:N"``, ``"process"`` and ``"tcp://host:port"``,
+validated by the same parser; anything else raises ``ValueError``.
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@
 //   median: s[(m - 1) / 2] for odd m, else __fmul_rn(__fadd_rn(s_lo, s_hi),
 //     0.5f), as ragged_median's (s_lo + s_hi) * 0.5.
 // A slot of length 0 (a batch's padding) writes zeros; a slot whose rows
-// leave [0, R) reads nothing and writes NaN. NaN leaves canonical.
+// leave [0, R), or that holds more than 128 rows (the network's width),
+// reads nothing and writes NaN. NaN leaves canonical. R itself is free.
 //
 // Bound: memory, one read of the cohorts' rows and a (C, d) write (0.0589
 // ms for cohorts of 6, 13, 29 and 64 rows at d = 421,642 on an H100); the
@@ -67,7 +68,7 @@ segmented_sort_reduce_kernel(const float* __restrict__ x, const int* __restrict_
   const int c = blockIdx.y;
   const int o = offsets[c], m = lengths[c];
   float* oc = out + (long long)c * d;
-  if (m <= 0 || o < 0 || (long long)o + m > R) {
+  if (m <= 0 || m > 128 || o < 0 || (long long)o + m > R) {
     colsort::fill_run(oc, d, run_tiles, m == 0 ? 0.0f : __int_as_float(0x7FC00000));
     return;
   }
@@ -76,14 +77,14 @@ segmented_sort_reduce_kernel(const float* __restrict__ x, const int* __restrict_
 
 }  // namespace
 
-// x: (R, d) f32 contiguous, R <= 128; offsets, lengths: (C,) int32 on x's
+// x: (R, d) f32 contiguous, any R; offsets, lengths: (C,) int32 on x's
 // device; out: (C, d) f32. mode 0 = median, 1 = trimmed mean (f trimmed at
 // each end); run_tiles: the column tiles a block takes
 // (ops/kernels.py:column_runs). Returns the launch's cudaError_t.
 extern "C" int byz_segmented_sort_reduce(const void* x, const void* offsets, const void* lengths,
                                          void* out, int R, int C, long long d, int mode, int f,
                                          int run_tiles, void* stream) {
-  if (R < 0 || R > 128 || C < 0 || C > 65535 || f < 0) return cudaErrorInvalidValue;
+  if (R < 0 || C < 0 || C > 65535 || f < 0) return cudaErrorInvalidValue;
   if (mode != kMedian && mode != kTrimmed) return cudaErrorInvalidValue;
   if (C == 0 || d <= 0) return cudaSuccess;
   return colsort::launch<&segmented_sort_reduce_kernel>(

@@ -1,7 +1,8 @@
 """The actor layer (counterpart of ``byzpy_tpu/engine/actor``): the actor
-protocol, channels and the in-process backends (``thread``, ``cuda``),
-and the compressed wire rows (``wire``) that the serving tier's quantized
-cohorts read."""
+protocol, channels, the in-process backends (``thread``, ``cuda``), the
+out-of-process ones (``process``, the ``tcp://`` remote backend and its
+``RemoteActorServer``), the shm payload wrapping (``ipc``) and the wire's
+frames and compressed rows (``wire``)."""
 
 from .base import ActorBackend, ActorRef, spawn_actor
 from .channels import ChannelRef, Endpoint, open_channel

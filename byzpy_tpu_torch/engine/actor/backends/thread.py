@@ -5,7 +5,7 @@ Counterpart of ``byzpy_tpu/engine/actor/backends/thread.py`` (ref:
 hosted object executes on the actor's single thread, so actor state needs
 no locks. Mailboxes are asyncio queues owned by the event loop. Channel
 sends to peers of any local scheme route through the process-local
-``channel_router``; the TCP transport is not ported (ROADMAP A.4).
+``channel_router``; a ``tcp`` endpoint goes over ``transports.tcp``.
 
 :class:`ThreadActorBackend` is also the base of the ``cuda`` backend
 (``backends/cuda.py``), which runs the same thread under a card and a
@@ -114,9 +114,10 @@ class ThreadActorBackend:
         if await channel_router.deliver(endpoint, name, payload):
             return
         if endpoint.scheme == "tcp":
-            raise NotImplementedError(
-                f"no route to {endpoint}: the TCP transport is not ported yet (ROADMAP A.4)"
-            )
+            from ..transports import tcp
+
+            await tcp.chan_put(endpoint, name, payload)
+            return
         raise LookupError(f"no route to endpoint {endpoint}")
 
     async def chan_get(self, name: str) -> Any:

@@ -6,9 +6,11 @@ Counterpart of ``byzpy_tpu/engine/actor/factory.py`` (ref:
 * ``"thread"``: a dedicated-thread actor in this process (the default);
 * ``"cuda"`` / ``"cuda:N"``: an actor pinned to card N (0 by default) on
   a stream of its own, the counterpart of the JAX package's ``"tpu"``;
-* ``"process"`` and ``"tcp://host:port"`` (the spawned-process and remote
-  actors) are not ported yet and raise ``NotImplementedError`` (ROADMAP
-  A.4); any other spec, ``"tpu"`` included, is unknown.
+* ``"process"``: an actor in a spawned child process (on the card by
+  default, ``child_device="cpu"`` to keep it off);
+* ``"tcp://host:port"``: an actor hosted on a remote ``RemoteActorServer``.
+
+Any other spec, ``"tpu"`` included, is unknown.
 """
 
 from __future__ import annotations
@@ -16,16 +18,26 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 from .backends.cuda import CudaActorBackend
+from .backends.process import ProcessActorBackend
+from .backends.remote import RemoteActorBackend
 from .backends.thread import ThreadActorBackend
 
 
+def _tcp_address(spec: str) -> Tuple[str, int]:
+    host, _, port = spec[len("tcp://"):].rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"tcp spec must be tcp://host:port (got {spec!r})")
+    return host, int(port)
+
+
 def parse_spec(spec: str) -> Tuple[str, Optional[int]]:
-    """``(scheme, device index or None)`` of a backend spec, validated
-    without building anything: ``("thread", None)``, ``("cuda", N)``."""
+    """``(scheme, device index or port)`` of a backend spec, validated
+    without building anything: ``("thread", None)``, ``("cuda", N)``,
+    ``("process", None)``, ``("tcp", port)``."""
     if not isinstance(spec, str) or not spec:
         raise ValueError(f"invalid backend spec {spec!r}")
-    if spec == "thread":
-        return "thread", None
+    if spec in ("thread", "process"):
+        return spec, None
     if spec == "cuda":
         return "cuda", 0
     if spec.startswith("cuda:"):
@@ -33,20 +45,21 @@ def parse_spec(spec: str) -> Tuple[str, Optional[int]]:
         if not index.isdigit():
             raise ValueError(f"cuda spec must be cuda:<device-index> (got {spec!r})")
         return "cuda", int(index)
-    if spec == "process" or spec.startswith("tcp://"):
-        raise NotImplementedError(
-            f"actor backend {spec!r} is not ported yet: the process and remote backends "
-            f"come later (ROADMAP A.4); use 'thread' or 'cuda'"
-        )
+    if spec.startswith("tcp://"):
+        return "tcp", _tcp_address(spec)[1]
     raise ValueError(f"unknown actor backend spec {spec!r}")
 
 
 def resolve_backend(spec: str = "thread", **kwargs: Any):
-    """Build an actor backend from a spec string: ``thread`` or
-    ``cuda[:N]``."""
+    """Build an actor backend from a spec string: ``thread``, ``cuda[:N]``,
+    ``process`` or ``tcp://host:port``."""
     scheme, index = parse_spec(spec)
     if scheme == "thread":
         return ThreadActorBackend(**kwargs)
+    if scheme == "process":
+        return ProcessActorBackend(**kwargs)
+    if scheme == "tcp":
+        return RemoteActorBackend(*_tcp_address(spec), **kwargs)
     return CudaActorBackend(device_index=index, **kwargs)
 
 

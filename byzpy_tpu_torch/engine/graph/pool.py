@@ -8,23 +8,29 @@ onto them with capability-aware affinity, rotation, waiter futures, and
 per-subtask retry.
 
 Worker capabilities are inferred from the backend spec (``cuda`` backends
-get ``{"gpu"}``; ``thread`` gets ``{"cpu"}``) and an affinity on a
-subtask (``"gpu"``/``"cpu"``) steers it to a matching worker. Both ported
-backends are in process, so the subtask callable and its arguments pass
-by reference: a chunk is a view of a tensor that stays on its card. The
-JAX package's pickled path for process and remote workers (cloudpickle
-bytes and a worker-side cache) comes with those backends (ROADMAP A.4):
-their specs raise ``NotImplementedError`` when the pool is built, before
-anything is pickled.
+get ``{"gpu"}``; ``thread`` and ``process`` get ``{"cpu"}``, ``tcp://``
+``{"cpu", "remote"}``, as in the reference) and an affinity on a subtask
+(``"gpu"``/``"cpu"``) steers it to a matching worker. For the in-process
+backends the subtask callable and its arguments pass by reference: a chunk
+is a view of a tensor that stays on its card. For process and remote
+workers the callable ships as ``pickle`` bytes (so it must pickle by
+reference: the port's chunk functions are module-level) with a cache of
+64 on the worker, so a hot function is unpickled once; its arguments
+cross as host tensors.
 """
 
 from __future__ import annotations
 
 import asyncio
 import itertools
+import pickle
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
+import torch
+
+from ..actor import wire
 from ..actor.base import ActorRef
 from ..actor.factory import resolve_backend
 from .subtask import SubTask
@@ -66,10 +72,41 @@ class ActorPoolConfig:
         return _infer_capabilities(backend or self.resolved_backend())
 
 
+def _to_device(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree
+
+
 class _SubTaskWorker:
     """Generic executor object constructed inside every worker backend."""
 
+    def __init__(self) -> None:
+        self._fn_cache: "OrderedDict[bytes, Any]" = OrderedDict()
+
     def execute(self, fn, args, kwargs):
+        return fn(*args, **kwargs)
+
+    def execute_blob(self, blob: bytes, args, kwargs):
+        """Run a pickled subtask in a process or remote worker; a worker
+        in a child on the card moves its host-tensor arguments there."""
+        from ..actor.backends.process import current_child_device
+
+        device = current_child_device()
+        if device is not None and device != "cpu":
+            args, kwargs = _to_device((args, kwargs), torch.device(device))
+        fn = self._fn_cache.get(blob)
+        if fn is None:
+            fn = pickle.loads(blob)
+            self._fn_cache[blob] = fn
+            while len(self._fn_cache) > 64:
+                self._fn_cache.popitem(last=False)
+        else:
+            self._fn_cache.move_to_end(blob)
         return fn(*args, **kwargs)
 
 
@@ -80,16 +117,33 @@ class _PoolWorker:
         self.capabilities = capabilities
         self.backend = resolve_backend(backend_spec, actor_id=name)
         self.ref = ActorRef(self.backend)
-        if self.backend.scheme not in _IN_PROCESS_SCHEMES:
-            raise NotImplementedError(
-                f"{backend_spec!r}: only in-process workers are ported (ROADMAP A.4)")
+        self._in_process = self.backend.scheme in _IN_PROCESS_SCHEMES
+        # id(fn) -> (fn, blob): holding fn pins the id, so a collected and
+        # reallocated callable can never be served a stale blob
+        self._blob_cache: "OrderedDict[int, tuple]" = OrderedDict()
 
     async def start(self) -> None:
         await self.backend.start()
         await self.backend.construct(_SubTaskWorker)
 
     async def run(self, st: SubTask) -> Any:
-        return await self.backend.call("execute", st.fn, tuple(st.args), dict(st.kwargs))
+        if self._in_process:
+            return await self.backend.call("execute", st.fn, tuple(st.args), dict(st.kwargs))
+        if not st.cache_fn:
+            # a stateful fn: a fresh pickle every run, so the worker sees its
+            # current state (the worker's cache keys on the bytes)
+            blob = wire.dumps(st.fn)
+        else:
+            entry = self._blob_cache.get(id(st.fn))
+            if entry is not None and entry[0] is st.fn:
+                blob = entry[1]
+                self._blob_cache.move_to_end(id(st.fn))
+            else:
+                blob = wire.dumps(st.fn)
+                self._blob_cache[id(st.fn)] = (st.fn, blob)
+                while len(self._blob_cache) > 256:
+                    self._blob_cache.popitem(last=False)
+        return await self.backend.call("execute_blob", blob, tuple(st.args), dict(st.kwargs))
 
     async def close(self) -> None:
         await self.backend.close()

@@ -1,8 +1,9 @@
 """The node tier (counterpart of ``byzpy_tpu/engine/node``): node ABCs and
 their actors, applications, the in-process message fabric (contexts,
-routers, decentralized nodes, clusters), heartbeat liveness and the
-distributed node wrappers. The process, remote and mesh contexts come
-with the process and remote backends (ROADMAP A.4)."""
+routers, decentralized nodes, clusters), the process and remote contexts
+(``ProcessContext``; the hub fabric ``RemoteNodeServer`` /
+``RemoteClientContext``), heartbeat liveness and the distributed node
+wrappers. The mesh context belongs to the mesh slice (ROADMAP A.7)."""
 
 from .actors import ByzantineNodeActor, HonestNodeActor, NodeActor
 from .application import ByzantineNodeApplication, HonestNodeApplication, NodeApplication
@@ -12,6 +13,8 @@ from .context import InProcessContext, Message, NodeContext
 from .decentralized import DecentralizedNode
 from .distributed import DistributedByzantineNode, DistributedHonestNode
 from .liveness import HeartbeatMonitor, LivenessTracker, PeerLiveness
+from .process_context import ProcessContext
+from .remote import RemoteClientContext, RemoteNodeClient, RemoteNodeServer, ServerNodeContext
 from .router import MessageRouter
 
 __all__ = [
@@ -35,4 +38,9 @@ __all__ = [
     "LivenessTracker",
     "PeerLiveness",
     "MessageRouter",
+    "ProcessContext",
+    "RemoteClientContext",
+    "RemoteNodeClient",
+    "RemoteNodeServer",
+    "ServerNodeContext",
 ]

@@ -4,11 +4,15 @@ Counterpart of ``byzpy_tpu/engine/node/actors.py`` (API parity:
 ``byzpy/engine/node/actors.py:1-91``). ``HonestNodeActor.spawn`` /
 ``ByzantineNodeActor.spawn`` construct a node class inside a backend and
 return a :class:`NodeActor` whose method calls are awaitable RPCs.
-Backends: ``"thread"`` (the default) and ``"cuda"`` / ``"cuda:N"``, where
+Backends: ``"thread"`` (the default); ``"cuda"`` / ``"cuda:N"``, where
 the node is built and called on the actor's own stream of card N
 (``engine/actor/backends/cuda.py``: the caller's stream waits on the
-call's work, so a returned tensor is ready on the caller's stream). The
-process and remote backends are not ported yet (ROADMAP A.4).
+call's work, so a returned tensor is ready on the caller's stream);
+``"process"``, a spawned child (on the card unless
+``BYZPY_TPU_TORCH_CHILD_DEVICE=cpu``); and ``"tcp://host:port"``, a node
+hosted by a ``RemoteActorServer``. Across a process or a socket the node
+class pickles by reference and tensors cross as host tensors: a returned
+gradient is a CPU tensor.
 """
 
 from __future__ import annotations

@@ -17,8 +17,9 @@ Mixed clusters route through :func:`register_delivery_route`: a context
 whose own registry does not know the target tries each registered
 ``async (target_id, message) -> delivered?`` hook. The delivery routes
 and ``InProcessContext``'s registry are module state: tests clear both
-between cases (:meth:`InProcessContext.clear_registry`). The process,
-remote and mesh contexts come with their backends (ROADMAP A.4).
+between cases (:meth:`InProcessContext.clear_registry`). The process
+context (``process_context.py``) and the hub fabric (``remote.py``) plug
+in through the same routes; the mesh context belongs to ROADMAP A.7.
 """
 
 from __future__ import annotations

@@ -67,14 +67,33 @@ class SGDModelWorker(HonestP2PWorker):
     def __init__(self, bundle: Any, batch_fn: Callable[[], Tuple[Any, Any]]) -> None:
         self.bundle = bundle
         self.batch_fn = batch_fn
-        example = bundle.params
-        ravel, unravel = ravel_pytree_fn(flax_layout(example))
-        self._ravel = lambda params: ravel(flax_layout(params))
-        self._unravel = lambda flat: from_flax_layout(unravel(flat), example)
+        self._derive()
         # a vector of its own: a one-leaf model's ravel is a view
-        self._flat = self._ravel(example).clone()
-        self._grad = grad_and_value(bundle.loss_fn)
+        self._flat = self._ravel(bundle.params).clone()
         self._loss: Optional[torch.Tensor] = None
+
+    def _derive(self) -> None:
+        """The ravel / unravel pair and the gradient function, derived from
+        the bundle (rebuilt, not pickled, when the worker crosses into a
+        process node: ``batch_fn`` and the bundle's loss pickle by
+        reference there)."""
+        example = self.bundle.params
+        self._flat_fns = ravel_pytree_fn(flax_layout(example))
+        self._grad = grad_and_value(self.bundle.loss_fn)
+
+    def _ravel(self, params: Any) -> torch.Tensor:
+        return self._flat_fns[0](flax_layout(params))
+
+    def _unravel(self, flat: torch.Tensor) -> Any:
+        return from_flax_layout(self._flat_fns[1](flat), self.bundle.params)
+
+    def __getstate__(self) -> dict:
+        return {"bundle": self.bundle, "batch_fn": self.batch_fn, "_flat": self._flat,
+                "_loss": self._loss}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._derive()
 
     def half_step(self, lr: float) -> torch.Tensor:
         x, y = self.batch_fn()

@@ -15,8 +15,9 @@ aggregator sees, and their order, are the barrier round's.
 
 The per-node logic goes in as pipelines through a ``configure`` function;
 ``context_factory`` builds each node's context (``InProcessContext`` by
-default), the seam where the process and remote contexts plug in
-(ROADMAP A.4). The nodes run on the event loop's thread, so a worker's
+default; ``engine.node.ProcessContext`` or the hub's
+``RemoteClientContext`` plug in here, their workers pickled by reference
+into the child or hosted remotely). The nodes run on the event loop's thread, so a worker's
 tensors are computed on that thread's current stream.
 """
 

@@ -21,14 +21,21 @@ from ..utils.trees import Params
 LossFn = Callable[[Params, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def softmax_cross_entropy_loss(module: nn.Module) -> LossFn:
-    """Softmax cross-entropy over integer labels, mean-reduced."""
+class _SoftmaxCrossEntropy:
+    """The default loss as an object of a module-level class, so a bundle
+    pickles by reference into a process node."""
 
-    def loss_fn(params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        logits = functional_call(module, params, (x,))
+    def __init__(self, module: nn.Module) -> None:
+        self.module = module
+
+    def __call__(self, params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        logits = functional_call(self.module, params, (x,))
         return F.cross_entropy(logits, y)
 
-    return loss_fn
+
+def softmax_cross_entropy_loss(module: nn.Module) -> LossFn:
+    """Softmax cross-entropy over integer labels, mean-reduced."""
+    return _SoftmaxCrossEntropy(module)
 
 
 @dataclass

@@ -5,8 +5,9 @@ orchestrators open: ``span("ps.fold", track="ps", slot=3)`` brackets one
 stage of a round; closed spans land in the process :class:`Tracer`'s
 ring as chrome-trace events (``name``, ``ts``, ``dur``, ``tid``, ``args``)
 with the span names and tracks of the JAX package. The chrome and
-Perfetto export, instants and the wire context come with the rest of the
-telemetry layer (ROADMAP A.6).
+Perfetto export and instants come with the rest of the telemetry layer
+(ROADMAP A.6). The wire context (:func:`wire_context`,
+:func:`adopt_context`) links a span across a process or socket boundary.
 
 Cost: with telemetry off (:mod:`.runtime`) :func:`span`,
 :func:`device_span` and :func:`begin_span` are one flag check returning
@@ -50,6 +51,28 @@ _IDS = itertools.count(1)
 
 def _new_id() -> str:
     return f"{_ID_PREFIX}{next(_IDS):x}"
+
+
+def wire_context() -> Optional[Tuple[str, str]]:
+    """The current ``(trace_id, span_id)`` to stamp on a wire frame, with
+    telemetry on and a span open; else ``None`` (one flag check)."""
+    if not runtime.STATE.enabled:
+        return None
+    return _CTX.get()
+
+
+def adopt_context(ctx: Any) -> None:
+    """Make a decoded frame's context the caller's trace position, so the
+    next span opened here is the remote sender's child. ``None`` clears
+    it; anything malformed is ignored (a frame is never trusted)."""
+    if ctx is None:
+        _CTX.set(None)
+        return
+    try:
+        trace_id, span_id = ctx
+        _CTX.set((str(trace_id), str(span_id)))
+    except Exception:  # noqa: BLE001 - wire input
+        pass
 
 
 class _NullSpan:
@@ -259,9 +282,11 @@ __all__ = [
     "NULL_SPAN",
     "Span",
     "Tracer",
+    "adopt_context",
     "begin_span",
     "device_span",
     "end_span",
     "span",
     "tracer",
+    "wire_context",
 ]

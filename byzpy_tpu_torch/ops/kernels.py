@@ -61,8 +61,14 @@ wrappers in ``ops/codec_kernels.py``; their launch counters live in this
 module's :data:`launch_counts` with the others.
 
 Dtypes are f32, bf16 and f16, accumulated in f32. A network (B1, B2, B6
-and the selection kernels) holds at most ``MAX_NETWORK_ROWS`` rows: a
-larger ``n`` on the card raises ``NotImplementedError``.
+and the selection kernels) holds at most ``MAX_NETWORK_ROWS`` rows: its
+wrapper raises ``NotImplementedError`` for a larger ``n`` on the card.
+Callers ask :func:`use_kernel_for` first, the counterpart of the JAX
+package's ``use_pallas_for``, and take their PyTorch counterpart of the
+reference's XLA branch above it (``ops/robust.py``, ``ops/preagg.py``).
+The row contractions (B11, B12, ``row_sq_dists``) and the segmented
+sort-reduce's batch take any number of rows; a segmented slot still
+holds at most ``MAX_NETWORK_ROWS``.
 """
 
 from __future__ import annotations
@@ -253,6 +259,14 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     if types == {"cuda"} and len({t.device for t in tensors}) == 1:
         return False
     raise ValueError(f"tensors must all be on the CPU or on one CUDA device, got {types}")
+
+
+def use_kernel_for(n: int) -> bool:
+    """True when an ``n``-row matrix fits the networks: the gate of every
+    dispatch site (ref ``pallas_kernels.use_pallas_for``, with no ``d``
+    floor and no environment switch). Above it the caller takes its
+    PyTorch counterpart of the reference's XLA branch, on any device."""
+    return n <= MAX_NETWORK_ROWS
 
 
 def _check_cuda_input(x: torch.Tensor, n: int) -> None:
@@ -1714,7 +1728,9 @@ def segmented_sort_reduce(
     m - f)`` in ascending order from +0.0 and multiplies by the rounded
     reciprocal of ``m - 2f``; the median is the middle value, or ``(lo +
     hi) * 0.5``. A slot of length 0 gives zeros, one whose rows leave
-    ``[0, R)`` NaN; NaN canonical. On finite rows, bit for bit the
+    ``[0, R)`` or that holds more than ``MAX_NETWORK_ROWS`` rows NaN; NaN
+    canonical. ``R`` itself is free (a block reads its slot's offset and
+    length; the ring is fixed). On finite rows, bit for bit the
     reference's ``ragged_trimmed_mean`` / ``ragged_median`` and the masked
     door's per-cohort programs."""
     if mode not in _SORT_MODES:
@@ -1731,8 +1747,10 @@ def segmented_sort_reduce(
     R, d = flat.shape
     if _on_cpu(flat, offsets, lengths):
         return segmented_sort_reduce_plain(flat, offsets, lengths, mode=mode, f=f)
-    _check_cuda_input(flat, R)
-    if not (offsets.is_contiguous() and lengths.is_contiguous()):
+    # any R: the ring is fixed and a block reads its slot from offsets[c];
+    # a slot longer than MAX_NETWORK_ROWS writes NaN (callers route such a
+    # batch to ops.ragged's torch path)
+    if not (flat.is_contiguous() and offsets.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("CUDA kernels take contiguous tensors")
     if C > 65535:
         raise NotImplementedError(f"C={C} cohorts exceed the kernel's grid (65,535)")
@@ -1761,8 +1779,10 @@ def segmented_sort_reduce_plain(
     C = offsets.shape[0]
     if C == 0:
         return flat.new_zeros((0, d))
-    # a slot whose rows leave [0, R) takes none of them and gives NaN
-    bad = (lengths != 0) & ((offsets < 0) | (lengths < 0) | (offsets.long() + lengths.long() > R))
+    # a slot whose rows leave [0, R), or longer than the network, takes
+    # none of them and gives NaN
+    bad = (lengths != 0) & ((offsets < 0) | (lengths < 0) | (lengths > MAX_NETWORK_ROWS)
+                            | (offsets.long() + lengths.long() > R))
     lengths = torch.where(bad, 0, lengths)
     seg = segment_ids(offsets, lengths, R, C)
     s = segmented_sort(flat, seg)
@@ -1843,6 +1863,7 @@ def row_sq_dists_plain(x: torch.Tensor, z=None) -> torch.Tensor:
 __all__ = [
     "MAX_NETWORK_ROWS",
     "arc_selection_mean_stream",
+    "use_kernel_for",
     "batcher_pairs",
     "canonical_nan",
     "center_loop",

@@ -7,8 +7,8 @@ transformed matrix (bucketing: fewer rows) for the round's
 ``pre_aggregate`` hook. ``clip_rows``, ``bucket_means`` and ``arc_clip``
 are plain PyTorch, as the JAX package leaves them to XLA. ``nnm`` runs the
 B8 kernels (:func:`.kernels.nnm_stream`) on a CUDA tensor with ``n <= 128``
-and raises ``NotImplementedError`` for a larger ``n`` there; on a CPU
-tensor it takes B8's plain version.
+(B8's plain version on a CPU tensor), and above 128 rows, on any device,
+the reference's XLA branch in PyTorch (:func:`_nnm_xla`).
 """
 
 from __future__ import annotations
@@ -58,7 +58,32 @@ def nnm(x: torch.Tensor, *, f: int) -> torch.Tensor:
     n = x.shape[0]
     if not 0 <= f < n:
         raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+    if not kernels.use_kernel_for(n):
+        return _nnm_xla(x, f=f)
     return kernels.nnm_stream(x[None], f=f)[0]
+
+
+def _nnm_xla(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """NNM by the reference's XLA branch (``preagg.nnm`` off the Pallas
+    gate): the Gram (f32 for 16-bit inputs), each row's ``k`` nearest by a
+    stable argsort of the clamped squared distances, one ``(n, n) @ (n,
+    d)`` mixing product over taint-zeroed rows, and NaN for a mixed row
+    that selected a row with a non-finite squared norm."""
+    from .robust import gram_matrix
+
+    n = x.shape[0]
+    k = n - f
+    gram = gram_matrix(x)
+    norms = torch.diagonal(gram)
+    d2 = torch.clamp(norms[:, None] + norms[None, :] - 2.0 * gram, min=0.0)
+    idx = torch.argsort(d2, dim=1, stable=True)[:, :k]
+    mask = torch.zeros_like(d2).scatter_(1, idx, 1.0)
+    taint = ~torch.isfinite(norms)
+    x_clean = torch.where(taint[:, None], torch.zeros((), dtype=x.dtype, device=x.device), x)
+    mixed = (mask @ x_clean.to(gram.dtype)) / torch.full((), k, dtype=gram.dtype, device=x.device)
+    sel_taint = (mask @ taint.to(gram.dtype)) > 0.5
+    nan = torch.full((), float("nan"), dtype=gram.dtype, device=x.device)
+    return torch.where(sel_taint[:, None], nan, mixed).to(x.dtype)
 
 
 def arc_cut_off(n: int, f: int) -> int:

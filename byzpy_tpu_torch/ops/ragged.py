@@ -50,7 +50,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from . import kernels
-from .robust import _masked_recip, _sq_dists_from_gram, gram_matrix
+from .robust import _masked_recip, _masked_rows_at, _sq_dists_from_gram, gram_matrix
 
 #: eps matching the forensics plane's cosine denominator floor
 _EVIDENCE_EPS = 1e-12
@@ -108,15 +108,26 @@ def ragged_trimmed_mean(
     f: int,
     n_cohorts: int,
     segment_sum: Optional[SegmentSum] = None,
+    long_slots: bool = False,
 ) -> torch.Tensor:
     """f-trimmed coordinate mean of every cohort (callers guarantee ``2f <
     m_c``): each cohort's columns sorted, the sorted window ``[f, m_c - f)``
     added in ascending order from +0.0 (the reference's zero-masked window
     contraction) times the rounded reciprocal of ``m_c - 2f``, in one
-    ``kernels.segmented_sort_reduce``. ``seg`` and ``segment_sum`` are
-    accepted for the ragged program's signature and not read: a sorted
-    operand is no wire row. Returns ``(n_cohorts, d)``: ``offsets`` and
-    ``lengths`` hold ``n_cohorts`` slots."""
+    ``kernels.segmented_sort_reduce``. With ``long_slots`` (some cohort has
+    more than ``kernels.MAX_NETWORK_ROWS`` rows, which the kernel's network
+    cannot hold) the reference's own program instead: :func:`segmented_sort`
+    and the windowed contraction, by B11. ``segment_sum`` is accepted for
+    the ragged program's signature and not read: a sorted operand is no
+    wire row. Returns ``(n_cohorts, d)``: ``offsets`` and ``lengths`` hold
+    ``n_cohorts`` slots."""
+    if long_slots:
+        s = segmented_sort(flat, seg)
+        rel = _segment_positions(seg, offsets, n_cohorts)
+        windows = torch.stack([((seg == c) & (rel >= f) & (rel < lengths[c] - f)).to(torch.float32)
+                               for c in range(n_cohorts)])
+        recips = _masked_recip(lengths - 2 * f, torch.float32)
+        return kernels.segment_sum(s, windows) * recips[:, None]
     return kernels.segmented_sort_reduce(flat, offsets, lengths, mode="trimmed", f=f)
 
 
@@ -127,11 +138,25 @@ def ragged_median(
     lengths: torch.Tensor,
     *,
     n_cohorts: int,
+    long_slots: bool = False,
 ) -> torch.Tensor:
     """Coordinate-wise median of every cohort (finite rows): the middle
     value of each cohort's sorted column, or the midpoint ``(a + b) * 0.5``
     of the two middle ones as ``masked_coordinate_median``, in one
-    ``kernels.segmented_sort_reduce`` (``seg`` is not read)."""
+    ``kernels.segmented_sort_reduce`` (``seg`` is not read). With
+    ``long_slots``, the reference's program: :func:`segmented_sort` and
+    the two middle rows gathered at each cohort's device offsets."""
+    if long_slots:
+        s = segmented_sort(flat, seg)
+        outs = []
+        for c in range(n_cohorts):
+            m = lengths[c]
+            lo = torch.div(m - 1, 2, rounding_mode="floor")
+            hi = torch.div(m, 2, rounding_mode="floor")
+            s_lo = _masked_rows_at(s, offsets[c] + lo)
+            s_hi = _masked_rows_at(s, offsets[c] + hi)
+            outs.append(torch.where(lo == hi, s_lo, (s_lo + s_hi) * 0.5))
+        return torch.stack(outs)
     return kernels.segmented_sort_reduce(flat, offsets, lengths, mode="median")
 
 

@@ -5,15 +5,20 @@ function takes the stacked matrix ``x`` (n nodes, d coordinates) and
 static hyper-parameters. Where the JAX package dispatches to a Pallas
 kernel, this module calls the matching wrapper in :mod:`.kernels`:
 
-* a CUDA tensor with ``n <= 128`` launches the hand-written kernel; a
-  CUDA tensor with ``n > 128`` raises ``NotImplementedError`` (no
-  ``d`` floor: on the card the kernel runs or the call raises);
-* a CPU tensor takes the kernel's plain PyTorch version.
+* ``n <= 128`` (:func:`kernels.use_kernel_for`, the reference's
+  ``use_pallas_for`` with no ``d`` floor): a CUDA tensor launches the
+  hand-written kernel, a CPU tensor takes the kernel's plain PyTorch
+  version;
+* ``n > 128``: every device takes the PyTorch counterpart of the
+  reference's XLA branch (the section "Above the networks" below), as
+  the reference leaves such a matrix to XLA. Its row contractions are
+  B11 and its per-row sums ``kernels.row_sq_dists``, the kernels with
+  no row cap; no network kernel launches.
 
 The fused pre-aggregated pipelines (``nnm_multi_krum``,
-``clipped_multi_krum``, ``arc_multi_krum`` and their streams) always take
-the fused kernels' path, where the JAX package takes it at large ``d`` on
-the TPU and the two-step composition elsewhere; the two agree within f32
+``clipped_multi_krum``, ``arc_multi_krum`` and their streams) take the
+fused kernels' path up to 128 rows, where the JAX package takes it at
+large ``d`` on the TPU, and the two-step composition above; the two agree within f32
 rounding on finite inputs, and the fused path's documented deviations on
 non-finite ones are the port's.
 
@@ -65,6 +70,8 @@ def _check_matrix(x: torch.Tensor) -> None:
 def gram_matrix(x: torch.Tensor) -> torch.Tensor:
     """``(n, n)`` Gram matrix ``x @ x.T`` in f32 (the B3 kernel on the card)."""
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        return _gram_xla(x)
     return kernels.gram(x[None])[0]
 
 
@@ -72,10 +79,14 @@ def sort_rows(x: torch.Tensor) -> torch.Tensor:
     """Columns of ``x`` sorted ascending along axis 0, through the int32
     total-order key for f32 (and, by an exact f32 round-trip, 16-bit)
     floats: -inf < finite < +inf < NaN, -0.0 before +0.0, NaN
-    canonicalized (B2, ``kernels.sort_columns``, on the card: ``n > 128``
-    raises there). Other dtypes sort as they are."""
+    canonicalized (B2, ``kernels.sort_columns``, on the card up to 128
+    rows; ``torch.sort`` of the keys above). Other dtypes sort as they
+    are."""
     if x.ndim >= 1 and x.dtype in (torch.float32, torch.bfloat16, torch.float16):
-        return kernels.sort_columns(x.reshape(x.shape[0], -1).contiguous()).reshape(x.shape)
+        x2 = x.reshape(x.shape[0], -1)
+        if not kernels.use_kernel_for(x.shape[0]):
+            return _sort_rows_xla(x2).reshape(x.shape)
+        return kernels.sort_columns(x2.contiguous()).reshape(x.shape)
     return torch.sort(x, dim=0).values
 
 
@@ -101,11 +112,15 @@ def coordinate_median(x: torch.Tensor) -> torch.Tensor:
     midpoint of the middle rows in ``x``'s dtype, NaN where a column holds
     a NaN)."""
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        return _median_from_sorted(sort_rows(x))
     return kernels.sorted_reduce_stream(x[None], mode="median")[0]
 
 
 def coordinate_median_stream(xs: torch.Tensor) -> torch.Tensor:
     """Coordinate-wise median over ``K`` stacked rounds ``(K, n, d)``."""
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(coordinate_median, xs)
     return kernels.sorted_reduce_stream(xs, mode="median")
 
 
@@ -116,11 +131,15 @@ def trimmed_mean(x: torch.Tensor, *, f: int) -> torch.Tensor:
     n = x.shape[0]
     if not 0 <= 2 * f < n:
         raise ValueError(f"trim parameter f must satisfy 0 <= 2f < n (got n={n}, f={f})")
+    if not kernels.use_kernel_for(n):
+        return _windowed_row_mean(sort_rows(x), n, f=f)
     return kernels.sorted_reduce_stream(x[None], mode="trimmed", f=f)[0]
 
 
 def trimmed_mean_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
     """f-trimmed coordinate mean over ``K`` stacked rounds ``(K, n, d)``."""
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(functools.partial(trimmed_mean, f=f), xs)
     return kernels.sorted_reduce_stream(xs, mode="trimmed", f=f)
 
 
@@ -131,11 +150,15 @@ def mean_of_medians(x: torch.Tensor, *, f: int) -> torch.Tensor:
     gives both the median and the cut, computed in f32 (the B6 kernel on
     the card, at every ``d``)."""
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        return _mean_of_medians_xla(x, f=f)
     return kernels.meamed_stream(x[None], f=f)[0]
 
 
 def mean_of_medians_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
     """MeaMed over ``K`` stacked rounds ``(K, n, d)``."""
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(functools.partial(mean_of_medians, f=f), xs)
     return kernels.meamed_stream(xs, f=f)
 
 
@@ -187,6 +210,8 @@ def selection_sweep_mean(x: torch.Tensor, scores: torch.Tensor, q: int) -> torch
     bit; the pool path of those classes selects from row-range scores
     with it."""
     selected = _nan_last_ranks(scores) < q
+    if not kernels.use_kernel_for(x.shape[0]):
+        return _selected_rows_mean(x, selected, q)
     w = torch.where(selected, torch.full_like(scores, 1.0 / q, dtype=torch.float32),
                     torch.zeros((), dtype=torch.float32, device=scores.device))
     return kernels.weighted_rows(x[None], w[None])[0]
@@ -199,11 +224,15 @@ def multi_krum(x: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
     n = x.shape[0]
     if not 1 <= q <= n - f:
         raise ValueError(f"q must satisfy 1 <= q <= n - f (got n={n}, f={f}, q={q})")
+    if not kernels.use_kernel_for(n):
+        return _multi_krum_from_gram_xla(x, gram_matrix(x), f=f, q=q)
     return kernels.selection_mean_stream(x[None], f=f, q=q, mode="krum")[0]
 
 
 def multi_krum_stream(xs: torch.Tensor, *, f: int, q: int) -> torch.Tensor:
     """Multi-Krum over ``K`` stacked rounds ``(K, n, d)``."""
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(functools.partial(multi_krum, f=f, q=q), xs)
     return kernels.selection_mean_stream(xs, f=f, q=q, mode="krum")
 
 
@@ -218,6 +247,11 @@ def cge(x: torch.Tensor, *, f: int) -> torch.Tensor:
     ``aggregators/norm_wise/comparative_gradient_elimination.py``). The
     selection kernel in its ``cge`` mode (B3 + B4 on the card)."""
     _check_matrix(x)
+    n = x.shape[0]
+    if not kernels.use_kernel_for(n):
+        if not 0 <= f < n:
+            raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+        return _selected_rows_mean(x, _nan_last_ranks(_row_sums_sq(x)) < n - f, n - f)
     return cge_stream(x[None], f=f)[0]
 
 
@@ -226,7 +260,16 @@ def cge_stream(xs: torch.Tensor, *, f: int) -> torch.Tensor:
     n = xs.shape[-2]
     if not 0 <= f < n:
         raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+    if not kernels.use_kernel_for(n):
+        return aggregate_stream(functools.partial(cge, f=f), xs)
     return kernels.selection_mean_stream(xs, f=0, q=n - f, mode="cge")
+
+
+def _check_monna(n: int, f: int, reference_index: int) -> None:
+    if 2 * f >= n:
+        raise ValueError(f"Cannot tolerate 2f >= n (got n={n}, f={f})")
+    if not 0 <= reference_index < n:
+        raise ValueError(f"reference_index must be in [0, {n}) (got {reference_index})")
 
 
 def monna(x: torch.Tensor, *, f: int, reference_index: int = 0) -> torch.Tensor:
@@ -235,16 +278,20 @@ def monna(x: torch.Tensor, *, f: int, reference_index: int = 0) -> torch.Tensor:
     ``aggregators/geometric_wise/monna.py:36-83``). The selection kernel in
     its ``monna`` mode (B3 + B4 on the card)."""
     _check_matrix(x)
+    n = x.shape[0]
+    if not kernels.use_kernel_for(n):
+        _check_monna(n, f, reference_index)
+        dists = _row_sums_sq(x, x[reference_index])
+        return _selected_rows_mean(x, _nan_last_ranks(dists) < n - f, n - f)
     return monna_stream(x[None], f=f, reference_index=reference_index)[0]
 
 
 def monna_stream(xs: torch.Tensor, *, f: int, reference_index: int = 0) -> torch.Tensor:
     """MoNNA over ``K`` stacked rounds ``(K, n, d)``."""
     n = xs.shape[-2]
-    if 2 * f >= n:
-        raise ValueError(f"Cannot tolerate 2f >= n (got n={n}, f={f})")
-    if not 0 <= reference_index < n:
-        raise ValueError(f"reference_index must be in [0, {n}) (got {reference_index})")
+    _check_monna(n, f, reference_index)
+    if not kernels.use_kernel_for(n):
+        return aggregate_stream(functools.partial(monna, f=f, reference_index=reference_index), xs)
     return kernels.selection_mean_stream(
         xs, f=0, q=n - f, mode="monna", reference_index=reference_index
     )
@@ -282,6 +329,9 @@ def geometric_median(
     if init not in {"median", "mean"}:
         raise ValueError("init must be 'median' or 'mean'")
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        z0 = coordinate_median(x) if init == "median" else _row_mean_einsum(x)
+        return _weiszfeld_xla(x, z0, None, tol=tol, max_iter=max_iter, eps=eps)
     z0 = coordinate_median(x) if init == "median" else _row_mean(x)
     z, iterations = kernels.center_loop(x, z0, mode="weiszfeld", eps=eps, tol=tol, max_iter=max_iter)
     if x.is_cuda and torch.cuda.is_current_stream_capturing():
@@ -309,12 +359,15 @@ def centered_clipping(
     if init not in {"mean", "median", "zero"}:
         raise ValueError("init must be one of {'mean','median','zero'}")
     _check_matrix(x)
+    above = not kernels.use_kernel_for(x.shape[0])
     if init == "mean":
-        v = _row_mean(x)
+        v = _row_mean_einsum(x) if above else _row_mean(x)
     elif init == "median":
         v = coordinate_median(x)
     else:
         v = x.new_zeros((x.shape[1],))
+    if above:
+        return _centered_clipping_xla(x, v, c_tau=c_tau, M=M, eps=eps)
     return kernels.center_loop(x, v, mode="clip", eps=eps, c_tau=c_tau, max_iter=M)[0]
 
 
@@ -411,11 +464,17 @@ def nnm_multi_krum(x: torch.Tensor, *, f_nnm: int, f: int, q: int) -> torch.Tens
     built: the mixed rows' Gram comes from the raw one and the mean
     collapses to source-row weights (the B3 + B9 kernels on the card)."""
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        from .preagg import nnm
+
+        return multi_krum(nnm(x, f=f_nnm), f=f, q=q)
     return kernels.nnm_selection_mean_stream(x[None], f_nnm=f_nnm, f=f, q=q, mode="krum")[0]
 
 
 def nnm_multi_krum_stream(xs: torch.Tensor, *, f_nnm: int, f: int, q: int) -> torch.Tensor:
     """``nnm_multi_krum`` over ``K`` stacked rounds ``(K, n, d)``."""
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(functools.partial(nnm_multi_krum, f_nnm=f_nnm, f=f, q=q), xs)
     return kernels.nnm_selection_mean_stream(xs, f_nnm=f_nnm, f=f, q=q, mode="krum")
 
 
@@ -428,11 +487,17 @@ def clipped_multi_krum(x: torch.Tensor, *, tau: float, f: int, q: int) -> torch.
         # zero every row
         raise ValueError(f"tau must be positive (got {tau})")
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        from .preagg import clip_rows
+
+        return multi_krum(clip_rows(x, threshold=tau), f=f, q=q)
     return kernels.clip_selection_mean_stream(x[None], tau=tau, f=f, q=q, mode="krum")[0]
 
 
 def clipped_multi_krum_stream(xs: torch.Tensor, *, tau: float, f: int, q: int) -> torch.Tensor:
     """``clipped_multi_krum`` over ``K`` stacked rounds ``(K, n, d)``."""
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(functools.partial(clipped_multi_krum, tau=tau, f=f, q=q), xs)
     return kernels.clip_selection_mean_stream(xs, tau=tau, f=f, q=q, mode="krum")
 
 
@@ -447,6 +512,10 @@ def arc_multi_krum(x: torch.Tensor, *, f_arc: int, f: int, q: int) -> torch.Tens
             f"f_arc must satisfy 0 <= f_arc <= n (got {f_arc}, n={x.shape[0]})"
         )
     _check_matrix(x)
+    if not kernels.use_kernel_for(x.shape[0]):
+        from .preagg import arc_clip
+
+        return multi_krum(arc_clip(x, f=f_arc), f=f, q=q)
     return kernels.arc_selection_mean_stream(x[None], f_arc=f_arc, f=f, q=q, mode="krum")[0]
 
 
@@ -456,6 +525,8 @@ def arc_multi_krum_stream(xs: torch.Tensor, *, f_arc: int, f: int, q: int) -> to
         raise ValueError(
             f"f_arc must satisfy 0 <= f_arc <= n (got {f_arc}, n={xs.shape[-2]})"
         )
+    if not kernels.use_kernel_for(xs.shape[-2]):
+        return aggregate_stream(functools.partial(arc_multi_krum, f_arc=f_arc, f=f, q=q), xs)
     return kernels.arc_selection_mean_stream(xs, f_arc=f_arc, f=f, q=q, mode="krum")
 
 
@@ -561,6 +632,8 @@ def multi_krum_from_gram(
     if not 1 <= q <= n - f:
         raise ValueError(f"q must satisfy 1 <= q <= n - f (got n={n}, f={f}, q={q})")
     _check_matrix(x)
+    if not kernels.use_kernel_for(n):
+        return _multi_krum_from_gram_xla(x, gram, f=f, q=q)
     return kernels.selection_mean_from_gram(x, gram, f=f, q=q, mode="krum")
 
 
@@ -851,6 +924,8 @@ def masked_geometric_median(
     _check_matrix(x)
     x = x.contiguous()
     z = _masked_median_rows(x, valid) if init == "median" else masked_mean(x, valid)
+    if not kernels.use_kernel_for(x.shape[0]):
+        return _weiszfeld_xla(x, z, valid, tol=tol, max_iter=max_iter, eps=eps)
     z, iterations = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid.contiguous(),
                                         eps=eps, tol=tol, max_iter=max_iter)
     last_iterations["geometric_median"] = iterations
@@ -1048,6 +1123,152 @@ def subset_mean(x: torch.Tensor, combo: torch.Tensor) -> torch.Tensor:
 def best_subset_by_score(scores: torch.Tensor) -> torch.Tensor:
     """Index of the minimum score (first on ties, matching the host loop)."""
     return torch.argmin(scores)
+
+
+# ---------------------------------------------------------------------------
+# Above the networks: the counterparts of the reference's XLA branches
+# ---------------------------------------------------------------------------
+#
+# Where ``kernels.use_kernel_for(n)`` is False the reference leaves the
+# matrix to XLA (``use_pallas_for``), and so does the port, in PyTorch on
+# the matrix's device: the int32-key ``torch.sort`` for ``sort_rows``, a
+# ``torch.matmul`` Gram (accumulated in f32 for 16-bit inputs; the
+# caller's TF32 setting applies, off by default), ``torch.sort`` rows for
+# the Krum scores. Each reference ``einsum("n,nd->d")`` is B11
+# (:func:`_contract_rows`, the same FMA chain over rows in index order)
+# and each per-row sum over ``d`` ``kernels.row_sq_dists``: those kernels
+# take any number of rows. No network kernel launches here.
+
+
+def _gram_xla(x: torch.Tensor) -> torch.Tensor:
+    """``x @ x.T`` accumulated in f32 for 16-bit inputs (ref
+    ``gram_matrix``: an XLA dot outside any Pallas kernel)."""
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+    xf = x.to(acc)
+    return xf @ xf.T
+
+
+def _sort_rows_xla(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``sort_rows`` fallback: ``torch.sort`` of the int32
+    total-order keys along the rows, 16-bit floats through the exact f32
+    round trip, NaN canonical."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return kernels.canonical_nan(_sort_rows_xla(x.float()).to(x.dtype))
+    return kernels.keys_to_float(torch.sort(kernels.float_sort_keys(x), dim=0).values)
+
+
+def _median_from_sorted(s: torch.Tensor) -> torch.Tensor:
+    """``jnp.median(x, axis=0)`` from the sorted matrix (ref
+    ``_median_from_sorted``): the midpoint of the middle rows in ``s``'s
+    dtype, NaN column-wide where the last sorted row is NaN."""
+    n = s.shape[0]
+    lo, hi = (n - 1) // 2, n // 2
+    med = s[lo] if lo == hi else (s[lo] + s[hi]) * 0.5
+    nan = torch.full((), float("nan"), dtype=s.dtype, device=s.device)
+    return torch.where(torch.isnan(s[n - 1]), nan, med)
+
+
+def _mean_of_medians_xla(x: torch.Tensor, *, f: int) -> torch.Tensor:
+    """MeaMed by the reference's sort / window / mask pipeline
+    (``_mean_of_medians_xla``): one sort gives the median and, through the
+    contiguous-window identity, the cut deviation; rows strictly below the
+    cut are kept and ties at it filled in node order."""
+    n = x.shape[0]
+    if not 0 <= f < n:
+        raise ValueError(f"f must satisfy 0 <= f < n (got n={n}, f={f})")
+    k = n - f
+    xs = sort_rows(x)
+    lo, hi = (n - 1) // 2, n // 2
+    # 0.5 a + 0.5 b: the sum of two near-max values would overflow
+    med = xs[lo] if lo == hi else xs[lo] * 0.5 + xs[hi] * 0.5
+    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    med = torch.where(torch.isnan(xs[n - 1]), nan, med)
+    radius = torch.maximum(med[None, :] - xs[: n - k + 1], xs[k - 1:] - med[None, :])
+    dev = torch.abs(x - med[None, :])
+    cut_nonfinite = torch.where((~torch.isnan(dev)).sum(dim=0) >= k, inf, nan)
+    cut = torch.where(torch.isfinite(med), torch.amin(radius, dim=0), cut_nonfinite)
+    below = dev < cut[None, :]
+    at = dev == cut[None, :]
+    quota = k - below.sum(dim=0)
+    take_at = at & (torch.cumsum(at.to(torch.int64), dim=0) <= quota[None, :])
+    sel = torch.where(below | take_at, x, torch.zeros((), dtype=x.dtype, device=x.device))
+    out = _contract_rows(torch.ones(n, device=x.device), sel.contiguous())
+    out = out * _masked_recip(torch.full((), k, device=x.device), x.dtype)
+    return torch.where(torch.isnan(cut), nan, out)
+
+
+def _row_sums_sq(x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sum((x - z)^2, axis=1)`` (``z=None``: the squared norms), f32."""
+    return kernels.row_sq_dists(x.contiguous(), None if z is None else z.contiguous())
+
+
+def _multi_krum_from_gram_xla(
+    x: torch.Tensor, gram: torch.Tensor, *, f: int, q: int
+) -> torch.Tensor:
+    """Multi-Krum from a Gram (ref ``_multi_krum_from_gram_xla``): the
+    sorted-row scores, the ``q`` best rows under the shared rank order,
+    weight ``1/q`` and one row contraction."""
+    scores = krum_scores_from_gram(gram, f=f)
+    return _selected_rows_mean(x, _nan_last_ranks(scores) < q, q)
+
+
+def _refuse_capture(x: torch.Tensor, what: str) -> None:
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        from ..utils.cuda_graph import GraphCaptureError
+
+        raise GraphCaptureError(
+            f"{what} above {kernels.MAX_NETWORK_ROWS} rows reads its stopping test on the "
+            "host every step (the reference's while_loop on XLA); it runs eagerly only"
+        )
+
+
+def _weiszfeld_xla(
+    x: torch.Tensor,
+    z0: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    *,
+    tol: float,
+    max_iter: int,
+    eps: float,
+) -> torch.Tensor:
+    """Weiszfeld steps by the reference's XLA body (``_geometric_median_impl``
+    with ``use_kernel=False``, and ``masked_geometric_median`` with
+    ``valid``): ``w = 1 / max(|x_i - z|, eps)`` in ``x``'s dtype (0 on
+    invalid rows), ``z <- sum_i w_i x_i / sum_i w_i``, while ``(it == 0 or
+    delta > tol) and it < max_iter``. The stopping test is read on the
+    host each step, so a CUDA-graph capture refuses it."""
+    _refuse_capture(x, "the geometric median")
+    n = x.shape[0]
+    x = x.contiguous()
+    ones = torch.ones((n, 1), dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    z, it, delta = z0, 0, None
+    while it < max_iter and (it == 0 or bool(delta > tol)):
+        dist = torch.sqrt(_row_sums_sq(x, z))
+        w = (torch.ones_like(dist) / torch.clamp(dist, min=eps)).to(x.dtype)
+        if valid is not None:
+            w = torch.where(valid, w, zero)
+        z_new = _contract_rows(w, x) / _contract_rows(w, ones)[0]
+        delta = torch.sqrt(torch.sum((z_new - z) ** 2))
+        z, it = z_new, it + 1
+    last_iterations["geometric_median"] = it
+    return z
+
+
+def _centered_clipping_xla(
+    x: torch.Tensor, v: torch.Tensor, *, c_tau: float, M: int, eps: float
+) -> torch.Tensor:
+    """``M`` steps of the reference's XLA body (``_centered_clipping_impl``
+    with ``use_kernel=False``): ``v <- v + sum_i s_i (x_i - v) / n`` with
+    ``s_i = min(1, c_tau / max(|x_i - v|, eps))``; no host read."""
+    inv = _masked_recip(torch.full((), x.shape[0], device=x.device), x.dtype)
+    for _ in range(M):
+        diff = (x - v[None, :]).contiguous()
+        dist = torch.sqrt(_row_sums_sq(diff))
+        scale = torch.clamp(torch.full_like(dist, c_tau) / torch.clamp(dist, min=eps), max=1.0)
+        v = v + _contract_rows(scale.to(x.dtype), diff) * inv
+    return v
 
 
 def aggregate_stream(

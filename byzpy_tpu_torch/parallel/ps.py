@@ -346,6 +346,8 @@ def build_ragged_serving_ps_step(
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
     rows = int(row_capacity)
+    # the cohort's size is data: above the networks' width it may not fit one
+    long_slots = rows > kernels.MAX_NETWORK_ROWS
 
     def step(params: Params, opt_state, flat, offsets, lengths, weights):
         with record_function("serving.ragged_scale"):
@@ -358,7 +360,7 @@ def build_ragged_serving_ps_step(
 
         with record_function("serving.ragged_aggregate"):
             aggs, _, _ = ragged_aggregate(flat, seg, offsets, lengths, n_cohorts=1,
-                                          segment_sum=segment_sum)
+                                          segment_sum=segment_sum, long_slots=long_slots)
             agg = aggs[0].to(param_dtype)
         with record_function("serving.opt_update"):
             new_flat, opt_state = opt.step(ravel(params), agg, opt_state)

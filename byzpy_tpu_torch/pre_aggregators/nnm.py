@@ -2,7 +2,8 @@
 
 Counterpart of ``byzpy_tpu/pre_aggregators/nnm.py`` (behavioral parity:
 ``byzpy/pre_aggregators/nnm.py:21-95``): ``preagg.nnm`` per round and
-``kernels.nnm_stream`` over stacked rounds, B3 + B8 on the card.
+``kernels.nnm_stream`` over stacked rounds, B3 + B8 on the card up to 128
+rows; above them ``preagg.nnm``'s PyTorch path, round by round.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ class NearestNeighborMixing(PreAggregator):
         return preagg.nnm(x, f=self.f)
 
     def _transform_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
+        if not kernels.use_kernel_for(xs.shape[-2]):
+            return torch.stack([preagg.nnm(x, f=self.f) for x in xs])
         return kernels.nnm_stream(xs, f=self.f)
 
 

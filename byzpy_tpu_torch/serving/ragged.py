@@ -29,8 +29,11 @@ the admission queue) and the door's switch ``ragged_enabled``, which
 only the runtime reads, are serving code that waits for the front end
 (ROADMAP A.6).
 
-On the card the row capacity is at most 128: B3 (the shared Gram) and B2
-(the masked programs' sort) raise ``NotImplementedError`` above it.
+Any row capacity runs on the card: above 128 rows the Gram and the
+masked programs' sorts take ``ops.robust``'s PyTorch counterparts, and the
+segmented sort-reduce takes the batch whole. A batch with a cohort of more
+than 128 rows (a fact of the host's sizes) runs the segmented programs'
+PyTorch path (``long_slots=True``), never a slot the network cannot hold.
 """
 
 from __future__ import annotations
@@ -102,6 +105,8 @@ class RaggedExecutor:
         self.quantized_dispatches = 0
         self._fn = fn
         self._with_evidence = bool(with_evidence)
+        #: whether the batch in flight has a cohort longer than the networks
+        self._long_slots = False
         #: the quantized programs built, one per wire spec (mode, block)
         self._quant_programs: Dict[tuple, Callable] = {}
 
@@ -109,7 +114,8 @@ class RaggedExecutor:
         """The aggregation body shared by both programs."""
         with record_function("serving.ragged_aggregate"):
             aggs, score, keep = self._fn(scaled, seg, offsets, lengths,
-                                         n_cohorts=self.max_cohorts, segment_sum=segment_sum)
+                                         n_cohorts=self.max_cohorts, segment_sum=segment_sum,
+                                         long_slots=self._long_slots)
         if not self._with_evidence:
             return aggs, score, keep, None, None
         with record_function("serving.ragged_evidence"):
@@ -206,6 +212,7 @@ class RaggedExecutor:
             offsets[c] = off
             lengths[c] = m
             off += m
+        self._long_slots = max(sizes) > kernels.MAX_NETWORK_ROWS
         dev = self.device
         qspec = self._quant_spec(cohorts)
         if qspec is not None:

@@ -1354,7 +1354,8 @@ def check_segmented_sort(errs: dict) -> None:
     """The segmented sort-reduce against its plain version, bit for bit, at
     ``SEGMENTED_CASES`` in every mode of ``SEGMENTED_MODES``: on finite rows
     and on ``masked_rows``' rows holding NaN and +-inf (an all-NaN and an
-    all-inf row at R > 7), NaN canonical; R = 129 raises."""
+    all-inf row at R > 7), NaN canonical; a batch of 256 rows (slots of
+    128, 100 and 27) too, R being free; a slot of 129 rows writes NaN."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels
@@ -1375,12 +1376,17 @@ def check_segmented_sort(errs: dict) -> None:
             torch.cuda.empty_cache()
         log(f"  segmented sort-reduce {(R, d)} cohorts {list(sizes)} + {pad} padding: trimmed f = 0, 2, "
             f"8 and median bitwise equal to plain, on finite rows and on rows holding NaN / +-inf")
-    try:
-        kernels.segmented_sort_reduce(torch.zeros((129, 16), device="cuda"), *ragged_layout((129,)),
-                                      mode="median")
-        check(False, "the segmented sort-reduce took R = 129")
-    except NotImplementedError:
-        pass
+    x = masked_rows((256, 50_001), 1190, torch.float32, specials=False)
+    for mode, f in SEGMENTED_MODES:
+        out = kernels.segmented_sort_reduce(x, *ragged_layout((128, 100, 27), 1), mode=mode, f=f)
+        ref = kernels.segmented_sort_reduce_plain(x, *ragged_layout((128, 100, 27), 1), mode=mode, f=f)
+        check(bits_equal(out, ref), f"segmented sort-reduce {mode} f={f} differs from plain at R = 256")
+        long = kernels.segmented_sort_reduce(x, *ragged_layout((129,)), mode=mode, f=f)
+        check(nan_is_canonical(long) and bool(torch.isnan(long).all()),
+              "the segmented sort-reduce wrote a 129-row slot")
+    log("  segmented sort-reduce (256, 50001) cohorts [128, 100, 27] + 1 padding: bitwise equal to "
+        "plain (R above 128); a 129-row slot writes NaN")
+    del x
 
 
 # ---------------------------------------------------------------------------
@@ -4793,6 +4799,663 @@ def orchestrator_path(counts: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: more than 128 rows, and the out-of-process actor tier
+# ---------------------------------------------------------------------------
+
+# (a): the row counts above the networks' 128, at ByzPy's grid width
+WIDE_ROWS = (129, 196, 256, 512)
+WIDE_D = 65_536
+# the network kernels: at 128 rows some launch, above 128 none may
+NETWORK_KEYS = ("sorted_reduce:median", "sorted_reduce:trimmed", "gram", "meamed",
+                "selection_weights:krum", "selection_weights:cge", "selection_weights:monna",
+                "weighted_rows", "nnm_weights", "mix_rows", "nnm_selection_weights:krum",
+                "clip_selection_weights:clip", "clip_selection_weights:arc",
+                "center_loop:weiszfeld", "center_loop:clip", "sort_columns")
+# the card's result against the CPU's: "exact" where both take the same
+# sort keys, ranks and row chains (B11 and row_sq_dists bit for bit their
+# plain versions); "gram" where a torch.matmul Gram (cuBLAS against the
+# CPU's BLAS) or a torch.sum norm re-associates; "loop" for the iterative
+# aggregators, their distances summed in another order each step
+WIDE_RTOL = {"exact": 0.0, "gram": 1e-5, "loop": 1e-4}
+WIDE_ATOL = {"exact": 0.0, "gram": 1e-5, "loop": 1e-4}
+# ByzPy's rows phase 4f's (c) does not run (BASELINE.md, benchmarks/README.md:12-29)
+BYZPY_POOL_MORE = {
+    "mda_30x2048_f10": (353.0, 218.0, 184.0, 166.0),
+    "smea_16x4096_f5": (82.0, 71.6, 48.3, 48.0),
+    "arc_256x65536_f8": (20.77, 50.87, 51.38, 95.90),
+    "caf_64x65536_f8": (54.51, 58.03, 54.94, 62.21),
+    "ps_multi_krum_10h_3b_50_rounds": (71.0, 54.0, 43.0, 42.0),
+    "gaussian_64x65536": (12.6, 13.5, 13.3, 12.3),
+    "nnm_196x4096_f32": (12.0, 142.0, 163.0, 137.0),
+    "bucketing_512x16384_b32": (13.4, 21.7, 24.2, 23.4),
+    "clipping_256x65536_tau2": (46.0, 61.0, 78.0, 81.0),
+}
+# every await of phase 4i is bounded by this
+PROCESS_WAIT_S = 420
+# (d) process_mnist's configuration: 3 nodes, 10 rounds, batch 64, lr 0.1
+PMNIST_NODES, PMNIST_ROUNDS, PMNIST_BATCH, PMNIST_LR = 3, 10, 64, 0.1
+# (e) remote_tcp's manifest (examples/ps/remote_tcp/nodes.yaml), built in code
+REMOTE_MANIFEST = [("honest-0", "honest", 0), ("honest-1", "honest", 1), ("honest-2", "honest", 2),
+                   ("honest-3", "honest", 0), ("byz-0", "byzantine", 1)]
+REMOTE_ROUNDS = 5
+REMOTE_KEY = "chip-smoke-remote-secret"
+
+try:  # phase 4i's node classes subclass the port's ABCs; a child process imports them from here
+    from byzpy_tpu_torch.engine.node.base import ByzantineNode as _ByzantineNode
+    from byzpy_tpu_torch.engine.node.base import HonestNode as _HonestNode
+except ImportError:  # no port beside this script: main() stops before phase 4i
+    _HonestNode = _ByzantineNode = object
+
+
+def wide_families():
+    """(a)'s families above 128 rows: name -> (function, tolerance rule)."""
+    from byzpy_tpu_torch.ops import preagg, robust
+
+    P = functools.partial
+    return {
+        "median": (robust.coordinate_median, "exact"),
+        "trimmed_f20": (P(robust.trimmed_mean, f=20), "exact"),
+        "meamed_f20": (P(robust.mean_of_medians, f=20), "exact"),
+        "cge_f20": (P(robust.cge, f=20), "exact"),
+        "monna_f20": (P(robust.monna, f=20), "exact"),
+        "multi_krum_f20_q40": (P(robust.multi_krum, f=20, q=40), "gram"),
+        "clipped_multi_krum": (P(robust.clipped_multi_krum, tau=250.0, f=20, q=40), "gram"),
+        "arc_multi_krum": (P(robust.arc_multi_krum, f_arc=20, f=20, q=40), "gram"),
+        "nnm_f20": (P(preagg.nnm, f=20), "gram"),
+        "nnm_multi_krum": (P(robust.nnm_multi_krum, f_nnm=20, f=20, q=40), "gram"),
+        "geometric_median_it8": (P(robust.geometric_median, max_iter=8), "loop"),
+        "centered_clipping_M3": (P(robust.centered_clipping, c_tau=250.0, M=3), "loop"),
+    }
+
+
+def wide_rows(n: int, seed: int):
+    """``(n, 65,536)`` f32 on the card, every tenth row x4 (norms ~256 and
+    ~1,024), so the selections and clips have rows to drop."""
+    x = random_rounds((1, n, WIDE_D), seed=seed)[0]
+    x[::10] *= 4.0
+    return x
+
+
+def wide_direct(counts: dict) -> dict:
+    """(a) every family at 128 rows (the networks launch) and at 129, 196,
+    256 and 512 (none launches), each against the same call on the CPU;
+    the masked programs at a 512-row bucket; a captured step above 128
+    rows for each family (a CUDA graph, or a GraphCaptureError that names
+    the cause); the ragged executor at a capacity of 256 with a 200-row
+    slot."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels, robust
+    from byzpy_tpu_torch.utils.cuda_graph import CapturedStep, GraphCaptureError
+
+    out = {}
+    for name, (fn, rule) in wide_families().items():
+        row = {"rule": rule}
+        for n in (128,) + WIDE_ROWS:
+            x = wide_rows(n, seed=600 + n)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = fn(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = {k: v for k, v in kernels.launch_counts.items() if v}
+            nets = {k: v for k, v in launched.items() if k in NETWORK_KEYS}
+            if n <= kernels.MAX_NETWORK_ROWS:
+                check(bool(nets), f"(a) {name} at {n} rows launched no network kernel: {launched}")
+            else:
+                check(not nets, f"(a) {name} at {n} rows launched network kernels {nets}")
+            for k, v in launched.items():
+                if k in counts:
+                    counts[k] += v
+            ref = fn(x.cpu())
+            err = max_abs_err(got.cpu(), ref)
+            if n <= kernels.MAX_NETWORK_ROWS:
+                ok = bool(torch.allclose(got.cpu(), ref, rtol=1e-4, atol=1e-4, equal_nan=True))
+            elif rule == "exact":
+                ok = bits_equal(got.cpu(), ref)
+            else:
+                ok = bool(torch.allclose(got.cpu(), ref, rtol=WIDE_RTOL[rule],
+                                         atol=WIDE_ATOL[rule] * float(ref.abs().max()),
+                                         equal_nan=True))
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"(a) {name} at {n} rows: the card is {err} off the CPU ({rule})")
+            row[str(n)] = {"host_ms": ms, "max_abs_err": err, "launches": launched}
+            del x
+        out[name] = row
+        log(f"  (a) {name}: " + ", ".join(
+            f"{n} rows {row[str(n)]['host_ms']:.3f} ms (err {row[str(n)]['max_abs_err']:.3g})"
+            for n in (128,) + WIDE_ROWS) + f"; held {rule} against the CPU")
+    # the masked programs at a bucket of 512 rows holding 400
+    x = wide_rows(512, seed=690)
+    valid = torch.zeros(512, dtype=torch.bool, device="cuda")
+    valid[torch.randperm(512, generator=torch.Generator().manual_seed(3))[:400].cuda()] = True
+    x[~valid] = 0.0
+    masked = {"masked_trimmed_f10": (functools.partial(robust.masked_trimmed_mean, f=10), "exact"),
+              "masked_median": (robust.masked_coordinate_median, "exact"),
+              "masked_multi_krum": (functools.partial(robust.masked_multi_krum, f=10, q=30), "gram"),
+              "masked_geometric_median_it8": (functools.partial(robust.masked_geometric_median,
+                                                                max_iter=8), "loop")}
+    for name, (fn, rule) in masked.items():
+        kernels.reset_launch_counts()
+        got = fn(x, valid)
+        torch.cuda.synchronize()
+        nets = {k: v for k, v in kernels.launch_counts.items() if v and k in NETWORK_KEYS}
+        check(not nets, f"(a) {name} at a 512-row bucket launched {nets}")
+        ref = fn(x.cpu(), valid.cpu())
+        ok = bits_equal(got.cpu(), ref) if rule == "exact" else bool(torch.allclose(
+            got.cpu(), ref, rtol=WIDE_RTOL[rule], atol=WIDE_ATOL[rule] * float(ref.abs().max())))
+        check(ok, f"(a) {name}: the card is {max_abs_err(got.cpu(), ref)} off the CPU ({rule})")
+        out[name] = {"rule": rule, "max_abs_err": max_abs_err(got.cpu(), ref)}
+    log(f"  (a) masked programs at a 512-row bucket of 400: "
+        + ", ".join(f"{k} err {out[k]['max_abs_err']:.3g}" for k in masked))
+    # a captured step above 128 rows: a CUDA graph replayed bit for bit, or
+    # a GraphCaptureError that names the cause
+    x = wide_rows(196, seed=691)
+    captures = {}
+    for name, (fn, _) in wide_families().items():
+        step = CapturedStep(lambda s, m, fn=fn: (s, {"agg": fn(m)}), name="ps_train_step",
+                            donate=False, state_args=1)
+        try:
+            first = step(torch.zeros(1, device="cuda"), x)[1]["agg"]
+            again = step(torch.zeros(1, device="cuda"), x)[1]["agg"]
+            torch.cuda.synchronize()
+            check(bits_equal(first, again) and bits_equal(first, fn(x)),
+                  f"(a) {name}'s captured step differs from the eager call at 196 rows")
+            captures[name] = "captured"
+        except GraphCaptureError as exc:
+            check("host" in str(exc), f"(a) {name}'s refusal does not name a host read: {exc}")
+            captures[name] = f"refused: {exc}"
+    check(captures["geometric_median_it8"].startswith("refused"),
+          "(a) the geometric median above 128 rows captured (it reads its stop on the host)")
+    out["captured_step_196"] = captures
+    log("  (a) captured steps at 196 rows: " + json.dumps(
+        {k: v.split(":")[0] for k, v in captures.items()}))
+    out["ragged_executor_256"] = wide_ragged(counts)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_ragged(counts: dict) -> dict:
+    """The ragged executor at a capacity of 256: cohorts of 100 and 128
+    rows run one segmented sort-reduce over the whole batch (R = 256);
+    cohorts of 200 and 40 take the torch segmented program (a slot the
+    network cannot hold). Each equals the CPU's masked door, never NaN."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian, CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.serving import RaggedExecutor
+    from byzpy_tpu_torch.serving.cohort import StalenessPolicy, build_cohort
+    from byzpy_tpu_torch.serving.queue import Submission
+
+    out = {}
+    gen = torch.Generator().manual_seed(7)
+    for label, make in (("median", lambda dev: CoordinateWiseMedian(device=dev)),
+                        ("trimmed_f3", lambda dev: CoordinateWiseTrimmedMean(3, device=dev))):
+        for sizes in ((100, 128), (200, 40)):
+            rows = [torch.randn((m, WIDE_D), generator=gen) for m in sizes]
+            views = {}
+            for dev in ("cuda", "cpu"):
+                ex = RaggedExecutor(make(dev), WIDE_D, 256, 2, with_evidence=False)
+                cohorts = [build_cohort([Submission(f"c{i}", 0, r.to(dev), float(i))
+                                         for i, r in enumerate(rs)], 0, None, StalenessPolicy(),
+                                        device=dev) for rs in rows]
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                views[dev] = [v.vector.cpu() for v in ex.aggregate(cohorts, ["t", "t"])]
+                ms = (time.perf_counter() - t0) * 1e3
+                if dev == "cuda":
+                    seg = kernels.launch_counts["segmented_sort_reduce"]
+                    want = 1 if max(sizes) <= 128 else 0
+                    check(seg == want, f"(a) ragged {label} {sizes}: {seg} segmented launches, "
+                          f"not {want}")
+                    counts["segmented_sort_reduce"] += seg
+                    out[f"{label}_{sizes[0]}_{sizes[1]}_host_ms"] = ms
+            for a, b in zip(views["cuda"], views["cpu"]):
+                check(bool(torch.isfinite(a).all()), f"(a) ragged {label} {sizes}: NaN in a slot")
+                check(bool(torch.allclose(a, b, rtol=1e-6, atol=1e-6)),
+                      f"(a) ragged {label} {sizes}: {max_abs_err(a, b)} off the CPU")
+    log(f"  (a) ragged executor, capacity 256: {json.dumps(out)}")
+    return out
+
+
+def process_pool_cases():
+    """(b)'s workloads: phase 4f's ten at ByzPy's shapes and the nine it
+    leaves out, name -> (operator, inputs, how the pooled result is held
+    to the direct one)."""
+    from byzpy_tpu_torch import aggregators as P
+    from byzpy_tpu_torch import attacks as A
+    from byzpy_tpu_torch import pre_aggregators as PRE
+
+    def rows(n, d, seed):
+        return list(random_rounds((1, n, d), seed=seed)[0])
+
+    cases = pool_table_cases()
+    cases.update({
+        "mda_30x2048_f10": (P.MinimumDiameterAveraging(10), {"gradients": rows(30, 2048, 61)},
+                            "bitwise"),
+        "smea_16x4096_f5": (P.SMEA(5), {"gradients": rows(16, 4096, 62)}, "bitwise"),
+        "arc_256x65536_f8": (PRE.ARC(8), {"vectors": rows(256, GRID[1], 63)}, "bitwise"),
+        "caf_64x65536_f8": (P.CAF(8), {"gradients": rows(64, GRID[1], 64)}, "bitwise"),
+        "gaussian_64x65536": (A.GaussianAttack(seed=5), {"honest_grads": rows(64, GRID[1], 65)},
+                              "shape"),
+        "nnm_196x4096_f32": (PRE.NearestNeighborMixing(32), {"vectors": rows(196, 4096, 66)},
+                             "bitwise"),
+        "bucketing_512x16384_b32": (PRE.Bucketing(32, perm=list(range(511, -1, -1))),
+                                    {"vectors": rows(512, 16384, 67)}, "bitwise"),
+        "clipping_256x65536_tau2": (PRE.Clipping(2.0), {"vectors": rows(256, GRID[1], 68)},
+                                    "bitwise"),
+    })
+    return cases
+
+
+def held(rule: str, res, direct) -> tuple:
+    """``(ok, max |diff|)`` of a pooled result against the direct one."""
+    import torch
+
+    if isinstance(res, (list, tuple)):
+        pairs = list(zip(res, direct))
+        if len(res) != len(direct):
+            return False, float("inf")
+        oks = [held(rule, a, b) for a, b in pairs]
+        return all(o for o, _ in oks), max((e for _, e in oks), default=0.0)
+    res, direct = res.cpu(), direct.cpu()
+    err = max_abs_err(res, direct)
+    if rule == "bitwise":
+        return bits_equal(res, direct), err
+    if rule == "shape":
+        return res.shape == direct.shape and bool(torch.isfinite(res).all()), err
+    rtol, atol = (LITTLE_RTOL, LITTLE_ATOL) if rule == "little" else (LOOP_RTOL, LOOP_ATOL)
+    return bool(torch.allclose(res, direct, rtol=rtol, atol=atol)), err
+
+
+class PsNode:
+    """(b)'s PS row: an honest node sending its fixed gradient plus a round
+    term (``d`` = 65,536), in the parent process."""
+
+    def __init__(self, i: int) -> None:
+        import torch
+
+        self.g = torch.randn(GRID[1], generator=torch.Generator().manual_seed(i)).cuda()
+        self.r = 0
+
+    def honest_gradient_for_next_batch(self):
+        self.r += 1
+        return [self.g * (1.0 + 0.01 * self.r)]
+
+    def apply_server_gradient(self, g) -> None:
+        pass
+
+
+class PsFlip:
+    """(b)'s byzantine node: -3 x the honest mean."""
+
+    def byzantine_gradient_for_next_batch(self, honest):
+        return [-3.0 * sum(h[0] for h in honest) / len(honest)]
+
+    def apply_server_gradient(self, g) -> None:
+        pass
+
+
+async def process_pool_table(counts: dict, pools: dict) -> dict:
+    """(b) ByzPy's whole pool table on ``process`` pools of 2, 4 and 6 (one
+    pool of each, started once and warmed by one median call; each child
+    on the card): every row at ByzPy's shapes, host ms of one call beside
+    ByzPy's; each pooled result held to the direct call."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian, MultiKrum
+    from byzpy_tpu_torch.engine.graph import run_operator
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+
+    table = {**BYZPY_POOL, **BYZPY_POOL_MORE}
+    cases = process_pool_cases()
+    out = {}
+    t0 = time.perf_counter()
+    warm = {"gradients": list(random_rounds((1, 8, 4096), seed=60)[0])}
+    await asyncio.gather(*(run_operator(CoordinateWiseMedian(), warm, pool=p)
+                           for p in pools.values()))
+    out["pools_warm_s"] = time.perf_counter() - t0
+    for name, (op, inputs, rule) in cases.items():
+        reps = 1
+        direct_ms, direct = await host_ms(lambda: run_operator(op, inputs), reps)
+        row = {"direct_ms": direct_ms, "byzpy_direct_ms": table[name][0], "rule": rule}
+        for i, k in enumerate(ENGINE_POOLS):
+            ms, res = await host_ms(lambda: run_operator(op, inputs, pool=pools[k]), reps)
+            ok, err = held(rule, res, direct)
+            check(ok, f"(b) {name}: the process pool of {k} is {err} off the direct call "
+                  f"({rule})")
+            row[f"pool{k}_ms"], row[f"byzpy_pool{k}_ms"] = ms, table[name][i + 1]
+            row[f"pool{k}_max_abs_err"] = err
+        out[name] = row
+        log(f"  (b) {name}: host ms direct {direct_ms:.3f} (ByzPy {table[name][0]}), "
+            + ", ".join(f"process x{k} {row[f'pool{k}_ms']:.3f} (ByzPy "
+                        f"{row[f'byzpy_pool{k}_ms']})" for k in ENGINE_POOLS) + f"; held {rule}")
+    # ByzPy's PS row: 10 honest + 3 byzantine nodes, Multi-Krum, 50 rounds
+    name = "ps_multi_krum_10h_3b_50_rounds"
+    row = {"byzpy_direct_ms": table[name][0]}
+    finals = {}
+    for k in (None,) + ENGINE_POOLS:
+        ps = ParameterServer([PsNode(i) for i in range(10)], [PsFlip() for _ in range(3)],
+                             aggregator=MultiKrum(3, 4),
+                             pool=None if k is None else pools[k])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(50):
+            agg = await ps.round()
+        torch.cuda.synchronize()
+        key = "direct_ms" if k is None else f"pool{k}_ms"
+        row[key] = (time.perf_counter() - t1) * 1e3
+        finals[k] = agg[0].cpu()
+        if k is not None:
+            row[f"byzpy_pool{k}_ms"] = table[name][ENGINE_POOLS.index(k) + 1]
+            check(bits_equal(finals[k], finals[None]),
+                  f"(b) {name}: the process pool of {k}'s last aggregate differs")
+    out[name] = row
+    log(f"  (b) {name}: host ms for 50 rounds direct {row['direct_ms']:.3f} (ByzPy "
+        f"{table[name][0]}), " + ", ".join(f"process x{k} {row[f'pool{k}_ms']:.3f}"
+                                           for k in ENGINE_POOLS))
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
+async def process_configs(counts: dict, pools: dict) -> dict:
+    """(c) BASELINE config #1 (the median of 10 x 100,000 under
+    NodeScheduler) and config #2 (Multi-Krum f = 8, q = 12 on 64 x
+    1,048,576) on (b)'s process pool of 4, one timed call each, bit for bit
+    the direct call."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian, MultiKrum
+    from byzpy_tpu_torch.engine.graph import NodeScheduler, make_single_operator_graph
+
+    out = {}
+    x1 = list(random_rounds((1, 10, 100_000), seed=41)[0])
+    x2 = random_rounds((1,) + HEADLINE, seed=42)[0]
+    pool = pools[4]
+    for label, agg, inputs in (("config1", CoordinateWiseMedian(), x1),
+                               ("config2", MultiKrum(8, 12), x2)):
+        graph = make_single_operator_graph(agg)
+        direct = agg.aggregate(inputs)
+        sched = NodeScheduler(graph, pool=pool)
+        ms, res = await host_ms(lambda: sched.run({"gradients": inputs}), 1)
+        check(bits_equal(res["op"].cpu(), direct.cpu()),
+              f"(c) {label} on a process pool of 4 differs from the direct call "
+              f"({max_abs_err(res['op'].cpu(), direct.cpu())})")
+        dms, _ = await host_ms(lambda: NodeScheduler(graph).run({"gradients": inputs}), 1)
+        out[label] = {"direct_ms": dms, "process_pool4_ms": ms}
+    log(f"  (c) configs #1 and #2 on a process pool of 4: {json.dumps(out)}")
+    del x1, x2
+    torch.cuda.empty_cache()
+    return out
+
+
+class CardMnistNode(_HonestNode):
+    """(d) and (e)'s honest node, the examples' ``MnistNode`` on the port:
+    ``mnist_mlp`` on the card, its shard, a seeded torch generator for the
+    batches, SGD at lr 0.1."""
+
+    def __init__(self, shard_x, shard_y, seed: int) -> None:
+        import torch
+
+        from byzpy_tpu_torch.models import nets
+
+        self.bundle = nets.mnist_mlp(seed=0, device="cuda")
+        self.x, self.y = shard_x.cuda(), shard_y.cuda()
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+        self._grad = torch.func.grad(self.bundle.loss_fn)
+
+    def next_batch(self):
+        from byzpy_tpu_torch.models.data import sample_batch
+
+        return sample_batch(self.x, self.y, self.gen, PMNIST_BATCH)
+
+    def honest_gradient(self, x, y):
+        return self._grad(self.bundle.params, x, y)
+
+    def apply_server_gradient(self, gradient) -> None:
+        self.bundle.params = {k: p - PMNIST_LR * gradient[k].to(p.device)
+                              for k, p in self.bundle.params.items()}
+
+    def accuracy(self, x, y) -> float:
+        import torch
+
+        logits = self.bundle.apply(self.bundle.params, x.cuda())
+        return float(torch.mean((torch.argmax(logits, -1) == y.cuda()).float()))
+
+
+class CardEmpireNode(_ByzantineNode):
+    """(e)'s byzantine node: the negated honest mean."""
+
+    def next_batch(self):
+        return None, None
+
+    def byzantine_gradient(self, honest):
+        return {k: -1.0 * sum(g[k].cuda() for g in honest) / len(honest) for k in honest[0]}
+
+    def apply_server_gradient(self, gradient) -> None:
+        pass
+
+
+async def mnist_rounds(backend: str, rounds: int, n_nodes: int, spawn_kw=None) -> tuple:
+    """``(aggregates, ms a round, accuracy)`` of process_mnist's run on
+    ``backend`` actors: median, synthetic data sharded over the nodes."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian
+    from byzpy_tpu_torch.engine.node.actors import HonestNodeActor
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+    from byzpy_tpu_torch.models.data import ShardedDataset, synthetic_classification
+
+    x, y = synthetic_classification(n_samples=1024, seed=0, device="cpu")
+    data = ShardedDataset(x, y, n_nodes)
+    actors = await asyncio.gather(*(HonestNodeActor.spawn(CardMnistNode, *data.node_slice(i), i,
+                                                          backend=backend)
+                                    for i in range(n_nodes)))
+    try:
+        ps = ParameterServer(actors, aggregator=CoordinateWiseMedian())
+        aggs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            aggs.append({k: v.cpu() for k, v in (await ps.round()).items()})
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+        acc = await actors[0].accuracy(x, y)
+        return aggs, ms, acc
+    finally:
+        for a in actors:
+            await a.close()
+
+
+async def process_mnist(counts: dict) -> dict:
+    """(d) examples/ps/process_mnist.py's configuration on the card: 3
+    process-actor nodes (mnist_mlp, synthetic shards), the coordinate
+    median, 10 rounds; every aggregate equals the thread actors' bit for
+    bit."""
+    proc, pms, pacc = await mnist_rounds("process", PMNIST_ROUNDS, PMNIST_NODES)
+    thread, tms, tacc = await mnist_rounds("thread", PMNIST_ROUNDS, PMNIST_NODES)
+    for r, (a, b) in enumerate(zip(proc, thread)):
+        check(all(bits_equal(a[k], b[k]) for k in b),
+              f"(d) round {r + 1}: the process nodes' aggregate differs from the thread nodes'")
+    out = {"process_ms_per_round": pms, "thread_ms_per_round": tms, "accuracy": pacc}
+    check(pacc == tacc, f"(d) accuracy {pacc} on process nodes, {tacc} on thread nodes")
+    log(f"  (d) process_mnist: {PMNIST_NODES} process nodes x {PMNIST_ROUNDS} rounds bit for bit "
+        f"the thread nodes; host ms a round {pms:.3f} (thread {tms:.3f}); accuracy {pacc:.3f}")
+    return out
+
+
+async def remote_tcp(counts: dict) -> dict:
+    """(e) examples/ps/remote_tcp/'s configuration: three loopback
+    RemoteActorServers behind a wire key host the manifest's four honest
+    nodes and one Empire node (two actors on one server), trimmed mean
+    (f = 1), 5 rounds; the aggregates equal the same nodes on thread
+    actors bit for bit; a frame under another key is refused."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.engine.actor import wire
+    from byzpy_tpu_torch.engine.actor.backends.remote import RemoteActorServer
+    from byzpy_tpu_torch.engine.node.actors import ByzantineNodeActor, HonestNodeActor
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+    from byzpy_tpu_torch.models.data import ShardedDataset, synthetic_classification
+
+    os.environ["BYZPY_TPU_TORCH_WIRE_KEY"] = REMOTE_KEY
+    servers = [RemoteActorServer("127.0.0.1", 0) for _ in range(3)]
+    out = {}
+    try:
+        for s in servers:
+            await s.start()
+        x, y = synthetic_classification(n_samples=1024, seed=1, device="cpu")
+        honest = [e for e in REMOTE_MANIFEST if e[1] == "honest"]
+        data = ShardedDataset(x, y, len(honest))
+        runs = {}
+        for mode in ("tcp", "thread"):
+            actors = []
+            byz = []
+            try:
+                for i, (name, role, srv) in enumerate(REMOTE_MANIFEST):
+                    backend = (f"tcp://127.0.0.1:{servers[srv].port}" if mode == "tcp"
+                               else "thread")
+                    if role == "honest":
+                        actors.append(await HonestNodeActor.spawn(
+                            CardMnistNode, *data.node_slice(i), i, backend=backend))
+                    else:
+                        byz.append(await ByzantineNodeActor.spawn(CardEmpireNode, backend=backend))
+                ps = ParameterServer(actors, byz, aggregator=CoordinateWiseTrimmedMean(1))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[mode] = [{k: v.cpu() for k, v in (await ps.round()).items()}
+                              for _ in range(REMOTE_ROUNDS)]
+                out[f"{mode}_ms_per_round"] = (time.perf_counter() - t0) * 1e3 / REMOTE_ROUNDS
+            finally:
+                for a in actors + byz:
+                    await a.close()
+        for r, (a, b) in enumerate(zip(runs["tcp"], runs["thread"])):
+            check(all(bits_equal(a[k], b[k]) for k in b),
+                  f"(e) round {r + 1}: the remote nodes' aggregate differs from the thread nodes'")
+        # a frame signed under another key: the server drops the peer
+        os.environ["BYZPY_TPU_TORCH_WIRE_KEY"] = "another-key"
+        forged = wire.encode({"op": "construct", "actor_id": "forged", "req_id": 0,
+                              "payload": (CardEmpireNode, (), {})})
+        os.environ["BYZPY_TPU_TORCH_WIRE_KEY"] = REMOTE_KEY
+        reader, writer = await asyncio.open_connection("127.0.0.1", servers[0].port)
+        writer.write(forged)
+        await writer.drain()
+        answer = await asyncio.wait_for(reader.read(), 30)
+        writer.close()
+        check(answer == b"" and "forged" not in servers[0]._actors,
+              "(e) a frame under another key was not refused")
+        out["wrong_key"] = "refused: connection dropped, no reply"
+    finally:
+        for s in servers:
+            await s.close()
+        os.environ.pop("BYZPY_TPU_TORCH_WIRE_KEY", None)
+    log(f"  (e) remote_tcp: 3 loopback servers, 4 honest + 1 Empire, {REMOTE_ROUNDS} rounds bit "
+        f"for bit the thread nodes; host ms a round tcp {out['tcp_ms_per_round']:.3f} (thread "
+        f"{out['thread_ms_per_round']:.3f}); wrong key refused")
+    return out
+
+
+class P2pBatches:
+    """(f)'s picklable batch source: node ``i``'s fixed batches on the card."""
+
+    def __init__(self, node: int) -> None:
+        self.node, self.step = node, 0
+
+    def __call__(self):
+        import torch
+
+        gen = torch.Generator().manual_seed(1000 * self.node + self.step)
+        self.step += 1
+        x = torch.randn((32, 28, 28, 1), generator=gen)
+        y = torch.randint(0, 10, (32,), generator=gen)
+        return x.cuda(), y.cuda()
+
+
+async def p2p_rounds(context_factory, rounds: int = 2) -> tuple:
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.engine.peer_to_peer.nodes import SGDModelWorker
+    from byzpy_tpu_torch.engine.peer_to_peer.runner import DecentralizedPeerToPeer
+    from byzpy_tpu_torch.models import nets
+
+    workers = [SGDModelWorker(nets.mnist_mlp(seed=0, device="cuda"), P2pBatches(i))
+               for i in range(3)]
+    p2p = DecentralizedPeerToPeer(workers, [], aggregator=CoordinateWiseTrimmedMean(0),
+                                  topology=Topology.complete(3), learning_rate=0.1,
+                                  context_factory=context_factory)
+    outs = []
+    async with p2p:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            outs.append({i: torch.as_tensor(v).cpu() for i, v in
+                         (await p2p.run_round_async()).items()})
+        ms = (time.perf_counter() - t0) * 1e3 / rounds
+    return outs, ms
+
+
+async def p2p_process_context(counts: dict) -> dict:
+    """(f) the P2P runner on ProcessContext nodes (children on the card):
+    3 honest mnist_mlp SGD workers on complete(3), trimmed mean (f = 0), 2
+    rounds, each node's aggregate bit for bit the InProcessContext run's."""
+    from byzpy_tpu_torch.engine.node import InProcessContext, ProcessContext
+
+    proc, pms = await p2p_rounds(ProcessContext)
+    ProcessContext.clear_registry()
+    local, lms = await p2p_rounds(InProcessContext)
+    InProcessContext.clear_registry()
+    for r, (a, b) in enumerate(zip(proc, local)):
+        check(sorted(a) == sorted(b) and all(bits_equal(a[i], b[i]) for i in b),
+              f"(f) round {r + 1}: ProcessContext differs from InProcessContext")
+    log(f"  (f) P2P on ProcessContext: 3 nodes x 2 rounds bit for bit InProcessContext; host ms "
+        f"a round {pms:.3f} (in process {lms:.3f})")
+    return {"process_ms_per_round": pms, "in_process_ms_per_round": lms}
+
+
+def wide_process_path(counts: dict) -> dict:
+    """Phase 4i: (a) above 128 rows, (b)-(f) the out-of-process tier, every
+    await bounded."""
+    from byzpy_tpu_torch.engine.storage import native_store
+
+    check(native_store.available(), "(b) the shm store's C library did not build on this host")
+    out = {"a_rows_above_128": wide_direct(counts)}
+
+    async def tier():
+        from byzpy_tpu_torch.engine.graph import ActorPool, ActorPoolConfig
+
+        res = {}
+        t0 = time.perf_counter()
+        pools = {k: ActorPool(ActorPoolConfig(backend="process", count=k)) for k in ENGINE_POOLS}
+        try:
+            await asyncio.gather(*(p.start() for p in pools.values()))
+            res["pools_start_s"] = time.perf_counter() - t0
+            log(f"  (b) process pools of {ENGINE_POOLS} started in {res['pools_start_s']:.1f} s "
+                f"({sum(ENGINE_POOLS)} children on the card)")
+            for key, fn in (("b_process_pool_table", process_pool_table),
+                            ("c_configs_1_2_process_pool4", process_configs)):
+                t0 = time.perf_counter()
+                res[key] = await fn(counts, pools)
+                res[key]["phase_s"] = time.perf_counter() - t0
+        finally:
+            await asyncio.gather(*(p.close() for p in pools.values()), return_exceptions=True)
+        for key, fn in (("d_process_mnist", process_mnist), ("e_remote_tcp", remote_tcp),
+                        ("f_p2p_process_context", p2p_process_context)):
+            t0 = time.perf_counter()
+            res[key] = await fn(counts)
+            res[key]["phase_s"] = time.perf_counter() - t0
+        return res
+
+    out.update(asyncio.run(asyncio.wait_for(tier(), PROCESS_WAIT_S)))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -6193,6 +6856,13 @@ def main() -> int:
     times.update(ragged_entries(ragged_times))
     log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
     log("SUBSET_SEARCH at ByzPy's shapes " + json.dumps(subset_search_times()))
+    # phase 4i runs after the timing: its child processes and threads stay
+    # out of phase 5's profiles; its launches count with the main path's
+    log("== 4i. more than 128 rows ((a) every family at 129-512 x 65,536 against the CPU, the "
+        "captured step, the ragged executor at 256) and the out-of-process tier ((b) ByzPy's "
+        "pool table on process pools of 2, 4, 6; (c) configs #1, #2 on the pool of 4; (d) "
+        "process_mnist; (e) remote_tcp behind a wire key; (f) P2P on ProcessContext); " + smi)
+    log("WIDE_PROCESS_PATH " + json.dumps(wide_process_path(counts)))
 
     entries = []
     for key, source, replaces in KERNELS:

@@ -1242,11 +1242,15 @@ def test_cuda_segmented_sort_reduce_nonfinite_rows(cuda_device, name, mode, f):
 
 @pytest.mark.cuda
 def test_cuda_segmented_sort_reduce_rejects(cuda_device):
-    offsets = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    lengths = torch.ones(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        kernels.segmented_sort_reduce(torch.zeros((129, 10), device=cuda_device), offsets, lengths,
-                                      mode="median")
+    """A batch of any number of rows runs (the R cap is lifted); a slot of
+    more than 128 rows writes NaN, never a wrong value; bf16 and a strided
+    batch are refused."""
+    offsets = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor([1, 129], dtype=torch.int32, device=cuda_device)
+    flat = torch.ones((129, 10), device=cuda_device)
+    out = kernels.segmented_sort_reduce(flat, offsets, lengths, mode="median")
+    assert torch.equal(out[0], torch.ones(10, device=cuda_device))
+    assert _all_canonical_nan(out[1])
     with pytest.raises(ValueError):
         kernels.segmented_sort_reduce(torch.zeros((8, 10), device=cuda_device, dtype=torch.bfloat16),
                                       offsets, lengths, mode="median")
@@ -1762,12 +1766,132 @@ def test_cuda_jacobi_scores_within_f32_of_the_cpu_port(cuda_device, n, m):
 
 @pytest.mark.cuda
 def test_cuda_subset_search_inherits_b3s_row_cap(cuda_device):
+    """B3 takes at most 128 rows; above them the classes' Gram is the gate's
+    ``torch.matmul`` (no cap, no B3 launch) and the selection is the CPU
+    run's."""
     from byzpy_tpu_torch.aggregators import SMEA, MinimumDiameterAveraging
 
-    x = torch.zeros((129, 64), device=cuda_device)
-    for agg in (MinimumDiameterAveraging(100), SMEA(60)):
-        with pytest.raises(NotImplementedError, match="at most 128 rows"):
-            agg.aggregate(x)
+    x = torch.from_numpy(_matrix(np.random.default_rng(3), (129, 64), specials=False))
+    for cls in (MinimumDiameterAveraging, SMEA):
+        before = kernels.launch_counts["gram"]
+        agg = cls(1)
+        got = agg.aggregate(x.to(cuda_device))
+        assert kernels.launch_counts["gram"] == before
+        ref_agg = cls(1, device="cpu")
+        ref = ref_agg.aggregate(x)
+        assert torch.equal(agg.last_selection.cpu(), ref_agg.last_selection)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# more than 128 rows: the gate, the lifted segmented R, the process tier
+# ---------------------------------------------------------------------------
+
+NETWORK_COUNTERS = ("sorted_reduce:median", "sorted_reduce:trimmed", "gram", "meamed",
+                    "selection_weights:krum", "selection_weights:cge", "selection_weights:monna",
+                    "weighted_rows", "nnm_weights", "mix_rows", "center_loop:weiszfeld",
+                    "center_loop:clip", "sort_columns")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["median", "trimmed", "meamed", "multi_krum", "cge", "nnm"])
+def test_cuda_gate_launch_counts(cuda_device, name):
+    """At 128 rows the network kernels launch; at 129 and 256 none does,
+    and the card's result is the CPU run's (exact for the sort family and
+    the selections, within f32 rounding of two Gram orders for NNM)."""
+    from byzpy_tpu_torch.ops import preagg, robust
+
+    fn = {"median": robust.coordinate_median,
+          "trimmed": lambda x: robust.trimmed_mean(x, f=20),
+          "meamed": lambda x: robust.mean_of_medians(x, f=20),
+          "multi_krum": lambda x: robust.multi_krum(x, f=20, q=40),
+          "cge": lambda x: robust.cge(x, f=20),
+          "nnm": lambda x: preagg.nnm(x, f=20)}[name]
+    for n in (128, 129, 256):
+        x = torch.from_numpy(_matrix(np.random.default_rng(n), (n, 4096), specials=False))
+        kernels.reset_launch_counts()
+        got = fn(x.to(cuda_device))
+        torch.cuda.synchronize()
+        launched = {k for k in NETWORK_COUNTERS if kernels.launch_counts[k]}
+        assert bool(launched) == (n <= 128), (n, launched)
+        ref = fn(x)
+        if name == "nnm" or n <= 128:
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got.cpu(), ref), n
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_executor_above_128_rows(cuda_device):
+    """A capacity of 256 rows: slots of at most 128 run the segmented
+    sort-reduce over the whole batch; a slot of 200 rows takes the torch
+    path (long_slots) and is never NaN; both equal the CPU's masked door."""
+    from byzpy_tpu_torch.aggregators import CoordinateWiseMedian, CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.serving import RaggedExecutor
+    from byzpy_tpu_torch.serving.cohort import StalenessPolicy, build_cohort
+    from byzpy_tpu_torch.serving.queue import Submission
+
+    d = 512
+    rng = np.random.default_rng(5)
+    for make in (lambda dev: CoordinateWiseMedian(device=dev),
+                 lambda dev: CoordinateWiseTrimmedMean(3, device=dev)):
+        for sizes in ((100, 128), (200, 40)):
+            rows = [rng.normal(size=(m, d)).astype(np.float32) for m in sizes]
+            views = {}
+            for dev in ("cuda", "cpu"):
+                ex = RaggedExecutor(make(dev), d, 256, 2, with_evidence=False)
+                cohorts = [build_cohort([Submission(f"c{i}", 0, torch.from_numpy(r), float(i))
+                                         for i, r in enumerate(rs)], 0, None, StalenessPolicy(),
+                                        device=dev) for rs in rows]
+                kernels.reset_launch_counts()
+                views[dev] = [v.vector.cpu() for v in ex.aggregate(cohorts, ["t", "t"])]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    segmented = kernels.launch_counts["segmented_sort_reduce"]
+                    assert segmented == (1 if max(sizes) <= 128 else 0), (sizes, segmented)
+            for a, b in zip(views["cuda"], views["cpu"]):
+                assert torch.isfinite(a).all()
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _child_median_and_builds(x):
+    """In a process actor's child: the median on the child's card, and
+    whether this process compiled any kernel (it loads the parent's)."""
+    from byzpy_tpu_torch.ops import _build, robust
+
+    out = robust.coordinate_median(x.to("cuda"))
+    return out, dict(_build.build_log), torch.cuda.current_device()
+
+
+class _Runner:
+    def run(self, fn, *args):
+        return fn(*args)
+
+
+@pytest.mark.cuda
+def test_cuda_process_actor_uses_the_card_and_the_parents_build(cuda_device):
+    """A process actor on the card (the default child device): its median
+    equals the parent's bit for bit, and the child compiled nothing (the
+    parent built the kernels before it spawned)."""
+    import asyncio
+
+    from byzpy_tpu_torch.engine.actor.backends.process import ProcessActorBackend
+    from byzpy_tpu_torch.engine.actor.base import spawn_actor
+    from byzpy_tpu_torch.ops import robust
+
+    x = torch.from_numpy(_matrix(np.random.default_rng(9), (64, 65536), specials=False))
+
+    async def main():
+        backend = ProcessActorBackend()
+        try:
+            ref = await spawn_actor(backend, _Runner)
+            return await asyncio.wait_for(ref.run(_child_median_and_builds, x), 300)
+        finally:
+            await backend.close()
+
+    out, log, device = asyncio.run(asyncio.wait_for(main(), 400))
+    assert device == 0 and log == {}
+    assert torch.equal(out, robust.coordinate_median(x.to(cuda_device)).cpu())
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ The ``cuda`` backend is checked here only for what it does without CUDA
 """
 
 import asyncio
+import os
 import sys
 import threading
 import time
@@ -507,8 +508,13 @@ def test_thread_actor_ref_channels_and_router():
             mine = await ch.recv()
             with pytest.raises(LookupError, match="no route"):
                 await ch.send(1, to=type(peer.endpoint)("thread", "local", "ghost"))
-            with pytest.raises(NotImplementedError, match="TCP transport"):
-                await ch.send(1, to=type(peer.endpoint)("tcp", "10.0.0.1:1", "far"))
+            # the TCP transport dials (one try here): a closed loopback port refuses
+            os.environ["BYZPY_TPU_TORCH_TCP_RETRIES"] = "1"
+            try:
+                with pytest.raises(RuntimeError, match="retry budget spent"):
+                    await ch.send(1, to=type(peer.endpoint)("tcp", "127.0.0.1:1", "far"))
+            finally:
+                os.environ.pop("BYZPY_TPU_TORCH_TCP_RETRIES", None)
         await a.backend.close()
         with pytest.raises(RuntimeError, match="not started"):
             await a.add(1)
@@ -522,13 +528,12 @@ def test_thread_actor_ref_channels_and_router():
 def test_backend_specs_configs_and_capabilities(monkeypatch):
     assert parse_spec("thread") == ("thread", None)
     assert parse_spec("cuda") == ("cuda", 0) and parse_spec("cuda:3") == ("cuda", 3)
-    for spec in ("process", "tcp://10.0.0.2:7777"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            resolve_backend(spec)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            pconfigs.set_actor(spec)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            P.ActorPool(P.ActorPoolConfig(backend=spec))
+    # the out-of-process specs build without starting anything (PR 24)
+    for spec, scheme in (("process", "process"), ("tcp://127.0.0.1:7777", "tcp")):
+        assert resolve_backend(spec).scheme == scheme
+        with pconfigs.use_actor(spec):
+            assert pconfigs.get_actor() == spec
+        assert P.ActorPool(P.ActorPoolConfig(backend=spec)).size == 1
     for spec in ("tpu", "tpu:0", "gpu", "cuda:x", ""):
         with pytest.raises(ValueError):
             resolve_backend(spec)

@@ -537,11 +537,13 @@ def test_node_actor_spawn_and_errors_match_reference():
     _assert_trees(g_ours, g_ref, EXACT)
 
 
-def test_node_actor_cuda_backend_raises_without_a_card():
+def test_node_actor_cuda_backend_raises_without_a_card(monkeypatch):
     Honest, _ = _classes(PORT)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _run(PNode.HonestNodeActor.spawn(Honest, 0, backend="cuda"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+    # a process node's child is on the card by default: refused before a spawn
+    monkeypatch.delenv("BYZPY_TPU_TORCH_CHILD_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
         _run(PNode.HonestNodeActor.spawn(Honest, 0, backend="process"))
 
 

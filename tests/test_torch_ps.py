@@ -565,7 +565,7 @@ def test_ps_s4_raises_not_implemented():
 # package rules
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cloudpickle", "byzpy_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cloudpickle", "byzpy_tpu", "yaml", "ml_dtypes"}
 
 
 def _port_sources():
@@ -575,19 +575,23 @@ def _port_sources():
 
 def test_port_imports_no_jax():
     """No module of byzpy_tpu_torch, nor chip_smoke.py, imports JAX, flax,
-    optax, cloudpickle or the JAX package; the scan covers the operator
+    optax, cloudpickle, PyYAML, ml_dtypes or the JAX package (the card's
+    host has none of them); the scan covers the operator
     classes, the attack classes, the subset-search aggregators, the
     engine (graphs, schedulers, sessions, pools, the actor backends and
     the chunked fan-out), the compressed wire fabric, the serving tier,
-    the models and data helpers and the compiled steps' CUDA-graph
-    capture."""
+    the models and data helpers, the compiled steps' CUDA-graph capture,
+    and the out-of-process tier (process and remote actors, the TCP
+    transport, the shm store, the wire's frames, the process and remote
+    node contexts, the retry policy)."""
     files = _port_sources()
     assert len(files) > 10 and (REPO / "chip_smoke.py").exists()
     assert REPO / "byzpy_tpu_torch" / "ops" / "preagg.py" in files
     for sub in ("aggregators", "aggregators/geometric_wise", "aggregators/coordinate_wise",
                 "aggregators/norm_wise", "pre_aggregators", "engine", "engine/graph",
                 "engine/actor", "engine/actor/backends", "engine/peer_to_peer", "serving",
-                "attacks", "configs"):
+                "attacks", "configs", "engine/storage", "engine/actor/transports", "engine/node",
+                "resilience"):
         assert REPO / "byzpy_tpu_torch" / sub / "__init__.py" in files, sub
     for module in ("aggregators/base.py", "aggregators/geometric_wise/krum.py",
                    "aggregators/pipelines.py", "pre_aggregators/bucketing.py",
@@ -608,7 +612,11 @@ def test_port_imports_no_jax():
                    "engine/actor/channels.py", "engine/actor/router.py",
                    "engine/actor/factory.py", "engine/actor/backends/thread.py",
                    "engine/actor/backends/cuda.py", "configs/actor.py",
-                   "aggregators/chunked.py", "attacks/chunked.py"):
+                   "aggregators/chunked.py", "attacks/chunked.py",
+                   "engine/actor/backends/process.py", "engine/actor/backends/remote.py",
+                   "engine/actor/transports/tcp.py", "engine/actor/ipc.py",
+                   "engine/storage/native_store.py", "engine/node/process_context.py",
+                   "engine/node/remote.py", "resilience/retry.py"):
         assert REPO / "byzpy_tpu_torch" / module in files, module
     bad = []
     for path in files:

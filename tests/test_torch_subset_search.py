@@ -13,7 +13,6 @@ another order).
 """
 
 import math
-import types
 from itertools import combinations
 
 import jax.numpy as jnp
@@ -29,6 +28,7 @@ from byzpy_tpu.utils import combinatorics as jcomb
 import byzpy_tpu_torch.aggregators as P
 from byzpy_tpu_torch.aggregators.geometric_wise import minimum_diameter_average as pmda
 from byzpy_tpu_torch.aggregators.geometric_wise import smea as psmea
+from byzpy_tpu_torch.ops import kernels as pkernels
 from byzpy_tpu_torch.ops import robust
 from byzpy_tpu_torch.utils import combinatorics as pcomb
 
@@ -359,13 +359,17 @@ def test_card_cap_and_default_device(monkeypatch):
     for cls in (P.MinimumDiameterAveraging, P.SMEA):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cls(1)
-    # B3 takes at most 128 rows on the card, and the classes say so
-    agg = P.SMEA(1, device=CPU)
-    pmda.check_rows_on_card(agg, torch.zeros((129, 4)))  # the CPU has no cap
-    on_card = types.SimpleNamespace(is_cuda=True, shape=(129, 4))
-    with pytest.raises(NotImplementedError, match="at most 128 rows"):
-        pmda.check_rows_on_card(agg, on_card)
-    pmda.check_rows_on_card(agg, types.SimpleNamespace(is_cuda=True, shape=(128, 4)))
+    # no row cap: above 128 rows the Gram takes the gate's PyTorch path
+    # (kernels.use_kernel_for), never B3, on the card as here
+    assert not hasattr(pmda, "check_rows_on_card")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("B3 reached above 128 rows")
+
+    monkeypatch.setattr(pkernels, "gram", refuse)
+    x = torch.randn((129, 4), generator=torch.Generator().manual_seed(0))
+    out = P.MinimumDiameterAveraging(1, device=CPU).aggregate(x)
+    assert out.shape == (4,) and torch.isfinite(out).all()
 
 
 def test_geometric_wise_exports():
