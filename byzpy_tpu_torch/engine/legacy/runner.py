@@ -1,0 +1,260 @@
+"""Process-per-node step loop.
+
+Counterpart of ``byzpy_tpu/engine/legacy/runner.py``. A :class:`NodeRunner`
+hosts one node object in a spawned child process and drives it by
+commands: ``step`` invokes ``node.step(payload)`` (returning the result to
+the parent), ``call`` invokes a method, ``deliver`` hands a message to
+``node.handle_message``. Auto-stepping runs ``step`` continuously without
+parent prompts.
+
+The node factory crosses by ``pickle`` (a module-level callable or a
+``functools.partial`` of one), as the wire's frames do. Payloads and
+results cross as host tensors (``wire.host_view``). The child runs on the
+card by default (``child_device="cuda"`` or ``"cuda:N"``): it makes that
+card its current device, and the parent builds the CUDA kernels before it
+spawns, so the child loads them instead of compiling them again. With
+``child_device="cpu"`` the child sees no card. ``BYZPY_TPU_TORCH_CHILD_DEVICE``
+overrides the argument, as for the process actors. (The reference's
+children run on the CPU only because a TPU admits one process.)
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import queue
+import time
+import uuid
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+from ..actor.backends.process import (
+    child_device_of,
+    enter_child_device,
+    prepare_child_device,
+    spawn_env,
+    start_spawned,
+)
+from ..actor.wire import dumps, host_view
+
+
+def _runner_main(blob: bytes, cmd_q, result_q, inbox_q, auto_step: bool,
+                 step_interval: float, device: str) -> None:  # pragma: no cover - runs in a child
+    import pickle
+
+    enter_child_device(device)
+    node = pickle.loads(blob)()
+    running = True
+    while running:
+        progressed = False
+        try:
+            cmd = cmd_q.get_nowait()
+            progressed = True
+        except queue.Empty:
+            cmd = None
+        if cmd is not None:
+            kind, req_id, payload = cmd
+            try:
+                if kind == "stop":
+                    running = False
+                    result = None
+                elif kind == "step":
+                    result = node.step(payload) if payload is not None else node.step()
+                elif kind == "call":
+                    method, args, kwargs = payload
+                    result = getattr(node, method)(*args, **kwargs)
+                else:
+                    raise ValueError(f"unknown cmd {kind!r}")
+                result_q.put((req_id, True, host_view(result)))
+            except Exception as exc:  # noqa: BLE001 - reported to the parent
+                result_q.put((req_id, False, repr(exc)))
+        try:
+            msg = inbox_q.get_nowait()
+            progressed = True
+        except queue.Empty:
+            msg = None
+        if msg is not None and hasattr(node, "handle_message"):
+            node.handle_message(msg)
+        if auto_step and not progressed:
+            try:
+                node.step()
+            except Exception:  # noqa: BLE001 - the auto loop keeps running
+                pass
+            time.sleep(step_interval)
+        elif not progressed:
+            time.sleep(0.001)
+
+
+class NodeRunner:
+    """Parent-side handle for a node stepped in a child process."""
+
+    def __init__(
+        self,
+        node_factory: Callable[[], Any],
+        *,
+        auto_step: bool = False,
+        step_interval: float = 0.01,
+        child_device: Optional[str] = None,
+    ) -> None:
+        self._blob = dumps(node_factory)
+        self._auto_step = auto_step
+        self._step_interval = step_interval
+        self._device = child_device_of(child_device)
+        ctx = mp.get_context("spawn")
+        self._cmd = ctx.Queue()
+        self._result = ctx.Queue()
+        self._inbox = ctx.Queue()
+        self._ctx = ctx
+        self._proc: Optional[mp.process.BaseProcess] = None
+        self._done: Dict[str, Any] = {}  # results drained for other req_ids
+
+    @property
+    def child_device(self) -> str:
+        """The device spec the child runs on (``"cpu"``, ``"cuda"``, ``"cuda:N"``)."""
+        return self._device
+
+    def start(self) -> None:
+        if self._proc is not None:
+            return
+        prepare_child_device(self._device)
+        self._proc = self._ctx.Process(
+            target=_runner_main,
+            args=(self._blob, self._cmd, self._result, self._inbox,
+                  self._auto_step, self._step_interval, self._device),
+            daemon=True,
+        )
+        start_spawned(self._proc, spawn_env(self._device))
+
+    def submit(self, kind: str, payload: Any = None) -> str:
+        """Enqueue a command without waiting; returns the request id for
+        :meth:`wait` (a cluster pipelines N children this way)."""
+        if self._proc is None or not self._proc.is_alive():
+            raise ConnectionError("runner is not running")
+        req_id = uuid.uuid4().hex
+        self._cmd.put((kind, req_id, host_view(payload)))
+        return req_id
+
+    def wait(self, req_id: str, timeout: float = 60.0) -> Any:
+        deadline = time.monotonic() + timeout
+        cached = self._done.pop(req_id, None)
+        if cached is not None:
+            ok, result = cached
+            if not ok:
+                raise RuntimeError(f"node raised: {result}")
+            return result
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(f"runner request {req_id} timed out")
+            try:
+                rid, ok, result = self._result.get(timeout=min(remaining, 0.5))
+            except queue.Empty:
+                if self._proc is None or not self._proc.is_alive():
+                    raise ConnectionError("runner died") from None
+                continue
+            if rid != req_id:
+                # out-of-order completion of another outstanding request
+                self._done[rid] = (ok, result)
+                continue
+            if not ok:
+                raise RuntimeError(f"node raised: {result}")
+            return result
+
+    def _request(self, kind: str, payload: Any = None, timeout: float = 60.0) -> Any:
+        return self.wait(self.submit(kind, payload), timeout=timeout)
+
+    def step(self, payload: Any = None) -> Any:
+        return self._request("step", payload)
+
+    def call(self, method: str, *args: Any, **kwargs: Any) -> Any:
+        return self._request("call", (method, args, kwargs))
+
+    def deliver(self, message: Any) -> None:
+        self._inbox.put(host_view(message))
+
+    def stop(self) -> None:
+        if self._proc is None:
+            return
+        try:
+            self._request("stop", timeout=5.0)
+        except (ConnectionError, TimeoutError, RuntimeError):
+            pass  # terminated below
+        self._proc.join(timeout=5)
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join(timeout=5)
+        self._proc = None
+
+
+class NodeCluster:
+    """A set of named runners with broadcast helpers."""
+
+    def __init__(self) -> None:
+        self._runners: Dict[str, NodeRunner] = {}
+
+    def add(self, name: str, runner: NodeRunner) -> None:
+        if name in self._runners:
+            raise ValueError(f"duplicate runner {name!r}")
+        self._runners[name] = runner
+
+    def runner(self, name: str) -> NodeRunner:
+        return self._runners[name]
+
+    @property
+    def names(self) -> List[str]:
+        return sorted(self._runners)
+
+    def start_all(self) -> None:
+        started = []
+        try:
+            for runner in self._runners.values():
+                runner.start()
+                started.append(runner)
+        except BaseException:
+            for runner in reversed(started):
+                runner.stop()
+            raise
+
+    def step_all(self, payload: Any = None) -> Dict[str, Any]:
+        """Step every runner concurrently: all commands go out before any
+        result is awaited, so N children overlap instead of serializing."""
+        pending = {name: r.submit("step", payload) for name, r in self._runners.items()}
+        return {name: self._runners[name].wait(rid) for name, rid in pending.items()}
+
+    def stop_all(self) -> None:
+        for runner in self._runners.values():
+            runner.stop()
+
+    def __enter__(self) -> "NodeCluster":
+        self.start_all()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.stop_all()
+
+
+class StepParameterServer:
+    """Prototype PS over runners: each round steps every runner (collecting
+    gradients), aggregates them with ``aggregate_fn`` and pushes the update
+    back through ``call(apply_method, update)``."""
+
+    def __init__(
+        self,
+        cluster: NodeCluster,
+        aggregate_fn: Callable[[Sequence[Any]], Any],
+        *,
+        apply_method: str = "apply_update",
+    ) -> None:
+        self.cluster = cluster
+        self.aggregate_fn = aggregate_fn
+        self.apply_method = apply_method
+        self.rounds_completed = 0
+
+    def round(self) -> Any:
+        grads = list(self.cluster.step_all().values())
+        update = self.aggregate_fn(grads)
+        for name in self.cluster.names:
+            self.cluster.runner(name).call(self.apply_method, update)
+        self.rounds_completed += 1
+        return update
+
+
+__all__ = ["NodeRunner", "NodeCluster", "StepParameterServer"]

@@ -3,7 +3,7 @@ their actors, applications, the in-process message fabric (contexts,
 routers, decentralized nodes, clusters), the process and remote contexts
 (``ProcessContext``; the hub fabric ``RemoteNodeServer`` /
 ``RemoteClientContext``), heartbeat liveness and the distributed node
-wrappers. The mesh context belongs to the mesh slice (ROADMAP A.7)."""
+wrappers, and the serverless full-mesh TCP fabric ``MeshRemoteContext``."""
 
 from .actors import ByzantineNodeActor, HonestNodeActor, NodeActor
 from .application import ByzantineNodeApplication, HonestNodeApplication, NodeApplication
@@ -13,6 +13,7 @@ from .context import InProcessContext, Message, NodeContext
 from .decentralized import DecentralizedNode
 from .distributed import DistributedByzantineNode, DistributedHonestNode
 from .liveness import HeartbeatMonitor, LivenessTracker, PeerLiveness
+from .mesh_context import MeshRemoteContext
 from .process_context import ProcessContext
 from .remote import RemoteClientContext, RemoteNodeClient, RemoteNodeServer, ServerNodeContext
 from .router import MessageRouter
@@ -32,6 +33,7 @@ __all__ = [
     "Message",
     "NodeContext",
     "InProcessContext",
+    "MeshRemoteContext",
     "DecentralizedNode",
     "DecentralizedCluster",
     "HeartbeatMonitor",

@@ -21,9 +21,10 @@ path does (:217-235): ``bf16`` casts the broadcast matrix, ``int8`` encodes
 it once (B13 on the card) and decodes each neighbourhood's gathered codes
 and scales (B14, once per node). Every other mode, ``fp8``, ``fp8_e5m2``
 and ``s4`` included, exchanges uncompressed rows, as the reference's
-``else`` branch (:233-235) does (ROADMAP C). The sharded update
-(``update_sharding``) and ``build_ring_gossip_train_step`` need a mesh
-(ROADMAP A.7).
+``else`` branch (:233-235) does (ROADMAP C). ``mesh=``, the sharded
+update (``update_sharding``) and :func:`build_ring_gossip_train_step` raise
+``NotImplementedError``: the gossip round over a device mesh is ROADMAP
+A.7's.
 
 :func:`jit_gossip_train_step` is the round compiled, the counterpart of
 the reference examples' ``jax.jit(step)``
@@ -61,6 +62,20 @@ class GossipStepConfig:
         return self.n_nodes - self.n_byzantine
 
 
+def _refuse_mesh(mesh: Any) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh=: the gossip round over a device mesh is not ported (ROADMAP A.7)")
+
+
+def build_ring_gossip_train_step(*args: Any, **kwargs: Any):
+    """The reference's ring gossip over a mesh axis (``ppermute`` hops):
+    not ported, raises ``NotImplementedError`` (ROADMAP A.7)."""
+    raise NotImplementedError(
+        "build_ring_gossip_train_step: the ring gossip over a device mesh is not ported "
+        "(ROADMAP A.7)")
+
+
 def build_gossip_train_step(
     bundle: ModelBundle,
     aggregate: AggFn,
@@ -69,6 +84,7 @@ def build_gossip_train_step(
     *,
     attack: Optional[AttackFn] = None,
     comm_precision: Any = None,
+    mesh: Any = None,
 ) -> Tuple[Callable, Callable]:
     """Build ``(train_step, init_stacked_params)``.
 
@@ -79,7 +95,8 @@ def build_gossip_train_step(
     returns ``(theta, metrics)``, ``metrics["honest_loss"]`` the mean loss
     of the honest nodes at their starting point. ``generator`` feeds a
     randomized attack; without an attack, byzantine nodes broadcast their
-    half-step rows."""
+    half-step rows. ``mesh=`` raises ``NotImplementedError`` (ROADMAP A.7)."""
+    _refuse_mesh(mesh)
     if topology.n_nodes != cfg.n_nodes:
         raise ValueError("topology size must match cfg.n_nodes")
     if not 0 <= cfg.n_byzantine < cfg.n_nodes:
@@ -161,6 +178,7 @@ def jit_gossip_train_step(
     *,
     attack: Optional[AttackFn] = None,
     comm_precision: Any = None,
+    mesh: Any = None,
     donate: bool = True,
 ) -> Tuple[Callable, Callable]:
     """:func:`build_gossip_train_step` compiled: ``(step,
@@ -179,6 +197,7 @@ def jit_gossip_train_step(
     that reads the host raises ``GraphCaptureError`` naming the callable.
     On CPU tensors ``step`` is the eager step. Each replay counts one
     ``graph_replay:gossip_train_step``."""
+    _refuse_mesh(mesh)
     step, init = build_gossip_train_step(
         bundle, capture_guard(aggregate, "aggregate"), topology, cfg,
         attack=capture_guard(attack, "attack"), comm_precision=comm_precision)
@@ -186,4 +205,4 @@ def jit_gossip_train_step(
 
 
 __all__ = ["AggFn", "AttackFn", "GossipStepConfig", "build_gossip_train_step",
-           "jit_gossip_train_step"]
+           "build_ring_gossip_train_step", "jit_gossip_train_step"]

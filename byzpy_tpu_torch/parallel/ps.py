@@ -1,10 +1,9 @@
-"""Parameter-server training round, single-device form.
+"""Parameter-server training round, on one device or over a device mesh.
 
-Counterpart of ``byzpy_tpu/parallel/ps.py:build_ps_train_step`` on one
-device with the sharded update off: with ``comm_precision`` off, the
-reference's ``mesh=None`` round; with it on, the reference's round on a
-one-device mesh, whose gradient transpose moves nothing but still
-encodes and decodes. One step:
+Counterpart of ``byzpy_tpu/parallel/ps.py:build_ps_train_step``. Without
+a mesh it is the reference's ``mesh=None`` round (with ``comm_precision``
+on, its round on a one-device mesh, whose gradient transpose moves
+nothing but still encodes and decodes). One step:
 
 1. per-node gradients of every node's batch, ``torch.func.vmap`` over
    ``torch.func.grad_and_value`` of the loss (the JAX ``vmap`` at :403),
@@ -22,6 +21,16 @@ encodes and decodes. One step:
    (:75, :479-481), exactly ``optax.sgd(lr, momentum)``; :class:`Adam` is
    ``optax.adam``.
 
+With ``mesh=`` (a 1-D ``nodes`` mesh, ``parallel.mesh``) the round is SPMD
+over the mesh's ranks, the reference's GSPMD program written out: each
+rank computes its block of nodes' gradients, the ``(n, d)`` matrix is
+transposed node -> feature by an all-to-all (of codes with
+``comm_precision``), the attack, the pre-aggregate and the aggregate run on
+the rank's columns (``parallel.feature_sharded``), and the update is
+sharded (each rank keeps its exact flat shard of the parameters and the
+optimizer state and all-gathers the refreshed parameters, optionally
+compressed) or replicated (the aggregate is all-gathered).
+
 The step is a pure function of its inputs, like the JAX one: parameters
 and optimizer state are returned anew, never updated in place.
 
@@ -35,13 +44,15 @@ cohort in the ragged door's flat-rows layout. ``adaptive_attack_rows``
 ``jit_ragged_serving_ps_step`` (ref :723, :706, :654) are the compiled
 steps, the counterpart of ``jax.jit`` with donation: on the card each
 captures its step in one CUDA graph per input signature and replays it
-(``utils.cuda_graph``); on CPU tensors it runs the step as it is.
+(``utils.cuda_graph``); on CPU tensors it runs the step as it is. Their
+``mesh=`` raises (NCCL inside a CUDA graph: ROADMAP A.7).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -52,8 +63,8 @@ from ..ops import kernels
 from ..ops import ragged as ragged_ops
 from ..utils.cuda_graph import CapturedStep, capture_guard
 from ..utils.trees import ravel_fn
-from .collectives import reshard_q, reshard_q_ef
-from .quantization import as_comm_precision
+from .collectives import all_reduce_sum, axis_index, axis_size, reshard_q, reshard_q_ef
+from .quantization import CommPrecision, as_comm_precision
 
 AggFn = Callable[[torch.Tensor], torch.Tensor]      # (n, d) -> (d,)
 # (bucket, d), (bucket,) bool -> (d,)
@@ -153,6 +164,64 @@ def default_optimizer(cfg: PSStepConfig) -> SGD:
     return SGD(cfg.learning_rate, momentum=cfg.momentum)
 
 
+_SHARDED_UPDATE_MODES = ("off", "on", "auto")
+
+
+@dataclass(frozen=True)
+class ShardedUpdateConfig:
+    """Policy for the feature-sharded weight update (ref ``ps.py:85-145``).
+
+    ``mode``: ``"off"``, the replicated update (the aggregate is gathered
+    to every rank, every rank holds the whole optimizer state and applies
+    the whole update); ``"on"``, the flat aggregate, the flat parameters
+    and the optimizer state stay feature-sharded through the optimizer and
+    one all-gather of the refreshed parameters follows; ``"auto"`` (the
+    default), ``"on"`` whenever the mesh's feature grid spans more than one
+    rank.
+
+    ``param_gather_precision`` (``None`` / ``"off"`` / ``"bf16"`` /
+    ``"int8"`` / ``"fp8"`` / ``"fp8_e5m2"`` / ``"s4"`` or a
+    :class:`~byzpy_tpu_torch.parallel.quantization.CommPrecision`)
+    compresses that gather. Each rank's exact shard stays in the carried
+    state and only the gathered replica feeds the next forward pass, so
+    the compression error does not compound; with ``error_feedback=True``
+    the gather's residual rides beside the optimizer state as well. With
+    an elementwise optimizer (SGD, momentum, Adam) the sharded update is
+    the replicated one, coordinate for coordinate."""
+
+    mode: str = "auto"
+    param_gather_precision: Any = None
+
+    def __post_init__(self):
+        if self.mode not in _SHARDED_UPDATE_MODES:
+            raise ValueError(f"mode must be one of {_SHARDED_UPDATE_MODES}, got {self.mode!r}")
+        as_comm_precision(self.param_gather_precision)  # validate eagerly
+
+    def resolve(self, feat_shards: int) -> bool:
+        """Whether the sharded update is active on a ``feat_shards``-way grid."""
+        if self.mode == "on":
+            return True
+        if self.mode == "off":
+            return False
+        return feat_shards > 1
+
+
+def as_sharded_update(
+    value: Union["ShardedUpdateConfig", str, bool, None],
+) -> "ShardedUpdateConfig":
+    """Coerce a ``ShardedUpdateConfig``, a mode string, a bool or ``None``
+    into a :class:`ShardedUpdateConfig`."""
+    if value is None:
+        return ShardedUpdateConfig()
+    if isinstance(value, ShardedUpdateConfig):
+        return value
+    if isinstance(value, bool):
+        return ShardedUpdateConfig(mode="on" if value else "off")
+    if isinstance(value, str):
+        return ShardedUpdateConfig(mode=value)
+    raise TypeError(f"cannot interpret {value!r} as a ShardedUpdateConfig")
+
+
 def build_ps_train_step(
     bundle: ModelBundle,
     aggregate: AggFn,
@@ -161,8 +230,10 @@ def build_ps_train_step(
     attack: Optional[AttackFn] = None,
     pre_aggregate: Optional[PreAggFn] = None,
     optimizer: Any = None,
+    mesh: Any = None,
     grad_dtype: Optional[torch.dtype] = None,
     comm_precision: Any = None,
+    sharded_update: Any = None,
 ) -> Tuple[Callable, Any]:
     """Build ``(train_step, opt_state0)``.
 
@@ -192,10 +263,45 @@ def build_ps_train_step(
     becomes ``(base_opt_state, {"transpose": zeros(n, d)})``, the step
     returns the new residual in the same slot, and the metrics gain
     ``ef_transpose_norm``; the residual has ``grad_dtype`` where one is
-    given. The reference's ``param_gather_precision`` and sharded update
-    need a mesh (ROADMAP A.7)."""
+    given.
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh``; default: the
+    default mesh of ``configs.mesh``) makes the step an SPMD program over
+    the mesh's ranks, every rank calling it with the same arguments (the
+    whole ``(n, ...)`` batch; a rank reads its nodes' rows). ``n_nodes``
+    must divide over the ``nodes`` axis. The flat parameter vector pads
+    with zeros to the rank grid times the quantization block of any
+    blockwise collective of the round (the transpose's, the params
+    gather's), so no block straddles a shard; every aggregator maps the
+    zero columns to zero and the pad stays zero. ``aggregate`` and
+    ``pre_aggregate`` must have a feature-sharded form
+    (``parallel.feature_sharded``); CAF, MDA, SMEA, bucketing and unknown
+    callables raise ``NotImplementedError``. ``honest_loss`` and
+    ``agg_grad_norm`` are all-reduced, and every rank returns the same
+    parameters. Only a 1-D mesh is ported: the 2-D ``grid_mesh`` round
+    raises (ROADMAP A.7).
+
+    ``sharded_update`` (:class:`ShardedUpdateConfig`, a mode string, a
+    bool or ``None`` = ``"auto"``): when active, ``opt_state0`` is
+    ``(flat_params, inner_state)`` over this rank's shard of the padded
+    flat vector, each rank applies the update to its shard and all-gathers
+    the refreshed parameters (compressed per ``param_gather_precision``;
+    with its error feedback the state gains ``{"gather": residual}``).
+    Without a mesh, ``"on"`` runs the same flat update unsharded. With
+    ``comm_precision``'s error feedback on a mesh the transpose residual is
+    this rank's ``(n / ranks, d_pad)`` rows."""
     opt = _checked_optimizer(optimizer, default_optimizer(cfg))
     comm = as_comm_precision(comm_precision)
+    su = as_sharded_update(sharded_update)
+    if mesh is None:
+        from ..configs.mesh import get_default_mesh
+
+        mesh = get_default_mesh()
+    if mesh is not None:
+        return _build_mesh_train_step(
+            bundle, aggregate, cfg, attack=attack, pre_aggregate=pre_aggregate, opt=opt,
+            mesh=mesh, grad_dtype=grad_dtype, comm=comm, su=su)
+    su_on = su.resolve(1)
     ef = comm.enabled and comm.error_feedback
     ravel, unravel = ravel_fn(bundle.params)
     names = list(bundle.params)
@@ -204,7 +310,8 @@ def build_ps_train_step(
         raise ValueError(f"need 0 <= n_byzantine < n_nodes (got {b}/{cfg.n_nodes})")
     per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
     flat0 = ravel(bundle.params)
-    opt_state0 = opt.init(flat0)
+    # the sharded update without a mesh: the flat update path, unsharded
+    opt_state0 = (flat0, opt.init(flat0)) if su_on else opt.init(flat0)
     if ef:
         residual0 = flat0.new_zeros((cfg.n_nodes, flat0.shape[0]), dtype=grad_dtype or flat0.dtype)
         opt_state0 = (opt_state0, {"transpose": residual0})
@@ -239,16 +346,161 @@ def build_ps_train_step(
         matrix = build_matrix(flat, generator)
         if pre_aggregate is not None:
             matrix = pre_aggregate(matrix)
-        flat_params = ravel(params)
+        if su_on:
+            flat_params, inner = opt_state
+        else:
+            flat_params, inner = ravel(params), opt_state
         agg = aggregate(matrix).to(flat_params.dtype)
         agg_norm = torch.sqrt(torch.sum(agg * agg))
-        new_flat, opt_state = opt.step(flat_params, agg, opt_state)
+        new_flat, inner = opt.step(flat_params, agg, inner)
+        opt_state = (new_flat, inner) if su_on else inner
         metrics = {"honest_loss": losses[:h].mean(), "agg_grad_norm": agg_norm}
         if ef:
             res = ef_state["transpose"].float()
             metrics["ef_transpose_norm"] = torch.sqrt(torch.sum(res * res))
             opt_state = (opt_state, ef_state)
         return unravel(new_flat), opt_state, metrics
+
+    return train_step, opt_state0
+
+
+def _grid(k: int, *precisions: CommPrecision) -> int:
+    """The padded flat vector's grid: ``k`` ranks times the lcm of the
+    blocks of the blockwise precisions in use."""
+    block = 1
+    for p in precisions:
+        if p.blockwise:
+            block = block * p.block // math.gcd(block, p.block)
+    return k * block
+
+
+def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt, mesh,
+                           grad_dtype, comm: CommPrecision, su: ShardedUpdateConfig):
+    """The SPMD round of :func:`build_ps_train_step` over a 1-D mesh."""
+    from .feature_sharded import FeatureGroup, sharded_form
+    from .mesh import node_axis, replicated, sharding
+
+    axis = node_axis(mesh)
+    extra = [name for i, name in enumerate(mesh.mesh_dim_names)
+             if name != axis and mesh.size(i) > 1]
+    if extra:
+        raise NotImplementedError(
+            f"the mesh round over a {mesh.ndim}-D mesh ({mesh.mesh_dim_names}) is not ported: "
+            "only a 1-D nodes mesh runs (the 2-D grid round is ROADMAP A.7)")
+    k = axis_size(axis, mesh=mesh)
+    me = axis_index(axis, mesh=mesh)
+    n, h, b = cfg.n_nodes, cfg.n_honest, cfg.n_byzantine
+    if not 0 <= b < n:
+        raise ValueError(f"need 0 <= n_byzantine < n_nodes (got {b}/{n})")
+    if n % k:
+        raise ValueError(f"n_nodes ({n}) must divide over the {k} ranks of the {axis!r} axis")
+    rows = n // k
+    mine = slice(me * rows, (me + 1) * rows)
+    su_on = su.resolve(k)
+    gather_p = as_comm_precision(su.param_gather_precision)
+    ravel, unravel = ravel_fn(bundle.params)
+    names = list(bundle.params)
+    per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+    flat0 = ravel(bundle.params)
+    param_dtype, d = flat0.dtype, flat0.shape[0]
+    grid = _grid(k, comm, *([gather_p] if su_on else []))
+    d_pad = -(-d // grid) * grid
+    d_loc = d_pad // k
+    lo = me * d_loc
+    row_layout = sharding(mesh, axis, None)
+    feat_layout = sharding(mesh, None, axis)
+    flat_layout = sharding(mesh, axis)
+    repl = replicated(mesh)
+    group = FeatureGroup(mesh, axis)
+    agg_local = sharded_form(aggregate, group)
+    pre_local = sharded_form(pre_aggregate, group) if pre_aggregate is not None else None
+    # the columns of this rank's shard that are real coordinates
+    real = (torch.arange(lo, lo + d_loc, device=flat0.device) < d)
+
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.pad(t, (0, d_pad - t.shape[-1])) if d_pad != t.shape[-1] else t
+
+    if su_on:
+        shard0 = pad(flat0)[lo:lo + d_loc].clone()
+        opt_state0 = (shard0, opt.init(shard0))
+    else:
+        opt_state0 = opt.init(flat0)
+    ef_transpose = comm.enabled and comm.error_feedback
+    ef_gather = su_on and gather_p.enabled and gather_p.error_feedback
+    ef0 = {}
+    if ef_transpose:
+        ef0["transpose"] = flat0.new_zeros((rows, d_pad), dtype=grad_dtype or param_dtype)
+    if ef_gather:
+        ef0["gather"] = flat0.new_zeros((d_loc,))
+    has_ef = bool(ef0)
+    if has_ef:
+        opt_state0 = (opt_state0, ef0)
+
+    def build_matrix(cols: torch.Tensor, generator) -> torch.Tensor:
+        """Honest rows and byzantine rows on this rank's columns: every
+        attack is coordinate-wise over the node axis."""
+        honest = cols[:h]
+        if not b:
+            return honest
+        if attack is not None:
+            byz = attack(honest, generator)
+        else:
+            byz = honest.repeat((b + h - 1) // h, 1)[:b]
+        byz = byz.expand(b, honest.shape[1]).to(honest.dtype)
+        return torch.cat([honest, byz], dim=0)
+
+    def train_step(params: Params, opt_state, xs, ys, generator=None):
+        if xs.shape[0] != n or ys.shape[0] != n:
+            raise ValueError(f"expected {n} node batches, got {xs.shape[0]} and {ys.shape[0]}")
+        ef_state: Dict[str, torch.Tensor] = {}
+        if has_ef:
+            opt_state, ef_state = opt_state
+        grads, losses = per_node(params, xs[mine], ys[mine])
+        flat = torch.cat([grads[key].reshape(rows, -1) for key in names], dim=1)
+        if grad_dtype is not None:
+            flat = flat.to(grad_dtype)
+        flat = pad(flat)
+        # the gradient transpose: node rows -> feature columns
+        if ef_transpose:
+            cols, residual = reshard_q_ef(flat, ef_state["transpose"], row_layout, feat_layout,
+                                          precision=comm)
+            ef_state = {**ef_state, "transpose": residual}
+        else:
+            cols = reshard_q(flat, row_layout, feat_layout, precision=comm)
+        matrix = build_matrix(cols, generator)
+        if pre_local is not None:
+            matrix = pre_local(matrix)
+        agg = agg_local(matrix).to(param_dtype)
+        # the pad columns stay exactly zero
+        agg = torch.where(real, agg, torch.zeros((), dtype=agg.dtype, device=agg.device))
+        agg_norm = torch.sqrt(all_reduce_sum(torch.sum(agg * agg), axis, mesh=mesh))
+        if su_on:
+            flat_params, inner = opt_state
+            new_shard, inner = opt.step(flat_params, agg, inner)
+            if ef_gather:
+                gathered, residual = reshard_q_ef(new_shard, ef_state["gather"], flat_layout, repl,
+                                                  precision=gather_p)
+                ef_state = {**ef_state, "gather": residual}
+            else:
+                gathered = reshard_q(new_shard, flat_layout, repl, precision=gather_p)
+            params = unravel(gathered[:d])
+            opt_state = (new_shard, inner)
+        else:
+            agg_full = reshard_q(agg, flat_layout, repl)[:d]
+            new_flat, opt_state = opt.step(ravel(params), agg_full, opt_state)
+            params = unravel(new_flat)
+        honest = (torch.arange(me * rows, (me + 1) * rows, device=losses.device) < h)
+        loss_sum = torch.sum(torch.where(honest, losses, torch.zeros_like(losses)))
+        metrics = {"honest_loss": all_reduce_sum(loss_sum, axis, mesh=mesh) / h,
+                   "agg_grad_norm": agg_norm}
+        if has_ef:
+            for key, t in ef_state.items():
+                tf = t.float()
+                # a rank's part of the residual: its energy summed over the ranks
+                metrics[f"ef_{key}_norm"] = torch.sqrt(
+                    all_reduce_sum(torch.sum(tf * tf), axis, mesh=mesh))
+            opt_state = (opt_state, ef_state)
+        return params, opt_state, metrics
 
     return train_step, opt_state0
 
@@ -284,7 +536,8 @@ def build_serving_ps_step(
     is the guarded door). ``mesh=`` raises ``NotImplementedError``: only
     one device is ported. Returns ``(step, opt_state0)``."""
     if mesh is not None:
-        raise NotImplementedError("mesh=: the feature-sharded serving step is not ported")
+        raise NotImplementedError(
+            "mesh=: the feature-sharded serving step is not ported (ROADMAP A.7)")
     opt = _checked_optimizer(optimizer, SGD(learning_rate, momentum=momentum))
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
@@ -341,7 +594,8 @@ def build_ragged_serving_ps_step(
     rows. ``mesh=`` raises ``NotImplementedError``. Returns ``(step,
     opt_state0)``."""
     if mesh is not None:
-        raise NotImplementedError("mesh=: the feature-sharded serving step is not ported")
+        raise NotImplementedError(
+            "mesh=: the feature-sharded serving step is not ported (ROADMAP A.7)")
     opt = _checked_optimizer(optimizer, SGD(learning_rate, momentum=momentum))
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
@@ -404,9 +658,17 @@ def jit_ps_train_step(
     :class:`~byzpy_tpu_torch.utils.cuda_graph.GraphCaptureError` naming the
     aggregate, pre-aggregate or attack callable that read; nothing runs
     eagerly on the card in its place. On CPU tensors ``step`` is the eager
-    step. ``mesh=`` raises ``NotImplementedError`` (ROADMAP A.7)."""
+    step. ``mesh=`` (or a default mesh) raises ``NotImplementedError``: the
+    mesh round's collectives inside a CUDA graph are ROADMAP A.7's (run
+    :func:`build_ps_train_step` with ``mesh=`` eagerly)."""
+    if mesh is None:
+        from ..configs.mesh import get_default_mesh
+
+        mesh = get_default_mesh()
     if mesh is not None:
-        raise NotImplementedError("mesh=: the sharded PS round is not ported")
+        raise NotImplementedError(
+            "jit_ps_train_step(mesh=): the compiled mesh round (NCCL inside a CUDA graph) is "
+            "not ported (ROADMAP A.7); build_ps_train_step(mesh=) runs it eagerly")
     kwargs = _guarded(kwargs, ("attack", "pre_aggregate"))
     step, opt_state0 = build_ps_train_step(bundle, capture_guard(aggregate, "aggregate"), cfg,
                                            **kwargs)
@@ -453,6 +715,8 @@ __all__ = [
     "PSStepConfig",
     "RaggedAggFn",
     "SGD",
+    "ShardedUpdateConfig",
+    "as_sharded_update",
     "adaptive_attack_rows",
     "build_ps_train_step",
     "build_ragged_serving_ps_step",

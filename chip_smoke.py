@@ -212,6 +212,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ms, launches and host reads of a call, the subset against the CPU
    port's, beside ByzPy's direct times (BASELINE.md).
 
+After the timing, phase 4i (more than 128 rows, the out-of-process tier)
+and phase 4j: (a) three ``NodeRunner`` children on the card stepping
+SmallCNN workers under ``StepParameterServer`` with the trimmed mean, 5
+rounds bit for bit the same rounds in process, and a ``TcpMailbox``
+round trip of a tensor; (b) ``MeshRemoteContext`` at
+``examples/p2p/mesh_tcp.py``'s shape on loopback, the aggregates bit for
+bit an ``InProcessContext`` run, a killed peer re-dialled by the monitor;
+(c) the CLI: ``doctor`` names the card and builds every source, ``bench``
+(any row with an error fails), ``list``, a short ``study``; (d) the mesh
+PS round on one NCCL rank at ResNet-18's full width (8 nodes, 2
+sign-flipping, 32 images each, 5 steps) for the trimmed mean, Multi-Krum,
+the geometric median and clip + trimmed mean, the sharded update on and
+off, the int8 transpose and gather: the trimmed mean bit for bit the
+``mesh=None`` round, the others within f32 rounding (the geometric median
+1e-3: its two loops stop on their own sums), the compressed ones within
+the codec bound, the traffic record equal to ``comms.ps_round_wire_bytes``,
+each configuration's kernels launched every step, host ms, launches and
+peak memory printed; (e) 2 and 4 gloo ranks sharing the card (CUDA
+tensors through gloo), every rank's parameters equal, within 1e-4 of the
+single-device round (a rank's vmap holds fewer nodes, and cuDNN's
+per-node gradients move in their last bits with that).
+
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -277,7 +299,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("== "):
+        msg += f" [{time.perf_counter() - _START:.0f} s]"
     print(msg, flush=True)
 
 
@@ -3599,6 +3626,9 @@ BYZPY_POOL = {
 # pool workers -> (NodeScheduler ms, ParallelScheduler ms)
 BYZPY_SCHEDULER = {2: (3362.0, 1375.0), 4: (3361.0, 1252.0), 6: (3240.0, 1239.0)}
 ENGINE_POOLS = (2, 4, 6)
+# phase 4i's process pools (ByzPy's columns of 2 and 4 workers; its 6 is
+# left out to keep the script's time)
+PROCESS_POOLS = (2, 4)
 # the engine's waits: no await of phase 4f may hang the run
 ENGINE_WAIT_S = 600
 # the loops' pool path (row-block sums a step) against B7's loop
@@ -4803,7 +4833,9 @@ def orchestrator_path(counts: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 # (a): the row counts above the networks' 128, at ByzPy's grid width
-WIDE_ROWS = (129, 196, 256, 512)
+# 129 (the first above the networks) and 512; 196 and 256 were run before and are left
+# out to keep the script's time
+WIDE_ROWS = (129, 512)
 WIDE_D = 65_536
 # the network kernels: at 128 rows some launch, above 128 none may
 NETWORK_KEYS = ("sorted_reduce:median", "sorted_reduce:trimmed", "gram", "meamed",
@@ -4877,8 +4909,8 @@ def wide_rows(n: int, seed: int):
 
 
 def wide_direct(counts: dict) -> dict:
-    """(a) every family at 128 rows (the networks launch) and at 129, 196,
-    256 and 512 (none launches), each against the same call on the CPU;
+    """(a) every family at 128 rows (the networks launch) and at 129 and 512
+    (none launches), each against the same call on the CPU;
     the masked programs at a 512-row bucket; a captured step above 128
     rows for each family (a CUDA graph, or a GraphCaptureError that names
     the cause); the ragged executor at a capacity of 256 with a 200-row
@@ -5100,7 +5132,7 @@ class PsFlip:
 
 
 async def process_pool_table(counts: dict, pools: dict) -> dict:
-    """(b) ByzPy's whole pool table on ``process`` pools of 2, 4 and 6 (one
+    """(b) ByzPy's whole pool table on ``process`` pools of 2 and 4 (one
     pool of each, started once and warmed by one median call; each child
     on the card): every row at ByzPy's shapes, host ms of one call beside
     ByzPy's; each pooled result held to the direct call."""
@@ -5122,22 +5154,23 @@ async def process_pool_table(counts: dict, pools: dict) -> dict:
         reps = 1
         direct_ms, direct = await host_ms(lambda: run_operator(op, inputs), reps)
         row = {"direct_ms": direct_ms, "byzpy_direct_ms": table[name][0], "rule": rule}
-        for i, k in enumerate(ENGINE_POOLS):
+        for k in PROCESS_POOLS:
             ms, res = await host_ms(lambda: run_operator(op, inputs, pool=pools[k]), reps)
             ok, err = held(rule, res, direct)
             check(ok, f"(b) {name}: the process pool of {k} is {err} off the direct call "
                   f"({rule})")
-            row[f"pool{k}_ms"], row[f"byzpy_pool{k}_ms"] = ms, table[name][i + 1]
+            row[f"pool{k}_ms"] = ms
+            row[f"byzpy_pool{k}_ms"] = table[name][ENGINE_POOLS.index(k) + 1]
             row[f"pool{k}_max_abs_err"] = err
         out[name] = row
         log(f"  (b) {name}: host ms direct {direct_ms:.3f} (ByzPy {table[name][0]}), "
             + ", ".join(f"process x{k} {row[f'pool{k}_ms']:.3f} (ByzPy "
-                        f"{row[f'byzpy_pool{k}_ms']})" for k in ENGINE_POOLS) + f"; held {rule}")
+                        f"{row[f'byzpy_pool{k}_ms']})" for k in PROCESS_POOLS) + f"; held {rule}")
     # ByzPy's PS row: 10 honest + 3 byzantine nodes, Multi-Krum, 50 rounds
     name = "ps_multi_krum_10h_3b_50_rounds"
     row = {"byzpy_direct_ms": table[name][0]}
     finals = {}
-    for k in (None,) + ENGINE_POOLS:
+    for k in (None,) + PROCESS_POOLS:
         ps = ParameterServer([PsNode(i) for i in range(10)], [PsFlip() for _ in range(3)],
                              aggregator=MultiKrum(3, 4),
                              pool=None if k is None else pools[k])
@@ -5156,7 +5189,7 @@ async def process_pool_table(counts: dict, pools: dict) -> dict:
     out[name] = row
     log(f"  (b) {name}: host ms for 50 rounds direct {row['direct_ms']:.3f} (ByzPy "
         f"{table[name][0]}), " + ", ".join(f"process x{k} {row[f'pool{k}_ms']:.3f}"
-                                           for k in ENGINE_POOLS))
+                                           for k in PROCESS_POOLS))
     del cases
     torch.cuda.empty_cache()
     return out
@@ -5431,12 +5464,12 @@ def wide_process_path(counts: dict) -> dict:
 
         res = {}
         t0 = time.perf_counter()
-        pools = {k: ActorPool(ActorPoolConfig(backend="process", count=k)) for k in ENGINE_POOLS}
+        pools = {k: ActorPool(ActorPoolConfig(backend="process", count=k)) for k in PROCESS_POOLS}
         try:
             await asyncio.gather(*(p.start() for p in pools.values()))
             res["pools_start_s"] = time.perf_counter() - t0
-            log(f"  (b) process pools of {ENGINE_POOLS} started in {res['pools_start_s']:.1f} s "
-                f"({sum(ENGINE_POOLS)} children on the card)")
+            log(f"  (b) process pools of {PROCESS_POOLS} started in {res['pools_start_s']:.1f} s "
+                f"({sum(PROCESS_POOLS)} children on the card)")
             for key, fn in (("b_process_pool_table", process_pool_table),
                             ("c_configs_1_2_process_pool4", process_configs)):
                 t0 = time.perf_counter()
@@ -5452,6 +5485,635 @@ def wide_process_path(counts: dict) -> dict:
         return res
 
     out.update(asyncio.run(asyncio.wait_for(tier(), PROCESS_WAIT_S)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the rest of the engine (the legacy runtime, MeshRemoteContext,
+# the CLI) and the device mesh (the mesh PS round on one NCCL rank)
+# ---------------------------------------------------------------------------
+
+LEGACY_NODES, LEGACY_ROUNDS, LEGACY_BATCH, LEGACY_LR = 3, 5, 64, 0.1
+MESH_TCP_NODES = 3
+MESH_NODES, MESH_BYZ, MESH_BATCH, MESH_STEPS = 8, 2, 32, 5
+# the mesh round's static clip: ResNet-18's per-node gradient norms at step
+# 1 (CIFAR shapes, random labels) are read from this run and printed; the
+# threshold is their median, so some rows clip and some do not
+MESH_WAIT_S = 600
+# the kernels each (d) configuration's aggregation launches on the rank's
+# columns, every step
+MESH_KERNELS = {
+    "trimmed": ("sorted_reduce:trimmed",),
+    "multi_krum": ("gram", "selection_mean_from_gram:krum"),
+    "geomed": ("sorted_reduce:median", "row_sq_dists", "segment_sum"),
+    "clip+trimmed": ("row_sq_dists", "sorted_reduce:trimmed"),
+}
+CLI_TIMEOUT_S = 240
+
+
+class LegacyCnnNode:
+    """(a)'s step-protocol node: SmallCNN on the card, its own synthetic
+    batches, ``step()`` the flat gradient of the next batch,
+    ``apply_update(u)`` SGD at ``LEGACY_LR``. cuDNN's deterministic
+    algorithms, so a child and the parent compute the same bits."""
+
+    def __init__(self, seed: int) -> None:
+        import torch
+
+        from byzpy_tpu_torch.models import nets, synthetic_classification
+
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.bundle = nets.mnist_cnn(seed=0, device="cuda")
+        self.x, self.y = synthetic_classification(n_samples=LEGACY_BATCH * LEGACY_ROUNDS,
+                                                  seed=100 + seed, device="cuda")
+        self._grad = torch.func.grad(self.bundle.loss_fn)
+        self.rounds = 0
+
+    def step(self, payload=None):
+        import torch
+
+        sl = slice(self.rounds * LEGACY_BATCH, (self.rounds + 1) * LEGACY_BATCH)
+        self.rounds += 1
+        g = self._grad(self.bundle.params, self.x[sl], self.y[sl])
+        return torch.cat([v.reshape(-1) for v in g.values()])
+
+    def apply_update(self, update) -> None:
+        flat = update.to("cuda")
+        out, at = {}, 0
+        for k, p in self.bundle.params.items():
+            out[k] = p - LEGACY_LR * flat[at:at + p.numel()].reshape(p.shape)
+            at += p.numel()
+        self.bundle.params = out
+
+    def flat_params(self):
+        import torch
+
+        return torch.cat([v.reshape(-1) for v in self.bundle.params.values()]).cpu()
+
+
+def legacy_runtime(counts: dict, smi: str) -> dict:
+    """(a) three ``NodeRunner`` children on the card step SmallCNN workers;
+    ``StepParameterServer`` with the port's trimmed mean (f = 1) for 5
+    rounds; every update and every node's weights equal the same rounds
+    computed in process bit for bit; a ``TcpMailbox`` loopback round trip
+    carries a tensor."""
+    import torch
+
+    from byzpy_tpu_torch.engine.legacy import NodeCluster, NodeRunner, StepParameterServer, TcpMailbox
+    from byzpy_tpu_torch.ops import kernels, robust
+
+    def aggregate(grads):
+        return robust.trimmed_mean(torch.stack([g.to("cuda") for g in grads]), f=1)
+
+    in_process = [LegacyCnnNode(i) for i in range(LEGACY_NODES)]
+    want = []
+    for _ in range(LEGACY_ROUNDS):
+        update = aggregate([node.step() for node in in_process])
+        for node in in_process:
+            node.apply_update(update)
+        want.append(update.cpu())
+    cluster = NodeCluster()
+    for i in range(LEGACY_NODES):
+        cluster.add(f"n{i}", NodeRunner(functools.partial(LegacyCnnNode, i)))
+    t0 = time.perf_counter()
+    with cluster:
+        # the first call of each child waits out its start (spawn, CUDA,
+        # the model): out of the rounds' time
+        for name in cluster.names:
+            cluster.runner(name).call("flat_params")
+        start_s = time.perf_counter() - t0
+        check(all(cluster.runner(n).child_device == "cuda" for n in cluster.names),
+              "(a) a runner's child is not on the card")
+        ps = StepParameterServer(cluster, aggregate)
+        kernels.reset_launch_counts()
+        got, rounds_ms = [], []
+        for _ in range(LEGACY_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(ps.round().cpu())
+            rounds_ms.append((time.perf_counter() - t0) * 1e3)
+        round_ms = sum(rounds_ms) / LEGACY_ROUNDS
+        run = {k: v for k, v in kernels.launch_counts.items() if v}
+        weights = [cluster.runner(n).call("flat_params") for n in cluster.names]
+    for r, (g, w) in enumerate(zip(got, want)):
+        check(bits_equal(g, w), f"(a) round {r + 1}: the runners' update differs from the in-process one")
+    for i, w in enumerate(weights):
+        check(bits_equal(w, in_process[i].flat_params()), f"(a) node {i}'s weights differ")
+    check(run == {"sorted_reduce:trimmed": LEGACY_ROUNDS},
+          f"(a) launches {run}, not one B1 trimmed mean a round")
+    for k, v in run.items():
+        counts[k] += v
+    a, b = TcpMailbox("a"), TcpMailbox("b")
+    try:
+        a.add_peer("b", (b.host, b.port))
+        sent = want[-1]
+        t0 = time.perf_counter()
+        a.send("b", {"update": sent})
+        sender, payload = b.recv(timeout=30)
+        tcp_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        a.close()
+        b.close()
+    check(sender == "a" and bits_equal(payload["update"], sent), "(a) the TcpMailbox round trip")
+    d = int(want[0].numel())
+    log(f"  (a) legacy: {LEGACY_NODES} NodeRunner children on the card (up in {start_s:.1f} s), "
+        f"StepParameterServer x {LEGACY_ROUNDS} rounds of SmallCNN (d = {d:,}) bit for bit the "
+        f"in-process rounds; host ms a round {[round(t, 1) for t in rounds_ms]}; TcpMailbox round "
+        f"trip of {d:,} f32 "
+        f"{tcp_ms:.3f} host ms; launches {run}; {smi}")
+    return {"d": d, "children_start_s": start_s, "host_ms_per_round": round_ms, "rounds_ms": rounds_ms,
+            "tcp_mailbox_round_trip_ms": tcp_ms, "launches": run}
+
+
+async def mesh_tcp_round(context_factory, vectors, node_ids) -> dict:
+    """examples/p2p/mesh_tcp.py's shape: every node broadcasts its vector
+    over the complete topology; each then aggregates its own and the
+    received vectors (in sender order) with the trimmed mean (f = 1) on
+    the card. Returns ``{node: aggregate}``, the contexts and the nodes."""
+    import torch
+
+    from byzpy_tpu_torch.engine.node import DecentralizedNode
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.ops import robust
+
+    n = len(node_ids)
+    ctxs = [context_factory(nid) for nid in node_ids]
+    received = {nid: {} for nid in node_ids}
+    done = asyncio.Event()
+    nodes = []
+    for i, ctx in enumerate(ctxs):
+        node = DecentralizedNode(node_ids[i], ctx)
+        node.bind_topology(Topology.complete(n), dict(enumerate(node_ids)))
+
+        async def keep(message, store=received[node_ids[i]]):
+            store[message.sender] = message.payload
+            if all(len(v) == n - 1 for v in received.values()):
+                done.set()
+
+        node.register_handler("gradient", keep)
+        await node.start()
+        nodes.append(node)
+    if hasattr(ctxs[0], "add_peer"):
+        book = {c.node_id: (c.host, c.port) for c in ctxs}
+        for ctx in ctxs:
+            for pid, addr in book.items():
+                if pid != ctx.node_id:
+                    ctx.add_peer(pid, addr)
+    for node, vec in zip(nodes, vectors):
+        await node.broadcast_message("gradient", vec)
+    await asyncio.wait_for(done.wait(), 60)
+    aggs = {}
+    for nid, vec in zip(node_ids, vectors):
+        rows = [vec] + [received[nid][s].to("cuda") for s in sorted(received[nid])]
+        aggs[nid] = robust.trimmed_mean(torch.stack(rows), f=1)
+    return aggs, ctxs, nodes
+
+
+def mesh_remote_context(counts: dict, smi: str) -> dict:
+    """(b) ``MeshRemoteContext`` at examples/p2p/mesh_tcp.py's shape on
+    loopback: three nodes gossip SmallCNN-sized vectors, each aggregates
+    with the trimmed mean on the card, bit for bit an ``InProcessContext``
+    run; then one peer's outbound connections are killed and the reconnect
+    monitor re-dials them, and a send over the re-dialled path arrives."""
+    import torch
+
+    from byzpy_tpu_torch.engine.node import InProcessContext, MeshRemoteContext
+    from byzpy_tpu_torch.ops import kernels
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    vectors = [torch.randn(421_642, generator=g, device="cuda") for _ in range(MESH_TCP_NODES)]
+    ids = [f"mesh-{i}" for i in range(MESH_TCP_NODES)]
+
+    async def run():
+        InProcessContext.clear_registry()
+        ref, _, ref_nodes = await mesh_tcp_round(InProcessContext, vectors, ids)
+        for node in ref_nodes:
+            await node.shutdown()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, ctxs, nodes = await mesh_tcp_round(
+            lambda nid: MeshRemoteContext(nid, reconnect_interval=0.2), vectors, ids)
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) * 1e3
+        run_counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        try:
+            for nid in ids:
+                check(bits_equal(got[nid], ref[nid]),
+                      f"(b) {nid}'s aggregate differs from the InProcessContext run")
+            victim = ctxs[2]
+            for _, writer, _lock in list(victim._out.values()):
+                writer.close()
+            victim._out.clear()
+            t0 = time.perf_counter()
+            for _ in range(300):
+                if "mesh-0" in victim._out:
+                    break
+                await asyncio.sleep(0.02)
+            redial_ms = (time.perf_counter() - t0) * 1e3
+            check("mesh-0" in victim._out, "(b) the monitor did not re-dial mesh-0")
+            arrived = asyncio.Event()
+            nodes[0].register_handler("after", lambda message: arrived.set() or asyncio.sleep(0))
+            await nodes[2].send_message("mesh-0", "after", vectors[2])
+            await asyncio.wait_for(arrived.wait(), 30)
+        finally:
+            for node in nodes:
+                await node.shutdown()
+        check(all(not c._inbound_writers and c._server is None for c in ctxs),
+              "(b) a shutdown left an inbound writer or its server open")
+        return round_ms, redial_ms, run_counts
+
+    round_ms, redial_ms, run_counts = asyncio.run(asyncio.wait_for(run(), MESH_WAIT_S))
+    check(run_counts == {"sorted_reduce:trimmed": MESH_TCP_NODES},
+          f"(b) launches {run_counts}, not one B1 trimmed mean a node")
+    for k, v in run_counts.items():
+        counts[k] += v
+    log(f"  (b) MeshRemoteContext: {MESH_TCP_NODES} nodes gossip 421,642 f32 on loopback, the "
+        f"aggregates bit for bit an InProcessContext run; round {round_ms:.3f} host ms; a killed "
+        f"peer re-dialled by the monitor in {redial_ms:.1f} ms; {smi}")
+    return {"host_ms_per_round": round_ms, "redial_ms": redial_ms, "launches": run_counts}
+
+
+def cli_start(*args: str):
+    """Start ``python -m byzpy_tpu_torch.cli ARGS`` from the checkout;
+    :func:`cli_wait` collects it."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "byzpy_tpu_torch.cli", *args], cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return args, proc, time.perf_counter()
+
+
+def cli_wait(started) -> tuple:
+    """(stdout, host seconds) of a command :func:`cli_start` started."""
+    args, proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"(c) cli {' '.join(args)} exited {proc.returncode}: {err[-2000:]}")
+    return out, s
+
+
+def cli_phase(smi: str) -> dict:
+    """(c) the CLI on the card: ``doctor`` names the card and builds every
+    source; ``bench`` times the four ops at 16 x 65,536 with CUDA events
+    (an ``error`` row fails the phase); ``list`` and a short ``study``."""
+    import torch
+
+    from byzpy_tpu_torch.ops import _build
+
+    # doctor, list and study run side by side (the study on the card); bench
+    # runs alone after them, so its times are its own. The card's host has
+    # no scikit-learn: the study runs on synthetic blobs of the digits' shape
+    started = [cli_start("doctor", "--format", "json"), cli_start("list", "aggregators"),
+               cli_start("study", "--rounds", "3", "--aggregator", "trimmed_mean", "--data",
+                         "synthetic")]
+    (out, doctor_s), (listing, _), (study_out, study_s) = [cli_wait(p) for p in started]
+    report = json.loads(out)
+    names = [dev["name"] for dev in report.get("devices", [])]
+    check(names and names[0] == torch.cuda.get_device_name(0), f"(c) doctor's devices: {names}")
+    check(report["kernels"]["ok"] and sorted(report["kernels"]["sources"]) == sorted(_build.SOURCES),
+          f"(c) doctor's build: {report['kernels']}")
+    check(report.get("nvidia_smi") and report["nvcc"].get("version"),
+          f"(c) doctor's nvidia-smi or nvcc: {report.get('nvidia_smi')} {report['nvcc']}")
+    out, bench_s = cli_wait(cli_start("bench"))
+    bench = json.loads(out)
+    ops = ("coordinate_median", "trimmed_mean", "multi_krum", "geometric_median")
+    errors = {op: bench.get(op) for op in ops if "ms" not in bench.get(op, {})}
+    check(not errors and "error" not in bench, f"(c) bench rows with an error: {errors} {bench.get('error')}")
+    check(bench["clock"] == "cuda_events" and bench["shape"] == [16, 65_536],
+          f"(c) bench: {bench}")
+    listed = {"aggregators": len(listing.splitlines())}
+    check(listed["aggregators"] >= 12, f"(c) list: {listing}")
+    check("| aggregator | sign_flip |" in study_out and "trimmed_mean" in study_out,
+          f"(c) study: {study_out[-500:]}")
+    bench_ms = {op: bench[op]["ms"] for op in ops}
+    log(f"  (c) cli: doctor {doctor_s:.1f} s ({names[0]}; {report['nvidia_smi']}; "
+        f"{report['nvcc']['version']}; {len(report['kernels']['sources'])} sources built or found); "
+        f"bench at 16 x 65,536 f32 (ms a call, CUDA events) {json.dumps(bench_ms)}; list "
+        f"{listed}; study (3 rounds, mean vs trimmed mean under sign flip) {study_s:.1f} s; {smi}")
+    return {"doctor_s": doctor_s, "bench_s": bench_s, "bench_ms": bench_ms, "listed": listed,
+            "study_s": study_s, "device": names[0], "nvidia_smi": report["nvidia_smi"]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_configs(tau: float) -> list:
+    """(d)'s configurations: (name, aggregate, pre_aggregate, sharded
+    update, comm precision, gather precision with error feedback)."""
+    from byzpy_tpu_torch.ops import preagg, robust
+
+    aggs = {
+        "trimmed": (functools.partial(robust.trimmed_mean, f=MESH_BYZ), None),
+        "multi_krum": (functools.partial(robust.multi_krum, f=MESH_BYZ, q=4), None),
+        "geomed": (robust.geometric_median, None),
+        "clip+trimmed": (functools.partial(robust.trimmed_mean, f=MESH_BYZ),
+                         functools.partial(preagg.clip_rows, threshold=tau)),
+    }
+    out = []
+    for name, (agg, pre) in aggs.items():
+        grid = ([(su, c, g) for su in ("on", "off") for c in (None, "int8") for g in (None, "int8")]
+                if name == "trimmed" else
+                [("on", None, None), ("off", None, None), ("on", "int8", "int8")])
+        for su, comm, gather in grid:
+            if su == "off" and gather is not None:
+                continue  # the replicated update gathers the exact aggregate
+            out.append((name, agg, pre, su, comm, gather))
+    return out
+
+
+def mesh_round_path(counts: dict, smi: str) -> dict:
+    """(d) the mesh PS round on one NCCL rank at full width: a ``nodes``
+    mesh of 1 runs ResNet-18 for CIFAR (d = 11,173,962), 8 nodes (2
+    sign-flipping) x 32 images, 5 steps, for the trimmed mean, Multi-Krum,
+    the geometric median and static clip + trimmed mean, the sharded update
+    on and off, the transpose and the params gather off and int8 (the
+    gather with error feedback). With both precisions off the parameters
+    equal the ``mesh=None`` round's bit for bit for the trimmed mean, and
+    within f32 rounding otherwise; the traffic record equals
+    ``comms.ps_round_wire_bytes``; each configuration's launches a step and
+    peak memory are printed."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import grad, vmap
+
+    from byzpy_tpu_torch.models import ShardedDataset, cifar_resnet18, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, kernels
+    from byzpy_tpu_torch.parallel import CommPrecision, PSStepConfig, ShardedUpdateConfig, build_ps_train_step
+    from byzpy_tpu_torch.parallel import comms
+    from byzpy_tpu_torch.parallel.mesh import init_process_group, node_mesh
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    check(init_process_group(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl"),
+          "(d) the NCCL process group was already initialized")
+    try:
+        mesh = node_mesh(device="cuda")
+        x, y = synthetic_classification(n_samples=MESH_NODES * MESH_BATCH * MESH_STEPS,
+                                        input_shape=(32, 32, 3), seed=0, device="cuda")
+        xs_all, ys_all = ShardedDataset(x, y, n_nodes=MESH_NODES).stacked_shards()
+        batches = [(xs_all[:, s * MESH_BATCH:(s + 1) * MESH_BATCH],
+                    ys_all[:, s * MESH_BATCH:(s + 1) * MESH_BATCH]) for s in range(MESH_STEPS)]
+        bundle0 = cifar_resnet18(seed=0, device="cuda")
+        d = sum(int(v.numel()) for v in bundle0.params.values())
+        check(d == 11_173_962, f"(d) ResNet-18 for CIFAR has d={d}")
+        g1 = vmap(grad(bundle0.loss_fn), in_dims=(None, 0, 0))(bundle0.params, *batches[0])
+        norms = torch.sqrt(sum(torch.sum(v.reshape(MESH_NODES, -1) ** 2, dim=1) for v in g1.values()))
+        tau = float(torch.median(norms[:MESH_NODES - MESH_BYZ]))
+        gmax = float(max(v.abs().max() for v in g1.values()))
+        del g1
+        cfg = PSStepConfig(n_nodes=MESH_NODES, n_byzantine=MESH_BYZ)
+
+        def attack(honest, generator):
+            return attack_ops.sign_flip(honest.mean(dim=0))
+
+        def run(agg, pre, *, mesh_, su=None, comm=None, gather=None):
+            bundle = cifar_resnet18(seed=0, device="cuda")
+            kw = {}
+            if mesh_ is not None:
+                kw = dict(mesh=mesh_, comm_precision=comm, sharded_update=ShardedUpdateConfig(
+                    su, param_gather_precision=None if gather is None else CommPrecision(
+                        gather, error_feedback=True)))
+            step, opt = build_ps_train_step(bundle, agg, cfg, attack=attack, pre_aggregate=pre, **kw)
+            params = bundle.params
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            ms = []
+            for xs, ys in batches:
+                t0 = time.perf_counter()
+                params, opt, metrics = step(params, opt, xs, ys)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+            flat = torch.cat([v.reshape(-1) for v in params.values()])
+            record = None
+            if mesh_ is not None:
+                rec = comms.collective_traffic(step, params, opt, *batches[0])
+                record = {"per_opcode_bytes": rec["per_opcode_bytes"],
+                          "result_bytes": sorted({(op.opcode, op.dtype): op.result_bytes
+                                                  for op in rec["ops"]}.items())}
+                law = comms.ps_round_wire_bytes(d, 1, update_sharded=su == "on",
+                                                grad_precision=comm or "off",
+                                                param_precision=gather or "off")
+                check(rec["wire_bytes_per_device"] == law == 0.0 and set(rec["per_opcode_bytes"])
+                      >= {"all-to-all", "all-reduce"}, f"(d) the traffic record {record} against "
+                      f"the law {law}")
+            return flat, metrics, ms, launches, torch.cuda.max_memory_allocated(), record
+
+        out = {"d": d, "clip_tau": tau, "configs": {}}
+        refs = {}
+        for name, agg, pre, su, comm, gather in mesh_configs(tau):
+            if name not in refs:
+                refs[name] = run(agg, pre, mesh_=None)
+                rflat = refs[name][0]
+                check(bool(torch.isfinite(rflat).all()), f"(d) {name}: mesh=None params not finite")
+                log(f"  (d) {name}/mesh=None: host ms a step {[round(t, 1) for t in refs[name][2]]}, "
+                    f"peak {refs[name][4] / 2**30:.2f} GiB, launches a step "
+                    f"{ {k: v / MESH_STEPS for k, v in refs[name][3].items()} }; {smi}")
+                out["configs"][f"{name}/mesh=None"] = {
+                    "ms_per_step": refs[name][2], "peak_gib": refs[name][4] / 2**30,
+                    "launches_per_step": {k: v / MESH_STEPS for k, v in refs[name][3].items()}}
+            flat, metrics, ms, launches, peak, record = run(agg, pre, mesh_=mesh, su=su, comm=comm,
+                                                            gather=gather)
+            check(bool(torch.isfinite(flat).all()), f"(d) {name} {su} {comm} {gather}: not finite")
+            diff = float((flat - refs[name][0]).abs().max())
+            scale = float(refs[name][0].abs().max())
+            if comm is None and gather is None:
+                if name == "trimmed":
+                    check(bits_equal(flat, refs[name][0]),
+                          f"(d) {name} su={su}: the mesh round differs from mesh=None ({diff})")
+                else:
+                    # the forms sum over d in another order (row_sq_dists, the
+                    # all-reduce) and 5 steps of training carry the last bits
+                    # on; the sharded geometric median runs the B11 /
+                    # row_sq_dists loop and mesh=None B7's, each stopping at
+                    # tol = 1e-6 on its own sums, so they can end a step apart
+                    rel = 1e-3 if name == "geomed" else 1e-4
+                    check(diff <= rel * scale, f"(d) {name} su={su}: {diff} from mesh=None "
+                          f"(|p| max {scale})")
+            else:
+                # one code step of the largest block a step, through SGD's
+                # momentum (lr / (1 - momentum)), on the transpose and the gather
+                bound = MESH_STEPS * (cfg.learning_rate / (1 - cfg.momentum) * gmax / 127
+                                      + scale / 127)
+                check(diff <= bound, f"(d) {name} {comm} {gather}: {diff} from the f32 round "
+                      f"(bound {bound})")
+            want = set(MESH_KERNELS[name])
+            if comm is not None:
+                want |= {"quantize:int8", "dequantize:int8"}
+            if gather is not None:
+                want |= {"quantize:int8", "dequantize:int8"}
+            check(want <= set(launches) and all(launches[k] >= MESH_STEPS for k in want),
+                  f"(d) {name} {su} {comm} {gather}: launches {launches}, want {sorted(want)} "
+                  "every step")
+            for k, v in launches.items():
+                counts[k] += v
+            key = f"{name}/su={su}/comm={comm or 'off'}/gather={gather or 'off'}"
+            out["configs"][key] = {
+                "ms_per_step": ms, "peak_gib": peak / 2**30, "max_abs_diff_to_mesh_none": diff,
+                "agg_grad_norm": float(metrics["agg_grad_norm"]),
+                "launches_per_step": {k: v / MESH_STEPS for k, v in launches.items()},
+                "traffic": record}
+            log(f"  (d) {key}: host ms a step {[round(t, 1) for t in ms]}, peak "
+                f"{peak / 2**30:.2f} GiB, max |p - p(mesh=None)| {diff:.3e}, launches a step "
+                f"{ {k: v / MESH_STEPS for k, v in launches.items()} }; {smi}")
+        return out
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+GLOO_WORLDS = (2, 4)
+GLOO_WAIT_S = 300
+
+
+def gloo_smallcnn_round(mesh, device: str = "cuda") -> tuple:
+    """(e)'s round: SmallCNN, 8 nodes (2 sign-flipping the honest mean) x
+    32 images, the trimmed mean (f = 2), the sharded update on, precisions
+    off, 5 steps on ``mesh`` (``None``: the single-device round). Returns
+    the flat parameters (numpy) and the host ms of each step."""
+    import torch
+
+    from byzpy_tpu_torch.models import mnist_cnn, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bundle = mnist_cnn(seed=0, device=device)
+    x, y = synthetic_classification(n_samples=MESH_NODES * MESH_BATCH * MESH_STEPS, seed=3,
+                                    device=device)
+    step, opt = build_ps_train_step(
+        bundle, functools.partial(robust.trimmed_mean, f=MESH_BYZ),
+        PSStepConfig(n_nodes=MESH_NODES, n_byzantine=MESH_BYZ), mesh=mesh, sharded_update="on",
+        attack=lambda honest, generator: attack_ops.sign_flip(honest.mean(dim=0)))
+    params, ms = bundle.params, []
+    per = MESH_NODES * MESH_BATCH
+    for s in range(MESH_STEPS):
+        xs = x[s * per:(s + 1) * per].reshape(MESH_NODES, MESH_BATCH, 28, 28, 1)
+        ys = y[s * per:(s + 1) * per].reshape(MESH_NODES, MESH_BATCH)
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, xs, ys)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return torch.cat([v.reshape(-1) for v in params.values()]).cpu().numpy(), ms
+
+
+def gloo_rank_main(rank: int, size: int, init: str, out_q) -> None:  # pragma: no cover - a rank
+    """(e)'s rank: one of ``size`` processes sharing card 0 over a gloo
+    group, running :func:`gloo_smallcnn_round` on a ``nodes`` mesh."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=size, rank=rank,
+                            timeout=__import__("datetime").timedelta(seconds=GLOO_WAIT_S))
+    try:
+        from byzpy_tpu_torch.parallel.mesh import node_mesh
+
+        out_q.put((rank, True, gloo_smallcnn_round(node_mesh(device="cuda"))))
+    except Exception:  # noqa: BLE001 - sent to the parent, which fails the phase
+        out_q.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_worlds(counts: dict, smi: str) -> dict:
+    """(e) 2 and 4 ranks sharing the card over gloo at SmallCNN width: every
+    rank's parameters equal bit for bit, and within f32 rounding of the
+    single-device round (which (d)'s one-rank NCCL round equals bit for
+    bit); whether they are bit for bit is printed."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    import numpy as np
+
+    want, single_ms = gloo_smallcnn_round(None)
+    out = {"single_device_ms_per_step": single_ms}
+    ctx = mp.get_context("spawn")
+    # the worlds run side by side (6 processes on the card), each its own group
+    worlds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for size in GLOO_WORLDS:
+            q = ctx.Queue()
+            procs = [ctx.Process(target=gloo_rank_main,
+                                 args=(r, size, f"file://{tmp}/rendezvous{size}", q), daemon=True)
+                     for r in range(size)]
+            for p in procs:
+                p.start()
+            worlds[size] = (q, procs)
+        collected = {}
+        try:
+            for size, (q, procs) in worlds.items():
+                results, errors = {}, []
+                while len(results) + len(errors) < size:
+                    try:
+                        rank, ok, value = q.get(timeout=GLOO_WAIT_S)
+                    except queue.Empty:
+                        errors.append("no answer in time")
+                        break
+                    (results.__setitem__(rank, value) if ok else errors.append(value))
+                collected[size] = (results, errors)
+        finally:
+            for q, procs in worlds.values():
+                for p in procs:
+                    p.join(timeout=60)
+                    if p.is_alive():
+                        p.terminate()
+                        p.join(timeout=30)
+        wall_s = time.perf_counter() - t0
+    for size in GLOO_WORLDS:
+        results, errors = collected.get(size, ({}, ["not collected"]))
+        check(not errors, f"(e) the {size}-rank gloo world failed: {errors[:1]}")
+        flats = [results[r][0] for r in range(size)]
+        check(all(np.array_equal(f.view(np.int32), flats[0].view(np.int32)) for f in flats),
+              f"(e) the {size} ranks' parameters differ")
+        diff = float(np.abs(flats[0] - want).max())
+        scale = float(np.abs(want).max())
+        bitwise = bool(np.array_equal(flats[0].view(np.int32), want.view(np.int32)))
+        # a rank's vmap holds n / ranks nodes: the per-node gradients of a
+        # conv net round apart in their last bits from those of a vmap over
+        # all n (cuDNN picks by batch), and 5 steps carry that on
+        check(diff <= 1e-4 * scale, f"(e) {size} ranks: {diff} from the single-device round "
+              f"(|p| max {scale})")
+        ms = [results[r][1] for r in range(size)]
+        out[f"ranks_{size}"] = {"ms_per_step_rank0": ms[0], "wall_s": wall_s,
+                                "max_abs_diff_to_single_device": diff, "bitwise": bitwise}
+        log(f"  (e) {size} ranks on one card over gloo: SmallCNN trimmed mean, sharded update, "
+            f"{MESH_STEPS} steps, every rank's parameters equal; max |p - p(single device)| "
+            f"{diff:.3e} (bit for bit: {bitwise}); rank 0's host ms a step "
+            f"{[round(t, 1) for t in ms[0]]}; both worlds {wall_s:.1f} s with the spawn, side by "
+            f"side; {smi}")
+    return out
+
+
+def engine_mesh_path(counts: dict, smi: str) -> dict:
+    """Phase 4j: (a) the legacy runtime, (b) MeshRemoteContext, (c) the
+    CLI, (d) the mesh PS round on one NCCL rank, (e) 2 and 4 gloo ranks
+    sharing the card."""
+    out = {}
+    for key, fn in (("a_legacy_runtime", legacy_runtime), ("b_mesh_remote_context", mesh_remote_context),
+                    ("c_cli", cli_phase), ("d_mesh_round_nccl", mesh_round_path),
+                    ("e_gloo_ranks_on_one_card", gloo_worlds)):
+        t0 = time.perf_counter()
+        out[key] = fn(smi) if fn is cli_phase else fn(counts, smi)
+        out[key]["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6860,9 +7522,15 @@ def main() -> int:
     # out of phase 5's profiles; its launches count with the main path's
     log("== 4i. more than 128 rows ((a) every family at 129-512 x 65,536 against the CPU, the "
         "captured step, the ragged executor at 256) and the out-of-process tier ((b) ByzPy's "
-        "pool table on process pools of 2, 4, 6; (c) configs #1, #2 on the pool of 4; (d) "
+        "pool table on process pools of 2 and 4; (c) configs #1, #2 on the pool of 4; (d) "
         "process_mnist; (e) remote_tcp behind a wire key; (f) P2P on ProcessContext); " + smi)
     log("WIDE_PROCESS_PATH " + json.dumps(wide_process_path(counts)))
+    # phase 4j last: its children and its NCCL process group stay out of the
+    # earlier phases; its launches count with the main path's
+    log("== 4j. the rest of the engine and the device mesh ((a) the legacy runtime: NodeRunner "
+        "children and StepParameterServer; (b) MeshRemoteContext; (c) the CLI; (d) the mesh PS "
+        "round on one NCCL rank, ResNet-18 for CIFAR; (e) 2 and 4 gloo ranks on the card); " + smi)
+    log("ENGINE_MESH_PATH " + json.dumps(engine_mesh_path(counts, smi)))
 
     entries = []
     for key, source, replaces in KERNELS:

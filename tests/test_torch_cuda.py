@@ -2616,3 +2616,112 @@ def test_cuda_capture_refused_while_a_prefetch_chain_runs(cuda_device):
     _engine_run(go())
     p2, o2, m = step(p, o)
     assert len(step.graphs) == 1 and bool((p2 == 2).all()) and float(m["s"]) == 8.0
+
+
+# ---------------------------------------------------------------------------
+# The mesh: feature-sharded forms and a one-rank NCCL round
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL process group on the card and its 1-D ``nodes`` mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import socket
+
+    import torch.distributed as dist
+
+    from byzpy_tpu_torch.parallel.mesh import init_process_group, node_mesh
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized in this process")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    assert init_process_group(f"tcp://127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        yield node_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+# (form, fn, the launch keys the local part must make)
+SHARDED_FORMS = {
+    "trimmed": ("trimmed_mean", {"f": 2}, ("sorted_reduce:trimmed",)),
+    "median": ("coordinate_median", {}, ("sorted_reduce:median",)),
+    "meamed": ("mean_of_medians", {"f": 2}, ("meamed",)),
+    "multi_krum": ("multi_krum", {"f": 2, "q": 4}, ("gram", "selection_mean_from_gram:krum")),
+    "cge": ("cge", {"f": 2}, ("row_sq_dists", "segment_sum")),
+    "monna": ("monna", {"f": 2}, ("row_sq_dists", "segment_sum")),
+    "geomed": ("geometric_median", {"max_iter": 16}, ("sorted_reduce:median", "row_sq_dists",
+                                                      "segment_sum")),
+    "cclip": ("centered_clipping", {"c_tau": 50.0, "M": 3}, ("row_sq_dists", "segment_sum")),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 64, 128])
+@pytest.mark.parametrize("name", sorted(SHARDED_FORMS))
+def test_cuda_sharded_forms_launch_the_kernels_on_local_columns(nccl_mesh, name, n):
+    """The feature-sharded form on a one-rank mesh launches its kernels on
+    the local columns (and never gathers), and gives the unsharded
+    function's value: bit for bit for the coordinate-wise ones, within
+    f32 rounding for the others."""
+    import functools
+
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel.feature_sharded import FeatureGroup, sharded_form
+
+    fn_name, kw, keys = SHARDED_FORMS[name]
+    fn = functools.partial(getattr(robust, fn_name), **kw)
+    x = _pre_rows(n, 1, n, 50_001, "cuda")[0]
+    form = sharded_form(fn, FeatureGroup(nccl_mesh, "nodes"))
+    for k in kernels.launch_counts:
+        kernels.launch_counts[k] = 0
+    got = form(x)
+    torch.cuda.synchronize()
+    for key in keys:
+        assert kernels.launch_counts[key] > 0, (key, dict(kernels.launch_counts))
+    want = fn(x)
+    if name in ("trimmed", "median", "meamed"):
+        assert _bits_equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("su", ["off", "on"])
+def test_cuda_one_rank_nccl_round_equals_mesh_none(nccl_mesh, su):
+    """Three SmallCNN rounds (8 nodes, 2 sign-flipping, trimmed mean, SGD
+    with momentum, precisions off) on the one-rank NCCL mesh equal the
+    ``mesh=None`` round bit for bit, parameters and metrics."""
+    import functools
+
+    from byzpy_tpu_torch.models import nets, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    x, y = synthetic_classification(n_samples=8 * 16 * 3, seed=5, device="cuda")
+    cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
+    agg = functools.partial(robust.trimmed_mean, f=2)
+    runs = []
+    for mesh in (None, nccl_mesh):
+        bundle = nets.mnist_cnn(seed=0, device="cuda")
+        step, opt = build_ps_train_step(
+            bundle, agg, cfg, mesh=mesh, sharded_update=su,
+            attack=lambda h, g: attack_ops.sign_flip(h.mean(0)))
+        params, out = bundle.params, []
+        for s in range(3):
+            sl = slice(s * 128, (s + 1) * 128)
+            params, opt, metrics = step(params, opt, x[sl].reshape(8, 16, 28, 28, 1),
+                                        y[sl].reshape(8, 16))
+            out.append(({k: v.clone() for k, v in params.items()},
+                        {k: float(v) for k, v in metrics.items()}))
+        runs.append(out)
+    for (p0, m0), (p1, m1) in zip(*runs):
+        assert all(_bits_equal(p0[k], p1[k]) for k in p0)
+        assert m0["agg_grad_norm"] == m1["agg_grad_norm"]
+        assert m0["honest_loss"] == pytest.approx(m1["honest_loss"], rel=1e-6)

@@ -412,8 +412,11 @@ def test_reshard_q_matches_jax_one_device_mesh(one_device, mode):
 
 
 def test_reshard_q_takes_no_layout():
+    """A layout is a ``parallel.mesh.Sharding`` (the mesh slice's reshard;
+    ``tests/test_torch_collectives.py``) or ``None``: anything else, such
+    as a bare name, raises."""
     x = torch.zeros(2, 8)
     for call in (lambda: coll.reshard_q(x, "src", None, precision="int8"),
                  lambda: coll.reshard_q_ef(x, x, None, "dst", precision="int8")):
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(TypeError, match="Sharding"):
             call()
