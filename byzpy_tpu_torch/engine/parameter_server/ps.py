@@ -28,10 +28,10 @@ round ``r`` returns; :meth:`ParameterServer.flush` settles them, and
 leaves an asyncio task behind. A CUDA-graph capture refuses while any
 actor call runs (``utils.cuda_graph.launching_actors``).
 
-Deliberate differences from the JAX package: the small-payload host
-placement of ``utils.placement`` is not ported (ROADMAP C), and
-``update_sharding=`` accepts only ``None`` (the feature-sharded actor
-round waits for the multi-card layer, ROADMAP A.7).
+``update_sharding=`` feature-shards the inline aggregate over the default
+mesh (``configs.mesh``), the reference's :214-280: see
+:class:`ParameterServer`. The small-payload host placement of
+``utils.placement`` is not ported (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from __future__ import annotations
 import asyncio
 import inspect
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Sequence
+
+import torch
 
 from ...aggregators.base import Aggregator
 from ...observability import metrics as obs_metrics
@@ -97,6 +99,20 @@ class ParameterServer:
     Clipping) -> (Multi-)Krum pair runs as one fused call
     (``aggregators.pipelines.fused_pipeline_matrix_fn``). ``elastic`` and
     ``overlap`` turn on the elastic and the overlapped rounds.
+
+    ``update_sharding`` (a ``parallel.ps.ShardedUpdateConfig``, a mode
+    string, a bool, or ``None``) feature-shards the inline aggregate: when
+    the policy resolves on (``"on"``, or ``"auto"`` with more than one
+    rank in the default mesh's group), the plain aggregator and the fused
+    pipeline run on this rank's columns of the stacked ``(n, d)`` matrix
+    through their sharded forms (``parallel.feature_sharded``; their sums
+    over ``d`` all-reduced over every axis of the default mesh) and every
+    rank reads the all-gathered aggregate. Without a default mesh there is
+    one device and nothing to shard: the aggregate runs as it is, as on the
+    reference's one-device feature mesh. A pool-scheduled aggregate stays
+    unsharded, and ``None`` is off. The contract is SPMD: every rank
+    runs the same ``ParameterServer`` over the same gradients, round for
+    round (the mesh round's contract, ROADMAP C).
     """
 
     def __init__(
@@ -119,9 +135,10 @@ class ParameterServer:
                 f"min_quorum={elastic.min_quorum} exceeds the honest node count "
                 f"({len(honest_nodes)}) — no round could ever meet it")
         if update_sharding is not None:
-            raise NotImplementedError(
-                "update_sharding= is not ported: the feature-sharded actor round needs the "
-                "multi-card layer (ROADMAP A.7); pass None")
+            from ...parallel.ps import as_sharded_update
+
+            as_sharded_update(update_sharding)  # validate eagerly
+        self._update_sharding = update_sharding
         self.honest_nodes = list(honest_nodes)
         self.byzantine_nodes = list(byzantine_nodes)
         self.aggregator = aggregator
@@ -163,18 +180,60 @@ class ParameterServer:
             _invoke(node, "byzantine_gradient_for_next_batch", honest_grads)
             for node in self.byzantine_nodes)
 
+    def _feature_group(self):
+        """``(mesh, axes, ranks)`` of the sharded aggregate when the
+        ``update_sharding`` policy resolves on over the default mesh's every
+        axis, else ``None`` (as without a default mesh)."""
+        from ...configs.mesh import get_default_mesh
+
+        mesh = get_default_mesh()
+        if self._update_sharding is None or mesh is None:
+            return None
+        from ...parallel.collectives import axis_size
+        from ...parallel.ps import as_sharded_update
+
+        axes = tuple(mesh.mesh_dim_names)
+        ranks = axis_size(axes, mesh=mesh)
+        if not as_sharded_update(self._update_sharding).resolve(ranks):
+            return None
+        return mesh, axes, ranks
+
+    def _sharded(self, fn: Callable, matrix: Any, where) -> Any:
+        """``fn``'s sharded form on this rank's columns of ``matrix``, the
+        aggregate all-gathered: the whole ``(d,)`` vector on every rank."""
+        from ...parallel.collectives import all_gather, axis_index
+        from ...parallel.feature_sharded import FeatureGroup, sharded_form
+
+        mesh, axes, ranks = where
+        d = matrix.shape[1]
+        d_loc = -(-d // ranks)
+        lo = axis_index(axes, mesh=mesh) * d_loc
+        cols = matrix[:, lo:lo + d_loc]
+        if cols.shape[1] != d_loc:  # the last rank's columns pad with zeros
+            cols = torch.nn.functional.pad(cols, (0, d_loc - cols.shape[1]))
+        local = sharded_form(fn, FeatureGroup(mesh, axes))(cols.contiguous())
+        return all_gather(local, axes, mesh=mesh)[:d]
+
     async def _aggregate(self, gradients: List[Any]) -> Any:
+        where = self._feature_group()
         if self.pre_aggregator is not None:
             if self._fused_pipeline is not None:
                 matrix, unravel = stack_gradients(gradients, device=self.aggregator.device)
                 self.pre_aggregator.validate_n(matrix.shape[0])
                 self.aggregator.validate_n(matrix.shape[0])
                 with obs_tracing.device_span("ps.aggregate", track="ps", mode="fused_pipeline"):
+                    if where is not None:
+                        return unravel(self._sharded(self._fused_pipeline, matrix, where))
                     return unravel(self._fused_pipeline(matrix))
             gradients = self.pre_aggregator.pre_aggregate(gradients)
         if self._executor is not None:
             with obs_tracing.span("ps.aggregate", track="ps", mode="pool"):
                 return await self._executor.run(gradients)
+        if where is not None:
+            matrix, unravel = stack_gradients(gradients, device=self.aggregator.device)
+            self.aggregator.validate_n(matrix.shape[0])
+            with obs_tracing.device_span("ps.aggregate", track="ps", mode="feature_sharded"):
+                return unravel(self._sharded(self.aggregator, matrix, where))
         with obs_tracing.device_span("ps.aggregate", track="ps"):
             return self.aggregator.aggregate(gradients)
 

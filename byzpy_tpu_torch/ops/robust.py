@@ -1213,13 +1213,17 @@ def _multi_krum_from_gram_xla(
     return _selected_rows_mean(x, _nan_last_ranks(scores) < q, q)
 
 
-def _refuse_capture(x: torch.Tensor, what: str) -> None:
+def _refuse_capture(x: torch.Tensor, what: str, where: Optional[str] = None) -> None:
+    """Raise ``GraphCaptureError`` inside a capture: ``what`` (``where``
+    it runs; default above the networks' rows) reads its stopping test on
+    the host every step."""
     if x.is_cuda and torch.cuda.is_current_stream_capturing():
         from ..utils.cuda_graph import GraphCaptureError
 
+        where = where or f"above {kernels.MAX_NETWORK_ROWS} rows"
         raise GraphCaptureError(
-            f"{what} above {kernels.MAX_NETWORK_ROWS} rows reads its stopping test on the "
-            "host every step (the reference's while_loop on XLA); it runs eagerly only"
+            f"{what} {where} reads its stopping test on the host every step (the reference's "
+            "while_loop on XLA); it runs eagerly only"
         )
 
 

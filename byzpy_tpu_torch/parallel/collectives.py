@@ -5,13 +5,17 @@ run inside ``shard_map`` over a named mesh axis and XLA lowers them to
 ICI collectives. Here the program is SPMD over ``torch.distributed``
 (``parallel.mesh``): every function runs in each rank on that rank's
 local tensor, and ``axis_name`` resolves to the process group of that
-mesh dimension (``mesh=`` or the default mesh of ``configs.mesh``). Every
-rank of the group must make the same calls in the same order.
+mesh dimension (``mesh=`` or the default mesh of ``configs.mesh``). An
+axis name may be a tuple of mesh dimensions, as in the reference's
+``P(None, ("nodes", "data"))``: the group of their product, ranked with
+the first axis major (``parallel.mesh.axis_group``). Every rank of the
+group must make the same calls in the same order.
 
 * the primitives: :func:`all_gather`, :func:`all_reduce_sum`,
   :func:`all_reduce_mean`, :func:`reduce_scatter_sum`,
-  :func:`all_to_all`, :func:`neighbor_shift` (the ``ppermute`` ring hop,
-  one ``batch_isend_irecv``) and :func:`ring_all_reduce_sum` (the
+  :func:`all_to_all`, :func:`neighbor_shift` (the ``ppermute`` ring hop:
+  one ``batch_isend_irecv`` on NCCL, one ``all_to_all_single`` with a
+  single non-empty split on gloo) and :func:`ring_all_reduce_sum` (the
   reference's explicit ring of hops, with an optional compressed payload);
 * the quantized collectives :func:`all_gather_q`,
   :func:`reduce_scatter_sum_q` and :func:`all_to_all_q`: each shard is
@@ -23,12 +27,18 @@ rank of the group must make the same calls in the same order.
   from one layout (``parallel.mesh.sharding``) to another with the payload
   compressed (and error feedback), the collective chosen by the two
   layouts: an ``all_to_all`` for a shard transpose, an ``all_gather`` to
-  replicate, a local slice to split. Blockwise codes never straddle a
+  replicate, a local slice to split; a transpose from one axis to that
+  axis and more (``P("nodes")`` rows to ``P(None, ("nodes", "data"))``
+  columns) slices over the added axes and exchanges over the first, and
+  back. Blockwise codes never straddle a
   shard: a trailing-axis shard must be a whole number of blocks. With
   ``src = dst = None`` nothing moves and the hop is the encode -> decode
   round trip on one device;
 * :func:`sharded_fn` / :func:`allreduce_sharded`: a per-shard function
   run on every rank's block of a tensor that every rank holds whole.
+
+Inside a CUDA-graph capture a collective over a gloo group raises
+``GraphCaptureError``: gloo runs on the host and cannot be captured.
 
 Every collective appends an entry to the traffic record of
 :func:`record_traffic` where one is open (opcode, payload dtype, bytes of
@@ -129,21 +139,36 @@ def _mesh_of(mesh):
     return found
 
 
-def _axis(axis_name) -> str:
-    if isinstance(axis_name, tuple):
-        if len(axis_name) != 1:
-            raise NotImplementedError(
-                f"collectives over several mesh axes at once ({axis_name}) are not ported "
-                "(ROADMAP A.7)")
-        return axis_name[0]
-    return axis_name
+def _axis(axis_name):
+    from .mesh import axis_key
+
+    return axis_key(axis_name)
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def refuse_gloo_capture(group) -> None:
+    """Raise ``GraphCaptureError`` when ``group`` is a gloo group: its
+    collectives run on the host, so a CUDA graph cannot hold them (and
+    nothing runs eagerly in the graph's place)."""
+    if dist.get_backend(group) == "gloo":
+        from ..utils.cuda_graph import GraphCaptureError
+
+        raise GraphCaptureError(
+            "a collective over a gloo process group cannot be captured in a CUDA graph: gloo "
+            "moves CUDA tensors through the host; run the mesh step eagerly "
+            "(build_ps_train_step / build_gossip_train_step) or over NCCL")
 
 
 def _group(axis_name, mesh):
     """``(process group, its size, this rank's index in it)``."""
-    m = _mesh_of(mesh)
-    name = _axis(axis_name)
-    group = m.get_group(name)
+    from .mesh import axis_group
+
+    group = axis_group(_mesh_of(mesh), _axis(axis_name))
+    if _capturing():
+        refuse_gloo_capture(group)
     return group, dist.get_world_size(group), dist.get_rank(group)
 
 
@@ -209,17 +234,28 @@ def _exchange(x: torch.Tensor, group, size: int, split_axis: int, concat_axis: i
 
 def _shift(x: torch.Tensor, group, size: int, rank: int, offset: int) -> torch.Tensor:
     """Receive the tensor of the rank ``offset`` places behind on the ring
-    (``lax.ppermute`` with ``i -> i + offset``)."""
-    if size == 1:
+    (``lax.ppermute`` with ``i -> i + offset``). The group's backend picks
+    the route: NCCL (and any backend but gloo) one ``batch_isend_irecv``
+    of a send and a receive; gloo one ``all_to_all_single`` whose only
+    non-empty splits are the send to ``rank + offset`` and the receive
+    from ``rank - offset``, since gloo refuses ``batch_isend_irecv`` on
+    CUDA tensors (``chip_gloo_probe.py``)."""
+    if size == 1 or offset % size == 0:
         return x
     src = x.contiguous()
     out = torch.empty_like(src)
-    to = dist.get_global_rank(group, (rank + offset) % size)
-    frm = dist.get_global_rank(group, (rank - offset) % size)
-    ops = [dist.P2POp(dist.isend, src, to, group=group),
-           dist.P2POp(dist.irecv, out, frm, group=group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    to, frm = (rank + offset) % size, (rank - offset) % size
+    if dist.get_backend(group) == "gloo":
+        numel = src.numel()
+        send = [numel if r == to else 0 for r in range(size)]
+        recv = [numel if r == frm else 0 for r in range(size)]
+        dist.all_to_all_single(out.view(-1), src.view(-1), output_split_sizes=recv,
+                               input_split_sizes=send, group=group)
+    else:
+        ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(group, to), group=group),
+               dist.P2POp(dist.irecv, out, dist.get_global_rank(group, frm), group=group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     _record("collective-permute", out, size)
     return out
 
@@ -270,7 +306,9 @@ def all_to_all(x: torch.Tensor, axis_name, *, split_axis: int, concat_axis: int,
 
 
 def neighbor_shift(x: torch.Tensor, axis_name, *, offset: int = 1, mesh=None) -> torch.Tensor:
-    """Receive the shard of the rank ``offset`` places behind on the ring."""
+    """Receive the shard of the rank ``offset`` places behind on the ring:
+    on NCCL one ``batch_isend_irecv``, on gloo one ``all_to_all_single``
+    with a single non-empty split each way (:func:`_shift`)."""
     group, size, rank = _group(axis_name, mesh)
     return _shift(x, group, size, rank, offset)
 
@@ -473,78 +511,120 @@ def all_to_all_q(
 # ---------------------------------------------------------------------------
 
 
-def _layout_axis(src, dst) -> Tuple[Any, Optional[str]]:
-    """The mesh and the one mesh axis the two layouts shard over."""
+Side = Tuple[Optional[int], Tuple[str, ...]]  # (tensor dim, its mesh axes, major first)
+
+
+def _side(layout) -> Side:
+    """The tensor dim a layout splits and the mesh axes it splits it over
+    (``(None, ())``: whole)."""
+    if layout is None:
+        return None, ()
+    split = [(dim, entry if isinstance(entry, tuple) else (entry,))
+             for dim, entry in enumerate(layout.spec) if entry is not None]
+    if len(split) > 1:
+        raise NotImplementedError(
+            f"a layout that splits two tensor dims ({layout.spec}) has no reshard")
+    return split[0] if split else (None, ())
+
+
+def _layouts(src, dst) -> Tuple[Any, Side, Side]:
+    """The mesh of the two layouts and each one's split."""
     from .mesh import Sharding
 
     for layout in (src, dst):
         if layout is not None and not isinstance(layout, Sharding):
             raise TypeError(f"a layout is a parallel.mesh.Sharding or None, got {layout!r}")
     meshes = {id(s.mesh): s.mesh for s in (src, dst) if s is not None}
-    if not meshes:
-        return None, None
     if len(meshes) > 1:
         raise ValueError("reshard between layouts of two meshes")
-    mesh = next(iter(meshes.values()))
-    axes = {name for s in (src, dst) if s is not None
-            for name, pl in zip(mesh.mesh_dim_names, s.placements) if pl.is_shard()}
-    if len(axes) > 1:
-        raise NotImplementedError(
-            f"a reshard over several mesh axes ({sorted(axes)}) is not ported (ROADMAP A.7)")
-    return mesh, (next(iter(axes)) if axes else None)
+    mesh = next(iter(meshes.values())) if meshes else None
+    a, b = _side(src), _side(dst)
+    if a[1] and b[1] and a[0] != b[0]:
+        short, long_ = sorted((a[1], b[1]), key=len)
+        if long_[:len(short)] != short:
+            raise NotImplementedError(
+                f"a reshard from axes {a[1]} to axes {b[1]}: one must lead the other")
+    elif a[1] and b[1] and a[1] != b[1]:
+        raise NotImplementedError(f"a reshard of dim {a[0]} from axes {a[1]} to axes {b[1]}")
+    return mesh, a, b
 
 
-def _dims(src, dst, axis: Optional[str]) -> Tuple[Optional[int], Optional[int]]:
-    a = src.sharded_dim(axis) if src is not None and axis is not None else None
-    b = dst.sharded_dim(axis) if dst is not None and axis is not None else None
-    return a, b
+def _shards(mesh, axes: Tuple[str, ...]) -> int:
+    return axis_size(axes, mesh=mesh) if axes else 1
 
 
-def _move(t: torch.Tensor, a: Optional[int], b: Optional[int], mesh, axis) -> torch.Tensor:
-    """A local tensor sharded on dim ``a`` (``None``: whole) to the same
-    tensor sharded on dim ``b``."""
-    if a == b:
+def _move(t: torch.Tensor, mesh, src: Side, dst: Side) -> torch.Tensor:
+    """A local tensor split as ``src`` to the same tensor split as ``dst``."""
+    (a, axes_a), (b, axes_b) = src, dst
+    if (a, axes_a) == (b, axes_b) or (not axes_a and not axes_b):
         return t
-    group, size, rank = _group(axis, mesh)
-    if b is None:
+    if not axes_b:
+        group, size, _ = _group(axes_a, mesh)
         g = _gather(t, group, size)
         return torch.cat(list(g.unbind(0)), dim=a)
-    if a is None:
+    if not axes_a:
+        group, size, rank = _group(axes_b, mesh)
         if t.shape[b] % size:
             raise ValueError(f"cannot split dim {b} ({t.shape[b]}) over {size} ranks")
         return torch.chunk(t, size, dim=b)[rank].contiguous()
-    return _exchange(t, group, size, b, a)
+    if axes_a == axes_b:
+        group, size, _ = _group(axes_a, mesh)
+        return _exchange(t, group, size, b, a)
+    if len(axes_a) < len(axes_b):
+        # rows over A to columns over A + R: keep the column blocks of this
+        # rank's place on R, then exchange them over A
+        rest = axes_b[len(axes_a):]
+        n_a, n_r = _shards(mesh, axes_a), _shards(mesh, rest)
+        if t.shape[b] % (n_a * n_r):
+            raise ValueError(f"cannot split dim {b} ({t.shape[b]}) over {n_a * n_r} ranks")
+        r = axis_index(rest, mesh=mesh)
+        blocks = t.unflatten(b, (n_a, n_r, t.shape[b] // (n_a * n_r))).select(b + 1, r)
+        group, size, _ = _group(axes_a, mesh)
+        return _exchange(blocks.flatten(b, b + 1), group, size, b, a)
+    # columns over B + R back to rows over B: exchange over B, then gather
+    # the column blocks over R and put them back in the flat order
+    rest = axes_a[len(axes_b):]
+    n_b, n_r = _shards(mesh, axes_b), _shards(mesh, rest)
+    group, size, _ = _group(axes_b, mesh)
+    part = _exchange(t, group, size, b, a)  # dim a: the blocks (i, r) of every i on B
+    group_r, size_r, _ = _group(rest, mesh)
+    g = _gather(part, group_r, size_r)  # (R, ...): dim a + 1 holds the blocks (i, r)
+    g = g.unflatten(a + 1, (n_b, part.shape[a] // n_b)).movedim(0, a + 1)
+    return g.flatten(a, a + 2)
 
 
-def _check_blocks(x: torch.Tensor, p: CommPrecision, a, b, size: int) -> None:
-    """Blockwise codes must not straddle a shard of the trailing axis."""
+def _trailing_shards(x: torch.Tensor, mesh, src: Side, dst: Side) -> Tuple[int, int]:
+    """How many shards the trailing axis has before and after the move."""
     last = x.ndim - 1
-    if a == last and x.shape[-1] % p.block:
+    return (_shards(mesh, src[1]) if src[0] == last else 1,
+            _shards(mesh, dst[1]) if dst[0] == last else 1)
+
+
+def _check_blocks(x: torch.Tensor, p: CommPrecision, mesh, src: Side, dst: Side) -> None:
+    """Blockwise codes must not straddle a shard of the trailing axis."""
+    before, after = _trailing_shards(x, mesh, src, dst)
+    if before > 1 and x.shape[-1] % p.block:
         raise ValueError(
             f"{p.mode} reshard: the source's trailing shard ({x.shape[-1]}) must be a multiple "
             f"of the quantization block ({p.block})")
-    if b == last and (x.shape[-1] % size or (x.shape[-1] // size) % p.block):
+    if after > 1 and (x.shape[-1] * before % after or (x.shape[-1] * before // after) % p.block):
         raise ValueError(
-            f"{p.mode} reshard: the destination's trailing shard ({x.shape[-1]} / {size}) must "
-            f"be a multiple of the quantization block ({p.block}); pad the trailing axis to "
-            f"shards x block")
+            f"{p.mode} reshard: the destination's trailing shard ({x.shape[-1] * before} / "
+            f"{after}) must be a multiple of the quantization block ({p.block}); pad the "
+            f"trailing axis to shards x block")
 
 
-def _reshard_coded(q: QuantizedBlocks, p: CommPrecision, a, b, mesh, axis, dtype,
+def _reshard_coded(q: QuantizedBlocks, p: CommPrecision, mesh, src: Side, dst: Side, dtype,
                    d_src: int) -> torch.Tensor:
     """Move the codes (fp8 as uint8 bit patterns) and the scales from
-    layout ``a`` to ``b`` and decode there."""
+    layout ``src`` to ``dst`` and decode there."""
     v = q.values.view(torch.uint8) if p.mode in _FP8_MODES else q.values
-    v = _move(v, a, b, mesh, axis)
-    s = _move(q.scales, a, b, mesh, axis)
+    v = _move(v, mesh, src, dst)
+    s = _move(q.scales, mesh, src, dst)
     if p.mode in _FP8_MODES:
         v = v.view(code_dtype(p.mode))
-    last = q.values.ndim - 1
-    d_dst = d_src
-    if a == last:
-        d_dst = d_src * axis_size(axis, mesh=mesh)
-    if b == last:
-        d_dst = d_dst // axis_size(axis, mesh=mesh)
+    before, after = _trailing_shards(q.values, mesh, src, dst)
+    d_dst = d_src * before // after
     return dequantize_blockwise(
         QuantizedBlocks(v, s, q.block, q.orig_dtype, q.code, d_dst if q.code == "s4" else -1),
         dtype=dtype,
@@ -564,19 +644,20 @@ def reshard_q(
     its bf16 cast, a blockwise mode its codes and scales, decoded at the
     destination in ``x``'s dtype. The collective follows from the layouts:
     shard dim ``a`` to shard dim ``b`` is an all-to-all, to whole an
-    all-gather, whole to a shard a local slice. ``src = dst = None`` moves
-    nothing: the encode -> decode round trip on one device."""
+    all-gather, whole to a shard a local slice; a dim split over axes ``A``
+    to another split over ``A`` and more axes ``R`` slices over ``R`` and
+    exchanges over ``A`` (and back: an exchange over ``A``, then a gather
+    over ``R``). ``src = dst = None`` moves nothing: the encode -> decode
+    round trip on one device."""
     p = as_comm_precision(precision)
-    mesh, axis = _layout_axis(src, dst)
-    a, b = _dims(src, dst, axis)
+    mesh, a, b = _layouts(src, dst)
     if not p.enabled:
-        return _move(x, a, b, mesh, axis)
+        return _move(x, mesh, a, b)
     if p.mode == "bf16":
-        return _move(x.to(torch.bfloat16), a, b, mesh, axis).to(x.dtype)
-    if axis is not None:
-        _check_blocks(x, p, a, b, axis_size(axis, mesh=mesh))
+        return _move(x.to(torch.bfloat16), mesh, a, b).to(x.dtype)
+    _check_blocks(x, p, mesh, a, b)
     q = encode_blockwise(x, p)
-    return _reshard_coded(q, p, a, b, mesh, axis, x.dtype, x.shape[-1] if x.ndim else 1)
+    return _reshard_coded(q, p, mesh, a, b, x.dtype, x.shape[-1] if x.ndim else 1)
 
 
 def reshard_q_ef(
@@ -593,22 +674,20 @@ def reshard_q_ef(
     ``(decoded at dst, new residual at src)``; off returns the moved ``x``
     and ``residual`` unchanged."""
     p = as_comm_precision(precision)
-    mesh, axis = _layout_axis(src, dst)
-    a, b = _dims(src, dst, axis)
+    mesh, a, b = _layouts(src, dst)
     if not p.enabled:
-        return _move(x, a, b, mesh, axis), residual
+        return _move(x, mesh, a, b), residual
     xc = x + residual.to(x.dtype)
     if p.mode == "bf16":
         dec_local = xc.to(torch.bfloat16).to(x.dtype)
-        return _move(xc.to(torch.bfloat16), a, b, mesh, axis).to(x.dtype), xc - dec_local
-    if axis is not None:
-        _check_blocks(xc, p, a, b, axis_size(axis, mesh=mesh))
+        return _move(xc.to(torch.bfloat16), mesh, a, b).to(x.dtype), xc - dec_local
+    _check_blocks(xc, p, mesh, a, b)
     q = encode_blockwise(xc, p)
     dec_local = dequantize_blockwise(q, dtype=x.dtype)
-    if a == b:
+    if a == b or (not a[1] and not b[1]):
         # nothing moves: the codes decoded here are the ones decoded there
         return dec_local, xc - dec_local
-    moved = _reshard_coded(q, p, a, b, mesh, axis, x.dtype, xc.shape[-1] if xc.ndim else 1)
+    moved = _reshard_coded(q, p, mesh, a, b, x.dtype, xc.shape[-1] if xc.ndim else 1)
     return moved, xc - dec_local
 
 
@@ -619,20 +698,22 @@ def reshard_q_ef(
 Spec = Sequence[Any]
 
 
-def _block_of(t: torch.Tensor, spec: Spec, axis: str, size: int, rank: int) -> torch.Tensor:
+def _names(axis) -> Tuple[str, ...]:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def _block_of(t: torch.Tensor, spec: Spec, axis, size: int, rank: int) -> torch.Tensor:
     for dim, entry in enumerate(spec):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if axis in names:
+        if entry is not None and _names(_axis(entry)) == _names(axis):
             if t.shape[dim] % size:
                 raise ValueError(f"dim {dim} ({t.shape[dim]}) does not split over {size} ranks")
             return torch.chunk(t, size, dim=dim)[rank]
     return t
 
 
-def _assemble(t: torch.Tensor, spec: Spec, axis: str, mesh) -> torch.Tensor:
+def _assemble(t: torch.Tensor, spec: Spec, axis, mesh) -> torch.Tensor:
     for dim, entry in enumerate(spec):
-        names = entry if isinstance(entry, tuple) else (entry,)
-        if axis in names:
+        if entry is not None and _names(_axis(entry)) == _names(axis):
             return all_gather(t, axis, axis=dim, mesh=mesh)
     return t
 
@@ -698,6 +779,7 @@ __all__ = [
     "axis_size",
     "neighbor_shift",
     "record_traffic",
+    "refuse_gloo_capture",
     "reduce_scatter_sum",
     "reduce_scatter_sum_q",
     "reshard_q",

@@ -41,10 +41,11 @@ from .collectives import all_reduce_sum
 
 @dataclass(frozen=True)
 class FeatureGroup:
-    """The feature axis a form all-reduces over: a mesh and its axis."""
+    """The feature axis a form all-reduces over: a mesh and its axis, or a
+    tuple of axes (their product group, ``parallel.mesh.axis_group``)."""
 
     mesh: Any
-    axis: str
+    axis: Any
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         return all_reduce_sum(t, self.axis, mesh=self.mesh)
@@ -66,12 +67,38 @@ def _name(fn: Any) -> str:
     return getattr(fn, "__qualname__", None) or type(fn).__name__
 
 
+def class_function(obj: Any) -> Any:
+    """The port's function (a ``functools.partial``) that an aggregator
+    class's ``matrix_fn()`` runs, for the classes with a sharded form; the
+    exact type, since a subclass may override its matrix function. Any
+    other object is returned as it is."""
+    from .. import aggregators as A
+
+    table = {
+        A.CoordinateWiseMedian: lambda a: robust.coordinate_median,
+        A.CoordinateWiseTrimmedMean: lambda a: functools.partial(robust.trimmed_mean, f=a.f),
+        A.MeanOfMedians: lambda a: functools.partial(robust.mean_of_medians, f=a.f),
+        A.MultiKrum: lambda a: functools.partial(robust.multi_krum, f=a.f, q=a.q),
+        A.Krum: lambda a: functools.partial(robust.multi_krum, f=a.f, q=a.q),
+        A.GeometricMedian: lambda a: functools.partial(
+            robust.geometric_median, tol=a.tol, max_iter=a.max_iter, eps=a.eps, init=a.init),
+        A.CenteredClipping: lambda a: functools.partial(
+            robust.centered_clipping, c_tau=a.c_tau, M=a.M, eps=a.eps, init=a.init),
+        A.ComparativeGradientElimination: lambda a: functools.partial(robust.cge, f=a.f),
+        A.MoNNA: lambda a: functools.partial(robust.monna, f=a.f,
+                                             reference_index=a.reference_index),
+    }
+    make = table.get(type(obj))
+    return make(obj) if make is not None else obj
+
+
 def sharded_form(fn: Any, group: FeatureGroup) -> Callable[[torch.Tensor], torch.Tensor]:
     """``fn``'s form on local columns, a callable ``(n, d_local) ->
     (d_local,)`` (an aggregator) or ``(m, d_local)`` (a pre-aggregator).
-    ``fn`` is one of the port's functions or a ``functools.partial`` of
-    one; anything else raises ``NotImplementedError``."""
-    base, args, kwargs = _unwrap(fn)
+    ``fn`` is one of the port's functions, a ``functools.partial`` of one,
+    or an aggregator class with a form (:func:`class_function`); anything
+    else raises ``NotImplementedError``."""
+    base, args, kwargs = _unwrap(class_function(fn))
     form = _FORMS.get(base)
     if form is None:
         raise NotImplementedError(
@@ -153,7 +180,7 @@ def _geometric_median_form(x, group, *, tol: float = 1e-6, max_iter: int = 256,
     if init not in {"median", "mean"}:
         raise ValueError("init must be 'median' or 'mean'")
     robust._check_matrix(x)
-    robust._refuse_capture(x, "the feature-sharded geometric median")
+    robust._refuse_capture(x, "the geometric median", "on feature-sharded columns")
     n = x.shape[0]
     x = x.contiguous()
     z = robust.coordinate_median(x) if init == "median" else robust._row_mean_einsum(x)
@@ -264,4 +291,4 @@ _FORMS.update({
     preagg.nnm: _nnm_form,
 })
 
-__all__ = ["FeatureGroup", "sharded_form"]
+__all__ = ["FeatureGroup", "class_function", "sharded_form"]

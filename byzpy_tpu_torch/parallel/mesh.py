@@ -140,6 +140,59 @@ def node_axis(mesh: DeviceMesh) -> str:
     return "nodes" if "nodes" in names else names[0]
 
 
+def axis_key(axis_name: SpecEntry) -> Union[str, Tuple[str, ...]]:
+    """An axis name as the collectives key it: a name, or a tuple of two or
+    more names (a tuple of one is its name)."""
+    if isinstance(axis_name, tuple):
+        if not axis_name:
+            raise ValueError("an axis tuple names at least one mesh axis")
+        return axis_name[0] if len(axis_name) == 1 else tuple(axis_name)
+    return axis_name
+
+
+def axis_group(mesh: DeviceMesh, axis_name: SpecEntry):
+    """The process group of a mesh axis, or of several axes at once: a
+    tuple such as ``("nodes", "data")`` is the group of their product, the
+    reference's ``P(None, ("nodes", "data"))``, its ranks ordered with the
+    first axis major. The axes of a tuple follow the mesh's dimension
+    order. A tuple's groups are made on its first use, one for every
+    position on the other axes (``dist.new_group`` is collective, so every
+    rank of the process group must reach that first use), and kept on the
+    mesh: once a mesh, never once a call."""
+    key = axis_key(axis_name)
+    names = mesh.mesh_dim_names
+    if isinstance(key, str):
+        if key not in names:
+            raise ValueError(f"mesh has no axis {key!r} (axes {names})")
+        return mesh.get_group(key)
+    missing = [a for a in key if a not in names]
+    if missing:
+        raise ValueError(f"mesh has no axis {missing[0]!r} (axes {names})")
+    dims = [names.index(a) for a in key]
+    if dims != sorted(dims) or len(set(dims)) != len(dims):
+        raise ValueError(f"the axes {key} must be distinct and in the mesh's order {names}")
+    cache = mesh.__dict__.setdefault("_byzpy_axis_groups", {})
+    group = cache.get(key)
+    if group is None:
+        ranks = mesh.mesh
+        rest = [i for i in range(ranks.ndim) if i not in dims]
+        # the axes of the tuple last, so each row is one group in row-major order
+        size = 1
+        for i in dims:
+            size *= ranks.shape[i]
+        rows = ranks.permute(*rest, *dims).reshape(-1, size)
+        me = dist.get_rank()
+        for row in rows.tolist():
+            if row != sorted(row):
+                raise ValueError(f"the ranks of {key} ({row}) are not in the process group's "
+                                 "order, which a new group takes")
+            made = dist.new_group(ranks=row)
+            if me in row:
+                group = made
+        cache[key] = group
+    return group
+
+
 @dataclass(frozen=True)
 class Sharding:
     """A layout over a mesh, the counterpart of ``NamedSharding``: ``spec``
@@ -184,6 +237,8 @@ __all__ = [
     "AXIS_NAMES",
     "DeviceMesh",
     "Sharding",
+    "axis_group",
+    "axis_key",
     "feature_mesh",
     "grid_mesh",
     "init_process_group",

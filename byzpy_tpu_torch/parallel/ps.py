@@ -21,9 +21,11 @@ nothing but still encodes and decodes). One step:
    (:75, :479-481), exactly ``optax.sgd(lr, momentum)``; :class:`Adam` is
    ``optax.adam``.
 
-With ``mesh=`` (a 1-D ``nodes`` mesh, ``parallel.mesh``) the round is SPMD
-over the mesh's ranks, the reference's GSPMD program written out: each
-rank computes its block of nodes' gradients, the ``(n, d)`` matrix is
+With ``mesh=`` (a 1-D ``nodes`` mesh or a ``(nodes, data)`` grid,
+``parallel.mesh``) the round is SPMD over the mesh's ranks, the
+reference's GSPMD program written out: each rank computes its block of
+nodes' gradients (on a grid, over its slice of each node's batch, the
+slices' means all-reduced over ``data``), the ``(n, d)`` matrix is
 transposed node -> feature by an all-to-all (of codes with
 ``comm_precision``), the attack, the pre-aggregate and the aggregate run on
 the rank's columns (``parallel.feature_sharded``), and the update is
@@ -44,8 +46,10 @@ cohort in the ragged door's flat-rows layout. ``adaptive_attack_rows``
 ``jit_ragged_serving_ps_step`` (ref :723, :706, :654) are the compiled
 steps, the counterpart of ``jax.jit`` with donation: on the card each
 captures its step in one CUDA graph per input signature and replays it
-(``utils.cuda_graph``); on CPU tensors it runs the step as it is. Their
-``mesh=`` raises (NCCL inside a CUDA graph: ROADMAP A.7).
+(``utils.cuda_graph``); on CPU tensors it runs the step as it is.
+``jit_ps_train_step(mesh=)`` captures the mesh round with its NCCL
+collectives inside the graph; a gloo group refuses the capture. The
+serving builders' ``mesh=`` raises (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -278,8 +282,16 @@ def build_ps_train_step(
     (``parallel.feature_sharded``); CAF, MDA, SMEA, bucketing and unknown
     callables raise ``NotImplementedError``. ``honest_loss`` and
     ``agg_grad_norm`` are all-reduced, and every rank returns the same
-    parameters. Only a 1-D mesh is ported: the 2-D ``grid_mesh`` round
-    raises (ROADMAP A.7).
+    parameters. On a ``(nodes, data)`` grid (``parallel.mesh.grid_mesh``)
+    rank ``(i, j)`` takes node rank ``i``'s nodes and the ``j``-th slice of
+    each node's batch (the batch must divide over ``data``); each node's
+    batch-mean gradient and loss are the data ranks' means all-reduced over
+    ``data`` and divided by its size, and the columns split over
+    ``(nodes, data)``, nodes major: the grid's product group runs the
+    transpose's all-to-all (over ``nodes``, after each rank keeps its
+    ``data`` slice of the columns), the forms' all-reduces and the update's
+    all-gather, and the flat vector pads to ``nodes x data`` times the
+    block.
 
     ``sharded_update`` (:class:`ShardedUpdateConfig`, a mode string, a
     bool or ``None`` = ``"auto"``): when active, ``opt_state0`` is
@@ -293,10 +305,7 @@ def build_ps_train_step(
     opt = _checked_optimizer(optimizer, default_optimizer(cfg))
     comm = as_comm_precision(comm_precision)
     su = as_sharded_update(sharded_update)
-    if mesh is None:
-        from ..configs.mesh import get_default_mesh
-
-        mesh = get_default_mesh()
+    mesh = _mesh_or_default(mesh)
     if mesh is not None:
         return _build_mesh_train_step(
             bundle, aggregate, cfg, attack=attack, pre_aggregate=pre_aggregate, opt=opt,
@@ -364,6 +373,21 @@ def build_ps_train_step(
     return train_step, opt_state0
 
 
+def _mesh_or_default(mesh: Any) -> Any:
+    """``mesh``, or the default mesh of ``configs.mesh`` for ``None``; a
+    ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError``."""
+    if mesh is None:
+        from ..configs.mesh import get_default_mesh
+
+        return get_default_mesh()
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh (parallel.mesh.make_mesh), got "
+                        f"{type(mesh).__name__}")
+    return mesh
+
+
 def _grid(k: int, *precisions: CommPrecision) -> int:
     """The padded flat vector's grid: ``k`` ranks times the lcm of the
     blocks of the blockwise precisions in use."""
@@ -374,21 +398,38 @@ def _grid(k: int, *precisions: CommPrecision) -> int:
     return k * block
 
 
-def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt, mesh,
-                           grad_dtype, comm: CommPrecision, su: ShardedUpdateConfig):
-    """The SPMD round of :func:`build_ps_train_step` over a 1-D mesh."""
-    from .feature_sharded import FeatureGroup, sharded_form
-    from .mesh import node_axis, replicated, sharding
+def mesh_layout(mesh) -> Tuple[str, Tuple[str, ...], Any]:
+    """The mesh round's axes: the node axis, the extra axes of extent > 1
+    (in the mesh's order; the first one splits each node's batch) and the
+    axis key the feature columns split over: the node axis alone on a 1-D
+    mesh, else ``(node axis, *extra)``, nodes major, the reference's
+    ``P(None, (axis, *extra))``."""
+    from .mesh import node_axis
 
     axis = node_axis(mesh)
-    extra = [name for i, name in enumerate(mesh.mesh_dim_names)
-             if name != axis and mesh.size(i) > 1]
-    if extra:
-        raise NotImplementedError(
-            f"the mesh round over a {mesh.ndim}-D mesh ({mesh.mesh_dim_names}) is not ported: "
-            "only a 1-D nodes mesh runs (the 2-D grid round is ROADMAP A.7)")
+    names = mesh.mesh_dim_names
+    extra = tuple(name for i, name in enumerate(names) if name != axis and mesh.size(i) > 1)
+    return axis, extra, ((axis, *extra) if extra else axis)
+
+
+def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt, mesh,
+                           grad_dtype, comm: CommPrecision, su: ShardedUpdateConfig,
+                           guard: bool = False):
+    """The SPMD round of :func:`build_ps_train_step` over a 1-D ``nodes``
+    mesh or a ``(nodes, data, ...)`` grid. ``guard`` wraps the sharded
+    forms and the attack in ``capture_guard`` (the compiled step)."""
+    from .feature_sharded import FeatureGroup, sharded_form
+    from .mesh import axis_group, replicated, sharding
+
+    axis, extra, feat = mesh_layout(mesh)
+    axis_group(mesh, feat)  # a grid's product group, made here once
     k = axis_size(axis, mesh=mesh)
     me = axis_index(axis, mesh=mesh)
+    data = extra[0] if extra else None
+    n_data = axis_size(data, mesh=mesh) if data else 1
+    dj = axis_index(data, mesh=mesh) if data else 0
+    shards = axis_size(feat, mesh=mesh)
+    fidx = axis_index(feat, mesh=mesh)
     n, h, b = cfg.n_nodes, cfg.n_honest, cfg.n_byzantine
     if not 0 <= b < n:
         raise ValueError(f"need 0 <= n_byzantine < n_nodes (got {b}/{n})")
@@ -396,24 +437,28 @@ def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt
         raise ValueError(f"n_nodes ({n}) must divide over the {k} ranks of the {axis!r} axis")
     rows = n // k
     mine = slice(me * rows, (me + 1) * rows)
-    su_on = su.resolve(k)
+    su_on = su.resolve(shards)
     gather_p = as_comm_precision(su.param_gather_precision)
     ravel, unravel = ravel_fn(bundle.params)
     names = list(bundle.params)
     per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
     flat0 = ravel(bundle.params)
     param_dtype, d = flat0.dtype, flat0.shape[0]
-    grid = _grid(k, comm, *([gather_p] if su_on else []))
+    grid = _grid(shards, comm, *([gather_p] if su_on else []))
     d_pad = -(-d // grid) * grid
-    d_loc = d_pad // k
-    lo = me * d_loc
+    d_loc = d_pad // shards
+    lo = fidx * d_loc
     row_layout = sharding(mesh, axis, None)
-    feat_layout = sharding(mesh, None, axis)
-    flat_layout = sharding(mesh, axis)
+    feat_layout = sharding(mesh, None, feat)
+    flat_layout = sharding(mesh, feat)
     repl = replicated(mesh)
-    group = FeatureGroup(mesh, axis)
+    group = FeatureGroup(mesh, feat)
     agg_local = sharded_form(aggregate, group)
     pre_local = sharded_form(pre_aggregate, group) if pre_aggregate is not None else None
+    if guard:
+        agg_local = capture_guard(agg_local, "aggregate")
+        pre_local = capture_guard(pre_local, "pre_aggregate")
+        attack = capture_guard(attack, "attack")
     # the columns of this rank's shard that are real coordinates
     real = (torch.arange(lo, lo + d_loc, device=flat0.device) < d)
 
@@ -455,8 +500,22 @@ def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt
         ef_state: Dict[str, torch.Tensor] = {}
         if has_ef:
             opt_state, ef_state = opt_state
-        grads, losses = per_node(params, xs[mine], ys[mine])
+        xs_mine, ys_mine = xs[mine], ys[mine]
+        if data:
+            # this rank's slice of each node's batch along the data axis
+            batch = xs_mine.shape[1]
+            if batch % n_data:
+                raise ValueError(f"a node's batch ({batch}) must divide over the {n_data} ranks "
+                                 f"of the {data!r} axis")
+            part = slice(dj * (batch // n_data), (dj + 1) * (batch // n_data))
+            xs_mine, ys_mine = xs_mine[:, part], ys_mine[:, part]
+        grads, losses = per_node(params, xs_mine, ys_mine)
         flat = torch.cat([grads[key].reshape(rows, -1) for key in names], dim=1)
+        if data:
+            # the batch-mean gradient and loss of each node: the mean of the
+            # data ranks' means (the reference's automatic psum)
+            flat = all_reduce_sum(flat, data, mesh=mesh) / n_data
+            losses = all_reduce_sum(losses, data, mesh=mesh) / n_data
         if grad_dtype is not None:
             flat = flat.to(grad_dtype)
         flat = pad(flat)
@@ -473,7 +532,7 @@ def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt
         agg = agg_local(matrix).to(param_dtype)
         # the pad columns stay exactly zero
         agg = torch.where(real, agg, torch.zeros((), dtype=agg.dtype, device=agg.device))
-        agg_norm = torch.sqrt(all_reduce_sum(torch.sum(agg * agg), axis, mesh=mesh))
+        agg_norm = torch.sqrt(all_reduce_sum(torch.sum(agg * agg), feat, mesh=mesh))
         if su_on:
             flat_params, inner = opt_state
             new_shard, inner = opt.step(flat_params, agg, inner)
@@ -498,7 +557,8 @@ def _build_mesh_train_step(bundle, aggregate, cfg, *, attack, pre_aggregate, opt
                 tf = t.float()
                 # a rank's part of the residual: its energy summed over the ranks
                 metrics[f"ef_{key}_norm"] = torch.sqrt(
-                    all_reduce_sum(torch.sum(tf * tf), axis, mesh=mesh))
+                    all_reduce_sum(torch.sum(tf * tf), axis if key == "transpose" else feat,
+                                   mesh=mesh))
             opt_state = (opt_state, ef_state)
         return params, opt_state, metrics
 
@@ -537,7 +597,7 @@ def build_serving_ps_step(
     one device is ported. Returns ``(step, opt_state0)``."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh=: the feature-sharded serving step is not ported (ROADMAP A.7)")
+            "mesh=: the feature-sharded serving step is not ported (ROADMAP A.6)")
     opt = _checked_optimizer(optimizer, SGD(learning_rate, momentum=momentum))
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
@@ -595,7 +655,7 @@ def build_ragged_serving_ps_step(
     opt_state0)``."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh=: the feature-sharded serving step is not ported (ROADMAP A.7)")
+            "mesh=: the feature-sharded serving step is not ported (ROADMAP A.6)")
     opt = _checked_optimizer(optimizer, SGD(learning_rate, momentum=momentum))
     ravel, unravel = ravel_fn(bundle.params)
     param_dtype = ravel(bundle.params).dtype
@@ -658,17 +718,29 @@ def jit_ps_train_step(
     :class:`~byzpy_tpu_torch.utils.cuda_graph.GraphCaptureError` naming the
     aggregate, pre-aggregate or attack callable that read; nothing runs
     eagerly on the card in its place. On CPU tensors ``step`` is the eager
-    step. ``mesh=`` (or a default mesh) raises ``NotImplementedError``: the
-    mesh round's collectives inside a CUDA graph are ROADMAP A.7's (run
-    :func:`build_ps_train_step` with ``mesh=`` eagerly)."""
-    if mesh is None:
-        from ..configs.mesh import get_default_mesh
+    step.
 
-        mesh = get_default_mesh()
+    With ``mesh=`` (or a default mesh) the step is the mesh round of
+    :func:`build_ps_train_step`, captured whole: its NCCL collectives (the
+    transpose's all-to-all, the forms' all-reduces, the update's
+    all-gather) run inside the graph, and every rank captures and replays
+    the same graph. The sharded forms and the attack are wrapped in
+    ``capture_guard``; a form that reads the host (the geometric
+    median's Weiszfeld loop, which tests its stop on the host each step)
+    raises ``GraphCaptureError`` at the capture, and so does the first
+    collective over a gloo group (``collectives.refuse_gloo_capture``: gloo
+    moves CUDA tensors through the host). Nothing then runs eagerly in the
+    graph's place."""
+    mesh = _mesh_or_default(mesh)
     if mesh is not None:
-        raise NotImplementedError(
-            "jit_ps_train_step(mesh=): the compiled mesh round (NCCL inside a CUDA graph) is "
-            "not ported (ROADMAP A.7); build_ps_train_step(mesh=) runs it eagerly")
+        opt = _checked_optimizer(kwargs.pop("optimizer", None), default_optimizer(cfg))
+        step, opt_state0 = _build_mesh_train_step(
+            bundle, aggregate, cfg, attack=kwargs.pop("attack", None),
+            pre_aggregate=kwargs.pop("pre_aggregate", None), opt=opt, mesh=mesh,
+            grad_dtype=kwargs.pop("grad_dtype", None),
+            comm=as_comm_precision(kwargs.pop("comm_precision", None)),
+            su=as_sharded_update(kwargs.pop("sharded_update", None)), guard=True, **kwargs)
+        return CapturedStep(step, name="ps_train_step", donate=donate), opt_state0
     kwargs = _guarded(kwargs, ("attack", "pre_aggregate"))
     step, opt_state0 = build_ps_train_step(bundle, capture_guard(aggregate, "aggregate"), cfg,
                                            **kwargs)

@@ -207,8 +207,8 @@ def run_cell(
 ) -> CellResult:
     """Train one (aggregator, attack) cell from scratch through the
     compiled PS round and return its held-out accuracy trajectory.
-    ``mesh=`` raises ``NotImplementedError``: the compiled mesh round is
-    ROADMAP A.7's."""
+    ``mesh=`` (a ``DeviceMesh``) trains through the compiled mesh round,
+    every rank running the cell."""
     if cfg.rounds < 1:
         raise ValueError(f"rounds must be >= 1 (got {cfg.rounds})")
     x_train, y_train, x_test, y_test = data

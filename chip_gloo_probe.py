@@ -7,9 +7,10 @@ Run on a machine with one NVIDIA GPU:
 
 Each collective runs in a gloo world of two processes of its own, both on
 card 0 (a refusal can end a process): all_reduce, all_gather_into_tensor
-(f32, uint8), reduce_scatter_tensor, all_to_all_single (f32, uint8, int8)
-and batch_isend_irecv, the calls ``byzpy_tpu_torch.parallel.collectives``
-makes. Prints one line ``GLOO_CUDA_OPS {op: {"results": [rank 0, rank 1],
+(f32, uint8), reduce_scatter_tensor, all_to_all_single (f32, uint8, int8),
+batch_isend_irecv, and the ring hop's gloo route: all_to_all_single with
+one non-empty split each way (f32, int8), the calls
+``byzpy_tpu_torch.parallel.collectives`` makes. Prints one line ``GLOO_CUDA_OPS {op: {"results": [rank 0, rank 1],
 "exitcodes": [...], "values": [...]}}``, then the card's name and power
 limit. Exits 2 without a card.
 """
@@ -26,7 +27,8 @@ import torch.multiprocessing as mp
 
 OPS = ["all_reduce_f32", "all_gather_into_tensor_f32", "all_gather_into_tensor_u8",
        "reduce_scatter_tensor_f32", "all_to_all_single_f32", "all_to_all_single_u8",
-       "all_to_all_single_i8", "batch_isend_irecv_f32"]
+       "all_to_all_single_i8", "batch_isend_irecv_f32", "shift_all_to_all_single_f32",
+       "shift_all_to_all_single_i8"]
 
 
 def run_op(op: str, x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
@@ -41,6 +43,14 @@ def run_op(op: str, x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
     elif op == "reduce_scatter_tensor_f32":
         y = torch.empty(8 // size, device=dev)
         dist.reduce_scatter_tensor(y, x)
+    elif op.startswith("shift_all_to_all_single"):
+        # the ring hop: send to rank + 1, receive from rank - 1, every other
+        # split empty (collectives._shift's gloo route)
+        src = x if op.endswith("f32") else x.to(torch.int8)
+        y = torch.empty_like(src)
+        send = [8 if r == (rank + 1) % size else 0 for r in range(size)]
+        recv = [8 if r == (rank - 1) % size else 0 for r in range(size)]
+        dist.all_to_all_single(y, src, output_split_sizes=recv, input_split_sizes=send)
     elif op.startswith("all_to_all_single"):
         src = {"f32": x, "u8": x.to(torch.uint8), "i8": x.to(torch.int8)}[op.rsplit("_", 1)[1]]
         y = torch.empty_like(src)

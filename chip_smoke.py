@@ -5,6 +5,11 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``--phases 4j,4k`` runs the device probe, the build and the phases named
+(of 3, 4, 4b-4h, 5, 4i, 4j, 4k) and ends on the ``ok`` line without the
+kernels line (its numbers need phases 3 and 5); with no argument every
+phase runs, as below.
+
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device probe: the card's name and power limit (``nvidia-smi``);
@@ -233,6 +238,24 @@ peak memory printed; (e) 2 and 4 gloo ranks sharing the card (CUDA
 tensors through gloo), every rank's parameters equal, within 1e-4 of the
 single-device round (a rank's vmap holds fewer nodes, and cuDNN's
 per-node gradients move in their last bits with that).
+
+Last, phase 4k: on one NCCL rank, (a) ``jit_ps_train_step(mesh=)`` at
+ResNet-18's full width (8 x 64 images, the trimmed mean and Multi-Krum,
+the sharded update on), its replays bit for bit the eager mesh steps
+(``compiled_vs_eager``), the traffic record against the law, and the
+geometric median's sharded form refused at the capture; (b) the gossip
+round over the mesh at ResNet-18's width on ring(8, 2), the median and
+NNM + Multi-Krum with the sharded update off and on (the median bit for
+bit, NNM + Multi-Krum within 1e-4 of the largest weight), and the
+median's round compiled, bit for bit its eager steps; (e)
+``ParameterServer(update_sharding="on")`` against ``None`` on SmallCNN's
+gradients (the trimmed mean bit for bit, NNM -> Multi-Krum within f32
+rounding); then on 4 gloo ranks sharing the card, (c) the ring(4, 2) round
+at ResNet-18's width, the shard split bit for bit the unsplit round and
+the int8 payload within a code step a step, and (d) the (2, 2) grid round
+of SmallCNN, within 1e-4 of the largest weight from the single-device
+round, its all-gather equal to the law's term for 4 shards. Host ms a step,
+peak GiB and launches are printed beside the card's name and power limit.
 
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
@@ -6118,6 +6141,471 @@ def engine_mesh_path(counts: dict, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4k: the training mesh's rest (the compiled mesh step, the gossip
+# round over a mesh, the ring and its shard split, the 2-D grid round,
+# ParameterServer(update_sharding=))
+# ---------------------------------------------------------------------------
+
+MESHK_STEPS = 3
+# (b)'s gossip round: config #4's ring(8, 2), 8 nodes (2 mimicking node 0)
+# x 32 images of CIFAR, ResNet-18 at full width
+MESHK_NODES, MESHK_BYZ, MESHK_BATCH, MESHK_LR = 8, 2, 32, 0.05
+# (b) NNM + Multi-Krum with the sharded update on against off: the on form
+# is B3's partial Gram and B5 on the columns, the off form B9's fused NNM
+# -> Multi-Krum weights and B4's sweep; both sum over d in their own orders
+MESHK_NNM_MK_REL = 1e-4
+# (c) the ring: 4 gloo ranks sharing the card, one ResNet-18 node each
+RING_RANKS, RING_K, RING_BATCH = 4, 2, 32
+# (d) the grid: SmallCNN on a (2, 2) grid of gloo ranks sharing the card
+GRID_SHAPE = (2, 2)
+# (e) the actor PS: SmallCNN's 8 per-node gradients, 3 rounds
+PS_ROUNDS = 3
+
+
+def meshk_compiled(counts: dict, smi: str, mesh) -> dict:
+    """(a) ``jit_ps_train_step(mesh=)`` on one NCCL rank: ResNet-18 for CIFAR
+    at full width, 8 nodes (2 sign-flipping the honest mean) x 64 images,
+    the trimmed mean and Multi-Krum, the sharded update on: the compiled
+    steps replay the eager mesh steps bit for bit (``compiled_vs_eager``);
+    the geometric median's sharded form refuses the capture."""
+    import torch
+
+    from byzpy_tpu_torch.models import cifar_resnet18, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, comms, jit_ps_train_step
+    from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
+
+    x, y = synthetic_classification(n_samples=MAIN_N * V_BATCH, input_shape=(32, 32, 3), seed=3,
+                                    device="cuda")
+    xs, ys = x.reshape(MAIN_N, V_BATCH, 32, 32, 3), y.reshape(MAIN_N, V_BATCH)
+    cfg = PSStepConfig(n_nodes=MAIN_N, n_byzantine=MAIN_BYZ)
+    attack = lambda honest, g: attack_ops.sign_flip(honest.mean(dim=0))  # noqa: E731
+    out = {}
+    for name, agg, keys in (
+            ("trimmed", functools.partial(robust.trimmed_mean, f=MAIN_BYZ), ["sorted_reduce:trimmed"]),
+            ("multi_krum", functools.partial(robust.multi_krum, f=MAIN_BYZ, q=4),
+             ["gram", "selection_mean_from_gram:krum"])):
+        bundle = cifar_resnet18(seed=0, device="cuda")
+        d = sum(int(v.numel()) for v in bundle.params.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eager, compiled, state0 = ps_twins(bundle, agg, cfg, attack=attack, mesh=mesh,
+                                           sharded_update="on")
+        res = compiled_vs_eager(f"(a) ResNet-18 mesh round, {name}", eager, compiled, state0,
+                                lambda s: (xs, ys), keys, counts)
+        res.pop("first_eager_state")
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec = comms.collective_traffic(eager, *state0, xs, ys)
+        law = comms.ps_round_wire_bytes(d, 1, update_sharded=True)
+        check(rec["wire_bytes_per_device"] == law == 0.0
+              and {"all-to-all", "all-gather", "all-reduce"} <= set(rec["per_opcode_bytes"]),
+              f"(a) {name}: the traffic record {rec['per_opcode_bytes']} against the law {law}")
+        res["traffic"] = {"per_opcode_bytes": rec["per_opcode_bytes"], "law": law,
+                          "result_bytes": sorted({(op.opcode, op.dtype): op.result_bytes
+                                                  for op in rec["ops"]}.items())}
+        log(f"  (a) {name}: peak {res['peak_gib']:.2f} GiB, traffic {rec['per_opcode_bytes']} "
+            f"(wire bytes a device {rec['wire_bytes_per_device']}, law {law}); {smi}")
+        out[name] = res
+        del bundle, eager, compiled, state0
+        torch.cuda.empty_cache()
+    bundle = cifar_resnet18(seed=0, device="cuda")
+    step, opt = jit_ps_train_step(bundle, robust.geometric_median, cfg, attack=attack, mesh=mesh)
+    try:
+        step(bundle.params, opt, xs, ys)
+        refused = None
+    except GraphCaptureError as exc:
+        refused = str(exc)
+    check(refused is not None and "host" in refused,
+          f"(a) the sharded geometric median's capture did not refuse: {refused}")
+    out["geomed_refusal"] = refused[:200]
+    log(f"  (a) the geometric median's sharded form refuses the capture: {refused[:160]}")
+    del bundle, step, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def meshk_gossip(counts: dict, smi: str, mesh) -> dict:
+    """(b) the gossip round over a one-rank NCCL mesh at ResNet-18's full
+    width on ring(8, 2): the median and NNM + Multi-Krum with the sharded
+    update off (the encoded rows all-gathered) and on (node -> feature ->
+    node all-to-alls around the sharded forms), 3 steps each; on equals
+    off bit for bit for the median and within ``MESHK_NNM_MK_REL`` of the
+    largest weight for NNM + Multi-Krum; then the median's round compiled
+    (``jit_gossip_train_step(mesh=)``), 3 replays bit for bit the eager
+    steps."""
+    import torch
+
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.models import ShardedDataset, cifar_resnet18, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, kernels, robust
+    from byzpy_tpu_torch.parallel import GossipStepConfig, build_gossip_train_step, jit_gossip_train_step
+
+    x, y = synthetic_classification(n_samples=MESHK_NODES * MESHK_BATCH, input_shape=(32, 32, 3),
+                                    seed=5, device="cuda")
+    xs, ys = ShardedDataset(x, y, n_nodes=MESHK_NODES).stacked_shards()
+    cfg = GossipStepConfig(MESHK_NODES, MESHK_BYZ, MESHK_LR)
+    topo = Topology.ring(MESHK_NODES, 2)
+    attack = lambda honest, g: attack_ops.mimic(honest, epsilon=0)  # noqa: E731
+    aggs = {"median": (robust.coordinate_median, ("sorted_reduce:median",)),
+            "nnm_multi_krum": (functools.partial(robust.nnm_multi_krum, f_nnm=1, f=1, q=2), ())}
+    out = {}
+    for name, (agg, keys) in aggs.items():
+        thetas = {}
+        for su in ("off", "on"):
+            bundle = cifar_resnet18(seed=0, device="cuda")
+            step, init = build_gossip_train_step(bundle, agg, topo, cfg, attack=attack, mesh=mesh,
+                                                 update_sharding=su)
+            theta = init()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            ms = []
+            for _ in range(MESHK_STEPS):
+                t0 = time.perf_counter()
+                theta, metrics = step(theta, xs, ys)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+            for k, v in launches.items():
+                counts[k] += v
+            check(all(launches.get(k, 0) >= MESHK_STEPS for k in keys),
+                  f"(b) {name} {su}: launches {launches}, want {keys} every step")
+            check(bool(torch.isfinite(theta).all()), f"(b) {name} {su}: theta not finite")
+            thetas[su] = theta
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out[f"{name}/su={su}"] = {"ms_per_step": ms, "peak_gib": peak,
+                                      "honest_loss": float(metrics["honest_loss"]),
+                                      "launches_per_step": {k: v / MESHK_STEPS
+                                                            for k, v in launches.items()}}
+            log(f"  (b) {name}, update_sharding {su}: host ms a step {[round(t, 1) for t in ms]}, "
+                f"peak {peak:.2f} GiB, launches a step "
+                f"{ {k: v / MESHK_STEPS for k, v in launches.items()} }; {smi}")
+            del bundle, step
+        diff = float((thetas["on"] - thetas["off"]).abs().max())
+        scale = float(thetas["off"].abs().max())
+        if name == "median":
+            check(bits_equal(thetas["on"], thetas["off"]),
+                  f"(b) the median's sharded exchange differs from the gathered one ({diff})")
+        else:
+            check(diff <= MESHK_NNM_MK_REL * scale, f"(b) NNM + Multi-Krum: on is {diff} from off "
+                  f"(|theta| max {scale}, bound {MESHK_NNM_MK_REL} of it)")
+        out[f"{name}/on_vs_off_max_abs"] = diff
+        log(f"  (b) {name}: max |theta(on) - theta(off)| {diff:.3e} (|theta| max {scale:.4f})")
+        del thetas
+        torch.cuda.empty_cache()
+    bundle = cifar_resnet18(seed=0, device="cuda")
+    eager, init = build_gossip_train_step(bundle, robust.coordinate_median, topo, cfg, attack=attack,
+                                          mesh=mesh, update_sharding="on")
+    compiled, _ = jit_gossip_train_step(bundle, robust.coordinate_median, topo, cfg, attack=attack,
+                                        mesh=mesh, update_sharding="on", donate=False)
+    te, tc, e_ms, c_ms = init(), init(), [], []
+    for _ in range(MESHK_STEPS):
+        t0 = time.perf_counter()
+        te, me_ = eager(te, xs, ys)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tc, mc = compiled(tc, xs, ys)
+        torch.cuda.synchronize()
+        e_ms.append((t1 - t0) * 1e3)
+        c_ms.append((time.perf_counter() - t1) * 1e3)
+        check(bits_equal(te, tc) and bits_equal(me_["honest_loss"], mc["honest_loss"]),
+              "(b) the compiled gossip mesh step differs from the eager one")
+    check(len(compiled.graphs) == 1, f"(b) {len(compiled.graphs)} gossip graphs captured")
+    replay = span_ms(lambda: compiled(tc, xs, ys))
+    out["compiled_median"] = {"eager_ms": e_ms, "compiled_ms": c_ms, "graph_span_ms": replay,
+                              "capture": compiled.last_capture["launches"]}
+    log(f"  (b) the median's gossip mesh step compiled: {MESHK_STEPS} replays == eager bitwise; host "
+        f"ms eager {[round(t, 1) for t in e_ms]} / compiled {[round(t, 1) for t in c_ms]}; graph "
+        f"span {replay:.3f} ms; {smi}")
+    del bundle, eager, compiled
+    torch.cuda.empty_cache()
+    return out
+
+
+def meshk_ps_actor(counts: dict, smi: str, mesh) -> dict:
+    """(e) ``ParameterServer(update_sharding="on")`` against ``None`` on one
+    NCCL rank: 6 honest nodes feeding SmallCNN's per-node gradients of 3
+    batches and 2 sign-flipping nodes, the trimmed mean (bit for bit) and
+    NNM -> Multi-Krum (the fused pipeline; within f32 rounding, its sharded
+    form on B3 + B5 and the unsharded one on B9 + B4)."""
+    import torch
+    from torch.func import grad, vmap
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean, MultiKrum
+    from byzpy_tpu_torch.configs import use_mesh
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+    from byzpy_tpu_torch.models import mnist_cnn, synthetic_classification
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.pre_aggregators import NearestNeighborMixing
+
+    bundle = mnist_cnn(seed=0, device="cuda")
+    x, y = synthetic_classification(n_samples=MAIN_N * MAIN_BATCH * PS_ROUNDS, seed=9, device="cuda")
+    xs = x.reshape(PS_ROUNDS, MAIN_N, MAIN_BATCH, 28, 28, 1)
+    ys = y.reshape(PS_ROUNDS, MAIN_N, MAIN_BATCH)
+    per_node = vmap(grad(bundle.loss_fn), in_dims=(None, 0, 0))
+    grads = [per_node(bundle.params, xs[r], ys[r]) for r in range(PS_ROUNDS)]
+    h = MAIN_N - MAIN_BYZ
+
+    class Honest:
+        def __init__(self, i):
+            self.i, self.r = i, 0
+
+        def honest_gradient_for_next_batch(self):
+            g = {k: v[self.i] for k, v in grads[self.r].items()}
+            self.r += 1
+            return g
+
+        def apply_server_gradient(self, g):
+            pass
+
+    class Flip:
+        def byzantine_gradient_for_next_batch(self, honest):
+            return {k: -3.0 * sum(g[k] for g in honest) / len(honest) for k in honest[0]}
+
+        def apply_server_gradient(self, g):
+            pass
+
+    async def rounds(agg, pre, su):
+        ps = ParameterServer([Honest(i) for i in range(h)], [Flip() for _ in range(MAIN_BYZ)],
+                             aggregator=agg, pre_aggregator=pre, update_sharding=su)
+        outs, ms = [], []
+        for _ in range(PS_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = await ps.round()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(torch.cat([v.reshape(-1) for v in g.values()]))
+        return outs, ms
+
+    out = {}
+    for name, make in (("trimmed", lambda: (CoordinateWiseTrimmedMean(f=MAIN_BYZ), None)),
+                       ("nnm_multi_krum", lambda: (MultiKrum(f=MAIN_BYZ, q=4),
+                                                   NearestNeighborMixing(f=MAIN_BYZ)))):
+        runs = {}
+        for su in (None, "on"):
+            kernels.reset_launch_counts()
+            with use_mesh(mesh):
+                runs[su] = asyncio.run(rounds(*make(), su))
+            launches = {k: v for k, v in kernels.launch_counts.items() if v}
+            for k, v in launches.items():
+                counts[k] += v
+            out[f"{name}/update_sharding={su}"] = {
+                "ms_per_round": runs[su][1],
+                "launches_per_round": {k: v / PS_ROUNDS for k, v in launches.items()}}
+            log(f"  (e) {name}, update_sharding={su}: host ms a round "
+                f"{[round(t, 2) for t in runs[su][1]]}, launches a round "
+                f"{ {k: v / PS_ROUNDS for k, v in launches.items()} }; {smi}")
+        diffs = [float((a - b).abs().max()) for a, b in zip(runs["on"][0], runs[None][0])]
+        scale = max(float(b.abs().max()) for b in runs[None][0])
+        if name == "trimmed":
+            check(all(bits_equal(a, b) for a, b in zip(runs["on"][0], runs[None][0])),
+                  f"(e) trimmed: the sharded aggregate differs from the unsharded one {diffs}")
+        else:
+            check(max(diffs) <= 1e-6 * scale + 1e-7, f"(e) NNM + Multi-Krum: {diffs} from the "
+                  f"unsharded aggregate (|g| max {scale})")
+        out[f"{name}/max_abs_diff"] = diffs
+        log(f"  (e) {name}: max |agg(on) - agg(None)| by round {diffs} (|agg| max {scale:.4f})")
+    return out
+
+
+def meshk_gloo_rank(rank: int, size: int, init: str, out_q) -> None:  # pragma: no cover - a rank
+    """(c) and (d)'s rank: one of 4 processes sharing card 0 over a gloo
+    group. (d) the SmallCNN round on a (2, 2) grid, and one step's traffic
+    record; (c) the ring round at ResNet-18's width, the shard split off
+    and on and the int8 payload."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=size, rank=rank,
+                            timeout=__import__("datetime").timedelta(seconds=GLOO_WAIT_S))
+    try:
+        from byzpy_tpu_torch.models import cifar_resnet18, synthetic_classification
+        from byzpy_tpu_torch.ops import kernels, robust
+        from byzpy_tpu_torch.parallel import GossipStepConfig, build_ring_gossip_train_step
+        from byzpy_tpu_torch.parallel.mesh import grid_mesh, node_mesh
+
+        out = {}
+        grid = grid_mesh(*GRID_SHAPE, device="cuda")
+        flat, ms = gloo_smallcnn_round(grid)
+        out["grid"] = {"flat": flat, "ms": ms, "traffic": grid_traffic(grid)}
+        mesh = node_mesh(device="cuda")
+        x, y = synthetic_classification(n_samples=RING_RANKS * RING_BATCH, input_shape=(32, 32, 3),
+                                        seed=11, device="cuda")
+        xs, ys = x.reshape(RING_RANKS, RING_BATCH, 32, 32, 3), y.reshape(RING_RANKS, RING_BATCH)
+        rows = {}
+        for key, su, comm in (("off", "off", None), ("on", "on", None), ("int8", "off", "int8")):
+            bundle = cifar_resnet18(seed=0, device="cuda")
+            step, init_row = build_ring_gossip_train_step(
+                bundle, robust.coordinate_median, GossipStepConfig(RING_RANKS, 1, MESHK_LR), mesh,
+                k=RING_K, comm_precision=comm, update_sharding=su)
+            theta, times = init_row(), []
+            kernels.reset_launch_counts()
+            for _ in range(MESHK_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                theta, loss = step(theta, xs, ys)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rows[key] = theta
+            out[f"ring_{key}"] = {"ms": times, "honest_loss": float(loss),
+                                  "finite": bool(torch.isfinite(theta).all()),
+                                  "launches": {k: v for k, v in kernels.launch_counts.items() if v}}
+        out["ring_on_equals_off"] = bool(torch.equal(rows["on"].view(torch.int32),
+                                                     rows["off"].view(torch.int32)))
+        out["ring_int8_max_abs"] = float((rows["int8"] - rows["off"]).abs().max())
+        out["ring_scale"] = float(rows["off"].abs().max())
+        out_q.put((rank, True, out))
+    except Exception:  # noqa: BLE001 - sent to the parent, which fails the phase
+        out_q.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+def grid_traffic(grid) -> dict:
+    """One SmallCNN grid step's traffic record on this rank, beside
+    ``comms.ps_round_wire_bytes`` for ``nodes x data`` feature shards."""
+    import torch
+
+    from byzpy_tpu_torch.models import mnist_cnn, synthetic_classification
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step, comms
+
+    bundle = mnist_cnn(seed=0, device="cuda")
+    d = sum(int(v.numel()) for v in bundle.params.values())
+    x, y = synthetic_classification(n_samples=MESH_NODES * MESH_BATCH, seed=3, device="cuda")
+    step, opt = build_ps_train_step(bundle, functools.partial(robust.trimmed_mean, f=MESH_BYZ),
+                                    PSStepConfig(n_nodes=MESH_NODES, n_byzantine=MESH_BYZ),
+                                    mesh=grid, sharded_update="on")
+    rec = comms.collective_traffic(step, bundle.params, opt,
+                                   x.reshape(MESH_NODES, MESH_BATCH, 28, 28, 1),
+                                   y.reshape(MESH_NODES, MESH_BATCH))
+    shards = GRID_SHAPE[0] * GRID_SHAPE[1]
+    # the flat vector pads to the shards: the law at the padded length
+    d_pad = -(-d // shards) * shards
+    law = comms.ps_round_wire_bytes(d_pad, shards, update_sharded=True)
+    torch.cuda.synchronize()
+    return {"per_opcode_bytes": rec["per_opcode_bytes"], "law": law, "d": d, "d_pad": d_pad}
+
+
+def meshk_gloo(counts: dict, smi: str) -> dict:
+    """(c) the ring (4 ranks on ring(4, 2), one ResNet-18 node each, the
+    last byzantine sending ``-half``, the coordinate median, 3 steps): the
+    shard split equals the unsplit round bit for bit on every rank, the
+    int8 payload printed beside it; (d) the grid (SmallCNN, 8 nodes of
+    which 2 sign-flip, the trimmed mean, the sharded update on, 5 steps on a
+    (2, 2) grid): every rank's parameters equal, within 1e-4 of the largest
+    weight from the single-device round (the grid's per-node gradients are
+    the means of two half-batch vmaps, whose cuDNN paths round apart from
+    one whole-batch vmap's), and the update's all-gather equal to the law's
+    term for 4 feature shards."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    import numpy as np
+
+    want, single_ms = gloo_smallcnn_round(None)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        q = ctx.Queue()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=meshk_gloo_rank, args=(r, RING_RANKS, f"file://{tmp}/rdzv", q),
+                             daemon=True) for r in range(RING_RANKS)]
+        for p in procs:
+            p.start()
+        results, errors = {}, []
+        try:
+            while len(results) + len(errors) < RING_RANKS:
+                try:
+                    rank, ok, value = q.get(timeout=GLOO_WAIT_S)
+                except queue.Empty:
+                    errors.append("no answer in time")
+                    break
+                (results.__setitem__(rank, value) if ok else errors.append(value))
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=30)
+        wall_s = time.perf_counter() - t0
+    check(not errors, f"(c)/(d) the 4-rank gloo world failed: {errors[:1]}")
+    flats = [results[r]["grid"]["flat"] for r in range(RING_RANKS)]
+    check(all(np.array_equal(f.view(np.int32), flats[0].view(np.int32)) for f in flats),
+          "(d) the grid ranks' parameters differ")
+    diff = float(np.abs(flats[0] - want).max())
+    scale = float(np.abs(want).max())
+    check(diff <= 1e-4 * scale, f"(d) the (2, 2) grid is {diff} from the single-device round "
+          f"(|p| max {scale})")
+    traffic = results[0]["grid"]["traffic"]
+    check(traffic["per_opcode_bytes"].get("all-gather") == traffic["law"] / 2,
+          f"(d) the grid's all-gather {traffic['per_opcode_bytes']} against the law's gather term "
+          f"{traffic['law'] / 2}")
+    out = {"wall_s": wall_s, "single_device_ms_per_step": single_ms,
+           "grid": {"max_abs_diff_to_single_device": diff, "scale": scale,
+                    "bitwise": bool(np.array_equal(flats[0].view(np.int32), want.view(np.int32))),
+                    "ms_per_step_rank0": results[0]["grid"]["ms"], "traffic": traffic}}
+    log(f"  (d) (2, 2) grid of gloo ranks on one card: SmallCNN trimmed mean, {MESH_STEPS} steps, "
+        f"every rank's parameters equal; max |p - p(single device)| {diff:.3e} (bit for bit: "
+        f"{out['grid']['bitwise']}); rank 0's host ms a step "
+        f"{[round(t, 1) for t in results[0]['grid']['ms']]}; traffic {traffic['per_opcode_bytes']} "
+        f"against the law {traffic['law']} for d = {traffic['d']} over 4 shards; {smi}")
+    for r in range(RING_RANKS):
+        res = results[r]
+        check(res["ring_on_equals_off"], f"(c) rank {r}: the ring's shard split differs from the "
+              "unsplit round")
+        check(all(res[f"ring_{k}"]["finite"] for k in ("off", "on", "int8")),
+              f"(c) rank {r}: a ring row is not finite")
+        check(res["ring_int8_max_abs"] <= MESHK_STEPS * (res["ring_scale"] / 127 + 1e-6),
+              f"(c) rank {r}: the int8 ring is {res['ring_int8_max_abs']} from the f32 ring")
+    out["ring"] = {str(r): {k: results[r][k] for k in results[r] if k != "grid"}
+                   for r in range(RING_RANKS)}
+    r0 = results[0]
+    log(f"  (c) ring({RING_RANKS}, {RING_K}) of gloo ranks on one card at ResNet-18's width: the "
+        f"shard split == the unsplit round bitwise on every rank; int8 payload max |theta - "
+        f"theta(off)| by rank {[round(results[r]['ring_int8_max_abs'], 7) for r in range(RING_RANKS)]}; "
+        f"rank 0's host ms a step off {[round(t, 1) for t in r0['ring_off']['ms']]}, split "
+        f"{[round(t, 1) for t in r0['ring_on']['ms']]}, int8 {[round(t, 1) for t in r0['ring_int8']['ms']]}; "
+        f"launches rank 0 off {r0['ring_off']['launches']}; the world {wall_s:.1f} s with the "
+        f"spawn; {smi}")
+    return out
+
+
+def training_mesh_path(counts: dict, smi: str) -> dict:
+    """Phase 4k: (a) the compiled mesh PS step, (b) the gossip mesh round,
+    (e) the actor PS's sharded update, on one NCCL rank; then (c) the ring
+    and (d) the grid on 4 gloo ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+
+    from byzpy_tpu_torch.parallel.mesh import init_process_group, node_mesh
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    check(init_process_group(f"tcp://127.0.0.1:{free_port()}", 1, 0, backend="nccl"),
+          "4k: the NCCL process group was already initialized")
+    try:
+        mesh = node_mesh(device="cuda")
+        for key, fn in (("a_compiled_mesh_step", meshk_compiled), ("b_gossip_mesh", meshk_gossip),
+                        ("e_actor_ps_update_sharding", meshk_ps_actor)):
+            t0 = time.perf_counter()
+            out[key] = fn(counts, smi, mesh)
+            out[key]["phase_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    t0 = time.perf_counter()
+    out["cd_ring_and_grid_gloo"] = meshk_gloo(counts, smi)
+    out["cd_ring_and_grid_gloo"]["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -7389,7 +7877,27 @@ def ptxas_report(text: str, nvcc: str, kernels: tuple) -> list:
     return out
 
 
-def main() -> int:
+PHASES = ("3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "5", "4i", "4j", "4k")
+MAIN_PATH_PHASES = ("4", "4b", "4c", "4d", "4e", "4f", "4g", "4h")
+
+
+def selected_phases(argv) -> set:
+    """``--phases 4j,4k`` picks phases (1 and 2, the device and the build,
+    always run); no argument runs every phase."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help=f"comma-separated phases of {', '.join(PHASES)} (default: all)")
+    chosen = {p.strip() for p in parser.parse_args(argv).phases.split(",") if p.strip()}
+    unknown = chosen - set(PHASES)
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}")
+    return chosen
+
+
+def main(argv=None) -> int:
+    phases = selected_phases(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError:
@@ -7460,78 +7968,92 @@ def main() -> int:
     spilled = [e["kernel"] for e in selection_ptxas if e["spill_stores"] or e["spill_loads"]]
     check(not spilled, f"selection.cu or clip_selection.cu instances spill: {spilled}")
 
-    log("== 3. kernels against their plain versions")
     errs = {key: 0.0 for key, _, _ in KERNELS}
-    check_sorted_reduce(errs)
-    check_gram_and_selection(errs)
-    check_gram_order(errs)
-    check_selection_from_gram(errs)
-    check_pre_aggregation(errs)
-    check_b9_ties(errs)
-    check_selection_ties(errs)
-    check_meamed(errs)
-    check_center_step(errs)
-    check_codecs(errs)
-    check_masked_kernels(errs)
-    check_masked_center_loop(errs)
-    check_s4_codec(errs)
-    check_segment_sum_dequant(errs)
-    check_segmented_sort(errs)
+    if "3" in phases:
+        log("== 3. kernels against their plain versions")
+        for fn in (check_sorted_reduce, check_gram_and_selection, check_gram_order,
+                   check_selection_from_gram, check_pre_aggregation, check_b9_ties,
+                   check_selection_ties, check_meamed, check_center_step, check_codecs,
+                   check_masked_kernels, check_masked_center_loop, check_s4_codec,
+                   check_segment_sum_dequant, check_segmented_sort):
+            fn(errs)
 
-    log("== 4. main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
-        "configurations")
     counts = {k: 0 for k in kernels.launch_counts}
-    log("MAIN_PATH " + json.dumps(main_path(counts)))
-    log("== 4b. main path: the gossip round (SmallCNN)")
-    log("GOSSIP_PATH " + json.dumps(gossip_path(counts)))
-    log("== 4c. main path: the serving round (SmallCNN, bucketed cohorts, masked aggregators)")
-    log("SERVING_PATH " + json.dumps(serving_path(counts)))
-    log("== 4d. main path: the ragged door (SmallCNN: (m) the ragged serving step, (n) the "
-        "ragged executor with quantized ingress)")
-    log("RAGGED_PATH " + json.dumps({"m_ragged_serving_step": ragged_step_path(counts),
-                                     "n_ragged_executor": ragged_executor_path(counts)}))
-    log("== 4e. main path: the compiled step (CUDA-graph twins against the eager steps: (u) "
-        "ResNet-50 config #5, (v) ResNet-18, (w) SmallCNN, (x) serving; (y) refusals)")
-    log("COMPILED_PATH " + json.dumps(compiled_path(counts)))
-    log("== 4f. main path: the engine (actor pools: (a) config #1, (b) config #2, (c) ByzPy's "
-        "pool table, (d) the schedulers, (e) many streams and the capture guard)")
-    log("ENGINE_PATH " + json.dumps(engine_path(counts)))
-    log("== 4g. main path: the orchestrators (node actors: (a) config #3, (b) the ParameterServer "
-        "on SmallCNN, (c) elastic rounds; the P2P runner: (d) gossip, (e) the autonomous cluster, "
-        "(f) heartbeat removal)")
-    log("ORCHESTRATOR_PATH " + json.dumps(orchestrator_path(counts)))
-    log("== 4h. main path: BASELINE config #4 (P2P ResNet-18 on ring(8, 2), NNM + geometric "
-        "median) through the compiled gossip step")
-    log("CONFIG4_PATH " + json.dumps(config4_path(counts, smi)))
-    for key in NEW_KERNELS:
-        check(counts[key] > 0, f"{key} never launched on the main path")
+    main_path_phases = (
+        ("4", "main path: SmallCNN PS round, plain, pre-aggregated, centre-seeking and class-API "
+              "configurations", "MAIN_PATH", lambda: main_path(counts)),
+        ("4b", "main path: the gossip round (SmallCNN)", "GOSSIP_PATH", lambda: gossip_path(counts)),
+        ("4c", "main path: the serving round (SmallCNN, bucketed cohorts, masked aggregators)",
+         "SERVING_PATH", lambda: serving_path(counts)),
+        ("4d", "main path: the ragged door (SmallCNN: (m) the ragged serving step, (n) the ragged "
+               "executor with quantized ingress)", "RAGGED_PATH",
+         lambda: {"m_ragged_serving_step": ragged_step_path(counts),
+                  "n_ragged_executor": ragged_executor_path(counts)}),
+        ("4e", "main path: the compiled step (CUDA-graph twins against the eager steps: (u) "
+               "ResNet-50 config #5, (v) ResNet-18, (w) SmallCNN, (x) serving; (y) refusals)",
+         "COMPILED_PATH", lambda: compiled_path(counts)),
+        ("4f", "main path: the engine (actor pools: (a) config #1, (b) config #2, (c) ByzPy's pool "
+               "table, (d) the schedulers, (e) many streams and the capture guard)", "ENGINE_PATH",
+         lambda: engine_path(counts)),
+        ("4g", "main path: the orchestrators (node actors: (a) config #3, (b) the ParameterServer "
+               "on SmallCNN, (c) elastic rounds; the P2P runner: (d) gossip, (e) the autonomous "
+               "cluster, (f) heartbeat removal)", "ORCHESTRATOR_PATH",
+         lambda: orchestrator_path(counts)),
+        ("4h", "main path: BASELINE config #4 (P2P ResNet-18 on ring(8, 2), NNM + geometric "
+               "median) through the compiled gossip step", "CONFIG4_PATH",
+         lambda: config4_path(counts, smi)),
+    )
+    for phase, title, tag, run in main_path_phases:
+        if phase in phases:
+            log(f"== {phase}. {title}")
+            log(f"{tag} " + json.dumps(run()))
+    if set(MAIN_PATH_PHASES) <= phases:
+        for key in NEW_KERNELS:
+            check(counts[key] > 0, f"{key} never launched on the main path")
     for key, parts in CODEC_COUNTERS.items():
         counts[key] = sum(counts[p] for p in parts)
 
-    log("== 5. kernel timing at 64 x 1,048,576 and 8 x 421,642 f32")
-    times = timing()
-    codec = codec_times()
-    log("CODECS " + json.dumps(codec))
-    times.update(codec_entries(codec))
-    ragged_times = ragged_kernel_times()
-    log("RAGGED_KERNELS " + json.dumps(ragged_times))
-    times.update(ragged_entries(ragged_times))
-    log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
-    log("SUBSET_SEARCH at ByzPy's shapes " + json.dumps(subset_search_times()))
+    times = None
+    if "5" in phases:
+        log("== 5. kernel timing at 64 x 1,048,576 and 8 x 421,642 f32")
+        times = timing()
+        codec = codec_times()
+        log("CODECS " + json.dumps(codec))
+        times.update(codec_entries(codec))
+        ragged_times = ragged_kernel_times()
+        log("RAGGED_KERNELS " + json.dumps(ragged_times))
+        times.update(ragged_entries(ragged_times))
+        log("AGGREGATORS at 64 x 65,536 f32 " + json.dumps(aggregator_times()))
+        log("SUBSET_SEARCH at ByzPy's shapes " + json.dumps(subset_search_times()))
     # phase 4i runs after the timing: its child processes and threads stay
     # out of phase 5's profiles; its launches count with the main path's
-    log("== 4i. more than 128 rows ((a) every family at 129-512 x 65,536 against the CPU, the "
-        "captured step, the ragged executor at 256) and the out-of-process tier ((b) ByzPy's "
-        "pool table on process pools of 2 and 4; (c) configs #1, #2 on the pool of 4; (d) "
-        "process_mnist; (e) remote_tcp behind a wire key; (f) P2P on ProcessContext); " + smi)
-    log("WIDE_PROCESS_PATH " + json.dumps(wide_process_path(counts)))
-    # phase 4j last: its children and its NCCL process group stay out of the
-    # earlier phases; its launches count with the main path's
-    log("== 4j. the rest of the engine and the device mesh ((a) the legacy runtime: NodeRunner "
-        "children and StepParameterServer; (b) MeshRemoteContext; (c) the CLI; (d) the mesh PS "
-        "round on one NCCL rank, ResNet-18 for CIFAR; (e) 2 and 4 gloo ranks on the card); " + smi)
-    log("ENGINE_MESH_PATH " + json.dumps(engine_mesh_path(counts, smi)))
+    if "4i" in phases:
+        log("== 4i. more than 128 rows ((a) every family at 129-512 x 65,536 against the CPU, the "
+            "captured step, the ragged executor at 256) and the out-of-process tier ((b) ByzPy's "
+            "pool table on process pools of 2 and 4; (c) configs #1, #2 on the pool of 4; (d) "
+            "process_mnist; (e) remote_tcp behind a wire key; (f) P2P on ProcessContext); " + smi)
+        log("WIDE_PROCESS_PATH " + json.dumps(wide_process_path(counts)))
+    # phases 4j and 4k last: their children and process groups stay out of
+    # the earlier phases; their launches count with the main path's
+    if "4j" in phases:
+        log("== 4j. the rest of the engine and the device mesh ((a) the legacy runtime: "
+            "NodeRunner children and StepParameterServer; (b) MeshRemoteContext; (c) the CLI; (d) "
+            "the mesh PS round on one NCCL rank, ResNet-18 for CIFAR; (e) 2 and 4 gloo ranks on "
+            "the card); " + smi)
+        log("ENGINE_MESH_PATH " + json.dumps(engine_mesh_path(counts, smi)))
+    if "4k" in phases:
+        log("== 4k. the training mesh ((a) jit_ps_train_step(mesh=) on one NCCL rank, ResNet-18; "
+            "(b) the gossip round over the mesh, update_sharding off and on, and compiled; (e) "
+            "ParameterServer(update_sharding='on'); (c) the ring and its shard split on 4 gloo "
+            "ranks, ResNet-18; (d) the (2, 2) grid round on 4 gloo ranks, SmallCNN); " + smi)
+        log("TRAINING_MESH_PATH " + json.dumps(training_mesh_path(counts, smi)))
 
+    if times is None or "3" not in phases:
+        # a partial run prints no kernels line: its numbers would be partial
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count},
+                          "phases": sorted(phases)}))
+        return 0
     entries = []
     for key, source, replaces in KERNELS:
         t = times[key]

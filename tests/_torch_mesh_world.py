@@ -1,13 +1,16 @@
 """Gloo worlds for the mesh tests: spawned ranks running named cases.
 
 Not a test module (no ``test_`` prefix): ``tests/test_torch_collectives.py``,
-``tests/test_torch_mesh_ps.py`` and ``tests/test_torch_comms.py`` start a
-:class:`World` of 2 or 4 ranks once a module and send it case names. A
-rank joins a gloo group through a ``file://`` rendezvous in the test's
-temporary directory (no fixed port, so parallel test workers never
-collide), builds a 1-D ``nodes`` mesh on the CPU and runs each case
-function of this module on its own part of the data, returning numpy
-arrays and plain values. This module imports no JAX and nothing of the
+``tests/test_torch_mesh_ps.py``, ``tests/test_torch_comms.py`` and
+``tests/test_torch_mesh_gossip.py`` start a :class:`World` of 2 or 4 ranks
+once a module and send it case names. A rank joins a gloo group through a
+``file://`` rendezvous in the test's temporary directory (no fixed port,
+so parallel test workers never collide), builds a 1-D ``nodes`` mesh on
+the CPU and runs each case function of this module on its own part of the
+data, returning numpy arrays and plain values; a case that takes
+``grid=(nodes, data)`` runs on a 2-D ``(nodes, data)`` mesh of the same
+ranks instead, made once a rank (:func:`grid_of`). A rank runs one intra-op
+thread. This module imports no JAX and nothing of the
 JAX package, so a rank never loads them; the JAX package's reference runs
 in the test process.
 """
@@ -111,6 +114,20 @@ class World:
 
 
 # -- data ------------------------------------------------------------------
+
+
+_GRIDS: Dict[Any, Any] = {}
+
+
+def grid_of(shape):
+    """This rank's ``(nodes, data)`` mesh of ``shape``, made at its first
+    use (every rank reaches it in the same case) and kept."""
+    from byzpy_tpu_torch.parallel.mesh import grid_mesh
+
+    shape = tuple(shape)
+    if shape not in _GRIDS:
+        _GRIDS[shape] = grid_mesh(*shape, device="cpu")
+    return _GRIDS[shape]
 
 
 def local_inputs(seed: int, size: int, shape, kind: str = "normal") -> np.ndarray:
@@ -221,25 +238,24 @@ def linear_loss(p, x, y):
     return torch.mean((x @ p["w"]) * y)
 
 
-def port_aggregate(name: str):
+def port_aggregate(name: str, f: int = 2, q: int = 4):
     """The port's aggregate (or ``(pre_aggregate, aggregate)``) by name."""
     from byzpy_tpu_torch.ops import preagg, robust
 
-    f = 2
     table = {
         "trimmed": functools.partial(robust.trimmed_mean, f=f),
         "median": robust.coordinate_median,
         "meamed": functools.partial(robust.mean_of_medians, f=f),
         "mean": functools.partial(torch.mean, dim=0),
-        "multi_krum": functools.partial(robust.multi_krum, f=f, q=4),
+        "multi_krum": functools.partial(robust.multi_krum, f=f, q=q),
         "krum": functools.partial(robust.krum, f=f),
         "cge": functools.partial(robust.cge, f=f),
         "monna": functools.partial(robust.monna, f=f),
         "geomed": functools.partial(robust.geometric_median, max_iter=64),
         "cclip": functools.partial(robust.centered_clipping, c_tau=0.05, M=5),
-        "nnm_mk": functools.partial(robust.nnm_multi_krum, f_nnm=f, f=f, q=4),
-        "clip_mk": functools.partial(robust.clipped_multi_krum, tau=0.05, f=f, q=4),
-        "arc_mk": functools.partial(robust.arc_multi_krum, f_arc=f, f=f, q=4),
+        "nnm_mk": functools.partial(robust.nnm_multi_krum, f_nnm=f, f=f, q=q),
+        "clip_mk": functools.partial(robust.clipped_multi_krum, tau=0.05, f=f, q=q),
+        "arc_mk": functools.partial(robust.arc_multi_krum, f_arc=f, f=f, q=q),
         "clip+trimmed": (functools.partial(preagg.clip_rows, threshold=0.05),
                          functools.partial(robust.trimmed_mean, f=f)),
         "nnm+trimmed": (functools.partial(preagg.nnm, f=f),
@@ -272,18 +288,19 @@ ATTACKS = {"empire": _empire, "mimic": _mimic}
 def port_step(mesh, agg: str, *, n_byz: int = 2, lr: float = 0.125, momentum: float = 0.5,
               comm=None, su=None, gather=None, gather_ef: bool = False, comm_ef: bool = False,
               adam: bool = False, seed: int = 0, attack: str = "empire",
-              n_nodes: int = N_NODES, d_in: int = D_IN):
+              n_nodes: int = N_NODES, d_in: int = D_IN, f: int = 2, q: int = 4,
+              compiled: bool = False):
     """``build_ps_train_step`` of the linear bundle (``mesh=None``: the
-    single-device round)."""
+    single-device round; ``compiled``: ``jit_ps_train_step``)."""
     from byzpy_tpu_torch.models import ModelBundle
     from byzpy_tpu_torch.parallel import Adam, CommPrecision, PSStepConfig, ShardedUpdateConfig
-    from byzpy_tpu_torch.parallel.ps import build_ps_train_step
+    from byzpy_tpu_torch.parallel.ps import build_ps_train_step, jit_ps_train_step
 
     w, xs, ys = linear_data(seed, n_nodes=n_nodes, d_in=d_in)
     bundle = ModelBundle(module=torch.nn.Module(), params={"w": torch.from_numpy(w)},
                          loss_fn=linear_loss)
     cfg = PSStepConfig(n_nodes=n_nodes, n_byzantine=n_byz, learning_rate=lr, momentum=momentum)
-    fn = port_aggregate(agg)
+    fn = port_aggregate(agg, f, q)
     pre, fn = fn if isinstance(fn, tuple) else (None, fn)
     kw = {}
     if su is not None or gather is not None:
@@ -295,8 +312,10 @@ def port_step(mesh, agg: str, *, n_byz: int = 2, lr: float = 0.125, momentum: fl
         kw["comm_precision"] = CommPrecision(comm, error_feedback=comm_ef)
     if adam:
         kw["optimizer"] = Adam(1e-3)
-    step, opt = build_ps_train_step(bundle, fn, cfg, attack=ATTACKS[attack], pre_aggregate=pre,
-                                    mesh=mesh, **kw)
+    if compiled:
+        kw["donate"] = False
+    build = jit_ps_train_step if compiled else build_ps_train_step
+    step, opt = build(bundle, fn, cfg, attack=ATTACKS[attack], pre_aggregate=pre, mesh=mesh, **kw)
     return step, opt, bundle.params, torch.from_numpy(xs), torch.from_numpy(ys)
 
 
@@ -310,10 +329,11 @@ def _np(tree):
     return tree
 
 
-def ps_round(mesh, rank, size, *, agg: str, steps: int = 3, **kw):
-    """``steps`` mesh rounds: each step's parameters, metrics and this
-    rank's optimizer state, as numpy."""
-    step, opt, params, xs, ys = port_step(mesh, agg, **kw)
+def ps_round(mesh, rank, size, *, agg: str, steps: int = 3, grid=None, **kw):
+    """``steps`` mesh rounds (on the ``(nodes, data)`` mesh ``grid``
+    where given): each step's parameters, metrics and this rank's
+    optimizer state, as numpy."""
+    step, opt, params, xs, ys = port_step(grid_of(grid) if grid else mesh, agg, **kw)
     out = {"opt0": _np(opt), "steps": []}
     for _ in range(steps):
         params, opt, metrics = step(params, opt, xs, ys)
@@ -323,25 +343,26 @@ def ps_round(mesh, rank, size, *, agg: str, steps: int = 3, **kw):
     return out
 
 
-def ps_traffic(mesh, rank, size, *, agg: str = "trimmed", **kw):
+def ps_traffic(mesh, rank, size, *, agg: str = "trimmed", grid=None, **kw):
     """One mesh round's traffic record: wire bytes by opcode, the ops (with
     their dtypes), and the bytes of this rank's carried state before it."""
     from byzpy_tpu_torch.parallel.comms import collective_traffic, measured_opt_state_bytes
 
-    step, opt, params, xs, ys = port_step(mesh, agg, **kw)
+    step, opt, params, xs, ys = port_step(grid_of(grid) if grid else mesh, agg, **kw)
     rec = collective_traffic(step, params, opt, xs, ys)
     ops = [(op.opcode, op.dtype, op.result_bytes, op.group_size) for op in rec["ops"]]
     return rec["per_opcode_bytes"], ops, measured_opt_state_bytes(opt)
 
 
 def refusals(mesh, rank, size):
-    """Every door of the mesh slice that still raises: the message of each."""
+    """Every door of the mesh slice: the message of each that raises, and
+    ``None`` for each that builds."""
+    from byzpy_tpu_torch.aggregators import CAF, CoordinateWiseTrimmedMean
     from byzpy_tpu_torch.engine.parameter_server import ParameterServer
     from byzpy_tpu_torch.engine.peer_to_peer import Topology
     from byzpy_tpu_torch.models import ModelBundle
     from byzpy_tpu_torch.parallel import gossip
     from byzpy_tpu_torch.parallel import ps as P
-    from byzpy_tpu_torch.parallel.mesh import make_mesh
 
     w, _, _ = linear_data()
     bundle = ModelBundle(module=torch.nn.Module(), params={"w": torch.from_numpy(w)},
@@ -357,9 +378,8 @@ def refusals(mesh, rank, size):
         else:
             out[name] = None
 
-    grid = make_mesh([1, size], ("nodes", "data"), device="cpu")
     catch("grid_round", lambda: P.build_ps_train_step(bundle, port_aggregate("trimmed"), cfg,
-                                                      mesh=grid))
+                                                      mesh=grid_of((size // 2, 2))))
     catch("jit_mesh", lambda: P.jit_ps_train_step(bundle, port_aggregate("trimmed"), cfg,
                                                   mesh=mesh))
     catch("serving", lambda: P.build_serving_ps_step(bundle, None, mesh=mesh))
@@ -367,14 +387,20 @@ def refusals(mesh, rank, size):
                                                                    mesh=mesh))
     gcfg = gossip.GossipStepConfig(n_nodes=N_NODES, n_byzantine=2)
     catch("gossip", lambda: gossip.build_gossip_train_step(
-        bundle, port_aggregate("trimmed"), Topology.complete(N_NODES), gcfg, mesh=mesh))
+        bundle, port_aggregate("trimmed"), Topology.complete(N_NODES), gcfg, mesh=mesh,
+        update_sharding="on"))
     catch("jit_gossip", lambda: gossip.jit_gossip_train_step(
         bundle, port_aggregate("trimmed"), Topology.complete(N_NODES), gcfg, mesh=mesh))
-    catch("ring_gossip", lambda: gossip.build_ring_gossip_train_step(bundle, mesh=mesh))
-    catch("actor_ps", lambda: ParameterServer([object()], aggregator=None, update_sharding="on"))
+    catch("ring_gossip", lambda: gossip.build_ring_gossip_train_step(
+        bundle, port_aggregate("median"), gossip.GossipStepConfig(n_nodes=size, n_byzantine=1),
+        mesh, k=1))
+    catch("actor_ps", lambda: ParameterServer([object()], aggregator=CoordinateWiseTrimmedMean(f=0,
+                                                                                              device="cpu"),
+                                              update_sharding="on"))
     for name in ("caf", "bucketing"):
         catch(name, lambda name=name: port_step(mesh, name))
     catch("unknown", lambda: P.build_ps_train_step(bundle, lambda m: m.mean(0), cfg, mesh=mesh))
+    catch("actor_ps_caf", lambda: _actor_round(mesh, CAF(f=2, device="cpu"), "on"))
     catch("uneven_nodes", lambda: P.build_ps_train_step(
         bundle, port_aggregate("trimmed"), P.PSStepConfig(n_nodes=size * 2 + 1, n_byzantine=1),
         mesh=mesh))
@@ -420,3 +446,212 @@ def mesh_api(mesh, rank, size):
         set_default_mesh(None)
     out["cleared"] = created is None and get_default_mesh() is None
     return out
+
+
+# -- the gossip rounds' cases ----------------------------------------------
+
+GOSSIP_NODES, GOSSIP_BYZ, GOSSIP_LR = 8, 2, 0.125
+
+
+def port_gossip_aggregate(name: str):
+    from byzpy_tpu_torch.ops import robust
+
+    return {
+        "median": robust.coordinate_median,
+        "trimmed": functools.partial(robust.trimmed_mean, f=1),
+        "multi_krum": functools.partial(robust.multi_krum, f=1, q=2),
+        "nnm_mk": functools.partial(robust.nnm_multi_krum, f_nnm=1, f=1, q=2),
+        "geomed": functools.partial(robust.geometric_median, max_iter=16),
+    }[name]
+
+
+def gossip_round(mesh, rank, size, *, agg: str, su=None, comm=None, steps: int = 3, k: int = 3,
+                 grid=None, compiled: bool = False):
+    """``steps`` rounds of the mesh gossip step on ``Topology.ring(8, k)``
+    (``compiled``: ``jit_gossip_train_step``): this rank's rows after each
+    step and the honest losses. The byzantine nodes mimic honest node 0."""
+    from byzpy_tpu_torch.engine.peer_to_peer import Topology
+    from byzpy_tpu_torch.models import ModelBundle
+    from byzpy_tpu_torch.parallel import gossip
+
+    w, xs, ys = linear_data(n_nodes=GOSSIP_NODES)
+    bundle = ModelBundle(module=torch.nn.Module(), params={"w": torch.from_numpy(w)},
+                         loss_fn=linear_loss)
+    cfg = gossip.GossipStepConfig(GOSSIP_NODES, GOSSIP_BYZ, GOSSIP_LR)
+    kw = dict(attack=_mimic, comm_precision=comm, mesh=grid_of(grid) if grid else mesh,
+              update_sharding=su)
+    if compiled:
+        step, init = gossip.jit_gossip_train_step(bundle, port_gossip_aggregate(agg),
+                                                  Topology.ring(GOSSIP_NODES, k), cfg,
+                                                  donate=False, **kw)
+    else:
+        step, init = gossip.build_gossip_train_step(bundle, port_gossip_aggregate(agg),
+                                                    Topology.ring(GOSSIP_NODES, k), cfg, **kw)
+    theta, out = init(), []
+    for _ in range(steps):
+        theta, metrics = step(theta, torch.from_numpy(xs), torch.from_numpy(ys))
+        out.append((theta.numpy().copy(), float(metrics["honest_loss"])))
+    return out
+
+
+def ring_exchange_case(mesh, rank, size, *, k: int, int8: bool = False):
+    """``ring_exchange`` of this rank's vector (its rank, or int8 codes and
+    scales of a seeded row)."""
+    from byzpy_tpu_torch.parallel import gossip
+    from byzpy_tpu_torch.parallel.quantization import quantize_blockwise
+
+    if not int8:
+        return gossip.ring_exchange(torch.full((4,), float(rank)), k, axis_name="nodes",
+                                    mesh=mesh).numpy()
+    q = quantize_blockwise(torch.from_numpy(local_inputs(7, size, (600,))[rank]), block=256)
+    return (gossip.ring_exchange(q.values, k, axis_name="nodes", mesh=mesh).numpy(),
+            gossip.ring_exchange(q.scales, k, axis_name="nodes", mesh=mesh).numpy())
+
+
+def ring_round(mesh, rank, size, *, agg: str = "median", su=None, comm=None, gather=None,
+               k: int = 2, steps: int = 3):
+    """``steps`` rounds of ``build_ring_gossip_train_step`` (one node a
+    rank, the last byzantine, no attack: it sends ``-half``): this rank's
+    row after each step and the honest loss."""
+    from byzpy_tpu_torch.models import ModelBundle
+    from byzpy_tpu_torch.parallel import ShardedUpdateConfig, gossip
+
+    w, xs, ys = linear_data(n_nodes=size)
+    bundle = ModelBundle(module=torch.nn.Module(), params={"w": torch.from_numpy(w)},
+                         loss_fn=linear_loss)
+    sharded = su if gather is None else ShardedUpdateConfig(su, param_gather_precision=gather)
+    step, init = gossip.build_ring_gossip_train_step(
+        bundle, port_gossip_aggregate(agg), gossip.GossipStepConfig(size, 1, GOSSIP_LR), mesh,
+        k=k, comm_precision=comm, update_sharding=sharded)
+    theta, out = init(), []
+    for _ in range(steps):
+        theta, loss = step(theta, torch.from_numpy(xs), torch.from_numpy(ys))
+        out.append((theta.numpy().copy(), float(loss)))
+    return out
+
+
+# -- the actor PS with the sharded update ----------------------------------
+
+
+class _GradNode:
+    def __init__(self, grad):
+        self.grad = grad
+
+    def honest_gradient_for_next_batch(self):
+        return [self.grad]
+
+    def apply_server_gradient(self, grad):
+        pass
+
+
+def _actor_round(mesh, aggregator, update_sharding, pre=None):
+    import asyncio
+
+    from byzpy_tpu_torch.configs import use_mesh
+    from byzpy_tpu_torch.engine.parameter_server import ParameterServer
+
+    rng = np.random.default_rng(0)
+    grads = [torch.from_numpy(rng.normal(size=4096).astype(np.float32)) for _ in range(N_NODES)]
+    ps = ParameterServer([_GradNode(g) for g in grads], aggregator=aggregator, pre_aggregator=pre,
+                         update_sharding=update_sharding)
+    with use_mesh(mesh):
+        return asyncio.run(ps.round())
+
+
+def actor_ps(mesh, rank, size, *, which: str, mode):
+    """One ``ParameterServer`` round over 8 seeded 4,096-wide gradients,
+    every rank the same (the SPMD contract), under the default mesh
+    ``mesh``: the trimmed mean, or NNM -> Multi-Krum (the fused pipeline)."""
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean, MultiKrum
+    from byzpy_tpu_torch.pre_aggregators import NearestNeighborMixing
+
+    if which == "trimmed":
+        agg, pre = CoordinateWiseTrimmedMean(f=2, device="cpu"), None
+    else:
+        agg, pre = MultiKrum(f=2, q=4, device="cpu"), NearestNeighborMixing(f=2, device="cpu")
+    out = _actor_round(mesh, agg, mode, pre)
+    return out[0].numpy()
+
+
+def compiled_equals_eager(mesh, rank, size, *, kind: str):
+    """The compiled mesh step on CPU tensors against the eager one: each
+    step's parameters (PS) or rows (gossip) from both, as numpy."""
+    if kind == "ps":
+        out = []
+        for compiled in (False, True):
+            step, opt, params, xs, ys = port_step(mesh, "trimmed", su="on", compiled=compiled)
+            ws = []
+            for _ in range(3):
+                params, opt, _ = step(params, opt, xs, ys)
+                ws.append(params["w"].numpy().copy())
+            out.append(ws)
+        return out
+    return [[t for t, _ in gossip_round(mesh, rank, size, agg="trimmed", su="on",
+                                        compiled=compiled)] for compiled in (False, True)]
+
+
+def ring_wrong_size(mesh, rank, size):
+    from byzpy_tpu_torch.models import ModelBundle
+    from byzpy_tpu_torch.parallel import gossip
+
+    w, _, _ = linear_data()
+    bundle = ModelBundle(module=torch.nn.Module(), params={"w": torch.from_numpy(w)},
+                         loss_fn=linear_loss)
+    try:
+        gossip.build_ring_gossip_train_step(bundle, port_gossip_aggregate("median"),
+                                            gossip.GossipStepConfig(size + 1, 1), mesh)
+    except ValueError as exc:
+        return str(exc)
+    return "built"
+
+
+def grid_odd_batch(mesh, rank, size):
+    step, opt, params, xs, ys = port_step(grid_of((size // 2, 2)), "trimmed", n_nodes=4, n_byz=1,
+                                          f=1)
+    try:
+        step(params, opt, xs[:, :BATCH - 1], ys[:, :BATCH - 1])
+    except ValueError as exc:
+        return str(exc)
+    return "ran"
+
+
+# -- collectives over two mesh axes -----------------------------------------
+
+GRID_AXES = ("nodes", "data")
+
+
+def _grid_block(t, spec, shape, rank):
+    """This rank's block of a whole tensor under ``spec`` on the grid
+    ``shape``: ``"nodes"`` splits over the first axis, a tuple of both
+    over the product, nodes major."""
+    for dim, entry in enumerate(spec or ()):
+        if entry == "nodes":
+            return torch.chunk(t, shape[0], dim=dim)[rank // shape[1]].contiguous()
+        if entry == GRID_AXES:
+            return torch.chunk(t, shape[0] * shape[1], dim=dim)[rank].contiguous()
+    return t
+
+
+def grid_collective(mesh, rank, size, *, op: str, seed: int, shape, kind: str = "normal",
+                    kw: Dict[str, Any] = None, grid=(2, 2)):
+    """``op`` of ``parallel.collectives`` over both axes of the grid."""
+    from byzpy_tpu_torch.parallel import collectives as C
+
+    x = torch.from_numpy(local_inputs(seed, size, shape, kind)[rank])
+    return getattr(C, op)(x, GRID_AXES, mesh=grid_of(grid), **(kw or {})).numpy()
+
+
+def grid_reshard(mesh, rank, size, *, seed: int, shape, src, dst, precision=None, grid=(2, 2)):
+    """``reshard_q`` of this rank's block of a whole tensor between layouts
+    of the grid (specs with ``"nodes"`` or ``("nodes", "data")``)."""
+    from byzpy_tpu_torch.parallel import collectives as C
+    from byzpy_tpu_torch.parallel.mesh import replicated, sharding
+
+    g = grid_of(grid)
+    full = torch.from_numpy(local_inputs(seed, 1, shape)[0])
+
+    def layout(spec):
+        return replicated(g) if spec is None else sharding(g, *spec)
+
+    x = _grid_block(full, src, grid, rank)
+    return C.reshard_q(x, layout(src), layout(dst), precision=precision).numpy()

@@ -261,7 +261,7 @@ def test_ps_twin_on_cpu_is_the_eager_step():
             assert _same_bits((pe, oe, me), (pt, ot, mt))
         assert not twin.graphs and twin.last_capture is None
     assert kernels.launch_counts["graph_replay:ps_train_step"] == 0
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         jit_ps_train_step(bundle, robust.coordinate_median, cfg, mesh=object())
 
 

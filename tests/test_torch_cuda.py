@@ -2725,3 +2725,166 @@ def test_cuda_one_rank_nccl_round_equals_mesh_none(nccl_mesh, su):
         assert all(_bits_equal(p0[k], p1[k]) for k in p0)
         assert m0["agg_grad_norm"] == m1["agg_grad_norm"]
         assert m0["honest_loss"] == pytest.approx(m1["honest_loss"], rel=1e-6)
+
+
+# (name, the mesh=None aggregate and pre-aggregate) of the C.2 check
+C2_CASES = {
+    "geomed": ("geometric_median", {}, None),
+    "clip+trimmed": ("trimmed_mean", {"f": 2}, ("clip_rows", {"threshold": 10_000.0})),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(C2_CASES))
+def test_cuda_sharded_form_at_resnet18_width_matches_mesh_none(nccl_mesh, name):
+    """One aggregation of an 8 x 11,173,962 matrix (ResNet-18 for CIFAR's
+    width, rows like its gradients, two of them 5x), the sharded form on
+    the one-rank NCCL mesh against the ``mesh=None`` function on the same
+    matrix: this separates a summation-order difference from a fault
+    before training drift compounds it. The sharded geometric median sums
+    its distances with ``row_sq_dists`` and B11 and all-reduces them, and
+    stops on its own step lengths; ``mesh=None`` runs B7's loop: both stop
+    at ``tol = 1e-6``, so they are held within 1e-5 of the largest entry.
+    Clip + trimmed mean differ only in the clip factors' norms (the
+    all-reduced ``row_sq_dists`` against ``clip_rows``' own): within f32
+    rounding, rtol 1e-6 and an absolute ulp of the largest clipped entry
+    (a trimmed mean of values near 3 that cancel to near 0 keeps their
+    rounding, not its own). Each case prints its distance."""
+    import functools
+
+    from byzpy_tpu_torch.ops import preagg, robust
+    from byzpy_tpu_torch.parallel.feature_sharded import FeatureGroup, sharded_form
+
+    fn_name, kw, pre = C2_CASES[name]
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(8, 11_173_962)).astype(np.float32))
+    x = x.to("cuda")
+    x[6:] *= 5.0
+    fn = functools.partial(getattr(robust, fn_name), **kw)
+    group = FeatureGroup(nccl_mesh, "nodes")
+    form = sharded_form(fn, group)
+    if pre is None:
+        got = form(x)
+        it_form = robust.last_iterations.get("geometric_median")
+        want = fn(x)
+        it_plain = robust.last_iterations.get("geometric_median")
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"C2 {name}: max |sharded - mesh=None| {diff:.3e} (|z| max {scale:.4f}); Weiszfeld "
+              f"steps {it_form} / {it_plain}")
+        assert diff <= 1e-5 * scale, (diff, scale, it_form, it_plain)
+    else:
+        pre_fn = functools.partial(getattr(preagg, pre[0]), **pre[1])
+        clipped = pre_fn(x)
+        got = form(sharded_form(pre_fn, group)(x))
+        want = fn(clipped)
+        ulp = float(torch.finfo(torch.float32).eps) * float(clipped.abs().max())
+        print(f"C2 {name}: max |sharded - mesh=None| {float((got - want).abs().max()):.3e} (an ulp "
+              f"of the largest clipped entry {ulp:.3e})")
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=ulp)
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_mesh_step_replays_the_eager_mesh_step(nccl_mesh):
+    """``jit_ps_train_step(mesh=)`` on the one-rank NCCL mesh: the NCCL
+    collectives run inside the graph, and three replays equal three eager
+    mesh steps bit for bit (SmallCNN, trimmed mean, the sharded update)."""
+    import functools
+
+    from byzpy_tpu_torch.models import nets, synthetic_classification
+    from byzpy_tpu_torch.ops import attack_ops, robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, build_ps_train_step, jit_ps_train_step
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    x, y = synthetic_classification(n_samples=8 * 16, seed=5, device="cuda")
+    xs, ys = x.reshape(8, 16, 28, 28, 1), y.reshape(8, 16)
+    cfg = PSStepConfig(n_nodes=8, n_byzantine=2)
+    kw = dict(mesh=nccl_mesh, sharded_update="on",
+              attack=lambda h, g: attack_ops.sign_flip(h.mean(0)))
+    agg = functools.partial(robust.trimmed_mean, f=2)
+    bundle = nets.mnist_cnn(seed=0, device="cuda")
+    eager, opt = build_ps_train_step(bundle, agg, cfg, **kw)
+    compiled, copt = jit_ps_train_step(bundle, agg, cfg, donate=False, **kw)
+    pe, oe, pc, oc = bundle.params, opt, bundle.params, copt
+    for _ in range(3):
+        pe, oe, me = eager(pe, oe, xs, ys)
+        pc, oc, mc = compiled(pc, oc, xs, ys)
+        assert all(_bits_equal(pe[k], pc[k]) for k in pe)
+        assert float(me["agg_grad_norm"]) == float(mc["agg_grad_norm"])
+    assert len(compiled.graphs) == 1
+    assert compiled.last_capture["launches"].get("sorted_reduce:trimmed", 0) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_mesh_step_refuses_a_host_reading_form(nccl_mesh):
+    """The geometric median's sharded form tests its stop on the host each
+    Weiszfeld step: the capture refuses it with ``GraphCaptureError``."""
+    from byzpy_tpu_torch.models import nets, synthetic_classification
+    from byzpy_tpu_torch.ops import robust
+    from byzpy_tpu_torch.parallel import PSStepConfig, jit_ps_train_step
+    from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
+
+    x, y = synthetic_classification(n_samples=8 * 16, seed=5, device="cuda")
+    bundle = nets.mnist_cnn(seed=0, device="cuda")
+    step, opt = jit_ps_train_step(bundle, robust.geometric_median, PSStepConfig(n_nodes=8),
+                                  mesh=nccl_mesh)
+    with pytest.raises(GraphCaptureError, match="on feature-sharded columns reads its stopping "
+                                                "test on the host"):
+        step(bundle.params, opt, x.reshape(8, 16, 28, 28, 1), y.reshape(8, 16))
+    assert not step.graphs
+
+
+_GLOO_CAPTURE = r"""
+import socket, sys, torch, torch.distributed as dist
+from byzpy_tpu_torch.models import nets, synthetic_classification
+from byzpy_tpu_torch.ops import kernels, robust
+from byzpy_tpu_torch.parallel import PSStepConfig, collectives, jit_ps_train_step
+from byzpy_tpu_torch.parallel.mesh import init_process_group, node_mesh
+from byzpy_tpu_torch.utils.cuda_graph import GraphCaptureError
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
+torch.cuda.set_device(0)
+init_process_group(f"tcp://127.0.0.1:{port}", 1, 0, backend="gloo")
+mesh = node_mesh(device="cuda")
+x, y = synthetic_classification(n_samples=8 * 16, seed=5, device="cuda")
+bundle = nets.mnist_cnn(seed=0, device="cuda")
+step, opt = jit_ps_train_step(bundle, robust.coordinate_median, PSStepConfig(n_nodes=8), mesh=mesh)
+before = dict(kernels.launch_counts)
+try:
+    step(bundle.params, opt, x.reshape(8, 16, 28, 28, 1), y.reshape(8, 16))
+    print("CAPTURED")
+except GraphCaptureError as exc:
+    print("REFUSED", "gloo" in str(exc), dict(kernels.launch_counts) == before, not step.graphs)
+# the backstop: a gloo collective inside a capture raises the same error
+g = torch.cuda.CUDAGraph()
+t = torch.ones(4, device="cuda")
+try:
+    with torch.cuda.graph(g):
+        collectives.all_reduce_sum(t, "nodes", mesh=mesh)
+    print("BACKSTOP CAPTURED")
+except GraphCaptureError as exc:
+    print("BACKSTOP", "gloo" in str(exc))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_mesh_step_refuses_a_gloo_group():
+    """A mesh over gloo groups on CUDA tensors (gloo moves them through the
+    host): ``jit_ps_train_step(mesh=)`` refuses at the capture with a
+    ``GraphCaptureError`` naming gloo, keeps no graph and counts no launch
+    (its warm-up's are taken back), and a gloo collective inside any
+    capture raises the same error. In a process of its own, since
+    its default process group is gloo."""
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _GLOO_CAPTURE], capture_output=True, text=True,
+                         timeout=300, cwd=root, env={**os.environ, "PYTHONPATH": root})
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.split("\n")
+    assert "REFUSED True True True" in lines, out.stdout
+    assert "BACKSTOP True" in lines, out.stdout

@@ -306,10 +306,15 @@ def test_ps_constructor_errors_match_reference():
                                        elastic=pkg.ps.ElasticPolicy(min_quorum=2))
             msgs.append((str(empty.value), str(quorum.value)))
         assert msgs[0] == msgs[1]
+    # update_sharding builds in both packages (the feature-sharded round is
+    # held in tests/test_torch_mesh_gossip.py); an unknown mode is refused
     Honest, _ = _classes(PORT)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+    for pkg in (PORT, REF):
+        H, _ = _classes(pkg)
+        pkg.ps.ParameterServer([H(0)], aggregator=_aggregator(pkg, "median"), update_sharding="on")
+    with pytest.raises(ValueError, match="mode must be one of"):
         PPS.ParameterServer([Honest(0)], aggregator=_aggregator(PORT, "median"),
-                            update_sharding="on")
+                            update_sharding="sideways")
 
 
 def test_ps_round_failure_without_elastic_raises_like_reference():
