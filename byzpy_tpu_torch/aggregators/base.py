@@ -28,6 +28,14 @@ The ragged members (``ragged_score_kind``, ``ragged_coalesce``,
 serving tier's flat-rows door (:mod:`byzpy_tpu_torch.serving.ragged`) a
 program that aggregates a batch of cohorts at once; the default runs the
 masked program per cohort (:func:`~byzpy_tpu_torch.ops.ragged.ragged_via_masked`).
+
+The evidence members (``evidence_selects``, ``round_evidence``,
+``merged_score_view``, ``_evidence_rows``, ``_evidence_view``) give the
+forensics plane (:mod:`byzpy_tpu_torch.forensics`) each row's score and
+the selection of one cohort. The scores run on the cohort matrix's device
+through the port's own programs (``robust.krum_scores``,
+``kernels.row_sq_dists``) and are read to the host once a view; the keep
+set is the stable lowest-score pick of the aggregate, on the host.
 """
 
 from __future__ import annotations
@@ -334,6 +342,82 @@ class Aggregator(Operator, ABC):
             return ragged_ops.ragged_via_masked(masked, flat, seg, n_cohorts=n_cohorts), None, None
 
         return generic
+
+    # -- forensics evidence (per-row score view) ---------------------------
+
+    #: True when :meth:`round_evidence` publishes a binary keep set
+    #: (selection aggregators: the Krum family, CGE, MoNNA), so a
+    #: selection-only consumer can skip aggregators whose view carries
+    #: scores but no selection.
+    evidence_selects: bool = False
+
+    def merged_score_view(self, merged: Mapping[str, Any], *, aggregate: Any = None) -> Optional[dict]:
+        """Per-row ``{"kind", "scores", "keep"}`` view of a merged cohort
+        (``merged["rows"]``, every row valid): :meth:`round_evidence` on the
+        merged rows, or ``None`` for an empty merge. The reference's
+        families that reuse merged extras here come with the sharded tier
+        (ROADMAP A.6(c))."""
+        rows = merged["rows"]
+        if int(rows.shape[0]) == 0:
+            return None
+        return self.round_evidence(rows, np.ones((int(rows.shape[0]),), bool), aggregate=aggregate)
+
+    def round_evidence(self, matrix: Any, valid: Any, *, aggregate: Any = None) -> Optional[dict]:
+        """Per-row score/selection view of one (padded) cohort for the
+        forensics plane, or ``None`` when the aggregator publishes no
+        per-row scores (or the valid cohort is empty or inadmissible).
+
+        Returns ``{"kind": str, "scores": (n,) float32 numpy, "keep": (n,)
+        bool numpy or None}`` aligned to the padded slots (invalid rows
+        carry NaN scores and False keeps). ``matrix`` is a tensor (scored
+        on its device) or an array (scored on the aggregator's device);
+        ``aggregate`` (the round's broadcast) is needed only by the
+        centre-seeking aggregators, whose scores are distances to it."""
+        return None
+
+    def _evidence_rows(self, matrix: Any, valid: Any) -> Optional[tuple]:
+        """Shared preamble of the ``round_evidence`` overrides: the valid
+        rows as a float32 tensor (on the matrix's device, or the
+        aggregator's for an array), their padded indices (host numpy) and
+        the padded row count, or ``None`` when the valid cohort is empty or
+        ``validate_n`` rejects its size."""
+        mask = valid.cpu().numpy() if isinstance(valid, torch.Tensor) else valid
+        mask = np.asarray(mask, bool)
+        idx = np.flatnonzero(mask)
+        m = int(idx.size)
+        if m == 0:
+            return None
+        try:
+            self.validate_n(m)
+        except ValueError:
+            return None
+        if isinstance(matrix, torch.Tensor):
+            x = matrix
+        else:
+            x = torch.as_tensor(np.asarray(matrix, np.float32), device=self.device)
+        rows = x[torch.from_numpy(idx).to(x.device)].to(torch.float32)
+        return rows, idx, int(mask.shape[0])
+
+    @staticmethod
+    def _evidence_view(kind: str, n: int, idx, scores, keep_local=None) -> dict:
+        """Scatter compacted per-row ``scores`` (a tensor, read to the host
+        here, or an array) and an optional local keep index set back to the
+        padded positions."""
+        if isinstance(scores, torch.Tensor):
+            scores = scores.cpu().numpy()
+        full = np.full((n,), np.nan, np.float32)
+        full[idx] = np.asarray(scores, np.float32)
+        keep = None
+        if keep_local is not None:
+            keep = np.zeros((n,), bool)
+            keep[idx[np.asarray(keep_local)]] = True
+        return {"kind": kind, "scores": full, "keep": keep}
+
+    @staticmethod
+    def _evidence_center(aggregate: Any, rows: torch.Tensor) -> torch.Tensor:
+        """The round's aggregate as a ``(d,)`` float32 tensor on the rows'
+        device (the centre-seeking views' distances are to it)."""
+        return torch.as_tensor(aggregate).reshape(-1).to(device=rows.device, dtype=torch.float32)
 
     def validate_n(self, n: int) -> None:
         """Hook for subclasses to validate hyperparameters against n."""

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ...ops import ragged as ragged_ops
@@ -99,6 +100,35 @@ class CoordinateWiseTrimmedMean(FeatureChunkedAggregator, Aggregator):
             return aggs, None, None
 
         return fn
+
+    #: Coordinate cap of the clip-fraction evidence: past it the rank pass
+    #: reads an evenly strided subset of the columns (evidence is a
+    #: screening signal, not the aggregate).
+    _EVIDENCE_MAX_COORDS = 65536
+
+    def round_evidence(self, matrix, valid, *, aggregate=None):
+        """Per-row clip counts: the fraction of a row's coordinates that
+        fell in the trimmed ``f``-smallest / ``f``-largest window. The
+        (sampled) columns are read to the host once and ranked there with
+        the reference's stable order; ``keep`` is None (trimming is per
+        coordinate)."""
+        pre = self._evidence_rows(matrix, valid)
+        if pre is None:
+            return None
+        rows, idx, n = pre
+        m, d = rows.shape
+        if self.f == 0:
+            return self._evidence_view("trim_fraction", n, idx, np.zeros((m,), np.float32))
+        if d > self._EVIDENCE_MAX_COORDS:
+            sample = np.linspace(0, d - 1, self._EVIDENCE_MAX_COORDS, dtype=np.int64)
+            rows = rows[:, torch.from_numpy(sample).to(rows.device)]
+        cols = rows.cpu().numpy()
+        order = np.argsort(cols, axis=0, kind="stable")
+        ranks = np.empty_like(order)
+        np.put_along_axis(ranks, order, np.arange(m, dtype=order.dtype)[:, None], axis=0)
+        trimmed = (ranks < self.f) | (ranks >= m - self.f)
+        frac = trimmed.mean(axis=1).astype(np.float32)
+        return self._evidence_view("trim_fraction", n, idx, frac)
 
     # -- arrival-order streaming fold ------------------------------------
 

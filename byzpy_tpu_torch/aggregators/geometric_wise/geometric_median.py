@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops import robust
+from ...ops import kernels, robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator
 from ..chunked import BarrieredIterativeAggregator, _weiszfeld_chunk, sum_in_order
@@ -60,6 +60,20 @@ class GeometricMedian(BarrieredIterativeAggregator, Aggregator):
         return robust.masked_geometric_median(
             x, valid, tol=self.tol, max_iter=self.max_iter, eps=self.eps, init=self.init
         )
+
+    def round_evidence(self, matrix, valid, *, aggregate=None):
+        """Weiszfeld-weight view: each row's distance to the published
+        geometric median (``kernels.row_sq_dists`` on the rows' device; a
+        large score is a down-weighted row). Needs the round's
+        ``aggregate``; ``None`` without it."""
+        if aggregate is None:
+            return None
+        pre = self._evidence_rows(matrix, valid)
+        if pre is None:
+            return None
+        rows, idx, n = pre
+        dists = torch.sqrt(kernels.row_sq_dists(rows, self._evidence_center(aggregate, rows)))
+        return self._evidence_view("geomed_distance", n, idx, dists)
 
     # -- barriered hooks (pool mode) -----------------------------------------
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from ...ops import ragged as ragged_ops
@@ -124,6 +125,21 @@ class MultiKrum(RowScoredAggregator, Aggregator):
                                                 segment_sum=segment_sum)
 
         return fn
+
+    evidence_selects = True
+
+    def round_evidence(self, matrix, valid, *, aggregate=None):
+        """Krum-distance scores (``robust.krum_scores`` on the rows' device:
+        B3's Gram on the card) and the lowest-``q`` selection, scattered to
+        the padded positions; the tie rule is the aggregate's stable
+        lowest-``q`` pick."""
+        pre = self._evidence_rows(matrix, valid)
+        if pre is None:
+            return None
+        rows, idx, n = pre
+        scores = robust.krum_scores(rows, f=self.f).cpu().numpy()
+        keep_local = np.argsort(scores, kind="stable")[: int(self.q)]
+        return self._evidence_view("krum_distance", n, idx, scores, keep_local)
 
     # -- arrival-order streaming fold ------------------------------------
 

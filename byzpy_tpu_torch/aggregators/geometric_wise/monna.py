@@ -9,9 +9,10 @@ fans out row ranges of distances to the reference row
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ...ops import robust
+from ...ops import kernels, robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator, check_chunk_size
 from ..chunked import RowScoredAggregator
@@ -69,6 +70,21 @@ class MoNNA(RowScoredAggregator, Aggregator):
 
     def _aggregate_stream_matrix(self, xs: torch.Tensor) -> torch.Tensor:
         return robust.monna_stream(xs, f=self.f, reference_index=self.reference_index)
+
+    evidence_selects = True
+
+    def round_evidence(self, matrix, valid, *, aggregate=None):
+        """Squared distances to the trusted pivot row
+        (``kernels.row_sq_dists`` on the rows' device) and the nearest
+        ``m - f`` selection (stable tie rule)."""
+        pre = self._evidence_rows(matrix, valid)
+        if pre is None:
+            return None
+        rows, idx, n = pre
+        m = rows.shape[0]
+        d2 = kernels.row_sq_dists(rows, rows[int(self.reference_index) % m].contiguous()).cpu().numpy()
+        keep_local = np.argsort(d2, kind="stable")[: m - int(self.f)]
+        return self._evidence_view("reference_distance", n, idx, d2, keep_local)
 
 
 __all__ = ["MoNNA"]

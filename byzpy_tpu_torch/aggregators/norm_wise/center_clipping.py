@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ...ops import robust
+from ...ops import kernels, robust
 from ...utils.device import DeviceLike
 from ..base import Aggregator
 from ..chunked import BarrieredIterativeAggregator, _centered_clip_chunk, sum_in_order
@@ -60,6 +60,22 @@ class CenteredClipping(BarrieredIterativeAggregator, Aggregator):
         return robust.masked_centered_clipping(
             x, valid, c_tau=self.c_tau, M=self.M, eps=self.eps, init=self.init
         )
+
+    def round_evidence(self, matrix, valid, *, aggregate=None):
+        """Clip-ratio view: each row's distance to the published centre
+        (``kernels.row_sq_dists`` on the rows' device) over ``c_tau`` (a
+        ratio above 1: the row was clipped). Needs the round's
+        ``aggregate``; ``None`` without it."""
+        if aggregate is None:
+            return None
+        pre = self._evidence_rows(matrix, valid)
+        if pre is None:
+            return None
+        rows, idx, n = pre
+        dists = torch.sqrt(kernels.row_sq_dists(rows, self._evidence_center(aggregate, rows)))
+        if self.c_tau > 0:
+            return self._evidence_view("clip_ratio", n, idx, dists / self.c_tau)
+        return self._evidence_view("center_distance", n, idx, dists)
 
     # -- barriered hooks (pool mode) -----------------------------------------
 

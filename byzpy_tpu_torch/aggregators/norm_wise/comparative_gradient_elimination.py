@@ -15,8 +15,10 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
+from ...ops import kernels
 from ...ops import ragged as ragged_ops
 from ...ops import robust
 from ...utils.device import DeviceLike
@@ -91,6 +93,20 @@ class ComparativeGradientElimination(RowScoredAggregator, Aggregator):
                                          segment_sum=segment_sum)
 
         return fn
+
+    evidence_selects = True
+
+    def round_evidence(self, matrix, valid, *, aggregate=None):
+        """Per-row L2-norm scores (``kernels.row_sq_dists`` on the rows'
+        device) and the lowest-``m - f`` selection (stable tie rule, as
+        the selection program's)."""
+        pre = self._evidence_rows(matrix, valid)
+        if pre is None:
+            return None
+        rows, idx, n = pre
+        norms = torch.sqrt(kernels.row_sq_dists(rows)).cpu().numpy()
+        keep_local = np.argsort(norms, kind="stable")[: rows.shape[0] - int(self.f)]
+        return self._evidence_view("norm", n, idx, norms, keep_local)
 
     # -- arrival-order streaming fold ------------------------------------
 

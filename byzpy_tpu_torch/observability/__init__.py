@@ -1,9 +1,11 @@
 """Runtime telemetry: the switch, spans and the metrics registry.
 
 Counterpart of ``byzpy_tpu/observability``, cut to what the orchestrators
-read (``runtime.STATE``, ``tracing.span`` / ``device_span`` /
-``begin_span`` / ``end_span``, ``metrics.registry()``); the flight
-recorder, SLOs, the critical path and the exporters wait for ROADMAP A.6.
+and the serving frontend read: ``runtime.STATE``, the spans and their
+context (``tracing``), the registry of counters, gauges and histograms
+with its Prometheus and JSONL exporters (``metrics``), and the
+program-build counts (``jitstats``). The flight recorder, SLOs, the
+critical path and the catalog wait for ROADMAP A.6(c).
 Telemetry is off by default; :func:`enable` or ``BYZPY_TPU_TELEMETRY=1``
 turns it on. This package imports no engine module and not torch at
 import time.

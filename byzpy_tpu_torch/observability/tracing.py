@@ -4,10 +4,13 @@ Counterpart of ``byzpy_tpu/observability/tracing.py``, cut to what the
 orchestrators open: ``span("ps.fold", track="ps", slot=3)`` brackets one
 stage of a round; closed spans land in the process :class:`Tracer`'s
 ring as chrome-trace events (``name``, ``ts``, ``dur``, ``tid``, ``args``)
-with the span names and tracks of the JAX package. The chrome and
-Perfetto export and instants come with the rest of the telemetry layer
-(ROADMAP A.6). The wire context (:func:`wire_context`,
-:func:`adopt_context`) links a span across a process or socket boundary.
+with the span names and tracks of the JAX package; :func:`instant` records
+a zero-duration event, and :meth:`Tracer.chrome_trace` /
+:meth:`Tracer.export_chrome_trace` write the ring for Perfetto. The wire
+context (:func:`wire_context`, :func:`adopt_context`) links a span across a
+process or socket boundary; :func:`current_context`,
+:class:`context_scope` and :func:`carry_context` thread it by hand and
+across an executor hop (``loop.run_in_executor`` copies no contextvars).
 
 Cost: with telemetry off (:mod:`.runtime`) :func:`span`,
 :func:`device_span` and :func:`begin_span` are one flag check returning
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import contextvars
 import itertools
+import json
 import os
 import threading
 import time
@@ -53,6 +57,13 @@ def _new_id() -> str:
     return f"{_ID_PREFIX}{next(_IDS):x}"
 
 
+def current_context() -> Optional[Tuple[str, str]]:
+    """The innermost open span's ``(trace_id, span_id)``, or ``None``
+    outside any span (always ``None`` with telemetry off: a disabled span
+    never sets the context)."""
+    return _CTX.get()
+
+
 def wire_context() -> Optional[Tuple[str, str]]:
     """The current ``(trace_id, span_id)`` to stamp on a wire frame, with
     telemetry on and a span open; else ``None`` (one flag check)."""
@@ -73,6 +84,41 @@ def adopt_context(ctx: Any) -> None:
         _CTX.set((str(trace_id), str(span_id)))
     except Exception:  # noqa: BLE001 - wire input
         pass
+
+
+class context_scope:
+    """Scoped parent override: spans opened inside the ``with`` block are
+    children of ``ctx`` (a ``(trace_id, span_id)`` pair, e.g. a round
+    span's :attr:`Span.context`); ``ctx=None`` starts a fresh root."""
+
+    __slots__ = ("_ctx", "_token")
+
+    def __init__(self, ctx: Optional[Tuple[str, str]]) -> None:
+        self._ctx = None if ctx is None else (str(ctx[0]), str(ctx[1]))
+        self._token = None
+
+    def __enter__(self) -> "context_scope":
+        self._token = _CTX.set(self._ctx)
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        if self._token is not None:
+            _CTX.reset(self._token)
+        return False
+
+
+def carry_context(fn):
+    """Wrap a callable about to cross an executor boundary so the caller's
+    trace position rides along and the spans it opens stay in the caller's
+    tree. With telemetry off, ``fn`` itself after one flag check."""
+    if not runtime.STATE.enabled:
+        return fn
+    ctx = contextvars.copy_context()
+
+    def _run(*args: Any, **kwargs: Any):
+        return ctx.run(fn, *args, **kwargs)
+
+    return _run
 
 
 class _NullSpan:
@@ -115,6 +161,12 @@ class Span:
     def set(self, **attrs: Any) -> "Span":
         self.attrs.update(attrs)
         return self
+
+    @property
+    def context(self) -> Tuple[str, str]:
+        """This span's ``(trace_id, span_id)``: the parent context a child
+        opened elsewhere should carry."""
+        return (self.trace_id, self.span_id)
 
     def __enter__(self) -> "Span":
         parent = _CTX.get()
@@ -191,6 +243,7 @@ class Tracer:
         self._events: deque = deque(maxlen=capacity)
         self._tracks: Dict[str, int] = {}
         self._epoch_ns = time.perf_counter_ns()
+        self._epoch_unix_s = time.time()
         self.dropped = 0
 
     def _tid(self, track: Optional[str]) -> int:
@@ -218,6 +271,27 @@ class Tracer:
                 self.dropped += 1
             self._events.append(ev)
 
+    def span(self, name: str, track: Optional[str] = None, **attrs: Any) -> Span:
+        """Open a span on this tracer (unconditionally: the flag-checked
+        door is the module-level :func:`span`)."""
+        return Span(self, name, track, attrs)
+
+    def instant(self, name: str, track: Optional[str] = None, **attrs: Any) -> None:
+        """Record an instant (zero-duration) event."""
+        ev: Dict[str, Any] = {
+            "name": name,
+            "ph": "i",
+            "s": "t",
+            "ts": (time.perf_counter_ns() - self._epoch_ns) / 1e3,
+            "tid": self._tid(track),
+        }
+        if attrs:
+            ev["args"] = attrs
+        with self._lock:
+            if len(self._events) == self._events.maxlen:
+                self.dropped += 1
+            self._events.append(ev)
+
     def events(self) -> List[dict]:
         """The retained events, oldest first."""
         with self._lock:
@@ -232,6 +306,51 @@ class Tracer:
         with self._lock:
             self._events.clear()
             self.dropped = 0
+
+    def chrome_trace(self) -> dict:
+        """The chrome-trace JSON object (``traceEvents`` and metadata) for
+        Perfetto or ``chrome://tracing``: a name event per named track the
+        retained events use, the events, and a flow arrow for every
+        parent/child link across tracks."""
+        pid = os.getpid()
+        retained = self.events()
+        used_tids = {ev["tid"] for ev in retained}
+        with self._lock:
+            tracks = dict(self._tracks)
+        events: List[dict] = []
+        for track, tid in sorted(tracks.items(), key=lambda kv: kv[1]):
+            if tid in used_tids:
+                events.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                               "args": {"name": track}})
+        for ev in retained:
+            events.append({"pid": pid, **ev})
+        by_span = {ev["args"]["span"]: ev for ev in retained
+                   if ev.get("ph") == "X" and "span" in ev.get("args", ())}
+        flow_id = 0
+        for ev in retained:
+            if ev.get("ph") != "X":
+                continue
+            parent = by_span.get(ev.get("args", {}).get("parent"))
+            if parent is None or parent["tid"] == ev["tid"]:
+                continue
+            flow_id += 1
+            events.append({"name": "trace", "cat": "flow", "ph": "s", "id": flow_id, "pid": pid,
+                           "tid": parent["tid"], "ts": parent["ts"]})
+            events.append({"name": "trace", "cat": "flow", "ph": "f", "bp": "e", "id": flow_id,
+                           "pid": pid, "tid": ev["tid"], "ts": ev["ts"]})
+        return {
+            "traceEvents": events,
+            "displayTimeUnit": "ms",
+            "otherData": {"producer": "byzpy_tpu_torch.observability",
+                          "epoch_unix_s": self._epoch_unix_s, "dropped_events": self.dropped},
+        }
+
+    def export_chrome_trace(self, path: str) -> int:
+        """Write :meth:`chrome_trace` to ``path``; returns the event count."""
+        trace = self.chrome_trace()
+        with open(path, "w") as fh:
+            json.dump(trace, fh)
+        return len(trace["traceEvents"])
 
 
 _TRACER = Tracer()
@@ -278,14 +397,29 @@ def end_span(sp) -> None:
     sp.__exit__(None, None, None)
 
 
+def instant(name: str, track: Optional[str] = None, **attrs: Any) -> None:
+    """Record an instant event on the process tracer (flag-checked); inside
+    an open span it links into the trace (``trace`` / ``parent`` args)."""
+    if runtime.STATE.enabled:
+        ctx = _CTX.get()
+        if ctx is not None:
+            attrs.setdefault("trace", ctx[0])
+            attrs.setdefault("parent", ctx[1])
+        _TRACER.instant(name, track, **attrs)
+
+
 __all__ = [
     "NULL_SPAN",
     "Span",
     "Tracer",
     "adopt_context",
     "begin_span",
+    "carry_context",
+    "context_scope",
+    "current_context",
     "device_span",
     "end_span",
+    "instant",
     "span",
     "tracer",
     "wire_context",

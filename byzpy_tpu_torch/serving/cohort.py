@@ -30,6 +30,7 @@ from torch.profiler import record_function
 
 from ..aggregators.base import Aggregator
 from ..engine.actor import wire
+from ..observability import tracing as obs_tracing
 from ..parallel.quantization import dequantize_rows
 from ..utils.device import DeviceLike, resolve_device
 from .buckets import BucketLadder
@@ -141,6 +142,8 @@ def build_cohort(
     *,
     quantized: bool = False,
     device: DeviceLike = None,
+    tenant: str = "",
+    track: Optional[str] = None,
 ) -> Cohort:
     """Pad one round's submissions into the smallest bucket that holds
     them (``ladder=None``: the exact size, ``bucket == m``, the ragged
@@ -152,13 +155,15 @@ def build_cohort(
     a wire row of the same spec (mode, block, code and scale counts, ``d``):
     the cohort stacks the codes and scales, and the rows are decoded on the
     device by whoever reads them. Mixed or dense rounds take the dense
-    layout, wire rows decoded as an ingress decode would decode them. The
-    reference's ``tenant`` and ``track`` (trace-row attribution) come with
-    the observability plane."""
+    layout, wire rows decoded as an ingress decode would decode them.
+    ``tenant`` attributes the telemetry span ``serving.bucket_pad`` to the
+    tenant's trace row; ``track`` overrides the row's name."""
     dev = resolve_device(device)
     m = len(submissions)
     bucket = m if ladder is None else ladder.bucket_for(m)
-    with record_function("serving.bucket_pad"):
+    with obs_tracing.span("serving.bucket_pad", track=track or (f"tenant:{tenant}" if tenant else None),
+                          round=server_round, m=m, bucket=bucket, tenant=tenant), \
+            record_function("serving.bucket_pad"):
         g0 = submissions[0].gradient
         weights = np.zeros((bucket,), np.float32)
         valid = np.zeros((bucket,), bool)
@@ -193,19 +198,26 @@ class CohortAggregator:
     ``aggregate(cohort)`` scales any stale rows by their discount (a fresh
     row's weight is exactly 1.0 and its bits never change), then reduces
     the padded matrix through ``Aggregator.aggregate_masked``: the masked
-    program for a finite cohort, the exact subset path otherwise."""
+    program for a finite cohort, the exact subset path otherwise.
+    ``tenant`` / ``track`` attribute the telemetry spans ``serving.fold``
+    and ``serving.device_step``."""
 
-    def __init__(self, aggregator: Aggregator) -> None:
+    def __init__(self, aggregator: Aggregator, *, tenant: str = "", track: Optional[str] = None) -> None:
         self.aggregator = aggregator
+        self.tenant = tenant
+        self._track = track or (f"tenant:{tenant}" if tenant else None)
 
     def aggregate(self, cohort: Cohort) -> Any:
         """Aggregate one cohort to a ``(d,)`` vector."""
-        with record_function("serving.fold"):
+        with obs_tracing.span("serving.fold", track=self._track, m=cohort.m, bucket=cohort.bucket,
+                              tenant=self.tenant), record_function("serving.fold"):
             matrix = cohort.matrix
             if bool((cohort.weights[: cohort.m] != 1.0).any()):
                 weights = torch.from_numpy(cohort.weights).to(matrix.device)
                 matrix = matrix * weights[:, None]
-            return self.aggregator.aggregate_masked(matrix, cohort.valid)
+            with obs_tracing.device_span("serving.device_step", track=self._track, m=cohort.m,
+                                         bucket=cohort.bucket, tenant=self.tenant):
+                return self.aggregator.aggregate_masked(matrix, cohort.valid)
 
 
 __all__ = ["Cohort", "CohortAggregator", "build_cohort"]

@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 4j,4k`` runs the device probe, the build and the phases named
-(of 3, 4, 4b-4h, 5, 4i, 4j, 4k) and ends on the ``ok`` line without the
+(of 3, 4, 4b-4h, 5, 4i, 4j, 4k, 4l) and ends on the ``ok`` line without the
 kernels line (its numbers need phases 3 and 5); with no argument every
 phase runs, as below.
 
@@ -256,6 +256,25 @@ the int8 payload within a code step a step, and (d) the (2, 2) grid round
 of SmallCNN, within 1e-4 of the largest weight from the single-device
 round, its all-gather equal to the law's term for 4 shards. Host ms a step,
 peak GiB and launches are printed beside the card's name and power limit.
+
+Last, phase 4l: ``ServingFrontend`` at SmallCNN's width (d = 421,642,
+each client's gradient its own batch of 64), (a) four tenants (the
+trimmed mean f = 2, the median, Multi-Krum f = 2, q = 4 with forensics on,
+the geometric median), cohorts of 6, 13, 29 and 64 clients with 2
+sign-flipped, 5 rounds each, through in-process ``submit`` and
+``close_round_nowait`` with the ragged door on: every round's aggregate
+bit for bit the port's executor called directly on the same submissions,
+each family's kernels launched and no plain version called; (b) the same
+with the door off (``CohortAggregator`` on the ladder's bucket); (c)
+``serve()`` and ``ServingClient`` over loopback TCP, 16 clients on 4
+connections, the async scheduler closing a Multi-Krum round, the wire off,
+int8 and s4, bit for bit the executor on the rows the wire delivered, B12
+and the B14 / B17 decode launched for the compressed modes; (d) a WAL and
+snapshots in a temporary directory, then ``recover``: the recovered round's
+digest equals an uninterrupted run's; (e) a trimmed-mean tenant at
+ResNet-18's width (d = 11,173,962), 8 clients, 2 rounds. It prints submit
+and close-to-aggregate host ms, the launches, device ms and host reads of a
+round, and peak GiB.
 
 TF32 is off for matmuls and cuDNN convolutions, so f32 stays f32. The
 line before the last is a JSON object with every kernel; the last line is
@@ -6606,6 +6625,462 @@ def training_mesh_path(counts: dict, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4l: the serving frontend
+# ---------------------------------------------------------------------------
+
+# four tenants at SmallCNN's width, cohorts of these sizes, FRONT_ROUNDS
+# rounds each, FRONT_BYZ sign-flipped clients a cohort
+FRONT_COHORTS = (6, 13, 29, 64)
+FRONT_ROUNDS = 5
+FRONT_BYZ = 2
+FRONT_CAP = 64
+# (c): clients over loopback TCP, on this many connections
+TCP_CLIENTS, TCP_CONNS = 16, 4
+TCP_MODES = ("off", "int8", "s4")
+# (e): ResNet-18 for CIFAR's width
+WIDE_FRONT_D, WIDE_FRONT_CLIENTS, WIDE_FRONT_ROUNDS = 11_173_962, 8, 2
+
+
+def front_tenants(forensics: bool = True) -> dict:
+    """(a)/(b)'s tenants: name -> (class factory of ``device``, the kernels a
+    round must launch with the ragged door on, and with it off)."""
+    from byzpy_tpu_torch.aggregators import (
+        CoordinateWiseMedian, CoordinateWiseTrimmedMean, GeometricMedian, MultiKrum,
+    )
+
+    b = FRONT_BYZ
+    return {
+        # the segmented sort-reduce (door on); B2 and B11 (door off)
+        "trimmed_mean": (lambda dev: CoordinateWiseTrimmedMean(b, device=dev),
+                         ("segmented_sort_reduce",), ("sort_columns", "segment_sum")),
+        "median": (lambda dev: CoordinateWiseMedian(device=dev),
+                   ("segmented_sort_reduce",), ("sort_columns",)),
+        # B3's Gram and B11; with forensics on, the door's fused scores
+        # (door on) or the Krum evidence view's Gram (door off)
+        "multi_krum": (lambda dev: MultiKrum(b, 4, device=dev),
+                       ("gram", "segment_sum"), ("gram", "segment_sum")),
+        # the masked median start (B2) and B7's masked Weiszfeld loop
+        "geometric_median": (lambda dev: GeometricMedian(device=dev),
+                             ("sort_columns", "center_loop:masked_weiszfeld"),
+                             ("sort_columns", "center_loop:masked_weiszfeld")),
+    }
+
+
+class PlainCalls:
+    """Counts the kernel wrappers' plain-version calls (``_on_cpu`` answering
+    True) while active: on the card's path there must be none."""
+
+    def __init__(self):
+        from byzpy_tpu_torch.ops import codec_kernels, kernels
+
+        self.mods = (kernels, codec_kernels)
+        self.real = kernels._on_cpu
+        self.calls = 0
+
+    def __enter__(self):
+        def counting(*tensors):
+            plain = self.real(*tensors)
+            self.calls += int(plain)
+            return plain
+
+        for mod in self.mods:
+            mod._on_cpu = counting
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod._on_cpu = self.real
+        return False
+
+
+def smallcnn_client_rows(n: int, seed: int):
+    """``(n, 421,642)`` SmallCNN per-client gradients on the card, each
+    client its own batch of 64 at the initial parameters."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
+
+    bundle = make_bundle(SmallCNN(), seed=0, device="cuda")
+    per_node = vmap(grad_and_value(bundle.loss_fn), in_dims=(None, 0, 0))
+    x, y = synthetic_classification(n_samples=n * MAIN_BATCH, seed=seed, device="cuda")
+    grads, _ = per_node(bundle.params, x.reshape(n, MAIN_BATCH, 28, 28, 1), y.reshape(n, MAIN_BATCH))
+    return torch.cat([grads[k].reshape(n, -1) for k in bundle.params], dim=1)
+
+
+def front_round_rows(honest, m: int, rnd: int):
+    """Round ``rnd``'s cohort of ``m`` host rows: the first ``m - FRONT_BYZ``
+    honest gradients moved by a seeded round perturbation, the last
+    ``FRONT_BYZ`` the sign-flipped honest mean (client i's round stamp is
+    one round behind for i % 4 == 1)."""
+    import torch
+
+    from byzpy_tpu_torch.ops import attack_ops
+
+    g = torch.Generator(device="cuda").manual_seed(1000 + rnd)
+    rows = honest[:m].clone()
+    rows += 1e-3 * torch.randn(rows.shape, generator=g, device="cuda")
+    rows[m - FRONT_BYZ:] = attack_ops.sign_flip(rows[:m - FRONT_BYZ].mean(dim=0))
+    return rows.cpu().numpy()
+
+
+def front_stats(values) -> dict:
+    vals = sorted(values)
+    return {"median": vals[len(vals) // 2], "min": vals[0], "max": vals[-1], "n": len(vals)}
+
+
+def front_door(counts: dict, honest, door: str) -> dict:
+    """(a) / (b): the four tenants through ``ServingFrontend`` with the
+    ragged door on or off: per cohort size, FRONT_ROUNDS rounds of in-process
+    ``submit`` and ``close_round_nowait``. Every round's aggregate is bit for
+    bit the port's executor called directly on the same submissions (the
+    tenant group's ``RaggedExecutor`` with the door on, ``CohortAggregator``
+    on the ladder's bucket with it off); the round launched every expected
+    kernel and no plain version; on the last cohort size one round per
+    tenant is profiled and one counts its host reads."""
+    import torch
+
+    from byzpy_tpu_torch.forensics import ForensicsConfig
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.serving import (
+        BucketLadder, CohortAggregator, CreditPolicy, RaggedExecutor, ServingFrontend,
+        StalenessPolicy, Submission, TenantConfig, build_cohort,
+    )
+
+    os.environ["BYZPY_TPU_TORCH_RAGGED"] = "1" if door == "ragged" else "0"
+    policy = StalenessPolicy("exponential", gamma=0.5)
+    d = int(honest.shape[1])
+    specs = front_tenants()
+    aggs = {name: make(None) for name, (make, _, _) in specs.items()}
+    fe = ServingFrontend([
+        TenantConfig(name, aggs[name], dim=d, cohort_cap=FRONT_CAP, min_bucket=2, staleness=policy,
+                     credit=CreditPolicy(rate_per_s=0.0),
+                     forensics=ForensicsConfig() if name == "multi_krum" else None)
+        for name in specs], clock=time.monotonic)
+    check(all(fe.stats()[n]["ragged_served"] == (door == "ragged") for n in specs),
+          f"(a/b) {door}: ragged_served")
+    direct = {name: RaggedExecutor(aggs[name], d, FRONT_CAP, 1, with_evidence=False)
+              for name in specs}
+    ladder = BucketLadder(FRONT_CAP, min_bucket=2)
+    submit_ms, close_ms, launches = [], {}, {}
+    plain = PlainCalls()
+    rid = 0
+    for m in FRONT_COHORTS:
+        for rnd in range(FRONT_ROUNDS):
+            rows = front_round_rows(honest, m, rid)
+            for name, (_, want_on, want_off) in specs.items():
+                subs = []
+                for i in range(m):
+                    stamp = rid - (i % 4 == 1)
+                    t0 = time.perf_counter()
+                    ok = fe.submit(name, f"{name}/c{i}", stamp, rows[i], seq=rid)
+                    submit_ms.append((time.perf_counter() - t0) * 1e3)
+                    check(ok == (True, "accepted"), f"(a/b) {door} {name}: submit {ok}")
+                    subs.append(Submission(f"{name}/c{i}", stamp, rows[i], 0.0))
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                with plain:
+                    closed = fe.close_round_nowait(name)
+                    torch.cuda.synchronize()
+                close_ms.setdefault(f"{name}:{m}", []).append((time.perf_counter() - t0) * 1e3)
+                run_counts = dict(kernels.launch_counts)
+                for k, v in run_counts.items():
+                    counts[k] += v
+                want = want_on if door == "ragged" else want_off
+                check(closed is not None and closed[0] == rid and closed[1].m == m,
+                      f"(a/b) {door} {name}: round {rid} of {m} did not close")
+                check(all(run_counts[k] > 0 for k in want),
+                      f"(a/b) {door} {name} m={m}: {want} not all launched: {run_counts}")
+                launches[f"{name}:{m}"] = {k: v for k, v in run_counts.items() if v}
+                vec = closed[2]
+                check(vec.is_cuda, f"(a/b) {door} {name}: the aggregate left the card")
+                if door == "ragged":
+                    cohort = build_cohort(subs, rid, None, policy, quantized=True)
+                    ref = direct[name].aggregate([cohort], [name])[0].vector
+                else:
+                    ref = CohortAggregator(aggs[name]).aggregate(build_cohort(subs, rid, ladder, policy))
+                check(bits_equal(vec, ref),
+                      f"(a/b) {door} {name} m={m} round {rid}: differs from the executor called directly")
+            rid += 1
+    check(plain.calls == 0, f"(a/b) {door}: {plain.calls} plain-version calls on the card's path")
+    # one profiled round and one counted round per tenant at the largest cohort
+    profiles, reads = {}, {}
+    m = FRONT_COHORTS[-1]
+    rows = front_round_rows(honest, m, rid)
+    for name in specs:
+        def one_round(name=name):
+            for i in range(m):
+                fe.submit(name, f"{name}/c{i}", fe.round_of(name), rows[i], seq=10_000 + fe.round_of(name))
+            return fe.close_round_nowait(name)
+
+        profiles[name] = profile_steps(one_round, steps=2)
+        for i in range(m):
+            fe.submit(name, f"{name}/c{i}", fe.round_of(name), rows[i], seq=20_000 + fe.round_of(name))
+        _, reads[name] = count_syncs(lambda name=name: fe.close_round_nowait(name))
+    forensics = fe.stats()["multi_krum"]["forensics"]
+    check(forensics["rounds_observed"] >= len(FRONT_COHORTS) * FRONT_ROUNDS,
+          f"(a/b) {door}: forensics observed {forensics['rounds_observed']} rounds")
+    out = {
+        "submit_host_ms": front_stats(submit_ms),
+        "close_to_aggregate_ms": {k: front_stats(v) for k, v in close_ms.items()},
+        "launches_per_round": launches,
+        "profile_at_64": profiles,
+        "host_reads_per_round_at_64": reads,
+        "plain_calls": plain.calls,
+        "forensics_excluded_byzantine": forensics["trust"]["lowest_trust_clients"][:FRONT_BYZ],
+        "ragged": fe.stats()["median"]["frontend"]["ragged"],
+        "executor_bitwise": True,
+    }
+    log(f"  ({'a' if door == 'ragged' else 'b'}) door {door}: every round of "
+        f"{len(FRONT_COHORTS) * FRONT_ROUNDS * len(specs)} == the executor called directly bitwise, "
+        f"no plain call; submit {out['submit_host_ms']['median']:.4f} ms; close-to-aggregate "
+        + ", ".join(f"{k} {v['median']:.2f}" for k, v in out["close_to_aggregate_ms"].items())
+        + f"; host reads at 64 {reads}")
+    return out
+
+
+async def front_tcp(honest, mode: str) -> dict:
+    """(c) one mode: ``serve()`` and TCP_CLIENTS clients on TCP_CONNS
+    ``ServingClient`` connections over loopback, the async scheduler closing
+    the round on its size trigger (a Multi-Krum tenant, door on). The
+    aggregate is bit for bit the executor called directly on the rows the
+    wire delivered (the clients' host encode, replayed here)."""
+    import asyncio
+
+    import torch
+
+    from byzpy_tpu_torch.aggregators import MultiKrum
+    from byzpy_tpu_torch.engine.actor import wire
+    from byzpy_tpu_torch.ops import kernels
+    from byzpy_tpu_torch.serving import (
+        CreditPolicy, RaggedExecutor, ServingClient, ServingFrontend, StalenessPolicy, Submission,
+        TenantConfig, build_cohort,
+    )
+
+    os.environ["BYZPY_TPU_TORCH_RAGGED"] = "1"
+    if mode == "off":
+        os.environ.pop("BYZPY_TPU_TORCH_WIRE_PRECISION", None)
+    else:
+        os.environ["BYZPY_TPU_TORCH_WIRE_PRECISION"] = mode
+    try:
+        rows = front_round_rows(honest, TCP_CLIENTS, 77)
+        d = rows.shape[1]
+        agg = MultiKrum(FRONT_BYZ, 4)
+        policy = StalenessPolicy()
+        fe = ServingFrontend([TenantConfig("mk", agg, dim=d, cohort_cap=TCP_CLIENTS, window_s=120.0,
+                                           credit=CreditPolicy(rate_per_s=0.0), staleness=policy)])
+        await fe.start()
+        acks, ack_ms = [], []
+        try:
+            host, port = await fe.serve()
+            clients = [ServingClient() for _ in range(TCP_CONNS)]
+            for c in clients:
+                await c.connect(host, port)
+
+            async def send(k):
+                for i in range(k, TCP_CLIENTS, TCP_CONNS):
+                    t0 = time.perf_counter()
+                    acks.append(await clients[k].submit("mk", f"c{i}", 0, rows[i]))
+                    ack_ms.append((time.perf_counter() - t0) * 1e3)
+
+            t0 = time.perf_counter()
+            await asyncio.gather(*(send(k) for k in range(TCP_CONNS)))
+            rid = await asyncio.wait_for(fe.drain("mk"), 300)
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t0
+            # the round's launches, before the check's own
+            launches = dict(kernels.launch_counts)
+            vec = fe.last_aggregate("mk")
+            for c in clients:
+                await c.close()
+            stats = fe.stats()["mk"]
+        finally:
+            await fe.close()
+        check(all(a["accepted"] for a in acks) and rid == 1, f"(c) {mode}: acks {acks[:2]}, round {rid}")
+        sent = [wire.compress_payload({"g": torch.from_numpy(rows[i])}, mode)["g"] for i in range(TCP_CLIENTS)]
+        subs = [Submission(f"c{i}", 0, sent[i], 0.0) for i in range(TCP_CLIENTS)]
+        cohort = build_cohort(subs, 0, None, policy, quantized=True)
+        check(cohort.quantized == (mode != "off"), f"(c) {mode}: cohort layout")
+        ref = RaggedExecutor(agg, d, TCP_CLIENTS, 1, with_evidence=False).aggregate([cohort], ["mk"])[0].vector
+        check(bits_equal(vec, ref), f"(c) {mode}: differs from the executor on the delivered rows")
+        return {"ack_host_ms": front_stats(ack_ms), "round_s": round_s, "launch_counts": launches,
+                "ingress_bytes": stats["ingress_bytes"],
+                "quantized_dispatches": stats["frontend"]["ragged"]["quantized_dispatches"]}
+    finally:
+        os.environ.pop("BYZPY_TPU_TORCH_WIRE_PRECISION", None)
+
+
+def front_recover(honest) -> dict:
+    """(d) WAL and snapshots in a temporary directory: three rounds, a fourth
+    cohort admitted (write-ahead logged) but not folded, the frontend
+    dropped; ``ServingFrontend.recover`` resumes at round 3 with the cohort
+    pending, and the round it closes has the digest of an uninterrupted
+    run's round 3."""
+    import tempfile
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.forensics.evidence import evidence_digest
+    from byzpy_tpu_torch.serving import (
+        CreditPolicy, DurabilityConfig, ServingFrontend, TenantConfig,
+    )
+
+    os.environ["BYZPY_TPU_TORCH_RAGGED"] = "1"
+    d = int(honest.shape[1])
+    m = 13
+
+    def cfg():
+        return [TenantConfig("tm", CoordinateWiseTrimmedMean(FRONT_BYZ), dim=d, cohort_cap=FRONT_CAP,
+                             credit=CreditPolicy(rate_per_s=0.0))]
+
+    def feed(fe, rnd):
+        rows = front_round_rows(honest, m, 500 + rnd)
+        for i in range(m):
+            check(fe.submit("tm", f"c{i}", rnd, rows[i], seq=rnd) == (True, "accepted"), "(d) submit")
+
+    straight = ServingFrontend(cfg())
+    digests = []
+    for rnd in range(4):
+        feed(straight, rnd)
+        digests.append(evidence_digest(straight.close_round_nowait("tm")[2]))
+    with tempfile.TemporaryDirectory() as tmp:
+        dur = DurabilityConfig(directory=tmp, snapshot_every=2)
+        first = ServingFrontend(cfg(), durability=dur)
+        for rnd in range(3):
+            feed(first, rnd)
+            first.close_round_nowait("tm")
+        feed(first, 3)
+        for t in first._tenants.values():
+            t.durability.close()
+        del first
+        t0 = time.perf_counter()
+        again = ServingFrontend.recover(cfg(), dur)
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        rec = again.stats()["tm"]["recovered_from"]
+        check(again.round_of("tm") == 3 and rec["replayed_pending"] == m, f"(d) recovered {rec}")
+        closed = again.close_round_nowait("tm")
+        for t in again._tenants.values():
+            t.durability.close()
+    digest = evidence_digest(closed[2])
+    check(closed[0] == 3 and digest == digests[3], f"(d) recovered round 3 digest {digest} != {digests[3]}")
+    return {"recovered_from": rec, "recover_ms": recover_ms, "digest": digest,
+            "uninterrupted_digest": digests[3]}
+
+
+def front_wide(counts: dict) -> dict:
+    """(e) one trimmed-mean tenant at ResNet-18's width, WIDE_FRONT_CLIENTS
+    clients (random rows from a seed, two sign-flipped), WIDE_FRONT_ROUNDS
+    rounds through in-process ``submit``: each aggregate bit for bit the
+    executor called directly; peak GiB."""
+    import torch
+
+    from byzpy_tpu_torch.aggregators import CoordinateWiseTrimmedMean
+    from byzpy_tpu_torch.ops import attack_ops, kernels
+    from byzpy_tpu_torch.serving import (
+        CreditPolicy, RaggedExecutor, ServingFrontend, StalenessPolicy, Submission, TenantConfig,
+        build_cohort,
+    )
+
+    os.environ["BYZPY_TPU_TORCH_RAGGED"] = "1"
+    d, m = WIDE_FRONT_D, WIDE_FRONT_CLIENTS
+    agg = CoordinateWiseTrimmedMean(FRONT_BYZ)
+    policy = StalenessPolicy()
+    fe = ServingFrontend([TenantConfig("tm", agg, dim=d, cohort_cap=m,
+                                       credit=CreditPolicy(rate_per_s=0.0))])
+    direct = RaggedExecutor(agg, d, m, 1, with_evidence=False)
+    submit_ms, close_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    plain = PlainCalls()
+    for rnd in range(WIDE_FRONT_ROUNDS):
+        g = torch.Generator(device="cuda").manual_seed(4000 + rnd)
+        dev_rows = torch.randn((m, d), generator=g, device="cuda")
+        dev_rows[m - FRONT_BYZ:] = attack_ops.sign_flip(dev_rows[:m - FRONT_BYZ].mean(dim=0))
+        rows = dev_rows.cpu().numpy()
+        del dev_rows
+        for i in range(m):
+            t0 = time.perf_counter()
+            check(fe.submit("tm", f"c{i}", rnd, rows[i]) == (True, "accepted"), "(e) submit")
+            submit_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with plain:
+            rid, cohort, vec = fe.close_round_nowait("tm")
+            torch.cuda.synchronize()
+        close_ms.append((time.perf_counter() - t0) * 1e3)
+        run_counts = dict(kernels.launch_counts)
+        for k, v in run_counts.items():
+            counts[k] += v
+        check(run_counts["segmented_sort_reduce"] > 0, f"(e) launches {run_counts}")
+        subs = [Submission(f"c{i}", rnd, rows[i], 0.0) for i in range(m)]
+        ref = direct.aggregate([build_cohort(subs, rnd, None, policy, quantized=True)], ["tm"])[0].vector
+        check(rid == rnd and bits_equal(vec, ref), f"(e) round {rnd} differs from the executor")
+    check(plain.calls == 0, f"(e) {plain.calls} plain-version calls")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return {"d": d, "clients": m, "submit_host_ms": front_stats(submit_ms),
+            "close_to_aggregate_ms": close_ms, "peak_gib": peak, "executor_bitwise": True}
+
+
+def frontend_path(counts: dict, smi: str) -> dict:
+    """Phase 4l: ``ServingFrontend`` on the card, (a)-(e) (their docstrings),
+    with the launches of the card's path counted into ``counts``."""
+    import asyncio
+
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    saved = {k: os.environ.get(k) for k in ("BYZPY_TPU_TORCH_RAGGED", "BYZPY_TPU_TORCH_WIRE_PRECISION")}
+    out = {"card": smi}
+    try:
+        t0 = time.perf_counter()
+        honest = smallcnn_client_rows(FRONT_CAP, seed=41)
+        torch.cuda.synchronize()
+        out["client_gradients_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        for key, door in (("a_ragged", "ragged"), ("b_bucketed", "bucketed")):
+            t0 = time.perf_counter()
+            out[key] = front_door(counts, honest, door)
+            out[key]["phase_s"] = time.perf_counter() - t0
+        out["ab_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["c_tcp"] = {}
+        for mode in TCP_MODES:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = asyncio.run(front_tcp(honest, mode))
+            run_counts = res.pop("launch_counts")
+            for k, v in run_counts.items():
+                counts[k] += v
+            if mode != "off":
+                for key in (DECODE_KEY[mode], b12_key(mode)):
+                    check(run_counts[key] > 0, f"(c) {mode}: {key} never launched: {run_counts}")
+            res["launches"] = {k: v for k, v in run_counts.items() if v}
+            res["phase_s"] = time.perf_counter() - t0
+            out["c_tcp"][mode] = res
+            log(f"  (c) {mode}: {TCP_CLIENTS} clients over TCP, == the executor on the delivered rows "
+                f"bitwise; ack {res['ack_host_ms']['median']:.3f} ms; launches {res['launches']}")
+        t0 = time.perf_counter()
+        out["d_recover"] = front_recover(honest)
+        out["d_recover"]["phase_s"] = time.perf_counter() - t0
+        log(f"  (d) recovered {out['d_recover']['recovered_from']}: round 3 digest == uninterrupted")
+        del honest
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["e_resnet18_width"] = front_wide(counts)
+        out["e_resnet18_width"]["phase_s"] = time.perf_counter() - t0
+        log(f"  (e) d = {WIDE_FRONT_D:,}: close-to-aggregate {out['e_resnet18_width']['close_to_aggregate_ms']} ms, "
+            f"peak {out['e_resnet18_width']['peak_gib']:.2f} GiB")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -7877,7 +8352,7 @@ def ptxas_report(text: str, nvcc: str, kernels: tuple) -> list:
     return out
 
 
-PHASES = ("3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "5", "4i", "4j", "4k")
+PHASES = ("3", "4", "4b", "4c", "4d", "4e", "4f", "4g", "4h", "5", "4i", "4j", "4k", "4l")
 MAIN_PATH_PHASES = ("4", "4b", "4c", "4d", "4e", "4f", "4g", "4h")
 
 
@@ -8047,6 +8522,14 @@ def main(argv=None) -> int:
             "ParameterServer(update_sharding='on'); (c) the ring and its shard split on 4 gloo "
             "ranks, ResNet-18; (d) the (2, 2) grid round on 4 gloo ranks, SmallCNN); " + smi)
         log("TRAINING_MESH_PATH " + json.dumps(training_mesh_path(counts, smi)))
+    if "4l" in phases:
+        log("== 4l. the serving frontend (ServingFrontend at SmallCNN's width: (a) four tenants, "
+            "trimmed mean, median, Multi-Krum with forensics and the geometric median, cohorts of "
+            "6, 13, 29 and 64 with 2 sign-flipped clients, 5 rounds each, the ragged door on; (b) "
+            "the same, bucketed; (c) serve() and ServingClient over loopback TCP, 16 clients, wire "
+            "off, int8 and s4; (d) WAL, snapshots and recover; (e) ResNet-18's width, 8 clients); "
+            + smi)
+        log("FRONTEND_PATH " + json.dumps(frontend_path(counts, smi)))
 
     if times is None or "3" not in phases:
         # a partial run prints no kernels line: its numbers would be partial

@@ -2888,3 +2888,84 @@ def test_cuda_compiled_mesh_step_refuses_a_gloo_group():
     lines = out.stdout.split("\n")
     assert "REFUSED True True True" in lines, out.stdout
     assert "BACKSTOP True" in lines, out.stdout
+
+
+# -- the serving frontend on the card ------------------------------------------
+
+FRONTEND_FAMILIES = ("trimmed_mean", "median", "multi_krum", "cge", "geometric_median")
+
+
+def _frontend_agg(name, device):
+    from byzpy_tpu_torch import aggregators as A
+
+    return {
+        "trimmed_mean": lambda: A.CoordinateWiseTrimmedMean(2, device=device),
+        "median": lambda: A.CoordinateWiseMedian(device=device),
+        "multi_krum": lambda: A.MultiKrum(2, 4, device=device),
+        "cge": lambda: A.ComparativeGradientElimination(2, device=device),
+        "geometric_median": lambda: A.GeometricMedian(device=device),
+    }[name]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged_door", ["1", "0"])
+@pytest.mark.parametrize("name", FRONTEND_FAMILIES)
+def test_cuda_frontend_round_is_the_direct_executor(cuda_device, name, ragged_door, monkeypatch):
+    """One ``ServingFrontend`` round on the card (13 clients, every third one
+    round stale, two sign-flipped) is bit for bit the same cohort through
+    ``RaggedExecutor`` (door on) or ``CohortAggregator`` (door off) called
+    directly, and the aggregate stays on the card."""
+    from byzpy_tpu_torch import serving
+
+    monkeypatch.setenv("BYZPY_TPU_TORCH_RAGGED", ragged_door)
+    d, m = 50_001, 13
+    rng = np.random.default_rng(3)
+    base = rng.normal(size=d).astype(np.float32)
+    rows = [(base + 0.3 * rng.normal(size=d)).astype(np.float32) for _ in range(m)]
+    rows[-2:] = [(-4.0 * base).astype(np.float32)] * 2
+    policy = serving.StalenessPolicy("exponential", gamma=0.5)
+    agg = _frontend_agg(name, None)
+    fe = serving.ServingFrontend([serving.TenantConfig(name, agg, dim=d, cohort_cap=16,
+                                                       staleness=policy)], clock=lambda: 0.0)
+    for i, r in enumerate(rows):
+        assert fe.submit(name, f"c{i}", -(i % 3 == 1), r) == (True, "accepted")
+    rid, cohort, vec = fe.close_round_nowait(name)
+    assert rid == 0 and vec.is_cuda and cohort.dense.is_cuda
+    subs = [serving.Submission(f"c{i}", -(i % 3 == 1), r, 0.0) for i, r in enumerate(rows)]
+    if ragged_door == "1":
+        direct = serving.RaggedExecutor(agg, d, row_capacity=16, max_cohorts=1, with_evidence=False)
+        want = direct.aggregate([serving.build_cohort(subs, 0, None, policy)], [name])[0].vector
+    else:
+        want = serving.CohortAggregator(agg).aggregate(
+            serving.build_cohort(subs, 0, serving.BucketLadder(16, min_bucket=2), policy))
+    assert _bits_equal(vec, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["multi_krum", "krum", "cge", "monna", "trimmed_mean",
+                                  "geometric_median", "centered_clipping"])
+def test_cuda_evidence_view_matches_the_cpu(cuda_device, name):
+    """Each evidence view scored on the card (B3's Gram, ``row_sq_dists``)
+    is within rtol 1e-5 of the same view on the CPU, with equal keep sets."""
+    from byzpy_tpu_torch import aggregators as A
+
+    make = {
+        "multi_krum": lambda dev: A.MultiKrum(2, 4, device=dev),
+        "krum": lambda dev: A.Krum(2, device=dev),
+        "cge": lambda dev: A.ComparativeGradientElimination(2, device=dev),
+        "monna": lambda dev: A.MoNNA(2, device=dev),
+        "trimmed_mean": lambda dev: A.CoordinateWiseTrimmedMean(2, device=dev),
+        "geometric_median": lambda dev: A.GeometricMedian(device=dev),
+        "centered_clipping": lambda dev: A.CenteredClipping(c_tau=50.0, device=dev),
+    }[name]
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(16, 100_003)).astype(np.float32)
+    x[9:11] *= -6.0
+    valid = np.arange(16) < 13
+    center = x[:13].mean(axis=0)
+    on_card = make(None).round_evidence(torch.from_numpy(x).cuda(), valid, aggregate=torch.from_numpy(center).cuda())
+    on_cpu = make("cpu").round_evidence(x, valid, aggregate=center)
+    assert on_card["kind"] == on_cpu["kind"]
+    np.testing.assert_allclose(on_card["scores"], on_cpu["scores"], rtol=1e-5, atol=1e-5)
+    if on_cpu["keep"] is not None:
+        np.testing.assert_array_equal(on_card["keep"], on_cpu["keep"])

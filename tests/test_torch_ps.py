@@ -591,7 +591,7 @@ def test_port_imports_no_jax():
                 "aggregators/norm_wise", "pre_aggregators", "engine", "engine/graph",
                 "engine/actor", "engine/actor/backends", "engine/peer_to_peer", "serving",
                 "attacks", "configs", "engine/storage", "engine/actor/transports", "engine/node",
-                "resilience"):
+                "resilience", "analysis", "forensics", "observability"):
         assert REPO / "byzpy_tpu_torch" / sub / "__init__.py" in files, sub
     for module in ("aggregators/base.py", "aggregators/geometric_wise/krum.py",
                    "aggregators/pipelines.py", "pre_aggregators/bucketing.py",
@@ -616,7 +616,12 @@ def test_port_imports_no_jax():
                    "engine/actor/backends/process.py", "engine/actor/backends/remote.py",
                    "engine/actor/transports/tcp.py", "engine/actor/ipc.py",
                    "engine/storage/native_store.py", "engine/node/process_context.py",
-                   "engine/node/remote.py", "resilience/retry.py"):
+                   "engine/node/remote.py", "resilience/retry.py", "resilience/breaker.py",
+                   "resilience/durable.py", "analysis/sanitize.py", "forensics/evidence.py",
+                   "forensics/trust.py", "forensics/plane.py", "forensics/audit.py",
+                   "observability/jitstats.py", "observability/metrics.py",
+                   "observability/tracing.py", "utils/checkpoint.py", "serving/credits.py",
+                   "serving/frontend.py", "serving/ragged.py"):
         assert REPO / "byzpy_tpu_torch" / module in files, module
     bad = []
     for path in files:
