@@ -139,10 +139,6 @@ template <> struct Keys<__half> : Keys16<0x7C00, 0x7E00> {
 // Shared memory, barriers and bulk copies
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 template <class E> __device__ __forceinline__ int32_t lds(unsigned a);
 template <> __device__ __forceinline__ int32_t lds<int32_t>(unsigned a) {
   int32_t v;
@@ -158,40 +154,6 @@ template <> __device__ __forceinline__ int32_t lds<int16_t>(unsigned a) {
 // Named barriers (ids 1..; 0 is __syncthreads): the consumers among
 // themselves, then an empty barrier a stage.
 constexpr int kBarConsumers = 1, kBarEmpty = 2;
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned a, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned a, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned a, unsigned parity) {
-  unsigned ok;
-  asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-               " selp.u32 %0, 1, 0, p;\n}\n" : "=r"(ok) : "r"(a), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// `bytes` (a multiple of 16) from global src (16-byte aligned) to shared
-// dst, completing on the mbarrier at mbar.
-__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned mbar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar) : "memory");
-}
 
 // Generic-proxy writes to shared memory before the async proxy writes there.
 __device__ __forceinline__ void fence_proxy_async() {

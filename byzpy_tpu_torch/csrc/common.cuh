@@ -139,6 +139,57 @@ __device__ __forceinline__ void copy_row(char* dst, const char* src, int bytes, 
   for (int p = lane * W; p < bytes; p += 32 * W) cp_async<W>(dst + p, src + p, min(W, bytes - p));
 }
 
+// Shared memory addresses, named barriers (ids 1..; 0 is __syncthreads),
+// mbarriers and bulk copies (sm_90): the producer-consumer rings of the
+// column sort engine (column_sort.cuh) and of B7's masked modes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned a, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(a), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned a, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned a) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(a) : "memory");
+}
+
+// An arrival on the mbarrier once this thread's earlier cp.async copies
+// have landed (the mbarrier's count includes it).
+__device__ __forceinline__ void cp_async_mbar_arrive(unsigned a) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(a) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned a, unsigned parity) {
+  unsigned ok;
+  asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+               " selp.u32 %0, 1, 0, p;\n}\n" : "=r"(ok) : "r"(a), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// `bytes` (a multiple of 16) from global src (16-byte aligned) to shared
+// dst, completing on the mbarrier at mbar.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, unsigned bytes, unsigned mbar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar) : "memory");
+}
+
 // Smallest network width in {8, ..., 128} that holds n rows; 0 if none.
 inline int network_width(int n) {
   for (int w = 8; w <= 128; w *= 2)

@@ -26,9 +26,9 @@ Kernels (TPU kernel they replace -> CUDA source):
 * B7 ``center_loop`` (and its first step, ``weighted_center_step``):
   ``_weighted_center_step_kernel`` (:470) and the reference's loops around
   it, modes ``weiszfeld`` and ``clip`` -> ``csrc/center_step.cu``, one
-  launch a loop; its ``masked_weiszfeld`` mode runs the masked family's
-  Weiszfeld loop (``byzpy_tpu/ops/robust.py:1581``, plain XLA) the same
-  way;
+  launch a loop; its ``masked_weiszfeld`` and ``masked_clip`` modes run the
+  masked family's Weiszfeld and centred-clipping loops
+  (``byzpy_tpu/ops/robust.py:1581`` and :1623, plain XLA) the same way;
 * B8 ``nnm_stream``: ``_nnm_stream_kernel`` (:1245) -> ``csrc/gram.cu`` +
   ``csrc/nnm.cu``;
 * B9 ``nnm_selection_mean_stream``: ``_nnm_selection_stream_kernel``
@@ -87,7 +87,9 @@ _CANONICAL_NAN_BITS = 0x7FC00000
 _SORT_MODES = {"median": 0, "trimmed": 1}
 _SELECTION_MODES = {"krum": 0, "cge": 1, "monna": 2}
 _CLIP_MODES = {"clip": 0, "arc": 1}
-_CENTER_MODES = {"weiszfeld": 0, "clip": 1, "masked_weiszfeld": 2}
+_CENTER_MODES = {"weiszfeld": 0, "clip": 1, "masked_weiszfeld": 2, "masked_clip": 3}
+# the masked family's modes: the loop of a padded cohort's valid rows
+_MASKED_CENTER_MODES = ("masked_weiszfeld", "masked_clip")
 # split-K Gram: aim for this many blocks per SM of the card, with chunks of
 # at least _GRAM_MIN_CHUNK columns (16 shared-memory tiles) each
 _GRAM_BLOCKS_PER_SM = 4
@@ -123,6 +125,7 @@ launch_counts = {
     "center_loop:weiszfeld": 0,
     "center_loop:clip": 0,
     "center_loop:masked_weiszfeld": 0,
+    "center_loop:masked_clip": 0,
     "center_weights:weiszfeld": 0,
     "center_weights:clip": 0,
     "center_sweep": 0,
@@ -809,11 +812,11 @@ def _check_center(x: torch.Tensor, z: torch.Tensor, mode: str = "weiszfeld", *,
                   loop: bool = False) -> tuple:
     """``(n, d)`` of a centre step's inputs (ref
     ``weighted_center_step_pallas``'s checks); raises otherwise. The
-    masked mode runs only as a whole loop (``loop``)."""
+    masked modes run only as a whole loop (``loop``)."""
     if mode not in _CENTER_MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "masked_weiszfeld" and not loop:
-        raise ValueError("masked_weiszfeld runs only as a whole loop (center_loop)")
+    if mode in _MASKED_CENTER_MODES and not loop:
+        raise ValueError(f"{mode} runs only as a whole loop (center_loop)")
     _check_ndim(x, 2, "x")
     n, d = x.shape
     if tuple(z.shape) != (d,):
@@ -895,8 +898,8 @@ def _check_max_iter(max_iter: int) -> None:
 
 
 def _check_valid(x: torch.Tensor, mode: str, valid) -> None:
-    if (mode == "masked_weiszfeld") != (valid is not None):
-        raise ValueError("valid is given exactly in mode masked_weiszfeld")
+    if (mode in _MASKED_CENTER_MODES) != (valid is not None):
+        raise ValueError(f"valid is given exactly in the masked modes {_MASKED_CENTER_MODES}")
     if valid is not None and (tuple(valid.shape) != (x.shape[0],) or valid.dtype != torch.bool):
         raise ValueError(f"valid must be ({x.shape[0]},) bool, got {tuple(valid.shape)} {valid.dtype}")
 
@@ -933,7 +936,13 @@ def center_loop(
     1/max(dist_i, eps)`` rounded to ``x``'s dtype on a valid row and 0 on
     the others, the distances in :func:`row_sq_dists`' order and both sums
     :func:`segment_sum`'s row chain, so a padded matrix steps as its valid
-    rows alone; it stops as ``weiszfeld`` does.
+    rows alone; it stops as ``weiszfeld`` does. ``masked_clip`` (ref
+    ``robust.py:1623`` ``masked_centered_clipping``) runs exactly
+    ``max_iter`` (M) steps ``v <- v + (sum_i w_i rnd(x_i - v)) * inv`` with
+    ``w_i = min(1, c_tau/max(dist_i, eps))`` rounded to ``x``'s dtype on a
+    valid row and 0 on the others, the sum :func:`segment_sum`'s row chain
+    rounded to ``x``'s dtype and ``inv`` the reciprocal of the valid rows'
+    count rounded to it (``tol`` unused).
 
     On the card: one launch of ``csrc/center_step.cu`` whatever the step
     count, its stopping test on the device (counter ``center_loop:<mode>``);
@@ -964,12 +973,13 @@ def _center_launch(x, z0, out, *, mode, eps, c_tau, tol=0.0, max_iter=1, w_in=No
                    alpha_in=None, wa_out=None, valid=None) -> torch.Tensor:
     """One launch of ``byz_center_loop``; returns its two int32 (the steps
     taken, the barrier's counter). Scratch: the chunk partials of the n
-    rows and the step length, the raw weights, delta; in the masked mode
-    also the n x 4,096 lane partials of the distances."""
+    rows and the step length, the raw weights, delta; in the masked modes
+    also the n x 4,096 lane partials of the distances and the d rounded
+    squares of a step's length."""
     n, d = x.shape
     nchunks = _ceil_div(d, _CENTER_CHUNK)
-    lanes = n * _ROW_LANES if valid is not None else 0
-    scratch = torch.empty(((n + 1) * nchunks + n + 1 + lanes,), dtype=torch.float32,
+    masked = n * _ROW_LANES + d if valid is not None else 0
+    scratch = torch.empty(((n + 1) * nchunks + n + 1 + masked,), dtype=torch.float32,
                           device=x.device)
     ints = torch.empty((2,), dtype=torch.int32, device=x.device)
     tol_x = float(torch.tensor(tol, dtype=x.dtype))  # the comparison runs in x's dtype
@@ -995,14 +1005,23 @@ def _center_delta(zn: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return _center_round(torch.sqrt(_center_round(s, z.dtype)), z.dtype)
 
 
-def _masked_center_step(x: torch.Tensor, z: torch.Tensor, valid: torch.Tensor, eps: float):
-    """One masked Weiszfeld step: the masked family's arithmetic (see
+def _masked_center_step(x: torch.Tensor, z: torch.Tensor, valid: torch.Tensor, *, mode: str,
+                        eps: float, c_tau: float) -> torch.Tensor:
+    """One step of a masked mode: the masked family's arithmetic (see
     :func:`center_loop`)."""
     n = x.shape[0]
     one = torch.ones((), dtype=torch.float32, device=x.device)
-    dist = torch.sqrt(row_sq_dists_plain(x, z))
-    w = torch.where(valid, one / torch.maximum(dist, torch.full_like(one, eps)),
-                    torch.zeros_like(one)).to(x.dtype)
+    dist = torch.maximum(torch.sqrt(row_sq_dists_plain(x, z)), torch.full_like(one, eps))
+    if mode == "masked_clip":
+        w = torch.minimum(one, torch.full_like(one, c_tau) / dist)
+    else:
+        w = one / dist
+    w = torch.where(valid, w, torch.zeros_like(one)).to(x.dtype)
+    if mode == "masked_clip":
+        # 1 / count rounded to x's dtype; invalid rows: diff = -z, weight 0
+        inv = torch.ones((), dtype=x.dtype, device=x.device) / valid.sum().to(x.dtype)
+        step = segment_sum_plain(x - z[None, :], w.float().reshape(1, -1))[0]
+        return canonical_nan(z + step * inv)
     num = segment_sum_plain(x, w.float().reshape(1, -1))[0]
     den = segment_sum_plain(w[:, None], torch.ones((1, n), device=x.device))[0]
     return canonical_nan(num / den)
@@ -1021,7 +1040,7 @@ def center_loop_plain(
 ) -> tuple:
     """Plain PyTorch version of :func:`center_loop`: the same steps in the
     same order (the distances and the step length by
-    :func:`_center_order_sum`; the masked mode's distances and sums by
+    :func:`_center_order_sum`; the masked modes' distances and sums by
     :func:`row_sq_dists_plain` and :func:`segment_sum_plain`), the stopping
     test read on the host."""
     n, d = _check_center(x, z0, mode, loop=True)
@@ -1031,11 +1050,11 @@ def center_loop_plain(
     if d == 0:
         max_iter = 0
     tol_x = float(torch.tensor(tol, dtype=x.dtype))
-    masked = mode == "masked_weiszfeld"
+    masked = mode in _MASKED_CENTER_MODES
     sq = center_sq_dists_plain(x, z) if max_iter and not masked else None
     while it < max_iter:
         if masked:
-            zn = _masked_center_step(x, z, valid, eps)
+            zn = _masked_center_step(x, z, valid, mode=mode, eps=eps, c_tau=c_tau)
         else:
             w, alpha = _center_weights_from(sq, n, mode=mode, eps=eps, c_tau=c_tau)
             zn = center_sweep_plain(x, z, w, alpha)
@@ -1043,7 +1062,7 @@ def center_loop_plain(
         if it == max_iter:
             z = zn
             break
-        if mode != "clip" and not bool(_center_delta(zn, z) > tol_x):
+        if mode in ("weiszfeld", "masked_weiszfeld") and not bool(_center_delta(zn, z) > tol_x):
             z = zn
             break
         z = zn

@@ -944,8 +944,11 @@ def masked_centered_clipping(
     """Centred clipping of the valid rows at the padded shape (ref
     ``masked_centered_clipping``): ``M`` steps ``v <- v + (sum_i w_i (x_i -
     v)) / m`` with ``w_i = min(1, c_tau / max(|x_i - v|, eps))`` on valid
-    rows and 0 on the others, the distances by ``kernels.row_sq_dists``
-    and the step a row contraction (B11)."""
+    rows and 0 on the others, the distances by ``kernels.row_sq_dists``'
+    order and the step a row contraction (B11's chain). The loop is B7's
+    ``masked_clip`` mode (:func:`kernels.center_loop`): one launch on the
+    card, no value read on the host. Above the networks' rows it is the
+    same steps as PyTorch calls."""
     if init not in {"mean", "median", "zero"}:
         raise ValueError("init must be one of {'mean','median','zero'}")
     _check_matrix(x)
@@ -956,6 +959,18 @@ def masked_centered_clipping(
         v = _masked_median_rows(x, valid)
     else:
         v = x.new_zeros((x.shape[1],))
+    if kernels.use_kernel_for(x.shape[0]):
+        # fori_loop(0, M) in the reference: no step for M <= 0
+        return kernels.center_loop(x, v, mode="masked_clip", valid=valid.contiguous(), eps=eps,
+                                   c_tau=c_tau, max_iter=max(M, 0))[0]
+    return _masked_clip_steps(x, valid, v, c_tau=c_tau, M=M, eps=eps)
+
+
+def _masked_clip_steps(x: torch.Tensor, valid: torch.Tensor, v: torch.Tensor, *, c_tau: float,
+                       M: int, eps: float) -> torch.Tensor:
+    """``M`` masked centred-clipping steps from ``v`` as PyTorch calls: a
+    ``row_sq_dists`` launch, the clipped weights and B11 over a fresh ``x -
+    v`` a step, the same bits as B7's ``masked_clip`` mode."""
     inv = _masked_recip(_masked_count(valid), x.dtype)
     one = torch.ones((), dtype=torch.float32, device=x.device)
     eps_t = torch.full((), eps, dtype=torch.float32, device=x.device)

@@ -29,6 +29,26 @@ prints each instance's registers and spill stores (ptxas), and times each
 one read of x (``x.sum()``). The checked variants must equal
 ``kernels.center_loop_plain`` bit for bit at 10 steps. One JSON object a
 line; the card's name and power limit first.
+
+``python3 chip_center_ablation.py --masked`` takes the masked modes'
+lane-group kernel (``masked_loop_kernel``) apart the same way, into
+``byzpy_tpu_torch/_build/center_ablation_masked/``:
+
+* ``no_copy``: the producer warps copy nothing (the consumers' time on
+  stale tiles); ``no_consume``: the consumers form no centre and add no
+  distance (the copies' time); ``steps_only``: no pass, only a step's two
+  grid barriers, row reduce and weights (none of them the function: never
+  checked);
+* ``bulk_copy``: one ``cp.async.bulk`` a tile row from one producer warp,
+  completing on the slot's mbarrier by its bytes, in place of the two
+  warps' 16-byte ``cp.async`` pieces (the same bits: checked);
+* ``four_producers``: four producer warps in place of two (checked);
+
+each timed (CUDA events, mean of 5 calls) at 1 and 10 forced steps of
+``masked_weiszfeld`` (the kernel also ``masked_clip``) on 3 in 4 rows
+valid, at 8, 64 and 128 x 421,642 and 64 x 1,048,576 f32 and the latter
+in bf16, beside ``x.sum()``; the checked variants bitwise
+``kernels.center_loop_plain`` at 3 steps up to 421,642 columns.
 """
 
 from __future__ import annotations
@@ -67,8 +87,50 @@ VARIANTS["one_barrier"] = VARIANTS["steps_only"] + [
     ("    reduce_rows<T>(a, with_step);\n    grid_sync(a.counter);", "    reduce_rows<T>(a, with_step);")]
 SHAPES = [(8, 421_642), (64, 421_642), (64, 1_048_576)]
 
+# the masked modes' variants (--masked)
+_COPY = "        if (piece * 16u < sh + bytes) cp_async<16>(dst, src - sh, 16);"
+_BULK = """    unsigned total = 0;
+    for (int r = lane; r < a.n; r += 32)
+      total += (((a16 + (unsigned)r * e16) & 15u) + bytes + 15u) & ~15u;
+    for (int o = 16; o >= 1; o /= 2) total += __shfl_xor_sync(0xFFFFFFFFu, total, o);
+    if (lane == 0) mbar_expect_tx(ring.full(pos), total);
+    __syncwarp();
+    for (int r = lane; r < a.n; r += 32) {
+      const unsigned sh = (a16 + (unsigned)r * e16) & 15u;
+      bulk_copy(smem_addr(ring.slot(pos) + r * ring_row<T>()),
+                x + c0 * (long long)sizeof(T) + r * row_bytes - sh, (sh + bytes + 15u) & ~15u,
+                ring.full(pos));
+    }"""
+_PIECES = """    if (ro < kRowsAt) {
+      for (int r = ro; r < a.n; r += kRowsAt) {
+        const unsigned sh = (a16 + (unsigned)r * e16) & 15u;
+        if (piece * 16u < sh + bytes) cp_async<16>(dst, src - sh, 16);
+        dst += kRowsAt * ring_row<T>();
+        src += kRowsAt * row_bytes;
+      }
+    }
+    cp_async_mbar_arrive(ring.full(pos));"""
+MASKED_VARIANTS = {
+    "kernel": [],
+    "no_copy": [(_COPY, _COPY.replace("bytes) cp_async", "bytes && a.n < 0) cp_async"))],
+    "no_consume": [("        if (sweep) {\n          const unsigned char* col",
+                    "        if (sweep && a.n < 0) {\n          const unsigned char* col"),
+                   ("      if (dist) {\n        for (int j = 0; j < tiles; ++j)",
+                    "      if (dist && a.n < 0) {\n        for (int j = 0; j < tiles; ++j)")],
+    "steps_only": [("      produce<T>(a, ring, issued, to, per_pass);",
+                    "      if (a.n < 0) produce<T>(a, ring, issued, to, per_pass);"),
+                   ("      masked_pass<T, NR>(a, ring, seq, zin,", "      if (a.n < 0) masked_pass<T, NR>(a, ring, seq, zin,"),
+                   ("      issued = to;", "      issued = a.n < 0 ? to : issued;")],
+    "bulk_copy": [(_PIECES, _BULK), ("mbar_init(ring.full(ring.at(s)), 32);", "mbar_init(ring.full(ring.at(s)), 1);"),
+                  ("constexpr int kProducers = 2;", "constexpr int kProducers = 1;")],
+    "four_producers": [("constexpr int kProducers = 2;", "constexpr int kProducers = 4;")],
+}
+MASKED_UNCHECKED = ("no_copy", "no_consume", "steps_only")
+MASKED_SHAPES = [(8, 421_642, "float32"), (64, 421_642, "float32"), (128, 421_642, "float32"),
+                 (64, 1_048_576, "float32"), (64, 1_048_576, "bfloat16")]
 
-def build(nvcc: str, flags, out_dir: str) -> dict:
+
+def build(nvcc: str, flags, out_dir: str, variants: dict, kernel: str) -> dict:
     """Every variant's library, built in parallel; name -> ctypes function."""
     import chip_smoke
     from byzpy_tpu_torch.ops import _build
@@ -76,7 +138,7 @@ def build(nvcc: str, flags, out_dir: str) -> dict:
     csrc = os.path.join(HERE, "byzpy_tpu_torch", "csrc")
     base = open(os.path.join(csrc, "center_step.cu")).read()
     procs = {}
-    for name, patches in VARIANTS.items():
+    for name, patches in variants.items():
         src = base
         for anchor, repl in patches:
             if anchor not in src:
@@ -93,9 +155,8 @@ def build(nvcc: str, flags, out_dir: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         instances = [[e["kernel"].split("<")[-1].rstrip(">"), e.get("registers"), e["spill_stores"]]
-                     for e in chip_smoke.ptxas_report(log, nvcc, ("center_loop_kernel",))]
-        print(json.dumps({"variant": name, "dtype_rows_kc_nbuf_registers_spill_stores": instances}),
-              flush=True)
+                     for e in chip_smoke.ptxas_report(log, nvcc, (kernel,))]
+        print(json.dumps({"variant": name, "instance_registers_spill_stores": instances}), flush=True)
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so")), "byz_center_loop")
         fn.argtypes = _build.SIGNATURES["byz_center_loop"][1]
         fn.restype = ctypes.c_int
@@ -119,10 +180,76 @@ def launcher(fn, x, z, c_tau: float, steps: int):
 
     def call():
         err = fn(x.data_ptr(), z.data_ptr(), out.data_ptr(), None, None, None, scratch.data_ptr(),
-                 ints.data_ptr(), n, d, 1, 1e-12, c_tau, -1.0, steps, 0, stream)
+                 ints.data_ptr(), None, n, d, 1, 1e-12, c_tau, -1.0, steps, 0, stream)
         if err:
             raise RuntimeError(f"byz_center_loop: CUDA error {err}")
     return call, out, ints
+
+
+def masked_launcher(fn, x, z, valid, mode: str, c_tau: float, steps: int):
+    """A call of ``fn`` as ``kernels.center_loop`` makes it in a masked
+    mode (``steps`` forced), its buffers allocated once; returns (call, out,
+    ints)."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels
+
+    n, d = x.shape
+    nchunks = -(-d // kernels._CENTER_CHUNK)
+    out = torch.empty_like(z)
+    scratch = torch.empty(((n + 1) * nchunks + n + 1 + n * kernels._ROW_LANES + d,),
+                          dtype=torch.float32, device=x.device)
+    ints = torch.empty((2,), dtype=torch.int32, device=x.device)
+    flags = valid.to(torch.uint8)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = fn(x.data_ptr(), z.data_ptr(), out.data_ptr(), None, None, None, scratch.data_ptr(),
+                 ints.data_ptr(), flags.data_ptr(), n, d, kernels._CENTER_MODES[mode], 1e-12, c_tau,
+                 -1.0, steps, kernels._DTYPE_CODES[x.dtype], stream)
+        if err:
+            raise RuntimeError(f"byz_center_loop: CUDA error {err}")
+    return call, out, ints
+
+
+def masked_main(fns: dict) -> list:
+    """The masked variants' rows (see the module docstring); returns the
+    checked variants that differed from the plain loop."""
+    import torch
+
+    from byzpy_tpu_torch.ops import kernels, robust
+
+    failed = []
+    for n, d, dt in MASKED_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(n + d)
+        x = (torch.randn((n, d), generator=gen, device="cuda")
+             * torch.linspace(0.5, 3.0, n, device="cuda")[:, None]).to(getattr(torch, dt))
+        valid = torch.arange(n, device="cuda") % 4 != 3
+        z = robust.masked_mean(x, valid)
+        c_tau = 1.5 * d ** 0.5
+        ref = (kernels.center_loop_plain(x, z, mode="masked_weiszfeld", valid=valid, tol=-1.0,
+                                         max_iter=3)[0] if d <= 421_642 else None)
+        row = {"shape": [n, d], "dtype": dt, "read_x_ms": events_ms(lambda: x.sum()),
+               "bound_10_steps_ms": 10 * x.numel() * x.element_size() / 3.35e9}
+        for name, fn in fns.items():
+            for mode in (("masked_weiszfeld", "masked_clip") if name == "kernel"
+                         else ("masked_weiszfeld",)):
+                one = events_ms(masked_launcher(fn, x, z, valid, mode, c_tau, 1)[0], iters=5)
+                ten = events_ms(masked_launcher(fn, x, z, valid, mode, c_tau, 10)[0], iters=5)
+                entry = {"one_step_ms": one, "steps_10_ms": ten, "ms_per_step": (ten - one) / 9}
+                if ref is not None and mode == "masked_weiszfeld" and name not in MASKED_UNCHECKED:
+                    call3, out3, _ = masked_launcher(fn, x, z, valid, mode, c_tau, 3)
+                    call3()
+                    torch.cuda.synchronize()
+                    ints = torch.int32 if x.element_size() == 4 else torch.int16
+                    entry["bitwise"] = torch.equal(out3.view(ints), ref.view(ints))
+                    if not entry["bitwise"]:
+                        failed.append(f"{name} differs from the plain loop at {(n, d)} {dt}")
+                row[f"{name}:{mode}"] = entry
+        print(json.dumps(row), flush=True)
+        del x, z, ref
+        torch.cuda.empty_cache()
+    return failed
 
 
 def events_ms(call, iters: int = 10) -> float:
@@ -152,9 +279,17 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}), flush=True)
     nvcc = _build.find_nvcc()
+    if "--masked" in sys.argv[1:]:
+        out_dir = os.path.join(HERE, "byzpy_tpu_torch", "_build", "center_ablation_masked")
+        os.makedirs(out_dir, exist_ok=True)
+        failed = masked_main(build(nvcc, _build.NVCC_FLAGS, out_dir, MASKED_VARIANTS,
+                                   "masked_loop_kernel"))
+        for msg in failed:
+            print(f"chip_center_ablation: {msg}", file=sys.stderr)
+        return 1 if failed else 0
     out_dir = os.path.join(HERE, "byzpy_tpu_torch", "_build", "center_ablation")
     os.makedirs(out_dir, exist_ok=True)
-    fns = build(nvcc, _build.NVCC_FLAGS, out_dir)
+    fns = build(nvcc, _build.NVCC_FLAGS, out_dir, VARIANTS, "center_loop_kernel")
     failed = []
     for n, d in SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(n + d)

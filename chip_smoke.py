@@ -1200,94 +1200,109 @@ def check_masked_kernels(errs: dict) -> None:
         f"in {', '.join(DTYPES)}: bitwise equal to plain")
 
 
-# B7's masked Weiszfeld mode in phase 3: (rows, valid rows, columns)
+# B7's masked modes in phase 3: (rows, valid rows, columns)
 MASKED_LOOP_CASES = ((8, 6, 50_001), (64, 41, 50_001), (128, 100, 50_001))
+# the masked modes' runs in phase 3: Weiszfeld to tol 1e-6 (at most 256
+# steps) and 10 forced steps; centred clipping 10 and 3 steps at c_tau
+# MASKED_CLIP_CTAU * sqrt(d) (the rows' scales run 0.1-50: some clip)
+MASKED_CLIP_CTAU = 10.0
+
+
+def masked_loop_runs(mode: str, d: int) -> tuple:
+    """The keyword arguments of ``kernels.center_loop``'s phase-3 runs."""
+    if mode == "masked_clip":
+        c_tau = MASKED_CLIP_CTAU * d ** 0.5
+        return dict(c_tau=c_tau, max_iter=10), dict(c_tau=c_tau, max_iter=3)
+    return dict(tol=1e-6, max_iter=256), dict(tol=-1.0, max_iter=10)
 
 
 def check_masked_center_loop(errs: dict) -> None:
-    """B7's ``masked_weiszfeld`` loop against its plain version, bit for bit
-    with the iteration count, in f32, bf16 and f16 at 8, 64 and 128 rows of
-    an odd d, each with padding rows (zeros; the valid rows shuffled among
-    them), to tol 1e-6 (at most 256 steps) and 10 forced steps; then on
-    rows holding NaN and +-inf, in a valid row (the loop's centre turns
-    canonical NaN after its first step in both) and in a padding row (whose
-    weight 0 still reads it: 0 * inf is NaN, as in B11's chain); one launch
+    """B7's masked modes (``masked_weiszfeld``, ``masked_clip``) against
+    their plain version, bit for bit with the iteration count, in f32, bf16
+    and f16 at 8, 64 and 128 rows of an odd d, each with padding rows
+    (zeros; the valid rows shuffled among them), to tol 1e-6 (at most 256
+    steps) and 10 forced steps (centred clipping: 10 and 3 steps); then on
+    rows holding NaN and +-inf after one step, in a valid row (the centre
+    turns canonical NaN) and in a padding row (whose weight 0 still reads
+    it: 0 * inf is NaN, as in B11's chain: three NaN columns); one launch
     a loop, and the padded loop equal to the compacted one bit for bit."""
     import torch
 
     from byzpy_tpu_torch.ops import kernels, robust
 
-    key = "center_loop:masked_weiszfeld"
-    for n, m, d in MASKED_LOOP_CASES:
+    for mode in ("masked_weiszfeld", "masked_clip"):
+        key = f"center_loop:{mode}"
+        clip = mode == "masked_clip"
+        for n, m, d in MASKED_LOOP_CASES:
+            for name in DTYPES:
+                dtype = getattr(torch, name)
+                gen = torch.Generator(device="cuda").manual_seed(900 + n)
+                x = torch.zeros((n, d), device="cuda")
+                x[:m] = masked_rows((m, d), 900 + n, torch.float32, specials=False)
+                x = x[torch.randperm(n, generator=gen, device="cuda")].to(dtype).contiguous()
+                valid = (x != 0).any(dim=1)
+                check(int(valid.sum()) == m, f"B7 masked: {int(valid.sum())} valid rows, not {m}")
+                z0 = robust.masked_mean(x, valid) if clip else robust._masked_median_rows(x, valid)
+                steps = []
+                runs = masked_loop_runs(mode, d)
+                for run in runs:
+                    kw = dict(mode=mode, valid=valid, **run)
+                    before = dict(kernels.launch_counts)
+                    out, its = kernels.center_loop(x, z0, **kw)
+                    launched = {k: v - before[k] for k, v in kernels.launch_counts.items()
+                                if v != before[k]}
+                    check(launched == {key: 1}, f"B7 {mode} at {(n, d)} {name} launched {launched}")
+                    ref, its_p = kernels.center_loop_plain(x, z0, **kw)
+                    check(int(its) == int(its_p),
+                          f"B7 {mode} at {(n, d)} {name}: {int(its)} steps, plain {int(its_p)}")
+                    check(bits_equal(out, ref) and nan_is_canonical(out),
+                          f"B7 {mode} differs from plain at {(n, d)} {name} ({int(its)} steps)")
+                    errs[key] = max(errs[key], max_abs_err(out, ref))
+                    steps.append(int(its))
+                keep = valid.nonzero()[:, 0]
+                compact, its_c = kernels.center_loop(
+                    x.index_select(0, keep).contiguous(), z0, mode=mode,
+                    valid=torch.ones(m, dtype=torch.bool, device="cuda"), **runs[0])
+                out, its = kernels.center_loop(x, z0, mode=mode, valid=valid, **runs[0])
+                check(bits_equal(out, compact) and int(its) == int(its_c),
+                      f"B7 {mode} at {(n, d)} {name}: padded differs from compacted")
+                log(f"  B7 {mode} {(n, d)} ({m} valid) {name}: {steps[0]} and {steps[1]} steps, "
+                    f"one launch each, bitwise equal to plain with the counts; padded == compacted")
+                del x, valid, z0, out, ref, compact
+            torch.cuda.empty_cache()
         for name in DTYPES:
             dtype = getattr(torch, name)
-            gen = torch.Generator(device="cuda").manual_seed(900 + n)
-            x = torch.zeros((n, d), device="cuda")
-            x[:m] = masked_rows((m, d), 900 + n, torch.float32, specials=False)
-            x = x[torch.randperm(n, generator=gen, device="cuda")].to(dtype).contiguous()
-            valid = (x != 0).any(dim=1)
-            check(int(valid.sum()) == m, f"B7 masked: {int(valid.sum())} valid rows, not {m}")
-            z0 = robust._masked_median_rows(x, valid)
-            steps = []
-            for tol, max_iter in ((1e-6, 256), (-1.0, 10)):
-                kw = dict(mode="masked_weiszfeld", valid=valid, tol=tol, max_iter=max_iter)
-                before = dict(kernels.launch_counts)
+            for case in ("valid_row", "padding_row"):
+                x = torch.zeros((64, 50_001), device="cuda")
+                x[:41] = masked_rows((41, 50_001), 77, torch.float32, specials=False)
+                valid = torch.zeros(64, dtype=torch.bool, device="cuda")
+                valid[:41] = True
+                row = 5 if case == "valid_row" else 50
+                x[row, 17], x[row, 18], x[row, 19] = float("nan"), float("inf"), -float("inf")
+                x = x.to(dtype)
+                z0 = robust.masked_mean(x, valid) if clip else robust._masked_median_rows(x, valid)
+                # one step: the Weiszfeld loop stops after it (its step length is NaN)
+                kw = dict(mode=mode, valid=valid, **(dict(runs[0], max_iter=1) if clip
+                                                     else dict(max_iter=10)))
                 out, its = kernels.center_loop(x, z0, **kw)
-                launched = {k: v - before[k] for k, v in kernels.launch_counts.items()
-                            if v != before[k]}
-                check(launched == {key: 1}, f"B7 masked loop at {(n, d)} {name} launched {launched}")
                 ref, its_p = kernels.center_loop_plain(x, z0, **kw)
-                check(int(its) == int(its_p),
-                      f"B7 masked loop at {(n, d)} {name}: {int(its)} steps, plain {int(its_p)}")
-                check(bits_equal(out, ref) and nan_is_canonical(out),
-                      f"B7 masked loop differs from plain at {(n, d)} {name} ({int(its)} steps)")
-                errs[key] = max(errs[key], max_abs_err(out, ref))
-                steps.append(int(its))
-            keep = valid.nonzero()[:, 0]
-            compact, its_c = kernels.center_loop(
-                x.index_select(0, keep).contiguous(), z0, mode="masked_weiszfeld",
-                valid=torch.ones(m, dtype=torch.bool, device="cuda"))
-            out, its = kernels.center_loop(x, z0, mode="masked_weiszfeld", valid=valid)
-            check(bits_equal(out, compact) and int(its) == int(its_c),
-                  f"B7 masked loop at {(n, d)} {name}: padded differs from compacted")
-            log(f"  B7 masked_weiszfeld {(n, d)} ({m} valid) {name}: {steps[0]} steps to tol "
-                f"1e-6 and {steps[1]} forced, one launch each, bitwise equal to plain with the "
-                f"counts; padded == compacted")
-            del x, valid, z0, out, ref, compact
-        torch.cuda.empty_cache()
-    for name in DTYPES:
-        dtype = getattr(torch, name)
-        for case in ("valid_row", "padding_row"):
-            x = torch.zeros((64, 50_001), device="cuda")
-            x[:41] = masked_rows((41, 50_001), 77, torch.float32, specials=False)
-            valid = torch.zeros(64, dtype=torch.bool, device="cuda")
-            valid[:41] = True
-            row = 5 if case == "valid_row" else 50
-            x[row, 17], x[row, 18], x[row, 19] = float("nan"), float("inf"), -float("inf")
-            x = x.to(dtype)
-            z0 = robust._masked_median_rows(x, valid)
-            out, its = kernels.center_loop(x, z0, mode="masked_weiszfeld", valid=valid, max_iter=10)
-            ref, its_p = kernels.center_loop_plain(x, z0, mode="masked_weiszfeld", valid=valid,
-                                                   max_iter=10)
-            # a valid row's NaN weight reaches every column; a padding row's
-            # weight 0 meets its NaN and +-inf entries only
-            nan = torch.isnan(out)
-            want = (bool(nan.all()) if case == "valid_row"
-                    else nan.nonzero()[:, 0].tolist() == [17, 18, 19])
-            check(want and nan_is_canonical(out) and int(its) == 1 and bits_equal(out, ref)
-                  and int(its_p) == 1,
-                  f"B7 masked loop with NaN and +-inf in a {case} in {name}: {int(its)} steps "
-                  f"(plain {int(its_p)}), NaN at {nan.nonzero()[:8, 0].tolist()}")
-        log(f"  B7 masked_weiszfeld {name}: NaN and +-inf in a valid row make the centre canonical "
-            f"NaN, in a padding row its three columns; the loop stops after one step, bitwise "
-            f"the plain version")
-    try:
-        kernels.center_loop(torch.zeros((129, 16), device="cuda"), torch.zeros(16, device="cuda"),
-                            mode="masked_weiszfeld", valid=torch.ones(129, dtype=torch.bool,
-                                                                      device="cuda"))
-        check(False, "B7's masked mode took n = 129")
-    except NotImplementedError:
-        pass
+                # a valid row's NaN weight reaches every column; a padding row's
+                # weight 0 meets its NaN and +-inf entries only
+                nan = torch.isnan(out)
+                want = (bool(nan.all()) if case == "valid_row"
+                        else nan.nonzero()[:, 0].tolist() == [17, 18, 19])
+                check(want and nan_is_canonical(out) and int(its) == 1 and bits_equal(out, ref)
+                      and int(its_p) == 1,
+                      f"B7 {mode} with NaN and +-inf in a {case} in {name}: {int(its)} steps "
+                      f"(plain {int(its_p)}), NaN at {nan.nonzero()[:8, 0].tolist()}")
+            log(f"  B7 {mode} {name}: NaN and +-inf in a valid row make the centre canonical NaN, "
+                f"in a padding row its three columns, after one step, bitwise the plain version")
+        try:
+            kernels.center_loop(torch.zeros((129, 16), device="cuda"), torch.zeros(16, device="cuda"),
+                                mode=mode, valid=torch.ones(129, dtype=torch.bool, device="cuda"))
+            check(False, f"B7's {mode} mode took n = 129")
+        except NotImplementedError:
+            pass
 
 
 # B11's cohort counts in phase 3: one, the executor's four, a full tile of 8
@@ -2280,10 +2295,10 @@ def serving_configs() -> dict:
                          lambda it: {"sort_columns": 1, "segment_sum": 1}),
         "serve_cge": (lambda dev: ComparativeGradientElimination(b, device=dev),
                       lambda it: {"row_sq_dists": 1, "segment_sum": 1}),
-        # the start (the masked mean), then per iteration the distances
-        # and the step
+        # the start (the masked mean), then the whole loop in one launch of
+        # B7's masked clip mode
         "serve_centered_clipping": (lambda dev: CenteredClipping(c_tau=MAIN_CTAU, M=10, device=dev),
-                                    lambda it: {"row_sq_dists": 10, "segment_sum": 11}),
+                                    lambda it: {"segment_sum": 1, "center_loop:masked_clip": 1}),
         # the start (the masked median), then the whole Weiszfeld loop in
         # one launch of B7's masked mode
         "serve_geometric_median": (lambda dev: GeometricMedian(device=dev),
@@ -2862,6 +2877,13 @@ def states_bits_equal(a, b) -> bool:
         for x, y in zip(la, lb))
 
 
+# Host time a short profile waits inside its window before its first
+# launch and after its last one: the profiler keeps only the device events
+# that fall inside the window on the host's clock, and a profile of a few
+# ms has recorded none of its launches late in a long run of this script
+PROFILE_PAD_S = 0.025
+
+
 def profile_host_device(run, steps: int = 3) -> dict:
     """``profile_steps``' device time and launches, and the host-issued
     launches a step: the CUDA API calls that put work on the card (kernel
@@ -2872,11 +2894,13 @@ def profile_host_device(run, steps: int = 3) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     by_kernel = device_events(prof, steps)
     ours = port_part(by_kernel)
     host = {}
@@ -3249,15 +3273,15 @@ def compiled_refusals() -> dict:
 
 
 def compiled_host_free(counts: dict) -> dict:
-    """(y) the two loops that no longer read the host:
-    CAF (f = 2, fixed passes, a seeded start vector) in the PS step and the
-    masked geometric median (B7's masked mode) in the serving step at
-    bucket 64 (41 valid rows): each twin captures, its 5 compiled steps
-    equal the eager steps bit for bit, and a compiled step and the eager
-    aggregate read nothing on the host."""
+    """(y) the loops that read nothing on the host:
+    CAF (f = 2, fixed passes, a seeded start vector) in the PS step, and
+    the masked geometric median and the masked centred clipping (B7's
+    masked modes) in the serving step at bucket 64 (41 valid rows): each
+    twin captures, its 5 compiled steps equal the eager steps bit for bit,
+    and a compiled step and the eager aggregate read nothing on the host."""
     import torch
 
-    from byzpy_tpu_torch.aggregators import GeometricMedian
+    from byzpy_tpu_torch.aggregators import CenteredClipping, GeometricMedian
     from byzpy_tpu_torch.models import SmallCNN, make_bundle, synthetic_classification
     from byzpy_tpu_torch.ops import attack_ops, robust
     from byzpy_tpu_torch.parallel import (
@@ -3316,6 +3340,23 @@ def compiled_host_free(counts: dict) -> dict:
     log(f"    (y) masked geometric median: host reads a compiled step {reads}, an eager "
         f"aggregation {agg_reads}; {its} Weiszfeld iterations")
     results["masked_geometric_median"] = res
+    fn = CenteredClipping(c_tau=MAIN_CTAU, M=10).masked_matrix_fn()
+    eager, opt0 = build_serving_ps_step(bundle, fn)
+    compiled, _ = jit_serving_ps_step(bundle, fn)
+    res = compiled_vs_eager("(y) masked centred clipping, serving step at bucket 64 (41 rows)",
+                            eager, compiled, (bundle.params, opt0),
+                            lambda s: (matrix, valid, valid.float()),
+                            ["segment_sum", "center_loop:masked_clip"], counts)
+    p, o = res.pop("first_eager_state")[:2]
+    _, reads = count_syncs(lambda: compiled(p, o, matrix, valid, valid.float()))
+    _, agg_reads = count_syncs(lambda: fn(matrix, valid))
+    check(reads == 0 and agg_reads == 0,
+          f"(y) masked centred clipping: {reads} host reads a compiled step, {agg_reads} an "
+          f"eager aggregation")
+    res.update(host_reads_compiled_step=reads, host_reads_eager_aggregate=agg_reads)
+    log(f"    (y) masked centred clipping: host reads a compiled step {reads}, an eager "
+        f"aggregation {agg_reads}")
+    results["masked_centered_clipping"] = res
     del bundle, eager, compiled
     torch.cuda.empty_cache()
     return results
@@ -3546,7 +3587,8 @@ PORT_KERNELS = ("sorted_reduce_kernel", "gram_partial_kernel", "gram_reduce_kern
                 "selection_weights_kernel", "weighted_rows_kernel", "selection_mean_from_gram_kernel",
                 "nnm_weights_kernel",
                 "mix_rows_kernel", "nnm_selection_weights_kernel", "clip_selection_weights_kernel",
-                "meamed_kernel", "center_loop_kernel", "quantize_kernel", "dequantize_kernel",
+                "meamed_kernel", "center_loop_kernel", "masked_loop_kernel", "quantize_kernel",
+                "dequantize_kernel",
                 "sort_columns_kernel", "segment_sum_kernel", "row_sq_partial_kernel",
                 "row_sq_reduce_kernel", "quantize_s4_kernel", "dequantize_s4_kernel",
                 "segment_sum_dequant_kernel", "segmented_sort_reduce_kernel")
@@ -3624,9 +3666,11 @@ def port_device_ms(fn, calls: int = 10) -> dict:
     torch.cuda.synchronize()
     for _ in range(3):  # a profile that recorded none of the launches is taken again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         out = {p: ms / count for p, (ms, count) in port_part(device_events(prof, calls)).items()
                if count}
         if out:
@@ -7686,35 +7730,75 @@ def masked_kernel_times(n: int, d: int, *, seed: int) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
         "device_ms": port_device_ms(lambda: kernels.row_sq_dists(x, z)),
     }
-    # B7's masked mode: LOOP_STEPS forced steps on the rows with 3 in 4
-    # valid, from their masked median. Bound: one read of x a step (and z
-    # once, the centre written once); a step's distances (sub, mul, add) and
-    # FMA chain (2 flops) on every entry. The kernel reads x twice a step
-    # (reads_bound_ms: the sweep and the distances' pass, and a first
-    # distance pass)
+    # B7's masked modes: LOOP_STEPS forced steps on the rows with 3 in 4
+    # valid, the Weiszfeld loop from their masked median, the centred
+    # clipping from their masked mean. Bound: one read of x a step (and z
+    # read and the centre written once); a step's distances (sub, mul, add)
+    # and FMA chain (2 flops; clipping's differences 1 more) on every
+    # entry. The kernel reads x once a step and once for the first
+    # distances (reads_bound_ms). Device time: torch.profiler over the
+    # whole call (the start, then the loop; "call"), the loop kernel's
+    # time read from it. (A profile of the loop's launch alone recorded
+    # none of 36 launches after the earlier phases in one H100 run, while
+    # the whole call's profile recorded each.)
     from byzpy_tpu_torch.ops import robust
 
     valid = torch.arange(n, device="cuda") % 4 != 3
-    z0 = robust._masked_median_rows(x, valid)
-    loop = dict(mode="masked_weiszfeld", valid=valid, tol=-1.0, max_iter=LOOP_STEPS)
-    b_ms, b_by = bound_ms(LOOP_STEPS * n * d * isz + 2 * d * isz, 5 * n * d * LOOP_STEPS)
-    out["center_loop:masked_weiszfeld"] = {
-        "ms": cuda_time_ms(lambda: kernels.center_loop(x, z0, **loop), iters=5, warmup=1),
-        "plain_ms": cuda_time_ms(lambda: kernels.center_loop_plain(x, z0, **loop), iters=1,
-                                 warmup=1),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
-        "valid_rows": int(valid.sum()), "steps": LOOP_STEPS,
-        "reads_bound_ms": (2 * LOOP_STEPS + 1) * n * d * isz / PEAK_BYTES_PER_S * 1e3,
-        "device_ms": port_device_ms(lambda: kernels.center_loop(x, z0, **loop), calls=3),
-    }
+    reads_ms = (LOOP_STEPS + 1) * n * d * isz / PEAK_BYTES_PER_S * 1e3
+    c_tau = MASKED_CLIP_CTAU * d ** 0.5
+    for mode, z0, ops, kw, call in (
+            ("masked_weiszfeld", robust._masked_median_rows(x, valid), 5, dict(tol=-1.0),
+             lambda: robust.masked_geometric_median(x, valid, tol=-1.0, max_iter=LOOP_STEPS)),
+            ("masked_clip", robust.masked_mean(x, valid), 6, dict(c_tau=c_tau),
+             lambda: robust.masked_centered_clipping(x, valid, c_tau=c_tau, M=LOOP_STEPS))):
+        loop = dict(mode=mode, valid=valid, max_iter=LOOP_STEPS, **kw)
+        b_ms, b_by = bound_ms(LOOP_STEPS * n * d * isz + 2 * d * isz, ops * n * d * LOOP_STEPS)
+        for _ in range(3):  # a profile that recorded no loop launch is taken again
+            prof = profile_host_device(call)
+            if "masked_loop_kernel" in prof["port_kernels"]:
+                break
+        per_call = {p: ms / count for p, (ms, count) in prof["port_kernels"].items() if count}
+        out[f"center_loop:{mode}"] = {
+            "ms": cuda_time_ms(lambda: kernels.center_loop(x, z0, **loop), iters=5, warmup=1),
+            "plain_ms": cuda_time_ms(lambda: kernels.center_loop_plain(x, z0, **loop), iters=1,
+                                     warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d],
+            "valid_rows": int(valid.sum()), "steps": LOOP_STEPS, "reads_bound_ms": reads_ms,
+            "device_ms": {k: v for k, v in per_call.items() if k == "masked_loop_kernel"},
+            "call": {"device_ms": prof["device_ms_per_step"],
+                     "device_launches": prof["device_launches_per_step"],
+                     "port_kernels": prof["port_kernels"]},
+        }
+    # the loop the masked centred clipping replaced (the PyTorch loop it
+    # still runs above 128 rows: a row reduction, B11 and PyTorch's
+    # elementwise kernels a step): device time and launches a call by
+    # torch.profiler
+    clip = out["center_loop:masked_clip"]
+    v0 = robust.masked_mean(x, valid)
+    loop_v = kernels.center_loop(x, v0, mode="masked_clip", valid=valid, c_tau=c_tau,
+                                 max_iter=LOOP_STEPS)[0]
+
+    def python_loop():
+        return robust._masked_clip_steps(x, valid, v0, c_tau=c_tau, M=LOOP_STEPS, eps=1e-12)
+
+    check(bits_equal(python_loop(), loop_v),
+          f"the masked clipping loop differs from the Python loop it replaced at {(n, d)}")
+    old = profile_host_device(python_loop)
+    clip["python_loop"] = {
+        "ms": cuda_time_ms(python_loop, iters=5, warmup=1),
+        "device_ms": old["device_ms_per_step"], "device_launches": old["device_launches_per_step"],
+        "port_kernels": old["port_kernels"]}
     for key, v in out.items():
         log(f"  {key} {v['shape']}: {v['ms']:.4f} ms (device {json.dumps(v['device_ms'])}), bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}), plain {v['plain_ms']:.4f} ms, library "
             f"{v['library_ms']}" + (f", cdist {v['cdist_ms']:.4f} ms, no centre "
                                     f"{v['no_centre_ms']:.4f} ms" if "cdist_ms" in v else "")
-            + (f", {v['steps']} steps (two reads of x a step: {v['reads_bound_ms']:.4f} ms)"
-               if "steps" in v else ""))
-    del x, w, z, z0, valid
+            + (f", {v['steps']} steps (a read of x a step and one more: {v['reads_bound_ms']:.4f} "
+               f"ms)" if "steps" in v else "")
+            + (f"; the whole call {json.dumps(v['call'])}" if "call" in v else "")
+            + (f"; the Python loop it replaced {json.dumps(v['python_loop'])}"
+               if "python_loop" in v else ""))
+    del x, w, z, v0, loop_v, valid
     torch.cuda.empty_cache()
     return out
 
@@ -8225,7 +8309,8 @@ def timing() -> dict:
     masked = masked_kernel_times(*HEADLINE, seed=41)
     serve = masked_kernel_times(SERVE_CAP, 421_642, seed=43)
     for k, v in masked.items():
-        v["main_path_shape"] = {key: serve[k][key] for key in keys + ("cdist_ms", "no_centre_ms")
+        v["main_path_shape"] = {key: serve[k][key]
+                                for key in keys + ("cdist_ms", "no_centre_ms", "call", "python_loop")
                                 if key in serve[k]}
     out.update(masked)
     # B11 at the (n) dispatch's 4 cohorts
@@ -8279,11 +8364,15 @@ KERNELS = [
     ("segment_sum", "byzpy_tpu_torch/csrc/segment_sum.cu", "byzpy_tpu/ops/pallas_kernels.py:1840"),
     ("row_sq_dists", "byzpy_tpu_torch/csrc/segment_sum.cu",
      "byzpy_tpu/ops/robust.py:1542 (plain XLA reduce; no Pallas kernel)"),
-    # B7's masked Weiszfeld mode: the serving path's masked geometric median
-    # (phase 4c) and its compiled serving step (phase 4e (y))
+    # B7's masked modes: the serving path's masked geometric median and
+    # masked centred clipping (phase 4c) and their compiled serving steps
+    # (phase 4e (y))
     ("center_loop:masked_weiszfeld", "byzpy_tpu_torch/csrc/center_step.cu",
      "byzpy_tpu/ops/robust.py:1581 (masked_geometric_median's while_loop, plain XLA, around "
      "the step of pallas_kernels.py:470; no Pallas kernel of its own)"),
+    ("center_loop:masked_clip", "byzpy_tpu_torch/csrc/center_step.cu",
+     "byzpy_tpu/ops/robust.py:1623 (masked_centered_clipping's fori_loop, plain XLA; no Pallas "
+     "kernel of its own)"),
     # B16 and B17 (the PS round (l), the ragged door's s4 ingress) and B12,
     # the ragged door's fused-dequant contraction, by wire mode (phase 4d);
     # launches: segment_sum_dequant:fp8 counts e4m3fn codes (e5m2 is checked
@@ -8308,6 +8397,7 @@ KERNELS = [
 NEW_KERNELS = ("mix_rows", "nnm_weights", "selection_mean_from_gram:krum", "quantize:s4", "dequantize:s4", "segment_sum_dequant:int8",
                "segment_sum_dequant:fp8", "segment_sum_dequant:s4", "segmented_sort_reduce",
                "center_loop:weiszfeld", "center_loop:clip", "center_loop:masked_weiszfeld",
+               "center_loop:masked_clip",
                "graph_replay:gossip_train_step")
 # the launch counters each codec entry sums
 CODEC_COUNTERS = {
@@ -8414,7 +8504,7 @@ def main(argv=None) -> int:
     spilled = [e["kernel"] for e in gram_ptxas if e["spill_stores"] or e["spill_loads"]]
     check(not spilled, f"B3 instances spill: {spilled}")
     log("CENTER_PTXAS " + json.dumps(ptxas_report(_build.build_log.get("center_step", ""), nvcc,
-                                                   ("center_loop_kernel",))))
+                                                   ("center_loop_kernel", "masked_loop_kernel"))))
     # the column-sort engine's instances (B1 a dtype and width; the
     # segmented sort-reduce one) and its out-of-line run sort
     sort_ptxas = (ptxas_report(_build.build_log.get("sorted_reduce", ""), nvcc,

@@ -556,15 +556,17 @@ def test_cuda_center_loop_zero_steps_launch_nothing(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["masked_weiszfeld", "masked_clip"])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("n,m", [(1, 1), (8, 6), (13, 13), (64, 41), (128, 100)])
-def test_cuda_masked_center_loop_matches_plain_bitwise(cuda_device, n, m, dt):
-    """B7's masked Weiszfeld mode in one launch equals its plain version bit
-    for bit with the iteration count, to tol 1e-6 and 9 forced steps, on
-    ``m`` valid rows shuffled among zero padding rows at d = 4 x 4096 + 5
-    (several of row_sq_dists' lanes a row, a ragged last chunk); the padded
-    loop equals the compacted one; a NaN or +-inf in a valid row makes the
-    centre canonical NaN after one step."""
+def test_cuda_masked_center_loop_matches_plain_bitwise(cuda_device, n, m, dt, mode):
+    """B7's masked modes in one launch equal their plain version bit for
+    bit with the iteration count (Weiszfeld: to tol 1e-6 and 9 forced steps;
+    centred clipping: 10 and 1 steps, some rows clipped), on ``m`` valid
+    rows shuffled among zero padding rows at d = 4 x 4096 + 5 (several of
+    row_sq_dists' lanes a row, a ragged last chunk); the padded loop equals
+    the compacted one; a NaN or +-inf in a valid row makes the centre
+    canonical NaN after one step."""
     from byzpy_tpu_torch.ops import robust
 
     d = 4 * 4096 + 5
@@ -574,27 +576,55 @@ def test_cuda_masked_center_loop_matches_plain_bitwise(cuda_device, n, m, dt):
         torch.rand((m, 1), generator=gen, device=cuda_device) * 4.0 + 0.25)
     x = x[torch.randperm(n, generator=gen, device=cuda_device)].to(DTYPES[dt]).contiguous()
     valid = (x != 0).any(dim=1)
-    z = robust._masked_median_rows(x, valid)
-    for kw in (dict(tol=1e-6, max_iter=256), dict(tol=-1.0, max_iter=9)):
+    clip = mode == "masked_clip"
+    z = robust.masked_mean(x, valid) if clip else robust._masked_median_rows(x, valid)
+    runs = ((dict(c_tau=2.0 * d ** 0.5, max_iter=10), dict(c_tau=2.0 * d ** 0.5, max_iter=1)) if clip
+            else (dict(tol=1e-6, max_iter=256), dict(tol=-1.0, max_iter=9)))
+    for kw in runs:
         kernels.reset_launch_counts()
-        out, its = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid, **kw)
+        out, its = kernels.center_loop(x, z, mode=mode, valid=valid, **kw)
         assert kernels.launch_counts == dict(dict.fromkeys(kernels.launch_counts, 0),
-                                             **{"center_loop:masked_weiszfeld": 1})
-        ref, its_p = kernels.center_loop_plain(x, z, mode="masked_weiszfeld", valid=valid, **kw)
+                                             **{f"center_loop:{mode}": 1})
+        ref, its_p = kernels.center_loop_plain(x, z, mode=mode, valid=valid, **kw)
         assert its.device.type == "cuda" and its.dtype == torch.int32
         assert int(its) == int(its_p) >= 1, (int(its), int(its_p))
         assert _bits_equal(out, ref), (n, m, dt, kw)
     keep = valid.nonzero()[:, 0]
-    compact, its_c = kernels.center_loop(x.index_select(0, keep).contiguous(), z,
-                                         mode="masked_weiszfeld",
-                                         valid=torch.ones(m, dtype=torch.bool, device=cuda_device))
-    out, its = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid)
+    compact, its_c = kernels.center_loop(x.index_select(0, keep).contiguous(), z, mode=mode,
+                                         valid=torch.ones(m, dtype=torch.bool, device=cuda_device),
+                                         **runs[0])
+    out, its = kernels.center_loop(x, z, mode=mode, valid=valid, **runs[0])
     assert _bits_equal(out, compact) and int(its) == int(its_c)
     x[int(keep[0]), 3] = float("nan")
     x[int(keep[-1]), 4] = float("inf")
-    out, its = kernels.center_loop(x, z, mode="masked_weiszfeld", valid=valid, max_iter=7)
-    ref, its_p = kernels.center_loop_plain(x, z, mode="masked_weiszfeld", valid=valid, max_iter=7)
-    assert _all_canonical_nan(out) and _bits_equal(out, ref) and int(its) == int(its_p) == 1
+    kw = dict(runs[0], max_iter=7)
+    out, its = kernels.center_loop(x, z, mode=mode, valid=valid, **kw)
+    ref, its_p = kernels.center_loop_plain(x, z, mode=mode, valid=valid, **kw)
+    assert _all_canonical_nan(out) and _bits_equal(out, ref)
+    assert int(its) == int(its_p) == (7 if clip else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["masked_weiszfeld", "masked_clip"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("d", [1, 1_000, 4_095, 3 * 4096 + 17, 50_001])
+def test_cuda_masked_center_loop_lane_groups_match_plain(cuda_device, d, n, dt, mode):
+    """The masked modes' one-read pass (a block a group of 32 of
+    row_sq_dists' lanes, walking its columns 4096 apart) equals the plain
+    version bit for bit at a d below 4,096 (lanes and whole lane groups
+    without a column), at a d whose last tile is ragged, and at one column;
+    6 forced steps, 3 in 4 rows valid."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + n)
+    x = (torch.randn((n, d), generator=gen, device=cuda_device)
+         * torch.linspace(0.5, 3.0, n, device=cuda_device)[:, None]).to(DTYPES[dt])
+    valid = torch.arange(n, device=cuda_device) % 4 != 1
+    x[~valid] = 0
+    z = x[0].clone()
+    kw = dict(c_tau=1.5 * d ** 0.5) if mode == "masked_clip" else dict(tol=-1.0)
+    out, its = kernels.center_loop(x, z, mode=mode, valid=valid, max_iter=6, **kw)
+    ref, its_p = kernels.center_loop_plain(x, z, mode=mode, valid=valid, max_iter=6, **kw)
+    assert int(its) == int(its_p) == 6 and _bits_equal(out, ref), (d, n, dt, mode)
 
 
 @pytest.mark.cuda
@@ -618,6 +648,30 @@ def test_cuda_masked_geometric_median_reads_nothing_on_the_host(cuda_device):
         "sort_columns": 1, "center_loop:masked_weiszfeld": 1}
     its = robust.last_iterations["geometric_median"]
     assert isinstance(its, torch.Tensor) and its.is_cuda and int(its) >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_masked_centered_clipping_reads_nothing_on_the_host(cuda_device):
+    """``robust.masked_centered_clipping`` is B11 (its mean start) and one
+    launch of B7's masked_clip mode, with no synchronizing call (sync debug
+    mode ``error``), and equals the loop's plain version from that start."""
+    from byzpy_tpu_torch.ops import robust
+
+    x = torch.randn((64, 50_001), device=cuda_device)
+    valid = torch.arange(64, device=cuda_device) < 29
+    robust.masked_centered_clipping(x, valid, c_tau=300.0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = robust.masked_centered_clipping(x, valid, c_tau=300.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert {k: v for k, v in kernels.launch_counts.items() if v} == {
+        "segment_sum": 1, "center_loop:masked_clip": 1}
+    ref, _ = kernels.center_loop_plain(x, robust.masked_mean(x, valid), mode="masked_clip",
+                                       valid=valid, c_tau=300.0, max_iter=10)
+    assert _bits_equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -1026,7 +1080,8 @@ def test_cuda_row_sq_dists_matches_plain_bitwise(cuda_device, n, d, dt):
 def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
     """A masked class's padded program on the card equals its compacted one
     bit for bit, and launches B2 / B11 (the geometric median: B2 and B7's
-    masked mode) and none of B1, B4, B6 or B7's unmasked modes."""
+    masked Weiszfeld mode; centred clipping: B11 and B7's masked clip mode)
+    and none of B1, B4, B6 or B7's unmasked modes."""
     from byzpy_tpu_torch import aggregators as A
 
     make = {
@@ -1050,6 +1105,8 @@ def test_cuda_masked_class_padded_equals_compacted(cuda_device, name):
     assert _bits_equal(out, ref)
     if name == "geomed":
         assert counts["center_loop:masked_weiszfeld"] == 1 and counts["segment_sum"] == 0
+    elif name == "clip":
+        assert counts["center_loop:masked_clip"] == 1 and counts["row_sq_dists"] == 0
     else:
         assert counts["segment_sum"] > 0 or name == "median"
     for k in ("sorted_reduce:median", "sorted_reduce:trimmed", "weighted_rows", "meamed",

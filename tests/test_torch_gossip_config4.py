@@ -510,6 +510,86 @@ def test_masked_weiszfeld_plain_is_the_host_loop(n, m, d, dtype, specials):
     assert int(robust.last_iterations["geometric_median"]) == steps
 
 
+def _masked_clip_host_loop(x, valid, v, *, c_tau, M, eps=1e-12):
+    """The masked centred clipping's loop as the port ran it before B7's
+    masked_clip mode: each step ``row_sq_dists``, the clipped weights
+    rounded to ``x``'s dtype, B11's row chain over ``x - v`` and the
+    rounded reciprocal of the valid rows' count."""
+    inv = robust._masked_recip(robust._masked_count(valid), x.dtype)
+    one = torch.ones((), dtype=torch.float32)
+    eps_t = torch.full((), eps, dtype=torch.float32)
+    c_tau_t = torch.full((), c_tau, dtype=torch.float32)
+    for _ in range(M):
+        dist = torch.sqrt(kernels.row_sq_dists(x, v))
+        w = robust._masked_weights(valid, torch.minimum(one, c_tau_t / torch.maximum(dist, eps_t)),
+                                   x.dtype)
+        v = v + robust._contract_rows(w, x - v[None, :]) * inv
+    return v
+
+
+@pytest.mark.parametrize("specials", [False, True])
+@pytest.mark.parametrize("n,m,d,dtype", MASKED_CASES)
+def test_masked_clip_plain_is_the_host_loop(n, m, d, dtype, specials):
+    """``kernels.center_loop_plain(mode="masked_clip")`` against the host
+    loop it replaces, from the masked mean: the centre bit for bit (NaN
+    where it is NaN) after M = 1, 3 and 10 steps, M steps counted, on padded
+    cohorts of f32, bf16 and f16 rows (some clipped, some not) and on rows
+    holding NaN and +-inf (valid or padding); the wrapper takes it on the
+    CPU, ``robust.masked_centered_clipping`` is that loop from its start,
+    and the padded loop equals the compacted one."""
+    rng = np.random.default_rng(n * 11 + m)
+    x = np.zeros((n, d), np.float32)
+    x[:m] = rng.normal(size=(m, d)) * rng.choice([0.5, 1.0, 4.0], size=(m, 1))
+    if specials:
+        x[0, 1], x[m - 1, 2], x[n - 1, 3] = np.nan, np.inf, -np.inf
+    valid = np.zeros(n, bool)
+    valid[:m] = True
+    rng.shuffle(valid)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    vt = torch.from_numpy(valid)
+    c_tau = 1.5 * math.sqrt(d)
+    v0 = robust.masked_mean(xt, vt)
+    for M in (1, 3, 10):
+        want = _masked_clip_host_loop(xt, vt, v0, c_tau=c_tau, M=M)
+        z, it = kernels.center_loop_plain(xt, v0, mode="masked_clip", valid=vt, c_tau=c_tau,
+                                          max_iter=M)
+        nan = torch.isnan(want.float())
+        assert torch.equal(torch.isnan(z.float()), nan)
+        assert torch.equal(_bits(z)[~nan], _bits(want)[~nan])
+        assert int(it) == M and it.dtype == torch.int32
+        zw, itw = kernels.center_loop(xt, v0, mode="masked_clip", valid=vt, c_tau=c_tau, max_iter=M)
+        assert torch.equal(_bits(zw), _bits(z)) and int(itw) == M
+    out = robust.masked_centered_clipping(xt, vt, c_tau=c_tau, M=10)
+    want = _masked_clip_host_loop(xt, vt, v0, c_tau=c_tau, M=10)
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(out.float()), nan)
+    assert torch.equal(_bits(out)[~nan], _bits(want)[~nan])
+    if not specials:
+        keep = torch.from_numpy(np.flatnonzero(valid))
+        compact, _ = kernels.center_loop(xt.index_select(0, keep).contiguous(), v0,
+                                         mode="masked_clip", valid=torch.ones(m, dtype=torch.bool),
+                                         c_tau=c_tau, max_iter=10)
+        assert torch.equal(_bits(compact), _bits(out))
+
+
+def test_masked_clip_checks_its_inputs():
+    """``valid`` is required in the masked_clip mode, as a bool row flag;
+    the one-step phases refuse the mode; M = 0 copies the start."""
+    xt = torch.from_numpy(np.random.default_rng(5).normal(size=(6, 300)).astype(np.float32))
+    valid = torch.ones(6, dtype=torch.bool)
+    v0 = xt[0].clone()
+    with pytest.raises(ValueError, match="valid is given exactly"):
+        kernels.center_loop(xt, v0, mode="masked_clip")
+    with pytest.raises(ValueError, match="bool"):
+        kernels.center_loop(xt, v0, mode="masked_clip", valid=valid.float())
+    with pytest.raises(ValueError, match="whole loop"):
+        kernels.weighted_center_step(xt, v0, mode="masked_clip")
+    z, it = kernels.center_loop(xt, v0, mode="masked_clip", valid=valid, max_iter=0)
+    assert torch.equal(_bits(z), _bits(v0)) and int(it) == 0
+    assert torch.equal(robust.masked_centered_clipping(xt, valid, c_tau=1.0, M=0),
+                       robust.masked_mean(xt, valid))
+
+
 def test_masked_weiszfeld_padded_is_compacted_and_checks_its_inputs():
     """Padding rows (zeros, weight 0) leave every step and the count as the
     compacted cohort's, bit for bit; ``valid`` is required exactly in the

@@ -339,16 +339,17 @@ def test_masked_matrix_fn_is_the_masked_program():
 
 def test_masked_family_runs_no_b1_b4_b6_b7_on_the_cpu_either(monkeypatch):
     """The masked programs reach B2 (sort_columns), B3 (gram), B11
-    (segment_sum), the row reduction and B7's masked Weiszfeld mode, never
-    B1, B4, B6 or B7's unmasked modes: their wrappers are replaced by a
-    trap here (B7's loop passes its masked mode through)."""
+    (segment_sum), the row reduction and B7's masked modes (Weiszfeld and
+    centred clipping), never B1, B4, B6 or B7's unmasked modes: their
+    wrappers are replaced by a trap here (B7's loop passes its masked modes
+    through)."""
     def trap(*a, **k):
         raise AssertionError("the masked family reached an unmasked kernel")
 
     center_loop = kernels.center_loop
 
     def masked_only(*a, **k):
-        if k.get("mode") != "masked_weiszfeld":
+        if k.get("mode") not in ("masked_weiszfeld", "masked_clip"):
             trap()
         return center_loop(*a, **k)
 
